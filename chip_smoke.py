@@ -3,22 +3,28 @@
     python3 chip_smoke.py                 # every phase, one GPU
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
 
-Phases, each printing one line, phase 5 one more per seed (details go
+Phases, each printing one line, phase 6 one more per seed (details go
 to chiprun_out/):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (parallel nvcc);
   3. hold each kernel against its plain PyTorch version on the card at
-     the serving shapes (encoder and matmul bit-exact, attention within
-     ATTN_TOL) and time kernel, plain version and library call;
+     the serving shapes (encoder, matmul and draft matmul bit-exact,
+     attention and verify attention within ATTN_TOL, verify attention
+     bit-exact with T calls of the decode kernel) and time kernel, plain
+     version and library call;
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
      launch counters zeroed just before and read just after, then profile
      a shorter run of the same engine shape;
-  5. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
+  5. serve the same weights and prompts through the SpeculativeEngine
+     (gamma = SPEC_GAMMA: LSB4-only drafts + one verify window per
+     cycle), counters zeroed just before and read just after; every
+     greedy stream must equal phase 4's; then profile a shorter run;
+  6. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
      same weights and prompts through the Engine on the card (kernels)
      and on the CPU (plain versions), logits within LOGIT_TOL and the
      greedy token streams identical;
-  6. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+  7. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -49,6 +55,9 @@ ATTN_TOL = 1e-4
 # 4e-7 of max |logit| on an H100); the greedy streams must agree.
 LOGIT_TOL = 0.04
 XC_SEEDS = 3
+SPEC_GAMMA = 2
+# The granite-8b serve of phases 4 and 5.
+SERVE = dict(batch=8, prompt_len=128, gen=16)
 
 # Published H100 peaks (NVIDIA data sheets; dense): bytes/s, int8 op/s,
 # f32 (non-tensor) flop/s, by the name nvidia-smi reports.
@@ -264,44 +273,271 @@ def check_attention(dev, gen, peaks):
             "shape": "B=8 KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q"}
 
 
+def check_draft_matmul(dev, gen, peaks):
+    """The LSB4-only draft matmul at the decode shapes (M=8) and the
+    verify window's (M = 8 * (SPEC_GAMMA + 1) = 24), ragged M too;
+    timed at M=8 against the full dual-pass kernel on the same planes
+    and torch._int_mm of the LSB plane (M padded to 32)."""
+    from repro_torch.core.qlinear import pack_int4
+    from repro_torch.kernels.ref import (TILE_K, TILE_M, sparqle_matmul_ref,
+                                         tile_population_padded)
+    from repro_torch.kernels.sparqle_matmul import sparqle_matmul
+    shapes = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096))
+    verify_m = 8 * (SPEC_GAMMA + 1)
+    detail = []
+    for k, n in shapes:
+        w = torch.randint(-8, 8, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        wp = pack_int4(w)
+        wsc = torch.rand((1, n), generator=gen, device=dev) * 0.01 + 1e-3
+        for m in (1, 5, 8, verify_m, 33):
+            q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            msb, lsb = q >> 4, q & 0xF
+            tiles = torch.arange(k, device=dev) // TILE_K
+            msb = torch.where((tiles % 2 == 0)[None, :], msb,
+                              torch.zeros_like(msb))
+            pop = tile_population_padded(msb != 0, TILE_M, TILE_K)
+            asc = torch.rand((m, 1), generator=gen, device=dev) * 0.1
+            for acc_out in (False, True):
+                got = sparqle_matmul(lsb, None, None, wp, asc, wsc,
+                                     acc_out=acc_out, msb_skip=True)
+                want = sparqle_matmul_ref(lsb, None, None, wp, asc, wsc,
+                                          acc_out=acc_out, msb_skip=True)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"draft matmul differs at M={m} "
+                                         f"K={k} N={n} acc_out={acc_out}")
+            if m != 8:
+                continue
+            copies = max(1, math.ceil(150e6 / wp.numel()))
+            wps = [wp.clone() for _ in range(copies)]
+
+            def draft(lsb, msb, pop, w, asc, wsc):
+                return sparqle_matmul(lsb, msb, pop, w, asc, wsc,
+                                      msb_skip=True)
+
+            def draft_ref(lsb, msb, pop, w, asc, wsc):
+                return sparqle_matmul_ref(lsb, msb, pop, w, asc, wsc,
+                                          msb_skip=True)
+
+            args = [(lsb, msb, pop, c, asc, wsc) for c in wps]
+            kms = time_ms(draft, args, 50)
+            full = time_ms(sparqle_matmul, args, 50)
+            pms = time_ms(draft_ref, args[:1], 5)
+            qa = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            qa[:m] = lsb
+            lib = time_ms(torch._int_mm, [(qa, w)], 50)
+            nbytes = m * k + k * n // 2 + m * 4 + n * 4 + m * n * 4
+            ops = 2.0 * m * k * n
+            bound = max(nbytes / peaks[0], ops / peaks[1]) * 1e3
+            detail.append({"M": m, "K": k, "N": n, "ms": kms,
+                           "full_ms": full, "plain_ms": pms,
+                           "library_ms": lib, "bound_ms": bound,
+                           "bound_by": "bytes" if nbytes / peaks[0]
+                           >= ops / peaks[1] else "operations"})
+    timed = detail[0]                    # 4096 -> 14336, w_gate/w_up
+    return {"name": "sparqle_matmul_draft", "route": "cuda",
+            "source": "src/repro_torch/csrc/sparqle_matmul.cu",
+            "replaces": "src/repro/kernels/sparqle_matmul.py:142",
+            "max_abs_err": 0.0, "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+            "shape": f"M=8 K=4096 N=14336 (full kernel "
+                     f"{timed['full_ms'] * 1e3:.1f} us on the same planes); "
+                     f"checked M in 1,5,8,{verify_m},33 at every shape; "
+                     f"library: torch._int_mm at M=32", "detail": detail}
+
+
+def check_verify_attention(dev, gen, peaks):
+    """The verify window at B=8, KVH=8, G=4, hd=128, T=SPEC_GAMMA+1,
+    contexts up to 16 pages of 16, windows crossing page boundaries:
+    within ATTN_TOL of the plain version (f32) and bit-exact with T
+    calls of the decode kernel (f32 and bf16)."""
+    from repro_torch.kernels.kv_attention import (kv4_paged_decode_attention,
+                                                  kv4_paged_verify_attention)
+    from repro_torch.kernels.ref import kv4_paged_verify_attention_ref
+    b, kvh, g, hd, ps, n_s, n_pages = 8, 8, 4, 128, 16, 16, 160
+    t = SPEC_GAMMA + 1
+    kp = torch.randint(-128, 128, (n_pages, ps, kvh, hd // 2),
+                       generator=gen, device=dev, dtype=torch.int8)
+    vp = torch.randint(-128, 128, (n_pages, ps, kvh, hd // 2),
+                       generator=gen, device=dev, dtype=torch.int8)
+    ks = torch.rand((n_pages, ps, kvh), generator=gen, device=dev) * 0.2
+    vs = torch.rand((n_pages, ps, kvh), generator=gen, device=dev) * 0.2
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tables = perm[:b * n_s].reshape(b, n_s).to(torch.int32).contiguous()
+    # windows [pos, pos + t): 14-16, 15-17 and 142-144 cross a page
+    pos = torch.tensor([0, 14, 15, 16, 100, 142, n_s * ps - t, 0],
+                       dtype=torch.int32, device=dev)
+    tables[-1] = 0                 # inactive slot: null page, pos 0
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((b, t, kvh, g, hd), generator=gen, device=dev).to(dt)
+        args = (q, kp, ks, vp, vs, tables, pos)
+        got = kv4_paged_verify_attention(*args)
+        for i in range(t):
+            single = kv4_paged_decode_attention(q[:, i].contiguous(), kp, ks,
+                                                vp, vs, tables, pos + i)
+            if not torch.equal(got[:, i], single):
+                raise AssertionError(f"verify attention {dt} window token "
+                                     f"{i} differs from the decode kernel")
+        want = kv4_paged_verify_attention_ref(*args).float()
+        e = (got.float() - want).abs().max().item()
+        tol = ATTN_TOL if dt == torch.float32 else 2 ** -7 * max(
+            1.0, want.abs().max().item())
+        if not e <= tol:
+            raise AssertionError(f"verify attention {dt}: max err {e} > "
+                                 f"{tol}")
+        if dt == torch.float32:
+            err, f32_args = e, args
+    kms = time_ms(kv4_paged_verify_attention, [f32_args], 200)
+    pms = time_ms(kv4_paged_verify_attention_ref, [f32_args], 20)
+    q = f32_args[0]
+    singles = [(q[:, i].contiguous(), kp, ks, vp, vs, tables, pos + i)
+               for i in range(t)]
+    loop_ms = time_ms(kv4_paged_decode_attention, singles, 201) * t
+    last = [min((int(p) + t - 1) // ps, n_s - 1) for p in pos.tolist()]
+    toks = sum((lp + 1) * ps for lp in last)          # pages read once
+    work = sum((min((int(p) + i) // ps, n_s - 1) + 1) * ps
+               for p in pos.tolist() for i in range(t))
+    nbytes = (b * t * kvh * g * hd * 4 * 2 + toks * kvh * (hd // 2 + 4) * 2
+              + b * n_s * 4 + b * 4)
+    flops = 4.0 * work * kvh * g * hd
+    bound = max(nbytes / peaks[0], flops / peaks[2]) * 1e3
+    return {"name": "kv4_paged_verify_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/kv_attention.cu",
+            "replaces": "src/repro/kernels/kv_attention.py:280",
+            "max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / peaks[0] >= flops / peaks[2]
+            else "operations", "library_ms": None,
+            "shape": f"B=8 T={t} KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q "
+                     f"({t} decode-kernel calls: {loop_ms * 1e3:.1f} us)"}
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: the engine
+# phases 4-6: the engine
 # ---------------------------------------------------------------------------
 
-def serve_granite(dev, seed: int):
-    from repro_torch import kernels
+def granite(dev, seed: int):
+    """granite-8b at full width and depth, served weights drawn from
+    ``seed`` on the card, and the prompts of phases 4 and 5."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import (build_served_params, make_engine,
-                                          make_prompts, run_requests)
+    from repro_torch.launch.serve import build_served_params, make_prompts
     cfg = get_config("granite-8b")
     t0 = time.perf_counter()
     params = build_served_params(cfg, seed, dev)
     torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    batch, plen, gen = 8, 128, 16
-    eng = make_engine(cfg, params, batch=batch, prompt_len=plen, gen=gen,
-                      page_size=16, token_budget=128, prefill_chunk=32,
-                      decode_slots=8, device=dev)
-    prompts = make_prompts(cfg, seed, batch, plen)
+    prompts = make_prompts(cfg, seed, SERVE["batch"], SERVE["prompt_len"])
+    return cfg, params, prompts, time.perf_counter() - t0
+
+
+def serve_granite(dev, cfg, params, prompts, seed: int, spec_gamma: int = 0):
+    """One serve of the prompts through the Engine (``spec_gamma`` 0) or
+    the SpeculativeEngine, launch counters zeroed just before and read
+    just after; then a shorter profiled run of the same engine shape."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import make_engine, run_requests
+    eng = make_engine(cfg, params, **SERVE, page_size=16, token_budget=128,
+                      prefill_chunk=32, decode_slots=8,
+                      spec_gamma=spec_gamma, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
-    r = run_requests(eng, prompts, gen)
+    r = run_requests(eng, prompts, SERVE["gen"])
     counts = kernels.launch_counts()
-    r.update(layers=cfg.n_layers, d_model=cfg.d_model, build_s=t_build,
-             launches=counts,
+    r.update(layers=cfg.n_layers, d_model=cfg.d_model, launches=counts,
              peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
-    if r["finished"] != batch or any(len(s) != gen for s in r["streams"]):
+    if r["finished"] != SERVE["batch"] or any(
+            len(s) != SERVE["gen"] for s in r["streams"]):
         raise AssertionError(f"unfinished requests: {r['streams']}")
     if any(not 0 <= t < cfg.vocab for s in r["streams"] for t in s):
         raise AssertionError("token outside the vocabulary")
-    if not all(v > 0 for v in counts.values()):
-        raise AssertionError(f"a kernel was never launched: {counts}")
-    r["profile"] = profile_engine(cfg, params, dev, seed)
-    del eng, params
-    torch.cuda.empty_cache()
+    path = (("sparqle_encode", "sparqle_matmul", "kv_attention")
+            + (("sparqle_matmul_draft", "kv_attention_verify")
+               if spec_gamma else ()))
+    if not all(counts[k] > 0 for k in path):
+        raise AssertionError(f"a kernel of the path was never launched: "
+                             f"{counts}")
+    r["profile"] = profile_engine(cfg, params, dev, seed, spec_gamma)
+    del eng
     return r
 
 
-def profile_engine(cfg, params, dev, seed: int):
+def row_count_dependence(dev, cfg, params):
+    """For B decode rows: how many elements change when the same B rows
+    go through rms_norm (f32, and the served dtype) and the tied head
+    inside a B*(SPEC_GAMMA+1)-row call (a verify window's row count)
+    instead of a B-row one (a decode step's) — the reason the verify
+    window runs its norms and head per window position. The f32 norm
+    shows a change of the row mean's sum order that a cast of the output
+    to bf16 mostly hides."""
+    from repro_torch.core.qlinear import linear
+    from repro_torch.models.layers import rms_norm
+    g = torch.Generator(device=dev).manual_seed(11)
+    gamma = params["final_norm"]["gamma"]
+    table = params["embed"]["table"].T
+    out = {}
+    for b in (1, 2, 4, 8, 16):
+        x = torch.randn((b * (SPEC_GAMMA + 1), 1, cfg.d_model),
+                        generator=g, device=dev)
+
+        def differing(fn, a):
+            return int((fn(a[:b]) != fn(a)[:b]).sum().item())
+
+        norm = lambda a: rms_norm(a, gamma, cfg.rms_eps)  # noqa: E731
+        out[f"B={b}"] = (
+            f"norm f32 {differing(norm, x)}/{b * cfg.d_model}, norm "
+            f"{str(cfg.cdtype).split('.')[-1]} "
+            f"{differing(norm, x.to(cfg.cdtype))}, head "
+            f"{differing(lambda a: linear(a, table), x.to(cfg.cdtype))}"
+            f"/{b * cfg.vocab}")
+    return out
+
+
+def window_vs_decode(dev, cfg, params, seed: int):
+    """One verify window (T = SPEC_GAMMA + 1) against T decode steps at
+    full width and depth, from the same random pool: True when the
+    logits and the written pages are bit-equal. Greedy streams of random
+    weights may sit on a fixed point; this holds the logits themselves."""
+    from repro_torch.launch import steps as S
+    from repro_torch.serving.kv_pool import PoolConfig, init_pool_state
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    b, t, ps, n_s = 8, SPEC_GAMMA + 1, 16, 10
+    pool = init_pool_state(cfg, PoolConfig(n_pages=1 + b * n_s,
+                                           page_size=ps), dev)
+    for stage in pool["stages"].values():            # a used pool
+        for lp in stage.values():
+            for key, v in lp.items():
+                if v.dtype == torch.int8:
+                    v.random_(-128, 128, generator=g)
+                else:
+                    v.uniform_(0.01, 0.2, generator=g)
+    clone = lambda tree: {k: clone(v) if isinstance(v, dict)  # noqa: E731
+                          else v.clone() for k, v in tree.items()}
+    vpool = clone(pool)
+    tables = (torch.randperm(b * n_s, generator=g, device=dev) + 1).reshape(
+        b, n_s).to(torch.int32)
+    pos = torch.tensor([3, 14, 30, 47, 62, 95, 126, n_s * ps - t],
+                       dtype=torch.int32, device=dev)
+    window = torch.randint(0, cfg.vocab, (b, t), generator=g, device=dev,
+                           dtype=torch.int32)
+    vl, _, _ = S.make_engine_verify_window(cfg)(params, vpool, window, pos,
+                                                tables)
+    decode = S.make_engine_decode(cfg)
+    logits_equal = True
+    for i in range(t):
+        lg, _, _ = decode(params, pool, window[:, i].contiguous(), pos + i,
+                          tables)
+        logits_equal &= torch.equal(vl[:, i], lg)
+    pages_equal = all(
+        torch.equal(vpool["stages"][s][p][k], pool["stages"][s][p][k])
+        for s in pool["stages"] for p in pool["stages"][s]
+        for k in pool["stages"][s][p])
+    return {"logits_equal": logits_equal, "pages_equal": pages_equal}
+
+
+def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
     """Where the time goes: a shorter workload on the same engine shape
     (8 requests x 32 prompt tokens x 8 new) under torch.profiler (device
     time by kernel, device busy share of the wall), then under cProfile
@@ -312,23 +548,29 @@ def profile_engine(cfg, params, dev, seed: int):
     import pstats
     from repro_torch.launch.serve import (make_engine, make_prompts,
                                           run_requests)
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prompts = make_prompts(cfg, seed + 7, 8, 32)
+    tag = f"_spec{spec_gamma}" if spec_gamma else ""
 
     def workload():
         eng = make_engine(cfg, params, batch=8, prompt_len=32, gen=8,
-                          device=dev)
+                          spec_gamma=spec_gamma, device=dev)
         return run_requests(eng, prompts, 8)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         r = workload()
     ka = prof.key_averages()
+    # device busy: the kernels' own rows only. An operator's row (say
+    # aten::amax) carries the device time of the kernel it launched too,
+    # so summing every row counts that time twice.
     dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0)) for e in ka)
-    (OUT / "profile_device.txt").write_text(ka.table(
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in ka if e.device_type == DeviceType.CUDA)
+    (OUT / f"profile_device{tag}.txt").write_text(ka.table(
         sort_by="self_cuda_time_total", row_limit=40))
-    (OUT / "profile_host.txt").write_text(ka.table(
+    (OUT / f"profile_host{tag}.txt").write_text(ka.table(
         sort_by="self_cpu_time_total", row_limit=40))
     pr = cProfile.Profile()
     pr.enable()
@@ -336,7 +578,7 @@ def profile_engine(cfg, params, dev, seed: int):
     pr.disable()
     buf = io.StringIO()
     pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(40)
-    (OUT / "profile_python.txt").write_text(buf.getvalue())
+    (OUT / f"profile_python{tag}.txt").write_text(buf.getvalue())
     return {"profiled_wall_s": r["wall_s"], "device_busy_s": dev_us / 1e6,
             "device_busy_share": dev_us / 1e6 / r["wall_s"],
             "cprofiled_wall_s": r2["wall_s"]}
@@ -422,41 +664,88 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = [check_encoder(dev, gen, peaks), check_matmul(dev, gen, peaks),
-            check_attention(dev, gen, peaks)]
+            check_attention(dev, gen, peaks),
+            check_draft_matmul(dev, gen, peaks),
+            check_verify_attention(dev, gen, peaks)]
     for r in rows:
         log(f"[3] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
             f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
             f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) at "
             f"{r['shape']}")
     detail = {"card": card, "kernels": rows}
+    # the launch counter of each kernel row, and the phase that reads it
+    counter = {"sparqle_encode": ("sparqle_encode", "base"),
+               "sparqle_matmul": ("sparqle_matmul", "base"),
+               "kv4_paged_decode_attention": ("kv_attention", "base"),
+               "sparqle_matmul_draft": ("sparqle_matmul_draft", "spec"),
+               "kv4_paged_verify_attention": ("kv_attention_verify",
+                                              "spec")}
     if not args.kernels_only:
-        eng = serve_granite(dev, args.seed)
+        cfg, params, prompts, t_build = granite(dev, args.seed)
+        eng = serve_granite(dev, cfg, params, prompts, args.seed)
         log(f"[4] granite-8b {eng['layers']}L d={eng['d_model']}: "
             f"{eng['requests']} requests, {eng['tokens']} tokens, "
             f"{eng['tokens_per_s']:.1f} tok/s, TTFT mean "
             f"{eng['ttft_mean_s'] * 1e3:.1f} ms, TPOT mean "
             f"{eng['tpot_mean_s'] * 1e3:.2f} ms, {eng['steps']} steps, "
             f"launches {eng['launches']}, weights built in "
-            f"{eng['build_s']:.1f} s, peak {eng['peak_mem_gb']:.1f} GB; "
+            f"{t_build:.1f} s, peak {eng['peak_mem_gb']:.1f} GB; "
             f"profiled rerun: device busy {eng['profile']['device_busy_s']:.3f}"
             f" s of {eng['profile']['profiled_wall_s']:.2f} s wall")
+        spec = serve_granite(dev, cfg, params, prompts, args.seed,
+                             spec_gamma=SPEC_GAMMA)
+        spec["row_count_dependence"] = row_count_dependence(dev, cfg, params)
+        spec["window_vs_decode"] = window_vs_decode(dev, cfg, params,
+                                                    args.seed)
+        same = [a == b for a, b in zip(spec["streams"], eng["streams"])]
+        agg = spec["aggregate"]
+        prof = spec["profile"]
+        log(f"[5] granite-8b {spec['layers']}L speculative gamma="
+            f"{SPEC_GAMMA}: acceptance {agg['spec_acceptance_rate']:.4f}, "
+            f"{agg['spec_tokens_per_step']:.3f} tokens/cycle, TPOT mean "
+            f"{spec['tpot_mean_s'] * 1e3:.2f} ms (base "
+            f"{eng['tpot_mean_s'] * 1e3:.2f} ms), "
+            f"{spec['tokens_per_s']:.1f} tok/s (base "
+            f"{eng['tokens_per_s']:.1f}), {spec['steps']} steps, greedy "
+            f"streams equal to phase 4: {sum(same)}/{len(same)}, launches "
+            f"{spec['launches']}, peak {spec['peak_mem_gb']:.1f} GB; "
+            f"profiled rerun: device busy {prof['device_busy_s']:.3f} s of "
+            f"{prof['profiled_wall_s']:.2f} s wall (idle "
+            f"{1 - prof['device_busy_share']:.3f}); elements that change "
+            f"when B rows run inside a {SPEC_GAMMA + 1}B-row call: "
+            f"{spec['row_count_dependence']}; one verify window vs "
+            f"{SPEC_GAMMA + 1} decode steps at {cfg.n_layers}L: "
+            f"{spec['window_vs_decode']}")
+        if not all(spec["window_vs_decode"].values()):
+            raise AssertionError("the verify window's logits or pages differ "
+                                 "from the decode steps'")
+        if not all(same):
+            raise AssertionError(f"speculative greedy streams differ from "
+                                 f"the base engine's: {spec['streams']} vs "
+                                 f"{eng['streams']}")
+        del params
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         xc = [cross_check(dev, args.seed + i) for i in range(XC_SEEDS)]
         worst = max(xc, key=lambda r: r["rel_err"])
-        log(f"[5] cross-check granite width 2L f32 cuda vs cpu, "
+        log(f"[6] cross-check granite width 2L f32 cuda vs cpu, "
             f"{XC_SEEDS} seeds: worst max |dlogit| "
             f"{worst['max_abs_logit_err']:.3g} of max |logit| "
             f"{worst['max_abs_logit']:.3g} ({worst['rel_err']:.3g} rel, "
             f"tol {LOGIT_TOL} rel), greedy tokens "
             f"{', '.join(r['greedy_match'] for r in xc)}, "
             f"{time.perf_counter() - t0:.1f} s")
+        runs = {"base": eng, "spec": spec}
         detail.update(engine={k: v for k, v in eng.items()
-                              if k not in ("aggregate",)}, cross_check=xc)
+                              if k != "aggregate"},
+                      spec_engine={k: v for k, v in spec.items()
+                                   if k != "aggregate"},
+                      spec_aggregate={k: v for k, v in agg.items()
+                                      if k.startswith(("spec_", "steps"))},
+                      cross_check=xc, build_s=t_build)
         for r in rows:
-            key = {"sparqle_encode": "sparqle_encode",
-                   "sparqle_matmul": "sparqle_matmul",
-                   "kv4_paged_decode_attention": "kv_attention"}[r["name"]]
-            r["launches"] = eng["launches"][key]
+            key, phase = counter[r["name"]]
+            r["launches"] = runs[phase]["launches"][key]
     else:
         for r in rows:
             r["launches"] = 0

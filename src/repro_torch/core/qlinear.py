@@ -13,7 +13,9 @@ through the kernel wrappers, which launch the Hopper kernels for CUDA
 tensors and run their plain versions for CPU tensors. The result equals
 the JAX package's ``_quantized_apply`` bit for bit: the same int8
 planes, the same int32 accumulator, the same ``acc * act_scale *
-w_scale`` drain.
+w_scale`` drain. Inside :func:`msb_skip_scope` every such projection
+runs the LSB4-only draft matmul instead (the draft forward of
+self-speculative decoding).
 
 The clipping constants ``l``/``h`` stay on the CPU whatever the device of
 the weights: they are read on the host at every call (kernel arguments),
@@ -21,6 +23,7 @@ and a device scalar would synchronise the stream each time.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Any, Dict, Optional
@@ -32,6 +35,28 @@ from repro_torch.core.quantize import (QuantizedTensor, activation_scale,
                                        quantize_weights)
 from repro_torch.kernels.sparqle_encode import sparqle_encode
 from repro_torch.kernels.sparqle_matmul import sparqle_matmul
+
+
+# Draft-mode flag (self-speculative decoding): while True, every sparqle
+# projection runs LSB4-only — the MSB pass is not launched at all. The
+# port runs eagerly, so the flag is read at each call, not at a trace.
+_MSB_SKIP = False
+
+
+@contextlib.contextmanager
+def msb_skip_scope(enabled: bool = True):
+    """Run every sparqle projection in LSB4-only (draft) mode."""
+    global _MSB_SKIP
+    prev = _MSB_SKIP
+    _MSB_SKIP = enabled
+    try:
+        yield
+    finally:
+        _MSB_SKIP = prev
+
+
+def msb_skip_active() -> bool:
+    return _MSB_SKIP
 
 
 def pack_int4(q: torch.Tensor, axis: int = -2) -> torch.Tensor:
@@ -121,8 +146,9 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
 
 
 def _quantized_apply(x: torch.Tensor, sl: SparqleLinear) -> torch.Tensor:
-    """per-token scale -> encode (quantize, clip, split) -> dual pass ->
-    rescale, through the kernel wrappers."""
+    """per-token scale -> encode (quantize, clip, split) -> dual pass
+    (LSB pass alone under :func:`msb_skip_scope`) -> rescale, through
+    the kernel wrappers."""
     if sl.mode != "sparqle":
         raise NotImplementedError(f"mode={sl.mode!r}: only the sparqle "
                                   f"mode is ported")
@@ -141,7 +167,8 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear) -> torch.Tensor:
         int(sl.l) if clip else 0, int(sl.h) if clip else 0, with_pbm=False)
     n = sl.w.q.shape[-1]
     out = sparqle_matmul(lsb, msb, pop, sl.w.q, scale,
-                         sl.w.scale.reshape(1, n).float())
+                         sl.w.scale.reshape(1, n).float(),
+                         msb_skip=_MSB_SKIP)
     return out.reshape(*orig[:-1], n).to(x.dtype)
 
 

@@ -18,6 +18,13 @@
 // sums meet in an int32 buffer through atomicAdd, which is exact and
 // order-free, and a second small kernel drains it. Ragged M/N/K edges
 // load as zeros. No wgmma or TMA yet.
+//
+// The draft entry `sparqle_matmul_draft_launch` replaces the Pallas
+// `_kernel_draft` (`sparqle_matmul(msb_skip=True)`): the same kernel
+// instantiated with MSB_SKIP = true computes acc = lsb4 @ w alone. The
+// MSB plane and the tile populations are not arguments of that entry at
+// all, so it streams only the LSB plane and the weight (the Pallas
+// draft grid likewise drops both operands); the drain is shared.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,13 +49,15 @@ __device__ __forceinline__ void load_act_tile(
   }
 }
 
+// MSB_SKIP: the draft's LSB-only pass; msb and tile_pop are never read.
+template <bool MSB_SKIP>
 __global__ void sparqle_matmul_kernel(
     const int8_t* __restrict__ lsb, const int8_t* __restrict__ msb,
     const int32_t* __restrict__ tile_pop, const int8_t* __restrict__ wp,
     int32_t* __restrict__ acc_buf, int M, int N, int K, int tiles_per_split) {
   __shared__ __align__(16) int8_t w_s[BN][BK + WPAD];
   __shared__ __align__(16) int8_t a_l[BM][BK];
-  __shared__ __align__(16) int8_t a_m[BM][BK];
+  __shared__ __align__(16) int8_t a_m[MSB_SKIP ? 1 : BM][BK];
   const int n0 = blockIdx.x * BN, mt = blockIdx.y, m0 = mt * BM;
   const int n_kt = (K + BK - 1) / BK;
   const int kt_lo = blockIdx.z * tiles_per_split;
@@ -58,7 +67,8 @@ __global__ void sparqle_matmul_kernel(
   int acc_l[4] = {0, 0, 0, 0}, acc_m[4] = {0, 0, 0, 0};
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int pop = tile_pop[mt * n_kt + kt];   // uniform over the block
+    // uniform over the block; the draft has no MSB pass to gate
+    const int pop = MSB_SKIP ? 0 : tile_pop[mt * n_kt + kt];
     // packed weight rows [kt*BK/2, +BK/2) x cols [n0, n0+BN): 16 B/thread
     {
       const int row = threadIdx.x / 4, cb = (threadIdx.x % 4) * 16;
@@ -81,7 +91,7 @@ __global__ void sparqle_matmul_kernel(
       }
     }
     load_act_tile(lsb, a_l, m0, kt * BK, M, K);
-    if (pop > 0) load_act_tile(msb, a_m, m0, kt * BK, M, K);
+    if (!MSB_SKIP && pop > 0) load_act_tile(msb, a_m, m0, kt * BK, M, K);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BK; kk += 4) {
@@ -91,7 +101,7 @@ __global__ void sparqle_matmul_kernel(
         acc_l[i] = __dp4a(*reinterpret_cast<const int*>(&a_l[mg * 4 + i][kk]),
                           wv, acc_l[i]);
     }
-    if (pop > 0) {
+    if (!MSB_SKIP && pop > 0) {
 #pragma unroll 4
       for (int kk = 0; kk < BK; kk += 4) {
         const int wv = *reinterpret_cast<const int*>(&w_s[tn][kk]);
@@ -127,18 +137,16 @@ __global__ void sparqle_drain_kernel(
   out[i] = __fmul_rn(__fmul_rn((float)acc[i], act_scale[m]), w_scale[n]);
 }
 
-// acc_buf must be zero-filled when splits > 1; out == nullptr skips the
-// drain (the caller wants the raw int32 accumulator).
-extern "C" int sparqle_matmul_launch(
-    const void* lsb, const void* msb, const void* tile_pop, const void* wp,
-    const void* act_scale, const void* w_scale, void* acc_buf, void* out,
-    int M, int N, int K, int splits, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+template <bool MSB_SKIP>
+static int launch(const void* lsb, const void* msb, const void* tile_pop,
+                  const void* wp, const void* act_scale,
+                  const void* w_scale, void* acc_buf, void* out, int M,
+                  int N, int K, int splits, cudaStream_t s) {
   const int n_kt = (K + BK - 1) / BK;
   const int per = (n_kt + splits - 1) / splits;
   splits = (n_kt + per - 1) / per;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  sparqle_matmul_kernel<<<grid, THREADS, 0, s>>>(
+  sparqle_matmul_kernel<MSB_SKIP><<<grid, THREADS, 0, s>>>(
       (const int8_t*)lsb, (const int8_t*)msb, (const int32_t*)tile_pop,
       (const int8_t*)wp, (int32_t*)acc_buf, M, N, K, per);
   cudaError_t err = cudaGetLastError();
@@ -148,4 +156,23 @@ extern "C" int sparqle_matmul_launch(
       (const int32_t*)acc_buf, (const float*)act_scale,
       (const float*)w_scale, (float*)out, M, N);
   return (int)cudaGetLastError();
+}
+
+// acc_buf must be zero-filled when splits > 1; out == nullptr skips the
+// drain (the caller wants the raw int32 accumulator).
+extern "C" int sparqle_matmul_launch(
+    const void* lsb, const void* msb, const void* tile_pop, const void* wp,
+    const void* act_scale, const void* w_scale, void* acc_buf, void* out,
+    int M, int N, int K, int splits, void* stream) {
+  return launch<false>(lsb, msb, tile_pop, wp, act_scale, w_scale, acc_buf,
+                       out, M, N, K, splits, (cudaStream_t)stream);
+}
+
+// The LSB4-only draft: no MSB plane, no tile populations.
+extern "C" int sparqle_matmul_draft_launch(
+    const void* lsb, const void* wp, const void* act_scale,
+    const void* w_scale, void* acc_buf, void* out, int M, int N, int K,
+    int splits, void* stream) {
+  return launch<true>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
+                      acc_buf, out, M, N, K, splits, (cudaStream_t)stream);
 }

@@ -10,7 +10,10 @@ parallel (one ``nvcc`` each) — what a fresh machine pays once.
 Every C entry point takes raw pointers and the CUDA stream as ``void*``,
 ints as ``int``, launches on that stream without synchronising, and
 returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises on a
-non-zero code and counts the launch.
+non-zero code and counts the launch. One source may export several
+entry points (the full and the draft matmul, the decode and the verify
+attention): each is a :class:`Kernel` of its own name and count, and
+they share the source's one library.
 """
 from __future__ import annotations
 
@@ -45,27 +48,28 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-class Kernel:
-    """One ``csrc/<source>`` library: built on first use, launch-counted."""
+_LOAD_LOCK = threading.Lock()
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+
+class Kernel:
+    """One entry point of a ``csrc/<source>`` library: built on first
+    use, launch-counted. ``name`` defaults to the source's stem."""
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 name: Optional[str] = None):
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.name = name or self.source.stem
         self.launches = 0
         self.build_log = ""
         self._fn = None
-        self._lock = threading.Lock()
-
-    @property
-    def name(self) -> str:
-        return self.source.stem
 
     def lib_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
                                 + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this source unless its library exists."""
@@ -90,7 +94,7 @@ class Kernel:
         os.replace(proc._tmp, proc._out)  # type: ignore[attr-defined]
 
     def _load(self):
-        with self._lock:
+        with _LOAD_LOCK:
             if self._fn is None:
                 self.finish_build(self.start_build())
                 lib = ctypes.CDLL(str(self.lib_path()))
@@ -120,8 +124,10 @@ def register(kernel: Kernel) -> Kernel:
 
 
 def build_all() -> None:
-    """Compile every registered kernel, all ``nvcc`` processes at once."""
-    procs = [(k, k.start_build()) for k in KERNELS.values()]
+    """Compile every registered source, all ``nvcc`` processes at once
+    (one per source, however many entry points it exports)."""
+    by_source = {k.source: k for k in KERNELS.values()}
+    procs = [(k, k.start_build()) for k in by_source.values()]
     errors: List[str] = []
     for k, proc in procs:
         try:

@@ -9,19 +9,60 @@ f32 scale per token and head). One block per (sequence, KV head) shares
 each page between the G query heads of the group, dequantizes it in
 shared memory, and stops at the page holding ``pos``.
 
+``kv4_paged_verify_attention`` replaces the Pallas
+``kv4_paged_verify_attention`` (``_paged_verify_kernel``): the T-token
+window of speculative verification, grid (KVH, B, T), window token t at
+query position ``pos + t``. Both kernels call one compiled device
+function for the body of a query, so the verify output is bit-exact
+with T calls of the decode kernel, as the Pallas kernels are.
+
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
-plain version ``kernels.ref.kv4_paged_decode_attention_ref``.
+plain version (``kernels.ref.kv4_paged_decode_attention_ref``,
+``kv4_paged_verify_attention_ref``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import kv4_paged_decode_attention_ref
+from repro_torch.kernels.ref import (kv4_paged_decode_attention_ref,
+                                     kv4_paged_verify_attention_ref)
 
 KERNEL = _build.register(_build.Kernel(
     "kv_attention.cu", "kv4_paged_decode_launch",
     [_build.P, _build.I] + [_build.P] * 7 + [_build.I] * 6 + [_build.P]))
+VERIFY_KERNEL = _build.register(_build.Kernel(
+    "kv_attention.cu", "kv4_paged_verify_launch",
+    [_build.P, _build.I] + [_build.P] * 7 + [_build.I] * 7 + [_build.P],
+    name="kv_attention_verify"))
+
+
+def _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
+           pos) -> None:
+    """Raise unless the operands are what the kernels take."""
+    hd = q.shape[-1]
+    n_pages, ps, kvh, hdp = k_pages.shape
+    b, n_s = block_tables.shape
+    dev = q.device
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
+    for name, t, shape, dt in (
+            ("q", q, (b, *q.shape[1:-3], kvh, q.shape[-2], hd), q.dtype),
+            ("k_pages", k_pages, (n_pages, ps, kvh, hd // 2), torch.int8),
+            ("v_pages", v_pages, (n_pages, ps, kvh, hd // 2), torch.int8),
+            ("k_scale_pages", k_scale_pages, (n_pages, ps, kvh),
+             torch.float32),
+            ("v_scale_pages", v_scale_pages, (n_pages, ps, kvh),
+             torch.float32),
+            ("block_tables", block_tables, (b, n_s), torch.int32),
+            ("pos", pos, (b,), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != dev:
+            raise ValueError(f"{name}: expected {dt} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if hdp * 2 != hd:
+        raise ValueError(f"packed head dim {hdp} != hd/2 for hd={hd}")
 
 
 def kv4_paged_decode_attention(
@@ -38,29 +79,12 @@ def kv4_paged_decode_attention(
         return kv4_paged_decode_attention_ref(
             q, k_pages, k_scale_pages, v_pages, v_scale_pages,
             block_tables, pos)
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, KVH, G, hd), got {tuple(q.shape)}")
+    _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
+           pos)
     b, kvh, g, hd = q.shape
-    n_pages, ps, _, hdp = k_pages.shape
-    n_s = block_tables.shape[1]
-    dev = q.device
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
-    for name, t, shape, dt in (
-            ("q", q, (b, kvh, g, hd), q.dtype),
-            ("k_pages", k_pages, (n_pages, ps, kvh, hd // 2), torch.int8),
-            ("v_pages", v_pages, (n_pages, ps, kvh, hd // 2), torch.int8),
-            ("k_scale_pages", k_scale_pages, (n_pages, ps, kvh),
-             torch.float32),
-            ("v_scale_pages", v_scale_pages, (n_pages, ps, kvh),
-             torch.float32),
-            ("block_tables", block_tables, (b, n_s), torch.int32),
-            ("pos", pos, (b,), torch.int32)):
-        if tuple(t.shape) != shape or t.dtype != dt or t.device != dev:
-            raise ValueError(f"{name}: expected {dt} {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if hdp * 2 != hd:
-        raise ValueError(f"packed head dim {hdp} != hd/2 for hd={hd}")
+    ps, n_s = k_pages.shape[1], block_tables.shape[1]
     out = torch.empty_like(q)
     if b and kvh and n_s:
         KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
@@ -68,4 +92,37 @@ def kv4_paged_decode_attention(
                       v_pages.data_ptr(), v_scale_pages.data_ptr(),
                       block_tables.data_ptr(), pos.data_ptr(),
                       out.data_ptr(), b, kvh, g, hd, ps, n_s)
+    return out
+
+
+def kv4_paged_verify_attention(
+    q: torch.Tensor,              # (B, T, KVH, G, hd) f32 / bf16
+    k_pages: torch.Tensor,        # (P, ps, KVH, hd/2) int8
+    k_scale_pages: torch.Tensor,  # (P, ps, KVH) f32
+    v_pages: torch.Tensor,        # (P, ps, KVH, hd/2) int8
+    v_scale_pages: torch.Tensor,  # (P, ps, KVH) f32
+    block_tables: torch.Tensor,   # (B, Pmax) int32
+    pos: torch.Tensor,            # (B,) int32, position of window token 0
+) -> torch.Tensor:
+    """(B, T, KVH, G, hd) attention output in q's dtype; window token t
+    attends to cache positions <= pos + t (the caller has written the
+    window's K/V into the pages first)."""
+    if not q.is_cuda:
+        return kv4_paged_verify_attention_ref(
+            q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+            block_tables, pos)
+    if q.ndim != 5:
+        raise ValueError(f"q must be (B, T, KVH, G, hd), got "
+                         f"{tuple(q.shape)}")
+    _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
+           pos)
+    b, t, kvh, g, hd = q.shape
+    ps, n_s = k_pages.shape[1], block_tables.shape[1]
+    out = torch.empty_like(q)
+    if b and t and kvh and n_s:
+        VERIFY_KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
+                             k_pages.data_ptr(), k_scale_pages.data_ptr(),
+                             v_pages.data_ptr(), v_scale_pages.data_ptr(),
+                             block_tables.data_ptr(), pos.data_ptr(),
+                             out.data_ptr(), b, t, kvh, g, hd, ps, n_s)
     return out

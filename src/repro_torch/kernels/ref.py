@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three Hopper kernels of the serving path.
+"""Plain PyTorch versions of the Hopper kernels of the serving path.
 
 These are the numerical contracts. The CPU path of every wrapper runs
 them; ``chip_smoke.py`` and the ``cuda``-marked tests hold each kernel
@@ -75,22 +75,26 @@ def unpack_int4_k(w_packed: torch.Tensor) -> torch.Tensor:
 
 
 def sparqle_matmul_ref(
-    lsb4: torch.Tensor,        # (M, K) int8
-    msb4: torch.Tensor,        # (M, K) int8
-    tile_pop: torch.Tensor,    # (ceil(M/TILE_M), ceil(K/TILE_K)) int32
-    w_packed: torch.Tensor,    # (K/2, N) int8, int4 packed along K
-    act_scale: torch.Tensor,   # (M, 1) f32
-    w_scale: torch.Tensor,     # (1, N) f32
+    lsb4: torch.Tensor,                 # (M, K) int8
+    msb4: Optional[torch.Tensor],       # (M, K) int8
+    tile_pop: Optional[torch.Tensor],   # (ceil(M/TILE_M), ceil(K/TILE_K))
+    w_packed: torch.Tensor,             # (K/2, N) int8, int4 packed along K
+    act_scale: torch.Tensor,            # (M, 1) f32
+    w_scale: torch.Tensor,              # (1, N) f32
     acc_out: bool = False,
+    msb_skip: bool = False,
 ) -> torch.Tensor:
     """Dual pass: acc = lsb @ w + 16 * (msb @ w) with the MSB tiles whose
     population is 0 skipped (exact: such a tile's MSB plane is zero);
-    drain ``acc.f32 * act_scale * w_scale`` or the raw int32 acc."""
+    drain ``acc.f32 * act_scale * w_scale`` or the raw int32 acc.
+    ``msb_skip``: the LSB4-only draft, acc = lsb @ w (msb4 and tile_pop
+    are not read and may be None)."""
     del tile_pop  # skipping is exact; the plain version computes all tiles
     w = unpack_int4_k(w_packed).to(torch.float64)
-    dense = lsb4.to(torch.float64) @ w
-    sparse = msb4.to(torch.float64) @ w
-    acc = (dense + 16.0 * sparse).to(torch.int32)
+    acc = lsb4.to(torch.float64) @ w
+    if not msb_skip:
+        acc = acc + 16.0 * (msb4.to(torch.float64) @ w)
+    acc = acc.to(torch.int32)
     if acc_out:
         return acc
     return acc.float() * act_scale.float() * w_scale.float()
@@ -132,3 +136,22 @@ def kv4_paged_decode_attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgj,bjhd->bhgd", p, v)
     return out.to(q.dtype)
+
+
+def kv4_paged_verify_attention_ref(
+    q: torch.Tensor,              # (B, T, KVH, G, hd)
+    k_pages: torch.Tensor,        # (P, ps, KVH, hd/2) int8
+    k_scale_pages: torch.Tensor,  # (P, ps, KVH) f32
+    v_pages: torch.Tensor,
+    v_scale_pages: torch.Tensor,
+    block_tables: torch.Tensor,   # (B, Pmax) int32
+    pos: torch.Tensor,            # (B,) int32, position of window token 0
+) -> torch.Tensor:
+    """Multi-token verify attention, stated as its contract: window token
+    t of sequence b is a decode query at ``pos[b] + t``, attending to
+    cache positions ``<= pos[b] + t``. Returns (B, T, KVH, G, hd)."""
+    return torch.stack([
+        kv4_paged_decode_attention_ref(
+            q[:, t], k_pages, k_scale_pages, v_pages, v_scale_pages,
+            block_tables, pos + t)
+        for t in range(q.shape[1])], dim=1)

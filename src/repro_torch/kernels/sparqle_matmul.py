@@ -12,10 +12,18 @@ grid when N alone gives too few blocks to fill the card (exact: int32
 partial sums meet through atomicAdd). Ragged M/N/K are masked in the
 kernel, so no operand is padded.
 
+``msb_skip=True`` is the LSB4-only draft of self-speculative decoding
+and replaces the Pallas ``_kernel_draft``: the same CUDA kernel
+instantiated without its MSB pass (``sparqle_matmul_draft_launch``),
+whose entry takes neither the MSB plane nor the tile populations, so
+only the LSB plane and the weight are read.
+
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version ``kernels.ref.sparqle_matmul_ref``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -26,6 +34,10 @@ from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv,
 KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "sparqle_matmul_launch",
     [_build.P] * 8 + [_build.I] * 4 + [_build.P]))
+DRAFT_KERNEL = _build.register(_build.Kernel(
+    "sparqle_matmul.cu", "sparqle_matmul_draft_launch",
+    [_build.P] * 6 + [_build.I] * 4 + [_build.P],
+    name="sparqle_matmul_draft"))
 
 BN = 64                 # output columns per block (csrc/sparqle_matmul.cu)
 TARGET_BLOCKS = 264     # two blocks per SM on the H100's 132 SMs
@@ -40,33 +52,40 @@ def _splits(m: int, n: int, k: int) -> int:
 
 
 def sparqle_matmul(
-    lsb4: torch.Tensor,       # (M, K) int8 in [0, 15]
-    msb4: torch.Tensor,       # (M, K) int8 in [-8, 7]
-    tile_pop: torch.Tensor,   # (ceil(M/TILE_M), ceil(K/TILE_K)) int32
-    w_packed: torch.Tensor,   # (K/2, N) int8, int4 packed along K
-    act_scale: torch.Tensor,  # (M, 1) f32
-    w_scale: torch.Tensor,    # (1, N) f32
+    lsb4: torch.Tensor,                 # (M, K) int8 in [0, 15]
+    msb4: Optional[torch.Tensor],       # (M, K) int8 in [-8, 7]
+    tile_pop: Optional[torch.Tensor],   # (ceil(M/TILE_M), ceil(K/TILE_K)) int32
+    w_packed: torch.Tensor,             # (K/2, N) int8, int4 packed along K
+    act_scale: torch.Tensor,            # (M, 1) f32
+    w_scale: torch.Tensor,              # (1, N) f32
     *,
     acc_out: bool = False,
+    msb_skip: bool = False,
 ) -> torch.Tensor:
-    """(M, N) f32 ``acc * act_scale * w_scale``, or the int32 ``acc``."""
+    """(M, N) f32 ``acc * act_scale * w_scale``, or the int32 ``acc``.
+    With ``msb_skip`` acc is the LSB pass alone and ``msb4``/``tile_pop``
+    may be None (they are not read)."""
     if not lsb4.is_cuda:
         return sparqle_matmul_ref(lsb4, msb4, tile_pop, w_packed, act_scale,
-                                  w_scale, acc_out=acc_out)
+                                  w_scale, acc_out=acc_out,
+                                  msb_skip=msb_skip)
     m, k = lsb4.shape
     k2, n = w_packed.shape
     dev = lsb4.device
     if k != 2 * k2:
         raise ValueError(f"K mismatch: planes {tuple(lsb4.shape)}, packed "
                          f"weight {tuple(w_packed.shape)}")
-    for name, t, shape, dt in (
-            ("msb4", msb4, (m, k), torch.int8),
-            ("lsb4", lsb4, (m, k), torch.int8),
-            ("tile_pop", tile_pop, (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
-             torch.int32),
-            ("w_packed", w_packed, (k2, n), torch.int8),
-            ("act_scale", act_scale, (m, 1), torch.float32),
-            ("w_scale", w_scale, (1, n), torch.float32)):
+    operands = [("lsb4", lsb4, (m, k), torch.int8),
+                ("w_packed", w_packed, (k2, n), torch.int8),
+                ("act_scale", act_scale, (m, 1), torch.float32),
+                ("w_scale", w_scale, (1, n), torch.float32)]
+    if not msb_skip:
+        operands += [("msb4", msb4, (m, k), torch.int8),
+                     ("tile_pop", tile_pop,
+                      (_cdiv(m, TILE_M), _cdiv(k, TILE_K)), torch.int32)]
+    for name, t, shape, dt in operands:
+        if t is None:
+            raise ValueError(f"{name} is required unless msb_skip")
         if tuple(t.shape) != shape or t.dtype != dt or t.device != dev:
             raise ValueError(f"{name}: expected {dt} {shape} on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -77,10 +96,15 @@ def sparqle_matmul(
     acc = alloc((m, n), dtype=torch.int32, device=dev)
     out = None if acc_out else torch.empty((m, n), dtype=torch.float32,
                                            device=dev)
+    out_ptr = None if out is None else out.data_ptr()
     if m and n and k:
-        KERNEL.launch(lsb4.data_ptr(), msb4.data_ptr(), tile_pop.data_ptr(),
-                      w_packed.data_ptr(), act_scale.data_ptr(),
-                      w_scale.data_ptr(), acc.data_ptr(),
-                      None if out is None else out.data_ptr(), m, n, k,
-                      splits)
+        if msb_skip:
+            DRAFT_KERNEL.launch(lsb4.data_ptr(), w_packed.data_ptr(),
+                                act_scale.data_ptr(), w_scale.data_ptr(),
+                                acc.data_ptr(), out_ptr, m, n, k, splits)
+        else:
+            KERNEL.launch(lsb4.data_ptr(), msb4.data_ptr(),
+                          tile_pop.data_ptr(), w_packed.data_ptr(),
+                          act_scale.data_ptr(), w_scale.data_ptr(),
+                          acc.data_ptr(), out_ptr, m, n, k, splits)
     return acc if acc_out else out

@@ -7,10 +7,15 @@ while decode attention runs the paged KV4 kernel. Weights are drawn from
 ``--seed`` on the device and quantized one layer at a time; prompts are
 numpy tokens from the same seed. Prints per-request TTFT/TPOT, tokens/s,
 the achieved MSB4 sparsity and the measured wire compression.
+``--spec-gamma N`` serves through the self-speculative engine (N
+LSB4-only draft steps and one batched verify per cycle) and also prints
+the draft acceptance rate and the tokens emitted per cycle.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
-        --smoke --device cpu
+        --spec-gamma 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --smoke --device cpu [--spec-gamma 2]
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from repro_torch.models.model import check_paged_support
 from repro_torch.models.schema import init_quantized_params
 from repro_torch.models.schema_builder import build_schema
 from repro_torch.serving import (Engine, PoolConfig, SamplingParams,
-                                 SchedulerConfig)
+                                 SchedulerConfig, SpecConfig,
+                                 SpeculativeEngine)
 from repro_torch.serving.engine import resolve_device
 
 
@@ -52,12 +58,14 @@ def make_prompts(cfg: ModelConfig, seed: int, batch: int,
 def make_engine(cfg: ModelConfig, params, *, batch: int, prompt_len: int,
                 gen: int, page_size: int = 16, n_pages: int = 0,
                 token_budget: int = 128, prefill_chunk: int = 32,
-                decode_slots: int = 8, device="cuda") -> Engine:
+                decode_slots: int = 8, spec_gamma: int = 0,
+                device="cuda") -> Engine:
     """Engine sized like ``repro.launch.serve``: a block table that fits
-    prompt + generation, and by default a pool that fits the batch."""
-    pages_per_seq = -(-(prompt_len + gen) // page_size)
-    return Engine(
-        cfg, params,
+    prompt + generation (+ the γ-token draft lookahead), and by default a
+    pool that fits the batch. ``spec_gamma > 0`` gives the speculative
+    engine."""
+    pages_per_seq = -(-(prompt_len + gen + spec_gamma) // page_size)
+    kw = dict(
         pool_config=PoolConfig(
             n_pages=n_pages or 1 + pages_per_seq * batch,
             page_size=page_size),
@@ -66,6 +74,10 @@ def make_engine(cfg: ModelConfig, params, *, batch: int, prompt_len: int,
             token_budget=token_budget, prefill_chunk=prefill_chunk,
             max_pages_per_seq=pages_per_seq),
         device=device)
+    if spec_gamma > 0:
+        return SpeculativeEngine(cfg, params,
+                                 spec=SpecConfig(gamma=spec_gamma), **kw)
+    return Engine(cfg, params, **kw)
 
 
 def run_requests(eng: Engine, prompts: List[List[int]],
@@ -115,6 +127,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--token-budget", type=int, default=128)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--decode-slots", type=int, default=8)
+    ap.add_argument("--spec-gamma", type=int, default=0,
+                    help="self-speculative decoding: LSB4-only draft "
+                         "window per verify cycle (0 = off)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -140,7 +155,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                       page_size=args.page_size, n_pages=args.n_pages,
                       token_budget=args.token_budget,
                       prefill_chunk=args.prefill_chunk,
-                      decode_slots=args.decode_slots, device=device)
+                      decode_slots=args.decode_slots,
+                      spec_gamma=args.spec_gamma, device=device)
     r = run_requests(eng, make_prompts(cfg, args.seed, args.batch,
                                        args.prompt_len), args.gen)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -156,6 +172,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     if "wire_compression_pct" in agg:
         print(f"  measured wire format: {agg['wire_compression_pct']:.1f}% "
               f"activation bytes saved vs dense int8")
+    if "spec_acceptance_rate" in agg:
+        print(f"  speculative: gamma={agg['spec_gamma']}, "
+              f"{agg['spec_acceptance_rate'] * 100:.1f}% drafts accepted, "
+              f"{agg['spec_tokens_per_step']:.2f} tokens/cycle")
     print(f"  pool: {agg['pool_utilization'] * 100:.0f}% pages in use at "
           f"drain, {agg['pool_evictions']} evictions")
     if args.metrics_out:

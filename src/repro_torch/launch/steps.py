@@ -1,10 +1,12 @@
-"""The engine's two step functions (torch twin of the engine steps of
-``repro.launch.steps``), as plain closures over the config.
+"""The engine's step functions (torch twin of the engine steps of
+``repro.launch.steps``), as plain closures over the config: prefill,
+decode (full or LSB4-only draft) and the speculative verify window.
 
-Both keep the JAX steps' static shapes — a (1, C) prefill chunk and a
-(B,) decode batch over a (B, Pmax) block table, inactive slots on the
-null page — so they can be captured as CUDA graphs later. Both update
-the pool in place and return it (the JAX steps return a new one).
+All keep the JAX steps' static shapes — a (1, C) prefill chunk, a (B,)
+decode batch and a (B, T) verify window over a (B, Pmax) block table,
+inactive slots on the null page — so they can be captured as CUDA graphs
+later. All update the pool in place and return it (the JAX steps return
+a new one).
 """
 from __future__ import annotations
 
@@ -27,14 +29,34 @@ def make_engine_prefill_chunk(cfg: ModelConfig):
     return prefill_chunk
 
 
-def make_engine_decode(cfg: ModelConfig):
+def make_engine_decode(cfg: ModelConfig, *, msb_skip: bool = False,
+                       with_telemetry: bool = True):
     """(params, pool, token (B,), pos (B,), block_tables (B, Pmax))
     -> (logits (B, V), pool, telemetry). Raw logits come back: sampling
-    is per request and lives host-side in the engine."""
+    is per request and lives host-side in the engine.
+
+    ``msb_skip=True`` makes the LSB4-only draft step of the speculative
+    engine; ``with_telemetry=False`` drops the wire accounting (the
+    telemetry comes back empty) — the draft runs γ times per cycle."""
 
     @torch.no_grad()
     def engine_decode(params, pool, token, pos, block_tables):
         return M.decode_step_paged(cfg, params, pool, token, pos,
-                                   block_tables)
+                                   block_tables, msb_skip=msb_skip,
+                                   with_telemetry=with_telemetry)
 
     return engine_decode
+
+
+def make_engine_verify_window(cfg: ModelConfig):
+    """(params, pool, tokens (B, T), pos (B,), block_tables (B, Pmax))
+    -> (logits (B, T, V), pool, telemetry): one full-precision step
+    scores every window position of every decode slot and overwrites the
+    draft's K/V (``models.model.verify_window_paged``)."""
+
+    @torch.no_grad()
+    def engine_verify(params, pool, tokens, pos, block_tables):
+        return M.verify_window_paged(cfg, params, pool, tokens, pos,
+                                     block_tables)
+
+    return engine_verify

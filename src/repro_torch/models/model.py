@@ -10,7 +10,8 @@ the JAX steps donate the pool buffer and return a new one; writing into
 the stacked page tensors directly saves the whole-pool copy the
 functional form would cost, and each function still returns the pool for
 symmetry with its JAX twin. Prefill attention is plain torch, as it is
-plain jnp in the reference; decode attention runs the paged KV4 kernel.
+plain jnp in the reference; decode attention runs the paged KV4 kernel
+and the speculative verify window its multi-token twin.
 """
 from __future__ import annotations
 
@@ -19,10 +20,11 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.qlinear import linear, tree_index
+from repro_torch.core.qlinear import linear, msb_skip_scope, tree_index
 from repro_torch.core.quantize import quantize_activations, quantize_weights
 from repro_torch.core.sparqle import subprecision_sparsity
-from repro_torch.kernels.kv_attention import kv4_paged_decode_attention
+from repro_torch.kernels.kv_attention import (kv4_paged_decode_attention,
+                                              kv4_paged_verify_attention)
 from repro_torch.kernels.ref import unpack_kv4
 from repro_torch.models.layers import (NEG_INF, act_wire_telemetry, embed,
                                        rms_norm, rope,
@@ -58,8 +60,9 @@ def _kv_dequant(cfg: ModelConfig, q: torch.Tensor, s: torch.Tensor,
 
 
 def _attn_qkv(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
-              theta: float):
-    """h (..., D) -> q (..., H, hd), k/v (..., KVH, hd), roped."""
+              theta: float, window: bool = False):
+    """h (..., D) -> q (..., H, hd), k/v (..., KVH, hd), roped. ``window``:
+    h is a (B, T, D) verify window, whose q/k norms run per position."""
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = linear(h, p["wq"], p.get("bq"))
     k = linear(h, p["wk"], p.get("bk"))
@@ -68,15 +71,20 @@ def _attn_qkv(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
     k = k.reshape(*k.shape[:-1], KVH, hd)
     v = v.reshape(*v.shape[:-1], KVH, hd)
     if cfg.use_qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
-        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+        norm = _per_position if window else (lambda fn, x: fn(x))
+        q = norm(lambda r: rms_norm(r, p["q_norm"], cfg.rms_eps), q)
+        k = norm(lambda r: rms_norm(r, p["k_norm"], cfg.rms_eps), k)
     return rope(q, positions, theta), rope(k, positions, theta), v
 
 
 def dense_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return _swiglu(cfg, p, _norm(cfg, p["ln2"], x))
+
+
+def _swiglu(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """The FFN on its already-normed input."""
     if cfg.mlp_type != "swiglu":
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
-    h = _norm(cfg, p["ln2"], x)
     g = linear(h, p["w_gate"])
     g = g * torch.sigmoid(g)
     return linear(g * linear(h, p["w_up"]), p["w_down"])
@@ -166,7 +174,8 @@ def attn_decode_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
 
 def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
                       token: torch.Tensor, pos: torch.Tensor,
-                      block_tables: torch.Tensor
+                      block_tables: torch.Tensor, *, msb_skip: bool = False,
+                      with_telemetry: bool = True
                       ) -> Tuple[torch.Tensor, Cache, Dict[str, torch.Tensor]]:
     """One continuous-batching decode step over the paged pool.
 
@@ -175,18 +184,110 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
     (logits (B, V), pool, telemetry): ``sparsity`` (B,), and per layer
     (L, B) ``layer_sparsity`` / ``layer_wire_bytes`` /
     ``layer_dense_bytes`` of the hidden stream entering the layer.
+
+    ``msb_skip`` runs every sparqle projection LSB4-only: the draft step
+    of self-speculative decoding, whose K/V writes the verify window
+    overwrites. ``with_telemetry=False`` computes no wire accounting and
+    returns an empty telemetry dict (the draft's lean form).
     """
-    x = _embed(cfg, params, token)
+    with msb_skip_scope(msb_skip):
+        x = _embed(cfg, params, token)
+        tels = []
+        for ld, p, lpool in _layers(cfg, params, pool):
+            if with_telemetry:
+                tels.append(act_wire_telemetry(x))
+            y, _ = attn_decode_paged(cfg, ld, p, x, lpool, block_tables, pos)
+            x = x + y
+            x = x + dense_ffn(cfg, p, x[:, None, :])[:, 0]
+        telemetry: Dict[str, torch.Tensor] = {}
+        if with_telemetry:
+            telemetry["sparsity"] = _act_subprecision_sparsity(x)
+            for key, v in stack_sublayer_telemetry(tels).items():
+                telemetry[f"layer_{key}"] = v
+        logits = head_logits(cfg, params, x[:, None, :])[:, 0]
+    return logits, pool, telemetry
+
+
+def _per_position(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` on each window position's contiguous (B, ...) slice of x
+    (B, T, ...), restacked along dim 1.
+
+    On the card the f32 sum order of a row reduction (PyTorch picks its
+    reduce kernel's block shape from the number of rows) and cuBLAS's
+    algorithm for the head depend on how many rows a call gets. A verify
+    window runs B*T rows where a decode step runs B, so its row-reducing
+    float ops (the norms) and its head run per position at the decode
+    step's shape: window token t then gets the bits a decode step at
+    ``pos + t`` gets, which the greedy identity of speculative decoding
+    needs. The integer linears, RoPE and the elementwise ops do not
+    depend on the row count and run over the whole window at once."""
+    return torch.stack([fn(x[:, t].contiguous()) for t in range(x.shape[1])],
+                       1)
+
+
+def attn_verify_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
+                      x: torch.Tensor, pool: Cache,
+                      block_tables: torch.Tensor, pos: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Cache]:
+    """Draft-window attention for speculative verification. x: (B, T, D).
+
+    Window token t of sequence b sits at ``pos[b] + t``. All T tokens'
+    K/V are quantized and written into their page slots first, in place
+    (overwriting what the LSB4-only draft left there); then one
+    multi-token kernel call attends, each token masked to its own
+    position."""
+    b, t, _ = x.shape
+    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    theta = ld.rope_theta or cfg.rope_theta
+    h = _per_position(lambda r: _norm(cfg, p["ln"], r), x)
+    positions = pos.long()[:, None] + torch.arange(t, device=x.device)
+    q, k_new, v_new = _attn_qkv(cfg, p, h, positions, theta, window=True)
+    kq, ks = _kv_quant(cfg, k_new)
+    vq, vs = _kv_quant(cfg, v_new)
+    ps = pool["k_q"].shape[1]
+    n_steps = block_tables.shape[1]
+    step = torch.clamp(positions // ps, 0, n_steps - 1)
+    page = torch.gather(block_tables.long(), 1, step)           # (B, T)
+    _write_kv(pool, page, positions % ps, kq, ks, vq, vs)
+    o = kv4_paged_verify_attention(
+        q.reshape(b, t, kvh, g, cfg.hd).contiguous(), pool["k_q"],
+        pool["k_s"], pool["v_q"], pool["v_s"], block_tables, pos)
+    o = o.reshape(b, t, cfg.n_heads * cfg.hd)
+    return linear(o, p["wo"], p.get("bo")), pool
+
+
+def verify_window_paged(cfg: ModelConfig, params: Params, pool: Cache,
+                        tokens: torch.Tensor, pos: torch.Tensor,
+                        block_tables: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Cache, Dict[str, torch.Tensor]]:
+    """Score a whole draft window in one full-precision batched step.
+
+    tokens (B, T) int32 — window token 0 is the last accepted token,
+    tokens 1..T-1 the draft proposals; pos (B,) int32 — absolute position
+    of tokens[:, 0]; block_tables (B, Pmax) int32. Returns
+    (logits (B, T, V), pool, telemetry): ``logits[:, t]`` equals what a
+    decode step at ``pos + t`` gives, and the pool holds full-precision
+    K/V at every window position. Telemetry: ``sparsity`` (B,) and
+    ``layer_sparsity`` (L, B) are means over the window,
+    ``layer_wire_bytes`` / ``layer_dense_bytes`` (L, B) sums over it.
+    """
+    x = _embed(cfg, params, tokens)                          # (B, T, D)
     tels = []
     for ld, p, lpool in _layers(cfg, params, pool):
         tels.append(act_wire_telemetry(x))
-        y, _ = attn_decode_paged(cfg, ld, p, x, lpool, block_tables, pos)
+        y, _ = attn_verify_paged(cfg, ld, p, x, lpool, block_tables, pos)
         x = x + y
-        x = x + dense_ffn(cfg, p, x[:, None, :])[:, 0]
-    telemetry = {"sparsity": _act_subprecision_sparsity(x)}
-    for key, v in stack_sublayer_telemetry(tels).items():
-        telemetry[f"layer_{key}"] = v
-    logits = head_logits(cfg, params, x[:, None, :])[:, 0]
+        x = x + _swiglu(cfg, p, _per_position(   # as decode: (B, 1, D)
+            lambda r: _norm(cfg, p["ln2"], r[:, None, :])[:, 0], x))
+    tel = stack_sublayer_telemetry(tels)                     # (L, B, T)
+    telemetry = {
+        "sparsity": _act_subprecision_sparsity(x).mean(-1),
+        "layer_sparsity": tel["sparsity"].mean(-1),
+        "layer_wire_bytes": tel["wire_bytes"].sum(-1),
+        "layer_dense_bytes": tel["dense_bytes"].sum(-1),
+    }
+    logits = _per_position(
+        lambda r: head_logits(cfg, params, r[:, None, :])[:, 0], x)
     return logits, pool, telemetry
 
 

@@ -236,7 +236,12 @@ class Engine:
         p /= p.sum()
         return int(rng.choice(len(p), p=p))
 
-    def _emit(self, req: Request, token: int) -> Tuple[int, int]:
+    def _emit(self, req: Request, token: int) -> Optional[Tuple[int, int]]:
+        """Hand ``token`` to ``req``; None (and nothing appended) when the
+        request has already finished — a speculative window may hold more
+        tokens than the request has left."""
+        if req.done:
+            return None
         now = self._clock()
         if req.t_first is None:
             req.t_first = now
@@ -270,10 +275,13 @@ class Engine:
         if not self.sched.prefill_advanced(req, n):
             return []
         self.sched.to_running(req)
-        return [self._emit(req, self._sample(
-            req, logits[0].float().cpu().numpy()))]
+        ev = self._emit(req, self._sample(req,
+                                          logits[0].float().cpu().numpy()))
+        return [ev] if ev else []
 
-    def _run_decode(self, decode: List[Request]) -> List[Tuple[int, int]]:
+    def _decode_inputs(self, decode: List[Request]):
+        """Host arrays of one decode batch: last token, its position and
+        the block table of every slot (inactive slots zero)."""
         B = self._n_slots
         token = np.zeros((B,), np.int32)
         pos = np.zeros((B,), np.int32)
@@ -282,6 +290,12 @@ class Engine:
             token[req.slot] = req.context[-1]
             pos[req.slot] = len(req.context) - 1
             tables[req.slot] = self._block_table_row(req)
+        return token, pos, tables
+
+    def _run_decode(self, decode: List[Request]) -> List[Tuple[int, int]]:
+        """One full decode step for the decode set (the speculative
+        engine overrides this with its draft/verify cycle)."""
+        token, pos, tables = self._decode_inputs(decode)
         logits, self.pool.state, tel = self._decode_fn(
             self.params, self.pool.state, self._to_dev(token),
             self._to_dev(pos), self._to_dev(tables))
@@ -295,7 +309,8 @@ class Engine:
                 req, tel["layer_wire_bytes"][:, req.slot],
                 tel["layer_dense_bytes"][:, req.slot],
                 tel["layer_sparsity"][:, req.slot], 1)
-            events.append(self._emit(req, self._sample(req,
-                                                       logits[req.slot])))
+            ev = self._emit(req, self._sample(req, logits[req.slot]))
+            if ev:
+                events.append(ev)
         self._m_tokens.inc(len(decode), phase="decode")
         return events

@@ -140,6 +140,28 @@ class PagedKVPool:
             self._m_freed.inc(len(pages))
         return pages
 
+    def truncate(self, owner, n_tokens: int) -> List[int]:
+        """Release ``owner``'s pages past a token count: keep the first
+        ``ceil(n_tokens / page_size)`` (a partly filled last page whole)
+        and free the rest — the KV rollback of rejected speculative
+        tokens. Not a preemption: no eviction is counted and the hook
+        does not fire. Truncating to 0 tokens removes the owner;
+        truncating past the held range does nothing."""
+        if n_tokens < 0:
+            raise ValueError(n_tokens)
+        keep = -(-n_tokens // self.page_size)
+        pages = self._owned.get(owner)
+        if pages is None or len(pages) <= keep:
+            return []
+        tail = pages[keep:]
+        del pages[keep:]
+        if not pages:
+            del self._owned[owner]
+        self._free.extend(tail)
+        if self._m_freed is not None:
+            self._m_freed.inc(len(tail))
+        return tail
+
     def evict(self, owner) -> List[int]:
         """Preemption hook: reclaim a live owner's pages (no-op for an
         owner holding none)."""

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler: FCFS admission under a token budget
 (torch-side copy of ``repro.serving.scheduler`` for one unsharded KV4
-pool; the speculative lookahead and the KV2 ladder rung wait for their
-slices).
+pool, with the speculative lookahead; the KV2 ladder rung waits for its
+slice).
 
 Every engine step the scheduler emits a :class:`StepPlan`:
 
@@ -41,6 +41,12 @@ class SchedulerConfig:
     token_budget: int = 64           # tokens processed per engine step
     prefill_chunk: int = 32          # tokens per prefill call
     max_pages_per_seq: int = 16      # block-table width
+    # speculative decoding (serving/spec_decode.py): a γ-draft slot burns
+    # 2γ+1 compute tokens a step (γ draft + γ+1 verify) and writes K/V up
+    # to γ positions past its context; budget, page growth and admission
+    # account for both
+    decode_tokens_per_slot: int = 1  # compute tokens per decode slot/step
+    decode_lookahead: int = 0        # KV positions written past pos (= γ)
 
 
 @dataclasses.dataclass
@@ -61,7 +67,13 @@ class Request:
     wire_bytes_sum: float = 0.0      # measured packed-wire activation bytes
     dense_bytes_sum: float = 0.0     # dense int8 baseline for the same acts
     wire_tokens: int = 0             # tokens the wire telemetry covered
+    draft_tokens: int = 0            # LSB4-only draft tokens (no telemetry)
     preemptions: int = 0
+    # speculative decoding (serving/spec_decode.py)
+    draft_proposed: int = 0          # LSB4-only drafts the verifier judged
+    draft_accepted: int = 0          # ... of those, accepted
+    spec_steps: int = 0              # draft+verify cycles run
+    spec_emitted: int = 0            # tokens emitted by those cycles
 
     def __post_init__(self):
         if not self.context:
@@ -93,10 +105,19 @@ class Request:
                 self.wire_bytes_sum / self.wire_tokens
                 if self.wire_tokens else float("nan")),
             "wire_tokens": self.wire_tokens,
+            "draft_tokens": self.draft_tokens,
             "act_wire_compression_pct": (
                 (1.0 - self.wire_bytes_sum / self.dense_bytes_sum) * 100.0
                 if self.dense_bytes_sum else float("nan")),
             "preemptions": self.preemptions,
+            # drafts the full-precision verifier accepted, and emitted
+            # tokens per draft+verify cycle (>= 1: the correction lands)
+            "spec_acceptance_rate": (
+                self.draft_accepted / self.draft_proposed
+                if self.draft_proposed else float("nan")),
+            "spec_tokens_per_step": (
+                self.spec_emitted / self.spec_steps
+                if self.spec_steps else float("nan")),
         }
 
 
@@ -154,7 +175,10 @@ class Scheduler:
     def submit(self, prompt: List[int], sampling: SamplingParams,
                arrival: float) -> Request:
         cap = self.cfg.max_pages_per_seq * self.pool.page_size
-        need = len(prompt) + sampling.max_new_tokens
+        # a draft window near the end writes K/V up to decode_lookahead
+        # positions past the last sampled token: those slots must exist
+        need = (len(prompt) + sampling.max_new_tokens
+                + self.cfg.decode_lookahead)
         if need > cap:
             raise ValueError(
                 f"request needs {need} token slots but the block table "
@@ -232,7 +256,10 @@ class Scheduler:
         return -(-n_tokens // self.pool.page_size)
 
     def _ensure_decode_page(self, req: Request) -> bool:
-        need = self._pages_needed(len(req.context))
+        """Grow the block table to cover this step's writes, through
+        ``pos + decode_lookahead`` under speculation."""
+        need = self._pages_needed(len(req.context)
+                                  + self.cfg.decode_lookahead)
         have = len(self.pool.pages_of(req.rid))
         if need <= have:
             return True
@@ -259,8 +286,10 @@ class Scheduler:
                                          key=lambda r: (r.arrival, r.rid))
                        if r.status == RUNNING]
 
-        # 2. prefill — FCFS chunks under the remaining token budget
-        budget = self.cfg.token_budget - len(plan.decode)
+        # 2. prefill — FCFS chunks under the remaining token budget (a
+        # speculative decode slot burns 2γ+1 compute tokens, not 1)
+        budget = (self.cfg.token_budget
+                  - len(plan.decode) * self.cfg.decode_tokens_per_slot)
         for req in list(self.waiting):
             if budget <= 0:
                 break

@@ -6,8 +6,10 @@ JAX nor the JAX package, so it also runs on a GPU machine without them:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
         tests/test_torch_kernels_cuda.py
 
-Tolerances: encoder and matmul bit-exact; attention within 1e-4 in f32
-(sums in another order than the plain einsum/softmax).
+Tolerances: encoder, matmul and draft matmul bit-exact; attention within
+1e-4 in f32 (sums in another order than the plain einsum/softmax); the
+verify attention bit-exact with T calls of the decode kernel; greedy
+speculative streams identical to the base engine's.
 """
 import pytest
 import torch
@@ -95,3 +97,71 @@ def test_attention_kernel_matches_plain(cuda, dtype):
     else:   # both round the same f32 result to bf16: at most one bf16 ulp
         torch.testing.assert_close(got.float(), want.float(), atol=0,
                                    rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (24, 4096, 14336),
+                                   (24, 14336, 4096), (33, 200, 70)])
+def test_draft_matmul_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    lsb = torch.randint(0, 16, (m, k), generator=g, device=cuda,
+                        dtype=torch.int8)
+    wp = pack_int4(torch.randint(-8, 8, (k, n), generator=g, device=cuda,
+                                 dtype=torch.int8))
+    asc = torch.rand((m, 1), generator=g, device=cuda)
+    wsc = torch.rand((1, n), generator=g, device=cuda)
+    for acc_out in (False, True):
+        got = sparqle_matmul.sparqle_matmul(lsb, None, None, wp, asc, wsc,
+                                            acc_out=acc_out, msb_skip=True)
+        want = ref.sparqle_matmul_ref(lsb, None, None, wp, asc, wsc,
+                                      acc_out=acc_out, msb_skip=True)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_attention_kernel_matches_decode_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, t, kvh, gq, hd, ps, n_s, n_pages = 6, 3, 8, 4, 128, 16, 8, 64
+    q = torch.randn((b, t, kvh, gq, hd), generator=g, device=cuda).to(dtype)
+    kp, vp = (torch.randint(-128, 128, (n_pages, ps, kvh, hd // 2),
+                            generator=g, device=cuda, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand((n_pages, ps, kvh), generator=g, device=cuda) * 0.2
+              for _ in range(2))
+    perm = torch.randperm(n_pages - 1, generator=g, device=cuda) + 1
+    tables = perm[:b * n_s].reshape(b, n_s).to(torch.int32).contiguous()
+    tables[-1] = 0                               # inactive slot: null page
+    # windows crossing page boundaries, and one ending on the last page
+    pos = torch.tensor([ps - 1, ps - 2, 2 * ps + 3, n_s * ps - t, 40, 0],
+                       dtype=torch.int32, device=cuda)
+    args = (kp, ks, vp, vs, tables)
+    got = kv_attention.kv4_paged_verify_attention(q, *args, pos)
+    for i in range(t):
+        single = kv_attention.kv4_paged_decode_attention(
+            q[:, i].contiguous(), *args, pos + i)
+        assert torch.equal(got[:, i], single), i
+    want = ref.kv4_paged_verify_attention_ref(q, *args, pos)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=0,
+                                   rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+def test_spec_engine_greedy_matches_base_engine_on_card(cuda):
+    """The verify window runs B*(γ+1) rows where a decode step runs B;
+    on the card its greedy stream must still equal the base engine's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (build_served_params, make_engine,
+                                          make_prompts, run_requests)
+    cfg = get_config("granite-8b", smoke=True)
+    params = build_served_params(cfg, 0, cuda, tile_k=16)
+    prompts = make_prompts(cfg, 1, 4, 21)
+    runs = [run_requests(make_engine(cfg, params, batch=4, prompt_len=21,
+                                     gen=9, spec_gamma=gamma, device=cuda),
+                         prompts, 9) for gamma in (0, 2)]
+    assert runs[0]["streams"] == runs[1]["streams"]
+    assert all(len(s) == 9 for s in runs[1]["streams"])
+    assert runs[1]["aggregate"]["spec_tokens_per_step"] >= 1.0
