@@ -3,28 +3,41 @@
     python3 chip_smoke.py                 # every phase, one GPU
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
 
-Phases, each printing one line, phase 6 one more per seed (details go
+Phases, each printing one line, phase 9 one more per seed (details go
 to chiprun_out/):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (parallel nvcc);
   3. hold each kernel against its plain PyTorch version on the card at
-     the serving shapes (encoder, matmul and draft matmul bit-exact,
-     attention and verify attention within ATTN_TOL, verify attention
-     bit-exact with T calls of the decode kernel) and time kernel, plain
-     version and library call;
+     the serving shapes (encoder and its quantize-only form, matmul,
+     draft matmul and dense matmul bit-exact, the dense one also with the
+     dual pass; attention, verify and tiered attention within ATTN_TOL;
+     verify attention bit-exact with T calls of the decode kernel, tiered
+     attention with one, over the clamped pages where demoted) and time
+     kernel, plain version and library call;
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
-     launch counters zeroed just before and read just after, then profile
-     a shorter run of the same engine shape;
+     launch counters zeroed just before and read just after;
   5. serve the same weights and prompts through the SpeculativeEngine
      (gamma = SPEC_GAMMA: LSB4-only drafts + one verify window per
      cycle), counters zeroed just before and read just after; every
-     greedy stream must equal phase 4's; then profile a shorter run;
-  6. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
+     greedy stream must equal phase 4's;
+  6. serve them with the KV2 precision ladder armed, twice: idle (no
+     demotion; streams equal to phase 4's) and an aggressive cold sweep
+     (demotions > 0, reclaimed bytes = demotions x the page saving);
+     every decode step runs the tiered attention kernel, never the KV4
+     one;
+  7. serve them through the dense W4A8 tree of the same int4 weights:
+     streams equal to phase 4's, one prefill chunk and one decode step
+     at full depth give logits bit-equal to the SPARQLe tree's, and only
+     the quantize-only encoder and the dense matmul run the linears;
+  8. profile a shorter run of phase 4's and phase 5's engine shapes
+     (device busy share, device time by kernel), then serve phase 4 once
+     more to read what the profilers left behind on the host;
+  9. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
      same weights and prompts through the Engine on the card (kernels)
      and on the CPU (plain versions), logits within LOGIT_TOL and the
      greedy token streams identical;
-  7. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 10. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -416,8 +429,227 @@ def check_verify_attention(dev, gen, peaks):
                      f"({t} decode-kernel calls: {loop_ms * 1e3:.1f} us)"}
 
 
+def check_quantize(dev, gen, peaks):
+    """The encoder's quantize-only form (the dense linear's activation):
+    bit-exact with its plain version and with 16 * msb4 + lsb4 of the
+    full encoder; timed as the dense linear calls it."""
+    from repro_torch.core.quantize import activation_scale
+    from repro_torch.kernels.ref import TILE_K, sparqle_quantize_ref
+    from repro_torch.kernels.sparqle_encode import (sparqle_encode,
+                                                    sparqle_quantize)
+    timed = None
+    for m in (1, 4, 8, 32):
+        for k in (4096, 14336):
+            for dt in (torch.bfloat16, torch.float32):
+                x = (torch.randn((m, k), generator=gen, device=dev)
+                     * torch.rand((m, 1), generator=gen, device=dev) * 4
+                     ).to(dt)
+                if m > 1:
+                    x[0] = 0                     # degenerate all-zero row
+                scale = activation_scale(x).float()
+                blocks = torch.rand((k // TILE_K,), generator=gen,
+                                    device=dev) < 0.5
+                mask = torch.repeat_interleave(blocks, TILE_K)
+                args = (x, scale, mask, -8, 23)
+                got = sparqle_quantize(*args)
+                lsb, msb, _, _ = sparqle_encode(*args, with_pbm=False)
+                if not (torch.equal(got, sparqle_quantize_ref(*args))
+                        and torch.equal(got, msb * 16 + lsb)):
+                    raise AssertionError(f"quantize-only encoder differs at "
+                                         f"M={m} K={k} {dt}")
+                if (m, k, dt) == (8, 4096, torch.bfloat16):
+                    timed = args
+    m, k = timed[0].shape
+    kms = time_ms(sparqle_quantize, [timed], 200)
+    pms = time_ms(sparqle_quantize_ref, [timed], 50)
+    nbytes = m * k * 2 + m * 4 + k + m * k
+    return {"name": "sparqle_quantize", "route": "cuda",
+            "source": "src/repro_torch/csrc/sparqle_encode.cu",
+            "replaces": "src/repro/kernels/sparqle_encode.py:69",
+            "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
+            "bound_ms": nbytes / peaks[0] * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"M={m} K={k} bf16 (the _quantize step of row 1 "
+                     f"alone); checked M in 1,4,8,32 x K in 4096,14336 x "
+                     f"bf16,f32"}
+
+
+def check_dense_matmul(dev, gen, peaks):
+    """The dense single-pass matmul at the decode shapes, M = 1, 5, 8,
+    24, 32, 33: bit-exact with its plain version and with the dual-pass
+    kernel on the planes of the same q (f32 and int32 outputs); timed at
+    M=8 against the dual-pass kernel on those planes and torch._int_mm of
+    the unpacked weight (M padded to 32)."""
+    from repro_torch.core.qlinear import pack_int4
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.ref import (TILE_K, TILE_M, quant_matmul_ref,
+                                         tile_population_padded)
+    from repro_torch.kernels.sparqle_matmul import sparqle_matmul
+    shapes = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096))
+    detail = []
+    for k, n in shapes:
+        w = torch.randint(-8, 8, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        wp = pack_int4(w)
+        wsc = torch.rand((1, n), generator=gen, device=dev) * 0.01 + 1e-3
+        for m in (1, 5, 8, 24, 32, 33):
+            q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            asc = torch.rand((m, 1), generator=gen, device=dev) * 0.1
+            lsb, msb = q & 0xF, q >> 4
+            pop = tile_population_padded(msb != 0, TILE_M, TILE_K)
+            for acc_out in (False, True):
+                got = quant_matmul(q, wp, asc, wsc, acc_out=acc_out)
+                if not (torch.equal(got, quant_matmul_ref(
+                        q, wp, asc, wsc, acc_out=acc_out)) and torch.equal(
+                        got, sparqle_matmul(lsb, msb, pop, wp, asc, wsc,
+                                            acc_out=acc_out))):
+                    raise AssertionError(f"dense matmul differs at M={m} "
+                                         f"K={k} N={n} acc_out={acc_out}")
+            if m != 8:
+                continue
+            copies = max(1, math.ceil(150e6 / wp.numel()))
+            wps = [wp.clone() for _ in range(copies)]
+            kms = time_ms(quant_matmul, [(q, c, asc, wsc) for c in wps], 50)
+            dual = time_ms(sparqle_matmul,
+                           [(lsb, msb, pop, c, asc, wsc) for c in wps], 50)
+            pms = time_ms(quant_matmul_ref, [(q, wp, asc, wsc)], 5)
+            qa = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            qa[:m] = q
+            lib = time_ms(torch._int_mm, [(qa, w)], 50)
+            nbytes = m * k + k * n // 2 + m * 4 + n * 4 + m * n * 4
+            ops = 2.0 * m * k * n
+            detail.append({"M": m, "K": k, "N": n, "ms": kms,
+                           "dual_pass_ms": dual, "plain_ms": pms,
+                           "library_ms": lib,
+                           "bound_ms": max(nbytes / peaks[0],
+                                           ops / peaks[1]) * 1e3,
+                           "bound_by": "bytes" if nbytes / peaks[0]
+                           >= ops / peaks[1] else "operations"})
+    timed = detail[0]                    # 4096 -> 14336, w_gate/w_up
+    return {"name": "quant_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/quant_matmul.cu",
+            "replaces": "src/repro/kernels/quant_matmul.py:45",
+            "max_abs_err": 0.0, "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+            "shape": f"M=8 K=4096 N=14336 (dual-pass kernel "
+                     f"{timed['dual_pass_ms'] * 1e3:.1f} us on the planes "
+                     f"of the same q); checked M in 1,5,8,24,32,33 at every "
+                     f"shape; library: torch._int_mm at M=32",
+            "detail": detail}
+
+
+def demoted_pool(dev, gen, b, kvh, hd, ps, n_s, n_pages):
+    """A paged KV4 pool with distinct pages per slot (the last slot
+    inactive), and the first half of every active slot's pages demoted
+    to a KV2 slab by the port's ``tiering.demote_page``. Returns the KV4
+    args, the tiered args and the KV4 args with those pages clamped to
+    [-2, 1] in place (what a demoted page must read back as)."""
+    from repro_torch.core.packing import pack_plane, unpack_plane
+    from repro_torch.serving import tiering
+    kp, vp = (torch.randint(-128, 128, (n_pages, ps, kvh, hd // 2),
+                            generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand((n_pages, ps, kvh), generator=gen, device=dev)
+              * 0.2 for _ in range(2))
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tables = perm[:b * n_s].reshape(b, n_s).to(torch.int32).contiguous()
+    tables[-1] = 0                 # inactive slot: null page, pos 0
+    n2 = 1 + (b - 1) * (n_s // 2)
+    state = {"k_q": kp[None], "k_s": ks[None], "v_q": vp[None],
+             "v_s": vs[None]}
+    for name in ("k2", "v2"):
+        state[f"{name}_q"] = torch.zeros((1, n2, ps, kvh, hd // 4),
+                                         dtype=torch.int8, device=dev)
+        state[f"{name}_s"] = torch.ones((1, n2, ps, kvh), device=dev)
+    tiers = torch.zeros_like(tables)
+    tables2 = tables.clone()
+    kpc, vpc = kp.clone(), vp.clone()
+    dst = 1
+    for i in range(b - 1):
+        for j in range(n_s // 2):
+            src = int(tables[i, j])
+            tiering.demote_page(state, src, dst)
+            tables2[i, j], tiers[i, j] = dst, 1
+            for page, clamped in ((kp, kpc), (vp, vpc)):
+                nib = unpack_plane(page[src], width=4, signed=True)
+                clamped[src] = pack_plane(nib.clamp(-2, 1), width=4)
+            dst += 1
+    kv2 = tuple(state[k][0] for k in ("k2_q", "k2_s", "v2_q", "v2_s"))
+    return ((kp, ks, vp, vs, tables), (kp, ks, vp, vs, *kv2, tables2, tiers),
+            (kpc, ks, vpc, vs, tables))
+
+
+def check_tiered_attention(dev, gen, peaks):
+    """The mixed-tier decode at B=8, KVH=8, G=4, hd=128, ps=16, contexts
+    up to 16 pages, half of each active slot's pages demoted: all tier 0
+    bit-exact with the decode kernel, demoted bit-exact with the decode
+    kernel on the clamped pages (f32 and bf16), within ATTN_TOL of the
+    plain version (f32); timed beside the decode kernel on the clamped
+    pages."""
+    from repro_torch.kernels.kv_attention import (
+        kv4_paged_decode_attention, kv_tiered_paged_decode_attention)
+    from repro_torch.kernels.ref import kv_tiered_paged_decode_attention_ref
+    b, kvh, g, hd, ps, n_s, n_pages = 8, 8, 4, 128, 16, 16, 160
+    kv4, tiered, clamped = demoted_pool(dev, gen, b, kvh, hd, ps, n_s,
+                                        n_pages)
+    pos = torch.tensor([0, 15, 16, 17, 100, 143, 255, 0], dtype=torch.int32,
+                       device=dev)
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(dt)
+        zeros = torch.zeros_like(kv4[-1])
+        all_kv4 = kv_tiered_paged_decode_attention(q, *kv4[:4], *tiered[4:8],
+                                                   kv4[-1], zeros, pos)
+        if not torch.equal(all_kv4, kv4_paged_decode_attention(q, *kv4,
+                                                               pos)):
+            raise AssertionError(f"tiered attention {dt}, all tier 0: not "
+                                 f"the decode kernel's bits")
+        args = (q, *tiered, pos)
+        got = kv_tiered_paged_decode_attention(*args)
+        if not torch.equal(got, kv4_paged_decode_attention(q, *clamped,
+                                                           pos)):
+            raise AssertionError(f"tiered attention {dt}, demoted pages: not "
+                                 f"the decode kernel's bits on the clamped "
+                                 f"pages")
+        if dt == torch.float32:
+            err = (got - kv_tiered_paged_decode_attention_ref(*args)
+                   ).abs().max().item()
+            if not err <= ATTN_TOL:
+                raise AssertionError(f"tiered attention: max err {err} > "
+                                     f"{ATTN_TOL}")
+            f32_args, dec_args = args, (q, *clamped, pos)
+    kms = time_ms(kv_tiered_paged_decode_attention, [f32_args], 200)
+    dec = time_ms(kv4_paged_decode_attention, [dec_args], 200)
+    pms = time_ms(kv_tiered_paged_decode_attention_ref, [f32_args], 20)
+    tiers = tiered[-1]
+    tok4 = tok2 = 0
+    for i, p in enumerate(pos.tolist()):
+        for j in range(min(p // ps, n_s - 1) + 1):
+            if tiers[i, j]:
+                tok2 += ps
+            else:
+                tok4 += ps
+    nbytes = (b * kvh * g * hd * 4 * 2 + tok4 * kvh * (hd // 2 + 4) * 2
+              + tok2 * kvh * (hd // 4 + 4) * 2 + 2 * b * n_s * 4 + b * 4)
+    flops = 4.0 * (tok4 + tok2) * kvh * g * hd
+    return {"name": "kv_tiered_paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/kv_attention.cu",
+            "replaces": "src/repro/kernels/kv_attention.py:366",
+            "max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "bound_ms": max(nbytes / peaks[0], flops / peaks[2]) * 1e3,
+            "bound_by": "bytes" if nbytes / peaks[0] >= flops / peaks[2]
+            else "operations", "library_ms": None,
+            "shape": f"B=8 KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q, "
+                     f"{tok2 // ps} of {(tok4 + tok2) // ps} pages read "
+                     f"from KV2 (decode kernel on the clamped pages: "
+                     f"{dec * 1e3:.1f} us)"}
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6: the engine
+# phases 4-8: the engine
 # ---------------------------------------------------------------------------
 
 def granite(dev, seed: int):
@@ -433,35 +665,71 @@ def granite(dev, seed: int):
     return cfg, params, prompts, time.perf_counter() - t0
 
 
-def serve_granite(dev, cfg, params, prompts, seed: int, spec_gamma: int = 0):
+def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
+                  **pool_kw):
     """One serve of the prompts through the Engine (``spec_gamma`` 0) or
     the SpeculativeEngine, launch counters zeroed just before and read
-    just after; then a shorter profiled run of the same engine shape."""
+    just after. ``pool_kw`` arms the KV2 ladder (PoolConfig
+    fields); the serve then also records the peak share of held KV bytes
+    that demotion reclaims (after every step) and the in-band share
+    (``page_msb_sparsity``) of each page just before its demotion, whose
+    reads are kept out of the demote phase's time."""
     from repro_torch import kernels
     from repro_torch.launch.serve import make_engine, run_requests
     eng = make_engine(cfg, params, **SERVE, page_size=16, token_budget=128,
                       prefill_chunk=32, decode_slots=8,
-                      spec_gamma=spec_gamma, device=dev)
+                      spec_gamma=spec_gamma, device=dev, **pool_kw)
+    pool, ladder = eng.pool, {"peak": 0.0, "spars": [], "spars_s": 0.0}
+    if pool.kv2_armed:
+        demote, step = pool.demote, eng.step
+
+        def measured_demote(owner, idx):
+            if not pool.tiers_of(owner)[idx] and pool.kv2_free:
+                t0 = time.perf_counter()
+                ladder["spars"].append(float(pool.page_msb_sparsity(
+                    [pool.pages_of(owner)[idx]])[0]))
+                ladder["spars_s"] += time.perf_counter() - t0
+            return demote(owner, idx)
+
+        def tracked_step():
+            out = step()
+            saved = pool.kv_bytes_saved()
+            if saved:
+                ladder["peak"] = max(ladder["peak"], saved / (
+                    saved + pool.kv_bytes_held()))
+            return out
+
+        pool.demote, eng.step = measured_demote, tracked_step
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     r = run_requests(eng, prompts, SERVE["gen"])
     counts = kernels.launch_counts()
+    lat = eng._m_step_lat
     r.update(layers=cfg.n_layers, d_model=cfg.d_model, launches=counts,
-             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             forwards={ph: lat.count(phase=ph) for ph in
+                       ("prefill", "decode", "draft", "verify")})
+    if pool.kv2_armed:
+        r["ladder"] = dict(
+            ladder, page_bytes=dict(pool._page_bytes),
+            demote_s=lat.sum(phase="demote") - ladder["spars_s"])
     if r["finished"] != SERVE["batch"] or any(
             len(s) != SERVE["gen"] for s in r["streams"]):
         raise AssertionError(f"unfinished requests: {r['streams']}")
     if any(not 0 <= t < cfg.vocab for s in r["streams"] for t in s):
         raise AssertionError("token outside the vocabulary")
-    path = (("sparqle_encode", "sparqle_matmul", "kv_attention")
-            + (("sparqle_matmul_draft", "kv_attention_verify")
-               if spec_gamma else ()))
-    if not all(counts[k] > 0 for k in path):
-        raise AssertionError(f"a kernel of the path was never launched: "
-                             f"{counts}")
-    r["profile"] = profile_engine(cfg, params, dev, seed, spec_gamma)
     del eng
     return r
+
+
+def check_path(r, need, absent=()):
+    """Raise unless every kernel in ``need`` launched and none in
+    ``absent`` did in the serve ``r``."""
+    counts = r["launches"]
+    if not all(counts[k] > 0 for k in need) or any(counts[k]
+                                                   for k in absent):
+        raise AssertionError(f"launches {counts}: need {need}, absent "
+                             f"{absent}")
 
 
 def row_count_dependence(dev, cfg, params):
@@ -537,6 +805,43 @@ def window_vs_decode(dev, cfg, params, seed: int):
     return {"logits_equal": logits_equal, "pages_equal": pages_equal}
 
 
+def with_mode(tree, mode: str):
+    """The served tree with every projection in ``mode`` ('dense' is the
+    W4A8 baseline): the same tensors on the card, no copy."""
+    import dataclasses
+    from repro_torch.core.qlinear import SparqleLinear
+    if isinstance(tree, dict):
+        return {k: with_mode(v, mode) for k, v in tree.items()}
+    if isinstance(tree, SparqleLinear):
+        return dataclasses.replace(tree, mode=mode)
+    return tree
+
+
+def dense_logits_equal(dev, cfg, params, dense, prompts):
+    """One 32-token prefill chunk, then one decode step (8 slots, slot 0
+    at position 32), through the SPARQLe and the dense tree of the same
+    weights at full depth: True per step when the logits are bit-equal."""
+    from repro_torch.launch import steps as S
+    from repro_torch.serving.kv_pool import PoolConfig, init_pool_state
+    n_s = 9
+    table = torch.zeros((8, n_s), dtype=torch.int32, device=dev)
+    table[0, :3] = torch.tensor([1, 2, 3])
+    toks = torch.tensor([prompts[0][:33]], dtype=torch.int32, device=dev)
+    token = torch.zeros((8,), dtype=torch.int32, device=dev)
+    token[0] = toks[0, 32]
+    pos = torch.zeros((8,), dtype=torch.int32, device=dev)
+    pos[0] = 32
+    out = []
+    for tree in (params, dense):
+        pool = init_pool_state(cfg, PoolConfig(n_pages=4, page_size=16), dev)
+        pl, _, _ = S.make_engine_prefill_chunk(cfg)(
+            tree, pool, toks[:, :32].contiguous(), 0, 32, table[:1])
+        dl, _, _ = S.make_engine_decode(cfg)(tree, pool, token, pos, table)
+        out.append((pl, dl[:1]))
+    (ps_, ds_), (pd, dd) = out
+    return {"prefill": torch.equal(ps_, pd), "decode": torch.equal(ds_, dd)}
+
+
 def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
     """Where the time goes: a shorter workload on the same engine shape
     (8 requests x 32 prompt tokens x 8 new) under torch.profiler (device
@@ -565,9 +870,12 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
     # device busy: the kernels' own rows only. An operator's row (say
     # aten::amax) carries the device time of the kernel it launched too,
     # so summing every row counts that time twice.
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in ka if e.device_type == DeviceType.CUDA)
+    rows = sorted(((e.key, getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0)),
+                    e.count) for e in ka
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    dev_us = sum(us for _, us, _ in rows)
     (OUT / f"profile_device{tag}.txt").write_text(ka.table(
         sort_by="self_cuda_time_total", row_limit=40))
     (OUT / f"profile_host{tag}.txt").write_text(ka.table(
@@ -579,9 +887,13 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
     buf = io.StringIO()
     pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(40)
     (OUT / f"profile_python{tag}.txt").write_text(buf.getvalue())
+    # device time by kernel: shares of the kernel rows' sum
+    by_kernel = [{"kernel": name[:80], "share": us / dev_us,
+                  "mean_us": us / n, "launches": n}
+                 for name, us, n in rows[:12]]
     return {"profiled_wall_s": r["wall_s"], "device_busy_s": dev_us / 1e6,
             "device_busy_share": dev_us / 1e6 / r["wall_s"],
-            "cprofiled_wall_s": r2["wall_s"]}
+            "cprofiled_wall_s": r2["wall_s"], "by_kernel": by_kernel}
 
 
 def cross_check(dev, seed: int):
@@ -666,7 +978,10 @@ def main() -> int:
     rows = [check_encoder(dev, gen, peaks), check_matmul(dev, gen, peaks),
             check_attention(dev, gen, peaks),
             check_draft_matmul(dev, gen, peaks),
-            check_verify_attention(dev, gen, peaks)]
+            check_verify_attention(dev, gen, peaks),
+            check_quantize(dev, gen, peaks),
+            check_dense_matmul(dev, gen, peaks),
+            check_tiered_attention(dev, gen, peaks)]
     for r in rows:
         log(f"[3] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
             f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
@@ -679,27 +994,32 @@ def main() -> int:
                "kv4_paged_decode_attention": ("kv_attention", "base"),
                "sparqle_matmul_draft": ("sparqle_matmul_draft", "spec"),
                "kv4_paged_verify_attention": ("kv_attention_verify",
-                                              "spec")}
+                                              "spec"),
+               "sparqle_quantize": ("sparqle_quantize", "dense"),
+               "quant_matmul": ("quant_matmul", "dense"),
+               "kv_tiered_paged_decode_attention": ("kv_attention_tiered",
+                                                    "kv2")}
     if not args.kernels_only:
         cfg, params, prompts, t_build = granite(dev, args.seed)
-        eng = serve_granite(dev, cfg, params, prompts, args.seed)
+        # every serve runs before any profiler: a profiled run leaves the
+        # process slower on the host (phase 8 measures by how much)
+        eng = serve_granite(dev, cfg, params, prompts)
+        check_path(eng, ("sparqle_encode", "sparqle_matmul", "kv_attention"))
         log(f"[4] granite-8b {eng['layers']}L d={eng['d_model']}: "
             f"{eng['requests']} requests, {eng['tokens']} tokens, "
             f"{eng['tokens_per_s']:.1f} tok/s, TTFT mean "
             f"{eng['ttft_mean_s'] * 1e3:.1f} ms, TPOT mean "
             f"{eng['tpot_mean_s'] * 1e3:.2f} ms, {eng['steps']} steps, "
             f"launches {eng['launches']}, weights built in "
-            f"{t_build:.1f} s, peak {eng['peak_mem_gb']:.1f} GB; "
-            f"profiled rerun: device busy {eng['profile']['device_busy_s']:.3f}"
-            f" s of {eng['profile']['profiled_wall_s']:.2f} s wall")
-        spec = serve_granite(dev, cfg, params, prompts, args.seed,
-                             spec_gamma=SPEC_GAMMA)
+            f"{t_build:.1f} s, peak {eng['peak_mem_gb']:.1f} GB")
+        spec = serve_granite(dev, cfg, params, prompts, spec_gamma=SPEC_GAMMA)
+        check_path(spec, ("sparqle_encode", "sparqle_matmul", "kv_attention",
+                          "sparqle_matmul_draft", "kv_attention_verify"))
         spec["row_count_dependence"] = row_count_dependence(dev, cfg, params)
         spec["window_vs_decode"] = window_vs_decode(dev, cfg, params,
                                                     args.seed)
         same = [a == b for a, b in zip(spec["streams"], eng["streams"])]
         agg = spec["aggregate"]
-        prof = spec["profile"]
         log(f"[5] granite-8b {spec['layers']}L speculative gamma="
             f"{SPEC_GAMMA}: acceptance {agg['spec_acceptance_rate']:.4f}, "
             f"{agg['spec_tokens_per_step']:.3f} tokens/cycle, TPOT mean "
@@ -709,9 +1029,7 @@ def main() -> int:
             f"{eng['tokens_per_s']:.1f}), {spec['steps']} steps, greedy "
             f"streams equal to phase 4: {sum(same)}/{len(same)}, launches "
             f"{spec['launches']}, peak {spec['peak_mem_gb']:.1f} GB; "
-            f"profiled rerun: device busy {prof['device_busy_s']:.3f} s of "
-            f"{prof['profiled_wall_s']:.2f} s wall (idle "
-            f"{1 - prof['device_busy_share']:.3f}); elements that change "
+            f"elements that change "
             f"when B rows run inside a {SPEC_GAMMA + 1}B-row call: "
             f"{spec['row_count_dependence']}; one verify window vs "
             f"{SPEC_GAMMA + 1} decode steps at {cfg.n_layers}L: "
@@ -723,25 +1041,112 @@ def main() -> int:
             raise AssertionError(f"speculative greedy streams differ from "
                                  f"the base engine's: {spec['streams']} vs "
                                  f"{eng['streams']}")
-        del params
+        # phase 6: the KV2 precision ladder, armed but idle, then an
+        # aggressive cold sweep (bench_serving.py's serving_kv2 settings)
+        n_pages = 1 + 8 * math.ceil((SERVE["prompt_len"] + SERVE["gen"])
+                                    / 16)
+        idle = serve_granite(dev, cfg, params, prompts, kv2_pages=n_pages,
+                             demote_after_steps=10**9)
+        kv2 = serve_granite(dev, cfg, params, prompts, kv2_pages=n_pages,
+                            demote_after_steps=1, demote_min_sparsity=0.0)
+        lad = kv2["ladder"]
+        per_page = lad["page_bytes"][0] - lad["page_bytes"][1]
+        agg2 = kv2["aggregate"]
+        same_idle = [a == b for a, b in zip(idle["streams"], eng["streams"])]
+        same_kv2 = [a == b for a, b in zip(kv2["streams"], eng["streams"])]
+        spars = lad["spars"]
+        log(f"[6] granite-8b {kv2['layers']}L KV2 ladder ({n_pages} KV2 "
+            f"pages): armed idle - {idle['aggregate']['pool_demotions']} "
+            f"demotions, streams equal to phase 4: "
+            f"{sum(same_idle)}/{len(same_idle)}, launches "
+            f"{idle['launches']}; aggressive sweep - "
+            f"{agg2['pool_demotions']} demotions, "
+            f"{agg2['pool_promotions']} promotions, kv_bytes_reclaimed "
+            f"{agg2['kv_bytes_reclaimed']} ({per_page} B a page), peak "
+            f"{lad['peak'] * 100:.2f}% of held KV bytes reclaimed, demote "
+            f"phase {lad['demote_s']:.3f} s over {kv2['steps']} steps, mean "
+            f"in-band share of the pages demoted "
+            f"{sum(spars) / max(len(spars), 1):.4f} (min "
+            f"{min(spars, default=0):.4f}, max {max(spars, default=0):.4f}), "
+            f"streams equal to phase 4: {sum(same_kv2)}/{len(same_kv2)}, "
+            f"TPOT mean {kv2['tpot_mean_s'] * 1e3:.2f} ms (idle "
+            f"{idle['tpot_mean_s'] * 1e3:.2f}, base "
+            f"{eng['tpot_mean_s'] * 1e3:.2f}), launches {kv2['launches']}")
+        for run in (idle, kv2):
+            check_path(run, ("sparqle_encode", "sparqle_matmul",
+                             "kv_attention_tiered"), ("kv_attention",))
+            if run["launches"]["kv_attention_tiered"] != \
+                    cfg.n_layers * run["forwards"]["decode"]:
+                raise AssertionError("tiered attention launches != layers "
+                                     "x decode steps")
+        if idle["aggregate"]["pool_demotions"] or not all(same_idle):
+            raise AssertionError("the armed-idle ladder demoted or changed "
+                                 "a stream")
+        if not agg2["pool_demotions"] or agg2["kv_bytes_reclaimed"] != \
+                agg2["pool_demotions"] * per_page:
+            raise AssertionError(f"KV2 sweep: {agg2}")
+        # phase 7: the dense W4A8 baseline on the same int4 weights
+        dense = with_mode(params, "dense")
+        dn = serve_granite(dev, cfg, dense, prompts)
+        dn["logits_equal"] = dense_logits_equal(dev, cfg, params, dense,
+                                                prompts)
+        fw = dn["forwards"]["prefill"] + dn["forwards"]["decode"]
+        same_dn = [a == b for a, b in zip(dn["streams"], eng["streams"])]
+        log(f"[7] granite-8b {dn['layers']}L dense W4A8: streams equal to "
+            f"phase 4: {sum(same_dn)}/{len(same_dn)}, logits bit-equal to "
+            f"SPARQLe at {cfg.n_layers}L: {dn['logits_equal']}, TTFT mean "
+            f"{dn['ttft_mean_s'] * 1e3:.1f} ms (SPARQLe "
+            f"{eng['ttft_mean_s'] * 1e3:.1f}), TPOT mean "
+            f"{dn['tpot_mean_s'] * 1e3:.2f} ms (SPARQLe "
+            f"{eng['tpot_mean_s'] * 1e3:.2f}), {dn['tokens_per_s']:.1f} "
+            f"tok/s (SPARQLe {eng['tokens_per_s']:.1f}), {fw} forwards, "
+            f"launches {dn['launches']}")
+        check_path(dn, ("sparqle_quantize", "quant_matmul", "kv_attention"),
+                   ("sparqle_encode", "sparqle_matmul"))
+        if dn["launches"]["quant_matmul"] != 252 * fw:
+            raise AssertionError("dense matmul launches != 252 per forward")
+        if not all(same_dn) or not all(dn["logits_equal"].values()):
+            raise AssertionError("the dense serve differs from SPARQLe")
+        # phase 8: where the time goes, then the base serve once more
+        eng["profile"] = profile_engine(cfg, params, dev, args.seed)
+        spec["profile"] = profile_engine(cfg, params, dev, args.seed,
+                                         SPEC_GAMMA)
+        after = serve_granite(dev, cfg, params, prompts)
+        split = ", ".join(f"{k['kernel'][:40]} {k['share'] * 100:.1f}% "
+                          f"({k['mean_us']:.1f} us x {k['launches']})"
+                          for k in eng["profile"]["by_kernel"][:8])
+        prof = spec["profile"]
+        log(f"[8] profiled reruns (8 requests x 32 prompt x 8 new): base "
+            f"device busy {eng['profile']['device_busy_s']:.3f} s of "
+            f"{eng['profile']['profiled_wall_s']:.2f} s wall, by kernel: "
+            f"{split}; speculative device busy {prof['device_busy_s']:.3f} "
+            f"s of {prof['profiled_wall_s']:.2f} s wall (idle "
+            f"{1 - prof['device_busy_share']:.3f}); phase 4's serve after "
+            f"the profilers: {after['wall_s']:.2f} s wall, TPOT mean "
+            f"{after['tpot_mean_s'] * 1e3:.2f} ms (phase 4: "
+            f"{eng['wall_s']:.2f} s, {eng['tpot_mean_s'] * 1e3:.2f} ms), "
+            f"streams equal: {after['streams'] == eng['streams']}")
+        del params, dense
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         xc = [cross_check(dev, args.seed + i) for i in range(XC_SEEDS)]
         worst = max(xc, key=lambda r: r["rel_err"])
-        log(f"[6] cross-check granite width 2L f32 cuda vs cpu, "
+        log(f"[9] cross-check granite width 2L f32 cuda vs cpu, "
             f"{XC_SEEDS} seeds: worst max |dlogit| "
             f"{worst['max_abs_logit_err']:.3g} of max |logit| "
             f"{worst['max_abs_logit']:.3g} ({worst['rel_err']:.3g} rel, "
             f"tol {LOGIT_TOL} rel), greedy tokens "
             f"{', '.join(r['greedy_match'] for r in xc)}, "
             f"{time.perf_counter() - t0:.1f} s")
-        runs = {"base": eng, "spec": spec}
-        detail.update(engine={k: v for k, v in eng.items()
-                              if k != "aggregate"},
-                      spec_engine={k: v for k, v in spec.items()
-                                   if k != "aggregate"},
+        runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn}
+        strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
+                           if k != "aggregate"}
+        detail.update(engine=strip(eng), spec_engine=strip(spec),
                       spec_aggregate={k: v for k, v in agg.items()
                                       if k.startswith(("spec_", "steps"))},
+                      kv2_idle=strip(idle), kv2_engine=strip(kv2),
+                      kv2_aggregate=agg2, dense_engine=strip(dn),
+                      after_profilers=strip(after),
                       cross_check=xc, build_s=t_build)
         for r in rows:
             key, phase = counter[r["name"]]

@@ -33,7 +33,8 @@ import torch
 from repro_torch.core.clipping import importance_mask_tile_aligned
 from repro_torch.core.quantize import (QuantizedTensor, activation_scale,
                                        quantize_weights)
-from repro_torch.kernels.sparqle_encode import sparqle_encode
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.sparqle_encode import sparqle_encode, sparqle_quantize
 from repro_torch.kernels.sparqle_matmul import sparqle_matmul
 
 
@@ -147,28 +148,33 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
 
 def _quantized_apply(x: torch.Tensor, sl: SparqleLinear) -> torch.Tensor:
     """per-token scale -> encode (quantize, clip, split) -> dual pass
-    (LSB pass alone under :func:`msb_skip_scope`) -> rescale, through
-    the kernel wrappers."""
-    if sl.mode != "sparqle":
-        raise NotImplementedError(f"mode={sl.mode!r}: only the sparqle "
-                                  f"mode is ported")
+    (LSB pass alone under :func:`msb_skip_scope`) -> rescale, or in dense
+    mode quantize + clip -> single pass -> rescale, through the kernel
+    wrappers."""
+    if sl.mode not in ("sparqle", "dense"):
+        raise ValueError(f"mode={sl.mode!r}: expected 'sparqle' or 'dense'")
     if sl.w.q.ndim != 2:
         raise NotImplementedError("batched (expert) projections")
     if not sl.packed:
         raise NotImplementedError(
-            f"unpacked {sl.w.bits}-bit weight: the dual-pass matmul takes "
-            f"only int4 weights packed two per byte along K (pack_int4)")
+            f"unpacked {sl.w.bits}-bit weight: the W4A8 matmuls take only "
+            f"int4 weights packed two per byte along K (pack_int4)")
     orig = x.shape
     x2 = x.reshape(-1, orig[-1]).contiguous()
     scale = activation_scale(x2).float()
     clip = sl.col_mask is not None and sl.l is not None
-    lsb, msb, _, pop = sparqle_encode(
-        x2, scale, sl.col_mask if clip else None,
-        int(sl.l) if clip else 0, int(sl.h) if clip else 0, with_pbm=False)
+    clip_args = (sl.col_mask if clip else None, int(sl.l) if clip else 0,
+                 int(sl.h) if clip else 0)
     n = sl.w.q.shape[-1]
-    out = sparqle_matmul(lsb, msb, pop, sl.w.q, scale,
-                         sl.w.scale.reshape(1, n).float(),
-                         msb_skip=_MSB_SKIP)
+    w_scale = sl.w.scale.reshape(1, n).float()
+    if sl.mode == "dense":
+        q = sparqle_quantize(x2, scale, *clip_args)
+        out = quant_matmul(q, sl.w.q, scale, w_scale)
+    else:
+        lsb, msb, _, pop = sparqle_encode(x2, scale, *clip_args,
+                                          with_pbm=False)
+        out = sparqle_matmul(lsb, msb, pop, sl.w.q, scale, w_scale,
+                             msb_skip=_MSB_SKIP)
     return out.reshape(*orig[:-1], n).to(x.dtype)
 
 

@@ -26,6 +26,27 @@
 // order, for every query. Each (b, h, t) block reloads the pages it
 // reads (sharing them across t is later work, and must keep this
 // per-query order).
+//
+// The tiered kernel replaces `kv_tiered_paged_decode_attention`
+// (`_tiered_paged_kernel`, `_dequant2_block`, `_unpack2`): the decode
+// kernel plus a per-page tier table. Page `step` of a sequence comes
+// from the KV2 slab (P2, ps, KVH, hd/4) -- four signed 2-bit fields per
+// byte, field i of byte j = element 4j+i -- when its tier id is 1, else
+// from the KV4 slab; only the slab the tier names is read (the Pallas
+// index maps also DMA the other slab's null page, because every grid
+// step must name a block). The dequantized page lands in the same
+// shared-memory rows as a KV4 page and the rest of the body is the same
+// source: the body is a template on TIERED, and the tiered kernel runs
+// its TIERED instance, the decode and verify kernels the other. The two
+// instances do the same float operations in the same order, so an
+// all-tier-0 call is bit-exact with the decode kernel and a demoted
+// page gives the bits of its clamped KV4 image (both held on the card).
+// One instance with a run-time tier test (null table for decode and
+// verify) slowed those two kernels by 8-9% on an H100
+// (`tools/ab_kernels.py`): its page loop is latency-bound, and the test
+// changed how it compiled. Bound: bytes,
+// each page read once at its tier's width ((hd/2 + 4) * 2 bytes per
+// token and head for KV4, (hd/4 + 4) * 2 for KV2).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -34,15 +55,43 @@
 #define NEG_INF (-2.0e38f)
 #define THREADS 128
 
+// KV2 page `page` dequantized into the shared-memory rows of a KV4 page:
+// k_s (PS, HD+1), v_s (PS, HD). A byte holds four signed 2-bit fields,
+// field f of byte j being element 4j+f.
+__device__ __noinline__ void load_kv2_page(
+    const int8_t* __restrict__ k2_pages, const float* __restrict__ k2_scale,
+    const int8_t* __restrict__ v2_pages, const float* __restrict__ v2_scale,
+    long page, float* k_s, float* v_s, int KVH, int h, int HD, int PS) {
+  const int KP = HD + 1, HQ = HD / 4;
+  for (int i = threadIdx.x; i < PS * HQ; i += blockDim.x) {
+    const int t = i / HQ, j = i % HQ;
+    const long tok = (page * PS + t) * KVH + h;
+    const uint8_t kb = (uint8_t)k2_pages[tok * HQ + j];
+    const uint8_t vb = (uint8_t)v2_pages[tok * HQ + j];
+    const float ks = k2_scale[tok], vs = v2_scale[tok];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      // field f sign-extended: (int8)(b << (6 - 2f)) >> 6
+      k_s[t * KP + 4 * j + f] = (float)((int8_t)(kb << (6 - 2 * f)) >> 6) * ks;
+      v_s[t * HD + 4 * j + f] = (float)((int8_t)(vb << (6 - 2 * f)) >> 6) * vs;
+    }
+  }
+}
+
 // One query group (the G heads of KV head h) at absolute position p over
 // the pages named by `table` (NS entries); q and out at element offset
-// qbase, (G, HD) each.
+// qbase, (G, HD) each. TIERED: `tiers` (NS entries) sends a tier-1 page
+// to the KV2 slab k2_pages/k2_scale/v2_* (not read otherwise).
+template <bool TIERED>
 __device__ __noinline__ void paged_attention_query(
     const void* __restrict__ q, int q_bf16, long qbase,
     const int8_t* __restrict__ k_pages, const float* __restrict__ k_scale,
     const int8_t* __restrict__ v_pages, const float* __restrict__ v_scale,
-    const int32_t* __restrict__ table, int p, void* __restrict__ out,
-    int KVH, int h, int G, int HD, int PS, int NS, float scale) {
+    const int8_t* __restrict__ k2_pages, const float* __restrict__ k2_scale,
+    const int8_t* __restrict__ v2_pages, const float* __restrict__ v2_scale,
+    const int32_t* __restrict__ table, const int32_t* __restrict__ tiers,
+    int p, void* __restrict__ out, int KVH, int h, int G, int HD, int PS,
+    int NS, float scale) {
   extern __shared__ float smem[];
   const int KP = HD + 1;                      // padded K row: no conflicts
   float* q_s = smem;                          // [G][HD]
@@ -68,16 +117,21 @@ __device__ __noinline__ void paged_attention_query(
 
   for (int step = 0; step <= last; ++step) {
     const long page = table[step];
-    for (int i = tid; i < PS * HP; i += blockDim.x) {
-      const int t = i / HP, j = i % HP;
-      const long tok = (page * PS + t) * KVH + h;
-      const int8_t kb = k_pages[tok * HP + j], vb = v_pages[tok * HP + j];
-      const float ks = k_scale[tok], vs = v_scale[tok];
-      // two's-complement nibbles: (x << 4) >> 4 and x >> 4 sign-extend
-      k_s[t * KP + 2 * j] = (float)((int8_t)((uint8_t)kb << 4) >> 4) * ks;
-      k_s[t * KP + 2 * j + 1] = (float)(kb >> 4) * ks;
-      v_s[t * HD + 2 * j] = (float)((int8_t)((uint8_t)vb << 4) >> 4) * vs;
-      v_s[t * HD + 2 * j + 1] = (float)(vb >> 4) * vs;
+    if (TIERED && tiers[step] == 1) {
+      load_kv2_page(k2_pages, k2_scale, v2_pages, v2_scale, page, k_s, v_s,
+                    KVH, h, HD, PS);
+    } else {
+      for (int i = tid; i < PS * HP; i += blockDim.x) {
+        const int t = i / HP, j = i % HP;
+        const long tok = (page * PS + t) * KVH + h;
+        const int8_t kb = k_pages[tok * HP + j], vb = v_pages[tok * HP + j];
+        const float ks = k_scale[tok], vs = v_scale[tok];
+        // two's-complement nibbles: (x << 4) >> 4 and x >> 4 sign-extend
+        k_s[t * KP + 2 * j] = (float)((int8_t)((uint8_t)kb << 4) >> 4) * ks;
+        k_s[t * KP + 2 * j + 1] = (float)(kb >> 4) * ks;
+        v_s[t * HD + 2 * j] = (float)((int8_t)((uint8_t)vb << 4) >> 4) * vs;
+        v_s[t * HD + 2 * j + 1] = (float)(vb >> 4) * vs;
+      }
     }
     __syncthreads();
     for (int i = tid; i < G * PS; i += blockDim.x) {
@@ -120,45 +174,58 @@ __device__ __noinline__ void paged_attention_query(
   }
 }
 
+// Every kernel takes the same arguments: the KV2 slab and the tier table
+// are read by the tiered kernel only (null for the others).
+#define PAGED_ARGS                                                         \
+    const void* __restrict__ q, int q_bf16,                                \
+    const int8_t* __restrict__ k_pages, const float* __restrict__ k_scale, \
+    const int8_t* __restrict__ v_pages, const float* __restrict__ v_scale, \
+    const int8_t* __restrict__ k2_pages,                                   \
+    const float* __restrict__ k2_scale,                                    \
+    const int8_t* __restrict__ v2_pages,                                   \
+    const float* __restrict__ v2_scale,                                    \
+    const int32_t* __restrict__ tables, const int32_t* __restrict__ tiers, \
+    const int32_t* __restrict__ pos, void* __restrict__ out, int KVH,      \
+    int G, int HD, int PS, int NS, float scale
+
 // grid (KVH, B): q/out (B, KVH, G, HD), query position pos[b].
-__global__ void kv4_paged_decode_kernel(
-    const void* __restrict__ q, int q_bf16,
-    const int8_t* __restrict__ k_pages, const float* __restrict__ k_scale,
-    const int8_t* __restrict__ v_pages, const float* __restrict__ v_scale,
-    const int32_t* __restrict__ tables, const int32_t* __restrict__ pos,
-    void* __restrict__ out, int KVH, int G, int HD, int PS, int NS,
-    float scale) {
+__global__ void kv4_paged_decode_kernel(PAGED_ARGS) {
   const int b = blockIdx.y, h = blockIdx.x;
-  paged_attention_query(q, q_bf16, ((long)b * KVH + h) * G * HD, k_pages,
-                        k_scale, v_pages, v_scale, tables + (long)b * NS,
-                        pos[b], out, KVH, h, G, HD, PS, NS, scale);
+  paged_attention_query<false>(
+      q, q_bf16, ((long)b * KVH + h) * G * HD, k_pages, k_scale, v_pages,
+      v_scale, nullptr, nullptr, nullptr, nullptr, tables + (long)b * NS,
+      nullptr, pos[b], out, KVH, h, G, HD, PS, NS, scale);
 }
 
 // grid (KVH, B, T): q/out (B, T, KVH, G, HD), query position pos[b] + t.
-__global__ void kv4_paged_verify_kernel(
-    const void* __restrict__ q, int q_bf16,
-    const int8_t* __restrict__ k_pages, const float* __restrict__ k_scale,
-    const int8_t* __restrict__ v_pages, const float* __restrict__ v_scale,
-    const int32_t* __restrict__ tables, const int32_t* __restrict__ pos,
-    void* __restrict__ out, int KVH, int G, int HD, int PS, int NS,
-    float scale) {
+__global__ void kv4_paged_verify_kernel(PAGED_ARGS) {
   const int b = blockIdx.y, h = blockIdx.x, t = blockIdx.z, T = gridDim.z;
-  paged_attention_query(q, q_bf16, (((long)b * T + t) * KVH + h) * G * HD,
-                        k_pages, k_scale, v_pages, v_scale,
-                        tables + (long)b * NS, pos[b] + t, out, KVH, h, G,
-                        HD, PS, NS, scale);
+  paged_attention_query<false>(
+      q, q_bf16, (((long)b * T + t) * KVH + h) * G * HD, k_pages, k_scale,
+      v_pages, v_scale, nullptr, nullptr, nullptr, nullptr,
+      tables + (long)b * NS, nullptr, pos[b] + t, out, KVH, h, G, HD, PS, NS,
+      scale);
 }
 
-typedef void (*attention_kernel)(const void*, int, const int8_t*,
-                                 const float*, const int8_t*, const float*,
-                                 const int32_t*, const int32_t*, void*, int,
-                                 int, int, int, int, float);
+// grid (KVH, B): the decode kernel with tier table tiers (B, NS).
+__global__ void kv_tiered_paged_decode_kernel(PAGED_ARGS) {
+  const int b = blockIdx.y, h = blockIdx.x;
+  paged_attention_query<true>(
+      q, q_bf16, ((long)b * KVH + h) * G * HD, k_pages, k_scale, v_pages,
+      v_scale, k2_pages, k2_scale, v2_pages, v2_scale, tables + (long)b * NS,
+      tiers + (long)b * NS, pos[b], out, KVH, h, G, HD, PS, NS, scale);
+}
+
+typedef void (*attention_kernel)(PAGED_ARGS);
 
 static int launch(attention_kernel kernel, dim3 grid, const void* q,
                   int q_bf16, const void* k_pages, const void* k_scale,
                   const void* v_pages, const void* v_scale,
-                  const void* tables, const void* pos, void* out, int KVH,
-                  int G, int HD, int PS, int NS, void* stream) {
+                  const void* k2_pages, const void* k2_scale,
+                  const void* v2_pages, const void* v2_scale,
+                  const void* tables, const void* tiers, const void* pos,
+                  void* out, int KVH, int G, int HD, int PS, int NS,
+                  void* stream) {
   const size_t smem = sizeof(float) *
       ((size_t)G * HD * 2 + (size_t)PS * (HD + 1) + (size_t)PS * HD +
        (size_t)G * PS + 3 * (size_t)G);
@@ -169,7 +236,9 @@ static int launch(attention_kernel kernel, dim3 grid, const void* q,
   }
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       q, q_bf16, (const int8_t*)k_pages, (const float*)k_scale,
-      (const int8_t*)v_pages, (const float*)v_scale, (const int32_t*)tables,
+      (const int8_t*)v_pages, (const float*)v_scale, (const int8_t*)k2_pages,
+      (const float*)k2_scale, (const int8_t*)v2_pages,
+      (const float*)v2_scale, (const int32_t*)tables, (const int32_t*)tiers,
       (const int32_t*)pos, out, KVH, G, HD, PS, NS,
       (float)pow((double)HD, -0.5));
   return (int)cudaGetLastError();
@@ -181,8 +250,8 @@ extern "C" int kv4_paged_decode_launch(
     const void* pos, void* out, int B, int KVH, int G, int HD, int PS,
     int NS, void* stream) {
   return launch(kv4_paged_decode_kernel, dim3(KVH, B), q, q_bf16, k_pages,
-                k_scale, v_pages, v_scale, tables, pos, out, KVH, G, HD, PS,
-                NS, stream);
+                k_scale, v_pages, v_scale, nullptr, nullptr, nullptr, nullptr,
+                tables, nullptr, pos, out, KVH, G, HD, PS, NS, stream);
 }
 
 extern "C" int kv4_paged_verify_launch(
@@ -191,6 +260,19 @@ extern "C" int kv4_paged_verify_launch(
     const void* pos, void* out, int B, int T, int KVH, int G, int HD,
     int PS, int NS, void* stream) {
   return launch(kv4_paged_verify_kernel, dim3(KVH, B, T), q, q_bf16,
-                k_pages, k_scale, v_pages, v_scale, tables, pos, out, KVH,
-                G, HD, PS, NS, stream);
+                k_pages, k_scale, v_pages, v_scale, nullptr, nullptr,
+                nullptr, nullptr, tables, nullptr, pos, out, KVH, G, HD, PS,
+                NS, stream);
+}
+
+extern "C" int kv_tiered_paged_decode_launch(
+    const void* q, int q_bf16, const void* k_pages, const void* k_scale,
+    const void* v_pages, const void* v_scale, const void* k2_pages,
+    const void* k2_scale, const void* v2_pages, const void* v2_scale,
+    const void* tables, const void* tiers, const void* pos, void* out,
+    int B, int KVH, int G, int HD, int PS, int NS, void* stream) {
+  return launch(kv_tiered_paged_decode_kernel, dim3(KVH, B), q, q_bf16,
+                k_pages, k_scale, v_pages, v_scale, k2_pages, k2_scale,
+                v2_pages, v2_scale, tables, tiers, pos, out, KVH, G, HD, PS,
+                NS, stream);
 }

@@ -15,6 +15,14 @@
 // Design: one block per (TILE_M x TILE_K) tile, so the tile's
 // population is a block reduction in shared memory with no atomics to
 // device memory; each thread handles 8 consecutive elements of one row.
+//
+// The quantize-only entry `sparqle_quantize_launch` is the `_quantize`
+// step of the same Pallas kernel without the split: it writes the
+// clipped int8 activation q (one plane, no populations), which the
+// dense W4A8 baseline's single-pass matmul reads. Both kernels call one
+// per-element device function, so its q equals 16 * msb + lsb of the
+// full encoder bit for bit. Bound: bytes (x read once, 1 B/elem out);
+// one thread per 8 consecutive elements of a row.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -29,6 +37,27 @@ __device__ __forceinline__ float load_x(const void* x, long idx, int bf16) {
     return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[idx]);
   }
   return reinterpret_cast<const float*>(x)[idx];
+}
+
+// round(x / s) clipped to int8, then the serve-time clip on a masked
+// column: [l, 0) -> 0, (15, h] -> 15.
+__device__ __forceinline__ int quantize_clip(float xv, float s, int x_bf16,
+                                             bool masked, int clip_l,
+                                             int clip_h) {
+  float v = __fdiv_rn(xv, s);
+  if (x_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+  v = fminf(fmaxf(rintf(v), -128.0f), 127.0f);
+  int q = (int)v;
+  if (masked) {
+    if (q >= clip_l && q < 0) q = 0;
+    else if (q > 15 && q <= clip_h) q = 15;
+  }
+  return q;
+}
+
+__device__ __forceinline__ float row_scale(const float* scale, int m) {
+  const float s = scale[m];
+  return fabsf(s) < 1.17549435e-38f ? 1.0f : s;   // f32 tiny: degenerate
 }
 
 __global__ void sparqle_encode_kernel(
@@ -46,21 +75,15 @@ __global__ void sparqle_encode_kernel(
 
   int local = 0;
   if (m < M) {
-    float s = scale[m];
-    if (fabsf(s) < 1.17549435e-38f) s = 1.0f;   // f32 tiny: degenerate row
+    const float s = row_scale(scale, m);
 #pragma unroll
     for (int i = 0; i < PER_THREAD; ++i) {
       const int k = kt * TILE_K + c0 + i;
       if (k >= K) break;
       const long idx = (long)m * K + k;
-      float v = __fdiv_rn(load_x(x, idx, x_bf16), s);
-      if (x_bf16) v = __bfloat162float(__float2bfloat16_rn(v));
-      v = fminf(fmaxf(rintf(v), -128.0f), 127.0f);
-      int q = (int)v;
-      if (col_mask != nullptr && col_mask[k]) {
-        if (q >= clip_l && q < 0) q = 0;
-        else if (q > 15 && q <= clip_h) q = 15;
-      }
+      const int q = quantize_clip(load_x(x, idx, x_bf16), s, x_bf16,
+                                  col_mask != nullptr && col_mask[k],
+                                  clip_l, clip_h);
       const int hi = q >> 4;        // arithmetic shift: sign-extends
       lsb[idx] = (int8_t)(q & 0xF);
       msb[idx] = (int8_t)hi;
@@ -76,6 +99,25 @@ __global__ void sparqle_encode_kernel(
   if (threadIdx.x == 0) pop[mt * gridDim.x + kt] = count;
 }
 
+// q (M, K) int8 only; grid (ceil(K / (PER_THREAD * THREADS)), M).
+__global__ void sparqle_quantize_kernel(
+    const void* __restrict__ x, int x_bf16, const float* __restrict__ scale,
+    const uint8_t* __restrict__ col_mask, int clip_l, int clip_h,
+    int8_t* __restrict__ q, int K) {
+  const int m = blockIdx.y;
+  const int k0 = (blockIdx.x * THREADS + threadIdx.x) * PER_THREAD;
+  const float s = row_scale(scale, m);
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const int k = k0 + i;
+    if (k >= K) break;
+    const long idx = (long)m * K + k;
+    q[idx] = (int8_t)quantize_clip(load_x(x, idx, x_bf16), s, x_bf16,
+                                   col_mask != nullptr && col_mask[k],
+                                   clip_l, clip_h);
+  }
+}
+
 extern "C" int sparqle_encode_launch(
     const void* x, int x_bf16, const void* scale, const void* col_mask,
     int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
@@ -84,5 +126,16 @@ extern "C" int sparqle_encode_launch(
   sparqle_encode_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       x, x_bf16, (const float*)scale, (const uint8_t*)col_mask, clip_l,
       clip_h, (int8_t*)lsb, (int8_t*)msb, (uint8_t*)pbm, (int32_t*)pop, M, K);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sparqle_quantize_launch(
+    const void* x, int x_bf16, const void* scale, const void* col_mask,
+    int clip_l, int clip_h, void* q, int M, int K, void* stream) {
+  const int per_block = PER_THREAD * THREADS;
+  dim3 grid((K + per_block - 1) / per_block, M);
+  sparqle_quantize_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      x, x_bf16, (const float*)scale, (const uint8_t*)col_mask, clip_l,
+      clip_h, (int8_t*)q, K);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,20 @@
 """Hand-written Hopper kernels of the serving path, each beside its plain
 PyTorch version (``ref.py``) and a launch counter.
 
-  * sparqle_encode — quantize, clip and split into LSB4/MSB4/PBM planes
+  * sparqle_encode — quantize, clip and split into LSB4/MSB4/PBM planes,
+    and its quantize-only form (one int8 plane, for the dense baseline)
   * sparqle_matmul — dual-pass W4A8 matmul on pack_int4 weights, and its
     LSB4-only draft form (``msb_skip``)
-  * kv_attention   — paged packed-KV4 flash-decode attention, and the
-    multi-token verify window of speculative decoding
+  * quant_matmul   — the dense single-pass W4A8 baseline matmul
+  * kv_attention   — paged packed-KV4 flash-decode attention, the
+    multi-token verify window of speculative decoding, and the mixed
+    KV4/KV2 tier decode of the precision ladder
 """
-from repro_torch.kernels import kv_attention, sparqle_encode, sparqle_matmul
+from repro_torch.kernels import (kv_attention, quant_matmul, sparqle_encode,
+                                 sparqle_matmul)
 from repro_torch.kernels._build import (KERNELS, build_all, launch_counts,
                                         reset_launch_counts)
 
 __all__ = ["KERNELS", "build_all", "kv_attention", "launch_counts",
-           "reset_launch_counts", "sparqle_encode", "sparqle_matmul"]
+           "quant_matmul", "reset_launch_counts", "sparqle_encode",
+           "sparqle_matmul"]

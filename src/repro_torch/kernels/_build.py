@@ -3,8 +3,9 @@
 Each source is a plain-C-interface CUDA file compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library under ``<repo>/build/kernels/``
 (listed in ``.gitignore``) at first use, and loaded with ``ctypes``. The
-library name carries a hash of the source, so an edited kernel is never
-served from a stale build. :func:`build_all` compiles every source in
+library name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is never served from a stale
+build. :func:`build_all` compiles every source in
 parallel (one ``nvcc`` each) — what a fresh machine pays once.
 
 Every C entry point takes raw pointers and the CUDA stream as ``void*``,
@@ -66,9 +67,11 @@ class Kernel:
         self._fn = None
 
     def lib_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:12]
+        h = hashlib.sha256(self.source.read_bytes()
+                           + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:12]
         return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:

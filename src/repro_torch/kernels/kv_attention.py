@@ -12,13 +12,22 @@ shared memory, and stops at the page holding ``pos``.
 ``kv4_paged_verify_attention`` replaces the Pallas
 ``kv4_paged_verify_attention`` (``_paged_verify_kernel``): the T-token
 window of speculative verification, grid (KVH, B, T), window token t at
-query position ``pos + t``. Both kernels call one compiled device
-function for the body of a query, so the verify output is bit-exact
-with T calls of the decode kernel, as the Pallas kernels are.
+query position ``pos + t``. ``kv_tiered_paged_decode_attention``
+replaces the Pallas ``kv_tiered_paged_decode_attention``
+(``_tiered_paged_kernel``): the KV2 precision ladder's read path, the
+decode kernel with a per-page tier table that sends a demoted page to
+the KV2 slab (four 2-bit fields per byte), read at its own width. The
+decode and verify kernels call one compiled device function for the
+body of a query, so the verify output is bit-exact with T calls of the
+decode kernel; the tiered kernel runs the instance of the same templated
+body that reads a tier table, whose float operations are the same, so
+a tiered call over tier-0 pages gives one decode call's bits, as the
+Pallas kernels do (held on the card).
 
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version (``kernels.ref.kv4_paged_decode_attention_ref``,
-``kv4_paged_verify_attention_ref``).
+``kv4_paged_verify_attention_ref``,
+``kv_tiered_paged_decode_attention_ref``).
 """
 from __future__ import annotations
 
@@ -26,7 +35,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (kv4_paged_decode_attention_ref,
-                                     kv4_paged_verify_attention_ref)
+                                     kv4_paged_verify_attention_ref,
+                                     kv_tiered_paged_decode_attention_ref)
 
 KERNEL = _build.register(_build.Kernel(
     "kv_attention.cu", "kv4_paged_decode_launch",
@@ -35,27 +45,43 @@ VERIFY_KERNEL = _build.register(_build.Kernel(
     "kv_attention.cu", "kv4_paged_verify_launch",
     [_build.P, _build.I] + [_build.P] * 7 + [_build.I] * 7 + [_build.P],
     name="kv_attention_verify"))
+TIERED_KERNEL = _build.register(_build.Kernel(
+    "kv_attention.cu", "kv_tiered_paged_decode_launch",
+    [_build.P, _build.I] + [_build.P] * 12 + [_build.I] * 6 + [_build.P],
+    name="kv_attention_tiered"))
 
 
 def _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
-           pos) -> None:
-    """Raise unless the operands are what the kernels take."""
+           pos, kv2=()) -> None:
+    """Raise unless the operands are what the kernels take; ``kv2`` is
+    the tiered kernel's (k2_pages, k2_scale_pages, v2_pages,
+    v2_scale_pages, tier_tables)."""
     hd = q.shape[-1]
     n_pages, ps, kvh, hdp = k_pages.shape
     b, n_s = block_tables.shape
     dev = q.device
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
-    for name, t, shape, dt in (
-            ("q", q, (b, *q.shape[1:-3], kvh, q.shape[-2], hd), q.dtype),
-            ("k_pages", k_pages, (n_pages, ps, kvh, hd // 2), torch.int8),
-            ("v_pages", v_pages, (n_pages, ps, kvh, hd // 2), torch.int8),
-            ("k_scale_pages", k_scale_pages, (n_pages, ps, kvh),
-             torch.float32),
-            ("v_scale_pages", v_scale_pages, (n_pages, ps, kvh),
-             torch.float32),
-            ("block_tables", block_tables, (b, n_s), torch.int32),
-            ("pos", pos, (b,), torch.int32)):
+    operands = [
+        ("q", q, (b, *q.shape[1:-3], kvh, q.shape[-2], hd), q.dtype),
+        ("k_pages", k_pages, (n_pages, ps, kvh, hd // 2), torch.int8),
+        ("v_pages", v_pages, (n_pages, ps, kvh, hd // 2), torch.int8),
+        ("k_scale_pages", k_scale_pages, (n_pages, ps, kvh), torch.float32),
+        ("v_scale_pages", v_scale_pages, (n_pages, ps, kvh), torch.float32),
+        ("block_tables", block_tables, (b, n_s), torch.int32),
+        ("pos", pos, (b,), torch.int32)]
+    if kv2:
+        if hd % 4:
+            raise ValueError(f"the KV2 slab packs 4 fields per byte: hd={hd}")
+        k2, k2s, v2, v2s, tiers = kv2
+        n2 = k2.shape[0]
+        operands += [
+            ("k2_pages", k2, (n2, ps, kvh, hd // 4), torch.int8),
+            ("v2_pages", v2, (n2, ps, kvh, hd // 4), torch.int8),
+            ("k2_scale_pages", k2s, (n2, ps, kvh), torch.float32),
+            ("v2_scale_pages", v2s, (n2, ps, kvh), torch.float32),
+            ("tier_tables", tiers, (b, n_s), torch.int32)]
+    for name, t, shape, dt in operands:
         if tuple(t.shape) != shape or t.dtype != dt or t.device != dev:
             raise ValueError(f"{name}: expected {dt} {shape} on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -125,4 +151,40 @@ def kv4_paged_verify_attention(
                              v_pages.data_ptr(), v_scale_pages.data_ptr(),
                              block_tables.data_ptr(), pos.data_ptr(),
                              out.data_ptr(), b, t, kvh, g, hd, ps, n_s)
+    return out
+
+
+def kv_tiered_paged_decode_attention(
+    q: torch.Tensor,               # (B, KVH, G, hd) f32 / bf16
+    k_pages: torch.Tensor,         # (P, ps, KVH, hd/2) int8
+    k_scale_pages: torch.Tensor,   # (P, ps, KVH) f32
+    v_pages: torch.Tensor,         # (P, ps, KVH, hd/2) int8
+    v_scale_pages: torch.Tensor,   # (P, ps, KVH) f32
+    k2_pages: torch.Tensor,        # (P2, ps, KVH, hd/4) int8
+    k2_scale_pages: torch.Tensor,  # (P2, ps, KVH) f32
+    v2_pages: torch.Tensor,        # (P2, ps, KVH, hd/4) int8
+    v2_scale_pages: torch.Tensor,  # (P2, ps, KVH) f32
+    block_tables: torch.Tensor,    # (B, Pmax) int32
+    tier_tables: torch.Tensor,     # (B, Pmax) int32, 0 = KV4, 1 = KV2
+    pos: torch.Tensor,             # (B,) int32
+) -> torch.Tensor:
+    """(B, KVH, G, hd) attention output in q's dtype; ``block_tables[b,
+    i]`` indexes the slab ``tier_tables[b, i]`` names."""
+    args = (q, k_pages, k_scale_pages, v_pages, v_scale_pages, k2_pages,
+            k2_scale_pages, v2_pages, v2_scale_pages, block_tables,
+            tier_tables, pos)
+    if not q.is_cuda:
+        return kv_tiered_paged_decode_attention_ref(*args)
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, KVH, G, hd), got {tuple(q.shape)}")
+    _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
+           pos, kv2=(k2_pages, k2_scale_pages, v2_pages, v2_scale_pages,
+                     tier_tables))
+    b, kvh, g, hd = q.shape
+    ps, n_s = k_pages.shape[1], block_tables.shape[1]
+    out = torch.empty_like(q)
+    if b and kvh and n_s:
+        TIERED_KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
+                             *(t.data_ptr() for t in args[1:]),
+                             out.data_ptr(), b, kvh, g, hd, ps, n_s)
     return out

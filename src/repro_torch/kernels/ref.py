@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.packing import unpack_plane
 from repro_torch.core.sparqle import LP_HIGH, LP_LOW, tile_population
 
 # Tile of the PBM population the matmul skips its MSB pass on. TILE_K
@@ -39,14 +40,14 @@ def tile_population_padded(pbm: torch.Tensor, tile_m: int = TILE_M,
     return tile_population(padded, tile_m, tile_k)
 
 
-def sparqle_encode_ref(
+def sparqle_quantize_ref(
     x: torch.Tensor,                   # (M, K) f32 / bf16
     scale: torch.Tensor,               # (M, 1) f32 per-token scale
     col_mask: Optional[torch.Tensor] = None,   # (K,) bool
     l: int = 0,
     h: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Quantize -> [clip] -> split: (lsb4, msb4, pbm, tile_pop).
+) -> torch.Tensor:
+    """Quantize -> [clip]: the int8 activation q (M, K).
 
     The quotient ``x / scale`` is rounded to x's dtype before
     ``round`` (half to even), as ``quantize_activations`` forms it in
@@ -60,7 +61,18 @@ def sparqle_encode_ref(
         lo = col_mask & (q >= int(l)) & (q < LP_LOW)
         hi = col_mask & (q > LP_HIGH) & (q <= int(h))
         q = torch.where(lo, LP_LOW, torch.where(hi, LP_HIGH, q))
-    q = q.to(torch.int8)
+    return q.to(torch.int8)
+
+
+def sparqle_encode_ref(
+    x: torch.Tensor,                   # (M, K) f32 / bf16
+    scale: torch.Tensor,               # (M, 1) f32 per-token scale
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantize -> [clip] -> split: (lsb4, msb4, pbm, tile_pop)."""
+    q = sparqle_quantize_ref(x, scale, col_mask, l, h)
     msb = q >> 4
     lsb = q & 0xF
     pbm = msb != 0
@@ -100,6 +112,23 @@ def sparqle_matmul_ref(
     return acc.float() * act_scale.float() * w_scale.float()
 
 
+def quant_matmul_ref(
+    q: torch.Tensor,                    # (M, K) int8
+    w_packed: torch.Tensor,             # (K/2, N) int8, int4 packed along K
+    act_scale: torch.Tensor,            # (M, 1) f32
+    w_scale: torch.Tensor,              # (1, N) f32
+    acc_out: bool = False,
+) -> torch.Tensor:
+    """Dense single pass: acc = q @ w in int32; drain ``acc.f32 *
+    act_scale * w_scale`` or the raw acc. Since q = 16 * msb4 + lsb4
+    exactly, acc equals the dual pass's accumulator bit for bit."""
+    w = unpack_int4_k(w_packed).to(torch.float64)
+    acc = (q.to(torch.float64) @ w).to(torch.int32)
+    if acc_out:
+        return acc
+    return acc.float() * act_scale.float() * w_scale.float()
+
+
 def unpack_kv4(p: torch.Tensor) -> torch.Tensor:
     """(..., hd/2) packed KV nibbles (adjacent hd pairs) -> (..., hd)."""
     lo = (p << 4) >> 4
@@ -118,24 +147,71 @@ def kv4_paged_decode_attention_ref(
     pos: torch.Tensor,            # (B,) int32
 ) -> torch.Tensor:
     """Decode attention over the paged packed-KV4 pool, f32 softmax."""
-    b, kvh, g, hd = q.shape
-    _, ps, _, _ = k_pages.shape
-    n_s = block_tables.shape[1]
     tables = block_tables.long()
+    k = _gather_pages(k_pages, k_scale_pages, tables, unpack_kv4)
+    v = _gather_pages(v_pages, v_scale_pages, tables, unpack_kv4)
+    return _paged_attention(q, k, v, pos)
 
-    def gather(pages, scales):
-        x = unpack_kv4(pages[tables]).float() * scales[tables][..., None]
-        return x.reshape(b, n_s * ps, kvh, hd)
 
-    k = gather(k_pages, k_scale_pages)
-    v = gather(v_pages, v_scale_pages)
+def _gather_pages(pages, scales, tables, unpack) -> torch.Tensor:
+    """The pages ``tables`` (B, Pmax) names, dequantized in f32:
+    (B, Pmax * ps, KVH, hd)."""
+    b, n_s = tables.shape
+    _, ps, kvh, _ = pages.shape
+    x = unpack(pages[tables]).float() * scales[tables][..., None]
+    return x.reshape(b, n_s * ps, kvh, -1)
+
+
+def _paged_attention(q, k, v, pos) -> torch.Tensor:
+    """f32 attention of q (B, KVH, G, hd) over dequantized k/v
+    (B, S, KVH, hd), masked to positions <= pos."""
+    hd = q.shape[-1]
     s = torch.einsum("bhgd,bjhd->bhgj", q.float(), k) * hd ** -0.5
-    allow = (torch.arange(n_s * ps, device=q.device)[None, :]
+    allow = (torch.arange(k.shape[1], device=q.device)[None, :]
              <= pos.long()[:, None])
     s = torch.where(allow[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgj,bjhd->bhgd", p, v)
     return out.to(q.dtype)
+
+
+def kv_tiered_paged_decode_attention_ref(
+    q: torch.Tensor,               # (B, KVH, G, hd)
+    k_pages: torch.Tensor,         # (P, ps, KVH, hd/2) int8
+    k_scale_pages: torch.Tensor,   # (P, ps, KVH) f32
+    v_pages: torch.Tensor,
+    v_scale_pages: torch.Tensor,
+    k2_pages: torch.Tensor,        # (P2, ps, KVH, hd/4) int8
+    k2_scale_pages: torch.Tensor,  # (P2, ps, KVH) f32
+    v2_pages: torch.Tensor,
+    v2_scale_pages: torch.Tensor,
+    block_tables: torch.Tensor,    # (B, Pmax) int32
+    tier_tables: torch.Tensor,     # (B, Pmax) int32, 0 = KV4, 1 = KV2
+    pos: torch.Tensor,             # (B,) int32
+) -> torch.Tensor:
+    """Mixed-tier decode attention: page i of sequence b comes from the
+    KV2 slab when ``tier_tables[b, i] == 1``, else from the KV4 slab
+    (the other slab is read at its null page and discarded). A KV2 byte
+    holds four signed 2-bit fields, field i of byte j being element
+    4j+i. On tier-0 pages the dequantized values, hence the result, are
+    those of :func:`kv4_paged_decode_attention_ref`."""
+    tables = block_tables.long()
+    kv2 = (tier_tables == 1)
+    t4 = torch.where(kv2, 0, tables)
+    t2 = torch.where(kv2, tables, 0)
+    ps = k_pages.shape[1]
+    sel = torch.repeat_interleave(kv2, ps, dim=1)[:, :, None, None]
+
+    def unpack_kv2(p):
+        return unpack_plane(p, width=2, signed=True)
+
+    def gather(p4, s4, p2, s2):
+        return torch.where(sel, _gather_pages(p2, s2, t2, unpack_kv2),
+                           _gather_pages(p4, s4, t4, unpack_kv4))
+
+    k = gather(k_pages, k_scale_pages, k2_pages, k2_scale_pages)
+    v = gather(v_pages, v_scale_pages, v2_pages, v2_scale_pages)
+    return _paged_attention(q, k, v, pos)
 
 
 def kv4_paged_verify_attention_ref(

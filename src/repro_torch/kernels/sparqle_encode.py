@@ -13,8 +13,15 @@ The serving linear reads only lsb/msb/pop, so it passes
 ``with_pbm=False`` and the kernel skips the PBM plane's store (a quarter
 of its output bytes).
 
+:func:`sparqle_quantize` is the quantize-only form for the dense W4A8
+baseline: the same ``_quantize`` step and serve-time clip, one int8
+plane out, no split and no populations (``sparqle_quantize_launch``).
+Both kernels share the per-element device function, so its q is the
+encoder's 16 * msb4 + lsb4 bit for bit.
+
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
-plain version ``kernels.ref.sparqle_encode_ref``.
+plain version ``kernels.ref.sparqle_encode_ref`` /
+``sparqle_quantize_ref``.
 """
 from __future__ import annotations
 
@@ -24,12 +31,36 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv,
-                                     sparqle_encode_ref)
+                                     sparqle_encode_ref, sparqle_quantize_ref)
 
 KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_encode_launch",
     [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
      _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.P]))
+QUANTIZE_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_quantize_launch",
+    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I, _build.P,
+     _build.I, _build.I, _build.P], name="sparqle_quantize"))
+
+
+def _check(x, scale, col_mask):
+    """Raise unless the operands are what the kernels take; returns the
+    contiguous scale and the mask pointer (None without a mask)."""
+    m, k = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if scale.shape != (m, 1) or scale.dtype != torch.float32 \
+            or scale.device != x.device:
+        raise ValueError(f"scale must be f32 (M, 1) on {x.device}, got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    if col_mask is None:
+        return scale.contiguous(), None
+    if col_mask.shape != (k,) or col_mask.dtype != torch.bool \
+            or col_mask.device != x.device:
+        raise ValueError("col_mask must be bool (K,) on x's device")
+    return scale.contiguous(), col_mask.contiguous()
 
 
 def sparqle_encode(
@@ -49,22 +80,8 @@ def sparqle_encode(
         lsb, msb, pbm, pop = sparqle_encode_ref(x, scale, col_mask, l, h)
         return lsb, msb, pbm if with_pbm else None, pop
     m, k = x.shape
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if scale.shape != (m, 1) or scale.dtype != torch.float32 \
-            or scale.device != x.device:
-        raise ValueError(f"scale must be f32 (M, 1) on {x.device}, got "
-                         f"{scale.dtype} {tuple(scale.shape)}")
-    scale = scale.contiguous()
-    mask_ptr = None
-    if col_mask is not None:
-        if col_mask.shape != (k,) or col_mask.dtype != torch.bool \
-                or col_mask.device != x.device:
-            raise ValueError("col_mask must be bool (K,) on x's device")
-        col_mask = col_mask.contiguous()
-        mask_ptr = col_mask.data_ptr()
+    scale, col_mask = _check(x, scale, col_mask)
+    mask_ptr = None if col_mask is None else col_mask.data_ptr()
     lsb = torch.empty((m, k), dtype=torch.int8, device=x.device)
     msb = torch.empty((m, k), dtype=torch.int8, device=x.device)
     pbm = (torch.empty((m, k), dtype=torch.bool, device=x.device)
@@ -78,3 +95,24 @@ def sparqle_encode(
                       pbm.data_ptr() if with_pbm else None,
                       pop.data_ptr(), m, k)
     return lsb, msb, pbm, pop
+
+
+def sparqle_quantize(
+    x: torch.Tensor,                # (M, K) f32 / bf16
+    scale: torch.Tensor,            # (M, 1) f32
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> torch.Tensor:
+    """The clipped int8 activation q (M, K)."""
+    if not x.is_cuda:
+        return sparqle_quantize_ref(x, scale, col_mask, l, h)
+    m, k = x.shape
+    scale, col_mask = _check(x, scale, col_mask)
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    if m and k:
+        QUANTIZE_KERNEL.launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+            None if col_mask is None else col_mask.data_ptr(), int(l),
+            int(h), q.data_ptr(), m, k)
+    return q

@@ -9,13 +9,22 @@ numpy tokens from the same seed. Prints per-request TTFT/TPOT, tokens/s,
 the achieved MSB4 sparsity and the measured wire compression.
 ``--spec-gamma N`` serves through the self-speculative engine (N
 LSB4-only draft steps and one batched verify per cycle) and also prints
-the draft acceptance rate and the tokens emitted per cycle.
+the draft acceptance rate and the tokens emitted per cycle. ``--mode
+dense`` serves the paper's W4A8 baseline instead: the same int4 weights,
+each projection one int8 x int4 pass (quantize-only encoder + dense
+matmul kernels), no sub-precision split.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --spec-gamma 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
-        --smoke --device cpu [--spec-gamma 2]
+        --mode dense
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --smoke --device cpu [--spec-gamma 2] [--mode dense]
+
+The KV2 precision ladder has no flag here, as in the JAX package's
+serve: arm it through ``make_engine(..., kv2_pages=N)`` or
+``PoolConfig(kv2_pages=N)``.
 """
 from __future__ import annotations
 
@@ -41,12 +50,14 @@ from repro_torch.serving.engine import resolve_device
 def build_served_params(cfg: ModelConfig, seed: int, device, *,
                         k_percent: float = 50.0, clip_l: float = -8.0,
                         clip_h: float = 23.0, enable_clipping: bool = True,
-                        tile_k: int = 128):
-    """The SPARQLe served tree drawn from ``seed`` directly on ``device``."""
+                        tile_k: int = 128, mode: str = "sparqle"):
+    """The served tree (``mode`` 'sparqle' or the 'dense' baseline) drawn
+    from ``seed`` directly on ``device``."""
     return init_quantized_params(
         build_schema(cfg), seed, device, float_dtype=cfg.cdtype,
         w_bits=cfg.w_bits, k_percent=k_percent, clip_l=clip_l,
-        clip_h=clip_h, enable_clipping=enable_clipping, tile_k=tile_k)
+        clip_h=clip_h, enable_clipping=enable_clipping, tile_k=tile_k,
+        mode=mode)
 
 
 def make_prompts(cfg: ModelConfig, seed: int, batch: int,
@@ -59,16 +70,18 @@ def make_engine(cfg: ModelConfig, params, *, batch: int, prompt_len: int,
                 gen: int, page_size: int = 16, n_pages: int = 0,
                 token_budget: int = 128, prefill_chunk: int = 32,
                 decode_slots: int = 8, spec_gamma: int = 0,
-                device="cuda") -> Engine:
+                device="cuda", **pool_kw) -> Engine:
     """Engine sized like ``repro.launch.serve``: a block table that fits
     prompt + generation (+ the γ-token draft lookahead), and by default a
     pool that fits the batch. ``spec_gamma > 0`` gives the speculative
-    engine."""
+    engine; ``pool_kw`` are further :class:`PoolConfig` fields (the KV2
+    ladder's ``kv2_pages``, ``demote_min_sparsity``,
+    ``demote_after_steps``)."""
     pages_per_seq = -(-(prompt_len + gen + spec_gamma) // page_size)
     kw = dict(
         pool_config=PoolConfig(
             n_pages=n_pages or 1 + pages_per_seq * batch,
-            page_size=page_size),
+            page_size=page_size, **pool_kw),
         sched_config=SchedulerConfig(
             max_decode_batch=min(batch, decode_slots),
             token_budget=token_budget, prefill_chunk=prefill_chunk,
@@ -120,6 +133,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--clip-l", type=float, default=-8.0)
     ap.add_argument("--clip-h", type=float, default=23.0)
     ap.add_argument("--no-clip", action="store_true")
+    ap.add_argument("--mode", default="sparqle", choices=["sparqle", "dense"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=0,
@@ -147,9 +161,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg, args.seed, device, k_percent=args.k_percent,
         clip_l=args.clip_l, clip_h=args.clip_h,
         enable_clipping=not args.no_clip,
-        tile_k=16 if args.smoke else 128)
+        tile_k=16 if args.smoke else 128, mode=args.mode)
     print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, built and "
-          f"quantized on {device} in {time.perf_counter() - t0:.1f} s")
+          f"quantized ({args.mode}) on {device} in "
+          f"{time.perf_counter() - t0:.1f} s")
     eng = make_engine(cfg, params, batch=args.batch,
                       prompt_len=args.prompt_len, gen=args.gen,
                       page_size=args.page_size, n_pages=args.n_pages,

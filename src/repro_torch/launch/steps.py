@@ -2,7 +2,8 @@
 ``repro.launch.steps``), as plain closures over the config: prefill,
 decode (full or LSB4-only draft) and the speculative verify window.
 
-All keep the JAX steps' static shapes — a (1, C) prefill chunk, a (B,)
+The decode step takes a (B, Pmax) tier table too when the KV2 precision
+ladder is armed. All keep the JAX steps' static shapes — a (1, C) prefill chunk, a (B,)
 decode batch and a (B, T) verify window over a (B, Pmax) block table,
 inactive slots on the null page — so they can be captured as CUDA graphs
 later. All update the pool in place and return it (the JAX steps return
@@ -30,14 +31,27 @@ def make_engine_prefill_chunk(cfg: ModelConfig):
 
 
 def make_engine_decode(cfg: ModelConfig, *, msb_skip: bool = False,
-                       with_telemetry: bool = True):
+                       with_telemetry: bool = True, kv2: bool = False):
     """(params, pool, token (B,), pos (B,), block_tables (B, Pmax))
     -> (logits (B, V), pool, telemetry). Raw logits come back: sampling
     is per request and lives host-side in the engine.
 
     ``msb_skip=True`` makes the LSB4-only draft step of the speculative
     engine; ``with_telemetry=False`` drops the wire accounting (the
-    telemetry comes back empty) — the draft runs γ times per cycle."""
+    telemetry comes back empty) — the draft runs γ times per cycle.
+    ``kv2=True`` makes the precision-ladder step: it takes ``tier_tables``
+    (B, Pmax) after ``block_tables`` and reads each page from the slab
+    its tier id names (the pool must hold the KV2 slab)."""
+    if kv2:
+        @torch.no_grad()
+        def engine_decode_kv2(params, pool, token, pos, block_tables,
+                              tier_tables):
+            return M.decode_step_paged(cfg, params, pool, token, pos,
+                                       block_tables, tier_tables=tier_tables,
+                                       msb_skip=msb_skip,
+                                       with_telemetry=with_telemetry)
+
+        return engine_decode_kv2
 
     @torch.no_grad()
     def engine_decode(params, pool, token, pos, block_tables):

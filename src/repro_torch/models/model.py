@@ -11,11 +11,12 @@ the stacked page tensors directly saves the whole-pool copy the
 functional form would cost, and each function still returns the pool for
 symmetry with its JAX twin. Prefill attention is plain torch, as it is
 plain jnp in the reference; decode attention runs the paged KV4 kernel
-and the speculative verify window its multi-token twin.
+(the mixed KV4/KV2 tier kernel when the precision ladder is armed) and
+the speculative verify window its multi-token twin.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -23,8 +24,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import linear, msb_skip_scope, tree_index
 from repro_torch.core.quantize import quantize_activations, quantize_weights
 from repro_torch.core.sparqle import subprecision_sparsity
-from repro_torch.kernels.kv_attention import (kv4_paged_decode_attention,
-                                              kv4_paged_verify_attention)
+from repro_torch.kernels.kv_attention import (
+    kv4_paged_decode_attention, kv4_paged_verify_attention,
+    kv_tiered_paged_decode_attention)
 from repro_torch.kernels.ref import unpack_kv4
 from repro_torch.models.layers import (NEG_INF, act_wire_telemetry, embed,
                                        rms_norm, rope,
@@ -150,9 +152,15 @@ def _write_kv(pool: Cache, page, off, kq, ks, vq, vs) -> None:
 
 def attn_decode_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
                       x: torch.Tensor, pool: Cache,
-                      block_tables: torch.Tensor, pos: torch.Tensor
+                      block_tables: torch.Tensor, pos: torch.Tensor,
+                      tier_tables: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Cache]:
-    """One-token attention against the paged pool. x: (B, D)."""
+    """One-token attention against the paged pool. x: (B, D).
+
+    With ``tier_tables`` (B, Pmax) the mixed-tier kernel reads each page
+    from the slab its tier id names (the KV2 precision ladder). The write
+    still lands in the KV4 slab: the engine promotes a page before it is
+    written, so a tier-1 id under ``pos`` is masked to the null page."""
     b, _ = x.shape
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     theta = ld.rope_theta or cfg.rope_theta
@@ -163,19 +171,29 @@ def attn_decode_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
     ps = pool["k_q"].shape[1]
     n_steps = block_tables.shape[1]
     bidx = torch.arange(b, device=x.device)
-    page = block_tables[bidx, torch.clamp(pos // ps, 0, n_steps - 1).long()]
+    step = torch.clamp(pos // ps, 0, n_steps - 1).long()
+    page = block_tables[bidx, step]
+    if tier_tables is not None:
+        # a demoted page id indexes the KV2 slab: never scatter there
+        page = torch.where(tier_tables[bidx, step] == 0, page, 0)
     _write_kv(pool, page.long(), (pos % ps).long(), kq, ks, vq, vs)
-    o = kv4_paged_decode_attention(
-        q.reshape(b, kvh, g, cfg.hd).contiguous(), pool["k_q"], pool["k_s"],
-        pool["v_q"], pool["v_s"], block_tables, pos)
+    q = q.reshape(b, kvh, g, cfg.hd).contiguous()
+    kv4 = (pool["k_q"], pool["k_s"], pool["v_q"], pool["v_s"])
+    if tier_tables is None:
+        o = kv4_paged_decode_attention(q, *kv4, block_tables, pos)
+    else:
+        o = kv_tiered_paged_decode_attention(
+            q, *kv4, pool["k2_q"], pool["k2_s"], pool["v2_q"], pool["v2_s"],
+            block_tables, tier_tables, pos)
     o = o.reshape(b, cfg.n_heads * cfg.hd)
     return linear(o, p["wo"], p.get("bo")), pool
 
 
 def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
                       token: torch.Tensor, pos: torch.Tensor,
-                      block_tables: torch.Tensor, *, msb_skip: bool = False,
-                      with_telemetry: bool = True
+                      block_tables: torch.Tensor, *,
+                      tier_tables: Optional[torch.Tensor] = None,
+                      msb_skip: bool = False, with_telemetry: bool = True
                       ) -> Tuple[torch.Tensor, Cache, Dict[str, torch.Tensor]]:
     """One continuous-batching decode step over the paged pool.
 
@@ -189,6 +207,8 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
     of self-speculative decoding, whose K/V writes the verify window
     overwrites. ``with_telemetry=False`` computes no wire accounting and
     returns an empty telemetry dict (the draft's lean form).
+    ``tier_tables`` (B, Pmax) arms the KV2 precision ladder's read path
+    (see :func:`attn_decode_paged`); the pool must hold the KV2 slab.
     """
     with msb_skip_scope(msb_skip):
         x = _embed(cfg, params, token)
@@ -196,7 +216,8 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
         for ld, p, lpool in _layers(cfg, params, pool):
             if with_telemetry:
                 tels.append(act_wire_telemetry(x))
-            y, _ = attn_decode_paged(cfg, ld, p, x, lpool, block_tables, pos)
+            y, _ = attn_decode_paged(cfg, ld, p, x, lpool, block_tables, pos,
+                                     tier_tables)
             x = x + y
             x = x + dense_ffn(cfg, p, x[:, None, :])[:, 0]
         telemetry: Dict[str, torch.Tensor] = {}

@@ -6,7 +6,10 @@ Ties together the scheduler, the page pool and the two step functions of
 one prompt — and ``decode`` — one token for every decode slot at once,
 through the paged decode-attention kernel. Inactive decode slots ride
 along pointing at the null page. Sampling is host-side numpy, as in the
-JAX engine.
+JAX engine. ``PoolConfig(kv2_pages > 0)`` arms the KV2 precision ladder:
+the decode step reads each page through its tier id (the mixed-tier
+kernel), the page about to be written is promoted first, and cold pages
+are demoted after each step.
 
     eng = Engine(cfg, qparams)                 # device="cuda" by default
     h = eng.submit([1, 2, 3], SamplingParams(max_new_tokens=8))
@@ -61,6 +64,9 @@ class Engine:
         self.params = tree_to(params, self.device)
         self.pool = PagedKVPool(cfg, pool_config or PoolConfig(),
                                 obs=self.obs, device=self.device)
+        # the KV2 precision ladder: the decode step gains a tier table,
+        # and demotion/promotion run host-side around it
+        self._kv2 = self.pool.kv2_armed
         self.sched = Scheduler(self.pool, sched_config or SchedulerConfig(),
                                obs=self.obs)
         scfg = self.sched.cfg
@@ -68,7 +74,7 @@ class Engine:
         self._n_slots = scfg.max_decode_batch
         self._n_page_steps = scfg.max_pages_per_seq
         self._prefill_fn = S.make_engine_prefill_chunk(cfg)
-        self._decode_fn = S.make_engine_decode(cfg)
+        self._decode_fn = S.make_engine_decode(cfg, kv2=self._kv2)
         self._rngs: Dict[int, np.random.Generator] = {}
         self.steps = 0
         self.layer_wire_bytes: Optional[np.ndarray] = None
@@ -118,6 +124,13 @@ class Engine:
             "serving_layer_msb_sparsity_ratio", "token-weighted MSB4 "
             "sub-precision sparsity of the hidden stream entering each "
             "layer", unit="ratio", labelnames=("layer",))
+        self._g_kv2_used = r.gauge(
+            "serving_pool_kv2_pages_used", "pages currently held at the "
+            "KV2 tier (0 when the ladder is disarmed)", unit="pages")
+        self._g_kv_saved = r.gauge(
+            "serving_pool_kv_bytes_saved", "KV HBM bytes currently freed "
+            "by demoted pages (KV4 cost minus KV2 cost of held KV2 "
+            "pages)", unit="bytes")
 
     # -- public API --------------------------------------------------------
 
@@ -139,6 +152,8 @@ class Engine:
         tr = self.obs.tracer
         events: List[Tuple[int, int]] = []
         with tr.span("engine_step", step=self.steps):
+            if self._kv2:
+                self.pool.tick()
             with self._m_step_lat.time(phase="schedule"):
                 plan = self.sched.schedule()
             for req, start, n in plan.prefill:
@@ -150,6 +165,11 @@ class Engine:
                 with tr.span("decode_batch", slots=len(plan.decode)):
                     with self._m_step_lat.time(phase="decode"):
                         events.extend(self._run_decode(plan.decode))
+            if self._kv2:
+                # the cold sweep AFTER the decode writes: a page demoted
+                # here is first read, tier-routed, by the next step
+                with self._m_step_lat.time(phase="demote"):
+                    self.pool.demote_cold()
         self._m_steps.inc()
         self.steps += 1
         return events
@@ -165,6 +185,15 @@ class Engine:
                 r.value("serving_pool_utilization_ratio")),
             "pool_evictions": int(r.value("serving_pool_evictions_total")),
         }
+        if self._kv2:
+            out["pool_demotions"] = int(
+                r.value("serving_pool_demotions_total"))
+            out["pool_promotions"] = int(
+                r.value("serving_pool_promotions_total"))
+            out["kv_bytes_reclaimed"] = int(
+                r.value("serving_pool_kv_bytes_reclaimed_total"))
+            out["kv2_pages_used"] = int(self.pool.kv2_used)
+            out["kv_bytes_saved"] = int(self.pool.kv_bytes_saved())
         if self.layer_wire_bytes is not None and self.wire_tokens:
             wire = float(self.layer_wire_bytes.sum())
             dense = float(self.layer_dense_bytes.sum())
@@ -179,6 +208,8 @@ class Engine:
     def _refresh_gauges(self) -> None:
         self._g_pool_free.set(self.pool.num_free)
         self._g_pool_util.set(self.pool.utilization())
+        self._g_kv2_used.set(self.pool.kv2_used)
+        self._g_kv_saved.set(self.pool.kv_bytes_saved())
         if self.layer_wire_bytes is not None and self.wire_tokens:
             per_tok = self.layer_wire_bytes / self.wire_tokens
             spars = self.layer_sparsity_sum / self.wire_tokens
@@ -216,6 +247,14 @@ class Engine:
         row = np.zeros((self._n_page_steps,), np.int32)
         pages = self.pool.pages_of(req.rid)
         row[:len(pages)] = pages
+        return row
+
+    def _tier_table_row(self, req: Request) -> np.ndarray:
+        """Per-page tier ids parallel to :meth:`_block_table_row` (the
+        padded tail is tier 0, matching the KV4 null page it names)."""
+        row = np.zeros((self._n_page_steps,), np.int32)
+        tiers = self.pool.tiers_of(req.rid)
+        row[:len(tiers)] = tiers
         return row
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -295,10 +334,24 @@ class Engine:
     def _run_decode(self, decode: List[Request]) -> List[Tuple[int, int]]:
         """One full decode step for the decode set (the speculative
         engine overrides this with its draft/verify cycle)."""
+        tiers = ()
+        if self._kv2:
+            # touch BEFORE reading the tables: this step writes K/V at
+            # pos, so the page under it must be KV4 (promote on touch),
+            # and a promotion changes the page id
+            ps = self.pool.page_size
+            for req in decode:
+                fp = (len(req.context) - 1) // ps
+                self.pool.touch(req.rid, fp, fp)
+            tier_rows = np.zeros((self._n_slots, self._n_page_steps),
+                                 np.int32)
+            for req in decode:
+                tier_rows[req.slot] = self._tier_table_row(req)
+            tiers = (self._to_dev(tier_rows),)
         token, pos, tables = self._decode_inputs(decode)
         logits, self.pool.state, tel = self._decode_fn(
             self.params, self.pool.state, self._to_dev(token),
-            self._to_dev(pos), self._to_dev(tables))
+            self._to_dev(pos), self._to_dev(tables), *tiers)
         logits = logits.float().cpu().numpy()
         tel = self._host(tel)
         events = []

@@ -1,13 +1,14 @@
 """Continuous-batching scheduler: FCFS admission under a token budget
-(torch-side copy of ``repro.serving.scheduler`` for one unsharded KV4
-pool, with the speculative lookahead; the KV2 ladder rung waits for its
-slice).
+(torch-side copy of ``repro.serving.scheduler`` for one unsharded pool,
+with the speculative lookahead and the KV2 ladder rung).
 
 Every engine step the scheduler emits a :class:`StepPlan`:
 
   * ``decode``  — the running requests (one token each). Each running
     request that crosses a page boundary gets one new page; if the pool
-    is out of pages the *youngest* page holder is preempted
+    is out of pages the scheduler climbs the eviction ladder: first
+    demote the coldest decode-owned page KV4 -> KV2 (when the precision
+    ladder is armed), then preempt the *youngest* page holder
     (recompute-style: its pages are evicted and it re-enters the waiting
     queue with its generated tokens folded into the prompt).
   * ``prefill`` — FCFS chunks of waiting prompts, bounded by the step's
@@ -74,6 +75,9 @@ class Request:
     draft_accepted: int = 0          # ... of those, accepted
     spec_steps: int = 0              # draft+verify cycles run
     spec_emitted: int = 0            # tokens emitted by those cycles
+    # KV2 precision ladder: page tier transitions of this request's cache
+    kv_demotions: int = 0
+    kv_promotions: int = 0
 
     def __post_init__(self):
         if not self.context:
@@ -118,6 +122,8 @@ class Request:
             "spec_tokens_per_step": (
                 self.spec_emitted / self.spec_steps
                 if self.spec_steps else float("nan")),
+            "kv_demotions": self.kv_demotions,
+            "kv_promotions": self.kv_promotions,
         }
 
 
@@ -218,6 +224,9 @@ class Scheduler:
 
     def finish(self, req: Request) -> None:
         req.status = FINISHED
+        ts = self.pool.tier_stats_of(req.rid)
+        req.kv_demotions = ts["demotions"]
+        req.kv_promotions = ts["promotions"]
         if req in self.running:
             self.running.remove(req)
         if req in self.waiting:
@@ -267,12 +276,21 @@ class Scheduler:
 
     def schedule(self) -> StepPlan:
         plan = StepPlan(prefill=[], decode=[])
+        # only the decode set's pages may be demoted (everyone else is
+        # read through tier-unaware gathers): refresh it before the
+        # pressure rung below can act
+        if self.pool.kv2_armed:
+            self.pool.set_demotable(
+                [r.rid for r in self.running if r.status == RUNNING])
 
-        # 1. decode set — grow pages, preempting the youngest on pressure
+        # 1. decode set — grow pages; on pressure demote a cold page
+        # (rung 1, KV4 -> KV2), else preempt the youngest page holder
         for req in sorted(self.running, key=lambda r: (r.arrival, r.rid)):
             if req.status != RUNNING:
                 continue
             while not self._ensure_decode_page(req):
+                if self.pool.demote_for_pressure():
+                    continue
                 victims = [r for r in self.running
                            if r is not req and r.status == RUNNING]
                 victims += [r for r in self.waiting

@@ -80,6 +80,12 @@ class SpeculativeEngine(Engine):
         from repro_torch.launch import steps as S
         self.spec = spec
         g = spec.gamma
+        if pool_config is not None and pool_config.kv2_pages:
+            # the draft and verify steps read the pool through tier-
+            # unaware kernels, so a demoted page would be read as garbage
+            raise NotImplementedError(
+                "the KV2 precision ladder (kv2_pages > 0) is not "
+                "supported by the speculative engine")
         sched_config = dataclasses.replace(
             sched_config or SchedulerConfig(),
             decode_tokens_per_slot=2 * g + 1,   # γ draft + (γ+1) verify

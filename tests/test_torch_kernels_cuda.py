@@ -6,18 +6,28 @@ JAX nor the JAX package, so it also runs on a GPU machine without them:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
         tests/test_torch_kernels_cuda.py
 
-Tolerances: encoder, matmul and draft matmul bit-exact; attention within
-1e-4 in f32 (sums in another order than the plain einsum/softmax); the
-verify attention bit-exact with T calls of the decode kernel; greedy
-speculative streams identical to the base engine's.
+Tolerances: encoder (and its quantize-only form), matmul, draft matmul
+and dense matmul bit-exact (the dense one with the dual pass too);
+attention within 1e-4 in f32 (sums in another order than the plain
+einsum/softmax); the verify attention bit-exact with T calls of the
+decode kernel, and the tiered attention with one decode call (over the
+clamped pages where demoted); greedy speculative streams identical to
+the base engine's.
 """
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
 from repro_torch.core.qlinear import pack_int4
 from repro_torch.core.quantize import activation_scale
-from repro_torch.kernels import kv_attention, ref, sparqle_encode, sparqle_matmul
+from repro_torch.kernels import (kv_attention, quant_matmul, ref,
+                                 sparqle_encode, sparqle_matmul)
 from repro_torch.kernels.ref import TILE_K, TILE_M
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import demoted_pool  # noqa: E402
 
 
 @pytest.fixture
@@ -165,3 +175,65 @@ def test_spec_engine_greedy_matches_base_engine_on_card(cuda):
     assert runs[0]["streams"] == runs[1]["streams"]
     assert all(len(s) == 9 for s in runs[1]["streams"])
     assert runs[1]["aggregate"]["spec_tokens_per_step"] >= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(33, 4100), (1, 128), (8, 14336)])
+def test_quantize_kernel_matches_plain(cuda, dtype, m, k):
+    g = torch.Generator(device=cuda).manual_seed(m * k)
+    x = (torch.randn((m, k), generator=g, device=cuda) * 6).to(dtype)
+    x[0] = 0
+    scale = activation_scale(x).float()
+    mask = torch.rand((k,), generator=g, device=cuda) < 0.5
+    got = sparqle_encode.sparqle_quantize(x, scale, mask, -8, 23)
+    assert torch.equal(got, ref.sparqle_quantize_ref(x, scale, mask, -8, 23))
+    lsb, msb, _, _ = sparqle_encode.sparqle_encode(x, scale, mask, -8, 23)
+    assert torch.equal(msb * 16 + lsb, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 1024), (8, 4096, 14336),
+                                   (24, 14336, 4096), (33, 200, 70)])
+def test_quant_matmul_kernel_matches_plain_and_dual_pass(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    q = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    lsb, msb = q & 0xF, q >> 4
+    pop = ref.tile_population_padded(msb != 0, TILE_M, TILE_K)
+    wp = pack_int4(torch.randint(-8, 8, (k, n), generator=g, device=cuda,
+                                 dtype=torch.int8))
+    asc = torch.rand((m, 1), generator=g, device=cuda)
+    wsc = torch.rand((1, n), generator=g, device=cuda)
+    for acc_out in (False, True):
+        got = quant_matmul.quant_matmul(q, wp, asc, wsc, acc_out=acc_out)
+        assert torch.equal(got, ref.quant_matmul_ref(q, wp, asc, wsc,
+                                                     acc_out=acc_out))
+        assert torch.equal(got, sparqle_matmul.sparqle_matmul(
+            lsb, msb, pop, wp, asc, wsc, acc_out=acc_out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiered_attention_kernel_matches_decode_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b, kvh, gq, hd, ps, n_s = 6, 8, 4, 128, 16, 8
+    kv4, tiered, clamped = demoted_pool(cuda, g, b, kvh, hd, ps, n_s, 64)
+    q = torch.randn((b, kvh, gq, hd), generator=g, device=cuda).to(dtype)
+    pos = torch.tensor([ps - 1, ps, 2 * ps + 3, n_s * ps - 1, 90, 0],
+                       dtype=torch.int32, device=cuda)
+    # every page tier 0: the decode kernel's bits
+    got = kv_attention.kv_tiered_paged_decode_attention(
+        q, *kv4[:4], *tiered[4:8], kv4[-1], torch.zeros_like(kv4[-1]), pos)
+    assert torch.equal(got, kv_attention.kv4_paged_decode_attention(
+        q, *kv4, pos))
+    # half the pages demoted: the decode kernel's bits on the clamped pages
+    got = kv_attention.kv_tiered_paged_decode_attention(q, *tiered, pos)
+    assert torch.equal(got, kv_attention.kv4_paged_decode_attention(
+        q, *clamped, pos))
+    want = ref.kv_tiered_paged_decode_attention_ref(q, *tiered, pos)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=0,
+                                   rtol=2 ** -7)
