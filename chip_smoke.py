@@ -3,16 +3,19 @@
     python3 chip_smoke.py                 # every phase, one GPU
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
 
-Phases, each printing one line, phase 9 one more per seed (details go
+Phases, each printing one line, phase 11 one more per seed (details go
 to chiprun_out/):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (parallel nvcc);
   3. hold each kernel against its plain PyTorch version on the card at
-     the serving shapes (encoder and its quantize-only form, matmul,
-     draft matmul and dense matmul bit-exact, the dense one also with the
-     dual pass; attention, verify and tiered attention within ATTN_TOL;
-     verify attention bit-exact with T calls of the decode kernel, tiered
-     attention with one, over the clamped pages where demoted) and time
+     the serving shapes (encoder, its quantize-only and packed forms,
+     matmul, draft matmul, their packed forms and dense matmul
+     bit-exact; the packed forms also with the unpacked kernels on the
+     same q, the dense one with the dual pass; attention, verify, tiered
+     and contiguous attention within ATTN_TOL; verify attention
+     bit-exact with T calls of the decode kernel, tiered attention with
+     one, over the clamped pages where demoted, contiguous attention with
+     the decode kernel on pages that tile the same cache) and time
      kernel, plain version and library call;
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
@@ -30,14 +33,26 @@ to chiprun_out/):
      streams equal to phase 4's, one prefill chunk and one decode step
      at full depth give logits bit-equal to the SPARQLe tree's, and only
      the quantize-only encoder and the dense matmul run the linears;
-  8. profile a shorter run of phase 4's and phase 5's engine shapes
+  8. serve them through the packed-wire-format tree of the same weights,
+     base engine and gamma = SPEC_GAMMA: streams equal to phase 4's, only
+     the packed encoder and the packed (and packed draft) matmuls run the
+     linears, and one prefill chunk and one decode step give logits
+     bit-equal to the unpacked tree's;
+  9. serve the prompts through the fixed-batch ``--legacy`` path (one
+     whole-prompt prefill into contiguous caches, lockstep decode): the
+     contiguous attention kernel runs once a layer a decode step and the
+     paged one never; how many streams equal phase 4's is reported (a
+     128-token prompt is prefilled in chunks by the engine, so they may
+     differ); then granite width, 2 layers, f32: legacy streams equal to
+     the engine's with the prefill unchunked;
+ 10. profile a shorter run of phase 4's and phase 5's engine shapes
      (device busy share, device time by kernel), then serve phase 4 once
      more to read what the profilers left behind on the host;
-  9. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
+ 11. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
      same weights and prompts through the Engine on the card (kernels)
      and on the CPU (plain versions), logits within LOGIT_TOL and the
      greedy token streams identical;
- 10. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 12. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -648,8 +663,229 @@ def check_tiered_attention(dev, gen, peaks):
                      f"{dec * 1e3:.1f} us)"}
 
 
+def check_encoder_packed(dev, gen, peaks):
+    """The packed encoder at K = 4096, 14336 (and a ragged 4100), M = 1,
+    5, 8, 24, 32, 33, bf16 and f32, with the serve-time clip: bit-exact
+    with its plain version and with the unpacked kernel's planes packed
+    by the codec; timed as the packed serving linear calls it."""
+    import torch.nn.functional as F
+    from repro_torch.core.packing import pack_nibbles, pack_pbm, pad_k
+    from repro_torch.core.quantize import activation_scale
+    from repro_torch.kernels.ref import sparqle_encode_packed_ref
+    from repro_torch.kernels.sparqle_encode import (sparqle_encode,
+                                                    sparqle_encode_packed)
+    timed = None
+    for m in (1, 5, 8, 24, 32, 33):
+        for k in (4096, 14336, 4100):
+            for dt in (torch.bfloat16, torch.float32):
+                x = (torch.randn((m, k), generator=gen, device=dev)
+                     * torch.rand((m, 1), generator=gen, device=dev) * 4
+                     ).to(dt)
+                if m > 1:
+                    x[0] = 0                     # degenerate all-zero row
+                scale = activation_scale(x).float()
+                mask = torch.rand((k,), generator=gen, device=dev) < 0.5
+                args = (x, scale, mask, -8, 23)
+                got = sparqle_encode_packed(*args)
+                lsb, msb, pbm, pop = sparqle_encode(*args)
+                pad = (0, pad_k(k) - k)
+                planes = (pack_nibbles(F.pad(lsb, pad)),
+                          pack_nibbles(F.pad(msb, pad)),
+                          pack_pbm(F.pad(pbm, pad)), pop)
+                for g, w, u, name in zip(got, sparqle_encode_packed_ref(
+                        *args), planes, ("lsb", "msb", "pbm", "pop")):
+                    if not (torch.equal(g, w) and torch.equal(g, u)):
+                        raise AssertionError(
+                            f"packed encoder {name} differs at M={m} K={k} "
+                            f"{dt}")
+                if (m, k, dt) == (8, 4096, torch.bfloat16):
+                    timed = args
+    m, k = timed[0].shape
+    kms = time_ms(sparqle_encode_packed, [timed], 200)
+    pms = time_ms(sparqle_encode_packed_ref, [timed], 50)
+    kp = pad_k(k)
+    nbytes = (m * k * 2 + m * 4 + k + m * kp + m * kp // 8
+              + sparqle_encode_packed(*timed)[3].numel() * 4)
+    return {"name": "sparqle_encode_packed", "route": "cuda",
+            "source": "src/repro_torch/csrc/sparqle_encode.cu",
+            "replaces": "src/repro/kernels/sparqle_encode.py:105",
+            "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
+            "bound_ms": nbytes / peaks[0] * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"M={m} K={k} bf16; checked M in 1,5,8,24,32,33 x K in "
+                     f"4096,14336,4100 x bf16,f32, also against the unpacked "
+                     f"kernel's planes packed"}
+
+
+def check_matmul_packed(dev, gen, peaks):
+    """The packed dual-pass matmul and its draft at the four decode
+    shapes, M = 1, 5, 8, 24, 32, 33: bit-exact with their plain versions
+    and with the unpacked kernels on the same q (f32 and int32 outputs);
+    timed at M=8 against the unpacked kernels on the planes of the same
+    q and torch._int_mm (M padded to 32). Two rows: full and draft."""
+    from repro_torch.core.packing import encode_packed, planes_packed, pad_k
+    from repro_torch.core.qlinear import pack_int4
+    from repro_torch.kernels.ref import (TILE_K, TILE_M,
+                                         sparqle_matmul_packed_ref,
+                                         tile_population_padded)
+    from repro_torch.kernels.sparqle_matmul import (sparqle_matmul,
+                                                    sparqle_matmul_packed)
+    shapes = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096))
+    detail = {False: [], True: []}
+    for k, n in shapes:
+        w = torch.randint(-8, 8, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        wp = pack_int4(w)
+        wsc = torch.rand((1, n), generator=gen, device=dev) * 0.01 + 1e-3
+        for m in (1, 5, 8, 24, 32, 33):
+            q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            # the MSB plane zero on every other K tile: pop-0 and pop>0
+            tiles = torch.arange(k, device=dev) // TILE_K
+            q = torch.where((tiles % 2 == 0)[None, :], q, q & 0xF)
+            lsb, msb = q & 0xF, q >> 4
+            lp, mp = planes_packed(encode_packed(q))
+            pop = tile_population_padded(msb != 0, TILE_M, TILE_K)
+            asc = torch.rand((m, 1), generator=gen, device=dev) * 0.1
+            for skip in (False, True):
+                for acc_out in (False, True):
+                    kw = dict(acc_out=acc_out, msb_skip=skip)
+                    got = sparqle_matmul_packed(lp, mp, pop, wp, asc, wsc,
+                                                **kw)
+                    if not (torch.equal(got, sparqle_matmul_packed_ref(
+                            lp, mp, pop, wp, asc, wsc, **kw))
+                            and torch.equal(got, sparqle_matmul(
+                                lsb, msb, pop, wp, asc, wsc, **kw))):
+                        raise AssertionError(
+                            f"packed matmul differs at M={m} K={k} N={n} "
+                            f"msb_skip={skip} acc_out={acc_out}")
+            if m != 8:
+                continue
+            copies = max(1, math.ceil(150e6 / wp.numel()))
+            wps = [wp.clone() for _ in range(copies)]
+            qa = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            kp = pad_k(k)
+            live = (pop > 0).sum().item() / pop.numel()
+            for skip in (False, True):
+                qa[:m] = lsb if skip else q
+                lib = time_ms(torch._int_mm, [(qa, w)], 50)
+
+                def packed(*a, _skip=skip):
+                    return sparqle_matmul_packed(*a, msb_skip=_skip)
+
+                def unpacked(*a, _skip=skip):
+                    return sparqle_matmul(*a, msb_skip=_skip)
+
+                def plain(*a, _skip=skip):
+                    return sparqle_matmul_packed_ref(*a, msb_skip=_skip)
+
+                kms = time_ms(packed, [(lp, mp, pop, c, asc, wsc)
+                                       for c in wps], 50)
+                ums = time_ms(unpacked, [(lsb, msb, pop, c, asc, wsc)
+                                         for c in wps], 50)
+                pms = time_ms(plain, [(lp, mp, pop, wp, asc, wsc)], 5)
+                passes = 1 if skip else 1 + live
+                nbytes = (m * kp // 2 * passes + k * n // 2 + m * 4 + n * 4
+                          + m * n * 4)
+                ops = 2.0 * m * k * n * passes
+                detail[skip].append({
+                    "M": m, "K": k, "N": n, "ms": kms, "unpacked_ms": ums,
+                    "plain_ms": pms, "library_ms": lib,
+                    "bound_ms": max(nbytes / peaks[0], ops / peaks[1]) * 1e3,
+                    "bound_by": "bytes" if nbytes / peaks[0]
+                    >= ops / peaks[1] else "operations"})
+    rows = []
+    for skip, name, line in ((False, "sparqle_matmul_packed", 250),
+                             (True, "sparqle_matmul_packed_draft", 159)):
+        timed = detail[skip][0]              # 4096 -> 14336, w_gate/w_up
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/sparqle_matmul.cu",
+            "replaces": f"src/repro/kernels/sparqle_matmul.py:{line}",
+            "max_abs_err": 0.0, "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+            "shape": f"M=8 K=4096 N=14336 (unpacked kernel "
+                     f"{timed['unpacked_ms'] * 1e3:.1f} us on the planes of "
+                     f"the same q); checked M in 1,5,8,24,32,33 at every "
+                     f"shape, against the unpacked kernel too; library: "
+                     f"torch._int_mm at M=32", "detail": detail[skip]})
+    return rows
+
+
+def paged_tiling(cache, bs, gen):
+    """A contiguous KV4 cache (k_q, k_s, v_q, v_s), each (B, S, ...), cut
+    into shuffled pages of ``bs`` tokens behind a null page 0: returns
+    (k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables)."""
+    b, s = cache[0].shape[:2]
+    n_s = s // bs
+    dev = cache[0].device
+    perm = torch.randperm(b * n_s, generator=gen, device=dev) + 1
+    pages = []
+    for t in cache:
+        p = torch.zeros((1 + b * n_s, bs) + tuple(t.shape[2:]),
+                        dtype=t.dtype, device=dev)
+        p[perm] = t.reshape(b * n_s, bs, *t.shape[2:])
+        pages.append(p)
+    return (*pages, perm.reshape(b, n_s).to(torch.int32).contiguous())
+
+
+def check_contiguous_attention(dev, gen, peaks):
+    """The contiguous KV4 decode at B=8, S=256, KVH=8, G=4, hd=128, in
+    blocks of 16: within ATTN_TOL of the plain version (f32) and
+    bit-exact with the paged decode kernel on pages of 16 that tile the
+    same cache (f32 and bf16); timed beside that paged call."""
+    from repro_torch.kernels.kv_attention import (CONTIGUOUS_BLOCK,
+                                                  kv4_decode_attention,
+                                                  kv4_paged_decode_attention)
+    from repro_torch.kernels.ref import kv4_decode_attention_ref
+    b, s, kvh, g, hd, bs = 8, 256, 8, 4, 128, CONTIGUOUS_BLOCK
+    kq, vq = (torch.randint(-128, 128, (b, s, kvh, hd // 2), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, s, kvh), generator=gen, device=dev) * 0.2
+              for _ in range(2))
+    cache = (kq, ks, vq, vs)
+    paged = paged_tiling(cache, bs, gen)
+    pos = torch.tensor([0, 15, 16, 17, 100, 143, 255, 0], dtype=torch.int32,
+                       device=dev)
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(dt)
+        got = kv4_decode_attention(q, *cache, pos)
+        if not torch.equal(got, kv4_paged_decode_attention(q, *paged, pos)):
+            raise AssertionError(f"contiguous attention {dt}: not the paged "
+                                 f"kernel's bits on pages that tile the "
+                                 f"same cache")
+        want = kv4_decode_attention_ref(q, *cache, pos).float()
+        e = (got.float() - want).abs().max().item()
+        tol = ATTN_TOL if dt == torch.float32 else 2 ** -7 * max(
+            1.0, want.abs().max().item())
+        if not e <= tol:
+            raise AssertionError(f"contiguous attention {dt}: max err {e} > "
+                                 f"{tol}")
+        if dt == torch.float32:
+            err, f32_args, paged_args = e, (q, *cache, pos), (q, *paged, pos)
+    kms = time_ms(kv4_decode_attention, [f32_args], 200)
+    dec = time_ms(kv4_paged_decode_attention, [paged_args], 200)
+    pms = time_ms(kv4_decode_attention_ref, [f32_args], 20)
+    toks = sum((int(p) // bs + 1) * bs for p in pos.tolist())
+    nbytes = b * kvh * g * hd * 4 * 2 + toks * kvh * (hd // 2 + 4) * 2 + b * 4
+    flops = 4.0 * toks * kvh * g * hd
+    return {"name": "kv4_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/kv_attention.cu",
+            "replaces": "src/repro/kernels/kv_attention.py:148",
+            "max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "bound_ms": max(nbytes / peaks[0], flops / peaks[2]) * 1e3,
+            "bound_by": "bytes" if nbytes / peaks[0] >= flops / peaks[2]
+            else "operations", "library_ms": None,
+            "shape": f"B=8 S=256 KVH=8 G=4 hd=128 bs={bs}, f32 q (paged "
+                     f"kernel on the same cache in pages of {bs}: "
+                     f"{dec * 1e3:.1f} us)"}
+
+
 # ---------------------------------------------------------------------------
-# phases 4-8: the engine
+# phases 4-11: the engine
 # ---------------------------------------------------------------------------
 
 def granite(dev, seed: int):
@@ -805,22 +1041,23 @@ def window_vs_decode(dev, cfg, params, seed: int):
     return {"logits_equal": logits_equal, "pages_equal": pages_equal}
 
 
-def with_mode(tree, mode: str):
-    """The served tree with every projection in ``mode`` ('dense' is the
-    W4A8 baseline): the same tensors on the card, no copy."""
+def with_fields(tree, **fields):
+    """The served tree with every projection's ``fields`` replaced
+    (``mode='dense'``: the W4A8 baseline; ``wire_format='packed'``: the
+    packed wire format): the same tensors on the card, no copy."""
     import dataclasses
     from repro_torch.core.qlinear import SparqleLinear
     if isinstance(tree, dict):
-        return {k: with_mode(v, mode) for k, v in tree.items()}
+        return {k: with_fields(v, **fields) for k, v in tree.items()}
     if isinstance(tree, SparqleLinear):
-        return dataclasses.replace(tree, mode=mode)
+        return dataclasses.replace(tree, **fields)
     return tree
 
 
-def dense_logits_equal(dev, cfg, params, dense, prompts):
+def logits_equal(dev, cfg, params, other, prompts):
     """One 32-token prefill chunk, then one decode step (8 slots, slot 0
-    at position 32), through the SPARQLe and the dense tree of the same
-    weights at full depth: True per step when the logits are bit-equal."""
+    at position 32), through two served trees of the same weights at
+    full depth: True per step when the logits are bit-equal."""
     from repro_torch.launch import steps as S
     from repro_torch.serving.kv_pool import PoolConfig, init_pool_state
     n_s = 9
@@ -832,7 +1069,7 @@ def dense_logits_equal(dev, cfg, params, dense, prompts):
     pos = torch.zeros((8,), dtype=torch.int32, device=dev)
     pos[0] = 32
     out = []
-    for tree in (params, dense):
+    for tree in (params, other):
         pool = init_pool_state(cfg, PoolConfig(n_pages=4, page_size=16), dev)
         pl, _, _ = S.make_engine_prefill_chunk(cfg)(
             tree, pool, toks[:, :32].contiguous(), 0, 32, table[:1])
@@ -840,6 +1077,42 @@ def dense_logits_equal(dev, cfg, params, dense, prompts):
         out.append((pl, dl[:1]))
     (ps_, ds_), (pd, dd) = out
     return {"prefill": torch.equal(ps_, pd), "decode": torch.equal(ds_, dd)}
+
+
+def serve_legacy(dev, cfg, params, prompts):
+    """The prompts through the fixed-batch path (``serve --legacy``),
+    launch counters zeroed just before and read just after."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import legacy_serve
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    r = legacy_serve(cfg, params, prompts, SERVE["gen"], dev)
+    r.update(launches=kernels.launch_counts(),
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    if any(len(s) != SERVE["gen"] or not all(0 <= t < cfg.vocab for t in s)
+           for s in r["streams"]):
+        raise AssertionError(f"legacy streams: {r['streams']}")
+    return r
+
+
+def legacy_vs_engine(dev, seed: int):
+    """Granite width, 2 layers, f32: the fixed-batch greedy streams and
+    the engine's with every prompt prefilled in one chunk (prompt + gen
+    a multiple of 16, so the contiguous kernel's blocks are the pages)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (build_served_params, legacy_serve,
+                                          make_engine, make_prompts,
+                                          run_requests)
+    cfg = get_config("granite-8b").replace(n_layers=2, dtype="float32")
+    params = build_served_params(cfg, seed, dev)
+    prompts = make_prompts(cfg, seed + 3, 4, 56)
+    legacy = legacy_serve(cfg, params, prompts, 8, dev)["streams"]
+    eng = make_engine(cfg, params, batch=4, prompt_len=56, gen=8,
+                      prefill_chunk=64, token_budget=256, device=dev)
+    engine = run_requests(eng, prompts, 8)["streams"]
+    return {"equal": legacy == engine,
+            "tokens_equal": sum(a == b for x, y in zip(legacy, engine)
+                                for a, b in zip(x, y))}
 
 
 def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
@@ -981,7 +1254,10 @@ def main() -> int:
             check_verify_attention(dev, gen, peaks),
             check_quantize(dev, gen, peaks),
             check_dense_matmul(dev, gen, peaks),
-            check_tiered_attention(dev, gen, peaks)]
+            check_tiered_attention(dev, gen, peaks),
+            check_encoder_packed(dev, gen, peaks),
+            *check_matmul_packed(dev, gen, peaks),
+            check_contiguous_attention(dev, gen, peaks)]
     for r in rows:
         log(f"[3] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
             f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
@@ -998,11 +1274,17 @@ def main() -> int:
                "sparqle_quantize": ("sparqle_quantize", "dense"),
                "quant_matmul": ("quant_matmul", "dense"),
                "kv_tiered_paged_decode_attention": ("kv_attention_tiered",
-                                                    "kv2")}
+                                                    "kv2"),
+               "sparqle_encode_packed": ("sparqle_encode_packed", "packed"),
+               "sparqle_matmul_packed": ("sparqle_matmul_packed", "packed"),
+               "sparqle_matmul_packed_draft": ("sparqle_matmul_packed_draft",
+                                               "packed_spec"),
+               "kv4_decode_attention": ("kv_attention_contiguous",
+                                        "legacy")}
     if not args.kernels_only:
         cfg, params, prompts, t_build = granite(dev, args.seed)
         # every serve runs before any profiler: a profiled run leaves the
-        # process slower on the host (phase 8 measures by how much)
+        # process slower on the host (phase 10 measures by how much)
         eng = serve_granite(dev, cfg, params, prompts)
         check_path(eng, ("sparqle_encode", "sparqle_matmul", "kv_attention"))
         log(f"[4] granite-8b {eng['layers']}L d={eng['d_model']}: "
@@ -1086,10 +1368,9 @@ def main() -> int:
                 agg2["pool_demotions"] * per_page:
             raise AssertionError(f"KV2 sweep: {agg2}")
         # phase 7: the dense W4A8 baseline on the same int4 weights
-        dense = with_mode(params, "dense")
+        dense = with_fields(params, mode="dense")
         dn = serve_granite(dev, cfg, dense, prompts)
-        dn["logits_equal"] = dense_logits_equal(dev, cfg, params, dense,
-                                                prompts)
+        dn["logits_equal"] = logits_equal(dev, cfg, params, dense, prompts)
         fw = dn["forwards"]["prefill"] + dn["forwards"]["decode"]
         same_dn = [a == b for a, b in zip(dn["streams"], eng["streams"])]
         log(f"[7] granite-8b {dn['layers']}L dense W4A8: streams equal to "
@@ -1107,7 +1388,77 @@ def main() -> int:
             raise AssertionError("dense matmul launches != 252 per forward")
         if not all(same_dn) or not all(dn["logits_equal"].values()):
             raise AssertionError("the dense serve differs from SPARQLe")
-        # phase 8: where the time goes, then the base serve once more
+        # phase 8: the packed wire format on the same weights
+        # the unpacked tree served again just before: a serve's host time
+        # drifts over a process's serves, so TPOT compares neighbours
+        again = serve_granite(dev, cfg, params, prompts)
+        packed = with_fields(params, wire_format="packed")
+        pk = serve_granite(dev, cfg, packed, prompts)
+        pk["logits_equal"] = logits_equal(dev, cfg, params, packed, prompts)
+        pk_spec = serve_granite(dev, cfg, packed, prompts,
+                                spec_gamma=SPEC_GAMMA)
+        unpacked = ("sparqle_encode", "sparqle_matmul", "sparqle_matmul_draft",
+                    "sparqle_quantize", "quant_matmul")
+        check_path(pk, ("sparqle_encode_packed", "sparqle_matmul_packed",
+                        "kv_attention"),
+                   unpacked + ("sparqle_matmul_packed_draft",))
+        check_path(pk_spec, ("sparqle_encode_packed", "sparqle_matmul_packed",
+                             "sparqle_matmul_packed_draft", "kv_attention",
+                             "kv_attention_verify"), unpacked)
+        fw = pk["forwards"]["prefill"] + pk["forwards"]["decode"]
+        same_pk = [a == b for a, b in zip(pk["streams"], eng["streams"])]
+        same_pks = [a == b for a, b in zip(pk_spec["streams"],
+                                           eng["streams"])]
+        log(f"[8] granite-8b {pk['layers']}L packed wire format: streams "
+            f"equal to phase 4: {sum(same_pk)}/{len(same_pk)} (gamma="
+            f"{SPEC_GAMMA}: {sum(same_pks)}/{len(same_pks)}), logits "
+            f"bit-equal to the unpacked tree at {cfg.n_layers}L: "
+            f"{pk['logits_equal']}, TTFT mean {pk['ttft_mean_s'] * 1e3:.1f} "
+            f"ms (unpacked just before {again['ttft_mean_s'] * 1e3:.1f}, "
+            f"phase 4 {eng['ttft_mean_s'] * 1e3:.1f}), TPOT mean "
+            f"{pk['tpot_mean_s'] * 1e3:.2f} ms (unpacked just before "
+            f"{again['tpot_mean_s'] * 1e3:.2f}, phase 4 "
+            f"{eng['tpot_mean_s'] * 1e3:.2f}), {pk['tokens_per_s']:.1f} "
+            f"tok/s (unpacked just before {again['tokens_per_s']:.1f}), "
+            f"{fw} forwards, "
+            f"launches {pk['launches']}; gamma={SPEC_GAMMA}: TPOT mean "
+            f"{pk_spec['tpot_mean_s'] * 1e3:.2f} ms (unpacked "
+            f"{spec['tpot_mean_s'] * 1e3:.2f}), launches "
+            f"{pk_spec['launches']}")
+        for name in ("sparqle_encode_packed", "sparqle_matmul_packed"):
+            if pk["launches"][name] != 252 * fw:
+                raise AssertionError(f"{name} launches != 252 per forward")
+        if not (all(same_pk) and all(same_pks)
+                and all(pk["logits_equal"].values())):
+            raise AssertionError("the packed serves differ from phase 4")
+        # phase 9: the fixed-batch --legacy path
+        lg = serve_legacy(dev, cfg, params, prompts)
+        steps = lg["decode_steps"]
+        same_lg = [a == b for a, b in zip(lg["streams"], eng["streams"])]
+        lg["vs_engine_2l"] = legacy_vs_engine(dev, args.seed)
+        log(f"[9] granite-8b {cfg.n_layers}L --legacy {SERVE['batch']} x "
+            f"{SERVE['prompt_len']} x {SERVE['gen']}: prefill "
+            f"{lg['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{lg['decode_step_s'] * 1e3:.2f} ms/step over {steps} steps "
+            f"(engine TPOT {eng['tpot_mean_s'] * 1e3:.2f} ms), streams "
+            f"equal to phase 4: {sum(same_lg)}/{len(same_lg)} (not "
+            f"required: the engine prefills in chunks of 32), launches "
+            f"{lg['launches']}, peak {lg['peak_mem_gb']:.1f} GB; granite "
+            f"width 2L f32 legacy vs engine (prefill unchunked): "
+            f"{lg['vs_engine_2l']}")
+        check_path(lg, ("sparqle_encode", "sparqle_matmul",
+                        "kv_attention_contiguous"),
+                   ("kv_attention", "kv_attention_verify",
+                    "kv_attention_tiered"))
+        if lg["launches"]["kv_attention_contiguous"] != cfg.n_layers * steps:
+            raise AssertionError("contiguous attention launches != layers x "
+                                 "decode steps")
+        if lg["launches"]["sparqle_matmul"] != 252 * (1 + steps):
+            raise AssertionError("legacy matmul launches != 252 per forward")
+        if not lg["vs_engine_2l"]["equal"]:
+            raise AssertionError("legacy streams differ from the engine's "
+                                 "with the prefill unchunked")
+        # phase 10: where the time goes, then the base serve once more
         eng["profile"] = profile_engine(cfg, params, dev, args.seed)
         spec["profile"] = profile_engine(cfg, params, dev, args.seed,
                                          SPEC_GAMMA)
@@ -1116,7 +1467,7 @@ def main() -> int:
                           f"({k['mean_us']:.1f} us x {k['launches']})"
                           for k in eng["profile"]["by_kernel"][:8])
         prof = spec["profile"]
-        log(f"[8] profiled reruns (8 requests x 32 prompt x 8 new): base "
+        log(f"[10] profiled reruns (8 requests x 32 prompt x 8 new): base "
             f"device busy {eng['profile']['device_busy_s']:.3f} s of "
             f"{eng['profile']['profiled_wall_s']:.2f} s wall, by kernel: "
             f"{split}; speculative device busy {prof['device_busy_s']:.3f} "
@@ -1126,19 +1477,20 @@ def main() -> int:
             f"{after['tpot_mean_s'] * 1e3:.2f} ms (phase 4: "
             f"{eng['wall_s']:.2f} s, {eng['tpot_mean_s'] * 1e3:.2f} ms), "
             f"streams equal: {after['streams'] == eng['streams']}")
-        del params, dense
+        del params, dense, packed
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         xc = [cross_check(dev, args.seed + i) for i in range(XC_SEEDS)]
         worst = max(xc, key=lambda r: r["rel_err"])
-        log(f"[9] cross-check granite width 2L f32 cuda vs cpu, "
+        log(f"[11] cross-check granite width 2L f32 cuda vs cpu, "
             f"{XC_SEEDS} seeds: worst max |dlogit| "
             f"{worst['max_abs_logit_err']:.3g} of max |logit| "
             f"{worst['max_abs_logit']:.3g} ({worst['rel_err']:.3g} rel, "
             f"tol {LOGIT_TOL} rel), greedy tokens "
             f"{', '.join(r['greedy_match'] for r in xc)}, "
             f"{time.perf_counter() - t0:.1f} s")
-        runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn}
+        runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn,
+                "packed": pk, "packed_spec": pk_spec, "legacy": lg}
         strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
                            if k != "aggregate"}
         detail.update(engine=strip(eng), spec_engine=strip(spec),
@@ -1146,6 +1498,8 @@ def main() -> int:
                                       if k.startswith(("spec_", "steps"))},
                       kv2_idle=strip(idle), kv2_engine=strip(kv2),
                       kv2_aggregate=agg2, dense_engine=strip(dn),
+                      packed_engine=strip(pk), unpacked_again=strip(again),
+                      packed_spec_engine=strip(pk_spec), legacy=lg,
                       after_profilers=strip(after),
                       cross_check=xc, build_s=t_build)
         for r in rows:

@@ -2,10 +2,10 @@
 
 Both packages keep the same nested-dict layout, so conversion is a tree
 map. A quantized JAX projection is recognised by its fields (``w.q``,
-``w.scale``, ``col_mask``, ``l``, ``h``, ``mode``, ``packed``) rather
-than by its class: the port imports nothing of the JAX package. Leaves
-are read with ``numpy.asarray``; bf16 arrays cross as their bit
-patterns.
+``w.scale``, ``col_mask``, ``l``, ``h``, ``mode``, ``packed``,
+``wire_format``) rather than by its class: the port imports nothing of
+the JAX package. Leaves are read with ``numpy.asarray``; bf16 arrays
+cross as their bit patterns.
 """
 from __future__ import annotations
 
@@ -28,14 +28,14 @@ def to_tensor(x, device="cpu") -> torch.Tensor:
 
 def _is_sparqle_linear(x) -> bool:
     return all(hasattr(x, a) for a in ("w", "col_mask", "l", "h", "mode",
-                                       "packed"))
+                                       "packed", "wire_format"))
 
 
 def convert_tree(tree: Any, device="cpu") -> Any:
     """Float or already-quantized JAX param tree, or JAX pool state ->
     torch tree. The clipping constants stay on the CPU (see
-    ``core.qlinear``); a packed-wire-format projection converts to the
-    unpacked one, which gives bit-identical results."""
+    ``core.qlinear``); a packed-wire-format projection stays one, so the
+    port serves it through the packed encoder and matmul."""
     if isinstance(tree, dict):
         return {k: convert_tree(v, device) for k, v in tree.items()}
     if _is_sparqle_linear(tree):
@@ -47,7 +47,8 @@ def convert_tree(tree: Any, device="cpu") -> Any:
                               to_tensor(w.zero, device), int(w.bits)),
             col_mask=opt(tree.col_mask, device),
             l=opt(tree.l, "cpu"), h=opt(tree.h, "cpu"),
-            mode=tree.mode, packed=bool(tree.packed))
+            mode=tree.mode, packed=bool(tree.packed),
+            wire_format=tree.wire_format)
     return to_tensor(tree, device)
 
 

@@ -15,7 +15,11 @@ the JAX package's ``_quantized_apply`` bit for bit: the same int8
 planes, the same int32 accumulator, the same ``acc * act_scale *
 w_scale`` drain. Inside :func:`msb_skip_scope` every such projection
 runs the LSB4-only draft matmul instead (the draft forward of
-self-speculative decoding).
+self-speculative decoding). A projection with ``wire_format="packed"``
+runs the same chain on the packed wire format (``core.packing``): the
+packed encoder and the packed dual-pass (or draft) matmul; the codec is
+exact, so its accumulator equals the unpacked one bit for bit, as in
+JAX's ``_dual_pass_matmul(wire_format="packed")``.
 
 The clipping constants ``l``/``h`` stay on the CPU whatever the device of
 the weights: they are read on the host at every call (kernel arguments),
@@ -34,8 +38,13 @@ from repro_torch.core.clipping import importance_mask_tile_aligned
 from repro_torch.core.quantize import (QuantizedTensor, activation_scale,
                                        quantize_weights)
 from repro_torch.kernels.quant_matmul import quant_matmul
-from repro_torch.kernels.sparqle_encode import sparqle_encode, sparqle_quantize
-from repro_torch.kernels.sparqle_matmul import sparqle_matmul
+from repro_torch.kernels.sparqle_encode import (sparqle_encode,
+                                                sparqle_encode_packed,
+                                                sparqle_quantize)
+from repro_torch.kernels.sparqle_matmul import (sparqle_matmul,
+                                                sparqle_matmul_packed)
+
+WIRE_FORMATS = ("unpacked", "packed")
 
 
 # Draft-mode flag (self-speculative decoding): while True, every sparqle
@@ -88,7 +97,9 @@ class SparqleLinear:
     ``w.q`` is (K/2, N) when ``packed`` (else (K, N): w_bits > 4 or odd
     K, which the matmul kernel does not take), or layer-stacked with a
     leading (L,) axis; ``col_mask`` (K,) bool or None; ``l``/``h`` CPU
-    f32 scalars (or (L,) when stacked).
+    f32 scalars (or (L,) when stacked). ``wire_format`` 'packed' routes
+    the activations of a sparqle-mode projection through the packed
+    wire format (dense mode ignores it, as in JAX).
     """
 
     w: QuantizedTensor
@@ -97,6 +108,7 @@ class SparqleLinear:
     h: Optional[torch.Tensor]
     mode: str = "sparqle"
     packed: bool = False
+    wire_format: str = "unpacked"
 
     def layer(self, i: int) -> "SparqleLinear":
         """The ``i``-th layer of a layer-stacked projection."""
@@ -147,12 +159,16 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
 
 
 def _quantized_apply(x: torch.Tensor, sl: SparqleLinear) -> torch.Tensor:
-    """per-token scale -> encode (quantize, clip, split) -> dual pass
-    (LSB pass alone under :func:`msb_skip_scope`) -> rescale, or in dense
-    mode quantize + clip -> single pass -> rescale, through the kernel
+    """per-token scale -> encode (quantize, clip, split; packed in the
+    wire format when ``sl.wire_format`` says so) -> dual pass (LSB pass
+    alone under :func:`msb_skip_scope`) -> rescale, or in dense mode
+    quantize + clip -> single pass -> rescale, through the kernel
     wrappers."""
     if sl.mode not in ("sparqle", "dense"):
         raise ValueError(f"mode={sl.mode!r}: expected 'sparqle' or 'dense'")
+    if sl.wire_format not in WIRE_FORMATS:
+        raise ValueError(f"wire_format={sl.wire_format!r}: expected one of "
+                         f"{WIRE_FORMATS}")
     if sl.w.q.ndim != 2:
         raise NotImplementedError("batched (expert) projections")
     if not sl.packed:
@@ -170,6 +186,10 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear) -> torch.Tensor:
     if sl.mode == "dense":
         q = sparqle_quantize(x2, scale, *clip_args)
         out = quant_matmul(q, sl.w.q, scale, w_scale)
+    elif sl.wire_format == "packed":
+        lsb, msb, _, pop = sparqle_encode_packed(x2, scale, *clip_args)
+        out = sparqle_matmul_packed(lsb, msb, pop, sl.w.q, scale, w_scale,
+                                    msb_skip=_MSB_SKIP)
     else:
         lsb, msb, _, pop = sparqle_encode(x2, scale, *clip_args,
                                           with_pbm=False)
@@ -203,9 +223,15 @@ def quantize_leaf(
     mode: str = "sparqle",
     tile_k: int = 128,
     enable_clipping: bool = True,
+    wire_format: str = "unpacked",
 ) -> SparqleLinear:
     """Quantize one (K, N) projection into served form; the int4 payload
-    is packed two per byte along K unless w_bits > 4 or K is odd."""
+    is packed two per byte along K unless w_bits > 4 or K is odd.
+    ``wire_format='packed'`` serves its activations in the packed wire
+    format."""
+    if wire_format not in WIRE_FORMATS:
+        raise ValueError(f"wire_format={wire_format!r}: expected one of "
+                         f"{WIRE_FORMATS}")
     if leaf.ndim != 2:
         raise NotImplementedError(f"weight rank {leaf.ndim}: only (K, N) "
                                   f"projections are ported")
@@ -221,7 +247,7 @@ def quantize_leaf(
         w=wq, col_mask=mask,
         l=f32(clip_l) if enable_clipping else None,
         h=f32(clip_h) if enable_clipping else None,
-        mode=mode, packed=do_pack)
+        mode=mode, packed=do_pack, wire_format=wire_format)
 
 
 def stack_linears(sls) -> SparqleLinear:
@@ -247,14 +273,18 @@ def quantize_model_params(
     mode: str = "sparqle",
     enable_clipping: bool = True,
     tile_k: int = 128,
+    wire_format: str = "unpacked",
 ) -> Dict[str, Any]:
     """Rewrite every projection leaf of a param tree into SPARQLe form;
-    (L, K, N) layer-stacked leaves quantize one layer at a time."""
+    (L, K, N) layer-stacked leaves quantize one layer at a time.
+    ``wire_format='packed'`` serves every projection's activations in
+    the packed wire format."""
 
     def q1(w):
         return quantize_leaf(w, w_bits=w_bits, k_percent=k_percent,
                              clip_l=clip_l, clip_h=clip_h, mode=mode,
-                             enable_clipping=enable_clipping, tile_k=tile_k)
+                             enable_clipping=enable_clipping, tile_k=tile_k,
+                             wire_format=wire_format)
 
     def walk(tree, prefix=""):
         out = {}

@@ -47,6 +47,26 @@
 // changed how it compiled. Bound: bytes,
 // each page read once at its tier's width ((hd/2 + 4) * 2 bytes per
 // token and head for KV4, (hd/4 + 4) * 2 for KV2).
+//
+// The contiguous kernel replaces `kv4_decode_attention` (`_kernel`): one
+// query token per sequence over a (B, S, KVH, HD/2) cache in blocks of
+// PS tokens, read as the page pool (B*S/PS, PS, KVH, HD/2) whose page
+// b*(S/PS) + i is block i of sequence b. The table is implicit: the
+// kernel offsets the cache pointers to sequence b and the body takes
+// page = step, in its CONTIGUOUS instance; the float operations are
+// those of the decode kernel, so a contiguous call is bit-exact with a
+// paged call whose pages of PS tokens tile the same cache (the Pallas
+// contract; held on the card). A first version ran the decode
+// kernel's instance with a table written into shared memory: it was
+// bit-exact by construction, but the decode and verify kernels, which
+// share that instance, read 11% and 10% slower on an H100
+// (`tools/ab_kernels.py` against the parent), as the shared-memory
+// table pointer changed how the body compiled. The caller picks PS (S
+// a multiple of it): the body holds a whole block in shared memory as
+// f32, (2*HD + 1) * 4 bytes a token, so the Pallas default of 512
+// tokens (264 KB of K rows alone at HD = 128) does not fit; the
+// wrapper's 16 is the engine's page size. Bound: bytes, (HD/2 + 4) * 2
+// per token and head, each block read once.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -82,7 +102,9 @@ __device__ __noinline__ void load_kv2_page(
 // the pages named by `table` (NS entries); q and out at element offset
 // qbase, (G, HD) each. TIERED: `tiers` (NS entries) sends a tier-1 page
 // to the KV2 slab k2_pages/k2_scale/v2_* (not read otherwise).
-template <bool TIERED>
+// CONTIGUOUS: page `step` is page `step` of k_pages/v_pages (`table` is
+// not read).
+template <bool TIERED, bool CONTIGUOUS = false>
 __device__ __noinline__ void paged_attention_query(
     const void* __restrict__ q, int q_bf16, long qbase,
     const int8_t* __restrict__ k_pages, const float* __restrict__ k_scale,
@@ -116,7 +138,7 @@ __device__ __noinline__ void paged_attention_query(
   __syncthreads();
 
   for (int step = 0; step <= last; ++step) {
-    const long page = table[step];
+    const long page = CONTIGUOUS ? step : table[step];
     if (TIERED && tiers[step] == 1) {
       load_kv2_page(k2_pages, k2_scale, v2_pages, v2_scale, page, k_s, v_s,
                     KVH, h, HD, PS);
@@ -216,6 +238,18 @@ __global__ void kv_tiered_paged_decode_kernel(PAGED_ARGS) {
       tiers + (long)b * NS, pos[b], out, KVH, h, G, HD, PS, NS, scale);
 }
 
+// grid (KVH, B): the contiguous cache, NS = S / PS blocks a sequence;
+// k_pages/v_pages (B, S, KVH, HD/2), k_scale/v_scale (B, S, KVH).
+__global__ void kv4_decode_kernel(PAGED_ARGS) {
+  const int b = blockIdx.y, h = blockIdx.x;
+  const long seq = (long)b * NS * PS * KVH;        // sequence b's tokens
+  paged_attention_query<false, true>(
+      q, q_bf16, ((long)b * KVH + h) * G * HD, k_pages + seq * (HD / 2),
+      k_scale + seq, v_pages + seq * (HD / 2), v_scale + seq, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, pos[b], out, KVH, h, G,
+      HD, PS, NS, scale);
+}
+
 typedef void (*attention_kernel)(PAGED_ARGS);
 
 static int launch(attention_kernel kernel, dim3 grid, const void* q,
@@ -275,4 +309,14 @@ extern "C" int kv_tiered_paged_decode_launch(
                 k_pages, k_scale, v_pages, v_scale, k2_pages, k2_scale,
                 v2_pages, v2_scale, tables, tiers, pos, out, KVH, G, HD, PS,
                 NS, stream);
+}
+
+// k_q/v_q (B, S, KVH, HD/2), k_s/v_s (B, S, KVH), S = NS * PS.
+extern "C" int kv4_decode_launch(
+    const void* q, int q_bf16, const void* k_q, const void* k_s,
+    const void* v_q, const void* v_s, const void* pos, void* out, int B,
+    int KVH, int G, int HD, int PS, int NS, void* stream) {
+  return launch(kv4_decode_kernel, dim3(KVH, B), q, q_bf16, k_q, k_s, v_q,
+                v_s, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                pos, out, KVH, G, HD, PS, NS, stream);
 }

@@ -23,6 +23,18 @@
 // per-element device function, so its q equals 16 * msb + lsb of the
 // full encoder bit for bit. Bound: bytes (x read once, 1 B/elem out);
 // one thread per 8 consecutive elements of a row.
+//
+// The packed entry `sparqle_encode_packed_launch` replaces the Pallas
+// `sparqle_encode_packed` (`_kernel_packed`): the same per-element
+// quantize and clip, emitted in the wire layout of `core/packing.py`
+// with K padded to KP = a multiple of 32 (padded columns encode as 0,
+// PBM 0): LSB4 and MSB4 packed two per byte (M, KP/2) -- byte j holds
+// column 2j low and 2j+1 high -- and the PBM in 32-bit words (M, KP/32),
+// bit i of word w = column 32w + i, plus the tile populations. The
+// tiling is the full encoder's, so a thread's 8 columns are 4 bytes of
+// each plane (one 32-bit store each) and one byte of a PBM word; the 4
+// lanes that share a word OR their bytes together with two shuffles.
+// Bound: bytes, 1.125 B/elem out instead of 2 (3 with the PBM plane).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -118,6 +130,60 @@ __global__ void sparqle_quantize_kernel(
   }
 }
 
+// grid (ceil(KP / TILE_K), ceil(M / TILE_M)); lsb/msb as 32-bit words
+// of 8 packed nibbles, (M, KP/8) each, pbm (M, KP/32).
+__global__ void sparqle_encode_packed_kernel(
+    const void* __restrict__ x, int x_bf16, const float* __restrict__ scale,
+    const uint8_t* __restrict__ col_mask, int clip_l, int clip_h,
+    uint32_t* __restrict__ lsb, uint32_t* __restrict__ msb,
+    uint32_t* __restrict__ pbm, int32_t* __restrict__ pop, int M, int K,
+    int KP) {
+  const int kt = blockIdx.x, mt = blockIdx.y;
+  const int r = threadIdx.x / (TILE_K / PER_THREAD);         // 0..15
+  const int c0 = (threadIdx.x % (TILE_K / PER_THREAD)) * PER_THREAD;
+  const int m = mt * TILE_M + r, k0 = kt * TILE_K + c0;
+  const int lane = threadIdx.x & 31;
+  __shared__ int count;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+
+  uint32_t lo = 0, hi = 0, bits = 0;
+  if (m < M) {
+    const float s = row_scale(scale, m);
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) {
+      const int k = k0 + i;
+      if (k >= K) break;                 // padded columns stay 0
+      const int q = quantize_clip(load_x(x, (long)m * K + k, x_bf16), s,
+                                  x_bf16, col_mask != nullptr && col_mask[k],
+                                  clip_l, clip_h);
+      const int h4 = q >> 4;             // arithmetic shift: sign-extends
+      lo |= (uint32_t)(q & 0xF) << (4 * i);
+      hi |= (uint32_t)(h4 & 0xF) << (4 * i);
+      bits |= (uint32_t)(h4 != 0) << i;
+    }
+  }
+  // lanes 4j..4j+3 hold columns [32w, 32w + 32) of one row: OR their
+  // bytes into the word (every lane of the warp takes part)
+  uint32_t word = bits << (8 * (lane & 3));
+  word |= __shfl_xor_sync(0xffffffffu, word, 1);
+  word |= __shfl_xor_sync(0xffffffffu, word, 2);
+  // KP is a multiple of 32 and k0 of 8: a thread's 8 columns lie all
+  // inside the padded row or all past it
+  if (m < M && k0 < KP) {
+    const long at = (long)m * (KP / 8) + k0 / 8;
+    lsb[at] = lo;
+    msb[at] = hi;
+    if ((lane & 3) == 0) pbm[(long)m * (KP / 32) + k0 / 32] = word;
+  }
+  int local = __popc(bits);
+  for (int off = 16; off > 0; off >>= 1)
+    local += __shfl_down_sync(0xffffffffu, local, off);
+  if (lane == 0 && local) atomicAdd(&count, local);
+  __syncthreads();
+  if (threadIdx.x == 0) pop[mt * gridDim.x + kt] = count;
+}
+
 extern "C" int sparqle_encode_launch(
     const void* x, int x_bf16, const void* scale, const void* col_mask,
     int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
@@ -137,5 +203,19 @@ extern "C" int sparqle_quantize_launch(
   sparqle_quantize_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       x, x_bf16, (const float*)scale, (const uint8_t*)col_mask, clip_l,
       clip_h, (int8_t*)q, K);
+  return (int)cudaGetLastError();
+}
+
+// KP = K padded to a multiple of 32; outputs (M, KP/2) x2, (M, KP/32)
+// words and (ceil(M/16), ceil(K/128)) populations.
+extern "C" int sparqle_encode_packed_launch(
+    const void* x, int x_bf16, const void* scale, const void* col_mask,
+    int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
+    int M, int K, int KP, void* stream) {
+  dim3 grid((KP + TILE_K - 1) / TILE_K, (M + TILE_M - 1) / TILE_M);
+  sparqle_encode_packed_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      x, x_bf16, (const float*)scale, (const uint8_t*)col_mask, clip_l,
+      clip_h, (uint32_t*)lsb, (uint32_t*)msb, (uint32_t*)pbm, (int32_t*)pop,
+      M, K, KP);
   return (int)cudaGetLastError();
 }

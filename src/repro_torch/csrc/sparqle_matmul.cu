@@ -23,14 +23,29 @@
 // MSB plane and the tile populations are not arguments of that entry at
 // all, so it streams only the LSB plane and the weight (the Pallas
 // draft grid likewise drops both operands); the drain is shared.
+//
+// The packed entries replace the Pallas `sparqle_matmul_packed`
+// (`_kernel_packed`) and its draft (`_kernel_packed_draft`): the same
+// kernel instantiated with PACKED = true reads the activation planes in
+// the wire layout, (M, pad_k(K)/2) two nibbles per byte at the explicit
+// row stride ldp, and unpacks them into the same shared-memory tiles
+// (`load_act_tile_packed`), the MSB plane only for a tile whose
+// population is > 0. The weight unpack, the `__dp4a` body, the split-K
+// store and the drain are one source for both layouts, so the packed
+// and unpacked accumulators are equal by construction. Bound: bytes, as
+// the unpacked form; the activation planes cross device memory at half
+// their unpacked bytes, which at decode is ~0.1% of the weight stream.
 #include "w4a8_tile.cuh"
 
 // MSB_SKIP: the draft's LSB-only pass; msb and tile_pop are never read.
-template <bool MSB_SKIP>
+// PACKED: lsb/msb are wire-layout planes of row stride ldp bytes (the
+// unpacked planes have row stride K and ignore ldp).
+template <bool MSB_SKIP, bool PACKED>
 __global__ void sparqle_matmul_kernel(
     const int8_t* __restrict__ lsb, const int8_t* __restrict__ msb,
     const int32_t* __restrict__ tile_pop, const int8_t* __restrict__ wp,
-    int32_t* __restrict__ acc_buf, int M, int N, int K, int tiles_per_split) {
+    int32_t* __restrict__ acc_buf, int M, int N, int K, int ldp,
+    int tiles_per_split) {
   __shared__ __align__(16) weight_tile w_s;
   __shared__ __align__(16) act_tile a_l;
   __shared__ __align__(16) int8_t a_m[MSB_SKIP ? 1 : BM][BK];
@@ -45,8 +60,12 @@ __global__ void sparqle_matmul_kernel(
     // uniform over the block; the draft has no MSB pass to gate
     const int pop = MSB_SKIP ? 0 : tile_pop[mt * n_kt + kt];
     load_weight_tile(wp, w_s, kt, n0, N, K / 2);
-    load_act_tile(lsb, a_l, m0, kt * BK, M, K);
-    if (!MSB_SKIP && pop > 0) load_act_tile(msb, a_m, m0, kt * BK, M, K);
+    if (PACKED) load_act_tile_packed<false>(lsb, a_l, m0, kt * BK, M, ldp);
+    else load_act_tile(lsb, a_l, m0, kt * BK, M, K);
+    if (!MSB_SKIP && pop > 0) {
+      if (PACKED) load_act_tile_packed<true>(msb, a_m, m0, kt * BK, M, ldp);
+      else load_act_tile(msb, a_m, m0, kt * BK, M, K);
+    }
     __syncthreads();
     dp4a_tile(w_s, a_l, tn, mg, acc_l);
     if (!MSB_SKIP && pop > 0) dp4a_tile(w_s, a_m, tn, mg, acc_m);
@@ -58,16 +77,16 @@ __global__ void sparqle_matmul_kernel(
   store_acc(acc_buf, part, m0, mg, n0 + tn, M, N);
 }
 
-template <bool MSB_SKIP>
+template <bool MSB_SKIP, bool PACKED>
 static int launch(const void* lsb, const void* msb, const void* tile_pop,
                   const void* wp, const void* act_scale,
                   const void* w_scale, void* acc_buf, void* out, int M,
-                  int N, int K, int splits, cudaStream_t s) {
+                  int N, int K, int ldp, int splits, cudaStream_t s) {
   int per;
   const dim3 grid = w4a8_grid(M, N, K, splits, &per);
-  sparqle_matmul_kernel<MSB_SKIP><<<grid, THREADS, 0, s>>>(
+  sparqle_matmul_kernel<MSB_SKIP, PACKED><<<grid, THREADS, 0, s>>>(
       (const int8_t*)lsb, (const int8_t*)msb, (const int32_t*)tile_pop,
-      (const int8_t*)wp, (int32_t*)acc_buf, M, N, K, per);
+      (const int8_t*)wp, (int32_t*)acc_buf, M, N, K, ldp, per);
   return w4a8_drain(acc_buf, act_scale, w_scale, out, M, N, s);
 }
 
@@ -77,8 +96,9 @@ extern "C" int sparqle_matmul_launch(
     const void* lsb, const void* msb, const void* tile_pop, const void* wp,
     const void* act_scale, const void* w_scale, void* acc_buf, void* out,
     int M, int N, int K, int splits, void* stream) {
-  return launch<false>(lsb, msb, tile_pop, wp, act_scale, w_scale, acc_buf,
-                       out, M, N, K, splits, (cudaStream_t)stream);
+  return launch<false, false>(lsb, msb, tile_pop, wp, act_scale, w_scale,
+                              acc_buf, out, M, N, K, K, splits,
+                              (cudaStream_t)stream);
 }
 
 // The LSB4-only draft: no MSB plane, no tile populations.
@@ -86,6 +106,27 @@ extern "C" int sparqle_matmul_draft_launch(
     const void* lsb, const void* wp, const void* act_scale,
     const void* w_scale, void* acc_buf, void* out, int M, int N, int K,
     int splits, void* stream) {
-  return launch<true>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
-                      acc_buf, out, M, N, K, splits, (cudaStream_t)stream);
+  return launch<true, false>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
+                             acc_buf, out, M, N, K, K, splits,
+                             (cudaStream_t)stream);
+}
+
+// The wire-layout planes (M, ldp) with ldp = pad_k(K)/2.
+extern "C" int sparqle_matmul_packed_launch(
+    const void* lsb, const void* msb, const void* tile_pop, const void* wp,
+    const void* act_scale, const void* w_scale, void* acc_buf, void* out,
+    int M, int N, int K, int ldp, int splits, void* stream) {
+  return launch<false, true>(lsb, msb, tile_pop, wp, act_scale, w_scale,
+                             acc_buf, out, M, N, K, ldp, splits,
+                             (cudaStream_t)stream);
+}
+
+// The LSB4-only draft on the wire-layout LSB plane.
+extern "C" int sparqle_matmul_packed_draft_launch(
+    const void* lsb, const void* wp, const void* act_scale,
+    const void* w_scale, void* acc_buf, void* out, int M, int N, int K,
+    int ldp, int splits, void* stream) {
+  return launch<true, true>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
+                            acc_buf, out, M, N, K, ldp, splits,
+                            (cudaStream_t)stream);
 }

@@ -41,6 +41,32 @@ __device__ __forceinline__ void load_act_tile(
   }
 }
 
+// The wire layout's nibble planes (`core/packing.py`): row m holds
+// columns [0, 2 * ldp) two per byte at a + m * ldp (ldp = pad_k(K)/2, a
+// multiple of 16), byte j = column 2j low, 2j + 1 high. Loads the tile
+// rows [m0, +BM) x columns [k0, +BK), 4 bytes a thread, and unpacks them
+// into the int8 tile load_act_tile fills: LSB4 nibbles unsigned, MSB4
+// nibbles (SIGNED) sign-extended. Columns past the padded row load as 0.
+template <bool SIGNED>
+__device__ __forceinline__ void load_act_tile_packed(
+    const int8_t* __restrict__ a, int8_t (*dst)[BK], int m0, int k0, int M,
+    int ldp) {
+  const int r = threadIdx.x / 16, c = (threadIdx.x % 16) * 8;
+  const int m = m0 + r, k = k0 + c;
+  uint32_t v = 0;
+  if (m < M && k + 8 <= 2 * ldp)
+    v = *reinterpret_cast<const uint32_t*>(a + (long)m * ldp + k / 2);
+  uint32_t out[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t nib = (v >> (4 * i)) & 0xFu;
+    const uint32_t val = SIGNED ? (uint32_t)(((int)(nib ^ 8u) - 8) & 0xFF)
+                                : nib;
+    out[i / 4] |= val << (8 * (i % 4));
+  }
+  *reinterpret_cast<uint2*>(&dst[r][c]) = make_uint2(out[0], out[1]);
+}
+
 // packed weight rows [kt*BK/2, +BK/2) x cols [n0, n0+BN), 16 B/thread,
 // unpacked to w_s[column][k]
 __device__ __forceinline__ void load_weight_tile(

@@ -24,17 +24,26 @@ body that reads a tier table, whose float operations are the same, so
 a tiered call over tier-0 pages gives one decode call's bits, as the
 Pallas kernels do (held on the card).
 
+``kv4_decode_attention`` replaces the Pallas ``kv4_decode_attention``
+(``_kernel``): decode over the contiguous (B, S, KVH, hd/2) cache of the
+fixed-batch path, read in blocks of ``bs`` tokens as the page pool
+(B*S/bs, bs, KVH, hd/2) with the implicit table ``b*S/bs + i``, by an
+instance of the decode kernel's templated body that does the same float
+operations: bit-exact with the paged kernel on pages of ``bs`` that tile
+the same cache (held on the card).
+
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version (``kernels.ref.kv4_paged_decode_attention_ref``,
 ``kv4_paged_verify_attention_ref``,
-``kv_tiered_paged_decode_attention_ref``).
+``kv_tiered_paged_decode_attention_ref``, ``kv4_decode_attention_ref``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (kv4_paged_decode_attention_ref,
+from repro_torch.kernels.ref import (kv4_decode_attention_ref,
+                                     kv4_paged_decode_attention_ref,
                                      kv4_paged_verify_attention_ref,
                                      kv_tiered_paged_decode_attention_ref)
 
@@ -49,6 +58,16 @@ TIERED_KERNEL = _build.register(_build.Kernel(
     "kv_attention.cu", "kv_tiered_paged_decode_launch",
     [_build.P, _build.I] + [_build.P] * 12 + [_build.I] * 6 + [_build.P],
     name="kv_attention_tiered"))
+CONTIGUOUS_KERNEL = _build.register(_build.Kernel(
+    "kv_attention.cu", "kv4_decode_launch",
+    [_build.P, _build.I] + [_build.P] * 6 + [_build.I] * 6 + [_build.P],
+    name="kv_attention_contiguous"))
+
+# Tokens per cache block of the contiguous kernel: the engine's page
+# size, so that the fixed-batch and the paged decode give the same bits.
+# The kernel's body holds one block in shared memory as f32, (2 hd + 1)
+# * 4 bytes a token, which rules out the Pallas kernel's 512.
+CONTIGUOUS_BLOCK = 16
 
 
 def _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
@@ -187,4 +206,53 @@ def kv_tiered_paged_decode_attention(
         TIERED_KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
                              *(t.data_ptr() for t in args[1:]),
                              out.data_ptr(), b, kvh, g, hd, ps, n_s)
+    return out
+
+
+def kv4_decode_attention(
+    q: torch.Tensor,        # (B, KVH, G, hd) f32 / bf16
+    k_q: torch.Tensor,      # (B, S, KVH, hd/2) int8
+    k_s: torch.Tensor,      # (B, S, KVH) f32
+    v_q: torch.Tensor,      # (B, S, KVH, hd/2) int8
+    v_s: torch.Tensor,      # (B, S, KVH) f32
+    pos: torch.Tensor,      # (B,) int32
+    *,
+    bs: int = CONTIGUOUS_BLOCK,
+) -> torch.Tensor:
+    """(B, KVH, G, hd) attention output in q's dtype over the contiguous
+    cache, positions <= pos, in blocks of ``bs`` tokens (S must be a
+    multiple of ``bs``)."""
+    if not q.is_cuda:
+        return kv4_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos)
+    if q.ndim != 4 or k_q.ndim != 4:
+        raise ValueError(f"q must be (B, KVH, G, hd) and k_q (B, S, KVH, "
+                         f"hd/2), got {tuple(q.shape)}, {tuple(k_q.shape)}")
+    b, kvh, g, hd = q.shape
+    s = k_q.shape[1]
+    if bs <= 0 or s % bs:
+        raise ValueError(f"cache length {s} is not a multiple of the block "
+                         f"size {bs}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
+    for name, t, shape, dt in (
+            ("q", q, (b, kvh, g, hd), q.dtype),
+            ("k_q", k_q, (b, s, kvh, hd // 2), torch.int8),
+            ("v_q", v_q, (b, s, kvh, hd // 2), torch.int8),
+            ("k_s", k_s, (b, s, kvh), torch.float32),
+            ("v_s", v_s, (b, s, kvh), torch.float32),
+            ("pos", pos, (b,), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != q.device:
+            raise ValueError(f"{name}: expected {dt} {shape} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if hd % 2:
+        raise ValueError(f"odd head dim {hd}")
+    n_s = s // bs
+    out = torch.empty_like(q)
+    if b and kvh and n_s:
+        CONTIGUOUS_KERNEL.launch(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
+            k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), b, kvh, g, hd, bs, n_s)
     return out

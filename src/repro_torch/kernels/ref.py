@@ -13,7 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.packing import unpack_plane
+from repro_torch.core.packing import (pack_nibbles, pack_pbm, pad_k,
+                                      unpack_nibbles, unpack_plane)
 from repro_torch.core.sparqle import LP_HIGH, LP_LOW, tile_population
 
 # Tile of the PBM population the matmul skips its MSB pass on. TILE_K
@@ -79,6 +80,24 @@ def sparqle_encode_ref(
     return lsb, msb, pbm, tile_population_padded(pbm)
 
 
+def sparqle_encode_packed_ref(
+    x: torch.Tensor,                   # (M, K) f32 / bf16
+    scale: torch.Tensor,               # (M, 1) f32 per-token scale
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantize -> [clip] -> split -> pack: (lsb4, msb4) packed two per
+    byte (M, pad_k(K)/2) int8, PBM words (M, pad_k(K)/32) int32 (uint32
+    bit patterns) and tile_pop as :func:`sparqle_encode_ref`'s. Padded
+    columns encode as 0 with PBM 0."""
+    q = sparqle_quantize_ref(x, scale, col_mask, l, h)
+    pop = tile_population_padded((q >> 4) != 0)
+    qp = torch.nn.functional.pad(q, (0, pad_k(q.shape[1]) - q.shape[1]))
+    msb = qp >> 4
+    return pack_nibbles(qp & 0xF), pack_nibbles(msb), pack_pbm(msb != 0), pop
+
+
 def unpack_int4_k(w_packed: torch.Tensor) -> torch.Tensor:
     """(K/2, N) int8 packed along K (``qlinear.pack_int4``) -> (K, N)."""
     lo = (w_packed << 4) >> 4
@@ -110,6 +129,27 @@ def sparqle_matmul_ref(
     if acc_out:
         return acc
     return acc.float() * act_scale.float() * w_scale.float()
+
+
+def sparqle_matmul_packed_ref(
+    lsb4_packed: torch.Tensor,          # (M, pad_k(K)/2) int8
+    msb4_packed: Optional[torch.Tensor],
+    tile_pop: Optional[torch.Tensor],
+    w_packed: torch.Tensor,             # (K/2, N) int8, int4 packed along K
+    act_scale: torch.Tensor,            # (M, 1) f32
+    w_scale: torch.Tensor,              # (1, N) f32
+    acc_out: bool = False,
+    msb_skip: bool = False,
+) -> torch.Tensor:
+    """:func:`sparqle_matmul_ref` on nibble planes packed two per byte
+    (the wire layout, K padded to a multiple of 32): unpacked (LSB
+    unsigned, MSB sign-extended) and cut to the weight's K first."""
+    k = w_packed.shape[0] * 2
+    lsb = unpack_nibbles(lsb4_packed, signed=False)[:, :k]
+    msb = (None if msb_skip
+           else unpack_nibbles(msb4_packed, signed=True)[:, :k])
+    return sparqle_matmul_ref(lsb, msb, tile_pop, w_packed, act_scale,
+                              w_scale, acc_out=acc_out, msb_skip=msb_skip)
 
 
 def quant_matmul_ref(
@@ -150,7 +190,22 @@ def kv4_paged_decode_attention_ref(
     tables = block_tables.long()
     k = _gather_pages(k_pages, k_scale_pages, tables, unpack_kv4)
     v = _gather_pages(v_pages, v_scale_pages, tables, unpack_kv4)
-    return _paged_attention(q, k, v, pos)
+    return decode_attention_f32(q, k, v, pos)
+
+
+def kv4_decode_attention_ref(
+    q: torch.Tensor,        # (B, KVH, G, hd)
+    k_q: torch.Tensor,      # (B, S, KVH, hd/2) int8
+    k_s: torch.Tensor,      # (B, S, KVH) f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    pos: torch.Tensor,      # (B,) int32
+) -> torch.Tensor:
+    """Decode attention over the contiguous packed-KV4 cache, f32
+    softmax, positions <= pos."""
+    k = unpack_kv4(k_q).float() * k_s[..., None]
+    v = unpack_kv4(v_q).float() * v_s[..., None]
+    return decode_attention_f32(q, k, v, pos)
 
 
 def _gather_pages(pages, scales, tables, unpack) -> torch.Tensor:
@@ -162,9 +217,9 @@ def _gather_pages(pages, scales, tables, unpack) -> torch.Tensor:
     return x.reshape(b, n_s * ps, kvh, -1)
 
 
-def _paged_attention(q, k, v, pos) -> torch.Tensor:
+def decode_attention_f32(q, k, v, pos) -> torch.Tensor:
     """f32 attention of q (B, KVH, G, hd) over dequantized k/v
-    (B, S, KVH, hd), masked to positions <= pos."""
+    (B, S, KVH, hd), masked to positions <= pos; output in q's dtype."""
     hd = q.shape[-1]
     s = torch.einsum("bhgd,bjhd->bhgj", q.float(), k) * hd ** -0.5
     allow = (torch.arange(k.shape[1], device=q.device)[None, :]
@@ -211,7 +266,7 @@ def kv_tiered_paged_decode_attention_ref(
 
     k = gather(k_pages, k_scale_pages, k2_pages, k2_scale_pages)
     v = gather(v_pages, v_scale_pages, v2_pages, v2_scale_pages)
-    return _paged_attention(q, k, v, pos)
+    return decode_attention_f32(q, k, v, pos)
 
 
 def kv4_paged_verify_attention_ref(

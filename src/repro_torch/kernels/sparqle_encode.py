@@ -19,9 +19,16 @@ plane out, no split and no populations (``sparqle_quantize_launch``).
 Both kernels share the per-element device function, so its q is the
 encoder's 16 * msb4 + lsb4 bit for bit.
 
+:func:`sparqle_encode_packed` replaces the Pallas
+``sparqle_encode_packed`` (``_kernel_packed``): the same quantize and
+clip emitted in the wire layout of ``core.packing`` (K padded to a
+multiple of 32; LSB4/MSB4 two nibbles per byte, the PBM in 32-bit words
+carried as int32 bit patterns), plus the tile populations
+(``sparqle_encode_packed_launch``).
+
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version ``kernels.ref.sparqle_encode_ref`` /
-``sparqle_quantize_ref``.
+``sparqle_quantize_ref`` / ``sparqle_encode_packed_ref``.
 """
 from __future__ import annotations
 
@@ -29,8 +36,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.packing import PBM_WORD_BITS, pad_k
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv,
+                                     sparqle_encode_packed_ref,
                                      sparqle_encode_ref, sparqle_quantize_ref)
 
 KERNEL = _build.register(_build.Kernel(
@@ -41,6 +50,11 @@ QUANTIZE_KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_quantize_launch",
     [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I, _build.P,
      _build.I, _build.I, _build.P], name="sparqle_quantize"))
+PACKED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_encode_packed_launch",
+    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
+     _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I,
+     _build.P], name="sparqle_encode_packed"))
 
 
 def _check(x, scale, col_mask):
@@ -116,3 +130,33 @@ def sparqle_quantize(
             None if col_mask is None else col_mask.data_ptr(), int(l),
             int(h), q.data_ptr(), m, k)
     return q
+
+
+def sparqle_encode_packed(
+    x: torch.Tensor,                # (M, K) f32 / bf16
+    scale: torch.Tensor,            # (M, 1) f32
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (lsb4 packed (M, Kp/2) int8, msb4 packed (M, Kp/2) int8,
+    PBM words (M, Kp/32) int32, tile_pop (ceil(M/TILE_M),
+    ceil(K/TILE_K)) int32) with Kp = ``pad_k(K)``."""
+    if not x.is_cuda:
+        return sparqle_encode_packed_ref(x, scale, col_mask, l, h)
+    m, k = x.shape
+    kp = pad_k(k)
+    scale, col_mask = _check(x, scale, col_mask)
+    lsb = torch.empty((m, kp // 2), dtype=torch.int8, device=x.device)
+    msb = torch.empty((m, kp // 2), dtype=torch.int8, device=x.device)
+    pbm = torch.empty((m, kp // PBM_WORD_BITS), dtype=torch.int32,
+                      device=x.device)
+    pop = torch.empty((_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
+                      dtype=torch.int32, device=x.device)
+    if m and k:
+        PACKED_KERNEL.launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+            None if col_mask is None else col_mask.data_ptr(), int(l),
+            int(h), lsb.data_ptr(), msb.data_ptr(), pbm.data_ptr(),
+            pop.data_ptr(), m, k, kp)
+    return lsb, msb, pbm, pop

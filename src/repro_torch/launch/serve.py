@@ -22,9 +22,17 @@ matmul kernels), no sub-precision split.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --smoke --device cpu [--spec-gamma 2] [--mode dense]
 
+``--legacy`` serves the fixed-batch path instead: one whole-prompt
+prefill into a contiguous packed-KV4 cache a layer, then lockstep greedy
+decode steps through the contiguous KV4 decode kernel.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --legacy
+
 The KV2 precision ladder has no flag here, as in the JAX package's
 serve: arm it through ``make_engine(..., kv2_pages=N)`` or
-``PoolConfig(kv2_pages=N)``.
+``PoolConfig(kv2_pages=N)``; nor has the packed wire format: serve a
+``quantize_model_params(..., wire_format="packed")`` tree.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import steps as S
 from repro_torch.models.model import check_paged_support
 from repro_torch.models.schema import init_quantized_params
 from repro_torch.models.schema_builder import build_schema
@@ -122,6 +131,37 @@ def run_requests(eng: Engine, prompts: List[List[int]],
     }
 
 
+def legacy_serve(cfg: ModelConfig, params, prompts: List[List[int]],
+                 gen: int, device) -> Dict[str, object]:
+    """The fixed-batch path: one prefill of the whole (equal-length)
+    prompts into contiguous caches of prompt + ``gen`` positions, then
+    ``gen - 1`` lockstep greedy decode steps. Returns the streams and
+    the prefill and per-step decode times."""
+    tokens = torch.tensor(prompts, dtype=torch.int32, device=device)
+    b, plen = tokens.shape
+    prefill = S.make_serve_prefill(cfg, plen + gen)
+    decode = S.make_serve_decode(cfg)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    tok, cache = prefill(params, {"tokens": tokens})
+    sync()
+    t_prefill = time.perf_counter() - t0
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        pos = torch.full((b,), plen + i, dtype=torch.int32, device=device)
+        tok, cache = decode(params, cache, tok, pos)
+        out.append(tok)
+    sync()
+    t_decode = (time.perf_counter() - t0) / max(1, gen - 1)
+    return {"streams": torch.stack(out, 1).tolist(), "prefill_s": t_prefill,
+            "decode_step_s": t_decode, "decode_steps": gen - 1}
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -144,6 +184,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--spec-gamma", type=int, default=0,
                     help="self-speculative decoding: LSB4-only draft "
                          "window per verify cycle (0 = off)")
+    ap.add_argument("--legacy", action="store_true",
+                    help="fixed-batch serving path (no engine)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -153,8 +195,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="write the Chrome trace-event JSON here")
     args = ap.parse_args(argv)
 
+    if args.legacy and (args.metrics_out or args.trace_out):
+        raise SystemExit("--metrics-out/--trace-out read the paged "
+                         "engine's observability bundle; the --legacy "
+                         "path has none (drop one of the two)")
     cfg = get_config(args.arch, smoke=args.smoke)
-    check_paged_support(cfg)
+    check_paged_support(cfg, "contiguous" if args.legacy else "paged")
     device = resolve_device(args.device)
     t0 = time.perf_counter()
     params = build_served_params(
@@ -165,6 +211,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, built and "
           f"quantized ({args.mode}) on {device} in "
           f"{time.perf_counter() - t0:.1f} s")
+    prompts = make_prompts(cfg, args.seed, args.batch, args.prompt_len)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "CPU, plain versions")
+    if args.legacy:
+        r = legacy_serve(cfg, params, prompts, args.gen, device)
+        print(f"generated {args.batch} x {args.gen} tokens; prefill "
+              f"{r['prefill_s'] * 1e3:.1f} ms, "
+              f"{r['decode_step_s'] * 1e3:.2f} ms/token ({where})")
+        return
     eng = make_engine(cfg, params, batch=args.batch,
                       prompt_len=args.prompt_len, gen=args.gen,
                       page_size=args.page_size, n_pages=args.n_pages,
@@ -172,10 +227,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                       prefill_chunk=args.prefill_chunk,
                       decode_slots=args.decode_slots,
                       spec_gamma=args.spec_gamma, device=device)
-    r = run_requests(eng, make_prompts(cfg, args.seed, args.batch,
-                                       args.prompt_len), args.gen)
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "CPU, plain versions")
+    r = run_requests(eng, prompts, args.gen)
     print(f"engine: {r['requests']} requests, {r['tokens']} tokens in "
           f"{r['wall_s']:.2f} s ({r['tokens_per_s']:.1f} tok/s, "
           f"{r['steps']} steps; {where})")

@@ -1,6 +1,8 @@
-"""The engine's step functions (torch twin of the engine steps of
-``repro.launch.steps``), as plain closures over the config: prefill,
-decode (full or LSB4-only draft) and the speculative verify window.
+"""The serving step functions (torch twin of the serving steps of
+``repro.launch.steps``), as plain closures over the config: the engine's
+prefill, decode (full or LSB4-only draft) and speculative verify window,
+and the fixed-batch path's whole-prompt prefill and decode over
+contiguous caches (``make_serve_prefill``/``make_serve_decode``).
 
 The decode step takes a (B, Pmax) tier table too when the KV2 precision
 ladder is armed. All keep the JAX steps' static shapes — a (1, C) prefill chunk, a (B,)
@@ -15,6 +17,34 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_serve_prefill(cfg: ModelConfig, max_len: int):
+    """(params, batch {"tokens": (B, S)}) -> (greedy next token (B,)
+    int32, contiguous caches of ``max_len`` positions)."""
+
+    @torch.no_grad()
+    def serve_prefill(params, batch):
+        logits, cache = M.prefill(cfg, params, batch, max_len=max_len)
+        return _greedy(logits), cache
+
+    return serve_prefill
+
+
+def make_serve_decode(cfg: ModelConfig):
+    """(params, cache, token (B,), pos (B,)) -> (greedy next token (B,)
+    int32, cache updated in place)."""
+
+    @torch.no_grad()
+    def serve_decode(params, cache, token, pos):
+        logits, cache = M.decode_step(cfg, params, cache, token, pos)
+        return _greedy(logits), cache
+
+    return serve_decode
 
 
 def make_engine_prefill_chunk(cfg: ModelConfig):

@@ -1,15 +1,18 @@
-"""Shared layers of the paged serving path (torch twin of
-``repro.models.layers``): RMSNorm, RoPE, embedding and the inter-layer
-activation wire telemetry."""
+"""Shared layers of the serving paths (torch twin of
+``repro.models.layers``): RMSNorm, RoPE, embedding, the inter-layer
+activation wire telemetry, and the fixed-batch path's float attention
+(``flash_attention`` over a whole sequence, ``decode_attention`` over a
+dequantized cache — plain torch, as they are plain jnp in JAX)."""
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import torch
 
 from repro_torch.core.packing import dense_bytes_rows, measured_wire_bytes_rows
 from repro_torch.core.quantize import quantize_activations
 from repro_torch.core.sparqle import subprecision_sparsity
+from repro_torch.kernels.ref import decode_attention_f32
 
 NEG_INF = -2.0e38
 
@@ -59,3 +62,79 @@ def stack_sublayer_telemetry(tels: List[Dict[str, torch.Tensor]]
                              ) -> Dict[str, torch.Tensor]:
     """Stack per-sub-layer telemetry dicts into per-key (L, ...) tensors."""
     return {k: torch.stack([t[k] for t in tels], 0) for k in tels[0]}
+
+
+class AttnSpec(NamedTuple):
+    causal: bool = True
+    window: int = 0          # 0 = unlimited; sliding window otherwise
+    prefix_len: int = 0      # positions < prefix_len attend bidirectionally
+
+
+def _check_spec(spec: AttnSpec) -> None:
+    if not spec.causal or spec.window or spec.prefix_len:
+        raise NotImplementedError(
+            f"{spec}: only causal attention without a window or a "
+            f"bidirectional prefix is ported")
+
+
+def _mask(qi: torch.Tensor, kj: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """(len(qi), len(kj)) boolean allow-mask from absolute positions."""
+    _check_spec(spec)
+    return kj[None, :] <= qi[:, None]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    spec: AttnSpec, *, bq: int = 512,
+                    bkv: int = 1024) -> torch.Tensor:
+    """Blockwise f32 online-softmax attention, q (B, Sq, H, hd) over k/v
+    (B, Skv, KVH, hd), GQA groups of H/KVH heads; output in q's dtype.
+    The block loop is JAX's: ``bq``/``bkv`` are cut to the sequence and
+    must divide it."""
+    b, sq, h, hd = q.shape
+    _, skv, kvh, _ = k.shape
+    hdv = v.shape[-1]
+    g = h // kvh
+    bq, bkv = min(bq, sq), min(bkv, skv)
+    if sq % bq or skv % bkv:
+        raise ValueError(f"blocks ({bq}, {bkv}) do not divide ({sq}, {skv})")
+    scale = hd ** -0.5
+    qg = q.reshape(b, sq, kvh, g, hd).float()
+    kf, vf = k.float(), v.float()
+    outs = []
+    for iq in range(sq // bq):
+        qb = qg[:, iq * bq:(iq + 1) * bq]
+        qpos = iq * bq + torch.arange(bq, device=q.device)
+        m = torch.full((b, kvh, g, bq), NEG_INF, device=q.device)
+        den = torch.zeros((b, kvh, g, bq), device=q.device)
+        acc = torch.zeros((b, kvh, g, bq, hdv), device=q.device)
+        for jk in range(skv // bkv):
+            kb = kf[:, jk * bkv:(jk + 1) * bkv]
+            vb = vf[:, jk * bkv:(jk + 1) * bkv]
+            kpos = jk * bkv + torch.arange(bkv, device=q.device)
+            s = torch.einsum("bihgd,bjhd->bhgij", qb, kb) * scale
+            s = torch.where(_mask(qpos, kpos, spec)[None, None, None], s,
+                            NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            den = den * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgij,bjhd->bhgid",
+                                                       p, vb)
+            m = m_new
+        out = acc / torch.clamp_min(den, 1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, hdv)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor,
+                     spec: AttnSpec) -> torch.Tensor:
+    """One new token per sequence: q (B, H, hd) over a dequantized cache
+    (B, Smax, KVH, hd), positions <= pos (B,); f32 softmax, output in
+    q's dtype. The plain version of the contiguous KV4 decode kernel."""
+    _check_spec(spec)
+    b, h, hd = q.shape
+    kvh = k_cache.shape[2]
+    out = decode_attention_f32(q.reshape(b, kvh, h // kvh, hd),
+                               k_cache.float(), v_cache.float(), pos)
+    return out.reshape(b, h, v_cache.shape[-1])

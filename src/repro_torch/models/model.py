@@ -1,6 +1,8 @@
-"""Paged-serving subset of the unified model (torch twin of
-``repro.models.model``): a full-attention GQA decoder served from a paged
-packed-KV4 pool in SPARQLe mode.
+"""Serving subset of the unified model (torch twin of
+``repro.models.model``): a full-attention GQA decoder in SPARQLe mode,
+served from a paged packed-KV4 pool (the engine) or from one contiguous
+(B, Smax) packed-KV4 cache a layer (``prefill``/``decode_step``, the
+fixed-batch ``serve --legacy`` path).
 
 Params keep the JAX tree layout — ``params["stages"]["s0"]["p0"]["wq"]``
 with a leading layer axis — and the JAX ``lax.scan`` over layers is a
@@ -12,10 +14,15 @@ functional form would cost, and each function still returns the pool for
 symmetry with its JAX twin. Prefill attention is plain torch, as it is
 plain jnp in the reference; decode attention runs the paged KV4 kernel
 (the mixed KV4/KV2 tier kernel when the precision ladder is armed) and
-the speculative verify window its multi-token twin.
+the speculative verify window its multi-token twin. The contiguous
+decode runs the contiguous KV4 kernel on the packed cache, which is
+never dequantized in device memory (JAX dequantizes it to the compute
+dtype and calls the plain ``decode_attention``: equal to rounding at
+f32; at bf16 the two differ by the bf16 rounding of K/V).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -25,11 +32,12 @@ from repro_torch.core.qlinear import linear, msb_skip_scope, tree_index
 from repro_torch.core.quantize import quantize_activations, quantize_weights
 from repro_torch.core.sparqle import subprecision_sparsity
 from repro_torch.kernels.kv_attention import (
-    kv4_paged_decode_attention, kv4_paged_verify_attention,
-    kv_tiered_paged_decode_attention)
+    CONTIGUOUS_BLOCK, kv4_decode_attention, kv4_paged_decode_attention,
+    kv4_paged_verify_attention, kv_tiered_paged_decode_attention)
 from repro_torch.kernels.ref import unpack_kv4
-from repro_torch.models.layers import (NEG_INF, act_wire_telemetry, embed,
-                                       rms_norm, rope,
+from repro_torch.models.layers import (NEG_INF, AttnSpec,
+                                       act_wire_telemetry, embed,
+                                       flash_attention, rms_norm, rope,
                                        stack_sublayer_telemetry)
 from repro_torch.models.stages import LayerDef, build_stages
 
@@ -108,32 +116,36 @@ def _embed(cfg: ModelConfig, params: Params,
     return x
 
 
-def check_paged_support(cfg: ModelConfig) -> None:
-    """Raise unless every layer fits the paged attention serving path."""
+def check_paged_support(cfg: ModelConfig, path: str = "paged") -> None:
+    """Raise unless every layer fits the port's serving paths (``path``
+    names the one asked for: 'paged' or 'contiguous')."""
     if cfg.family in ("encoder", "vlm"):
         raise NotImplementedError(
-            f"paged serving needs a token-only decoder, got {cfg.family}")
+            f"{path} serving needs a token-only decoder, got {cfg.family}")
     if cfg.kv_bits != 4 or cfg.hd % 2:
         raise NotImplementedError(
-            f"paged pool stores packed int4 KV: kv_bits=4, even head_dim "
-            f"required (got kv_bits={cfg.kv_bits}, hd={cfg.hd})")
+            f"{path} KV cache stores packed int4 KV: kv_bits=4, even "
+            f"head_dim required (got kv_bits={cfg.kv_bits}, hd={cfg.hd})")
     for stage in build_stages(cfg):
         for ld in stage.period:
-            if ld.mixer != "attn" or ld.window:
+            if ld.mixer != "attn" or ld.window or ld.ffn != "dense":
                 raise NotImplementedError(
-                    f"paged serving supports full-attention GQA layers only "
-                    f"(got mixer={ld.mixer!r}, window={ld.window})")
+                    f"{path} serving supports full-attention GQA layers with "
+                    f"a dense FFN only (got mixer={ld.mixer!r}, window="
+                    f"{ld.window}, ffn={ld.ffn!r})")
 
 
-def _layers(cfg: ModelConfig, params: Params, pool: Cache):
+def _layers(cfg: ModelConfig, params: Params, pool: Optional[Cache]):
     """Yield (LayerDef, layer params, layer pool) in depth order; the
-    layer pool holds views into the stacked page tensors."""
+    layer pool (a paged pool's or a contiguous cache's, None without
+    one) holds views into the stacked tensors."""
     for si, stage in enumerate(build_stages(cfg)):
         sp = params["stages"][f"s{si}"]
-        sc = pool["stages"][f"s{si}"]
+        sc = None if pool is None else pool["stages"][f"s{si}"]
         for rep in range(stage.repeat):
             for pi, ld in enumerate(stage.period):
                 yield (ld, tree_index(sp[f"p{pi}"], rep),
+                       None if sc is None else
                        {k: v[rep] for k, v in sc[f"p{pi}"].items()})
 
 
@@ -393,3 +405,144 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Cache,
     last = max(valid - 1, 0)
     logits = head_logits(cfg, params, x[:, last:last + 1])[:, 0]
     return logits, pool, telemetry
+
+
+# ---------------------------------------------------------------------------
+# contiguous-cache entry points (the fixed-batch path, ``serve --legacy``)
+#
+# Each layer owns a (B, Smax, KVH, hd/2) packed-KV4 cache (layer-stacked
+# like the pool: (L, B, Smax, ...)). The JAX scans over layers are the
+# Python loop of ``_layers``, and the cache is written in place.
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cpu") -> Cache:
+    """Zeroed contiguous caches, the layout JAX's ``prefill`` returns."""
+    kvh, hp = cfg.n_kv_heads, cfg.hd // 2
+    stages = {}
+    for si, stage in enumerate(build_stages(cfg)):
+        per = {}
+        for pi in range(len(stage.period)):
+            lead = (stage.repeat, batch, max_len, kvh)
+            per[f"p{pi}"] = {
+                "k_q": torch.zeros(lead + (hp,), dtype=torch.int8,
+                                   device=device),
+                "k_s": torch.zeros(lead, device=device),
+                "v_q": torch.zeros(lead + (hp,), dtype=torch.int8,
+                                   device=device),
+                "v_s": torch.zeros(lead, device=device)}
+        stages[f"s{si}"] = per
+    return {"stages": stages}
+
+
+def attn_full(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
+              positions: torch.Tensor, prefix_len: int,
+              cache: Optional[Cache]) -> Tuple[torch.Tensor,
+                                               Optional[Cache]]:
+    """Prefill attention over the whole sequence, x (B, S, D). With a
+    layer ``cache`` (B, Smax, ...) the quantized K/V of positions [0, S)
+    are written into it in place (JAX pads a new cache to Smax)."""
+    b, s, _ = x.shape
+    theta = ld.rope_theta or cfg.rope_theta
+    h = _norm(cfg, p["ln"], x)
+    q, k, v = _attn_qkv(cfg, p, h, positions, theta)
+    spec = AttnSpec(causal=cfg.causal, window=ld.window,
+                    prefix_len=prefix_len)
+    o = flash_attention(q, k, v, spec).reshape(b, s, cfg.n_heads * cfg.hd)
+    if cache is not None:
+        kq, ks = _kv_quant(cfg, k)
+        vq, vs = _kv_quant(cfg, v)
+        cache["k_q"][:, :s] = kq
+        cache["k_s"][:, :s] = ks
+        cache["v_q"][:, :s] = vq
+        cache["v_s"][:, :s] = vs
+    return linear(o, p["wo"], p.get("bo")), cache
+
+
+def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
+                cache: Cache, pos: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One-token attention against the contiguous cache. x (B, D). The
+    new token's K/V land at ``pos`` in place; the contiguous KV4 kernel
+    reads the packed cache in blocks of ``CONTIGUOUS_BLOCK`` tokens (or
+    of the largest divisor of Smax it shares with that)."""
+    b, _ = x.shape
+    kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    theta = ld.rope_theta or cfg.rope_theta
+    h = _norm(cfg, p["ln"], x)
+    q, k_new, v_new = _attn_qkv(cfg, p, h, pos, theta)
+    kq, ks = _kv_quant(cfg, k_new)
+    vq, vs = _kv_quant(cfg, v_new)
+    bidx, at = torch.arange(b, device=x.device), pos.long()
+    cache["k_q"][bidx, at] = kq
+    cache["k_s"][bidx, at] = ks
+    cache["v_q"][bidx, at] = vq
+    cache["v_s"][bidx, at] = vs
+    bs = math.gcd(cache["k_q"].shape[1], CONTIGUOUS_BLOCK)
+    o = kv4_decode_attention(q.reshape(b, kvh, g, cfg.hd).contiguous(),
+                             cache["k_q"], cache["k_s"], cache["v_q"],
+                             cache["v_s"], pos, bs=bs)
+    o = o.reshape(b, cfg.n_heads * cfg.hd)
+    return linear(o, p["wo"], p.get("bo")), cache
+
+
+def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,
+                      prefix_len, cache):
+    y, cache = attn_full(cfg, ld, p, x, positions, prefix_len, cache)
+    x = x + y
+    return x + dense_ffn(cfg, p, x), cache
+
+
+def _apply_layer_decode(cfg, ld: LayerDef, p: Params, x, cache, pos):
+    y, cache = attn_decode(cfg, ld, p, x, cache, pos)
+    x = x + y
+    return x + dense_ffn(cfg, p, x[:, None, :])[:, 0], cache
+
+
+def embed_inputs(cfg: ModelConfig, params: Params,
+                 batch: Dict[str, torch.Tensor]):
+    """Returns (x (B, S, D), positions (S,), prefix_len) of a token-only
+    decoder."""
+    x = _embed(cfg, params, batch["tokens"])
+    return x, torch.arange(x.shape[1], device=x.device), 0
+
+
+def forward_hidden(cfg: ModelConfig, params: Params,
+                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Forward without the head (final pre-norm hidden states)."""
+    check_paged_support(cfg, "contiguous")
+    x, positions, prefix_len = embed_inputs(cfg, params, batch)
+    for ld, p, _ in _layers(cfg, params, None):
+        x, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len, None)
+    return x
+
+
+def forward(cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V)."""
+    return head_logits(cfg, params, forward_hidden(cfg, params, batch))
+
+
+def prefill(cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor], *, max_len: int
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Prefill: logits of the LAST position (B, V) and the caches of
+    Smax = ``max_len`` positions."""
+    check_paged_support(cfg, "contiguous")
+    x, positions, prefix_len = embed_inputs(cfg, params, batch)
+    cache = init_cache(cfg, x.shape[0], max_len, x.device)
+    for ld, p, lcache in _layers(cfg, params, cache):
+        x, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len,
+                                 lcache)
+    return head_logits(cfg, params, x[:, -1:, :])[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                token: torch.Tensor, pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step. token (B,) int32, pos (B,) int32 -> logits
+    (B, V); the cache is updated in place and returned."""
+    x = _embed(cfg, params, token)
+    for ld, p, lcache in _layers(cfg, params, cache):
+        x, _ = _apply_layer_decode(cfg, ld, p, x, lcache, pos)
+    return head_logits(cfg, params, x[:, None, :])[:, 0], cache

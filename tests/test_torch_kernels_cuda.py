@@ -6,20 +6,25 @@ JAX nor the JAX package, so it also runs on a GPU machine without them:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
         tests/test_torch_kernels_cuda.py
 
-Tolerances: encoder (and its quantize-only form), matmul, draft matmul
-and dense matmul bit-exact (the dense one with the dual pass too);
+Tolerances: encoder (and its quantize-only and packed forms), matmul,
+draft matmul, their packed forms and dense matmul bit-exact (the packed
+ones with the unpacked ones too, the dense one with the dual pass);
 attention within 1e-4 in f32 (sums in another order than the plain
-einsum/softmax); the verify attention bit-exact with T calls of the
-decode kernel, and the tiered attention with one decode call (over the
-clamped pages where demoted); greedy speculative streams identical to
-the base engine's.
+einsum/softmax), in bf16 within one bf16 step (of the output, or for the
+contiguous kernel of the outputs' scale); the verify attention bit-exact with T calls of the
+decode kernel, the tiered attention with one decode call (over the
+clamped pages where demoted), and the contiguous attention with the
+paged one on pages that tile the same cache; greedy speculative streams
+identical to the base engine's.
 """
 import sys
 from pathlib import Path
 
 import pytest
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import packing
 from repro_torch.core.qlinear import pack_int4
 from repro_torch.core.quantize import activation_scale
 from repro_torch.kernels import (kv_attention, quant_matmul, ref,
@@ -27,7 +32,7 @@ from repro_torch.kernels import (kv_attention, quant_matmul, ref,
 from repro_torch.kernels.ref import TILE_K, TILE_M
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import demoted_pool  # noqa: E402
+from chip_smoke import demoted_pool, paged_tiling  # noqa: E402
 
 
 @pytest.fixture
@@ -237,3 +242,81 @@ def test_tiered_attention_kernel_matches_decode_kernel(cuda, dtype):
     else:
         torch.testing.assert_close(got.float(), want.float(), atol=0,
                                    rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(33, 4100), (1, 128), (8, 14336), (5, 37)])
+def test_encode_packed_kernel_matches_plain_and_codec(cuda, dtype, m, k):
+    g = torch.Generator(device=cuda).manual_seed(m + k + 1)
+    x = (torch.randn((m, k), generator=g, device=cuda) * 6).to(dtype)
+    x[0] = 0
+    scale = activation_scale(x).float()
+    mask = torch.rand((k,), generator=g, device=cuda) < 0.5
+    got = sparqle_encode.sparqle_encode_packed(x, scale, mask, -8, 23)
+    want = ref.sparqle_encode_packed_ref(x, scale, mask, -8, 23)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    lsb, msb, pbm, pop = sparqle_encode.sparqle_encode(x, scale, mask, -8, 23)
+    pad = packing.pad_k(k) - k
+    assert torch.equal(got[0], packing.pack_nibbles(F.pad(lsb, (0, pad))))
+    assert torch.equal(got[1], packing.pack_nibbles(F.pad(msb, (0, pad))))
+    assert torch.equal(got[2], packing.pack_pbm(F.pad(pbm, (0, pad))))
+    assert torch.equal(got[3], pop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("msb_skip", [False, True])
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 1024), (8, 14336, 4096),
+                                   (33, 200, 70), (24, 4096, 14336)])
+def test_matmul_packed_kernel_matches_plain_and_unpacked(cuda, m, k, n,
+                                                         msb_skip):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n + 2)
+    q = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    tiles = torch.arange(k, device=cuda) // TILE_K      # pop-0 tiles too
+    q = torch.where((tiles % 2 == 0)[None, :], q, q & 0xF)
+    lsb, msb = q & 0xF, q >> 4
+    pop = ref.tile_population_padded(msb != 0, TILE_M, TILE_K)
+    lp, mp = packing.planes_packed(packing.encode_packed(q))
+    wp = pack_int4(torch.randint(-8, 8, (k, n), generator=g, device=cuda,
+                                 dtype=torch.int8))
+    asc = torch.rand((m, 1), generator=g, device=cuda)
+    wsc = torch.rand((1, n), generator=g, device=cuda)
+    for acc_out in (False, True):
+        kw = dict(acc_out=acc_out, msb_skip=msb_skip)
+        got = sparqle_matmul.sparqle_matmul_packed(lp, mp, pop, wp, asc, wsc,
+                                                   **kw)
+        assert torch.equal(got, ref.sparqle_matmul_packed_ref(
+            lp, mp, pop, wp, asc, wsc, **kw))
+        assert torch.equal(got, sparqle_matmul.sparqle_matmul(
+            lsb, msb, pop, wp, asc, wsc, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_contiguous_attention_kernel_matches_plain_and_paged(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    b, s, kvh, gq, hd, bs = 6, 144, 8, 4, 128, 16
+    q = torch.randn((b, kvh, gq, hd), generator=g, device=cuda).to(dtype)
+    kq, vq = (torch.randint(-128, 128, (b, s, kvh, hd // 2), generator=g,
+                            device=cuda, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, s, kvh), generator=g, device=cuda) * 0.2
+              for _ in range(2))
+    pos = torch.tensor([0, bs - 1, bs, 77, s - 1, 128], dtype=torch.int32,
+                       device=cuda)
+    cache = (kq, ks, vq, vs)
+    got = kv_attention.kv4_decode_attention(q, *cache, pos, bs=bs)
+    paged = kv_attention.kv4_paged_decode_attention(
+        q, *paged_tiling(cache, bs, g), pos)
+    assert torch.equal(got, paged)
+    want = ref.kv4_decode_attention_ref(q, *cache, pos)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:   # one bf16 step at the outputs' scale (chip_smoke.py's limit):
+        # near-zero outputs carry the f32 sums' absolute differences
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=0,
+            atol=2 ** -7 * max(1.0, want.float().abs().max().item()))
+    with pytest.raises(ValueError, match="multiple"):
+        kv_attention.kv4_decode_attention(q, *cache, pos, bs=32)

@@ -29,7 +29,11 @@ peaks = C.peaks_for(C.nvidia_smi_line().split(",")[0])
 out = {}
 for name in sys.argv[1].split(","):
     gen = torch.Generator(device=dev).manual_seed(0)
-    out[name] = getattr(C, name)(dev, gen, peaks)["ms"]
+    rows = getattr(C, name)(dev, gen, peaks)
+    if isinstance(rows, list):      # one check, several kernels
+        out.update({f"{name}:{r['name']}": r["ms"] for r in rows})
+    else:
+        out[name] = rows["ms"]
 print(json.dumps(out))
 """
 
@@ -44,8 +48,7 @@ def main() -> None:
     args = ap.parse_args()
     trees = {"parent": Path(args.parent).resolve(),
              "change": Path(args.change).resolve()}
-    times = {side: {c: [] for c in args.checks.split(",")}
-             for side in trees}
+    times = {side: {} for side in trees}
     for _ in range(args.rounds):
         for side in ("parent", "change", "change", "parent"):
             r = subprocess.run([sys.executable, "-c", CHILD, args.checks],
@@ -56,7 +59,7 @@ def main() -> None:
             ms = json.loads(r.stdout.strip().splitlines()[-1])
             print(json.dumps({"side": side, "ms": ms}), flush=True)
             for check, t in ms.items():
-                times[side][check].append(t)
+                times[side].setdefault(check, []).append(t)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
