@@ -16,7 +16,11 @@ to chiprun_out/):
      bit-exact with T calls of the decode kernel, tiered attention with
      one, over the clamped pages where demoted, contiguous attention with
      the decode kernel on pages that tile the same cache) and time
-     kernel, plain version and library call;
+     kernel, plain version and library call; the four dual-pass matmul
+     instances (full, draft, packed, packed draft) are timed at M = 8, 32
+     and 1024 and swept for bit-exactness over MATMUL_M x MATMUL_KN x
+     POP_PATTERNS (and q = -128, w = -8), each against its plain version
+     and packed against unpacked;
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
      launch counters zeroed just before and read just after;
@@ -46,8 +50,9 @@ to chiprun_out/):
      differ); then granite width, 2 layers, f32: legacy streams equal to
      the engine's with the prefill unchunked;
  10. profile a shorter run of phase 4's and phase 5's engine shapes
-     (device busy share, device time by kernel), then serve phase 4 once
-     more to read what the profilers left behind on the host;
+     (device busy share, device time by kernel; neither may launch the
+     dense path's drain kernel), then serve phase 4 once more to read
+     what the profilers left behind on the host;
  11. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
      same weights and prompts through the Engine on the card (kernels)
      and on the CPU (plain versions), logits within LOGIT_TOL and the
@@ -193,67 +198,184 @@ def check_encoder(dev, gen, peaks):
                      f"without PBM"}
 
 
-def check_matmul(dev, gen, peaks):
+# The dual-pass matmul family (rows 3, 4, 5a, 5b: one CUDA body, four
+# instances) at the shapes the port runs: M = 8 decode, 24 the verify
+# window, 32 a prefill chunk, 1024 the --legacy prefill.
+MATMUL_M = (1, 8, 16, 17, 24, 32, 33, 64, 1024)
+MATMUL_KN = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096),
+             (200, 70), (4100, 1024))
+POP_PATTERNS = ("zero", "live", "alternating")
+# timed: M=8 at the four granite shapes, M=32 and M=1024 at w_gate/w_up
+MATMUL_TIMED = [(8, k, n) for k, n in MATMUL_KN[:4]] + [
+    (32, 4096, 14336), (1024, 4096, 14336)]
+
+
+def matmul_case(dev, gen, m, k, n, pattern, extreme=False):
+    """One input set for the four instances: the unpacked planes of a
+    random int8 q, their wire-layout planes, the tile populations
+    (``pattern``: MSB plane zero everywhere, live in every tile, or zero
+    on every other K tile), the packed int4 weight and the scales.
+    ``extreme``: q = -128 and w = -8 everywhere."""
+    from repro_torch.core.packing import pack_nibbles, pad_k
     from repro_torch.core.qlinear import pack_int4
-    from repro_torch.kernels.ref import (TILE_K, TILE_M, sparqle_matmul_ref,
+    from repro_torch.kernels.ref import (TILE_K, TILE_M,
                                          tile_population_padded)
-    from repro_torch.kernels.sparqle_matmul import sparqle_matmul
-    shapes = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
-    detail = []
-    timed = None
-    for k, n in shapes:
+    if extreme:
+        q = torch.full((m, k), -128, dtype=torch.int8, device=dev)
+        w = torch.full((k, n), -8, dtype=torch.int8, device=dev)
+    else:
+        q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
         w = torch.randint(-8, 8, (k, n), generator=gen, device=dev,
                           dtype=torch.int8)
-        wp = pack_int4(w)
-        wsc = torch.rand((1, n), generator=gen, device=dev) * 0.01 + 1e-3
-        for m in (1, 4, 8, 32):
-            q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                              dtype=torch.int8)
-            msb, lsb = q >> 4, q & 0xF
-            # zero the MSB plane of every other K tile: pop-0 and pop>0
-            tiles = torch.arange(k, device=dev) // TILE_K
-            msb = torch.where((tiles % 2 == 0)[None, :], msb,
-                              torch.zeros_like(msb))
-            pop = tile_population_padded(msb != 0, TILE_M, TILE_K)
-            asc = torch.rand((m, 1), generator=gen, device=dev) * 0.1
-            got = sparqle_matmul(lsb, msb, pop, wp, asc, wsc)
-            want = sparqle_matmul_ref(lsb, msb, pop, wp, asc, wsc)
-            acc = sparqle_matmul(lsb, msb, pop, wp, asc, wsc, acc_out=True)
-            acc_ref = sparqle_matmul_ref(lsb, msb, pop, wp, asc, wsc,
-                                         acc_out=True)
-            if not (torch.equal(got, want) and torch.equal(acc, acc_ref)):
-                raise AssertionError(f"matmul differs at M={m} K={k} N={n}")
-            if m == 8:
-                copies = max(1, math.ceil(150e6 / wp.numel()))
-                wps = [wp.clone() for _ in range(copies)]
-                args = [(lsb, msb, pop, c, asc, wsc) for c in wps]
-                kms = time_ms(sparqle_matmul, args, 50)
-                pms = time_ms(sparqle_matmul_ref, args[:1], 5)
-                ml = max(m, 32)    # torch._int_mm needs more than 16 rows
-                qa = torch.zeros((ml, k), dtype=torch.int8, device=dev)
-                qa[:m] = q
-                lib = time_ms(torch._int_mm, [(qa, w)], 50)
-                live = (pop > 0).sum().item() / pop.numel()
-                nbytes = (m * k * (1 + live) + k * n // 2 + m * 4 + n * 4
-                          + m * n * 4)
-                ops = 2.0 * m * k * n * (1 + live)
-                bound = max(nbytes / peaks[0], ops / peaks[1]) * 1e3
-                by = "bytes" if nbytes / peaks[0] >= ops / peaks[1] \
-                    else "operations"
-                detail.append({"M": m, "K": k, "N": n, "ms": kms,
-                               "plain_ms": pms, "library_ms": lib,
-                               "bound_ms": bound, "bound_by": by})
-                if (k, n) == (4096, 14336):
-                    timed = detail[-1]
-    return {"name": "sparqle_matmul", "route": "cuda",
+        tiles = torch.arange(k, device=dev) // TILE_K
+        if pattern == "zero":
+            q = q & 0xF
+        elif pattern == "live":      # an MSB in every (row, K tile)
+            q[:, ::TILE_K] = q[:, ::TILE_K] | 0x40
+        else:
+            q = torch.where((tiles % 2 == 0)[None, :], q, q & 0xF)
+    lsb, msb = q & 0xF, q >> 4
+    pop = tile_population_padded(msb != 0, TILE_M, TILE_K)
+    pad = (0, pad_k(k) - k)
+    lp = pack_nibbles(torch.nn.functional.pad(lsb, pad))
+    mp = pack_nibbles(torch.nn.functional.pad(msb, pad))
+    asc = torch.rand((m, 1), generator=gen, device=dev) * 0.1
+    wsc = torch.rand((1, n), generator=gen, device=dev) * 0.01 + 1e-3
+    return dict(q=q, w=w, wp=pack_int4(w), lsb=lsb, msb=msb, pop=pop, lp=lp,
+                mp=mp, asc=asc, wsc=wsc)
+
+
+# instance name -> (wrapper, plain version, planes, msb_skip)
+def matmul_instances():
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparqle_matmul as sm
+    return {"sparqle_matmul": (sm.sparqle_matmul, ref.sparqle_matmul_ref,
+                               ("lsb", "msb"), False),
+            "sparqle_matmul_packed": (sm.sparqle_matmul_packed,
+                                      ref.sparqle_matmul_packed_ref,
+                                      ("lp", "mp"), False),
+            "sparqle_matmul_draft": (sm.sparqle_matmul,
+                                     ref.sparqle_matmul_ref, ("lsb", "msb"),
+                                     True),
+            "sparqle_matmul_packed_draft": (sm.sparqle_matmul_packed,
+                                            ref.sparqle_matmul_packed_ref,
+                                            ("lp", "mp"), True)}
+
+
+def check_matmul_case(c, where=""):
+    """All four instances, f32 and int32 outputs: each torch.equal to
+    its plain version, packed = unpacked, full and draft alike."""
+    got = {}
+    for name, (fn, plain, planes, skip) in matmul_instances().items():
+        args = (c[planes[0]], c[planes[1]], c["pop"], c["wp"], c["asc"],
+                c["wsc"])
+        for acc_out in (False, True):
+            kw = dict(acc_out=acc_out, msb_skip=skip)
+            out = fn(*args, **kw)
+            if not torch.equal(out, plain(*args, **kw)):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"{where} acc_out={acc_out}")
+            got[name, acc_out] = out
+    for acc_out in (False, True):
+        for a, b in (("sparqle_matmul", "sparqle_matmul_packed"),
+                     ("sparqle_matmul_draft", "sparqle_matmul_packed_draft")):
+            if not torch.equal(got[a, acc_out], got[b, acc_out]):
+                raise AssertionError(f"{b} differs from {a} {where} "
+                                     f"acc_out={acc_out}")
+
+
+def check_matmul_family(dev, gen) -> int:
+    """The four dual-pass instances over MATMUL_M x MATMUL_KN x
+    POP_PATTERNS, plus q = -128, w = -8 everywhere; returns the number of
+    input sets checked (one split and several both occur)."""
+    from repro_torch.kernels.sparqle_matmul import launch_plan
+    cases, splits = 0, set()
+    for k, n in MATMUL_KN:
+        for m in MATMUL_M:
+            for pattern in POP_PATTERNS:
+                check_matmul_case(matmul_case(dev, gen, m, k, n, pattern),
+                                  f"at M={m} K={k} N={n} pop={pattern}")
+                cases += 1
+            splits.add(launch_plan(m, n, k).splits > 1)
+        for m in (8, 33, 1024):
+            check_matmul_case(matmul_case(dev, gen, m, k, n, "", True),
+                              f"at M={m} K={k} N={n} q=-128 w=-8")
+            cases += 1
+    if splits != {False, True}:
+        raise AssertionError("the sweep must run one split and several")
+    return cases
+
+
+def time_matmul_family(dev, gen, peaks, names):
+    """Device time of the instances ``names`` at MATMUL_TIMED (MSB zero
+    on every other K tile), each beside its plain version, its bound and
+    torch._int_mm on the same q (LSB plane for a draft) and weight; at
+    M <= 16 torch._int_mm needs more than 16 rows, so it runs at M = 32.
+    Returns {name: [detail, ...]}."""
+    inst = matmul_instances()
+    detail = {name: [] for name in names}
+    for m, k, n in MATMUL_TIMED:
+        c = matmul_case(dev, gen, m, k, n, "alternating")
+        # weight copies beyond L2, so that each call finds its weight cold
+        copies = max(1, math.ceil(150e6 / c["wp"].numel()))
+        wps = [c["wp"].clone() for _ in range(copies)]
+        live = (c["pop"] > 0).sum().item() / c["pop"].numel()
+        ml = max(m, 32)
+        qa = torch.zeros((ml, k), dtype=torch.int8, device=dev)
+        for name in names:
+            fn, plain, planes, skip = inst[name]
+            a0, a1 = c[planes[0]], c[planes[1]]
+
+            def call(*a, _fn=fn, _skip=skip):
+                return _fn(*a, msb_skip=_skip)
+
+            def ref(*a, _fn=plain, _skip=skip):
+                return _fn(*a, msb_skip=_skip)
+
+            args = [(a0, a1, c["pop"], w, c["asc"], c["wsc"]) for w in wps]
+            kms = time_ms(call, args, 50)
+            pms = time_ms(ref, args[:1], 5)
+            qa[:m] = c["lsb"] if skip else c["q"]
+            lib = time_ms(torch._int_mm, [(qa, c["w"])], 50)
+            passes = 1 if skip else 1 + live
+            plane_bytes = a0.numel() / m        # bytes a row of one plane
+            nbytes = (m * plane_bytes * passes + k * n // 2 + m * 4 + n * 4
+                      + m * n * 4)
+            ops = 2.0 * m * k * n * passes
+            detail[name].append({
+                "M": m, "K": k, "N": n, "ms": kms, "plain_ms": pms,
+                "library_ms": lib, "library": f"torch._int_mm at M={ml}",
+                "bound_ms": max(nbytes / peaks[0], ops / peaks[1]) * 1e3,
+                "bound_by": "bytes" if nbytes / peaks[0] >= ops / peaks[1]
+                else "operations"})
+    return detail
+
+
+def matmul_row(name, line, detail, note=""):
+    """The kernels-line row of one instance: its time at M=8, 4096 ->
+    14336 (w_gate/w_up at decode); every timed shape in ``detail``."""
+    timed = detail[0]
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/sparqle_matmul.cu",
-            "replaces": "src/repro/kernels/sparqle_matmul.py:209",
+            "replaces": f"src/repro/kernels/sparqle_matmul.py:{line}",
             "max_abs_err": 0.0, "ms": timed["ms"],
             "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"],
-            "shape": "M=8 K=4096 N=14336 (w_gate/w_up at decode); "
-                     "library: torch._int_mm at M=32", "detail": detail}
+            "shape": f"M=8 K=4096 N=14336{note}; also timed at "
+                     + ", ".join(f"M={d['M']} {d['K']}->{d['N']} "
+                                 f"{d['ms'] * 1e3:.1f} us"
+                                 for d in detail[1:])
+                     + "; library: torch._int_mm at M=max(M, 32)",
+            "detail": detail}
+
+
+def check_matmul(dev, gen, peaks):
+    """Row 3 timed (the four instances are held bit-exact by
+    check_matmul_family)."""
+    d = time_matmul_family(dev, gen, peaks, ["sparqle_matmul"])
+    return matmul_row("sparqle_matmul", 209, d["sparqle_matmul"])
 
 
 def check_attention(dev, gen, peaks):
@@ -302,79 +424,16 @@ def check_attention(dev, gen, peaks):
 
 
 def check_draft_matmul(dev, gen, peaks):
-    """The LSB4-only draft matmul at the decode shapes (M=8) and the
-    verify window's (M = 8 * (SPEC_GAMMA + 1) = 24), ragged M too;
-    timed at M=8 against the full dual-pass kernel on the same planes
-    and torch._int_mm of the LSB plane (M padded to 32)."""
-    from repro_torch.core.qlinear import pack_int4
-    from repro_torch.kernels.ref import (TILE_K, TILE_M, sparqle_matmul_ref,
-                                         tile_population_padded)
-    from repro_torch.kernels.sparqle_matmul import sparqle_matmul
-    shapes = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096))
-    verify_m = 8 * (SPEC_GAMMA + 1)
-    detail = []
-    for k, n in shapes:
-        w = torch.randint(-8, 8, (k, n), generator=gen, device=dev,
-                          dtype=torch.int8)
-        wp = pack_int4(w)
-        wsc = torch.rand((1, n), generator=gen, device=dev) * 0.01 + 1e-3
-        for m in (1, 5, 8, verify_m, 33):
-            q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                              dtype=torch.int8)
-            msb, lsb = q >> 4, q & 0xF
-            tiles = torch.arange(k, device=dev) // TILE_K
-            msb = torch.where((tiles % 2 == 0)[None, :], msb,
-                              torch.zeros_like(msb))
-            pop = tile_population_padded(msb != 0, TILE_M, TILE_K)
-            asc = torch.rand((m, 1), generator=gen, device=dev) * 0.1
-            for acc_out in (False, True):
-                got = sparqle_matmul(lsb, None, None, wp, asc, wsc,
-                                     acc_out=acc_out, msb_skip=True)
-                want = sparqle_matmul_ref(lsb, None, None, wp, asc, wsc,
-                                          acc_out=acc_out, msb_skip=True)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"draft matmul differs at M={m} "
-                                         f"K={k} N={n} acc_out={acc_out}")
-            if m != 8:
-                continue
-            copies = max(1, math.ceil(150e6 / wp.numel()))
-            wps = [wp.clone() for _ in range(copies)]
-
-            def draft(lsb, msb, pop, w, asc, wsc):
-                return sparqle_matmul(lsb, msb, pop, w, asc, wsc,
-                                      msb_skip=True)
-
-            def draft_ref(lsb, msb, pop, w, asc, wsc):
-                return sparqle_matmul_ref(lsb, msb, pop, w, asc, wsc,
-                                          msb_skip=True)
-
-            args = [(lsb, msb, pop, c, asc, wsc) for c in wps]
-            kms = time_ms(draft, args, 50)
-            full = time_ms(sparqle_matmul, args, 50)
-            pms = time_ms(draft_ref, args[:1], 5)
-            qa = torch.zeros((32, k), dtype=torch.int8, device=dev)
-            qa[:m] = lsb
-            lib = time_ms(torch._int_mm, [(qa, w)], 50)
-            nbytes = m * k + k * n // 2 + m * 4 + n * 4 + m * n * 4
-            ops = 2.0 * m * k * n
-            bound = max(nbytes / peaks[0], ops / peaks[1]) * 1e3
-            detail.append({"M": m, "K": k, "N": n, "ms": kms,
-                           "full_ms": full, "plain_ms": pms,
-                           "library_ms": lib, "bound_ms": bound,
-                           "bound_by": "bytes" if nbytes / peaks[0]
-                           >= ops / peaks[1] else "operations"})
-    timed = detail[0]                    # 4096 -> 14336, w_gate/w_up
-    return {"name": "sparqle_matmul_draft", "route": "cuda",
-            "source": "src/repro_torch/csrc/sparqle_matmul.cu",
-            "replaces": "src/repro/kernels/sparqle_matmul.py:142",
-            "max_abs_err": 0.0, "ms": timed["ms"],
-            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-            "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"],
-            "shape": f"M=8 K=4096 N=14336 (full kernel "
-                     f"{timed['full_ms'] * 1e3:.1f} us on the same planes); "
-                     f"checked M in 1,5,8,{verify_m},33 at every shape; "
-                     f"library: torch._int_mm at M=32", "detail": detail}
+    """Row 5a timed, beside the full dual-pass kernel on the same planes."""
+    d = time_matmul_family(dev, gen, peaks,
+                           ["sparqle_matmul_draft", "sparqle_matmul"])
+    for dd, full in zip(d["sparqle_matmul_draft"], d["sparqle_matmul"]):
+        dd["full_ms"] = full["ms"]
+    return matmul_row("sparqle_matmul_draft", 142,
+                      d["sparqle_matmul_draft"],
+                      f" (full kernel "
+                      f"{d['sparqle_matmul'][0]['ms'] * 1e3:.1f} us on the "
+                      f"same planes)")
 
 
 def check_verify_attention(dev, gen, peaks):
@@ -718,99 +777,21 @@ def check_encoder_packed(dev, gen, peaks):
 
 
 def check_matmul_packed(dev, gen, peaks):
-    """The packed dual-pass matmul and its draft at the four decode
-    shapes, M = 1, 5, 8, 24, 32, 33: bit-exact with their plain versions
-    and with the unpacked kernels on the same q (f32 and int32 outputs);
-    timed at M=8 against the unpacked kernels on the planes of the same
-    q and torch._int_mm (M padded to 32). Two rows: full and draft."""
-    from repro_torch.core.packing import encode_packed, planes_packed, pad_k
-    from repro_torch.core.qlinear import pack_int4
-    from repro_torch.kernels.ref import (TILE_K, TILE_M,
-                                         sparqle_matmul_packed_ref,
-                                         tile_population_padded)
-    from repro_torch.kernels.sparqle_matmul import (sparqle_matmul,
-                                                    sparqle_matmul_packed)
-    shapes = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096))
-    detail = {False: [], True: []}
-    for k, n in shapes:
-        w = torch.randint(-8, 8, (k, n), generator=gen, device=dev,
-                          dtype=torch.int8)
-        wp = pack_int4(w)
-        wsc = torch.rand((1, n), generator=gen, device=dev) * 0.01 + 1e-3
-        for m in (1, 5, 8, 24, 32, 33):
-            q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                              dtype=torch.int8)
-            # the MSB plane zero on every other K tile: pop-0 and pop>0
-            tiles = torch.arange(k, device=dev) // TILE_K
-            q = torch.where((tiles % 2 == 0)[None, :], q, q & 0xF)
-            lsb, msb = q & 0xF, q >> 4
-            lp, mp = planes_packed(encode_packed(q))
-            pop = tile_population_padded(msb != 0, TILE_M, TILE_K)
-            asc = torch.rand((m, 1), generator=gen, device=dev) * 0.1
-            for skip in (False, True):
-                for acc_out in (False, True):
-                    kw = dict(acc_out=acc_out, msb_skip=skip)
-                    got = sparqle_matmul_packed(lp, mp, pop, wp, asc, wsc,
-                                                **kw)
-                    if not (torch.equal(got, sparqle_matmul_packed_ref(
-                            lp, mp, pop, wp, asc, wsc, **kw))
-                            and torch.equal(got, sparqle_matmul(
-                                lsb, msb, pop, wp, asc, wsc, **kw))):
-                        raise AssertionError(
-                            f"packed matmul differs at M={m} K={k} N={n} "
-                            f"msb_skip={skip} acc_out={acc_out}")
-            if m != 8:
-                continue
-            copies = max(1, math.ceil(150e6 / wp.numel()))
-            wps = [wp.clone() for _ in range(copies)]
-            qa = torch.zeros((32, k), dtype=torch.int8, device=dev)
-            kp = pad_k(k)
-            live = (pop > 0).sum().item() / pop.numel()
-            for skip in (False, True):
-                qa[:m] = lsb if skip else q
-                lib = time_ms(torch._int_mm, [(qa, w)], 50)
-
-                def packed(*a, _skip=skip):
-                    return sparqle_matmul_packed(*a, msb_skip=_skip)
-
-                def unpacked(*a, _skip=skip):
-                    return sparqle_matmul(*a, msb_skip=_skip)
-
-                def plain(*a, _skip=skip):
-                    return sparqle_matmul_packed_ref(*a, msb_skip=_skip)
-
-                kms = time_ms(packed, [(lp, mp, pop, c, asc, wsc)
-                                       for c in wps], 50)
-                ums = time_ms(unpacked, [(lsb, msb, pop, c, asc, wsc)
-                                         for c in wps], 50)
-                pms = time_ms(plain, [(lp, mp, pop, wp, asc, wsc)], 5)
-                passes = 1 if skip else 1 + live
-                nbytes = (m * kp // 2 * passes + k * n // 2 + m * 4 + n * 4
-                          + m * n * 4)
-                ops = 2.0 * m * k * n * passes
-                detail[skip].append({
-                    "M": m, "K": k, "N": n, "ms": kms, "unpacked_ms": ums,
-                    "plain_ms": pms, "library_ms": lib,
-                    "bound_ms": max(nbytes / peaks[0], ops / peaks[1]) * 1e3,
-                    "bound_by": "bytes" if nbytes / peaks[0]
-                    >= ops / peaks[1] else "operations"})
+    """Rows 4 and 5b timed, beside the unpacked kernels on the planes of
+    the same q. Two rows: full and draft."""
+    names = ["sparqle_matmul_packed", "sparqle_matmul_packed_draft",
+             "sparqle_matmul", "sparqle_matmul_draft"]
+    d = time_matmul_family(dev, gen, peaks, names)
     rows = []
-    for skip, name, line in ((False, "sparqle_matmul_packed", 250),
-                             (True, "sparqle_matmul_packed_draft", 159)):
-        timed = detail[skip][0]              # 4096 -> 14336, w_gate/w_up
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/sparqle_matmul.cu",
-            "replaces": f"src/repro/kernels/sparqle_matmul.py:{line}",
-            "max_abs_err": 0.0, "ms": timed["ms"],
-            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-            "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"],
-            "shape": f"M=8 K=4096 N=14336 (unpacked kernel "
-                     f"{timed['unpacked_ms'] * 1e3:.1f} us on the planes of "
-                     f"the same q); checked M in 1,5,8,24,32,33 at every "
-                     f"shape, against the unpacked kernel too; library: "
-                     f"torch._int_mm at M=32", "detail": detail[skip]})
+    for name, unpacked, line in (
+            ("sparqle_matmul_packed", "sparqle_matmul", 250),
+            ("sparqle_matmul_packed_draft", "sparqle_matmul_draft", 159)):
+        for dd, u in zip(d[name], d[unpacked]):
+            dd["unpacked_ms"] = u["ms"]
+        rows.append(matmul_row(name, line, d[name],
+                               f" (unpacked kernel "
+                               f"{d[unpacked][0]['ms'] * 1e3:.1f} us on the "
+                               f"planes of the same q)"))
     return rows
 
 
@@ -1164,9 +1145,15 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
     by_kernel = [{"kernel": name[:80], "share": us / dev_us,
                   "mean_us": us / n, "launches": n}
                  for name, us, n in rows[:12]]
+    # the dual-pass matmul launches no drain and no fill of its own
+    # accumulator any more: name every drain or fill row that is left
+    drain_fill = [{"kernel": name[:120], "launches": n}
+                  for name, _, n in rows
+                  if "w4a8_drain" in name or "Fill" in name]
     return {"profiled_wall_s": r["wall_s"], "device_busy_s": dev_us / 1e6,
             "device_busy_share": dev_us / 1e6 / r["wall_s"],
-            "cprofiled_wall_s": r2["wall_s"], "by_kernel": by_kernel}
+            "cprofiled_wall_s": r2["wall_s"], "by_kernel": by_kernel,
+            "drain_fill": drain_fill}
 
 
 def cross_check(dev, seed: int):
@@ -1258,6 +1245,13 @@ def main() -> int:
             check_encoder_packed(dev, gen, peaks),
             *check_matmul_packed(dev, gen, peaks),
             check_contiguous_attention(dev, gen, peaks)]
+    t0 = time.perf_counter()
+    n_cases = check_matmul_family(dev, gen)
+    log(f"[3] dual-pass matmul family: {n_cases} input sets (M in "
+        f"{MATMUL_M}, (K, N) in {MATMUL_KN}, populations {POP_PATTERNS}, "
+        f"q=-128 w=-8), all four instances bit-exact with their plain "
+        f"versions and packed = unpacked, f32 and int32 outputs, "
+        f"{time.perf_counter() - t0:.1f} s")
     for r in rows:
         log(f"[3] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
             f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
@@ -1467,6 +1461,11 @@ def main() -> int:
                           f"({k['mean_us']:.1f} us x {k['launches']})"
                           for k in eng["profile"]["by_kernel"][:8])
         prof = spec["profile"]
+        drains = [r for p in (eng["profile"], prof)
+                  for r in p["drain_fill"] if "w4a8_drain" in r["kernel"]]
+        if drains:
+            raise AssertionError(f"a SPARQLe serve launched the dense "
+                                 f"drain: {drains}")
         log(f"[10] profiled reruns (8 requests x 32 prompt x 8 new): base "
             f"device busy {eng['profile']['device_busy_s']:.3f} s of "
             f"{eng['profile']['profiled_wall_s']:.2f} s wall, by kernel: "
@@ -1476,7 +1475,8 @@ def main() -> int:
             f"the profilers: {after['wall_s']:.2f} s wall, TPOT mean "
             f"{after['tpot_mean_s'] * 1e3:.2f} ms (phase 4: "
             f"{eng['wall_s']:.2f} s, {eng['tpot_mean_s'] * 1e3:.2f} ms), "
-            f"streams equal: {after['streams'] == eng['streams']}")
+            f"streams equal: {after['streams'] == eng['streams']}; drain or "
+            f"fill rows (base): {eng['profile']['drain_fill']}")
         del params, dense, packed
         torch.cuda.empty_cache()
         t0 = time.perf_counter()

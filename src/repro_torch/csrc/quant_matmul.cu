@@ -12,9 +12,10 @@
 // 16 * msb4 + lsb4, its accumulator equals the dual-pass one bit for bit.
 //
 // Bound: bytes at the serving shapes (M <= 32): the packed weight stream
-// dominates. Design: the dual-pass kernel's tiling, weight unpack,
-// `__dp4a` pass, exact split-K and drain (`w4a8_tile.cuh`) with one
-// activation plane and no population gate. No wgmma or TMA yet.
+// dominates. Design: the tiling, weight unpack, `__dp4a` pass, exact
+// split-K and drain of `w4a8_tile.cuh` (the dual-pass kernel's before it
+// moved to tensor cores) with one activation plane. No mma, cp.async or
+// TMA yet.
 #include "w4a8_tile.cuh"
 
 __global__ void quant_matmul_kernel(const int8_t* __restrict__ q,

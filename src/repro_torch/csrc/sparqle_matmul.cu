@@ -4,129 +4,739 @@
 // `sparqle_matmul` (`_kernel` -> `_tile_body` / `_drain`):
 //   acc  = lsb4 @ w                          (dense LSB pass, every tile)
 //   acc += (msb4 @ w) << 4                   (only where tile_pop > 0)
-//   out  = float(acc) * act_scale * w_scale  (or the raw int32 acc)
-// Unlike the Pallas kernel it takes the int4 weight PACKED two per byte
-// along K (`qlinear.pack_int4`, (K/2, N) int8) and unpacks the nibbles
-// in shared memory, so only K*N/2 weight bytes cross device memory.
+//   out  = (f32(acc) * act_scale) * w_scale  (or the raw int32 acc)
+// It takes the int4 weight PACKED two per byte along K
+// (`qlinear.pack_int4`, (K/2, N) int8), so only K*N/2 weight bytes cross
+// device memory.
 //
-// Bound: at decode (M <= 8) bytes — the packed weight stream dominates;
-// at prefill (M = 32) still bytes on the H100's int8 rate. Design: an
-// output-stationary int32 accumulator in registers, a loop over K tiles
-// inside the block (the Pallas K grid axis), `__dp4a` s8 x s8 -> s32
-// products, split-K with an exact atomic int32 meet and a separate drain
-// (all in `w4a8_tile.cuh`, shared with the dense baseline). No wgmma or
-// TMA yet.
+// What bounds it on the H100. At the serving shapes (M <= 32 rows:
+// decode, the verify window, a prefill chunk) the packed weight stream:
+// 29.4 MB at 4096 -> 14336 against at most 0.9 MB of activations and
+// output, so bytes, 8.9 us at 3.35 TB/s. The design keeps that stream
+// flowing and spends few instructions a weight byte:
+//  * a ring of STAGES shared-memory stages fed by TMA (one
+//    `cp.async.bulk.tensor` a tile, completing on the stage's mbarrier):
+//    each block keeps STAGES - 1 K tiles of packed weight (4 KB each) and
+//    of activation rows in flight while its warps compute, and the launch
+//    plan (`kernels/sparqle_matmul.py` `launch_plan`) splits K until the
+//    grid holds >= 264 blocks (two or more per SM). One thread issues a
+//    stage with one arrive.expect_tx; where TMA cannot take an operand
+//    (a row stride not a multiple of 16 B: N = 70, K = 4100) every thread
+//    copies it with `cp.async.cg` 16 B (commit/wait groups) instead;
+//  * the weight stays packed in shared memory, in the 64-byte swizzle the
+//    TMA writes; `ldmatrix.trans` hands each lane the bytes of two
+//    columns x four k-pair rows, `__byte_perm` splits them per column, and
+//    masks and shifts place each nibble in the high half of a byte: the
+//    operand is 16 * w, exact in s8 with its sign, so no sign extension is
+//    spent; the int32 sum is 16 x the product and an arithmetic shift by 4
+//    ends it exactly (|16 acc| < 2^31 up to K = 117,323; the wrapper
+//    takes K <= 65,536);
+//  * int8 tensor cores: `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`
+//    with the weight as the A operand (16 columns an mma) and the
+//    activation rows as B (8 rows an mma), so decode's 8 rows fill an
+//    mma. A 128-deep K tile is four k32 steps; an (m16, k128) population
+//    tile is two n8 activation tiles, so the MSB pass is gated per warp
+//    and per tile uniformly. LSB4 (0..15) and 16 * MSB4 (-128..112) are
+//    both exact in s8: the MSB pass is an mma of the operand msb4 << 4
+//    into the same accumulator, acc += (msb4 @ w) << 4 exactly (int32
+//    sums are exact in any order). The MSB tile is fetched only where
+//    the block's population row (read ahead into shared memory) is > 0;
+//  * a block covers up to MT = 4 m16 tiles (64 rows), each gated by its
+//    own population, so a 32-row chunk reads the weight once and the
+//    1,024-row `--legacy` prefill 16 times;
+//  * one launch a call: with one K split the epilogue drains directly;
+//    with several each split writes its int32 partial to its own slice
+//    of a workspace, and the last block to arrive at an output tile (an
+//    acq_rel arrival counter) sums the slices, drains or writes the int32
+//    sum, and resets the counter to 0.
+// From M = 64 rows up (the 1,024-token prefill) the int8 operations bound
+// it; mma.sync runs that regime too (wgmma is a later step).
+//
+// Fragment order. An integer dot product does not depend on the order
+// of K, so inside each 128-wide K tile the kernel uses a fixed
+// permutation of K, the same for both operands: in k32 step s, lane
+// (g, t) = (lane / 4, lane % 4) holds logical k = 4t + i (i = 0..3) =
+// the low nibble of packed row 16s + 2t + (i & 1) + 8(i >> 1), real k
+// 32s + 4t + 2(i & 1) + 16(i >> 1), and logical k = 16 + 4t + i = the
+// high nibble of the same row, real k + 1. Output columns are permuted
+// inside each warp's 32: row R of the weight operand's m16 tile u is
+// real column 16u + 2(R % 8) + R / 8, so a lane holds two neighbouring
+// columns (16u + 2g, + 1) and the epilogue stores them as pairs.
+// `kernels/sparqle_matmul.py` (`k_order`, `n_order`, `w_off`, `a_off`)
+// mirrors the orders and the swizzles.
 //
 // The draft entry `sparqle_matmul_draft_launch` replaces the Pallas
-// `_kernel_draft` (`sparqle_matmul(msb_skip=True)`): the same kernel
-// instantiated with MSB_SKIP = true computes acc = lsb4 @ w alone. The
-// MSB plane and the tile populations are not arguments of that entry at
-// all, so it streams only the LSB plane and the weight (the Pallas
-// draft grid likewise drops both operands); the drain is shared.
-//
-// The packed entries replace the Pallas `sparqle_matmul_packed`
-// (`_kernel_packed`) and its draft (`_kernel_packed_draft`): the same
-// kernel instantiated with PACKED = true reads the activation planes in
-// the wire layout, (M, pad_k(K)/2) two nibbles per byte at the explicit
-// row stride ldp, and unpacks them into the same shared-memory tiles
-// (`load_act_tile_packed`), the MSB plane only for a tile whose
-// population is > 0. The weight unpack, the `__dp4a` body, the split-K
-// store and the drain are one source for both layouts, so the packed
-// and unpacked accumulators are equal by construction. Bound: bytes, as
-// the unpacked form; the activation planes cross device memory at half
-// their unpacked bytes, which at decode is ~0.1% of the weight stream.
-#include "w4a8_tile.cuh"
+// `_kernel_draft` (`sparqle_matmul(msb_skip=True)`): the instance with
+// MSB_SKIP = true computes acc = lsb4 @ w alone and takes neither the
+// MSB plane nor the tile populations. The packed entries replace the
+// Pallas `sparqle_matmul_packed` (`_kernel_packed`) and its draft
+// (`_kernel_packed_draft`): the instance with PACKED = true stages the
+// wire-layout planes ((M, ldp) two nibbles per byte, ldp = pad_k(K)/2)
+// as they are and splits their nibbles while it builds the B operand;
+// the rest is one body, so packed and unpacked accumulators are equal by
+// construction.
+#include <cuda.h>           // CUtensorMap and its enums (types only)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE_M = 16;    // rows of one mma == TILE_M of the PBM population
+constexpr int TILE_K = 128;   // K per tile == TILE_K of the PBM population
+constexpr int MT = 4;         // m16 population tiles per block
+constexpr int BLOCK_M = MT * TILE_M;
+constexpr int NT = BLOCK_M / 8;   // n8 mma tiles of activation rows
+constexpr int BLOCK_N = 64;   // output columns per block: 2 warp columns x 32
+constexpr int THREADS = 128;  // 2 column groups x 2 K halves
+constexpr int STAGES = 4;
+constexpr int W_STAGE = TILE_K / 2 * BLOCK_N;   // packed weight bytes a stage
+constexpr int MAX_SMEM = 200 * 1024;   // opt-in, under the 227 KB a block
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+// rows of the m16 tiles that M rows occupy
+__host__ __device__ constexpr int nmt_all(int M) { return cdiv(M, 16) * 16; }
+
+// Shared-memory layouts, swizzled per 16 B chunk so that the fragment
+// reads hit distinct banks (mirrored in kernels/sparqle_matmul.py).
+// 64-byte rows (the packed weight: row r a k pair, byte column c of the
+// block's 64 columns; the wire-layout planes): rows 2l, 2l + 1 share a
+// 128 B line and bits 1-2 of r rotate the chunks, so any 8 consecutive
+// rows of one chunk (an ldmatrix phase) fill all 32 banks.
+__device__ __forceinline__ int w_off(int r, int c) {
+  return r * 64 + (((c >> 4) ^ ((r >> 1) & 3)) << 4) + (c & 15);
+}
+// 128-byte rows (the unpacked planes): the chunk XOR the row's low bits.
+__device__ __forceinline__ int a_off(int r, int c) {
+  return r * 128 + (((c >> 4) ^ (r & 7)) << 4) + (c & 15);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"(smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               ::"r"(smem_u32(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// TMA: the copy of one box of a 2D tensor map (columns from x, rows
+// from y; out-of-range bytes land as zeros) into dst, in the map's
+// swizzle, counted on bar; expect_tx / arrive make up bar's phase.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
+        "r"(y), "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// 16 bytes from src into the shared chunk dst: by cp.async when the
+// chunk is whole and aligned, else the first `valid` bytes (0..16) by
+// plain loads and zeros after them (ragged or unaligned edges).
+__device__ __forceinline__ void copy16(int8_t* dst, const int8_t* src,
+                                       int valid, bool vec) {
+  if (vec && valid >= 16) {
+    cp_async16(dst, src);
+    return;
+  }
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int b = 0; b < 16; ++b)
+    if (b < valid) w[b >> 2] |= (uint32_t)(uint8_t)src[b] << (8 * (b & 3));
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Four 8 x 8 tiles of 16-bit elements, transposed: lane (g, t) gets
+// elements (rows 2t, 2t + 1; column g) of tile q in r[q]. Lanes 8q .. 8q
+// + 7 give the row addresses of tile q.
+__device__ __forceinline__ void ldsm_x4_trans(const int8_t* p,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The activation operand (mma B, 32 k x 8 rows) of k32 step s for row
+// r: b[0] byte i is real k 32s + 4t + 2(i & 1) + 16(i >> 1), b[1] byte i
+// that k + 1. MSB: the operand 16 * msb4, exact in s8.
+template <bool PACKED, bool MSB>
+__device__ __forceinline__ void act_frag(const int8_t* plane, int r, int s,
+                                         int t, uint32_t (&b)[2]) {
+  if (PACKED) {   // byte j holds real k 2j (low nibble), 2j + 1 (high)
+    const uint16_t* h0 = reinterpret_cast<const uint16_t*>(
+        plane + w_off(r, 16 * s + 2 * t));
+    const uint16_t* h1 = reinterpret_cast<const uint16_t*>(
+        plane + w_off(r, 16 * s + 8 + 2 * t));
+    const uint32_t v = __byte_perm(*h0, *h1, 0x5410);
+    b[0] = MSB ? (v << 4) & 0xF0F0F0F0u : v & 0x0F0F0F0Fu;
+    b[1] = MSB ? v & 0xF0F0F0F0u : (v >> 4) & 0x0F0F0F0Fu;
+  } else {        // bytes 4t .. + 3 and 16 + 4t .. + 3: even k to b[0]
+    const uint32_t u =
+        *reinterpret_cast<const uint32_t*>(plane + a_off(r, 32 * s + 4 * t));
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(
+        plane + a_off(r, 32 * s + 16 + 4 * t));
+    b[0] = __byte_perm(u, v, 0x6420);
+    b[1] = __byte_perm(u, v, 0x7531);
+    if (MSB) {
+      b[0] = (b[0] << 4) & 0xF0F0F0F0u;
+      b[1] = (b[1] << 4) & 0xF0F0F0F0u;
+    }
+  }
+}
+
+// 2 int32 at dst (columns c, c + 1, those below N)
+__device__ __forceinline__ void store2(int32_t* dst, int v0, int v1, int c,
+                                       int N) {
+  if (N % 2 == 0 && c + 2 <= N) {
+    *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+  } else {
+    if (c < N) dst[0] = v0;
+    if (c + 1 < N) dst[1] = v1;
+  }
+}
+
+// Row m, columns c .. c + 3 (those below N) of the result: the int32
+// acc, or (f32(acc) * as) * wsc[e] in the reference's order (as: the
+// row's act_scale, wsc: w_scale from column c on). 16 B stores where
+// N % 4 == 0 and all four columns are real.
+__device__ __forceinline__ void drain4(
+    float* __restrict__ out, int32_t* __restrict__ acc_out, float as,
+    const float* wsc, int m, int c, int N, const int* v) {
+  const bool vec = N % 4 == 0 && c + 4 <= N;
+  if (acc_out != nullptr) {
+    int32_t* dst = acc_out + (long)m * N + c;
+    if (vec) *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
+    else for (int e = 0; e < 4 && c + e < N; ++e) dst[e] = v[e];
+    return;
+  }
+  float o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    o[e] = c + e < N ? __fmul_rn(__fmul_rn((float)v[e], as), wsc[e]) : 0.f;
+  float* dst = out + (long)m * N + c;
+  if (vec)
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  else for (int e = 0; e < 4 && c + e < N; ++e) dst[e] = o[e];
+}
+
+// Row m, columns c, c + 1 (those below N): as drain4.
+__device__ __forceinline__ void drain2(
+    float* __restrict__ out, int32_t* __restrict__ acc_out, float as,
+    const float* wsc, int m, int c, int N, int v0, int v1) {
+  if (acc_out != nullptr) {
+    store2(acc_out + (long)m * N + c, v0, v1, c, N);
+    return;
+  }
+  const float o0 = c < N ? __fmul_rn(__fmul_rn((float)v0, as), wsc[0]) : 0.f;
+  const float o1 =
+      c + 1 < N ? __fmul_rn(__fmul_rn((float)v1, as), wsc[1]) : 0.f;
+  float* dst = out + (long)m * N + c;
+  if (N % 2 == 0 && c + 2 <= N) {
+    *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+  } else {
+    if (c < N) dst[0] = o0;
+    if (c + 1 < N) dst[1] = o1;
+  }
+}
 
 // MSB_SKIP: the draft's LSB-only pass; msb and tile_pop are never read.
 // PACKED: lsb/msb are wire-layout planes of row stride ldp bytes (the
 // unpacked planes have row stride K and ignore ldp).
+// Warps: 2 column groups of 32 x 2 K halves (k32 steps 0-1 and 2-3 of
+// every K tile); the K halves meet in shared memory at the end.
 template <bool MSB_SKIP, bool PACKED>
-__global__ void sparqle_matmul_kernel(
+__global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     const int8_t* __restrict__ lsb, const int8_t* __restrict__ msb,
     const int32_t* __restrict__ tile_pop, const int8_t* __restrict__ wp,
-    int32_t* __restrict__ acc_buf, int M, int N, int K, int ldp,
-    int tiles_per_split) {
-  __shared__ __align__(16) weight_tile w_s;
-  __shared__ __align__(16) act_tile a_l;
-  __shared__ __align__(16) int8_t a_m[MSB_SKIP ? 1 : BM][BK];
-  const int n0 = blockIdx.x * BN, mt = blockIdx.y, m0 = mt * BM;
-  const int n_kt = (K + BK - 1) / BK;
-  const int kt_lo = blockIdx.z * tiles_per_split;
-  const int kt_hi = min(n_kt, kt_lo + tiles_per_split);
-  const int tn = threadIdx.x % BN, mg = threadIdx.x / BN;   // 64 x 4
-  int acc_l[4] = {0, 0, 0, 0}, acc_m[4] = {0, 0, 0, 0};
+    const float* __restrict__ act_scale, const float* __restrict__ w_scale,
+    float* __restrict__ out, int32_t* __restrict__ acc_out,
+    int32_t* __restrict__ ws, int32_t* __restrict__ counters, int M, int N,
+    int K, int ldp, int per, const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap lmap,
+    const __grid_constant__ CUtensorMap mmap, int tma_w, int tma_a) {
+  constexpr int ROWB = PACKED ? TILE_K / 2 : TILE_K;  // plane bytes a tile row
+  constexpr int PLANES = MSB_SKIP ? 1 : 2;
+  extern __shared__ __align__(16) int8_t smem[];
+  __shared__ int s_last;
+  __shared__ __align__(8) uint64_t bar[STAGES];    // TMA arrivals a stage
+  __shared__ float as_s[BLOCK_M], ws_s[BLOCK_N];     // the drain's scales
 
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    // uniform over the block; the draft has no MSB pass to gate
-    const int pop = MSB_SKIP ? 0 : tile_pop[mt * n_kt + kt];
-    load_weight_tile(wp, w_s, kt, n0, N, K / 2);
-    if (PACKED) load_act_tile_packed<false>(lsb, a_l, m0, kt * BK, M, ldp);
-    else load_act_tile(lsb, a_l, m0, kt * BK, M, K);
-    if (!MSB_SKIP && pop > 0) {
-      if (PACKED) load_act_tile_packed<true>(msb, a_m, m0, kt * BK, M, ldp);
-      else load_act_tile(msb, a_m, m0, kt * BK, M, K);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = warp & 1, kh = warp >> 1;        // column group, K half
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BLOCK_N, m0 = blockIdx.y * BLOCK_M;
+  const int n_kt = cdiv(K, TILE_K);
+  const int kt_lo = blockIdx.z * per;
+  const int nk = min(n_kt, kt_lo + per) - kt_lo;
+  const int rows = min(BLOCK_M, M - m0);          // valid rows of the block
+  const int nmt = cdiv(rows, TILE_M);             // live m16 row tiles
+  const int nnt = cdiv(rows, 8);                  // live n8 row tiles
+  const int arows = min(BLOCK_M, nmt_all(M));    // staged rows a plane
+  const int a_bytes = arows * ROWB;
+  // stages start 1 KB-aligned: the TMA swizzle follows address bits
+  const int stage = cdiv(W_STAGE + PLANES * a_bytes, 1024) * 1024;
+  // live_s[i]: bit mt set where m16 tile mt of K tile kt_lo + i has
+  // tile_pop > 0, i.e. its MSB plane is read
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(smem);
+  const uint32_t s0 = smem_u32(smem);
+  int8_t* ring = smem + ((s0 + (MSB_SKIP ? 0 : per) + 1023) & ~1023u) - s0;
+
+  const int K2 = K / 2;
+  const int lda = PACKED ? ldp : K;            // plane row stride, bytes
+  const bool w_vec = (N % 16 == 0) && ((uintptr_t)wp % 16 == 0);
+  const bool a_vec = (lda % 16 == 0) && ((uintptr_t)lsb % 16 == 0) &&
+                     (MSB_SKIP || (uintptr_t)msb % 16 == 0);
+
+  const bool tma = tma_w || tma_a;
+  // the m16 tiles of K tile kt_lo + i whose MSB plane is read (pop > 0),
+  // straight from tile_pop (live_s holds them once the block has them)
+  auto live_mask = [&](int i) {
+    uint32_t live = 0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      if (!MSB_SKIP && mt < nmt &&
+          tile_pop[(m0 / TILE_M + mt) * n_kt + kt_lo + i] > 0)
+        live |= 1u << mt;
+    return live;
+  };
+  // thread 0's TMA part of stage st (K tile kt_lo + i): part 0 the
+  // weight and LSB tiles, part 1 the MSB tiles of the live m16 tiles and
+  // the stage's one arrival; part 2 both, with one arrive.expect_tx
+  auto tma_part = [&](int st, int i, int part, uint32_t live) {
+    const int kt = kt_lo + i;
+    int8_t* w_s = ring + st * stage;
+    const uint32_t lsb_bytes = (tma_w ? W_STAGE : 0) +
+                               (tma_a ? nmt * TILE_M * ROWB : 0);
+    const uint32_t msb_bytes =
+        !MSB_SKIP && tma_a ? __popc(live) * TILE_M * ROWB : 0;
+    if (part == 2) mbar_arrive_expect(&bar[st], lsb_bytes + msb_bytes);
+    if (part != 1) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (part == 0) mbar_expect(&bar[st], lsb_bytes);
+      if (tma_w) tma_2d(w_s, &wmap, n0, kt * (TILE_K / 2), &bar[st]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        if (tma_a && mt < nmt)
+          tma_2d(w_s + W_STAGE + mt * TILE_M * ROWB, &lmap, kt * ROWB,
+                 m0 + mt * TILE_M, &bar[st]);
+      if (part == 0) return;
+    }
+    if (part == 1) mbar_expect(&bar[st], msb_bytes);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      if (!MSB_SKIP && tma_a && ((live >> mt) & 1))
+        tma_2d(w_s + W_STAGE + a_bytes + mt * TILE_M * ROWB, &mmap,
+               kt * ROWB, m0 + mt * TILE_M, &bar[st]);
+    if (part == 1) mbar_arrive(&bar[st]);
+  };
+  auto load_w = [&](int st, int i) {
+    const int kt = kt_lo + i;
+    int8_t* w_s = ring + st * stage;
+    for (int q = tid; q < W_STAGE / 16; q += THREADS) {
+      const int r = q >> 2, c = (q & 3) * 16;
+      const int k2 = kt * (TILE_K / 2) + r, n = n0 + c;
+      const int valid = k2 < K2 ? max(0, min(16, N - n)) : 0;
+      copy16(w_s + w_off(r, c), wp + (long)k2 * N + n, valid, w_vec);
+    }
+  };
+  auto load_a = [&](int st, int i, int p_lo, int p_hi) {
+    const int kt = kt_lo + i;
+    constexpr int CH = ROWB / 16;              // 16 B chunks a plane row
+    for (int p = p_lo; p < p_hi; ++p) {
+      const int8_t* src = p ? msb : lsb;
+      int8_t* a_s = ring + st * stage + W_STAGE + p * a_bytes;
+      for (int q = tid; q < rows * CH; q += THREADS) {
+        const int r = q / CH, c = (q % CH) * 16;
+        if (p && !((live_s[i] >> (r / TILE_M)) & 1)) continue;
+        const int k = kt * ROWB + c;
+        // the unpacked planes end at K; the wire rows run to ldp
+        const int valid = max(0, min(16, lda - k));
+        copy16(a_s + (PACKED ? w_off(r, c) : a_off(r, c)),
+               src + (long)(m0 + r) * lda + k, valid, a_vec);
+      }
+    }
+  };
+
+  // the first stages are in flight while the block reads its
+  // populations ahead and, without TMA, zeroes the rows past M in every
+  // stage; thread 0 reads the populations of those stages itself, so
+  // that their MSB tiles need not wait for the block
+  if (tma && tid == 0) {
+    for (int st = 0; st < STAGES; ++st) mbar_init(&bar[st]);
+#pragma unroll
+    for (int p = 0; p < STAGES - 1; ++p)
+      if (p < nk) tma_part(p, p, 0, 0);
+#pragma unroll
+    for (int p = 0; p < STAGES - 1; ++p)
+      if (p < nk) tma_part(p, p, 1, tma_a ? live_mask(p) : 0);
+  }
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p)
+    if (p < nk) {
+      if (!tma_w) load_w(p, p);
+      if (!tma_a) load_a(p, p, 0, 1);
+    }
+  for (int i = tid; i < BLOCK_M + BLOCK_N; i += THREADS) {
+    if (i < rows) as_s[i] = act_scale[m0 + i];
+    const int c = i - BLOCK_M;
+    if (c >= 0 && n0 + c < N) ws_s[c] = w_scale[n0 + c];
+  }
+  if (!MSB_SKIP)
+    for (int i = tid; i < per; i += THREADS)
+      live_s[i] = i < nk ? live_mask(i) : 0;
+  for (int st = 0; st < STAGES && !tma_a; ++st)
+    for (int p = 0; p < PLANES; ++p) {
+      int8_t* a = ring + st * stage + W_STAGE + p * a_bytes;
+      for (int i = rows * ROWB + 4 * tid; i < nmt * TILE_M * ROWB;
+           i += 4 * THREADS)
+        *reinterpret_cast<uint32_t*>(a + i) = 0u;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < nk && !tma_a) load_a(p, p, 1, PLANES);
+    cp_async_commit();
+  }
+
+  // acc[u][nt]: weight rows (columns) of m16 tile u x activation rows of
+  // n8 tile nt, as 16 x the sum (the weight operand is 16 * w)
+  int acc[2][NT][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][nt][e] = 0;
+
+  // this lane's ldmatrix row: tile q = lane / 8 is packed rows 8(q & 1)
+  // .. + 7 of the k32 step, bytes 16(q >> 1) .. + 15 of the warp's 32
+  // columns (each k32 step adds 16 rows = 1,024 bytes)
+  const int q8 = lane >> 3;
+  const int ldsm = w_off(8 * (q8 & 1) + (lane & 7), cg * 32 + 16 * (q8 >> 1))
+                   + 2048 * kh;
+
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<STAGES - 2>();
+    if (tma) mbar_wait(&bar[i % STAGES], (i / STAGES) & 1);
+    __syncthreads();
+    if (i + STAGES - 1 < nk) {
+      const int st = (i + STAGES - 1) % STAGES;
+      if (tma && tid == 0)
+        tma_part(st, i + STAGES - 1, 2, MSB_SKIP ? 0 : live_s[i + STAGES - 1]);
+      if (!tma_w) load_w(st, i + STAGES - 1);
+      if (!tma_a) load_a(st, i + STAGES - 1, 0, PLANES);
+    }
+    cp_async_commit();
+
+    const int8_t* w_s = ring + (i % STAGES) * stage;
+    const int8_t* a_l = w_s + W_STAGE;
+    const int8_t* a_m = a_l + a_bytes;
+    const uint32_t live = MSB_SKIP ? 0 : live_s[i];
+#pragma unroll
+    for (int ss = 0; ss < 2; ++ss) {
+      const int s = 2 * kh + ss;
+      // r[q]: bytes (row 2t, col 2g), (2t, 2g + 1), (2t + 1, 2g),
+      // (2t + 1, 2g + 1) of tile q; col[c] = packed rows 2t, 2t + 1,
+      // 2t + 8, 2t + 9 of column 16(c >> 1) + 2g + (c & 1)
+      uint32_t r[4];
+      ldsm_x4_trans(w_s + ldsm + 1024 * ss, r);
+      const uint32_t col[4] = {__byte_perm(r[0], r[1], 0x6420),
+                               __byte_perm(r[0], r[1], 0x7531),
+                               __byte_perm(r[2], r[3], 0x6420),
+                               __byte_perm(r[2], r[3], 0x7531)};
+      // the weight operand of m16 tile u: row g is column 16u + 2g, row
+      // g + 8 column 16u + 2g + 1; low nibbles (even k) shifted up, high
+      // nibbles masked: 16 * w in s8, sign included
+      uint32_t wa[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        wa[u][0] = (col[2 * u] << 4) & 0xF0F0F0F0u;
+        wa[u][1] = (col[2 * u + 1] << 4) & 0xF0F0F0F0u;
+        wa[u][2] = col[2 * u] & 0xF0F0F0F0u;
+        wa[u][3] = col[2 * u + 1] & 0xF0F0F0F0u;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= nnt) break;
+        uint32_t b[2];
+        act_frag<PACKED, false>(a_l, 8 * nt + g, s, t, b);
+        mma_s8(acc[0][nt], wa[0], b[0], b[1]);
+        mma_s8(acc[1][nt], wa[1], b[0], b[1]);
+        if ((live >> (nt >> 1)) & 1) {
+          act_frag<PACKED, true>(a_m, 8 * nt + g, s, t, b);
+          mma_s8(acc[0][nt], wa[0], b[0], b[1]);
+          mma_s8(acc[1][nt], wa[1], b[0], b[1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the K halves meet: half 1 hands its accumulators to half 0 through
+  // the (now idle) ring, lane-minor (conflict-free); then 16 x the sum
+  // becomes the sum, exactly
+  int* red = reinterpret_cast<int*>(ring);
+  if (kh == 1) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (nt < nnt) red[((u * NT + nt) * 4 + e) * 64 + tid - 64] =
+              acc[u][nt][e];
+  }
+  __syncthreads();
+  if (kh == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (nt < nnt)
+            acc[u][nt][e] = (acc[u][nt][e] +
+                             red[((u * NT + nt) * 4 + e) * 64 + tid]) >> 4;
+  }
+
+  // lane (g, t) of half 0 holds, for m16 tile u and n8 tile nt, rows
+  // 8nt + 2t (c0, c2) and 8nt + 2t + 1 (c1, c3) at columns cu, cu + 1,
+  // cu = n0 + 32cg + 16u + 2g
+  if (gridDim.z > 1) {
+    if (kh == 0) {
+      int32_t* slice = ws + (long)blockIdx.z * M * N;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = m0 + 8 * nt + 2 * t + e;
+            const int c = n0 + cg * 32 + 16 * u + 2 * g;
+            if (nt >= nnt || m >= M) continue;
+            store2(slice + (long)m * N + c, acc[u][nt][e], acc[u][nt][2 + e],
+                   c, N);
+          }
+    }
+    // the block's slice, seen by thread 0 through the barrier, is
+    // released to the device with the arrival (acq_rel: the last block
+    // acquires every other slice with it)
+    __syncthreads();
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    if (tid == 0) {
+      int prev;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                   : "=r"(prev) : "l"(counters + tile) : "memory");
+      s_last = prev == (int)gridDim.z - 1;
     }
     __syncthreads();
-    dp4a_tile(w_s, a_l, tn, mg, acc_l);
-    if (!MSB_SKIP && pop > 0) dp4a_tile(w_s, a_m, tn, mg, acc_m);
-    __syncthreads();
+    if (!s_last) return;
+    // the last block: every thread sums 4 columns of one row over all
+    // the slices (its own included) and drains them
+    const bool vec4 = N % 4 == 0;
+    for (int q = tid; q < rows * (BLOCK_N / 4); q += THREADS) {
+      const int m = m0 + q / (BLOCK_N / 4), c = n0 + (q % (BLOCK_N / 4)) * 4;
+      if (c >= N) continue;
+      int v[4] = {0, 0, 0, 0};
+      const int32_t* src = ws + (long)m * N + c;
+      const long step = (long)M * N;
+      if (vec4) {
+#pragma unroll 16
+        for (int z = 0; z < (int)gridDim.z; ++z) {
+          const int4 p = __ldcg(reinterpret_cast<const int4*>(src + z * step));
+          v[0] += p.x; v[1] += p.y; v[2] += p.z; v[3] += p.w;
+        }
+      } else {
+        for (int z = 0; z < (int)gridDim.z; ++z)
+          for (int e = 0; e < 4; ++e)
+            if (c + e < N) v[e] += __ldcg(src + z * step + e);
+      }
+      drain4(out, acc_out, as_s[m - m0], ws_s + (c - n0), m, c, N, v);
+    }
+    if (tid == 0) counters[tile] = 0;
+    return;
   }
-  int part[4];
+  if (kh == 1) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) part[i] = acc_l[i] + acc_m[i] * 16;  // << 4
-  store_acc(acc_buf, part, m0, mg, n0 + tn, M, N);
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * nt + 2 * t + e;
+        if (nt >= nnt || m >= M) continue;
+        const int c = cg * 32 + 16 * u + 2 * g;
+        drain2(out, acc_out, as_s[m - m0], ws_s + c, m, n0 + c, N,
+               acc[u][nt][e], acc[u][nt][2 + e]);
+      }
+}
+
+// Dynamic shared memory of one block: the populations, then STAGES x
+// (packed weight tile + the activation plane tiles of up to 64 rows),
+// each stage 1 KB-aligned.
+template <bool MSB_SKIP, bool PACKED>
+size_t smem_bytes(int M, int per) {
+  const int rowb = PACKED ? TILE_K / 2 : TILE_K;
+  const int arows = nmt_all(M) < BLOCK_M ? nmt_all(M) : BLOCK_M;
+  const int stage = cdiv(W_STAGE + (MSB_SKIP ? 1 : 2) * arows * rowb, 1024);
+  return (size_t)(MSB_SKIP ? 0 : per) + 1024 +
+         (size_t)STAGES * stage * 1024;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// A 2D TMA descriptor over a row-major byte matrix (rows x cols, row
+// stride `stride` bytes), boxes of box_c x box_r. False where TMA cannot
+// take it (a stride not a multiple of 16, an unaligned base); the kernel
+// then copies that operand with cp.async.
+bool tma_map(CUtensorMap* map, const void* base, long rows, long cols,
+             long stride, int box_c, int box_r, CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return false;
+    encode = (EncodeTiled)fn;
+  }
+  if (stride % 16 != 0 || (uintptr_t)base % 16 != 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_c, (cuuint32_t)box_r};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool MSB_SKIP, bool PACKED>
-static int launch(const void* lsb, const void* msb, const void* tile_pop,
-                  const void* wp, const void* act_scale,
-                  const void* w_scale, void* acc_buf, void* out, int M,
-                  int N, int K, int ldp, int splits, cudaStream_t s) {
-  int per;
-  const dim3 grid = w4a8_grid(M, N, K, splits, &per);
-  sparqle_matmul_kernel<MSB_SKIP, PACKED><<<grid, THREADS, 0, s>>>(
+int launch(const void* lsb, const void* msb, const void* tile_pop,
+           const void* wp, const void* act_scale, const void* w_scale,
+           void* out, void* acc_out, void* ws, void* counters, int M, int N,
+           int K, int ldp, int per, cudaStream_t s) {
+  static bool attr_set = false;   // above 48 KB needs the opt-in, once
+  auto kernel = sparqle_matmul_kernel<MSB_SKIP, PACKED>;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  // the weight (K/2, N) in 64 x 64 boxes, the planes (M, lda) in 16-row
+  // boxes of one K tile, swizzled as w_off / a_off lay them out
+  CUtensorMap wmap = {}, lmap = {}, mmap = {};
+  const int tma_w = tma_map(&wmap, wp, K / 2, N, N, BLOCK_N, TILE_K / 2,
+                            CU_TENSOR_MAP_SWIZZLE_64B);
+  const int lda = PACKED ? ldp : K, rowb = PACKED ? TILE_K / 2 : TILE_K;
+  const CUtensorMapSwizzle asw =
+      PACKED ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const int tma_a =
+      tma_map(&lmap, lsb, M, lda, lda, rowb, TILE_M, asw) &&
+      (MSB_SKIP || tma_map(&mmap, msb, M, lda, lda, rowb, TILE_M, asw));
+  const dim3 grid(cdiv(N, BLOCK_N), cdiv(M, BLOCK_M),
+                  cdiv(cdiv(K, TILE_K), per));
+  kernel<<<grid, THREADS, smem_bytes<MSB_SKIP, PACKED>(M, per), s>>>(
       (const int8_t*)lsb, (const int8_t*)msb, (const int32_t*)tile_pop,
-      (const int8_t*)wp, (int32_t*)acc_buf, M, N, K, ldp, per);
-  return w4a8_drain(acc_buf, act_scale, w_scale, out, M, N, s);
+      (const int8_t*)wp, (const float*)act_scale, (const float*)w_scale,
+      (float*)out, (int32_t*)acc_out, (int32_t*)ws, (int32_t*)counters, M,
+      N, K, ldp, per, wmap, lmap, mmap, tma_w, tma_a);
+  return (int)cudaGetLastError();
 }
 
-// acc_buf must be zero-filled when splits > 1; out == nullptr skips the
-// drain (the caller wants the raw int32 accumulator).
+}  // namespace
+
+// One launch a call. Exactly one of out (f32) and acc_out (int32) is
+// non-null. per = K tiles a split (`launch_plan`); with more than one
+// split, ws holds (splits, M, N) int32 (no fill needed) and counters one
+// zeroed int a (row block, column block) tile, left zeroed again.
 extern "C" int sparqle_matmul_launch(
     const void* lsb, const void* msb, const void* tile_pop, const void* wp,
-    const void* act_scale, const void* w_scale, void* acc_buf, void* out,
-    int M, int N, int K, int splits, void* stream) {
+    const void* act_scale, const void* w_scale, void* out, void* acc_out,
+    void* ws, void* counters, int M, int N, int K, int per, void* stream) {
   return launch<false, false>(lsb, msb, tile_pop, wp, act_scale, w_scale,
-                              acc_buf, out, M, N, K, K, splits,
+                              out, acc_out, ws, counters, M, N, K, K, per,
                               (cudaStream_t)stream);
 }
 
 // The LSB4-only draft: no MSB plane, no tile populations.
 extern "C" int sparqle_matmul_draft_launch(
     const void* lsb, const void* wp, const void* act_scale,
-    const void* w_scale, void* acc_buf, void* out, int M, int N, int K,
-    int splits, void* stream) {
+    const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
+    int M, int N, int K, int per, void* stream) {
   return launch<true, false>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
-                             acc_buf, out, M, N, K, K, splits,
+                             out, acc_out, ws, counters, M, N, K, K, per,
                              (cudaStream_t)stream);
 }
 
 // The wire-layout planes (M, ldp) with ldp = pad_k(K)/2.
 extern "C" int sparqle_matmul_packed_launch(
     const void* lsb, const void* msb, const void* tile_pop, const void* wp,
-    const void* act_scale, const void* w_scale, void* acc_buf, void* out,
-    int M, int N, int K, int ldp, int splits, void* stream) {
+    const void* act_scale, const void* w_scale, void* out, void* acc_out,
+    void* ws, void* counters, int M, int N, int K, int ldp, int per,
+    void* stream) {
   return launch<false, true>(lsb, msb, tile_pop, wp, act_scale, w_scale,
-                             acc_buf, out, M, N, K, ldp, splits,
+                             out, acc_out, ws, counters, M, N, K, ldp, per,
                              (cudaStream_t)stream);
 }
 
 // The LSB4-only draft on the wire-layout LSB plane.
 extern "C" int sparqle_matmul_packed_draft_launch(
     const void* lsb, const void* wp, const void* act_scale,
-    const void* w_scale, void* acc_buf, void* out, int M, int N, int K,
-    int ldp, int splits, void* stream) {
+    const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
+    int M, int N, int K, int ldp, int per, void* stream) {
   return launch<true, true>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
-                            acc_buf, out, M, N, K, ldp, splits,
+                            out, acc_out, ws, counters, M, N, K, ldp, per,
                             (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
-// The W4A8 tile machinery that the dual-pass SPARQLe matmul
-// (`sparqle_matmul.cu`) and the dense single-pass baseline
-// (`quant_matmul.cu`) share: the tiling, the int4 weight unpack, the
-// `__dp4a` pass over one K tile, the exact split-K store and the drain.
+// The W4A8 tile machinery of the dense single-pass baseline
+// (`quant_matmul.cu`): the tiling, the int4 weight unpack, the `__dp4a`
+// pass over one K tile, the exact split-K store and the drain. (The
+// dual-pass SPARQLe matmul, `sparqle_matmul.cu`, has its own tensor-core
+// body and no longer includes this header.)
 //
 // A block owns BM rows x BN output columns and loops over its K tiles
 // (BK each, the PBM population's TILE_K) inside the block; THREADS
@@ -39,32 +40,6 @@ __device__ __forceinline__ void load_act_tile(
     for (int i = 0; i < 8; ++i)
       dst[r][c + i] = (m < M && k + i < K) ? a[(long)m * K + k + i] : 0;
   }
-}
-
-// The wire layout's nibble planes (`core/packing.py`): row m holds
-// columns [0, 2 * ldp) two per byte at a + m * ldp (ldp = pad_k(K)/2, a
-// multiple of 16), byte j = column 2j low, 2j + 1 high. Loads the tile
-// rows [m0, +BM) x columns [k0, +BK), 4 bytes a thread, and unpacks them
-// into the int8 tile load_act_tile fills: LSB4 nibbles unsigned, MSB4
-// nibbles (SIGNED) sign-extended. Columns past the padded row load as 0.
-template <bool SIGNED>
-__device__ __forceinline__ void load_act_tile_packed(
-    const int8_t* __restrict__ a, int8_t (*dst)[BK], int m0, int k0, int M,
-    int ldp) {
-  const int r = threadIdx.x / 16, c = (threadIdx.x % 16) * 8;
-  const int m = m0 + r, k = k0 + c;
-  uint32_t v = 0;
-  if (m < M && k + 8 <= 2 * ldp)
-    v = *reinterpret_cast<const uint32_t*>(a + (long)m * ldp + k / 2);
-  uint32_t out[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t nib = (v >> (4 * i)) & 0xFu;
-    const uint32_t val = SIGNED ? (uint32_t)(((int)(nib ^ 8u) - 8) & 0xFF)
-                                : nib;
-    out[i / 4] |= val << (8 * (i % 4));
-  }
-  *reinterpret_cast<uint2*>(&dst[r][c]) = make_uint2(out[0], out[1]);
 }
 
 // packed weight rows [kt*BK/2, +BK/2) x cols [n0, n0+BN), 16 B/thread,

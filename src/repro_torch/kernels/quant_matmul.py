@@ -5,8 +5,8 @@ Replaces the Pallas kernel ``repro/kernels/quant_matmul.py``
 ``csrc/quant_matmul.cu``: one int8 x int4 pass into an int32
 accumulator, drained as ``acc.f32 * act_scale * w_scale`` in the JAX
 order. Bound on the H100 by bytes at the serving shapes, like the
-dual-pass kernel, whose tiling, weight unpack, exact split-K and drain
-it shares (``csrc/w4a8_tile.cuh``). It takes the ``pack_int4`` weight
+dual-pass kernel; its tiling, weight unpack, exact split-K and drain
+are in ``csrc/w4a8_tile.cuh``. It takes the ``pack_int4`` weight
 the served tree holds (the Pallas kernel takes int8 ``w``), so a dense
 and a SPARQLe projection read the same bytes. Since q = 16 * msb4 +
 lsb4 exactly, its accumulator equals ``sparqle_matmul``'s on the planes
@@ -20,12 +20,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import quant_matmul_ref
-from repro_torch.kernels.sparqle_matmul import _splits
+from repro_torch.kernels.ref import TILE_K, TILE_M, _cdiv, quant_matmul_ref
 
 KERNEL = _build.register(_build.Kernel(
     "quant_matmul.cu", "quant_matmul_launch",
     [_build.P] * 6 + [_build.I] * 4 + [_build.P]))
+
+BN = 64                 # output columns per block (csrc/w4a8_tile.cuh)
+TARGET_BLOCKS = 264     # two blocks per SM on the H100's 132 SMs
+
+
+def _splits(m: int, n: int, k: int) -> int:
+    """K splits of the ``w4a8_tile.cuh`` grid (16 rows x BN a block)."""
+    n_kt = _cdiv(k, TILE_K)
+    blocks = _cdiv(n, BN) * _cdiv(m, TILE_M)
+    want = max(1, min(n_kt, _cdiv(TARGET_BLOCKS, blocks)))
+    per = _cdiv(n_kt, want)
+    return _cdiv(n_kt, per)
 
 
 def quant_matmul(

@@ -2,15 +2,19 @@
 
 Replaces the Pallas kernel ``repro/kernels/sparqle_matmul.py``
 ``sparqle_matmul`` (``_kernel``/``_tile_body``/``_drain``) with the CUDA
-kernel in ``csrc/sparqle_matmul.cu``. Bound on the H100 by bytes: the
-packed int4 weight stream (K*N/2 bytes) dominates at the serving shapes
-(M <= 32 rows). The kernel therefore takes the ``pack_int4`` weight
-directly and unpacks in shared memory, keeps the int32 accumulator in
-registers across an in-block K loop, skips the MSB pass of every
-(TILE_M, TILE_K) tile whose PBM population is 0, and splits K over the
-grid when N alone gives too few blocks to fill the card (exact: int32
-partial sums meet through atomicAdd). Ragged M/N/K are masked in the
-kernel, so no operand is padded.
+kernel in ``csrc/sparqle_matmul.cu``, one launch a call. Bound on the H100
+by bytes at the serving shapes (M <= 32 rows): the packed int4 weight
+stream (K*N/2 bytes) dominates. So the kernel takes the ``pack_int4``
+weight as it is, streams it through a ring of shared-memory stages fed by
+TMA (``cp.async`` where a row stride is not a multiple of 16 bytes),
+unpacks it in registers into int8 tensor-core operands (``mma.sync``
+m16n8k32, the weight as 16 w so no sign extension is spent), skips the
+MSB pass of every (TILE_M, TILE_K) tile whose PBM population is 0, reads
+the weight once per 64 rows, and splits K (:func:`launch_plan`) until the
+grid holds two blocks per SM; split partial sums meet in a workspace that
+the last block of each output tile sums and drains. From 64 rows up int8
+operations bound it. Ragged M/N/K and unaligned rows are masked in the
+kernel, so no operand is padded; K is at most MAX_K.
 
 ``msb_skip=True`` is the LSB4-only draft of self-speculative decoding
 and replaces the Pallas ``_kernel_draft``: the same CUDA kernel
@@ -22,9 +26,13 @@ only the LSB plane and the weight are read.
 ``sparqle_matmul_packed`` (``_kernel_packed``, and ``_kernel_packed_draft``
 with ``msb_skip``): the activation planes arrive in the wire layout,
 (M, pad_k(K)/2) two nibbles per byte, and the kernel instance with
-``PACKED`` unpacks them into the tiles the unpacked form fills; the
-rest of the kernel is one source, so the two layouts give equal
+``PACKED`` splits their nibbles while it builds the tensor-core operand;
+the rest of the kernel is one source, so the two layouts give equal
 accumulators.
+
+The launch plan and the fragment order inside a tile have plain-Python
+mirrors here (:func:`launch_plan`, :func:`block_tiles`, :func:`k_order`,
+:func:`n_order`, :func:`w_off`, :func:`a_off`), tested on the CPU.
 
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version ``kernels.ref.sparqle_matmul_ref`` /
@@ -32,7 +40,7 @@ plain version ``kernels.ref.sparqle_matmul_ref`` /
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,32 +50,119 @@ from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv,
                                      sparqle_matmul_packed_ref,
                                      sparqle_matmul_ref)
 
+_ENTRY = [_build.P] * 10 + [_build.I] * 4 + [_build.P]
+_DRAFT = [_build.P] * 8 + [_build.I] * 4 + [_build.P]
 KERNEL = _build.register(_build.Kernel(
-    "sparqle_matmul.cu", "sparqle_matmul_launch",
-    [_build.P] * 8 + [_build.I] * 4 + [_build.P]))
+    "sparqle_matmul.cu", "sparqle_matmul_launch", _ENTRY))
 DRAFT_KERNEL = _build.register(_build.Kernel(
-    "sparqle_matmul.cu", "sparqle_matmul_draft_launch",
-    [_build.P] * 6 + [_build.I] * 4 + [_build.P],
+    "sparqle_matmul.cu", "sparqle_matmul_draft_launch", _DRAFT,
     name="sparqle_matmul_draft"))
 PACKED_KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "sparqle_matmul_packed_launch",
-    [_build.P] * 8 + [_build.I] * 5 + [_build.P],
-    name="sparqle_matmul_packed"))
+    _ENTRY[:-1] + [_build.I, _build.P], name="sparqle_matmul_packed"))
 PACKED_DRAFT_KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "sparqle_matmul_packed_draft_launch",
-    [_build.P] * 6 + [_build.I] * 5 + [_build.P],
-    name="sparqle_matmul_packed_draft"))
+    _DRAFT[:-1] + [_build.I, _build.P], name="sparqle_matmul_packed_draft"))
 
-BN = 64                 # output columns per block (csrc/sparqle_matmul.cu)
+# csrc/sparqle_matmul.cu's tiling
+MT = 4                  # m16 tiles a block: the weight is read once per 64 rows
+BLOCK_M = MT * TILE_M
+BLOCK_N = 64            # output columns a block (2 warps x 32)
 TARGET_BLOCKS = 264     # two blocks per SM on the H100's 132 SMs
+# The kernel sums 16 x the product in int32 (its weight operand is 16 w):
+# |16 acc| <= 16 x K x (15 + 128) x 8 stays below 2^31 up to K = 117,323.
+MAX_K = 65536
 
 
-def _splits(m: int, n: int, k: int) -> int:
+class Plan(NamedTuple):
+    """One call's grid: ``col_blocks`` x ``row_blocks`` output tiles of
+    BLOCK_M x BLOCK_N, each K range of ``per`` K tiles a split."""
+    col_blocks: int
+    row_blocks: int
+    n_kt: int
+    per: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.col_blocks * self.row_blocks * self.splits
+
+    @property
+    def counters(self) -> int:
+        """Arrival counters the split meet needs (one an output tile)."""
+        return self.col_blocks * self.row_blocks if self.splits > 1 else 0
+
+    def workspace(self, m: int, n: int) -> int:
+        """int32 elements of the split partials (one (M, N) slice each)."""
+        return self.splits * m * n if self.splits > 1 else 0
+
+
+def launch_plan(m: int, n: int, k: int) -> Plan:
+    """Split K until the grid holds TARGET_BLOCKS blocks where K allows:
+    the fewest K tiles a split that still reach it, balanced over the
+    splits. With the output tiles alone at TARGET_BLOCKS, one split."""
     n_kt = _cdiv(k, TILE_K)
-    blocks = _cdiv(n, BN) * _cdiv(m, TILE_M)
-    want = max(1, min(n_kt, _cdiv(TARGET_BLOCKS, blocks)))
-    per = _cdiv(n_kt, want)
-    return _cdiv(n_kt, per)
+    cols, rows = _cdiv(n, BLOCK_N), _cdiv(m, BLOCK_M)
+    want = max(1, min(n_kt, _cdiv(TARGET_BLOCKS, cols * rows)))
+    per = max(1, n_kt // want)
+    per = _cdiv(n_kt, _cdiv(n_kt, per))
+    return Plan(cols, rows, n_kt, per, _cdiv(n_kt, per))
+
+
+def block_tiles(plan: Plan, m: int, n: int, bx: int, by: int,
+                bz: int) -> Iterator[Tuple[int, int, int, int]]:
+    """(m16 tile, first column, end column, K tile) of each tile that
+    block (bx, by, bz) computes, as the kernel derives them."""
+    m0, n0, kt_lo = by * BLOCK_M, bx * BLOCK_N, bz * plan.per
+    for j in range(_cdiv(min(BLOCK_M, m - m0), TILE_M)):
+        for kt in range(kt_lo, min(plan.n_kt, kt_lo + plan.per)):
+            yield m0 // TILE_M + j, n0, min(n, n0 + BLOCK_N), kt
+
+
+def k_order() -> List[int]:
+    """Real k inside a 128-wide K tile of the mma's logical k, step s
+    (0..3) x 32 + L: lane t's L = 4t + i is the low nibble of packed row
+    16s + 2t + (i & 1) + 8(i >> 1) (k = 2 x row), L = 16 + 4t + i the high
+    nibble of the same row (k = 2 x row + 1)."""
+    return [32 * s + 2 * (2 * (lk % 16 // 4) + lk % 2 + 8 * (lk % 4 // 2))
+            + lk // 16 for s in range(4) for lk in range(32)]
+
+
+def n_order() -> List[int]:
+    """Real column inside a warp's 32 of the weight operand's m16 tile u,
+    row R, at index 16u + R: 16u + 2(R % 8) + R // 8 (so lane (g, t)
+    holds columns 16u + 2g and 16u + 2g + 1)."""
+    return [16 * u + 2 * (rr % 8) + rr // 8 for u in range(2)
+            for rr in range(16)]
+
+
+# the shared-memory swizzles (byte offsets inside one stage's tile)
+def w_off(r: int, c: int) -> int:
+    """64-byte rows (packed weight row r, byte column c of the block's
+    64; the wire-layout planes): chunk XOR bits 1-2 of the row."""
+    return r * 64 + (((c >> 4) ^ ((r >> 1) & 3)) << 4) + (c & 15)
+
+
+def a_off(r: int, c: int) -> int:
+    """128-byte rows (unpacked planes): chunk XOR the row's low 3 bits."""
+    return r * 128 + (((c >> 4) ^ (r & 7)) << 4) + (c & 15)
+
+
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(dev: torch.device) -> torch.Tensor:
+    """The device's arrival counters, zeroed once and left zeroed by
+    every launch. Allocated at the first call on the device, so that a
+    CUDA graph captured later replays against this buffer."""
+    buf = _COUNTERS.get(dev)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("call sparqle_matmul once on this device "
+                               "before capturing it into a CUDA graph")
+        buf = torch.zeros(TARGET_BLOCKS, dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
 
 
 def sparqle_matmul(
@@ -93,21 +188,15 @@ def sparqle_matmul(
     if k != 2 * k2:
         raise ValueError(f"K mismatch: planes {tuple(lsb4.shape)}, packed "
                          f"weight {tuple(w_packed.shape)}")
-    acc, out = _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
-                         (m, k), acc_out=acc_out, msb_skip=msb_skip)
-    out_ptr = None if out is None else out.data_ptr()
-    if m and n and k:
+    res, tail = _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
+                          (m, k), acc_out=acc_out, msb_skip=msb_skip)
+    if tail is not None:
         if msb_skip:
-            DRAFT_KERNEL.launch(lsb4.data_ptr(), w_packed.data_ptr(),
-                                act_scale.data_ptr(), w_scale.data_ptr(),
-                                acc.data_ptr(), out_ptr, m, n, k,
-                                _splits(m, n, k))
+            DRAFT_KERNEL.launch(lsb4.data_ptr(), w_packed.data_ptr(), *tail)
         else:
             KERNEL.launch(lsb4.data_ptr(), msb4.data_ptr(),
-                          tile_pop.data_ptr(), w_packed.data_ptr(),
-                          act_scale.data_ptr(), w_scale.data_ptr(),
-                          acc.data_ptr(), out_ptr, m, n, k, _splits(m, n, k))
-    return acc if acc_out else out
+                          tile_pop.data_ptr(), w_packed.data_ptr(), *tail)
+    return res
 
 
 def sparqle_matmul_packed(
@@ -130,31 +219,28 @@ def sparqle_matmul_packed(
             w_scale, acc_out=acc_out, msb_skip=msb_skip)
     m = lsb4_packed.shape[0]
     k2, n = w_packed.shape
-    k, ldp = 2 * k2, pad_k(2 * k2) // 2
-    acc, out = _operands(lsb4_packed, msb4_packed, tile_pop, w_packed,
-                         act_scale, w_scale, (m, ldp), acc_out=acc_out,
-                         msb_skip=msb_skip)
-    out_ptr = None if out is None else out.data_ptr()
-    if m and n and k:
+    ldp = pad_k(2 * k2) // 2
+    res, tail = _operands(lsb4_packed, msb4_packed, tile_pop, w_packed,
+                          act_scale, w_scale, (m, ldp), acc_out=acc_out,
+                          msb_skip=msb_skip)
+    if tail is not None:
+        # the entry takes ldp between K and the K tiles a split
+        tail = tail[:-1] + (ldp, tail[-1])
         if msb_skip:
-            PACKED_DRAFT_KERNEL.launch(
-                lsb4_packed.data_ptr(), w_packed.data_ptr(),
-                act_scale.data_ptr(), w_scale.data_ptr(), acc.data_ptr(),
-                out_ptr, m, n, k, ldp, _splits(m, n, k))
+            PACKED_DRAFT_KERNEL.launch(lsb4_packed.data_ptr(),
+                                       w_packed.data_ptr(), *tail)
         else:
             PACKED_KERNEL.launch(
                 lsb4_packed.data_ptr(), msb4_packed.data_ptr(),
-                tile_pop.data_ptr(), w_packed.data_ptr(),
-                act_scale.data_ptr(), w_scale.data_ptr(), acc.data_ptr(),
-                out_ptr, m, n, k, ldp, _splits(m, n, k))
-    return acc if acc_out else out
+                tile_pop.data_ptr(), w_packed.data_ptr(), *tail)
+    return res
 
 
 def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
               plane_shape, *, acc_out: bool, msb_skip: bool):
     """Raise unless the operands are what the kernels take (planes of
-    ``plane_shape``); returns the int32 accumulator (zeroed when split)
-    and the f32 output (None with ``acc_out``)."""
+    ``plane_shape``). Returns the result tensor and the entry's arguments
+    after the weight pointer (None when there is nothing to launch)."""
     m = plane_shape[0]
     k2, n = w_packed.shape
     k = 2 * k2
@@ -167,6 +253,9 @@ def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
         operands += [("msb4", msb4, plane_shape, torch.int8),
                      ("tile_pop", tile_pop,
                       (_cdiv(m, TILE_M), _cdiv(k, TILE_K)), torch.int32)]
+    if k > MAX_K:
+        raise ValueError(f"K={k} > {MAX_K}: the kernel's int32 accumulator "
+                         f"holds 16 x the sum")
     for name, t, shape, dt in operands:
         if t is None:
             raise ValueError(f"{name} is required unless msb_skip")
@@ -175,8 +264,16 @@ def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    alloc = torch.zeros if _splits(m, n, k) > 1 else torch.empty
-    acc = alloc((m, n), dtype=torch.int32, device=dev)
-    out = None if acc_out else torch.empty((m, n), dtype=torch.float32,
-                                           device=dev)
-    return acc, out
+    res = torch.empty((m, n), dtype=torch.int32 if acc_out else torch.float32,
+                      device=dev)
+    counters = _counters(dev)
+    if not (m and n and k):
+        return res, None
+    plan = launch_plan(m, n, k)
+    ws = (torch.empty(plan.workspace(m, n), dtype=torch.int32, device=dev)
+          if plan.splits > 1 else None)
+    return res, (act_scale.data_ptr(), w_scale.data_ptr(),
+                 None if acc_out else res.data_ptr(),
+                 res.data_ptr() if acc_out else None,
+                 None if ws is None else ws.data_ptr(), counters.data_ptr(),
+                 m, n, k, plan.per)

@@ -8,7 +8,9 @@ JAX nor the JAX package, so it also runs on a GPU machine without them:
 
 Tolerances: encoder (and its quantize-only and packed forms), matmul,
 draft matmul, their packed forms and dense matmul bit-exact (the packed
-ones with the unpacked ones too, the dense one with the dual pass);
+ones with the unpacked ones too, the dense one with the dual pass; the
+four dual-pass instances over chip_smoke's sweep of M, (K, N) and
+population patterns, and on q = -128, w = -8 everywhere);
 attention within 1e-4 in f32 (sums in another order than the plain
 einsum/softmax), in bf16 within one bf16 step (of the output, or for the
 contiguous kernel of the outputs' scale); the verify attention bit-exact with T calls of the
@@ -32,7 +34,9 @@ from repro_torch.kernels import (kv_attention, quant_matmul, ref,
 from repro_torch.kernels.ref import TILE_K, TILE_M
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import demoted_pool, paged_tiling  # noqa: E402
+from chip_smoke import (MATMUL_KN, MATMUL_M, POP_PATTERNS,  # noqa: E402
+                        check_matmul_case, demoted_pool, matmul_case,
+                        paged_tiling)
 
 
 @pytest.fixture
@@ -320,3 +324,27 @@ def test_contiguous_attention_kernel_matches_plain_and_paged(cuda, dtype):
             atol=2 ** -7 * max(1.0, want.float().abs().max().item()))
     with pytest.raises(ValueError, match="multiple"):
         kv_attention.kv4_decode_attention(q, *cache, pos, bs=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MATMUL_KN)
+@pytest.mark.parametrize("m", MATMUL_M)
+def test_matmul_family_matches_plain_and_each_other(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + k + n)
+    for pattern in POP_PATTERNS:
+        c = matmul_case(cuda, g, m, k, n, pattern)
+        if pattern == "zero":
+            assert (c["pop"] == 0).all()
+        elif pattern == "live":
+            assert (c["pop"] > 0).all()
+        check_matmul_case(c, f"at M={m} K={k} N={n} pop={pattern}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MATMUL_KN)
+def test_matmul_family_extreme_operands(cuda, k, n):
+    # q = -128 (LSB 0, MSB -8) and w = -8 everywhere: a sign-extension
+    # slip in either operand changes every output
+    for m in (8, 33, 1024):
+        check_matmul_case(matmul_case(cuda, None, m, k, n, "", True),
+                          f"at M={m} K={k} N={n} q=-128 w=-8")

@@ -5,7 +5,9 @@
 
 Each checkout's own ``chip_smoke.py`` phase-3 checks build, check and
 time its kernels (CUDA-graph replay timed with CUDA events) in a fresh
-process, on the same inputs (each check gets a generator seeded 0). The
+process, on the same inputs (each check gets a generator seeded 0).
+A row's timed shapes (its ``detail`` entries with M, K, N) are compared
+too, where both checkouts time them. The
 processes run in the order A B B A, ``--rounds`` times, so that a drift
 of the card falls on both sides alike. Prints one JSON line per process,
 then the card and the median per check and side. Needs a CUDA card.
@@ -30,10 +32,12 @@ out = {}
 for name in sys.argv[1].split(","):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = getattr(C, name)(dev, gen, peaks)
-    if isinstance(rows, list):      # one check, several kernels
-        out.update({f"{name}:{r['name']}": r["ms"] for r in rows})
-    else:
-        out[name] = rows["ms"]
+    for r in rows if isinstance(rows, list) else [rows]:
+        key = f"{name}:{r['name']}" if isinstance(rows, list) else name
+        out[key] = r["ms"]
+        for d in r.get("detail", []):   # every timed shape of the row
+            if "M" in d:
+                out[f"{key}@M={d['M']},K={d['K']},N={d['N']}"] = d["ms"]
 print(json.dumps(out))
 """
 
@@ -65,6 +69,8 @@ def main() -> None:
                           text=True).stdout.strip()
     print(card)
     for check in times["parent"]:
+        if check not in times["change"]:
+            continue
         p = statistics.median(times["parent"][check])
         c = statistics.median(times["change"][check])
         print(f"{check}: parent median {p * 1e3:.2f} us, change median "
