@@ -8,15 +8,21 @@ to chiprun_out/):
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (parallel nvcc);
   3. hold each kernel against its plain PyTorch version on the card at
-     the serving shapes (encoder, its quantize-only and packed forms,
-     matmul, draft matmul, their packed forms and dense matmul
+     the serving shapes (the fused-scale encoder, its quantize-only and
+     packed forms: scale bit-equal to activation_scale(x).float(),
+     scale, planes, PBM and populations bit-equal to their plain
+     versions and to the entries fed that scale, over ENCODE_M x
+     ENCODE_K x bf16, f32 with zero and tiny rows; matmul, draft matmul, their packed forms and dense matmul
      bit-exact; the packed forms also with the unpacked kernels on the
      same q, the dense one with the dual pass; attention, verify, tiered
      and contiguous attention within ATTN_TOL; verify attention
      bit-exact with T calls of the decode kernel, tiered attention with
      one, over the clamped pages where demoted, contiguous attention with
-     the decode kernel on pages that tile the same cache) and time
-     kernel, plain version and library call; the four dual-pass matmul
+     the decode kernel on pages that tile the same cache, all four also
+     at a long context of ~4,096 tokens and, untimed, at the other head
+     dims, page sizes and G of ATTN_SHAPES, with the granite-8b smoke
+     config served on the card) and time kernel, plain version and
+     library call; the four dual-pass matmul
      instances (full, draft, packed, packed draft) are timed at M = 8, 32
      and 1024 and swept for bit-exactness over MATMUL_M x MATMUL_KN x
      POP_PATTERNS (and q = -128, w = -8), each against its plain version
@@ -50,8 +56,9 @@ to chiprun_out/):
      differ); then granite width, 2 layers, f32: legacy streams equal to
      the engine's with the prefill unchunked;
  10. profile a shorter run of phase 4's and phase 5's engine shapes
-     (device busy share, device time by kernel; neither may launch the
-     dense path's drain kernel), then serve phase 4 once more to read
+     (device busy share, device time by kernel, bf16 reduce_kernel
+     launches beside the encoder's; neither may launch the dense path's
+     drain kernel), then serve phase 4 once more to read
      what the profilers left behind on the host;
  11. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
      same weights and prompts through the Engine on the card (kernels)
@@ -89,6 +96,9 @@ ATTN_TOL = 1e-4
 LOGIT_TOL = 0.04
 XC_SEEDS = 3
 SPEC_GAMMA = 2
+# The encoder entries that take a scale: no serve launches them, since
+# the serving linear calls the fused-scale entries.
+UNFUSED = ("sparqle_encode", "sparqle_quantize", "sparqle_encode_packed")
 # The granite-8b serve of phases 4 and 5.
 SERVE = dict(batch=8, prompt_len=128, gen=16)
 
@@ -143,59 +153,152 @@ def nvidia_smi_line() -> str:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_encoder(dev, gen, peaks):
+# The fused encoder family (rows 1, 1q, 2): M and K of the check; 1024
+# is the --legacy prefill, 200 a ragged width.
+ENCODE_M = (1, 4, 8, 24, 32, 1024)
+ENCODE_K = (4096, 14336, 200)
+
+
+def encoder_input(dev, gen, m, k, dt):
+    """x (M, K) in dt with an all-zero row 0 and, from M = 4, a row 1
+    whose amax / 127 falls below 1e-8 (the scale's clamp), and a random
+    column mask (the serve-time clip)."""
+    x = (torch.randn((m, k), generator=gen, device=dev)
+         * torch.rand((m, 1), generator=gen, device=dev) * 4).to(dt)
+    if m > 1:
+        x[0] = 0
+    if m > 3:
+        x[1] = (torch.randn((k,), generator=gen, device=dev) * 3e-7).to(dt)
+    mask = torch.rand((k,), generator=gen, device=dev) < 0.5
+    return x, mask
+
+
+def check_fused_case(x, mask, where=""):
+    """The three fused-scale entries on one input, each held against its
+    plain version (``kernels.ref`` ``*_fused_ref``): scale, planes, PBM
+    and populations bit-equal on every row up to M = 32 and, above, on
+    the 32 rows from a tile boundary at M/2; the scale bit-equal to
+    activation_scale(x).float() on every row, q = 16 * msb + lsb, and
+    the entries that take a scale equal to the fused ones fed it."""
     from repro_torch.core.quantize import activation_scale
-    from repro_torch.kernels.ref import TILE_K, sparqle_encode_ref
-    from repro_torch.kernels.sparqle_encode import sparqle_encode
-    rows = []
-    for m in (1, 4, 8, 32):
-        for k in (4096, 14336):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparqle_encode as E
+    m = x.shape[0]
+    r0 = 0 if m <= 32 else m // 2 // ref.TILE_M * ref.TILE_M
+    rows = slice(r0, r0 + min(m, 32))
+    tiles = slice(r0 // ref.TILE_M, -(-rows.stop // ref.TILE_M))
+    cut = (rows, rows, rows, tiles, rows)       # planes, pop, scale
+
+    def same(got, want, what):
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a[cut[i]], b):
+                raise AssertionError(f"{what} differs from its plain version "
+                                     f"(output {i}) {where}")
+
+    xs = x[rows]
+    scale = activation_scale(x).float()
+    enc = E.sparqle_encode_fused(x, mask, -8, 23)
+    *nopbm, s1b = E.sparqle_encode_fused(x, mask, -8, 23, with_pbm=False)
+    q, s2 = E.sparqle_quantize_fused(x, mask, -8, 23)
+    packed = E.sparqle_encode_packed_fused(x, mask, -8, 23)
+    for s in (enc[-1], s1b, s2, packed[-1]):
+        if not torch.equal(s, scale):
+            raise AssertionError(f"fused scale differs {where}")
+    same(enc, ref.sparqle_encode_fused_ref(xs, mask, -8, 23), "fused encoder")
+    qw, sw = ref.sparqle_quantize_fused_ref(xs, mask, -8, 23)
+    if not (torch.equal(q[rows], qw) and torch.equal(s2[rows], sw)):
+        raise AssertionError(f"fused quantize differs from its plain version "
+                             f"{where}")
+    same(packed, ref.sparqle_encode_packed_fused_ref(xs, mask, -8, 23),
+         "fused packed encoder")
+    if not torch.equal(q.int(), enc[1].int() * 16 + enc[0].int()):
+        raise AssertionError(f"fused quantize q != 16 * msb + lsb {where}")
+    if nopbm[2] is not None or not all(torch.equal(nopbm[i], enc[i])
+                                       for i in (0, 1, 3)):
+        raise AssertionError(f"fused encoder without PBM differs {where}")
+    # the entries that take a scale: the same body without the amax pass
+    if not all(torch.equal(a, b) for a, b in zip(
+            enc[:4], E.sparqle_encode(x, scale, mask, -8, 23))):
+        raise AssertionError(f"encoder fed the scale differs {where}")
+    if not torch.equal(q, E.sparqle_quantize(x, scale, mask, -8, 23)):
+        raise AssertionError(f"quantize fed the scale differs {where}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            packed[:4], E.sparqle_encode_packed(x, scale, mask, -8, 23))):
+        raise AssertionError(f"packed encoder fed the scale differs {where}")
+
+
+def check_fused_family(dev, gen):
+    """check_fused_case over ENCODE_M x ENCODE_K x bf16, f32; returns the
+    number of input sets."""
+    cases = 0
+    for m in ENCODE_M:
+        for k in ENCODE_K:
             for dt in (torch.bfloat16, torch.float32):
-                x = (torch.randn((m, k), generator=gen, device=dev)
-                     * torch.rand((m, 1), generator=gen, device=dev) * 4
-                     ).to(dt)
-                if m > 1:
-                    x[0] = 0                     # degenerate all-zero row
-                scale = activation_scale(x).float()
-                blocks = torch.rand((k // TILE_K,), generator=gen,
-                                    device=dev) < 0.5
-                mask = torch.repeat_interleave(blocks, TILE_K)
-                want = sparqle_encode_ref(x, scale, mask, -8, 23)
-                for with_pbm in (True, False):
-                    got = sparqle_encode(x, scale, mask, -8, 23,
-                                         with_pbm=with_pbm)
-                    for g, w, name in zip(got, want,
-                                          ("lsb", "msb", "pbm", "pop")):
-                        if name == "pbm" and not with_pbm:
-                            continue
-                        if not torch.equal(g, w):
-                            raise AssertionError(
-                                f"encoder {name} differs at M={m} K={k} "
-                                f"{dt} with_pbm={with_pbm}")
-                rows.append((m, k, dt, x, scale, mask))
-    # timed as the serving linear calls it (no PBM plane) at the decode
-    # shape of a d_model-wide projection input
-    m, k, dt, x, scale, mask = next(r for r in rows if r[0] == 8
-                                    and r[1] == 4096
-                                    and r[2] == torch.bfloat16)
+                x, mask = encoder_input(dev, gen, m, k, dt)
+                check_fused_case(x, mask, f"at M={m} K={k} {dt}")
+                cases += 1
+    return cases
 
-    def encode(*a):
-        return sparqle_encode(*a, with_pbm=False)
 
-    args = [(x, scale, mask, -8, 23)]
-    kms = time_ms(encode, args, 200)
-    pms = time_ms(sparqle_encode_ref, args, 50)
-    pop = encode(*args[0])[3]
-    nbytes = m * k * 2 + m * 4 + k + 2 * m * k + pop.numel() * 4
-    return {"name": "sparqle_encode", "route": "cuda",
-            "source": "src/repro_torch/csrc/sparqle_encode.cu",
-            "replaces": "src/repro/kernels/sparqle_encode.py:69",
-            "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
+def time_encoder(dev, gen, peaks, fused, unfused, plain, out_bytes):
+    """One fused encoder entry timed as the serving linear calls it (M=8,
+    K=4096, bf16, masked columns), beside the entry that takes a scale
+    (the same body without the amax pass) alone and after the scale
+    chain the fused entry replaces (activation_scale + cast + encoder);
+    bound by bytes: x read once, scale and ``out_bytes(m, k)`` written."""
+    from repro_torch.core.quantize import activation_scale
+    m, k = 8, 4096
+    x, mask = encoder_input(dev, gen, m, k, torch.bfloat16)
+    args = [(x, mask, -8, 23)]
+
+    def chain(x, mask, lo, hi):
+        return unfused(x, activation_scale(x).float(), mask, lo, hi)
+
+    kms = time_ms(fused, args, 200)
+    cms = time_ms(chain, args, 200)
+    sms = time_ms(unfused, [(x, activation_scale(x).float(), mask, -8, 23)],
+                  200)
+    pms = time_ms(plain, args, 50)
+    nbytes = m * k * 2 + k + m * 4 + out_bytes(m, k)
+    return {"max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
             "bound_ms": nbytes / peaks[0] * 1e3, "bound_by": "bytes",
-            "library_ms": None,
-            "shape": f"M={m} K={k} bf16 no PBM plane, checked M in "
-                     f"1,4,8,32 x K in 4096,14336 x bf16,f32 x with/"
-                     f"without PBM"}
+            "library_ms": None, "chain_ms": cms,
+            "detail": [{"key": "scale_in", "ms": sms}]}
+
+
+def check_encoder(dev, gen, peaks):
+    """Row 1: the fused encoder (scale + encode in one launch), checked
+    with the two other fused entries by check_fused_family."""
+    from repro_torch.kernels import sparqle_encode as E
+    from repro_torch.kernels.ref import (TILE_K, TILE_M,
+                                         sparqle_encode_fused_ref)
+
+    def fused(*a):
+        return E.sparqle_encode_fused(*a, with_pbm=False)
+
+    def unfused(*a):
+        return E.sparqle_encode(*a, with_pbm=False)
+
+    def out_bytes(m, k):
+        return 2 * m * k + -(-m // TILE_M) * -(-k // TILE_K) * 4
+
+    t0 = time.perf_counter()
+    n = check_fused_family(dev, gen)
+    r = time_encoder(dev, gen, peaks, fused, unfused, sparqle_encode_fused_ref,
+                     out_bytes)
+    plan = E.fused_plan(4096)
+    return {"name": "sparqle_encode_fused", "route": "cuda",
+            "source": "src/repro_torch/csrc/sparqle_encode.cu",
+            "replaces": "src/repro/kernels/sparqle_encode.py:69", **r,
+            "shape": f"M=8 K=4096 bf16 no PBM plane, scale included "
+                     f"({plan.blocks} blocks x {plan.tiles} tiles a row group; "
+                     f"unfused encoder after abs/amax/div/clamp_min/cast "
+                     f"{r['chain_ms'] * 1e3:.1f} us, alone "
+                     f"{r['detail'][0]['ms'] * 1e3:.1f} us); fused family "
+                     f"checked "
+                     f"on {n} input sets (M in {ENCODE_M} x K in {ENCODE_K} "
+                     f"x bf16,f32, zero and tiny rows) in "
+                     f"{time.perf_counter() - t0:.1f} s"}
 
 
 # The dual-pass matmul family (rows 3, 4, 5a, 5b: one CUDA body, four
@@ -378,49 +481,128 @@ def check_matmul(dev, gen, peaks):
     return matmul_row("sparqle_matmul", 209, d["sparqle_matmul"])
 
 
+# The attention rows (7-10) at a long context too: 8 sequences of about
+# 4,096 tokens through tables of 256 pages of 16 (about 17 MB of pool for
+# K and again for V), LONG_COPIES copies of every cache so that each
+# timed call reads its pages cold (beyond the 50 MB L2).
+LONG_POS = (4095, 4031, 4064, 4095, 3999, 4095, 4050, 4090)
+LONG_NS = 256
+LONG_COPIES = 3
+_LONG = {}
+
+
+def kv_pool(dev, gen, n_pages, ps=16, kvh=8, hd=128):
+    """Random KV4 pages and scales: (k_pages, k_scale, v_pages, v_scale)."""
+    kp, vp = (torch.randint(-128, 128, (n_pages, ps, kvh, hd // 2),
+                            generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand((n_pages, ps, kvh), generator=gen, device=dev) * 0.2
+              for _ in range(2))
+    return kp, ks, vp, vs
+
+
+def long_context(dev, gen):
+    """The long-context pools (LONG_COPIES of them, one table), made once
+    a process."""
+    if not _LONG:
+        b = len(LONG_POS)
+        pools = [kv_pool(dev, gen, 1 + b * LONG_NS)
+                 for _ in range(LONG_COPIES)]
+        perm = torch.randperm(b * LONG_NS, generator=gen, device=dev) + 1
+        _LONG.update(pools=pools, tables=perm.reshape(b, LONG_NS).to(
+            torch.int32).contiguous(), pos=torch.tensor(
+                LONG_POS, dtype=torch.int32, device=dev))
+    return _LONG
+
+
+def attn_bound(peaks, n_q, toks, work, kv2_toks=0, extra=0, kvh=8, g=4,
+               hd=128):
+    """(bound ms, what bounds it) of an attention call: q and out of n_q
+    query groups in f32, ``toks`` KV4 (and ``kv2_toks`` KV2) tokens read
+    once a kv head, ``extra`` bytes of tables and positions; 4 G hd f32
+    flops a kv head for each of ``work`` (query, token) pairs."""
+    nbytes = (n_q * kvh * g * hd * 4 * 2 + toks * kvh * (hd // 2 + 4) * 2
+              + kv2_toks * kvh * (hd // 4 + 4) * 2 + extra)
+    flops = 4.0 * work * kvh * g * hd
+    by = "bytes" if nbytes / peaks[0] >= flops / peaks[2] else "operations"
+    return max(nbytes / peaks[0], flops / peaks[2]) * 1e3, by
+
+
+def page_tokens(pos, ps, n_s, t=1):
+    """Tokens of the pages a window of t tokens at each pos reads."""
+    return sum((min((int(p) + t - 1) // ps, n_s - 1) + 1) * ps for p in pos)
+
+
+def split_note():
+    from repro_torch.kernels.kv_attention import WARPS, split_plan
+    return "; ".join(
+        f"NS={n}: cluster {p.cluster} x {WARPS} warps x "
+        f"{p.pages_per_warp} page(s)"
+        for n, p in ((n, split_plan(n)) for n in (9, 16, LONG_NS)))
+
+
 def check_attention(dev, gen, peaks):
+    """Row 8 at the smoke shape (B=8, KVH=8, G=4, hd=128, ps=16, Pmax=16)
+    and at the long context: within ATTN_TOL of the plain version (f32;
+    bf16 within one bf16 step), a table widened past pos (more cluster
+    ranks launched, all past pos) giving the same bits; timed at both
+    shapes."""
     from repro_torch.kernels.kv_attention import kv4_paged_decode_attention
     from repro_torch.kernels.ref import kv4_paged_decode_attention_ref
     b, kvh, g, hd, ps, n_s, n_pages = 8, 8, 4, 128, 16, 16, 160
-    kp = torch.randint(-128, 128, (n_pages, ps, kvh, hd // 2),
-                       generator=gen, device=dev, dtype=torch.int8)
-    vp = torch.randint(-128, 128, (n_pages, ps, kvh, hd // 2),
-                       generator=gen, device=dev, dtype=torch.int8)
-    ks = torch.rand((n_pages, ps, kvh), generator=gen, device=dev) * 0.2
-    vs = torch.rand((n_pages, ps, kvh), generator=gen, device=dev) * 0.2
+    kp, ks, vp, vs = kv_pool(dev, gen, n_pages)
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     tables = perm[:b * n_s].reshape(b, n_s).to(torch.int32).contiguous()
     pos = torch.tensor([0, 15, 16, 17, 100, 143, 255, 0], dtype=torch.int32,
                        device=dev)
     tables[-1] = 0                 # inactive slot: null page, pos 0
+    wide = torch.cat([tables, perm[-b * n_s:].reshape(b, n_s).to(
+        torch.int32)], 1).contiguous()
     err = 0.0
     for dt in (torch.float32, torch.bfloat16):
         q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(dt)
         args = (q, kp, ks, vp, vs, tables, pos)
-        got = kv4_paged_decode_attention(*args).float()
+        got = kv4_paged_decode_attention(*args)
         want = kv4_paged_decode_attention_ref(*args).float()
-        e = (got - want).abs().max().item()
+        e = (got.float() - want).abs().max().item()
         tol = ATTN_TOL if dt == torch.float32 else 2 ** -7 * max(
             1.0, want.abs().max().item())
         if not e <= tol:
             raise AssertionError(f"attention {dt}: max err {e} > {tol}")
+        if not torch.equal(got, kv4_paged_decode_attention(
+                q, kp, ks, vp, vs, wide, pos)):
+            raise AssertionError(f"attention {dt}: ranks launched past pos "
+                                 f"changed the bits")
         if dt == torch.float32:
             err, f32_args = e, args
     kms = time_ms(kv4_paged_decode_attention, [f32_args], 200)
     pms = time_ms(kv4_paged_decode_attention_ref, [f32_args], 20)
-    toks = sum((min(int(p) // ps, n_s - 1) + 1) * ps for p in pos.tolist())
-    nbytes = (b * kvh * g * hd * 4 * 2 + toks * kvh * (hd // 2 + 4) * 2
-              + b * n_s * 4 + b * 4)
-    flops = 4.0 * toks * kvh * g * hd
-    bound = max(nbytes / peaks[0], flops / peaks[2]) * 1e3
+    toks = page_tokens(pos.tolist(), ps, n_s)
+    bound, by = attn_bound(peaks, b, toks, toks, extra=b * n_s * 4 + b * 4)
+    # the long context
+    lc = long_context(dev, gen)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
+    largs = [(q, *pool, lc["tables"], lc["pos"]) for pool in lc["pools"]]
+    le = (kv4_paged_decode_attention(*largs[0])
+          - kv4_paged_decode_attention_ref(*largs[0])).abs().max().item()
+    if not le <= ATTN_TOL:
+        raise AssertionError(f"attention, long context: max err {le}")
+    lms = time_ms(kv4_paged_decode_attention, largs, 60)
+    ltoks = page_tokens(LONG_POS, ps, LONG_NS)
+    lbound, lby = attn_bound(peaks, b, ltoks, ltoks,
+                             extra=b * LONG_NS * 4 + b * 4)
     return {"name": "kv4_paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/kv_attention.cu",
             "replaces": "src/repro/kernels/kv_attention.py:206",
-            "max_abs_err": err, "ms": kms, "plain_ms": pms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / peaks[0] >= flops / peaks[2]
-            else "operations", "library_ms": None,
-            "shape": "B=8 KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q"}
+            "max_abs_err": max(err, le), "ms": kms, "plain_ms": pms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": f"B=8 KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q; long "
+                     f"context (B=8, ~4,096 tokens, Pmax=256, cold): "
+                     f"{lms * 1e3:.1f} us against a {lbound * 1e3:.2f} us "
+                     f"{lby} bound ({lbound / lms * 100:.0f}%); split: "
+                     f"{split_note()}",
+            "detail": [{"key": "long", "ms": lms, "bound_ms": lbound,
+                        "bound_by": lby, "max_abs_err": le}]}
 
 
 def check_draft_matmul(dev, gen, peaks):
@@ -492,6 +674,27 @@ def check_verify_attention(dev, gen, peaks):
               + b * n_s * 4 + b * 4)
     flops = 4.0 * work * kvh * g * hd
     bound = max(nbytes / peaks[0], flops / peaks[2]) * 1e3
+    # the long context: windows ending at LONG_POS
+    lc = long_context(dev, gen)
+    lpos = lc["pos"] - (t - 1)
+    q = torch.randn((b, t, kvh, g, hd), generator=gen, device=dev)
+    largs = [(q, *pool, lc["tables"], lpos) for pool in lc["pools"]]
+    got = kv4_paged_verify_attention(*largs[0])
+    for i in range(t):
+        if not torch.equal(got[:, i], kv4_paged_decode_attention(
+                q[:, i].contiguous(), *lc["pools"][0], lc["tables"],
+                lpos + i)):
+            raise AssertionError(f"verify attention, long context: window "
+                                 f"token {i} differs from the decode kernel")
+    lms = time_ms(kv4_paged_verify_attention, largs, 60)
+    lloop = time_ms(kv4_paged_decode_attention, [
+        (q[:, i].contiguous(), *pool, lc["tables"], lpos + i)
+        for pool in lc["pools"] for i in range(t)], 60) * t
+    ltoks = page_tokens(lpos.tolist(), ps, LONG_NS, t)
+    lwork = sum(page_tokens([int(p) + i], ps, LONG_NS)
+                for p in lpos.tolist() for i in range(t))
+    lbound, lby = attn_bound(peaks, b * t, ltoks, lwork,
+                             extra=b * LONG_NS * 4 + b * 4)
     return {"name": "kv4_paged_verify_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/kv_attention.cu",
             "replaces": "src/repro/kernels/kv_attention.py:280",
@@ -500,52 +703,30 @@ def check_verify_attention(dev, gen, peaks):
             "bound_by": "bytes" if nbytes / peaks[0] >= flops / peaks[2]
             else "operations", "library_ms": None,
             "shape": f"B=8 T={t} KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q "
-                     f"({t} decode-kernel calls: {loop_ms * 1e3:.1f} us)"}
+                     f"({t} decode-kernel calls: {loop_ms * 1e3:.1f} us); "
+                     f"long context: {lms * 1e3:.1f} us ({t} decode calls "
+                     f"{lloop * 1e3:.1f} us) against a {lbound * 1e3:.2f} "
+                     f"us {lby} bound",
+            "detail": [{"key": "long", "ms": lms, "bound_ms": lbound,
+                        "bound_by": lby, "decode_calls_ms": lloop}]}
 
 
 def check_quantize(dev, gen, peaks):
-    """The encoder's quantize-only form (the dense linear's activation):
-    bit-exact with its plain version and with 16 * msb4 + lsb4 of the
-    full encoder; timed as the dense linear calls it."""
-    from repro_torch.core.quantize import activation_scale
-    from repro_torch.kernels.ref import TILE_K, sparqle_quantize_ref
-    from repro_torch.kernels.sparqle_encode import (sparqle_encode,
-                                                    sparqle_quantize)
-    timed = None
-    for m in (1, 4, 8, 32):
-        for k in (4096, 14336):
-            for dt in (torch.bfloat16, torch.float32):
-                x = (torch.randn((m, k), generator=gen, device=dev)
-                     * torch.rand((m, 1), generator=gen, device=dev) * 4
-                     ).to(dt)
-                if m > 1:
-                    x[0] = 0                     # degenerate all-zero row
-                scale = activation_scale(x).float()
-                blocks = torch.rand((k // TILE_K,), generator=gen,
-                                    device=dev) < 0.5
-                mask = torch.repeat_interleave(blocks, TILE_K)
-                args = (x, scale, mask, -8, 23)
-                got = sparqle_quantize(*args)
-                lsb, msb, _, _ = sparqle_encode(*args, with_pbm=False)
-                if not (torch.equal(got, sparqle_quantize_ref(*args))
-                        and torch.equal(got, msb * 16 + lsb)):
-                    raise AssertionError(f"quantize-only encoder differs at "
-                                         f"M={m} K={k} {dt}")
-                if (m, k, dt) == (8, 4096, torch.bfloat16):
-                    timed = args
-    m, k = timed[0].shape
-    kms = time_ms(sparqle_quantize, [timed], 200)
-    pms = time_ms(sparqle_quantize_ref, [timed], 50)
-    nbytes = m * k * 2 + m * 4 + k + m * k
-    return {"name": "sparqle_quantize", "route": "cuda",
+    """Row 1q: the fused quantize-only entry (the dense linear's
+    activation and its scale in one launch; checked by
+    check_fused_family), timed as the dense linear calls it."""
+    from repro_torch.kernels import sparqle_encode as E
+    from repro_torch.kernels.ref import sparqle_quantize_fused_ref
+    r = time_encoder(dev, gen, peaks, E.sparqle_quantize_fused,
+                     E.sparqle_quantize, sparqle_quantize_fused_ref,
+                     lambda m, k: m * k)
+    return {"name": "sparqle_quantize_fused", "route": "cuda",
             "source": "src/repro_torch/csrc/sparqle_encode.cu",
-            "replaces": "src/repro/kernels/sparqle_encode.py:69",
-            "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
-            "bound_ms": nbytes / peaks[0] * 1e3, "bound_by": "bytes",
-            "library_ms": None,
-            "shape": f"M={m} K={k} bf16 (the _quantize step of row 1 "
-                     f"alone); checked M in 1,4,8,32 x K in 4096,14336 x "
-                     f"bf16,f32"}
+            "replaces": "src/repro/kernels/sparqle_encode.py:69", **r,
+            "shape": f"M=8 K=4096 bf16, scale included (the _quantize "
+                     f"step of row 1 alone; unfused after the scale chain "
+                     f"{r['chain_ms'] * 1e3:.1f} us, alone "
+                     f"{r['detail'][0]['ms'] * 1e3:.1f} us)"}
 
 
 def check_dense_matmul(dev, gen, peaks):
@@ -709,6 +890,24 @@ def check_tiered_attention(dev, gen, peaks):
     nbytes = (b * kvh * g * hd * 4 * 2 + tok4 * kvh * (hd // 2 + 4) * 2
               + tok2 * kvh * (hd // 4 + 4) * 2 + 2 * b * n_s * 4 + b * 4)
     flops = 4.0 * (tok4 + tok2) * kvh * g * hd
+    # the long context, half of each active slot's pages demoted
+    kv4, tiered, clamped = demoted_pool(dev, gen, b, kvh, hd, ps, LONG_NS,
+                                        1 + b * LONG_NS)
+    lpos = torch.tensor(LONG_POS[:-1] + (0,), dtype=torch.int32, device=dev)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
+    if not torch.equal(kv_tiered_paged_decode_attention(q, *tiered, lpos),
+                       kv4_paged_decode_attention(q, *clamped, lpos)):
+        raise AssertionError("tiered attention, long context: not the decode "
+                             "kernel's bits on the clamped pages")
+    largs = [(q, *(x.clone() for x in tiered), lpos)
+             for _ in range(LONG_COPIES)]
+    lms = time_ms(kv_tiered_paged_decode_attention, largs, 60)
+    ltok2 = sum(ps for i, p in enumerate(lpos.tolist())
+                for j in range(min(p // ps, LONG_NS - 1) + 1)
+                if tiered[-1][i, j])
+    ltok4 = page_tokens(lpos.tolist(), ps, LONG_NS) - ltok2
+    lbound, lby = attn_bound(peaks, b, ltok4, ltok4 + ltok2, kv2_toks=ltok2,
+                             extra=2 * b * LONG_NS * 4 + b * 4)
     return {"name": "kv_tiered_paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/kv_attention.cu",
             "replaces": "src/repro/kernels/kv_attention.py:366",
@@ -719,61 +918,62 @@ def check_tiered_attention(dev, gen, peaks):
             "shape": f"B=8 KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q, "
                      f"{tok2 // ps} of {(tok4 + tok2) // ps} pages read "
                      f"from KV2 (decode kernel on the clamped pages: "
-                     f"{dec * 1e3:.1f} us)"}
+                     f"{dec * 1e3:.1f} us); long context (7 slots, "
+                     f"{ltok2 // ps} of {(ltok4 + ltok2) // ps} pages from "
+                     f"KV2): {lms * 1e3:.1f} us against a "
+                     f"{lbound * 1e3:.2f} us {lby} bound",
+            "detail": [{"key": "long", "ms": lms, "bound_ms": lbound,
+                        "bound_by": lby}]}
 
 
 def check_encoder_packed(dev, gen, peaks):
-    """The packed encoder at K = 4096, 14336 (and a ragged 4100), M = 1,
-    5, 8, 24, 32, 33, bf16 and f32, with the serve-time clip: bit-exact
-    with its plain version and with the unpacked kernel's planes packed
-    by the codec; timed as the packed serving linear calls it."""
+    """Row 2: the fused packed entry, checked by check_fused_family, and
+    the packed entry that takes a scale held against its plain version
+    and against the unpacked entry's planes packed by the codec at K =
+    4096, 14336 and a ragged 4100; timed as the packed serving linear
+    calls it."""
     import torch.nn.functional as F
     from repro_torch.core.packing import pack_nibbles, pack_pbm, pad_k
     from repro_torch.core.quantize import activation_scale
-    from repro_torch.kernels.ref import sparqle_encode_packed_ref
-    from repro_torch.kernels.sparqle_encode import (sparqle_encode,
-                                                    sparqle_encode_packed)
-    timed = None
-    for m in (1, 5, 8, 24, 32, 33):
+    from repro_torch.kernels import sparqle_encode as E
+    from repro_torch.kernels.ref import (TILE_K, TILE_M,
+                                         sparqle_encode_packed_fused_ref,
+                                         sparqle_encode_packed_ref)
+    for m in (1, 5, 8, 24, 33):
         for k in (4096, 14336, 4100):
             for dt in (torch.bfloat16, torch.float32):
-                x = (torch.randn((m, k), generator=gen, device=dev)
-                     * torch.rand((m, 1), generator=gen, device=dev) * 4
-                     ).to(dt)
-                if m > 1:
-                    x[0] = 0                     # degenerate all-zero row
+                x, mask = encoder_input(dev, gen, m, k, dt)
                 scale = activation_scale(x).float()
-                mask = torch.rand((k,), generator=gen, device=dev) < 0.5
-                args = (x, scale, mask, -8, 23)
-                got = sparqle_encode_packed(*args)
-                lsb, msb, pbm, pop = sparqle_encode(*args)
+                got = E.sparqle_encode_packed(x, scale, mask, -8, 23)
+                lsb, msb, pbm, pop = E.sparqle_encode(x, scale, mask, -8, 23)
                 pad = (0, pad_k(k) - k)
                 planes = (pack_nibbles(F.pad(lsb, pad)),
                           pack_nibbles(F.pad(msb, pad)),
                           pack_pbm(F.pad(pbm, pad)), pop)
-                for g, w, u, name in zip(got, sparqle_encode_packed_ref(
-                        *args), planes, ("lsb", "msb", "pbm", "pop")):
-                    if not (torch.equal(g, w) and torch.equal(g, u)):
-                        raise AssertionError(
-                            f"packed encoder {name} differs at M={m} K={k} "
-                            f"{dt}")
-                if (m, k, dt) == (8, 4096, torch.bfloat16):
-                    timed = args
-    m, k = timed[0].shape
-    kms = time_ms(sparqle_encode_packed, [timed], 200)
-    pms = time_ms(sparqle_encode_packed_ref, [timed], 50)
-    kp = pad_k(k)
-    nbytes = (m * k * 2 + m * 4 + k + m * kp + m * kp // 8
-              + sparqle_encode_packed(*timed)[3].numel() * 4)
-    return {"name": "sparqle_encode_packed", "route": "cuda",
+                if not all(torch.equal(g, u) for g, u in zip(got, planes)):
+                    raise AssertionError(f"packed encoder differs from the "
+                                         f"codec at M={m} K={k} {dt}")
+                if not all(torch.equal(g, u) for g, u in zip(
+                        got, sparqle_encode_packed_ref(x, scale, mask, -8,
+                                                       23))):
+                    raise AssertionError(f"packed encoder differs from its "
+                                         f"plain version at M={m} K={k} {dt}")
+
+    def out_bytes(m, k):
+        kp = pad_k(k)
+        return m * kp + m * kp // 8 + -(-m // TILE_M) * -(-k // TILE_K) * 4
+
+    r = time_encoder(dev, gen, peaks, E.sparqle_encode_packed_fused,
+                     E.sparqle_encode_packed, sparqle_encode_packed_fused_ref,
+                     out_bytes)
+    return {"name": "sparqle_encode_packed_fused", "route": "cuda",
             "source": "src/repro_torch/csrc/sparqle_encode.cu",
-            "replaces": "src/repro/kernels/sparqle_encode.py:105",
-            "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
-            "bound_ms": nbytes / peaks[0] * 1e3, "bound_by": "bytes",
-            "library_ms": None,
-            "shape": f"M={m} K={k} bf16; checked M in 1,5,8,24,32,33 x K in "
-                     f"4096,14336,4100 x bf16,f32, also against the unpacked "
-                     f"kernel's planes packed"}
+            "replaces": "src/repro/kernels/sparqle_encode.py:105", **r,
+            "shape": f"M=8 K=4096 bf16, scale included (unfused after the "
+                     f"scale chain {r['chain_ms'] * 1e3:.1f} us, alone "
+                     f"{r['detail'][0]['ms'] * 1e3:.1f} us); unfused "
+                     f"packed = plain = codec of the unpacked planes at M "
+                     f"in 1,5,8,24,33 x K in 4096,14336,4100"}
 
 
 def check_matmul_packed(dev, gen, peaks):
@@ -812,11 +1012,40 @@ def paged_tiling(cache, bs, gen):
     return (*pages, perm.reshape(b, n_s).to(torch.int32).contiguous())
 
 
+def check_round_kv(rounded, unrounded, q, cache, pos, where=""):
+    """The contiguous kernel's round_kv=True at a bf16 q (``rounded``;
+    ``unrounded`` its round_kv=False output): it differs from
+    round_kv=False, lies within one bf16 ulp of each element's own
+    magnitude (plus 2^-20 for the f32 sums' order) of the plain
+    version's round_kv form, and nearer that form than the plain
+    f32-dequant one."""
+    from repro_torch.kernels.ref import kv4_decode_attention_ref
+    want = kv4_decode_attention_ref(q, *cache, pos, round_kv=True).float()
+    plain = kv4_decode_attention_ref(q, *cache, pos).float()
+    got = rounded.float()
+    if torch.equal(rounded, unrounded):
+        raise AssertionError(f"round_kv changed no bit at bf16 {where}")
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    tol = torch.ldexp(torch.ones_like(got), e - 8) + 2 ** -20
+    bad = int(((got - want).abs() > tol).sum())
+    if bad:
+        raise AssertionError(f"round_kv: {bad} elements beyond one bf16 ulp "
+                             f"of the plain round_kv form {where}")
+    near, far = ((got - w).abs().sum().item() for w in (want, plain))
+    if not near < far:
+        raise AssertionError(f"round_kv: no nearer the plain round_kv form "
+                             f"({near}) than the f32-dequant one ({far}) "
+                             f"{where}")
+
+
 def check_contiguous_attention(dev, gen, peaks):
     """The contiguous KV4 decode at B=8, S=256, KVH=8, G=4, hd=128, in
-    blocks of 16: within ATTN_TOL of the plain version (f32) and
-    bit-exact with the paged decode kernel on pages of 16 that tile the
-    same cache (f32 and bf16); timed beside that paged call."""
+    blocks of 16: within ATTN_TOL of the plain version (f32) and, with
+    round_kv=False, bit-exact with the paged decode kernel on pages of 16
+    that tile the same cache (f32 and bf16); with round_kv=True (the
+    fixed-batch model's call) as check_round_kv says at bf16 and the same
+    bits as round_kv=False at f32;
+    timed beside that paged call, and at the long context (S = 4,096)."""
     from repro_torch.kernels.kv_attention import (CONTIGUOUS_BLOCK,
                                                   kv4_decode_attention,
                                                   kv4_paged_decode_attention)
@@ -845,14 +1074,38 @@ def check_contiguous_attention(dev, gen, peaks):
         if not e <= tol:
             raise AssertionError(f"contiguous attention {dt}: max err {e} > "
                                  f"{tol}")
+        rounded = kv4_decode_attention(q, *cache, pos, round_kv=True)
+        if dt == torch.float32 and not torch.equal(rounded, got):
+            raise AssertionError("contiguous attention f32: round_kv "
+                                 "changed the bits")
+        if dt == torch.bfloat16:
+            check_round_kv(rounded, got, q, cache, pos, "S=256")
         if dt == torch.float32:
             err, f32_args, paged_args = e, (q, *cache, pos), (q, *paged, pos)
+        else:
+            bf16_args = (q, *cache, pos)
     kms = time_ms(kv4_decode_attention, [f32_args], 200)
+    rms = time_ms(lambda *a: kv4_decode_attention(*a, round_kv=True),
+                  [bf16_args], 200)
     dec = time_ms(kv4_paged_decode_attention, [paged_args], 200)
     pms = time_ms(kv4_decode_attention_ref, [f32_args], 20)
     toks = sum((int(p) // bs + 1) * bs for p in pos.tolist())
     nbytes = b * kvh * g * hd * 4 * 2 + toks * kvh * (hd // 2 + 4) * 2 + b * 4
     flops = 4.0 * toks * kvh * g * hd
+    # the long context: S = LONG_NS * 16, the pages tiled as in the pool
+    ls = LONG_NS * bs
+    caches = [tuple(x.reshape(b, ls, *x.shape[2:]) for x in kv_pool(
+        dev, gen, b * LONG_NS)) for _ in range(LONG_COPIES)]
+    lpos = torch.tensor(LONG_POS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
+    if not torch.equal(kv4_decode_attention(q, *caches[0], lpos),
+                       kv4_paged_decode_attention(
+                           q, *paged_tiling(caches[0], bs, gen), lpos)):
+        raise AssertionError("contiguous attention, long context: not the "
+                             "paged kernel's bits")
+    lms = time_ms(kv4_decode_attention, [(q, *c, lpos) for c in caches], 60)
+    ltoks = page_tokens(LONG_POS, bs, LONG_NS)
+    lbound, lby = attn_bound(peaks, b, ltoks, ltoks, extra=b * 4)
     return {"name": "kv4_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/kv_attention.cu",
             "replaces": "src/repro/kernels/kv_attention.py:148",
@@ -862,7 +1115,130 @@ def check_contiguous_attention(dev, gen, peaks):
             else "operations", "library_ms": None,
             "shape": f"B=8 S=256 KVH=8 G=4 hd=128 bs={bs}, f32 q (paged "
                      f"kernel on the same cache in pages of {bs}: "
-                     f"{dec * 1e3:.1f} us)"}
+                     f"{dec * 1e3:.1f} us; bf16 q with round_kv, the "
+                     f"fixed-batch model's call: {rms * 1e3:.1f} us); long "
+                     f"context S={ls}: {lms * 1e3:.1f} us against a "
+                     f"{lbound * 1e3:.2f} us {lby} bound",
+            "detail": [{"key": "long", "ms": lms, "bound_ms": lbound,
+                        "bound_by": lby},
+                       {"key": "round_kv_bf16", "ms": rms}]}
+
+
+# The attention kernel's instances off the main path, (hd, G, ps): the
+# smoke config's head shape (hd 16, G 2) with pages of 8, each head dim
+# instantiated, groups that are no multiple of 4, pages of a size read at
+# run time (one token, 5, 40: three tiles, the last short) beside the
+# compile-time 16.
+ATTN_SHAPES = ((16, 2, 8), (32, 3, 16), (64, 6, 40), (128, 4, 5),
+               (16, 1, 1))
+
+
+def check_attention_shapes(dev, gen):
+    """Rows 7-10 at ATTN_SHAPES (B=4, KVH=2, about 48 tokens a slot):
+    decode within ATTN_TOL of the plain version (f32; bf16 within one
+    bf16 step), the verify window bit-exact with T decode calls, the
+    tiered decode over demoted pages with the decode on the clamped
+    pages, the contiguous decode in blocks of ps bit-exact with the paged
+    one on pages that tile its cache and within ATTN_TOL of its plain
+    version, and at bf16 its round_kv form as check_round_kv says."""
+    from repro_torch.kernels.kv_attention import (
+        kv4_decode_attention, kv4_paged_decode_attention,
+        kv4_paged_verify_attention, kv_tiered_paged_decode_attention)
+    from repro_torch.kernels.ref import (kv4_decode_attention_ref,
+                                         kv4_paged_decode_attention_ref)
+    b, kvh, t = 4, 2, SPEC_GAMMA + 1
+    for hd, g, ps in ATTN_SHAPES:
+        where = f"at hd={hd} G={g} ps={ps}"
+        n_s = max(4, 48 // ps)
+        kv4, tiered, clamped = demoted_pool(dev, gen, b, kvh, hd, ps, n_s,
+                                            1 + b * n_s)
+        s = n_s * ps
+        pos = torch.tensor([s - 1, s // 2, min(s - 1, ps + 1), 0],
+                           dtype=torch.int32, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(dt)
+            got = kv4_paged_decode_attention(q, *kv4, pos)
+            want = kv4_paged_decode_attention_ref(q, *kv4, pos).float()
+            e = (got.float() - want).abs().max().item()
+            tol = ATTN_TOL if dt == torch.float32 else 2 ** -7 * max(
+                1.0, want.abs().max().item())
+            if not e <= tol:
+                raise AssertionError(f"attention {dt} {where}: max err {e}")
+            if not torch.equal(kv_tiered_paged_decode_attention(
+                    q, *tiered, pos), kv4_paged_decode_attention(
+                        q, *clamped, pos)):
+                raise AssertionError(f"tiered attention {dt} {where}: not "
+                                     f"the decode kernel's bits on the "
+                                     f"clamped pages")
+            qw = torch.randn((b, t, kvh, g, hd), generator=gen,
+                             device=dev).to(dt)
+            wpos = (pos - t).clamp_min(0)
+            win = kv4_paged_verify_attention(qw, *kv4, wpos)
+            for i in range(t):
+                if not torch.equal(win[:, i], kv4_paged_decode_attention(
+                        qw[:, i].contiguous(), *kv4, wpos + i)):
+                    raise AssertionError(f"verify attention {dt} {where}: "
+                                         f"token {i} differs from decode")
+            cache = tuple(x.reshape(b, s, *x.shape[2:]).contiguous()
+                          for x in kv_pool(dev, gen, b * n_s, ps, kvh, hd))
+            cont = kv4_decode_attention(q, *cache, pos, bs=ps)
+            if not torch.equal(cont, kv4_paged_decode_attention(
+                    q, *paged_tiling(cache, ps, gen), pos)):
+                raise AssertionError(f"contiguous attention {dt} {where}: "
+                                     f"not the paged kernel's bits")
+            if dt == torch.float32:
+                e = (cont - kv4_decode_attention_ref(q, *cache, pos)
+                     ).abs().max().item()
+                if not e <= ATTN_TOL:
+                    raise AssertionError(f"contiguous attention {where}: "
+                                         f"max err {e}")
+            else:
+                check_round_kv(kv4_decode_attention(q, *cache, pos, bs=ps,
+                                                    round_kv=True),
+                               cont, q, cache, pos, where)
+    return len(ATTN_SHAPES)
+
+
+def smoke_config_on_card(dev, seed: int):
+    """The granite-8b smoke config (hd 16, G 2) served on the card with
+    pages of 8: the engine, the speculative engine (greedy streams equal
+    to the engine's) and the fixed-batch path over a cache of 30
+    positions (blocks of 2 tokens, gcd(30, 16)), each through its
+    attention kernel; returns the launch counts and the legacy streams'
+    agreement with the engine's (reported, not required: the two read
+    the cache in different blocks)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (build_served_params, legacy_serve,
+                                          make_engine, make_prompts,
+                                          run_requests)
+    cfg = get_config("granite-8b", smoke=True)
+    params = build_served_params(cfg, seed, dev, tile_k=16)
+    prompts = make_prompts(cfg, seed + 5, 4, 21)
+    out = {}
+    for name, gamma in (("engine", 0), ("spec", SPEC_GAMMA)):
+        kernels.reset_launch_counts()
+        r = run_requests(make_engine(cfg, params, batch=4, prompt_len=21,
+                                     gen=9, page_size=8, spec_gamma=gamma,
+                                     device=dev), prompts, 9)
+        out[name] = (r["streams"], kernels.launch_counts())
+    kernels.reset_launch_counts()
+    legacy = legacy_serve(cfg, params, prompts, 9, dev)["streams"]
+    out["legacy"] = (legacy, kernels.launch_counts())
+    streams = {k: v[0] for k, v in out.items()}
+    if streams["spec"] != streams["engine"]:
+        raise AssertionError(f"smoke config on the card: speculative streams "
+                             f"{streams['spec']} != {streams['engine']}")
+    for k, need in (("engine", "kv_attention"), ("spec", "kv_attention_verify"),
+                    ("legacy", "kv_attention_contiguous")):
+        if not out[k][1].get(need) or any(len(x) != 9 for x in streams[k]):
+            raise AssertionError(f"smoke config on the card, {k}: {need} not "
+                                 f"launched or short streams")
+    return {"launches": {k: {n: c for n, c in v[1].items()
+                             if n.startswith("kv_attention") and c}
+                         for k, v in out.items()},
+            "legacy_tokens_equal": sum(a == b for x, y in zip(
+                legacy, streams["engine"]) for a, b in zip(x, y))}
 
 
 # ---------------------------------------------------------------------------
@@ -1150,10 +1526,19 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
     drain_fill = [{"kernel": name[:120], "launches": n}
                   for name, _, n in rows
                   if "w4a8_drain" in name or "Fill" in name]
+    # the bf16 reductions (the per-token amax ran as one before every
+    # encoder until the encoder computed its own scale) and the encoder
+    # launches (one a projection)
+    amax = [(us, n) for name, us, n in rows
+            if "reduce_kernel" in name and "BFloat16" in name]
+    enc = [n for name, _, n in rows if "sparqle_encode" in name]
     return {"profiled_wall_s": r["wall_s"], "device_busy_s": dev_us / 1e6,
             "device_busy_share": dev_us / 1e6 / r["wall_s"],
             "cprofiled_wall_s": r2["wall_s"], "by_kernel": by_kernel,
-            "drain_fill": drain_fill}
+            "drain_fill": drain_fill,
+            "bf16_reduce_launches": sum(n for _, n in amax),
+            "bf16_reduce_us": sum(us for us, _ in amax),
+            "encoder_launches": sum(enc)}
 
 
 def cross_check(dev, seed: int):
@@ -1246,6 +1631,17 @@ def main() -> int:
             *check_matmul_packed(dev, gen, peaks),
             check_contiguous_attention(dev, gen, peaks)]
     t0 = time.perf_counter()
+    n_shapes = check_attention_shapes(dev, gen)
+    small = smoke_config_on_card(dev, args.seed)
+    log(f"[3] attention at {n_shapes} other shapes (hd, G, ps) "
+        f"{ATTN_SHAPES}: decode within {ATTN_TOL} of plain, verify = "
+        f"decode, tiered = decode on clamped pages, contiguous = paged "
+        f"tiling and round_kv, f32 and bf16; granite-8b smoke config (hd "
+        f"16, G 2) on the card, pages of 8: spec streams = engine streams, "
+        f"legacy (blocks of 2) tokens equal to the engine's "
+        f"{small['legacy_tokens_equal']}/36, attention launches "
+        f"{small['launches']}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     n_cases = check_matmul_family(dev, gen)
     log(f"[3] dual-pass matmul family: {n_cases} input sets (M in "
         f"{MATMUL_M}, (K, N) in {MATMUL_KN}, populations {POP_PATTERNS}, "
@@ -1259,17 +1655,18 @@ def main() -> int:
             f"{r['shape']}")
     detail = {"card": card, "kernels": rows}
     # the launch counter of each kernel row, and the phase that reads it
-    counter = {"sparqle_encode": ("sparqle_encode", "base"),
+    counter = {"sparqle_encode_fused": ("sparqle_encode_fused", "base"),
                "sparqle_matmul": ("sparqle_matmul", "base"),
                "kv4_paged_decode_attention": ("kv_attention", "base"),
                "sparqle_matmul_draft": ("sparqle_matmul_draft", "spec"),
                "kv4_paged_verify_attention": ("kv_attention_verify",
                                               "spec"),
-               "sparqle_quantize": ("sparqle_quantize", "dense"),
+               "sparqle_quantize_fused": ("sparqle_quantize_fused", "dense"),
                "quant_matmul": ("quant_matmul", "dense"),
                "kv_tiered_paged_decode_attention": ("kv_attention_tiered",
                                                     "kv2"),
-               "sparqle_encode_packed": ("sparqle_encode_packed", "packed"),
+               "sparqle_encode_packed_fused": ("sparqle_encode_packed_fused",
+                                               "packed"),
                "sparqle_matmul_packed": ("sparqle_matmul_packed", "packed"),
                "sparqle_matmul_packed_draft": ("sparqle_matmul_packed_draft",
                                                "packed_spec"),
@@ -1280,7 +1677,8 @@ def main() -> int:
         # every serve runs before any profiler: a profiled run leaves the
         # process slower on the host (phase 10 measures by how much)
         eng = serve_granite(dev, cfg, params, prompts)
-        check_path(eng, ("sparqle_encode", "sparqle_matmul", "kv_attention"))
+        check_path(eng, ("sparqle_encode_fused", "sparqle_matmul",
+                         "kv_attention"), UNFUSED)
         log(f"[4] granite-8b {eng['layers']}L d={eng['d_model']}: "
             f"{eng['requests']} requests, {eng['tokens']} tokens, "
             f"{eng['tokens_per_s']:.1f} tok/s, TTFT mean "
@@ -1289,8 +1687,9 @@ def main() -> int:
             f"launches {eng['launches']}, weights built in "
             f"{t_build:.1f} s, peak {eng['peak_mem_gb']:.1f} GB")
         spec = serve_granite(dev, cfg, params, prompts, spec_gamma=SPEC_GAMMA)
-        check_path(spec, ("sparqle_encode", "sparqle_matmul", "kv_attention",
-                          "sparqle_matmul_draft", "kv_attention_verify"))
+        check_path(spec, ("sparqle_encode_fused", "sparqle_matmul",
+                          "kv_attention", "sparqle_matmul_draft",
+                          "kv_attention_verify"), UNFUSED)
         spec["row_count_dependence"] = row_count_dependence(dev, cfg, params)
         spec["window_vs_decode"] = window_vs_decode(dev, cfg, params,
                                                     args.seed)
@@ -1349,8 +1748,9 @@ def main() -> int:
             f"{idle['tpot_mean_s'] * 1e3:.2f}, base "
             f"{eng['tpot_mean_s'] * 1e3:.2f}), launches {kv2['launches']}")
         for run in (idle, kv2):
-            check_path(run, ("sparqle_encode", "sparqle_matmul",
-                             "kv_attention_tiered"), ("kv_attention",))
+            check_path(run, ("sparqle_encode_fused", "sparqle_matmul",
+                             "kv_attention_tiered"),
+                       ("kv_attention",) + UNFUSED)
             if run["launches"]["kv_attention_tiered"] != \
                     cfg.n_layers * run["forwards"]["decode"]:
                 raise AssertionError("tiered attention launches != layers "
@@ -1376,8 +1776,9 @@ def main() -> int:
             f"{eng['tpot_mean_s'] * 1e3:.2f}), {dn['tokens_per_s']:.1f} "
             f"tok/s (SPARQLe {eng['tokens_per_s']:.1f}), {fw} forwards, "
             f"launches {dn['launches']}")
-        check_path(dn, ("sparqle_quantize", "quant_matmul", "kv_attention"),
-                   ("sparqle_encode", "sparqle_matmul"))
+        check_path(dn, ("sparqle_quantize_fused", "quant_matmul",
+                        "kv_attention"),
+                   ("sparqle_encode_fused", "sparqle_matmul") + UNFUSED)
         if dn["launches"]["quant_matmul"] != 252 * fw:
             raise AssertionError("dense matmul launches != 252 per forward")
         if not all(same_dn) or not all(dn["logits_equal"].values()):
@@ -1391,12 +1792,14 @@ def main() -> int:
         pk["logits_equal"] = logits_equal(dev, cfg, params, packed, prompts)
         pk_spec = serve_granite(dev, cfg, packed, prompts,
                                 spec_gamma=SPEC_GAMMA)
-        unpacked = ("sparqle_encode", "sparqle_matmul", "sparqle_matmul_draft",
-                    "sparqle_quantize", "quant_matmul")
-        check_path(pk, ("sparqle_encode_packed", "sparqle_matmul_packed",
-                        "kv_attention"),
+        unpacked = ("sparqle_encode_fused", "sparqle_matmul",
+                    "sparqle_matmul_draft", "sparqle_quantize_fused",
+                    "quant_matmul") + UNFUSED
+        check_path(pk, ("sparqle_encode_packed_fused",
+                        "sparqle_matmul_packed", "kv_attention"),
                    unpacked + ("sparqle_matmul_packed_draft",))
-        check_path(pk_spec, ("sparqle_encode_packed", "sparqle_matmul_packed",
+        check_path(pk_spec, ("sparqle_encode_packed_fused",
+                             "sparqle_matmul_packed",
                              "sparqle_matmul_packed_draft", "kv_attention",
                              "kv_attention_verify"), unpacked)
         fw = pk["forwards"]["prefill"] + pk["forwards"]["decode"]
@@ -1419,7 +1822,7 @@ def main() -> int:
             f"{pk_spec['tpot_mean_s'] * 1e3:.2f} ms (unpacked "
             f"{spec['tpot_mean_s'] * 1e3:.2f}), launches "
             f"{pk_spec['launches']}")
-        for name in ("sparqle_encode_packed", "sparqle_matmul_packed"):
+        for name in ("sparqle_encode_packed_fused", "sparqle_matmul_packed"):
             if pk["launches"][name] != 252 * fw:
                 raise AssertionError(f"{name} launches != 252 per forward")
         if not (all(same_pk) and all(same_pks)
@@ -1440,10 +1843,10 @@ def main() -> int:
             f"{lg['launches']}, peak {lg['peak_mem_gb']:.1f} GB; granite "
             f"width 2L f32 legacy vs engine (prefill unchunked): "
             f"{lg['vs_engine_2l']}")
-        check_path(lg, ("sparqle_encode", "sparqle_matmul",
+        check_path(lg, ("sparqle_encode_fused", "sparqle_matmul",
                         "kv_attention_contiguous"),
                    ("kv_attention", "kv_attention_verify",
-                    "kv_attention_tiered"))
+                    "kv_attention_tiered") + UNFUSED)
         if lg["launches"]["kv_attention_contiguous"] != cfg.n_layers * steps:
             raise AssertionError("contiguous attention launches != layers x "
                                  "decode steps")
@@ -1476,7 +1879,11 @@ def main() -> int:
             f"{after['tpot_mean_s'] * 1e3:.2f} ms (phase 4: "
             f"{eng['wall_s']:.2f} s, {eng['tpot_mean_s'] * 1e3:.2f} ms), "
             f"streams equal: {after['streams'] == eng['streams']}; drain or "
-            f"fill rows (base): {eng['profile']['drain_fill']}")
+            f"fill rows (base): {eng['profile']['drain_fill']}; bf16 "
+            f"reduce_kernel launches (base) "
+            f"{eng['profile']['bf16_reduce_launches']} "
+            f"({eng['profile']['bf16_reduce_us'] / 1e3:.1f} ms) beside "
+            f"{eng['profile']['encoder_launches']} encoder launches")
         del params, dense, packed
         torch.cuda.empty_cache()
         t0 = time.perf_counter()

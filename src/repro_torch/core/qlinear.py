@@ -6,8 +6,8 @@ and the clipping constants. :func:`linear` is the single projection entry
 point of the model code; on a ``SparqleLinear`` in ``sparqle`` mode it
 runs
 
-    per-token scale (plain torch) -> fused encode (quantize, clip, split,
-    tile populations) -> dual-pass matmul on the packed weight
+    fused encode (per-token scale, quantize, clip, split, tile
+    populations, one launch) -> dual-pass matmul on the packed weight
 
 through the kernel wrappers, which launch the Hopper kernels for CUDA
 tensors and run their plain versions for CPU tensors. The result equals
@@ -35,12 +35,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core.clipping import importance_mask_tile_aligned
-from repro_torch.core.quantize import (QuantizedTensor, activation_scale,
-                                       quantize_weights)
+from repro_torch.core.quantize import QuantizedTensor, quantize_weights
 from repro_torch.kernels.quant_matmul import quant_matmul
-from repro_torch.kernels.sparqle_encode import (sparqle_encode,
-                                                sparqle_encode_packed,
-                                                sparqle_quantize)
+from repro_torch.kernels.sparqle_encode import (sparqle_encode_fused,
+                                                sparqle_encode_packed_fused,
+                                                sparqle_quantize_fused)
 from repro_torch.kernels.sparqle_matmul import (sparqle_matmul,
                                                 sparqle_matmul_packed)
 
@@ -159,11 +158,12 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
 
 
 def _quantized_apply(x: torch.Tensor, sl: SparqleLinear) -> torch.Tensor:
-    """per-token scale -> encode (quantize, clip, split; packed in the
-    wire format when ``sl.wire_format`` says so) -> dual pass (LSB pass
-    alone under :func:`msb_skip_scope`) -> rescale, or in dense mode
-    quantize + clip -> single pass -> rescale, through the kernel
-    wrappers."""
+    """encode with the per-token scale formed in the same launch
+    (quantize, clip, split; packed in the wire format when
+    ``sl.wire_format`` says so) -> dual pass (LSB pass alone under
+    :func:`msb_skip_scope`) -> rescale by the scale the encoder
+    returned, or in dense mode quantize + clip -> single pass ->
+    rescale, through the kernel wrappers."""
     if sl.mode not in ("sparqle", "dense"):
         raise ValueError(f"mode={sl.mode!r}: expected 'sparqle' or 'dense'")
     if sl.wire_format not in WIRE_FORMATS:
@@ -177,22 +177,21 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear) -> torch.Tensor:
             f"int4 weights packed two per byte along K (pack_int4)")
     orig = x.shape
     x2 = x.reshape(-1, orig[-1]).contiguous()
-    scale = activation_scale(x2).float()
     clip = sl.col_mask is not None and sl.l is not None
     clip_args = (sl.col_mask if clip else None, int(sl.l) if clip else 0,
                  int(sl.h) if clip else 0)
     n = sl.w.q.shape[-1]
     w_scale = sl.w.scale.reshape(1, n).float()
     if sl.mode == "dense":
-        q = sparqle_quantize(x2, scale, *clip_args)
+        q, scale = sparqle_quantize_fused(x2, *clip_args)
         out = quant_matmul(q, sl.w.q, scale, w_scale)
     elif sl.wire_format == "packed":
-        lsb, msb, _, pop = sparqle_encode_packed(x2, scale, *clip_args)
+        lsb, msb, _, pop, scale = sparqle_encode_packed_fused(x2, *clip_args)
         out = sparqle_matmul_packed(lsb, msb, pop, sl.w.q, scale, w_scale,
                                     msb_skip=_MSB_SKIP)
     else:
-        lsb, msb, _, pop = sparqle_encode(x2, scale, *clip_args,
-                                          with_pbm=False)
+        lsb, msb, _, pop, scale = sparqle_encode_fused(x2, *clip_args,
+                                                       with_pbm=False)
         out = sparqle_matmul(lsb, msb, pop, sl.w.q, scale, w_scale,
                              msb_skip=_MSB_SKIP)
     return out.reshape(*orig[:-1], n).to(x.dtype)

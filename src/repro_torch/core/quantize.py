@@ -8,6 +8,7 @@ rounds half to even like ``jnp.round``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -34,12 +35,26 @@ def _qrange(bits: int) -> tuple[int, int]:
     return -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(value: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def _div(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x / d`` rounded once, in x's dtype. On a CUDA tensor torch turns
+    a division by a Python number into a multiply by its reciprocal,
+    which rounds differently from JAX's division (and the CPU's); a
+    divisor tensor on x's device keeps the true division."""
+    return x / _constant(d, x.dtype, x.device)
+
+
 def quantize_weights(w: torch.Tensor, bits: int = 4,
                      axis: int = -1) -> QuantizedTensor:
     """Symmetric per-channel quantization; ``axis`` is the reduction axis."""
     lo, hi = _qrange(bits)
     amax = w.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(amax / hi, 1e-8)
+    scale = torch.clamp_min(_div(amax, hi), 1e-8)
     q = torch.clamp(torch.round(w / scale), lo, hi).to(torch.int8)
     scale = scale.float()
     return QuantizedTensor(q=q, scale=scale, zero=torch.zeros_like(scale),
@@ -65,13 +80,13 @@ def quantize_activations(
             raise ValueError("amax override not supported with zero_point")
         xmin = x.amin(dim=dims, keepdim=True)
         xmax = x.amax(dim=dims, keepdim=True)
-        scale = torch.clamp_min((xmax - xmin) / hi, 1e-8)
+        scale = torch.clamp_min(_div(xmax - xmin, hi), 1e-8)
         q = torch.clamp(torch.round((x - xmin) / scale), 0, hi).to(torch.int8)
         return QuantizedTensor(q=q, scale=scale.float(), zero=xmin.float(),
                                bits=bits)
     if amax is None:
         amax = x.abs().amax(dim=dims, keepdim=True)
-    scale = torch.clamp_min(amax / hi, 1e-8)
+    scale = torch.clamp_min(_div(amax, hi), 1e-8)
     q = torch.clamp(torch.round(x / scale), lo, hi).to(torch.int8)
     scale = scale.float()
     return QuantizedTensor(q=q, scale=scale, zero=torch.zeros_like(scale),
@@ -82,4 +97,5 @@ def activation_scale(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """The per-token scale of :func:`quantize_activations` alone, in the
     activation's dtype (the fused encoder divides by it)."""
     _, hi = _qrange(bits)
-    return torch.clamp_min(x.abs().amax(dim=-1, keepdim=True) / hi, 1e-8)
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    return torch.clamp_min(_div(amax, hi), 1e-8)

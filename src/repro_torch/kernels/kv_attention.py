@@ -1,43 +1,57 @@
-"""Paged packed-KV4 flash-decode attention.
+"""Paged packed-KV4 flash-decode attention: split-KV flash decoding.
 
 Replaces the Pallas kernel ``repro/kernels/kv_attention.py``
 ``kv4_paged_decode_attention`` (``_paged_kernel`` -> ``_flash_step`` ->
 ``_dequant4_block`` + ``_flash_core``) with the CUDA kernel in
 ``csrc/kv_attention.cu``. Bound on the H100 by bytes: each sequence's
 pages are read once in their wire format (two nibbles per byte plus one
-f32 scale per token and head). One block per (sequence, KV head) shares
-each page between the G query heads of the group, dequantizes it in
-shared memory, and stops at the page holding ``pos``.
+f32 scale per token and head); both products run on the tensor cores
+(bf16 MMAs of the exact nibbles against q and p split into three bf16
+terms each, f32 accumulate). The pages of each query group are
+split across the blocks of a thread-block cluster and, inside a block,
+across its warps (:func:`split_plan`, a pure function of the table
+width); each warp runs the online softmax over its pages, and the
+partial states merge in warp order, then in cluster-rank order through
+distributed shared memory. The G query heads of a group share every
+page load; the kernel stops at the page holding ``pos``.
 
 ``kv4_paged_verify_attention`` replaces the Pallas
 ``kv4_paged_verify_attention`` (``_paged_verify_kernel``): the T-token
-window of speculative verification, grid (KVH, B, T), window token t at
-query position ``pos + t``. ``kv_tiered_paged_decode_attention``
-replaces the Pallas ``kv_tiered_paged_decode_attention``
-(``_tiered_paged_kernel``): the KV2 precision ladder's read path, the
-decode kernel with a per-page tier table that sends a demoted page to
-the KV2 slab (four 2-bit fields per byte), read at its own width. The
-decode and verify kernels call one compiled device function for the
-body of a query, so the verify output is bit-exact with T calls of the
-decode kernel; the tiered kernel runs the instance of the same templated
-body that reads a tier table, whose float operations are the same, so
-a tiered call over tier-0 pages gives one decode call's bits, as the
-Pallas kernels do (held on the card).
+window of speculative verification, window token t at query position
+``pos + t``; it is the decode kernel launched with T tokens a sequence,
+so its output is bit-exact with T decode calls.
+``kv_tiered_paged_decode_attention`` replaces the Pallas
+``kv_tiered_paged_decode_attention`` (``_tiered_paged_kernel``): the
+KV2 precision ladder's read path, a per-page tier table that sends a
+demoted page to the KV2 slab (four 2-bit fields per byte), read at its
+own width, in a template instance of the same body whose float
+operations are the decode kernel's: a tiered call over tier-0 pages
+gives one decode call's bits (held on the card).
 
 ``kv4_decode_attention`` replaces the Pallas ``kv4_decode_attention``
 (``_kernel``): decode over the contiguous (B, S, KVH, hd/2) cache of the
 fixed-batch path, read in blocks of ``bs`` tokens as the page pool
 (B*S/bs, bs, KVH, hd/2) with the implicit table ``b*S/bs + i``, by an
-instance of the decode kernel's templated body that does the same float
-operations: bit-exact with the paged kernel on pages of ``bs`` that tile
-the same cache (held on the card).
+instance of the same body: bit-exact with the paged kernel on pages of
+``bs`` that tile the same cache (held on the card). ``round_kv=True``
+(what ``models.model.attn_decode`` passes) runs a third instance that
+rounds each dequantized K and V element to bf16 first when q is bf16,
+as JAX's fixed-batch decode does.
 
-A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
-plain version (``kernels.ref.kv4_paged_decode_attention_ref``,
+On the card the kernels take a head dim in ``HEAD_DIMS`` (one template
+instance each), pages of any size (16, the engine's default, has its own
+compile-time instance; the kernel walks a page in tiles of 16 token
+rows) and any G (the query heads go to the blocks ``GQ`` at a time, the
+last block's heads past G masked); the wrappers raise on another head
+dim. A CUDA tensor goes to the kernel (or raises); a CPU
+tensor goes to the plain version
+(``kernels.ref.kv4_paged_decode_attention_ref``,
 ``kv4_paged_verify_attention_ref``,
 ``kv_tiered_paged_decode_attention_ref``, ``kv4_decode_attention_ref``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -60,14 +74,57 @@ TIERED_KERNEL = _build.register(_build.Kernel(
     name="kv_attention_tiered"))
 CONTIGUOUS_KERNEL = _build.register(_build.Kernel(
     "kv_attention.cu", "kv4_decode_launch",
-    [_build.P, _build.I] + [_build.P] * 6 + [_build.I] * 6 + [_build.P],
+    [_build.P, _build.I] + [_build.P] * 6 + [_build.I] * 7 + [_build.P],
     name="kv_attention_contiguous"))
+
+# The kernel's compile-time shape (``csrc/kv_attention.cu``): the head
+# dims it is instantiated for, token rows a tile (the page size of its
+# compile-time instance), query heads a block, warps a block, blocks a
+# cluster.
+HEAD_DIMS, TILE_ROWS, GQ, WARPS, MAX_CLUSTER = (16, 32, 64, 128), 16, 4, 4, 8
 
 # Tokens per cache block of the contiguous kernel: the engine's page
 # size, so that the fixed-batch and the paged decode give the same bits.
-# The kernel's body holds one block in shared memory as f32, (2 hd + 1)
-# * 4 bytes a token, which rules out the Pallas kernel's 512.
-CONTIGUOUS_BLOCK = 16
+CONTIGUOUS_BLOCK = TILE_ROWS
+
+
+class SplitPlan(NamedTuple):
+    """How the kernel splits a query group's NS pages: ``pages_per_warp``
+    consecutive pages a warp, ``pages_per_block`` (WARPS of those) a
+    block, ``cluster`` blocks."""
+    pages_per_warp: int
+    pages_per_block: int
+    cluster: int
+
+
+def split_plan(n_s: int) -> SplitPlan:
+    """The kernel's ``split_plan``: a pure function of the table width
+    ``n_s`` (never of B, T, the grid or the tiers), so that calls that
+    read the same pages through tables of one width merge alike."""
+    if n_s < 1:
+        raise ValueError(f"table width {n_s} < 1")
+    ppw = -(-n_s // (WARPS * MAX_CLUSTER))
+    ppb = WARPS * ppw
+    return SplitPlan(ppw, ppb, -(-n_s // ppb))
+
+
+def page_owner(plan: SplitPlan, i: int) -> Tuple[int, int]:
+    """(cluster rank, warp) that reads page ``i`` of a sequence."""
+    return i // plan.pages_per_block, (i % plan.pages_per_block
+                                       ) // plan.pages_per_warp
+
+
+def _check_card_shape(hd: int, tensors) -> None:
+    """Raise unless the card's kernel takes this head dim and each page
+    tensor starts aligned to its copy size: rows arrive in chunks of
+    min(16, row bytes)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes hd in {HEAD_DIMS}, "
+                         f"got hd={hd}")
+    for t in tensors:
+        if t.data_ptr() % min(16, t.shape[-1]):
+            raise ValueError(f"page tensors must be aligned to "
+                             f"{min(16, t.shape[-1])} bytes")
 
 
 def _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
@@ -130,6 +187,7 @@ def kv4_paged_decode_attention(
            pos)
     b, kvh, g, hd = q.shape
     ps, n_s = k_pages.shape[1], block_tables.shape[1]
+    _check_card_shape(hd, (k_pages, v_pages))
     out = torch.empty_like(q)
     if b and kvh and n_s:
         KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
@@ -163,6 +221,7 @@ def kv4_paged_verify_attention(
            pos)
     b, t, kvh, g, hd = q.shape
     ps, n_s = k_pages.shape[1], block_tables.shape[1]
+    _check_card_shape(hd, (k_pages, v_pages))
     out = torch.empty_like(q)
     if b and t and kvh and n_s:
         VERIFY_KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
@@ -201,6 +260,7 @@ def kv_tiered_paged_decode_attention(
                      tier_tables))
     b, kvh, g, hd = q.shape
     ps, n_s = k_pages.shape[1], block_tables.shape[1]
+    _check_card_shape(hd, (k_pages, v_pages, k2_pages, v2_pages))
     out = torch.empty_like(q)
     if b and kvh and n_s:
         TIERED_KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
@@ -218,12 +278,17 @@ def kv4_decode_attention(
     pos: torch.Tensor,      # (B,) int32
     *,
     bs: int = CONTIGUOUS_BLOCK,
+    round_kv: bool = False,
 ) -> torch.Tensor:
     """(B, KVH, G, hd) attention output in q's dtype over the contiguous
     cache, positions <= pos, in blocks of ``bs`` tokens (S must be a
-    multiple of ``bs``)."""
+    multiple of ``bs``). ``round_kv`` with a bf16 q rounds each
+    dequantized K and V element to bf16 first (JAX's fixed-batch
+    decode); the default reads them in f32, the Pallas kernel's
+    contract, and is bit-exact with the paged kernel."""
     if not q.is_cuda:
-        return kv4_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos)
+        return kv4_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos,
+                                        round_kv=round_kv)
     if q.ndim != 4 or k_q.ndim != 4:
         raise ValueError(f"q must be (B, KVH, G, hd) and k_q (B, S, KVH, "
                          f"hd/2), got {tuple(q.shape)}, {tuple(k_q.shape)}")
@@ -246,13 +311,12 @@ def kv4_decode_attention(
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if hd % 2:
-        raise ValueError(f"odd head dim {hd}")
+    _check_card_shape(hd, (k_q, v_q))
     n_s = s // bs
     out = torch.empty_like(q)
     if b and kvh and n_s:
         CONTIGUOUS_KERNEL.launch(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
             k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, kvh, g, hd, bs, n_s)
+            out.data_ptr(), b, kvh, g, hd, bs, n_s, int(round_kv))
     return out

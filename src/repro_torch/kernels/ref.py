@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.packing import (pack_nibbles, pack_pbm, pad_k,
                                       unpack_nibbles, unpack_plane)
+from repro_torch.core.quantize import activation_scale
 from repro_torch.core.sparqle import LP_HIGH, LP_LOW, tile_population
 
 # Tile of the PBM population the matmul skips its MSB pass on. TILE_K
@@ -96,6 +97,41 @@ def sparqle_encode_packed_ref(
     qp = torch.nn.functional.pad(q, (0, pad_k(q.shape[1]) - q.shape[1]))
     msb = qp >> 4
     return pack_nibbles(qp & 0xF), pack_nibbles(msb), pack_pbm(msb != 0), pop
+
+
+def sparqle_encode_fused_ref(
+    x: torch.Tensor,                   # (M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> Tuple[torch.Tensor, ...]:
+    """The fused-scale encoder: (lsb4, msb4, pbm, tile_pop, scale) with
+    the per-token scale ``activation_scale(x).float()`` (M, 1) f32."""
+    scale = activation_scale(x).float()
+    return (*sparqle_encode_ref(x, scale, col_mask, l, h), scale)
+
+
+def sparqle_quantize_fused_ref(
+    x: torch.Tensor,                   # (M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused-scale quantize-only form: (q int8, scale (M, 1) f32)."""
+    scale = activation_scale(x).float()
+    return sparqle_quantize_ref(x, scale, col_mask, l, h), scale
+
+
+def sparqle_encode_packed_fused_ref(
+    x: torch.Tensor,                   # (M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> Tuple[torch.Tensor, ...]:
+    """The fused-scale packed encoder: (lsb4, msb4, pbm words, tile_pop,
+    scale), the planes as :func:`sparqle_encode_packed_ref`'s."""
+    scale = activation_scale(x).float()
+    return (*sparqle_encode_packed_ref(x, scale, col_mask, l, h), scale)
 
 
 def unpack_int4_k(w_packed: torch.Tensor) -> torch.Tensor:
@@ -200,11 +236,17 @@ def kv4_decode_attention_ref(
     v_q: torch.Tensor,
     v_s: torch.Tensor,
     pos: torch.Tensor,      # (B,) int32
+    round_kv: bool = False,
 ) -> torch.Tensor:
     """Decode attention over the contiguous packed-KV4 cache, f32
-    softmax, positions <= pos."""
+    softmax, positions <= pos. ``round_kv`` with a bf16 q: every
+    dequantized K and V element is rounded to bf16 before it is used,
+    as JAX's fixed-batch decode dequantizes into the activation dtype
+    (no effect on an f32 q)."""
     k = unpack_kv4(k_q).float() * k_s[..., None]
     v = unpack_kv4(v_q).float() * v_s[..., None]
+    if round_kv and q.dtype == torch.bfloat16:
+        k, v = k.to(q.dtype).float(), v.to(q.dtype).float()
     return decode_attention_f32(q, k, v, pos)
 
 

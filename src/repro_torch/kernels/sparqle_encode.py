@@ -1,46 +1,59 @@
-"""Fused drain-path SPARQLe encoder: quantize, clip, split, count.
+"""Drain-path SPARQLe encoder: scale, quantize, clip, split, count.
 
-Replaces the Pallas kernel ``repro/kernels/sparqle_encode.py``
-``sparqle_encode`` (``_kernel``/``_quantize``) with the CUDA kernel in
-``csrc/sparqle_encode.cu``. Bound on the H100 by bytes (one read of x,
-three byte planes written); the kernel is one elementwise pass with
-one block per population tile, so the tile counts need no second pass.
-Unlike the Pallas kernel it also applies the serve-time clip of
-``core.clipping.apply_clipping`` between rounding and splitting, and
-rounds the quotient to x's dtype first, as ``quantize_activations``
-does on the serving path. Ragged M/K edges are masked in the kernel.
-The serving linear reads only lsb/msb/pop, so it passes
-``with_pbm=False`` and the kernel skips the PBM plane's store (a quarter
-of its output bytes).
+Replaces the Pallas kernels ``repro/kernels/sparqle_encode.py``
+``sparqle_encode`` (``_kernel``/``_quantize``) and
+``sparqle_encode_packed`` (``_kernel_packed``) with one CUDA body in
+``csrc/sparqle_encode.cu``, instantiated for three outputs and for a
+scale computed in the kernel or given. Bound on the H100 by bytes (one
+read of x, the planes written once). Unlike the Pallas kernel it also
+applies the serve-time clip of ``core.clipping.apply_clipping`` between
+rounding and splitting, and rounds the quotient to x's dtype first, as
+``quantize_activations`` does on the serving path. Ragged M/K edges are
+masked in the kernel. The outputs:
 
-:func:`sparqle_quantize` is the quantize-only form for the dense W4A8
-baseline: the same ``_quantize`` step and serve-time clip, one int8
-plane out, no split and no populations (``sparqle_quantize_launch``).
-Both kernels share the per-element device function, so its q is the
-encoder's 16 * msb4 + lsb4 bit for bit.
+* :func:`sparqle_encode`: LSB4/MSB4 byte planes, the PBM plane (the
+  serving linear passes ``with_pbm=False`` and the kernel skips its
+  store, a quarter of the output bytes) and the tile populations;
+* :func:`sparqle_quantize`: the quantize-only form for the dense W4A8
+  baseline, one int8 plane, no split and no populations; the same
+  per-element function, so its q is the encoder's 16 * msb4 + lsb4 bit
+  for bit;
+* :func:`sparqle_encode_packed`: the wire layout of ``core.packing`` (K
+  padded to a multiple of 32; LSB4/MSB4 two nibbles per byte, the PBM in
+  32-bit words carried as int32 bit patterns) and the populations.
 
-:func:`sparqle_encode_packed` replaces the Pallas
-``sparqle_encode_packed`` (``_kernel_packed``): the same quantize and
-clip emitted in the wire layout of ``core.packing`` (K padded to a
-multiple of 32; LSB4/MSB4 two nibbles per byte, the PBM in 32-bit words
-carried as int32 bit patterns), plus the tile populations
-(``sparqle_encode_packed_launch``).
+The ``*_fused`` entries (:func:`sparqle_encode_fused`,
+:func:`sparqle_quantize_fused`, :func:`sparqle_encode_packed_fused`) are
+what the serving linear calls: one launch computes the per-token scale
+``activation_scale(x).float()`` itself, returns it beside the planes,
+and encodes with it, where the linear used to run abs, amax, div,
+clamp_min and a cast first. Up to ``MAX_BLOCKS`` blocks share a group
+of TILE_M rows (:func:`fused_plan`), each holding its consecutive K
+tiles in shared memory; every block reads its rows over all of K for the
+amax, forms the scale, then encodes its tiles. The entries that take a
+``scale`` run the same body without the amax pass, for a caller with a
+scale of its own (an all-reduced amax under tensor parallelism).
 
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version ``kernels.ref.sparqle_encode_ref`` /
-``sparqle_quantize_ref`` / ``sparqle_encode_packed_ref``.
+``sparqle_quantize_ref`` / ``sparqle_encode_packed_ref`` and their
+``*_fused_ref`` forms.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.packing import PBM_WORD_BITS, pad_k
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv,
+                                     sparqle_encode_fused_ref,
+                                     sparqle_encode_packed_fused_ref,
                                      sparqle_encode_packed_ref,
-                                     sparqle_encode_ref, sparqle_quantize_ref)
+                                     sparqle_encode_ref,
+                                     sparqle_quantize_fused_ref,
+                                     sparqle_quantize_ref)
 
 KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_encode_launch",
@@ -56,25 +69,88 @@ PACKED_KERNEL = _build.register(_build.Kernel(
      _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I,
      _build.P], name="sparqle_encode_packed"))
 
+FUSED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_encode_fused_launch",
+    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
+     _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.P],
+    name="sparqle_encode_fused"))
+QUANTIZE_FUSED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_quantize_fused_launch",
+    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I, _build.P,
+     _build.I, _build.I, _build.P], name="sparqle_quantize_fused"))
+PACKED_FUSED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_encode_packed_fused_launch",
+    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
+     _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I,
+     _build.P], name="sparqle_encode_packed_fused"))
+
+# Blocks a row group may have, the most tiles a block of the entries that
+# take a scale holds, and the opt-in dynamic shared memory a block may
+# use on the H100 (227 KB less room for the kernel's static shared
+# memory).
+MAX_BLOCKS, SCALE_IN_TILES = 8, 4
+MAX_SMEM = 227 * 1024 - 1024
+
+
+class FusedPlan(NamedTuple):
+    """The fused encoder's launch for a width K: ``blocks`` blocks a
+    TILE_M-row group, ``tiles`` consecutive TILE_K tiles a block,
+    ``smem(x_bf16)`` bytes of dynamic shared memory a block."""
+    blocks: int
+    tiles: int
+
+    def smem(self, x_bf16: bool) -> int:
+        """Population counts, the mask's slice and the x slice, each
+        padded to 16 bytes (the kernel's ``fused_smem``)."""
+        def align16(n):
+            return -(-n // 16) * 16
+        return (align16(self.tiles * 4) + align16(self.tiles * TILE_K)
+                + TILE_M * self.tiles * TILE_K * (2 if x_bf16 else 4))
+
+
+def fused_plan(k: int, scale_in: bool = False) -> FusedPlan:
+    """The kernel's ``fused_plan``: a pure function of K (and of whether
+    the scale is an input, which caps a block at SCALE_IN_TILES)."""
+    n_kt = _cdiv(k, TILE_K)
+    tiles = _cdiv(n_kt, MAX_BLOCKS)
+    if scale_in:
+        tiles = min(tiles, SCALE_IN_TILES)
+    return FusedPlan(_cdiv(n_kt, tiles), tiles)
+
+
+def _check_fused(x, col_mask):
+    """The unfused checks on x and the mask, and the shared-memory limit
+    of the fused launch; returns the contiguous mask (or None)."""
+    k = x.shape[1]
+    _, col_mask = _check(x, None, col_mask)
+    need = fused_plan(k).smem(x.dtype == torch.bfloat16)
+    if need > MAX_SMEM:
+        raise ValueError(f"K={k} needs {need} B of shared memory a block "
+                         f"(limit {MAX_SMEM})")
+    return col_mask
+
 
 def _check(x, scale, col_mask):
     """Raise unless the operands are what the kernels take; returns the
-    contiguous scale and the mask pointer (None without a mask)."""
+    contiguous scale (None for the fused entries, which form their own)
+    and the contiguous mask (None without a mask)."""
     m, k = x.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if scale.shape != (m, 1) or scale.dtype != torch.float32 \
-            or scale.device != x.device:
-        raise ValueError(f"scale must be f32 (M, 1) on {x.device}, got "
-                         f"{scale.dtype} {tuple(scale.shape)}")
+    if scale is not None:
+        if scale.shape != (m, 1) or scale.dtype != torch.float32 \
+                or scale.device != x.device:
+            raise ValueError(f"scale must be f32 (M, 1) on {x.device}, got "
+                             f"{scale.dtype} {tuple(scale.shape)}")
+        scale = scale.contiguous()
     if col_mask is None:
-        return scale.contiguous(), None
+        return scale, None
     if col_mask.shape != (k,) or col_mask.dtype != torch.bool \
             or col_mask.device != x.device:
         raise ValueError("col_mask must be bool (K,) on x's device")
-    return scale.contiguous(), col_mask.contiguous()
+    return scale, col_mask.contiguous()
 
 
 def sparqle_encode(
@@ -160,3 +236,90 @@ def sparqle_encode_packed(
             int(h), lsb.data_ptr(), msb.data_ptr(), pbm.data_ptr(),
             pop.data_ptr(), m, k, kp)
     return lsb, msb, pbm, pop
+
+
+def sparqle_encode_fused(
+    x: torch.Tensor,                # (M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+    *,
+    with_pbm: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+           torch.Tensor, torch.Tensor]:
+    """:func:`sparqle_encode` with the per-token scale computed in the
+    same launch: returns (lsb4, msb4, pbm or None, tile_pop, scale (M, 1)
+    f32 = ``activation_scale(x).float()``)."""
+    if not x.is_cuda:
+        lsb, msb, pbm, pop, scale = sparqle_encode_fused_ref(x, col_mask, l,
+                                                             h)
+        return lsb, msb, pbm if with_pbm else None, pop, scale
+    m, k = x.shape
+    col_mask = _check_fused(x, col_mask)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    lsb = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    msb = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    pbm = (torch.empty((m, k), dtype=torch.bool, device=x.device)
+           if with_pbm else None)
+    pop = torch.empty((_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
+                      dtype=torch.int32, device=x.device)
+    if m and k:
+        FUSED_KERNEL.launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+            None if col_mask is None else col_mask.data_ptr(), int(l),
+            int(h), lsb.data_ptr(), msb.data_ptr(),
+            pbm.data_ptr() if with_pbm else None, pop.data_ptr(), m, k)
+    return lsb, msb, pbm, pop, scale
+
+
+def sparqle_quantize_fused(
+    x: torch.Tensor,                # (M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sparqle_quantize` with the scale computed in the same
+    launch: returns (q int8 (M, K), scale (M, 1) f32)."""
+    if not x.is_cuda:
+        return sparqle_quantize_fused_ref(x, col_mask, l, h)
+    m, k = x.shape
+    col_mask = _check_fused(x, col_mask)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    if m and k:
+        QUANTIZE_FUSED_KERNEL.launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+            None if col_mask is None else col_mask.data_ptr(), int(l),
+            int(h), q.data_ptr(), m, k)
+    return q, scale
+
+
+def sparqle_encode_packed_fused(
+    x: torch.Tensor,                # (M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    l: int = 0,
+    h: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """:func:`sparqle_encode_packed` with the scale computed in the same
+    launch: returns (lsb4 packed, msb4 packed, PBM words, tile_pop,
+    scale (M, 1) f32)."""
+    if not x.is_cuda:
+        return sparqle_encode_packed_fused_ref(x, col_mask, l, h)
+    m, k = x.shape
+    kp = pad_k(k)
+    col_mask = _check_fused(x, col_mask)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    lsb = torch.empty((m, kp // 2), dtype=torch.int8, device=x.device)
+    msb = torch.empty((m, kp // 2), dtype=torch.int8, device=x.device)
+    pbm = torch.empty((m, kp // PBM_WORD_BITS), dtype=torch.int32,
+                      device=x.device)
+    pop = torch.empty((_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
+                      dtype=torch.int32, device=x.device)
+    if m and k:
+        PACKED_FUSED_KERNEL.launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+            None if col_mask is None else col_mask.data_ptr(), int(l),
+            int(h), lsb.data_ptr(), msb.data_ptr(), pbm.data_ptr(),
+            pop.data_ptr(), m, k, kp)
+    return lsb, msb, pbm, pop, scale

@@ -96,7 +96,9 @@ def _swiglu(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_type != "swiglu":
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
     g = linear(h, p["w_gate"])
-    g = g * torch.sigmoid(g)
+    # jax.nn.silu op by op, each rounded to the activation dtype (at bf16
+    # torch.sigmoid rounds once and differs from JAX in ~1/3 of elements)
+    g = g * torch.reciprocal(1 + torch.exp(-g))
     return linear(g * linear(h, p["w_up"]), p["w_down"])
 
 
@@ -465,7 +467,8 @@ def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     """One-token attention against the contiguous cache. x (B, D). The
     new token's K/V land at ``pos`` in place; the contiguous KV4 kernel
     reads the packed cache in blocks of ``CONTIGUOUS_BLOCK`` tokens (or
-    of the largest divisor of Smax it shares with that)."""
+    of the largest divisor of Smax it shares with that), each K and V
+    element dequantized in x's dtype, as JAX's ``_kv_dequant`` does."""
     b, _ = x.shape
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     theta = ld.rope_theta or cfg.rope_theta
@@ -481,7 +484,7 @@ def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     bs = math.gcd(cache["k_q"].shape[1], CONTIGUOUS_BLOCK)
     o = kv4_decode_attention(q.reshape(b, kvh, g, cfg.hd).contiguous(),
                              cache["k_q"], cache["k_s"], cache["v_q"],
-                             cache["v_s"], pos, bs=bs)
+                             cache["v_s"], pos, bs=bs, round_kv=True)
     o = o.reshape(b, cfg.n_heads * cfg.hd)
     return linear(o, p["wo"], p.get("bo")), cache
 

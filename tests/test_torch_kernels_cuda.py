@@ -17,7 +17,16 @@ contiguous kernel of the outputs' scale); the verify attention bit-exact with T 
 decode kernel, the tiered attention with one decode call (over the
 clamped pages where demoted), and the contiguous attention with the
 paged one on pages that tile the same cache; greedy speculative streams
-identical to the base engine's.
+identical to the base engine's. The fused-scale encoders: the scale
+bit-equal to ``activation_scale(x).float()``, scale, planes and
+populations to their plain versions and to the entries fed the scale. The split-KV attention at a long context
+(256-page tables): within 1e-4 of its plain version, verify bit-exact
+with decode calls; the contiguous kernel's ``round_kv`` at bf16 unlike
+``round_kv=False`` and within one bf16 ulp of each element of its plain
+form (``chip_smoke.check_round_kv``), the ``round_kv=False`` bits at
+f32. The attention instances off the main path (head dims 16-64, pages
+of 1, 5, 8 and 40 tokens, G of 1, 2, 3 and 6) as
+``chip_smoke.check_attention_shapes`` holds them.
 """
 import sys
 from pathlib import Path
@@ -35,8 +44,10 @@ from repro_torch.kernels.ref import TILE_K, TILE_M
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (MATMUL_KN, MATMUL_M, POP_PATTERNS,  # noqa: E402
-                        check_matmul_case, demoted_pool, matmul_case,
-                        paged_tiling)
+                        check_attention_shapes, check_fused_case,
+                        check_matmul_case, check_round_kv, demoted_pool,
+                        encoder_input, long_context, matmul_case,
+                        paged_tiling, smoke_config_on_card)
 
 
 @pytest.fixture
@@ -348,3 +359,73 @@ def test_matmul_family_extreme_operands(cuda, k, n):
     for m in (8, 33, 1024):
         check_matmul_case(matmul_case(cuda, None, m, k, n, "", True),
                           f"at M={m} K={k} N={n} q=-128 w=-8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(1, 4096), (8, 14336), (33, 200),
+                                 (1024, 4096), (5, 21504)])
+def test_fused_encoders_match_activation_scale_and_unfused(cuda, dtype, m,
+                                                           k):
+    """Scale bit-equal to activation_scale(x).float() (zero and tiny rows
+    included), scale, planes and populations to the plain versions, and
+    to the entries that take the scale."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + 11)
+    x, mask = encoder_input(cuda, g, m, k, dtype)
+    check_fused_case(x, mask, f"M={m} K={k} {dtype}")
+
+
+@pytest.mark.cuda
+def test_attention_long_context_matches_plain_and_splits_alike(cuda):
+    """256-page tables (a cluster of 8 blocks, 8 pages a warp): decode
+    within 1e-4 of the plain version, the verify window bit-exact with
+    decode calls."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    lc = long_context(cuda, g)
+    pool, tables, pos = lc["pools"][0], lc["tables"], lc["pos"]
+    q = torch.randn((8, 8, 4, 128), generator=g, device=cuda)
+    got = kv_attention.kv4_paged_decode_attention(q, *pool, tables, pos)
+    want = ref.kv4_paged_decode_attention_ref(q, *pool, tables, pos)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    qw = torch.randn((8, 3, 8, 4, 128), generator=g, device=cuda)
+    win = kv_attention.kv4_paged_verify_attention(qw, *pool, tables, pos - 2)
+    for i in range(3):
+        assert torch.equal(win[:, i], kv_attention.kv4_paged_decode_attention(
+            qw[:, i].contiguous(), *pool, tables, pos - 2 + i))
+
+
+@pytest.mark.cuda
+def test_contiguous_attention_round_kv(cuda):
+    """round_kv=True: at bf16 unlike round_kv=False, within one bf16 ulp
+    of each element of the plain version's round_kv form and nearer it
+    than the f32-dequant form; the round_kv=False bits at f32."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    b, s, kvh, gq, hd = 4, 96, 8, 4, 128
+    kq, vq = (torch.randint(-128, 128, (b, s, kvh, hd // 2), generator=g,
+                            device=cuda, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, s, kvh), generator=g, device=cuda) * 0.2
+              for _ in range(2))
+    pos = torch.tensor([0, 17, 64, s - 1], dtype=torch.int32, device=cuda)
+    cache = (kq, ks, vq, vs)
+    q = torch.randn((b, kvh, gq, hd), generator=g, device=cuda)
+    assert torch.equal(
+        kv_attention.kv4_decode_attention(q, *cache, pos, round_kv=True),
+        kv_attention.kv4_decode_attention(q, *cache, pos))
+    qb = q.to(torch.bfloat16)
+    check_round_kv(
+        kv_attention.kv4_decode_attention(qb, *cache, pos, round_kv=True),
+        kv_attention.kv4_decode_attention(qb, *cache, pos), qb, cache, pos)
+
+
+@pytest.mark.cuda
+def test_attention_instances_off_the_main_path(cuda):
+    """Every head dim, pages of a run-time size and groups of G that are
+    no multiple of 4: plain, verify, tiered, contiguous and round_kv."""
+    check_attention_shapes(cuda, torch.Generator(device=cuda).manual_seed(19))
+
+
+@pytest.mark.cuda
+def test_smoke_config_serves_on_card(cuda):
+    """The smoke config (hd 16, G 2) with pages of 8 and a fixed-batch
+    cache of 30 positions, through the attention kernels."""
+    smoke_config_on_card(cuda, 0)

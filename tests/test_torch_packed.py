@@ -336,13 +336,14 @@ def _np(tree):
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Counts the serving linear's calls of each encoder and matmul."""
+    """Counts the serving linear's calls of each encoder (its fused-scale
+    entry, counted under the encoder's name) and matmul."""
     seen = {}
-    for name in ("sparqle_encode", "sparqle_encode_packed",
+    for name in ("sparqle_encode_fused", "sparqle_encode_packed_fused",
                  "sparqle_matmul", "sparqle_matmul_packed"):
         fn = getattr(tql, name)
 
-        def counted(*a, _fn=fn, _name=name, **kw):
+        def counted(*a, _fn=fn, _name=name.replace("_fused", ""), **kw):
             seen[_name] = seen.get(_name, 0) + 1
             return _fn(*a, **kw)
         monkeypatch.setattr(tql, name, counted)

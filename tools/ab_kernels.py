@@ -6,8 +6,9 @@
 Each checkout's own ``chip_smoke.py`` phase-3 checks build, check and
 time its kernels (CUDA-graph replay timed with CUDA events) in a fresh
 process, on the same inputs (each check gets a generator seeded 0).
-A row's timed shapes (its ``detail`` entries with M, K, N) are compared
-too, where both checkouts time them. The
+A row's timed shapes (its ``detail`` entries with M, K, N, or with a
+``key`` such as the attention rows' long context) are compared too,
+where both checkouts time them. The
 processes run in the order A B B A, ``--rounds`` times, so that a drift
 of the card falls on both sides alike. Prints one JSON line per process,
 then the card and the median per check and side. Needs a CUDA card.
@@ -38,6 +39,8 @@ for name in sys.argv[1].split(","):
         for d in r.get("detail", []):   # every timed shape of the row
             if "M" in d:
                 out[f"{key}@M={d['M']},K={d['K']},N={d['N']}"] = d["ms"]
+            elif "key" in d:
+                out[f"{key}@{d['key']}"] = d["ms"]
 print(json.dumps(out))
 """
 
