@@ -12,9 +12,7 @@ to chiprun_out/):
      packed forms: scale bit-equal to activation_scale(x).float(),
      scale, planes, PBM and populations bit-equal to their plain
      versions and to the entries fed that scale, over ENCODE_M x
-     ENCODE_K x bf16, f32 with zero and tiny rows; matmul, draft matmul, their packed forms and dense matmul
-     bit-exact; the packed forms also with the unpacked kernels on the
-     same q, the dense one with the dual pass; attention, verify, tiered
+     ENCODE_K x bf16, f32 with zero and tiny rows; attention, verify, tiered
      and contiguous attention within ATTN_TOL; verify attention
      bit-exact with T calls of the decode kernel, tiered attention with
      one, over the clamped pages where demoted, contiguous attention with
@@ -22,11 +20,14 @@ to chiprun_out/):
      at a long context of ~4,096 tokens and, untimed, at the other head
      dims, page sizes and G of ATTN_SHAPES, with the granite-8b smoke
      config served on the card) and time kernel, plain version and
-     library call; the four dual-pass matmul
-     instances (full, draft, packed, packed draft) are timed at M = 8, 32
-     and 1024 and swept for bit-exactness over MATMUL_M x MATMUL_KN x
-     POP_PATTERNS (and q = -128, w = -8), each against its plain version
-     and packed against unpacked;
+     library call; the five entries of the W4A8 matmul body (full, draft,
+     packed, packed draft and dense) are timed at M = 8, 32 and 1024 and
+     swept for bit-exactness over MATMUL_M x MATMUL_KN x POP_PATTERNS
+     (and q = -128, w = -8), f32 and int32 outputs, each against its
+     plain version, packed against unpacked and dense against the dual
+     pass on the planes of the same q; at M = 8 and 32 the dense entry,
+     the dual pass and the draft are timed on the same q under each
+     population pattern;
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
      launch counters zeroed just before and read just after;
@@ -55,11 +56,13 @@ to chiprun_out/):
      128-token prompt is prefilled in chunks by the engine, so they may
      differ); then granite width, 2 layers, f32: legacy streams equal to
      the engine's with the prefill unchunked;
- 10. profile a shorter run of phase 4's and phase 5's engine shapes
-     (device busy share, device time by kernel, bf16 reduce_kernel
-     launches beside the encoder's; neither may launch the dense path's
-     drain kernel), then serve phase 4 once more to read
-     what the profilers left behind on the host;
+ 10. profile a shorter run of phase 4's, phase 5's and phase 7's
+     engine shapes (device busy share, device time by kernel, bf16
+     reduce_kernel launches beside the encoder's; the dense run's matmul
+     is one kernel row whose launches equal the quant_matmul counter's,
+     with no drain and no more fill launches than the base run), then
+     serve phase 4 once more to read what the profilers left behind on
+     the host;
  11. cross-check, for XC_SEEDS seeds: granite width, 2 layers, f32 — the
      same weights and prompts through the Engine on the card (kernels)
      and on the CPU (plain versions), logits within LOGIT_TOL and the
@@ -71,6 +74,7 @@ line. It needs a CUDA card and the rest of the repository beside it.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -301,9 +305,9 @@ def check_encoder(dev, gen, peaks):
                      f"{time.perf_counter() - t0:.1f} s"}
 
 
-# The dual-pass matmul family (rows 3, 4, 5a, 5b: one CUDA body, four
-# instances) at the shapes the port runs: M = 8 decode, 24 the verify
-# window, 32 a prefill chunk, 1024 the --legacy prefill.
+# The W4A8 matmul family (rows 3, 4, 5a, 5b and the dense row 6: one CUDA
+# body, five entries) at the shapes the port runs: M = 8 decode, 24 the
+# verify window, 32 a prefill chunk, 1024 the --legacy prefill.
 MATMUL_M = (1, 8, 16, 17, 24, 32, 33, 64, 1024)
 MATMUL_KN = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096),
              (200, 70), (4100, 1024))
@@ -314,10 +318,11 @@ MATMUL_TIMED = [(8, k, n) for k, n in MATMUL_KN[:4]] + [
 
 
 def matmul_case(dev, gen, m, k, n, pattern, extreme=False):
-    """One input set for the four instances: the unpacked planes of a
-    random int8 q, their wire-layout planes, the tile populations
-    (``pattern``: MSB plane zero everywhere, live in every tile, or zero
-    on every other K tile), the packed int4 weight and the scales.
+    """One input set for the five entries: a random int8 q (the dense
+    entry's operand), its unpacked planes, their wire-layout planes, the
+    tile populations (``pattern``: MSB plane zero everywhere, live in
+    every tile, or zero on every other K tile), the packed int4 weight
+    and the scales.
     ``extreme``: q = -128 and w = -8 everywhere."""
     from repro_torch.core.packing import pack_nibbles, pad_k
     from repro_torch.core.qlinear import pack_int4
@@ -349,28 +354,42 @@ def matmul_case(dev, gen, m, k, n, pattern, extreme=False):
                 mp=mp, asc=asc, wsc=wsc)
 
 
-# instance name -> (wrapper, plain version, planes, msb_skip)
+def _dense(fn):
+    """The dense wrapper ``fn`` in the dual-pass call form: (q, unused,
+    unused, w_packed, act_scale, w_scale)."""
+    def call(q, _msb, _pop, wp, asc, wsc, acc_out=False, msb_skip=True):
+        return fn(q, wp, asc, wsc, acc_out=acc_out)
+    return call
+
+
+# entry name -> (wrapper, plain version, operands, msb_skip, the q that
+# torch._int_mm multiplies: the LSB plane for a draft, else q)
 def matmul_instances():
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparqle_matmul as sm
+    from repro_torch.kernels.quant_matmul import quant_matmul
     return {"sparqle_matmul": (sm.sparqle_matmul, ref.sparqle_matmul_ref,
-                               ("lsb", "msb"), False),
+                               ("lsb", "msb"), False, "q"),
             "sparqle_matmul_packed": (sm.sparqle_matmul_packed,
                                       ref.sparqle_matmul_packed_ref,
-                                      ("lp", "mp"), False),
+                                      ("lp", "mp"), False, "q"),
             "sparqle_matmul_draft": (sm.sparqle_matmul,
                                      ref.sparqle_matmul_ref, ("lsb", "msb"),
-                                     True),
+                                     True, "lsb"),
             "sparqle_matmul_packed_draft": (sm.sparqle_matmul_packed,
                                             ref.sparqle_matmul_packed_ref,
-                                            ("lp", "mp"), True)}
+                                            ("lp", "mp"), True, "lsb"),
+            "quant_matmul": (_dense(quant_matmul),
+                             _dense(ref.quant_matmul_ref), ("q", "msb"),
+                             True, "q")}
 
 
 def check_matmul_case(c, where=""):
-    """All four instances, f32 and int32 outputs: each torch.equal to
-    its plain version, packed = unpacked, full and draft alike."""
+    """All five entries, f32 and int32 outputs: each torch.equal to its
+    plain version, packed = unpacked, full and draft alike, and dense on
+    q = the dual pass on its planes."""
     got = {}
-    for name, (fn, plain, planes, skip) in matmul_instances().items():
+    for name, (fn, plain, planes, skip, _) in matmul_instances().items():
         args = (c[planes[0]], c[planes[1]], c["pop"], c["wp"], c["asc"],
                 c["wsc"])
         for acc_out in (False, True):
@@ -382,15 +401,16 @@ def check_matmul_case(c, where=""):
             got[name, acc_out] = out
     for acc_out in (False, True):
         for a, b in (("sparqle_matmul", "sparqle_matmul_packed"),
-                     ("sparqle_matmul_draft", "sparqle_matmul_packed_draft")):
+                     ("sparqle_matmul_draft", "sparqle_matmul_packed_draft"),
+                     ("sparqle_matmul", "quant_matmul")):
             if not torch.equal(got[a, acc_out], got[b, acc_out]):
                 raise AssertionError(f"{b} differs from {a} {where} "
                                      f"acc_out={acc_out}")
 
 
 def check_matmul_family(dev, gen) -> int:
-    """The four dual-pass instances over MATMUL_M x MATMUL_KN x
-    POP_PATTERNS, plus q = -128, w = -8 everywhere; returns the number of
+    """The five entries over MATMUL_M x MATMUL_KN x POP_PATTERNS, plus
+    q = -128, w = -8 everywhere; returns the number of
     input sets checked (one split and several both occur)."""
     from repro_torch.kernels.sparqle_matmul import launch_plan
     cases, splits = 0, set()
@@ -413,7 +433,8 @@ def check_matmul_family(dev, gen) -> int:
 def time_matmul_family(dev, gen, peaks, names):
     """Device time of the instances ``names`` at MATMUL_TIMED (MSB zero
     on every other K tile), each beside its plain version, its bound and
-    torch._int_mm on the same q (LSB plane for a draft) and weight; at
+    torch._int_mm on the same q (LSB plane for a draft) and weight (the
+    dense entry: one pass over q, counted as a draft is); at
     M <= 16 torch._int_mm needs more than 16 rows, so it runs at M = 32.
     Returns {name: [detail, ...]}."""
     inst = matmul_instances()
@@ -427,7 +448,7 @@ def time_matmul_family(dev, gen, peaks, names):
         ml = max(m, 32)
         qa = torch.zeros((ml, k), dtype=torch.int8, device=dev)
         for name in names:
-            fn, plain, planes, skip = inst[name]
+            fn, plain, planes, skip, lib_q = inst[name]
             a0, a1 = c[planes[0]], c[planes[1]]
 
             def call(*a, _fn=fn, _skip=skip):
@@ -439,7 +460,7 @@ def time_matmul_family(dev, gen, peaks, names):
             args = [(a0, a1, c["pop"], w, c["asc"], c["wsc"]) for w in wps]
             kms = time_ms(call, args, 50)
             pms = time_ms(ref, args[:1], 5)
-            qa[:m] = c["lsb"] if skip else c["q"]
+            qa[:m] = c[lib_q]
             lib = time_ms(torch._int_mm, [(qa, c["w"])], 50)
             passes = 1 if skip else 1 + live
             plane_bytes = a0.numel() / m        # bytes a row of one plane
@@ -455,13 +476,14 @@ def time_matmul_family(dev, gen, peaks, names):
     return detail
 
 
-def matmul_row(name, line, detail, note=""):
-    """The kernels-line row of one instance: its time at M=8, 4096 ->
-    14336 (w_gate/w_up at decode); every timed shape in ``detail``."""
+def matmul_row(name, replaces, detail, note=""):
+    """The kernels-line row of one entry (``replaces``: file:line under
+    src/repro/kernels): its time at M=8, 4096 -> 14336 (w_gate/w_up at
+    decode); every timed shape in ``detail``."""
     timed = detail[0]
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/sparqle_matmul.cu",
-            "replaces": f"src/repro/kernels/sparqle_matmul.py:{line}",
+            "replaces": f"src/repro/kernels/{replaces}",
             "max_abs_err": 0.0, "ms": timed["ms"],
             "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": timed["bound_by"],
@@ -475,10 +497,11 @@ def matmul_row(name, line, detail, note=""):
 
 
 def check_matmul(dev, gen, peaks):
-    """Row 3 timed (the four instances are held bit-exact by
+    """Row 3 timed (the five entries are held bit-exact by
     check_matmul_family)."""
     d = time_matmul_family(dev, gen, peaks, ["sparqle_matmul"])
-    return matmul_row("sparqle_matmul", 209, d["sparqle_matmul"])
+    return matmul_row("sparqle_matmul", "sparqle_matmul.py:209",
+                      d["sparqle_matmul"])
 
 
 # The attention rows (7-10) at a long context too: 8 sequences of about
@@ -611,7 +634,7 @@ def check_draft_matmul(dev, gen, peaks):
                            ["sparqle_matmul_draft", "sparqle_matmul"])
     for dd, full in zip(d["sparqle_matmul_draft"], d["sparqle_matmul"]):
         dd["full_ms"] = full["ms"]
-    return matmul_row("sparqle_matmul_draft", 142,
+    return matmul_row("sparqle_matmul_draft", "sparqle_matmul.py:142",
                       d["sparqle_matmul_draft"],
                       f" (full kernel "
                       f"{d['sparqle_matmul'][0]['ms'] * 1e3:.1f} us on the "
@@ -730,70 +753,32 @@ def check_quantize(dev, gen, peaks):
 
 
 def check_dense_matmul(dev, gen, peaks):
-    """The dense single-pass matmul at the decode shapes, M = 1, 5, 8,
-    24, 32, 33: bit-exact with its plain version and with the dual-pass
-    kernel on the planes of the same q (f32 and int32 outputs); timed at
-    M=8 against the dual-pass kernel on those planes and torch._int_mm of
-    the unpacked weight (M padded to 32)."""
-    from repro_torch.core.qlinear import pack_int4
-    from repro_torch.kernels.quant_matmul import quant_matmul
-    from repro_torch.kernels.ref import (TILE_K, TILE_M, quant_matmul_ref,
-                                         tile_population_padded)
-    from repro_torch.kernels.sparqle_matmul import sparqle_matmul
-    shapes = ((4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096))
-    detail = []
-    for k, n in shapes:
-        w = torch.randint(-8, 8, (k, n), generator=gen, device=dev,
-                          dtype=torch.int8)
-        wp = pack_int4(w)
-        wsc = torch.rand((1, n), generator=gen, device=dev) * 0.01 + 1e-3
-        for m in (1, 5, 8, 24, 32, 33):
-            q = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
-                              dtype=torch.int8)
-            asc = torch.rand((m, 1), generator=gen, device=dev) * 0.1
-            lsb, msb = q & 0xF, q >> 4
-            pop = tile_population_padded(msb != 0, TILE_M, TILE_K)
-            for acc_out in (False, True):
-                got = quant_matmul(q, wp, asc, wsc, acc_out=acc_out)
-                if not (torch.equal(got, quant_matmul_ref(
-                        q, wp, asc, wsc, acc_out=acc_out)) and torch.equal(
-                        got, sparqle_matmul(lsb, msb, pop, wp, asc, wsc,
-                                            acc_out=acc_out))):
-                    raise AssertionError(f"dense matmul differs at M={m} "
-                                         f"K={k} N={n} acc_out={acc_out}")
-            if m != 8:
-                continue
-            copies = max(1, math.ceil(150e6 / wp.numel()))
-            wps = [wp.clone() for _ in range(copies)]
-            kms = time_ms(quant_matmul, [(q, c, asc, wsc) for c in wps], 50)
-            dual = time_ms(sparqle_matmul,
-                           [(lsb, msb, pop, c, asc, wsc) for c in wps], 50)
-            pms = time_ms(quant_matmul_ref, [(q, wp, asc, wsc)], 5)
-            qa = torch.zeros((32, k), dtype=torch.int8, device=dev)
-            qa[:m] = q
-            lib = time_ms(torch._int_mm, [(qa, w)], 50)
-            nbytes = m * k + k * n // 2 + m * 4 + n * 4 + m * n * 4
-            ops = 2.0 * m * k * n
-            detail.append({"M": m, "K": k, "N": n, "ms": kms,
-                           "dual_pass_ms": dual, "plain_ms": pms,
-                           "library_ms": lib,
-                           "bound_ms": max(nbytes / peaks[0],
-                                           ops / peaks[1]) * 1e3,
-                           "bound_by": "bytes" if nbytes / peaks[0]
-                           >= ops / peaks[1] else "operations"})
-    timed = detail[0]                    # 4096 -> 14336, w_gate/w_up
-    return {"name": "quant_matmul", "route": "cuda",
-            "source": "src/repro_torch/csrc/quant_matmul.cu",
-            "replaces": "src/repro/kernels/quant_matmul.py:45",
-            "max_abs_err": 0.0, "ms": timed["ms"],
-            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-            "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"],
-            "shape": f"M=8 K=4096 N=14336 (dual-pass kernel "
-                     f"{timed['dual_pass_ms'] * 1e3:.1f} us on the planes "
-                     f"of the same q); checked M in 1,5,8,24,32,33 at every "
-                     f"shape; library: torch._int_mm at M=32",
-            "detail": detail}
+    """Row 6 timed at MATMUL_TIMED (the five entries are held bit-exact
+    by check_matmul_family), then the kernel-level format comparison that
+    phase 7 stands for: at M = 8 and 32, 4096 -> 14336, the dense entry,
+    the dual pass and the draft on the same q (its planes), under each of
+    POP_PATTERNS, every call on a cold weight."""
+    d = time_matmul_family(dev, gen, peaks, ["quant_matmul"])
+    inst = matmul_instances()
+    formats = []
+    for m in (8, 32):
+        for pattern in POP_PATTERNS:
+            c = matmul_case(dev, gen, m, 4096, 14336, pattern)
+            copies = max(1, math.ceil(150e6 / c["wp"].numel()))
+            wps = [c["wp"].clone() for _ in range(copies)]
+            row = {"M": m, "pop": pattern,
+                   "live": (c["pop"] > 0).sum().item() / c["pop"].numel()}
+            for name in ("quant_matmul", "sparqle_matmul",
+                         "sparqle_matmul_draft"):
+                fn, _, planes, skip, _ = inst[name]
+                row[name] = time_ms(
+                    functools.partial(fn, msb_skip=skip),
+                    [(c[planes[0]], c[planes[1]], c["pop"], w, c["asc"],
+                      c["wsc"]) for w in wps], 50)
+            formats.append(row)
+    r = matmul_row("quant_matmul", "quant_matmul.py:45", d["quant_matmul"])
+    r["formats"] = formats
+    return r
 
 
 def demoted_pool(dev, gen, b, kvh, hd, ps, n_s, n_pages):
@@ -984,8 +969,10 @@ def check_matmul_packed(dev, gen, peaks):
     d = time_matmul_family(dev, gen, peaks, names)
     rows = []
     for name, unpacked, line in (
-            ("sparqle_matmul_packed", "sparqle_matmul", 250),
-            ("sparqle_matmul_packed_draft", "sparqle_matmul_draft", 159)):
+            ("sparqle_matmul_packed", "sparqle_matmul",
+             "sparqle_matmul.py:250"),
+            ("sparqle_matmul_packed_draft", "sparqle_matmul_draft",
+             "sparqle_matmul.py:159")):
         for dd, u in zip(d[name], d[unpacked]):
             dd["unpacked_ms"] = u["ms"]
         rows.append(matmul_row(name, line, d[name],
@@ -1472,30 +1459,35 @@ def legacy_vs_engine(dev, seed: int):
                                 for a, b in zip(x, y))}
 
 
-def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
+def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0,
+                   tag: str = ""):
     """Where the time goes: a shorter workload on the same engine shape
     (8 requests x 32 prompt tokens x 8 new) under torch.profiler (device
-    time by kernel, device busy share of the wall), then under cProfile
-    (host time by function), written to chiprun_out/. Launches here come
-    after the counters were read."""
+    time by kernel, device busy share of the wall, the launch counters
+    of that run beside the matmul kernels' rows), then under cProfile
+    (host time by function), written to chiprun_out/ (file suffix
+    ``tag``). Launches here come after the serves' counters were read."""
     import cProfile
     import io
     import pstats
+    from repro_torch import kernels
     from repro_torch.launch.serve import (make_engine, make_prompts,
                                           run_requests)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prompts = make_prompts(cfg, seed + 7, 8, 32)
-    tag = f"_spec{spec_gamma}" if spec_gamma else ""
+    tag = tag or (f"_spec{spec_gamma}" if spec_gamma else "")
 
     def workload():
         eng = make_engine(cfg, params, batch=8, prompt_len=32, gen=8,
                           spec_gamma=spec_gamma, device=dev)
         return run_requests(eng, prompts, 8)
 
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         r = workload()
+    launches = kernels.launch_counts()
     ka = prof.key_averages()
     # device busy: the kernels' own rows only. An operator's row (say
     # aten::amax) carries the device time of the kernel it launched too,
@@ -1521,11 +1513,12 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
     by_kernel = [{"kernel": name[:80], "share": us / dev_us,
                   "mean_us": us / n, "launches": n}
                  for name, us, n in rows[:12]]
-    # the dual-pass matmul launches no drain and no fill of its own
-    # accumulator any more: name every drain or fill row that is left
+    # the matmul entries launch no drain and no fill of an accumulator:
+    # name every drain or fill row there is, and every matmul row
     drain_fill = [{"kernel": name[:120], "launches": n}
-                  for name, _, n in rows
-                  if "w4a8_drain" in name or "Fill" in name]
+                  for name, _, n in rows if "drain" in name or "Fill" in name]
+    matmul_rows = [{"kernel": name[:120], "launches": n}
+                   for name, _, n in rows if "sparqle_matmul_kernel" in name]
     # the bf16 reductions (the per-token amax ran as one before every
     # encoder until the encoder computed its own scale) and the encoder
     # launches (one a projection)
@@ -1535,7 +1528,9 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0):
     return {"profiled_wall_s": r["wall_s"], "device_busy_s": dev_us / 1e6,
             "device_busy_share": dev_us / 1e6 / r["wall_s"],
             "cprofiled_wall_s": r2["wall_s"], "by_kernel": by_kernel,
-            "drain_fill": drain_fill,
+            "drain_fill": drain_fill, "matmul_rows": matmul_rows,
+            "launches": launches,
+            "kernel_launches": sum(n for _, _, n in rows),
             "bf16_reduce_launches": sum(n for _, n in amax),
             "bf16_reduce_us": sum(us for us, _ in amax),
             "encoder_launches": sum(enc)}
@@ -1643,16 +1638,22 @@ def main() -> int:
         f"{small['launches']}; {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     n_cases = check_matmul_family(dev, gen)
-    log(f"[3] dual-pass matmul family: {n_cases} input sets (M in "
+    log(f"[3] W4A8 matmul family: {n_cases} input sets (M in "
         f"{MATMUL_M}, (K, N) in {MATMUL_KN}, populations {POP_PATTERNS}, "
-        f"q=-128 w=-8), all four instances bit-exact with their plain "
-        f"versions and packed = unpacked, f32 and int32 outputs, "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"q=-128 w=-8), all five entries bit-exact with their plain "
+        f"versions, packed = unpacked and dense = dual pass, f32 and int32 "
+        f"outputs, {time.perf_counter() - t0:.1f} s")
     for r in rows:
         log(f"[3] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
             f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
             f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) at "
             f"{r['shape']}")
+        for f in r.get("formats", []):
+            log(f"[3]   formats at M={f['M']} 4096->14336, populations "
+                f"{f['pop']} ({f['live'] * 100:.0f}% of tiles live): dense "
+                f"{f['quant_matmul'] * 1e3:.1f} us, dual pass "
+                f"{f['sparqle_matmul'] * 1e3:.1f} us, draft "
+                f"{f['sparqle_matmul_draft'] * 1e3:.1f} us")
     detail = {"card": card, "kernels": rows}
     # the launch counter of each kernel row, and the phase that reads it
     counter = {"sparqle_encode_fused": ("sparqle_encode_fused", "base"),
@@ -1859,16 +1860,15 @@ def main() -> int:
         eng["profile"] = profile_engine(cfg, params, dev, args.seed)
         spec["profile"] = profile_engine(cfg, params, dev, args.seed,
                                          SPEC_GAMMA)
+        dn["profile"] = dprof = profile_engine(cfg, dense, dev, args.seed,
+                                               tag="_dense")
         after = serve_granite(dev, cfg, params, prompts)
         split = ", ".join(f"{k['kernel'][:40]} {k['share'] * 100:.1f}% "
                           f"({k['mean_us']:.1f} us x {k['launches']})"
                           for k in eng["profile"]["by_kernel"][:8])
         prof = spec["profile"]
-        drains = [r for p in (eng["profile"], prof)
-                  for r in p["drain_fill"] if "w4a8_drain" in r["kernel"]]
-        if drains:
-            raise AssertionError(f"a SPARQLe serve launched the dense "
-                                 f"drain: {drains}")
+        fills = [sum(r["launches"] for r in p["drain_fill"])
+                 for p in (eng["profile"], dprof)]
         log(f"[10] profiled reruns (8 requests x 32 prompt x 8 new): base "
             f"device busy {eng['profile']['device_busy_s']:.3f} s of "
             f"{eng['profile']['profiled_wall_s']:.2f} s wall, by kernel: "
@@ -1883,7 +1883,23 @@ def main() -> int:
             f"reduce_kernel launches (base) "
             f"{eng['profile']['bf16_reduce_launches']} "
             f"({eng['profile']['bf16_reduce_us'] / 1e3:.1f} ms) beside "
-            f"{eng['profile']['encoder_launches']} encoder launches")
+            f"{eng['profile']['encoder_launches']} encoder launches; dense "
+            f"device busy {dprof['device_busy_s']:.3f} s of "
+            f"{dprof['profiled_wall_s']:.2f} s wall, matmul rows "
+            f"{dprof['matmul_rows']} for {dprof['launches']['quant_matmul']} "
+            f"quant_matmul launches, drain or fill rows {dprof['drain_fill']}"
+            f", device kernel launches {dprof['kernel_launches']} (base "
+            f"{eng['profile']['kernel_launches']})")
+        # the dense matmul is one kernel a call: its instance's row counts
+        # the wrapper's launches, and no drain or fill comes with it (the
+        # engine's own fills, in both runs, are the only ones)
+        want = dprof["launches"]["quant_matmul"]
+        if not want or [r["launches"] for r in dprof["matmul_rows"]] != \
+                [want] or fills[1] > fills[0]:
+            raise AssertionError(
+                f"the dense serve's matmul is not one kernel a call: "
+                f"{dprof['matmul_rows']} for {want} launches, drain or fill "
+                f"launches {fills[1]} (base {fills[0]})")
         del params, dense, packed
         torch.cuda.empty_cache()
         t0 = time.perf_counter()

@@ -29,8 +29,11 @@
 //    masks and shifts place each nibble in the high half of a byte: the
 //    operand is 16 * w, exact in s8 with its sign, so no sign extension is
 //    spent; the int32 sum is 16 x the product and an arithmetic shift by 4
-//    ends it exactly (|16 acc| < 2^31 up to K = 117,323; the wrapper
-//    takes K <= 65,536);
+//    ends it exactly. Bound: on the planes a k adds at most
+//    16 x (15 + 128) x 8 to |16 acc|, so int32 holds it up to K = 117,323;
+//    on a full-range int8 q (the dense entry) a k adds at most
+//    |q x 16 w| <= 128 x 128 = 2^14, so up to K = 131,071 (q = -128,
+//    w = -8 reach 2^31 at K = 131,072). The wrappers take K <= 65,536;
 //  * int8 tensor cores: `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`
 //    with the weight as the A operand (16 columns an mma) and the
 //    activation rows as B (8 rows an mma), so decode's 8 rows fill an
@@ -75,6 +78,18 @@
 // as they are and splits their nibbles while it builds the B operand;
 // the rest is one body, so packed and unpacked accumulators are equal by
 // construction.
+//
+// The dense entry `quant_matmul_launch` replaces the Pallas kernel
+// `repro/kernels/quant_matmul.py` `quant_matmul` (`_kernel`), the paper's
+// iso-MAC dense baseline: acc = q @ w in one int8 x int4 pass, the same
+// drain. It is the MSB_SKIP instance run on the clipped int8 q in place
+// of the LSB plane: `act_frag<false, false>` passes the plane's bytes
+// through unmasked, so a full-range s8 q is a valid B operand, and the
+// one pass, the K-halves meet (exact division by 16) and the drain give
+// acc = q @ w and (f32(acc) * act_scale) * w_scale bit for bit. No
+// template parameter of its own: the draft's instance computes exactly
+// that. Since q = 16 * msb4 + lsb4, its accumulator equals the dual
+// pass's on the planes of the same q.
 #include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -716,6 +731,17 @@ extern "C" int sparqle_matmul_draft_launch(
     const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
     int M, int N, int K, int per, void* stream) {
   return launch<true, false>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
+                             out, acc_out, ws, counters, M, N, K, K, per,
+                             (cudaStream_t)stream);
+}
+
+// The dense single pass on the int8 q (M, K): the draft's instance with q
+// in place of the LSB plane.
+extern "C" int quant_matmul_launch(
+    const void* q, const void* wp, const void* act_scale,
+    const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
+    int M, int N, int K, int per, void* stream) {
+  return launch<true, false>(q, nullptr, nullptr, wp, act_scale, w_scale,
                              out, acc_out, ws, counters, M, N, K, K, per,
                              (cudaStream_t)stream);
 }

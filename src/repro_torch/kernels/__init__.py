@@ -7,7 +7,8 @@ PyTorch version (``ref.py``) and a launch counter.
   * sparqle_matmul — dual-pass W4A8 matmul on pack_int4 weights, on
     unpacked or wire-format planes, each with its LSB4-only draft form
     (``msb_skip``)
-  * quant_matmul   — the dense single-pass W4A8 baseline matmul
+  * quant_matmul   — the dense single-pass W4A8 baseline matmul (the
+    dual-pass kernel's one-plane instance)
   * kv_attention   — paged packed-KV4 flash-decode attention, the
     multi-token verify window of speculative decoding, the mixed
     KV4/KV2 tier decode of the precision ladder, and the decode over the

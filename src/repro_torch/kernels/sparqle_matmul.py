@@ -70,7 +70,9 @@ BLOCK_M = MT * TILE_M
 BLOCK_N = 64            # output columns a block (2 warps x 32)
 TARGET_BLOCKS = 264     # two blocks per SM on the H100's 132 SMs
 # The kernel sums 16 x the product in int32 (its weight operand is 16 w):
-# |16 acc| <= 16 x K x (15 + 128) x 8 stays below 2^31 up to K = 117,323.
+# |16 acc| <= 16 x K x (15 + 128) x 8 stays below 2^31 up to K = 117,323
+# on the planes, and |16 acc| <= K x 128 x 128 up to K = 131,071 on the
+# dense wrapper's full-range q.
 MAX_K = 65536
 
 
@@ -237,15 +239,18 @@ def sparqle_matmul_packed(
 
 
 def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
-              plane_shape, *, acc_out: bool, msb_skip: bool):
+              plane_shape, *, acc_out: bool, msb_skip: bool,
+              plane: str = "lsb4"):
     """Raise unless the operands are what the kernels take (planes of
-    ``plane_shape``). Returns the result tensor and the entry's arguments
-    after the weight pointer (None when there is nothing to launch)."""
+    ``plane_shape``; ``plane`` names the first in errors: the dense
+    wrapper passes its q there). Returns the result tensor and the
+    entry's arguments after the weight pointer (None when there is
+    nothing to launch)."""
     m = plane_shape[0]
     k2, n = w_packed.shape
     k = 2 * k2
     dev = lsb4.device
-    operands = [("lsb4", lsb4, plane_shape, torch.int8),
+    operands = [(plane, lsb4, plane_shape, torch.int8),
                 ("w_packed", w_packed, (k2, n), torch.int8),
                 ("act_scale", act_scale, (m, 1), torch.float32),
                 ("w_scale", w_scale, (1, n), torch.float32)]

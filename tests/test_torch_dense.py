@@ -106,6 +106,25 @@ def test_quant_matmul_plain_matches_pallas(ones):
     assert torch.equal(quant_matmul(_t(q), wp, _t(asc), _t(wsc)), got)
 
 
+@pytest.mark.parametrize("m,k,n", [(16, 4096, 128), (32, 512, 256)])
+def test_quant_matmul_plain_matches_pallas_extreme_operands(m, k, n):
+    """q = -128 and w = -8 everywhere (every product the largest, +1024):
+    the port's CPU path = the Pallas kernel (tile-aligned shapes, as it
+    takes them), as int32 and as the f32 drain."""
+    q = np.full((m, k), -128, np.int8)
+    w = np.full((k, n), -8, np.int8)
+    asc = np.full((m, 1), 0.03, np.float32)
+    wsc = np.full((1, n), 0.002, np.float32)
+    want = np.asarray(jquant_matmul(
+        jnp.asarray(q), jnp.asarray(w), jnp.asarray(asc), jnp.asarray(wsc),
+        bm=16, bn=128, bk=128, interpret=True))
+    wp = tql.pack_int4(_t(w))
+    got = quant_matmul(_t(q), wp, _t(asc), _t(wsc))
+    np.testing.assert_array_equal(got.numpy(), want)
+    acc = quant_matmul(_t(q), wp, _t(asc), _t(wsc), acc_out=True)
+    assert (acc == 1024 * k).all()
+
+
 @pytest.mark.parametrize("m,k,n", [(5, 96, 40), (33, 130, 8)])
 def test_quant_matmul_plain_equals_dual_pass_on_the_planes(m, k, n):
     """acc(q) = acc(lsb4, msb4) bit for bit, pop-0 tiles included."""

@@ -9,8 +9,9 @@ JAX nor the JAX package, so it also runs on a GPU machine without them:
 Tolerances: encoder (and its quantize-only and packed forms), matmul,
 draft matmul, their packed forms and dense matmul bit-exact (the packed
 ones with the unpacked ones too, the dense one with the dual pass; the
-four dual-pass instances over chip_smoke's sweep of M, (K, N) and
-population patterns, and on q = -128, w = -8 everywhere);
+five entries of the matmul body over chip_smoke's sweep of M, (K, N)
+and population patterns, and on q = -128, w = -8 everywhere; the dense
+wrapper raises above MAX_K);
 attention within 1e-4 in f32 (sums in another order than the plain
 einsum/softmax), in bf16 within one bf16 step (of the output, or for the
 contiguous kernel of the outputs' scale); the verify attention bit-exact with T calls of the
@@ -214,7 +215,9 @@ def test_quantize_kernel_matches_plain(cuda, dtype, m, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 1024), (8, 4096, 14336),
-                                   (24, 14336, 4096), (33, 200, 70)])
+                                   (24, 14336, 4096), (33, 200, 70),
+                                   (17, 4100, 1024), (64, 200, 70),
+                                   (1024, 4096, 1024)])
 def test_quant_matmul_kernel_matches_plain_and_dual_pass(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     q = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
@@ -231,6 +234,32 @@ def test_quant_matmul_kernel_matches_plain_and_dual_pass(cuda, m, k, n):
                                                      acc_out=acc_out))
         assert torch.equal(got, sparqle_matmul.sparqle_matmul(
             lsb, msb, pop, wp, asc, wsc, acc_out=acc_out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 14336), (33, 4100, 1024),
+                                   (1024, 200, 70), (1, 65536, 64)])
+def test_quant_matmul_kernel_extreme_operands(cuda, m, k, n):
+    # q = -128, w = -8: every product +1024 (the largest), through the
+    # cp.async path (K = 4100), ragged edges and K = MAX_K
+    q = torch.full((m, k), -128, dtype=torch.int8, device=cuda)
+    wp = pack_int4(torch.full((k, n), -8, dtype=torch.int8, device=cuda))
+    asc = torch.full((m, 1), 0.03, device=cuda)
+    wsc = torch.full((1, n), 0.002, device=cuda)
+    acc = quant_matmul.quant_matmul(q, wp, asc, wsc, acc_out=True)
+    assert (acc == 1024 * k).all()
+    assert torch.equal(quant_matmul.quant_matmul(q, wp, asc, wsc),
+                       ref.quant_matmul_ref(q, wp, asc, wsc))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_kernel_raises_above_max_k(cuda):
+    k = sparqle_matmul.MAX_K + 2
+    q = torch.zeros((1, k), dtype=torch.int8, device=cuda)
+    wp = torch.zeros((k // 2, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="int32 accumulator"):
+        quant_matmul.quant_matmul(q, wp, torch.ones((1, 1), device=cuda),
+                                  torch.ones((1, 8), device=cuda))
 
 
 @pytest.mark.cuda

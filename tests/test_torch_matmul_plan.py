@@ -1,4 +1,4 @@
-"""The dual-pass matmul's launch plan and fragment order, on the CPU.
+"""The W4A8 matmul body's launch plan and fragment order, on the CPU.
 
 ``csrc/sparqle_matmul.cu`` cannot run here, so its index arithmetic has
 a plain-Python mirror in ``repro_torch.kernels.sparqle_matmul``: the
@@ -8,11 +8,16 @@ These tests hold that mirror to what the kernel needs: every (m16,
 column, K tile) computed by exactly one block, buffers large enough, at
 least two blocks per SM at the decode shapes, permutations that are
 bijections and leave the integer product unchanged (exactly, on random
-int8 with numpy), and fragment reads free of bank conflicts.
+int8 with numpy), and fragment reads free of bank conflicts. The dense
+entry runs the same body on a full-range int8 q: a numpy model of its
+int32 arithmetic holds the bound the wrapper's ``MAX_K`` relies on, and
+the dense wrapper's launch (recorded on the CPU) covers every tile once.
 """
 import numpy as np
 import pytest
+import torch
 
+from repro_torch.kernels import quant_matmul as QM
 from repro_torch.kernels import sparqle_matmul as S
 from repro_torch.kernels.ref import TILE_K, TILE_M
 
@@ -252,3 +257,124 @@ def test_register_unpack_selectors():
 def test_int32_accumulator_holds_16x_the_sum_up_to_max_k():
     # per k: |lsb4 * 16w| + |16 msb4 * 16w| <= 16 * (15 + 128) * 8
     assert 16 * (15 + 128) * 8 * S.MAX_K < 2 ** 31
+
+
+# ---------------------------------------------------------------------------
+# the dense entry (quant_matmul_launch): the same body on a full-range q
+# ---------------------------------------------------------------------------
+
+def _kernel_acc(q, w, per):
+    """csrc/sparqle_matmul.cu's int32 arithmetic on a full-range int8 q
+    (M, K) and int4 w (K, N): the weight operand 16 w; in every split of
+    ``per`` K tiles, K half kh sums k32 steps 2kh, 2kh + 1 of each tile
+    in a wrapping int32 accumulator (mma.sync s32 does not saturate); the
+    halves meet as (a + b) >> 4 in int32; the splits' partials sum in
+    int32. int32 sums wrap mod 2^32 in any order, so each sum is taken
+    exactly in int64 and wrapped once."""
+    def wrap(x):
+        return np.asarray(x, np.int64).astype(np.int32)
+    k = q.shape[1]
+    kk = np.arange(k)
+    half = (kk % TILE_K) // 64
+    tile = kk // TILE_K
+    q64, w16 = q.astype(np.int64), 16 * w.astype(np.int64)
+    total = np.zeros((q.shape[0], w.shape[1]), np.int32)
+    for lo in range(0, -(-k // TILE_K), per):
+        split = (tile >= lo) & (tile < lo + per)
+        a, b = (wrap(q64[:, split & (half == h)] @ w16[split & (half == h)])
+                for h in (0, 1))
+        meet = wrap(a.astype(np.int64) + b) >> 4
+        total = wrap(total.astype(np.int64) + meet)
+    return total
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_dense_int32_model_equals_the_product(seed):
+    rng = np.random.default_rng(seed)
+    m, k, n = 5, 1000, 24
+    q = rng.integers(-128, 128, (m, k))
+    w = rng.integers(-8, 8, (k, n))
+    for per in (1, 2, 3, 8):
+        assert np.array_equal(_kernel_acc(q, w, per), q @ w)
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 1024])
+def test_dense_int32_exact_at_max_k_extreme_operands(m):
+    # q = -128, w = -8: every term is +2^14 (the largest), at K = MAX_K
+    # under the split the wrapper launches and under one split
+    k, n = S.MAX_K, 14336
+    q = np.full((1, k), -128)
+    w = np.full((k, 1), -8)
+    for per in (S.launch_plan(m, n, k).per, k // TILE_K):
+        assert _kernel_acc(q, w, per)[0, 0] == 1024 * k
+
+
+def test_dense_int32_first_overflows_at_k_131072():
+    # one split (a wide grid needs no split): all of K in one block
+    for k, exact in ((131071, True), (131072, False)):
+        q = np.full((1, k), -128)
+        w = np.full((k, 1), -8)
+        got = _kernel_acc(q, w, -(-k // TILE_K))[0, 0]
+        assert (got == 1024 * k) == exact
+    assert 128 * 128 * 131071 < 2 ** 31 <= 128 * 128 * 131072
+    assert S.MAX_K < 131072
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that a wrapper's
+    kernel branch runs here and its launch can be recorded."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.fixture
+def dense_launches(monkeypatch):
+    """quant_matmul's kernel branch on the CPU: the launch recorded, the
+    device's counter buffer a CPU one."""
+    calls = []
+    monkeypatch.setattr(QM.KERNEL, "launch", lambda *a: calls.append(a))
+    monkeypatch.setitem(S._COUNTERS, torch.device("cpu"),
+                        torch.zeros(S.TARGET_BLOCKS, dtype=torch.int32))
+
+    def run(m, n, k, acc_out=False):
+        q = torch.Tensor._make_subclass(
+            _OnCard, torch.empty((m, k), dtype=torch.int8))
+        res = QM.quant_matmul(q, torch.empty((k // 2, n), dtype=torch.int8),
+                              torch.empty((m, 1)), torch.empty((1, n)),
+                              acc_out=acc_out)
+        return res, calls
+    return run
+
+
+@pytest.mark.parametrize("m,n,k", SHAPES)
+def test_dense_launch_covers_every_tile_once(dense_launches, m, n, k):
+    """The dense wrapper launches the shared body once, with a K split
+    whose grid (as the C entry derives it from ``per``) computes every
+    (m16, column, K tile) exactly once, a workspace pointer where it
+    splits and the device's counters."""
+    res, calls = dense_launches(m, n, k, acc_out=k % 3 == 0)
+    assert len(calls) == 1
+    (q_ptr, w_ptr, _, _, out, acc, ws, counters, mm, nn, kk,
+     per) = calls[0]
+    assert (mm, nn, kk) == (m, n, k)
+    assert (acc if k % 3 == 0 else out) == res.data_ptr()
+    assert (out if k % 3 == 0 else acc) is None
+    n_kt = -(-k // TILE_K)
+    plan = S.Plan(-(-n // S.BLOCK_N), -(-m // S.BLOCK_M), n_kt, per,
+                  -(-n_kt // per))
+    assert plan == S.launch_plan(m, n, k)
+    assert (ws is not None) == (plan.splits > 1)
+    assert counters == S._COUNTERS[torch.device("cpu")].data_ptr()
+    count = np.zeros((-(-m // TILE_M), n, n_kt), np.int32)
+    for bx, by, bz in _blocks(plan):
+        for mt, lo, hi, kt in S.block_tiles(plan, m, n, bx, by, bz):
+            count[mt, lo:hi, kt] += 1
+    assert (count == 1).all()
+
+
+def test_dense_wrapper_raises_above_max_k(dense_launches):
+    dense_launches(1, 8, S.MAX_K)
+    with pytest.raises(ValueError, match="int32 accumulator"):
+        dense_launches(1, 8, S.MAX_K + 2)
