@@ -30,7 +30,17 @@ to chiprun_out/):
      population pattern;
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
-     launch counters zeroed just before and read just after;
+     launch counters zeroed just before and read just after; from here
+     on every serve runs its steps as CUDA graphs (``launch/graphs.py``),
+     as the engines and the fixed-batch decode do by default on a card;
+ 4b. the compiled steps against eager ones: an engine serves the same
+     weights and prompts under ``disable_graphs()`` and another with
+     graphs, alternated, a warm serve each and then GRAPH_ROUNDS rounds:
+     streams equal to phase 4's, per-kernel launch counts equal, TTFT,
+     TPOT and tokens/s of both; then every step kind captured at full
+     depth (``graph_cases``: the prefill chunk at valid = 32 and < 32,
+     decode, draft, verify, KV2 decode, the fixed-batch decode) replayed
+     against its eager calls, logits, telemetry and pages bit-equal;
   5. serve the same weights and prompts through the SpeculativeEngine
      (gamma = SPEC_GAMMA: LSB4-only drafts + one verify window per
      cycle), counters zeroed just before and read just after; every
@@ -57,7 +67,8 @@ to chiprun_out/):
      differ); then granite width, 2 layers, f32: legacy streams equal to
      the engine's with the prefill unchunked;
  10. profile a shorter run of phase 4's, phase 5's and phase 7's
-     engine shapes (device busy share, device time by kernel, bf16
+     engine shapes on an engine whose graphs a first run captured
+     (device busy share under graphs, device time by kernel, bf16
      reduce_kernel launches beside the encoder's; the dense run's matmul
      is one kernel row whose launches equal the quant_matmul counter's,
      with no drain and no more fill launches than the base run), then
@@ -105,6 +116,8 @@ SPEC_GAMMA = 2
 UNFUSED = ("sparqle_encode", "sparqle_quantize", "sparqle_encode_packed")
 # The granite-8b serve of phases 4 and 5.
 SERVE = dict(batch=8, prompt_len=128, gen=16)
+# Phase 4b: timed serves of each path (eager, graphs) after a warm one.
+GRAPH_ROUNDS = 2
 
 # Published H100 peaks (NVIDIA data sheets; dense): bytes/s, int8 op/s,
 # f32 (non-tensor) flop/s, by the name nvidia-smi reports.
@@ -1302,6 +1315,37 @@ def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
     return r
 
 
+def graphs_vs_eager(dev, cfg, params, prompts):
+    """Phase 4b's serves: one engine serving under ``disable_graphs()``
+    and one with its steps as CUDA graphs, alternated — a warm serve of
+    each (the graph engine's captures), then GRAPH_ROUNDS rounds — each
+    serve with the launch counters zeroed just before and read just
+    after. Returns {path: [warm serve, timed serves...]}."""
+    import contextlib
+    from repro_torch import kernels
+    from repro_torch.launch.graphs import disable_graphs
+    from repro_torch.launch.serve import make_engine, run_requests
+    runs = {"eager": [], "graphs": []}
+    engines = {path: make_engine(cfg, params, **SERVE, page_size=16,
+                                 token_budget=128, prefill_chunk=32,
+                                 decode_slots=8, device=dev)
+               for path in runs}
+    for _ in range(1 + GRAPH_ROUNDS):
+        for path, eng in engines.items():
+            kernels.reset_launch_counts()
+            with (disable_graphs() if path == "eager"
+                  else contextlib.nullcontext()):
+                r = run_requests(eng, prompts, SERVE["gen"])
+            r["launches"] = kernels.launch_counts()
+            del r["aggregate"]
+            runs[path].append(r)
+    if [s.graphs for s in (engines["graphs"]._prefill_fn,
+                           engines["graphs"]._decode_fn)] != [1, 1]:
+        raise AssertionError("the graph engine did not capture one graph "
+                             "a step")
+    return runs
+
+
 def check_path(r, need, absent=()):
     """Raise unless every kernel in ``need`` launched and none in
     ``absent`` did in the serve ``r``."""
@@ -1343,6 +1387,39 @@ def row_count_dependence(dev, cfg, params):
     return out
 
 
+def fill_random(tree, g):
+    """Random bytes and scales in every tensor of a pool or cache tree (a
+    used pool), in place; returns the tree."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            fill_random(v, g)
+        elif v.dtype == torch.int8:
+            v.random_(-128, 128, generator=g)
+        else:
+            v.uniform_(0.01, 0.2, generator=g)
+    return tree
+
+
+def clone_tree(tree):
+    """A copy of a dict tree of tensors."""
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def trees_equal(a, b) -> bool:
+    """Bit equality of two step results (tensors in dicts and tuples)."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(trees_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(trees_equal(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
 def window_vs_decode(dev, cfg, params, seed: int):
     """One verify window (T = SPEC_GAMMA + 1) against T decode steps at
     full width and depth, from the same random pool: True when the
@@ -1352,18 +1429,9 @@ def window_vs_decode(dev, cfg, params, seed: int):
     from repro_torch.serving.kv_pool import PoolConfig, init_pool_state
     g = torch.Generator(device=dev).manual_seed(seed + 13)
     b, t, ps, n_s = 8, SPEC_GAMMA + 1, 16, 10
-    pool = init_pool_state(cfg, PoolConfig(n_pages=1 + b * n_s,
-                                           page_size=ps), dev)
-    for stage in pool["stages"].values():            # a used pool
-        for lp in stage.values():
-            for key, v in lp.items():
-                if v.dtype == torch.int8:
-                    v.random_(-128, 128, generator=g)
-                else:
-                    v.uniform_(0.01, 0.2, generator=g)
-    clone = lambda tree: {k: clone(v) if isinstance(v, dict)  # noqa: E731
-                          else v.clone() for k, v in tree.items()}
-    vpool = clone(pool)
+    pool = fill_random(init_pool_state(
+        cfg, PoolConfig(n_pages=1 + b * n_s, page_size=ps), dev), g)
+    vpool = clone_tree(pool)
     tables = (torch.randperm(b * n_s, generator=g, device=dev) + 1).reshape(
         b, n_s).to(torch.int32)
     pos = torch.tensor([3, 14, 30, 47, 62, 95, 126, n_s * ps - t],
@@ -1383,6 +1451,101 @@ def window_vs_decode(dev, cfg, params, seed: int):
         for s in pool["stages"] for p in pool["stages"][s]
         for k in pool["stages"][s][p])
     return {"logits_equal": logits_equal, "pages_equal": pages_equal}
+
+
+def graph_cases(cfg, params, dev, seed: int, *, b: int = 8, ps: int = 16,
+                n_s: int = 10, chunk: int = 32, gamma: int = SPEC_GAMMA):
+    """Every step kind that the engines and the fixed-batch decode run as
+    CUDA graphs, one at a time: (name, step closure, persistent state,
+    the inputs of four calls — a compiled step's warm-up, its capture and
+    two replays). The state is a used random pool of b slots x n_s pages
+    of ps tokens (with a KV2 slab for the tiered step) or contiguous
+    caches of n_s * ps positions. From call to call the positions, block
+    tables and tokens move, a slot is left inactive (zero table row,
+    position 0), and the prefill chunk runs valid = chunk and valid <
+    chunk at other starts."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models.model import init_cache
+    from repro_torch.serving.kv_pool import PoolConfig, init_pool_state
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    span, n_pages = n_s * ps, 1 + b * n_s
+
+    def ints(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    def tokens(*shape):
+        return torch.randint(0, cfg.vocab, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def pool(kv2_pages=0):
+        return fill_random(init_pool_state(cfg, PoolConfig(
+            n_pages=n_pages, page_size=ps, kv2_pages=kv2_pages), dev), g)
+
+    def batch(call, hi, tiers=False):
+        """token, pos in [0, hi), tables (and tier tables) of b slots;
+        slot ``call % b`` inactive. The page under pos is at tier 0, as
+        the engine promotes it before the step writes there (a write to
+        a demoted page goes to the null page, where two slots' writes
+        would race)."""
+        rows = torch.arange(b, device=dev)
+        keep = (rows != call % b).to(torch.int32)
+        tables = (torch.randperm(b * n_s, generator=g, device=dev) + 1
+                  ).reshape(b, n_s).to(torch.int32) * keep[:, None]
+        pos = torch.randint(0, hi, (b,), generator=g, device=dev,
+                            dtype=torch.int32) * keep
+        out = (tokens(b) * keep, pos, tables)
+        if tiers:
+            tier = torch.randint(0, 2, (b, n_s), generator=g, device=dev,
+                                 dtype=torch.int32) * keep[:, None]
+            tier[rows, (pos // ps).long()] = 0
+            out += (tier,)
+        return out
+
+    def chunk_call(start, valid):
+        table = (torch.randperm(n_pages - 1, generator=g, device=dev)[:n_s]
+                 + 1)[None].to(torch.int32)
+        return tokens(1, chunk), ints(start), ints(valid), table
+
+    yield ("prefill_chunk", S.make_engine_prefill_chunk(cfg), (params, pool()),
+           [chunk_call(0, chunk), chunk_call(chunk, chunk),
+            chunk_call(2 * chunk, chunk // 2 + 3), chunk_call(ps + 1, chunk - 1)])
+    yield ("decode", S.make_engine_decode(cfg), (params, pool()),
+           [batch(i, span) for i in range(4)])
+    yield ("draft", S.make_engine_decode(cfg, msb_skip=True,
+                                         with_telemetry=False),
+           (params, pool()), [batch(i, span) for i in range(4)])
+    verify = []
+    for i in range(4):
+        token, pos, tables = batch(i, span - gamma)
+        window = tokens(b, gamma + 1)
+        window[:, 0] = token
+        verify.append((window * (tables[:, :1] != 0), pos, tables))
+    yield ("verify", S.make_engine_verify_window(cfg), (params, pool()),
+           verify)
+    yield ("kv2_decode", S.make_engine_decode(cfg, kv2=True),
+           (params, pool(kv2_pages=n_pages)),
+           [batch(i, span, tiers=True) for i in range(4)])
+    cache = fill_random(init_cache(cfg, b, span, dev), g)
+    yield ("legacy_decode", S.make_serve_decode(cfg), (params, cache),
+           [batch(i, span)[:2] for i in range(4)])
+
+
+def replay_vs_eager(dev, case, graph_type=None) -> bool:
+    """One case of :func:`graph_cases` through a compiled step (warm-up,
+    capture, replays; ``graph_type`` as ``CompiledStep`` takes it) and
+    eagerly on a copy of the same state: True when every call's outputs
+    and the state after it are bit-equal and the step captured one
+    graph."""
+    from repro_torch.launch.graphs import CompiledStep
+    _, fn, (params, state), calls = case
+    step = CompiledStep(fn, dev, graph_type=graph_type)
+    twin = clone_tree(state)
+    same = True
+    for args in calls:
+        got = step(params, state, *args)
+        want = fn(params, twin, *args)
+        same &= trees_equal(got, want) and trees_equal(state, twin)
+    return same and step.graphs == 1
 
 
 def with_fields(tree, **fields):
@@ -1462,11 +1625,12 @@ def legacy_vs_engine(dev, seed: int):
 def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0,
                    tag: str = ""):
     """Where the time goes: a shorter workload on the same engine shape
-    (8 requests x 32 prompt tokens x 8 new) under torch.profiler (device
-    time by kernel, device busy share of the wall, the launch counters
-    of that run beside the matmul kernels' rows), then under cProfile
-    (host time by function), written to chiprun_out/ (file suffix
-    ``tag``). Launches here come after the serves' counters were read."""
+    (8 requests x 32 prompt tokens x 8 new), served once to capture the
+    engine's step graphs, then again under torch.profiler (device time
+    by kernel, device busy share of the wall, the launch counters of
+    that run beside the matmul kernels' rows) and under cProfile (host
+    time by function), written to chiprun_out/ (file suffix ``tag``).
+    Launches here come after the serves' counters were read."""
     import cProfile
     import io
     import pstats
@@ -1477,10 +1641,11 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0,
     from torch.profiler import ProfilerActivity, profile
     prompts = make_prompts(cfg, seed + 7, 8, 32)
     tag = tag or (f"_spec{spec_gamma}" if spec_gamma else "")
+    eng = make_engine(cfg, params, batch=8, prompt_len=32, gen=8,
+                      spec_gamma=spec_gamma, device=dev)
+    run_requests(eng, prompts, 8)       # warm: captures the step graphs
 
     def workload():
-        eng = make_engine(cfg, params, batch=8, prompt_len=32, gen=8,
-                          spec_gamma=spec_gamma, device=dev)
         return run_requests(eng, prompts, 8)
 
     kernels.reset_launch_counts()
@@ -1527,7 +1692,11 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0,
     enc = [n for name, _, n in rows if "sparqle_encode" in name]
     return {"profiled_wall_s": r["wall_s"], "device_busy_s": dev_us / 1e6,
             "device_busy_share": dev_us / 1e6 / r["wall_s"],
-            "cprofiled_wall_s": r2["wall_s"], "by_kernel": by_kernel,
+            "cprofiled_wall_s": r2["wall_s"],
+            # the same work's device time over the wall of the rerun that
+            # ran without CUPTI (which slows every graph launch on the host)
+            "device_busy_share_cprofiled": dev_us / 1e6 / r2["wall_s"],
+            "by_kernel": by_kernel,
             "drain_fill": drain_fill, "matmul_rows": matmul_rows,
             "launches": launches,
             "kernel_launches": sum(n for _, _, n in rows),
@@ -1687,6 +1856,36 @@ def main() -> int:
             f"{eng['tpot_mean_s'] * 1e3:.2f} ms, {eng['steps']} steps, "
             f"launches {eng['launches']}, weights built in "
             f"{t_build:.1f} s, peak {eng['peak_mem_gb']:.1f} GB")
+        # phase 4b: the compiled steps against eager ones
+        t0 = time.perf_counter()
+        gve = graphs_vs_eager(dev, cfg, params, prompts)
+        gve["replay_vs_eager"] = {
+            case[0]: replay_vs_eager(dev, case)
+            for case in graph_cases(cfg, params, dev, args.seed)}
+        serves = gve["eager"] + gve["graphs"]
+        same_gve = [r["streams"] == eng["streams"] for r in serves]
+        same_counts = [r["launches"] == gve["eager"][0]["launches"]
+                       for r in serves + [eng]]
+
+        def times(path, key, scale=1e3):
+            return "/".join(f"{r[key] * scale:.2f}" for r in gve[path])
+        log(f"[4b] granite-8b {cfg.n_layers}L CUDA graphs vs eager, "
+            f"{1 + GRAPH_ROUNDS} serves each alternated (the first warm: "
+            f"the graph engine captures there): TPOT mean ms eager "
+            f"{times('eager', 'tpot_mean_s')}, graphs "
+            f"{times('graphs', 'tpot_mean_s')}; TTFT mean ms eager "
+            f"{times('eager', 'ttft_mean_s')}, graphs "
+            f"{times('graphs', 'ttft_mean_s')}; tok/s eager "
+            f"{times('eager', 'tokens_per_s', 1)}, graphs "
+            f"{times('graphs', 'tokens_per_s', 1)}; streams equal to phase "
+            f"4: {sum(same_gve)}/{len(same_gve)} serves, launch counts "
+            f"equal: {sum(same_counts)}/{len(same_counts)} (phase 4 "
+            f"included); each step kind replayed vs eager at "
+            f"{cfg.n_layers}L, bits equal: {gve['replay_vs_eager']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (all(same_gve) and all(same_counts)
+                and all(gve["replay_vs_eager"].values())):
+            raise AssertionError("the compiled steps differ from eager ones")
         spec = serve_granite(dev, cfg, params, prompts, spec_gamma=SPEC_GAMMA)
         check_path(spec, ("sparqle_encode_fused", "sparqle_matmul",
                           "kv_attention", "sparqle_matmul_draft",
@@ -1869,12 +2068,19 @@ def main() -> int:
         prof = spec["profile"]
         fills = [sum(r["launches"] for r in p["drain_fill"])
                  for p in (eng["profile"], dprof)]
-        log(f"[10] profiled reruns (8 requests x 32 prompt x 8 new): base "
-            f"device busy {eng['profile']['device_busy_s']:.3f} s of "
-            f"{eng['profile']['profiled_wall_s']:.2f} s wall, by kernel: "
+        log(f"[10] profiled reruns (8 requests x 32 prompt x 8 new, CUDA "
+            f"graphs captured by a first run): base device busy "
+            f"{eng['profile']['device_busy_s']:.3f} s of "
+            f"{eng['profile']['profiled_wall_s']:.2f} s wall (busy share "
+            f"{eng['profile']['device_busy_share']:.3f}; over the "
+            f"cProfiled rerun's {eng['profile']['cprofiled_wall_s']:.3f} s "
+            f"wall {eng['profile']['device_busy_share_cprofiled']:.3f}), "
+            f"by kernel: "
             f"{split}; speculative device busy {prof['device_busy_s']:.3f} "
             f"s of {prof['profiled_wall_s']:.2f} s wall (idle "
-            f"{1 - prof['device_busy_share']:.3f}); phase 4's serve after "
+            f"{1 - prof['device_busy_share']:.3f}; over the cProfiled "
+            f"rerun's wall {1 - prof['device_busy_share_cprofiled']:.3f}); "
+            f"phase 4's serve after "
             f"the profilers: {after['wall_s']:.2f} s wall, TPOT mean "
             f"{after['tpot_mean_s'] * 1e3:.2f} ms (phase 4: "
             f"{eng['wall_s']:.2f} s, {eng['tpot_mean_s'] * 1e3:.2f} ms), "
@@ -1916,7 +2122,8 @@ def main() -> int:
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg}
         strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
                            if k != "aggregate"}
-        detail.update(engine=strip(eng), spec_engine=strip(spec),
+        detail.update(engine=strip(eng), graphs_vs_eager=gve,
+                      spec_engine=strip(spec),
                       spec_aggregate={k: v for k, v in agg.items()
                                       if k.startswith(("spec_", "steps"))},
                       kv2_idle=strip(idle), kv2_engine=strip(kv2),

@@ -47,8 +47,9 @@ WIRE_FORMATS = ("unpacked", "packed")
 
 
 # Draft-mode flag (self-speculative decoding): while True, every sparqle
-# projection runs LSB4-only — the MSB pass is not launched at all. The
-# port runs eagerly, so the flag is read at each call, not at a trace.
+# projection runs LSB4-only — the MSB pass is not launched at all. It is
+# read at each eager call; a compiled step reads it at its capture, as a
+# JAX trace does (the draft step sets it itself).
 _MSB_SKIP = False
 
 
@@ -110,12 +111,17 @@ class SparqleLinear:
     wire_format: str = "unpacked"
 
     def layer(self, i: int) -> "SparqleLinear":
-        """The ``i``-th layer of a layer-stacked projection."""
+        """The ``i``-th layer of a layer-stacked projection. The host
+        constants ``l``/``h`` are split in numpy, so no tensor op is
+        dispatched for them: a CUDA-graph capture or a trace of a step
+        sees their values only (as the kernels' arguments)."""
         pick = lambda t: None if t is None else t[i]  # noqa: E731
+        host = lambda t: None if t is None else torch.from_numpy(  # noqa: E731
+            t.numpy()[i:i + 1].reshape(()))
         return dataclasses.replace(
             self, w=QuantizedTensor(self.w.q[i], self.w.scale[i],
                                     self.w.zero[i], self.w.bits),
-            col_mask=pick(self.col_mask), l=pick(self.l), h=pick(self.h))
+            col_mask=pick(self.col_mask), l=host(self.l), h=host(self.h))
 
     def to(self, device) -> "SparqleLinear":
         """Weights and mask to ``device``; ``l``/``h`` stay on the CPU."""

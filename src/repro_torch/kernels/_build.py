@@ -15,9 +15,16 @@ non-zero code and counts the launch. One source may export several
 entry points (the full and the draft matmul, the decode and the verify
 attention): each is a :class:`Kernel` of its own name and count, and
 they share the source's one library.
+
+``launches`` counts kernel launches executed. A CUDA graph replay runs
+no Python, so the step runner (``launch/graphs.py``) captures inside
+:func:`recording_launches`, which records the capture's launches apart,
+and adds them once per replay (:func:`add_launches`).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +32,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -50,6 +57,8 @@ def _nvcc() -> str:
 
 
 _LOAD_LOCK = threading.Lock()
+# the launch counts of the capture under way, while the runner captures
+_RECORDING: Optional[Dict["Kernel", int]] = None
 
 
 class Kernel:
@@ -109,13 +118,18 @@ class Kernel:
 
     def launch(self, *args) -> None:
         """Call the C entry on PyTorch's current stream (appended as the
-        last argument); raise if the launch was refused."""
+        last argument); raise if the launch was refused. Counted in
+        ``launches``, or in the recording under way (a capture, whose
+        replays add it)."""
         fn = self._load()
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err}")
-        self.launches += 1
+        if _RECORDING is None:
+            self.launches += 1
+        else:
+            _RECORDING[self] += 1
 
 
 KERNELS: Dict[str, Kernel] = {}
@@ -141,6 +155,25 @@ def build_all() -> None:
         raise RuntimeError("\n".join(errors))
     for k in KERNELS.values():
         k._load()
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[Kernel, int]]:
+    """Count the launches made inside into the yielded dict (kernel ->
+    launches) instead of ``Kernel.launches``: the step runner's capture,
+    whose launches execute only when the graph replays."""
+    global _RECORDING
+    prev, _RECORDING = _RECORDING, collections.Counter()
+    try:
+        yield _RECORDING
+    finally:
+        _RECORDING = prev
+
+
+def add_launches(counts: Dict[Kernel, int]) -> None:
+    """Add a recording's counts once (one replay of its graph)."""
+    for kernel, n in counts.items():
+        kernel.launches += n
 
 
 def reset_launch_counts() -> None:

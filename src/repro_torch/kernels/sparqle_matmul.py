@@ -160,8 +160,11 @@ def _counters(dev: torch.device) -> torch.Tensor:
     buf = _COUNTERS.get(dev)
     if buf is None:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("call sparqle_matmul once on this device "
-                               "before capturing it into a CUDA graph")
+            raise RuntimeError(
+                "call the matmul once on this device before capturing it "
+                "into a CUDA graph: the first, eager call of a compiled "
+                "step (the warm-up of launch/graphs.py) allocates these "
+                "counters")
         buf = torch.zeros(TARGET_BLOCKS, dtype=torch.int32, device=dev)
         _COUNTERS[dev] = buf
     return buf

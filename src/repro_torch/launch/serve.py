@@ -24,7 +24,10 @@ matmul kernels), no sub-precision split.
 
 ``--legacy`` serves the fixed-batch path instead: one whole-prompt
 prefill into a contiguous packed-KV4 cache a layer, then lockstep greedy
-decode steps through the contiguous KV4 decode kernel.
+decode steps through the contiguous KV4 decode kernel. On a CUDA device
+the decode step runs as a CUDA graph (``launch/graphs.py``), as do the
+engine's steps; the prefill, which runs once a serve and allocates the
+caches, runs eagerly.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --legacy
@@ -47,6 +50,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as S
+from repro_torch.launch.graphs import CompiledStep
 from repro_torch.models.model import check_paged_support
 from repro_torch.models.schema import init_quantized_params
 from repro_torch.models.schema_builder import build_schema
@@ -140,7 +144,7 @@ def legacy_serve(cfg: ModelConfig, params, prompts: List[List[int]],
     tokens = torch.tensor(prompts, dtype=torch.int32, device=device)
     b, plen = tokens.shape
     prefill = S.make_serve_prefill(cfg, plen + gen)
-    decode = S.make_serve_decode(cfg)
+    decode = CompiledStep(S.make_serve_decode(cfg), device)
 
     def sync():
         if device.type == "cuda":

@@ -5,11 +5,13 @@ and the fixed-batch path's whole-prompt prefill and decode over
 contiguous caches (``make_serve_prefill``/``make_serve_decode``).
 
 The decode step takes a (B, Pmax) tier table too when the KV2 precision
-ladder is armed. All keep the JAX steps' static shapes — a (1, C) prefill chunk, a (B,)
-decode batch and a (B, T) verify window over a (B, Pmax) block table,
-inactive slots on the null page — so they can be captured as CUDA graphs
-later. All update the pool in place and return it (the JAX steps return
-a new one).
+ladder is armed. All keep the JAX steps' static shapes — a (1, C) prefill
+chunk whose start and valid count are (1,) device tensors, a (B,) decode
+batch and a (B, T) verify window over a (B, Pmax) block table, inactive
+slots on the null page — and read no device value on the host, so the
+engines and the fixed-batch decode run them as CUDA graphs
+(``launch/graphs.py``), one capture per shape. All update the pool in
+place and return it (the JAX steps return a new one).
 """
 from __future__ import annotations
 
@@ -48,12 +50,12 @@ def make_serve_decode(cfg: ModelConfig):
 
 
 def make_engine_prefill_chunk(cfg: ModelConfig):
-    """(params, pool, tokens (1, C), start, valid, block_table (1, Pmax))
-    -> (logits (1, V) at the last valid position, pool, telemetry)."""
+    """(params, pool, tokens (1, C), start (1,), valid (1,), block_table
+    (1, Pmax)) -> (logits (1, V) at the last valid position, pool,
+    telemetry); ``start``/``valid`` int32 tensors (or Python ints)."""
 
     @torch.no_grad()
-    def prefill_chunk(params, pool, tokens, start: int, valid: int,
-                      block_table):
+    def prefill_chunk(params, pool, tokens, start, valid, block_table):
         return M.prefill_chunk_paged(cfg, params, pool, tokens, start, valid,
                                      block_table)
 

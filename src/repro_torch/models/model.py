@@ -328,9 +328,11 @@ def verify_window_paged(cfg: ModelConfig, params: Params, pool: Cache,
 
 def _attn_prefill_chunk_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
                               x: torch.Tensor, pool: Cache,
-                              block_table: torch.Tensor, start: int,
-                              valid: int) -> Tuple[torch.Tensor, Cache]:
-    """Chunked-prefill attention for ONE sequence. x: (1, C, D).
+                              block_table: torch.Tensor, start: torch.Tensor,
+                              valid: torch.Tensor
+                              ) -> Tuple[torch.Tensor, Cache]:
+    """Chunked-prefill attention for ONE sequence. x: (1, C, D);
+    ``start``/``valid`` (1,) int32 on x's device.
 
     Queries attend to the dequantized pool for positions < start and to
     the float chunk K/V for the chunk itself."""
@@ -375,16 +377,22 @@ def _attn_prefill_chunk_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Cache,
-                        tokens: torch.Tensor, start: int, valid: int,
+                        tokens: torch.Tensor, start, valid,
                         block_table: torch.Tensor
                         ) -> Tuple[torch.Tensor, Cache, Dict[str, torch.Tensor]]:
     """Prefill one chunk of ONE sequence into the paged pool.
 
     tokens (1, C) int32 (tail-padded; ``valid`` counts real tokens),
     ``start`` the absolute position of tokens[0, 0], block_table
-    (1, Pmax). Returns (logits (1, V) at the last valid position, pool,
-    telemetry over the chunk's valid tokens).
+    (1, Pmax). ``start``/``valid`` are Python ints or (1,) int32 tensors
+    on the tokens' device, as JAX traces them: the engine passes tensors,
+    so that one captured graph serves every chunk. Returns (logits (1, V)
+    at the last valid position, pool, telemetry over the chunk's valid
+    tokens).
     """
+    dev = tokens.device
+    start = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(1)
+    valid = torch.as_tensor(valid, dtype=torch.int32, device=dev).reshape(1)
     x = _embed(cfg, params, tokens)
     tels = []
     for ld, p, lpool in _layers(cfg, params, pool):
@@ -394,8 +402,10 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Cache,
         x = x + y
         x = x + dense_ffn(cfg, p, x)
     c = tokens.shape[1]
-    valid_tok = (torch.arange(c, device=x.device) < valid).float()
-    n_valid = max(float(min(max(valid, 0), c)), 1.0)
+    valid_tok = (torch.arange(c, device=dev) < valid).float()
+    # a device scalar: the card divides truly, as JAX does (a Python
+    # number would be a multiply by its reciprocal there)
+    n_valid = valid_tok.sum().clamp_min(1.0)
     sp_tok = _act_subprecision_sparsity(x[0])
     tel = {k: v[:, 0, :] for k, v in stack_sublayer_telemetry(tels).items()}
     telemetry = {
@@ -404,8 +414,9 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Cache,
         "layer_wire_bytes": (tel["wire_bytes"] * valid_tok).sum(-1),
         "layer_dense_bytes": (tel["dense_bytes"] * valid_tok).sum(-1),
     }
-    last = max(valid - 1, 0)
-    logits = head_logits(cfg, params, x[:, last:last + 1])[:, 0]
+    # one row, clamped into the chunk as JAX's dynamic slice clamps it
+    last = (valid - 1).clamp(0, c - 1).long()
+    logits = head_logits(cfg, params, x.index_select(1, last))[:, 0]
     return logits, pool, telemetry
 
 

@@ -5,11 +5,13 @@ Ties together the scheduler, the page pool and the two step functions of
 ``launch/steps.py``: ``prefill_chunk`` — one (1, prefill_chunk) slice of
 one prompt — and ``decode`` — one token for every decode slot at once,
 through the paged decode-attention kernel. Inactive decode slots ride
-along pointing at the null page. Sampling is host-side numpy, as in the
-JAX engine. ``PoolConfig(kv2_pages > 0)`` arms the KV2 precision ladder:
-the decode step reads each page through its tier id (the mixed-tier
-kernel), the page about to be written is promoted first, and cold pages
-are demoted after each step.
+along pointing at the null page. On a CUDA device each step runs as a
+CUDA graph, captured at its second call and replayed after
+(``launch/graphs.py``, as the JAX engine jits its steps). Sampling is
+host-side numpy, as in the JAX engine. ``PoolConfig(kv2_pages > 0)``
+arms the KV2 precision ladder: the decode step reads each page through
+its tier id (the mixed-tier kernel), the page about to be written is
+promoted first, and cold pages are demoted after each step.
 
     eng = Engine(cfg, qparams)                 # device="cuda" by default
     h = eng.submit([1, 2, 3], SamplingParams(max_new_tokens=8))
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import tree_to
+from repro_torch.launch.graphs import CompiledStep
 from repro_torch.models.model import check_paged_support
 from repro_torch.obs import Observability
 from repro_torch.serving.kv_pool import PagedKVPool, PoolConfig
@@ -73,8 +76,12 @@ class Engine:
         self._chunk = scfg.prefill_chunk
         self._n_slots = scfg.max_decode_batch
         self._n_page_steps = scfg.max_pages_per_seq
-        self._prefill_fn = S.make_engine_prefill_chunk(cfg)
-        self._decode_fn = S.make_engine_decode(cfg, kv2=self._kv2)
+        # one graph memory pool for every step of this engine
+        self._mempool = (torch.cuda.graph_pool_handle()
+                         if self.device.type == "cuda" else None)
+        self._prefill_fn = self._compiled(S.make_engine_prefill_chunk(cfg))
+        self._decode_fn = self._compiled(S.make_engine_decode(cfg,
+                                                              kv2=self._kv2))
         self._rngs: Dict[int, np.random.Generator] = {}
         self.steps = 0
         self.layer_wire_bytes: Optional[np.ndarray] = None
@@ -131,6 +138,10 @@ class Engine:
             "serving_pool_kv_bytes_saved", "KV HBM bytes currently freed "
             "by demoted pages (KV4 cost minus KV2 cost of held KV2 "
             "pages)", unit="bytes")
+
+    def _compiled(self, fn) -> CompiledStep:
+        """A step closure run as a compiled step on the engine's device."""
+        return CompiledStep(fn, self.device, mempool=self._mempool)
 
     # -- public API --------------------------------------------------------
 
@@ -260,6 +271,10 @@ class Engine:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _scalar(self, v: int) -> torch.Tensor:
+        """A (1,) int32 step input on the device (a traced scalar)."""
+        return self._to_dev(np.array([v], np.int32))
+
     @staticmethod
     def _host(tel: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         return {k: v.double().cpu().numpy() for k, v in tel.items()}
@@ -303,7 +318,8 @@ class Engine:
         toks = np.zeros((1, self._chunk), np.int32)
         toks[0, :n] = req.context[start:start + n]
         logits, self.pool.state, tel = self._prefill_fn(
-            self.params, self.pool.state, self._to_dev(toks), start, n,
+            self.params, self.pool.state, self._to_dev(toks),
+            self._scalar(start), self._scalar(n),
             self._to_dev(self._block_table_row(req)[None]))
         tel = self._host(tel)
         req.sparsity_sum += float(tel["sparsity"]) * n

@@ -93,9 +93,9 @@ class SpeculativeEngine(Engine):
         super().__init__(cfg, params, pool_config=pool_config,
                          sched_config=sched_config, clock=clock, obs=obs,
                          device=device)
-        self._draft_fn = S.make_engine_decode(cfg, msb_skip=True,
-                                              with_telemetry=False)
-        self._verify_fn = S.make_engine_verify_window(cfg)
+        self._draft_fn = self._compiled(S.make_engine_decode(
+            cfg, msb_skip=True, with_telemetry=False))
+        self._verify_fn = self._compiled(S.make_engine_verify_window(cfg))
         r = self.obs.registry
         self._m_spec_proposed = r.counter(
             "serving_spec_draft_proposed_total", "draft tokens the "
