@@ -19,8 +19,12 @@ to chiprun_out/):
      the decode kernel on pages that tile the same cache, all four also
      at a long context of ~4,096 tokens and, untimed, at the other head
      dims, page sizes and G of ATTN_SHAPES, with the granite-8b smoke
-     config served on the card) and time kernel, plain version and
-     library call; the five entries of the W4A8 matmul body (full, draft,
+     config served on the card; decode attention also at the zoo's head
+     shapes, G = 1, 12 and 8) and time kernel, plain version and
+     library call; the expert-batched encoders (three modes) and matmuls
+     (five entries) bit-exact with their plain versions over BATCHED_E x
+     BATCHED_C x BATCHED_KN (x POP_PATTERNS), one launch a call, timed at
+     E = 64, C = 1 and 3 beside the loop of 64 2-D calls; the five entries of the W4A8 matmul body (full, draft,
      packed, packed draft and dense) are timed at M = 8, 32 and 1024 and
      swept for bit-exactness over MATMUL_M x MATMUL_KN x POP_PATTERNS
      (and q = -128, w = -8), f32 and int32 outputs, each against its
@@ -78,7 +82,16 @@ to chiprun_out/):
      same weights and prompts through the Engine on the card (kernels)
      and on the CPU (plain versions), logits within LOGIT_TOL and the
      greedy token streams identical;
- 12. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 12. the rest of the zoo the engine serves, each at full width and depth
+     with phase 4's serve under CUDA graphs: yi-6b, starcoder2-3b and
+     deepseek-moe-16b (and for it gamma = SPEC_GAMMA, dense with logits
+     bit-equal to SPARQLe, packed base and gamma: streams equal to its
+     base serve's, every routed projection one batched encoder and one
+     batched matmul launch), TTFT, TPOT, tokens/s and launch counts; each
+     arch's 2-layer f32 cross-check as phase 11's; ``serve --ckpt`` of a
+     checkpoint the port's ``save`` wrote, streams equal to serving the
+     tree directly;
+ 13. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -109,6 +122,13 @@ ATTN_TOL = 1e-4
 # limit is about twice the worst reading on seeds 0-2 (0.0203, 0.0184,
 # 4e-7 of max |logit| on an H100); the greedy streams must agree.
 LOGIT_TOL = 0.04
+# deepseek-moe-16b (phase 12): readings 0.0435, 0.0386, 0.0474 on seeds
+# 0-2 (H100), absolute differences 0.19-0.22 as granite's 0.14-0.19, over
+# a smaller max |logit| (4.6-4.9 against 7.3-7.8); a router top-6
+# near-tie that the f32 sum order flips also moves a token's FFN output.
+# Its limit is about twice the worst reading; the greedy streams must
+# agree as for every arch.
+LOGIT_TOL_ARCH = {"deepseek-moe-16b": 0.1}
 XC_SEEDS = 3
 SPEC_GAMMA = 2
 # The encoder entries that take a scale: no serve launches them, since
@@ -1199,6 +1219,311 @@ def check_attention_shapes(dev, gen):
     return len(ATTN_SHAPES)
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the expert-batched entries (a routed MoE projection, one launch)
+# ---------------------------------------------------------------------------
+
+# The batched encoder and matmul entries at the expert counts and
+# capacities the MoE serves give them: E = 64 routed experts
+# (deepseek-moe-16b) and 8 (its smoke config); C = 1 (decode at B = 8:
+# capacity max(1, 8 * 6 // 64)), 3 (a 32-token prefill chunk), 6, 17 and
+# 32; (K, N) the routed gate/up (2048 -> 1408) and down (1408 -> 2048)
+# projections and the dense first layer's down projection (10944 ->
+# 2048, K mod 128 = 64). Timed at E = 64, C = 1 and 3.
+BATCHED_E = (8, 64)
+BATCHED_C = (1, 3, 6, 17, 32)
+BATCHED_KN = ((2048, 1408), (1408, 2048), (10944, 2048))
+BATCHED_TIMED = ((1, 2048, 1408), (3, 2048, 1408), (1, 1408, 2048),
+                 (3, 1408, 2048))
+# the reference's batched XLA path that the batched instances of the
+# Pallas kernels carry
+BATCHED_REF = "src/repro/core/qlinear.py:138 (batched=True)"
+
+
+def batched_instances():
+    """The five matmul entries in their batched call form: (wrapper,
+    batched plain version, operands, msb_skip, Pallas kernel)."""
+    from repro_torch.kernels import ref
+    inst = matmul_instances()
+    return {f"{name}_batched": (fn, ref.batched(plain), planes, skip)
+            for name, (fn, plain, planes, skip, _) in inst.items()}
+
+
+def batched_case(dev, gen, e, c, k, n, pattern):
+    """matmul_case for E experts: every operand with a leading E axis."""
+    parts = [matmul_case(dev, gen, c, k, n, pattern) for _ in range(e)]
+    return {key: torch.stack([p[key] for p in parts]).contiguous()
+            for key in parts[0]}
+
+
+def check_batched_matmul_case(c, where=""):
+    """The five batched entries, f32 and int32 outputs, each torch.equal
+    to its plain version (the 2-D plain version expert by expert);
+    packed = unpacked and dense = dual pass on the same q."""
+    got = {}
+    for name, (fn, plain, planes, skip) in batched_instances().items():
+        args = (c[planes[0]], c[planes[1]], c["pop"], c["wp"], c["asc"],
+                c["wsc"])
+        for acc_out in (False, True):
+            kw = dict(acc_out=acc_out, msb_skip=skip)
+            out = fn(*args, **kw)
+            if not torch.equal(out, plain(*args, **kw)):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"{where} acc_out={acc_out}")
+            got[name, acc_out] = out
+    for acc_out in (False, True):
+        for a, b in (("sparqle_matmul", "sparqle_matmul_packed"),
+                     ("sparqle_matmul_draft", "sparqle_matmul_packed_draft"),
+                     ("sparqle_matmul", "quant_matmul")):
+            if not torch.equal(got[a + "_batched", acc_out],
+                               got[b + "_batched", acc_out]):
+                raise AssertionError(f"{b}_batched differs from {a}_batched "
+                                     f"{where} acc_out={acc_out}")
+
+
+def check_one_launch(name, call):
+    """Raise unless ``call()`` launches the kernel ``name`` once and no
+    other kernel (a routed projection is one launch, never a loop)."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    call()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if counts != {name: 1}:
+        raise AssertionError(f"{name}: launches {counts}, not one")
+
+
+def check_batched_matmul(dev, gen, peaks):
+    """The five batched matmul entries: bit-exact over BATCHED_E x
+    BATCHED_C x BATCHED_KN x POP_PATTERNS with one launch a call, then
+    each timed at BATCHED_TIMED (E = 64, MSB zero on every other K tile)
+    beside its plain version and the loop of E 2-D calls it replaces;
+    bound by bytes: the E packed weights, the planes (the MSB plane
+    only of live tiles), scales and output once. Returns the rows."""
+    t0 = time.perf_counter()
+    cases = 0
+    for e in BATCHED_E:
+        for c in BATCHED_C:
+            for k, n in BATCHED_KN:
+                for pattern in POP_PATTERNS:
+                    check_batched_matmul_case(
+                        batched_case(dev, gen, e, c, k, n, pattern),
+                        f"at E={e} C={c} K={k} N={n} pop={pattern}")
+                    cases += 1
+    # one launch a call, never a loop over experts
+    c = batched_case(dev, gen, 8, 3, 2048, 1408, "live")
+    for name, (fn, _, planes, skip) in batched_instances().items():
+        check_one_launch(name, lambda: fn(
+            c[planes[0]], c[planes[1]], c["pop"], c["wp"], c["asc"],
+            c["wsc"], msb_skip=skip))
+    sweep_s = time.perf_counter() - t0
+    inst = batched_instances()
+    flat = matmul_instances()
+    detail = {name: [] for name in inst}
+    for cc, k, n in BATCHED_TIMED:
+        c = batched_case(dev, gen, 64, cc, k, n, "alternating")
+        live = (c["pop"] > 0).sum().item() / c["pop"].numel()
+        copies = max(1, math.ceil(150e6 / c["wp"].numel()))
+        wps = [c["wp"].clone() for _ in range(copies)]
+        for name, (fn, plain, planes, skip) in inst.items():
+            a0, a1 = c[planes[0]], c[planes[1]]
+            f2 = flat[name[:-len("_batched")]][0]
+
+            def call(*a, _fn=fn, _skip=skip):
+                return _fn(*a, msb_skip=_skip)
+
+            def loop(a0, a1, pop, wp, asc, wsc, _fn=f2, _skip=skip):
+                return [_fn(a0[i], a1[i], pop[i], wp[i], asc[i], wsc[i],
+                            msb_skip=_skip) for i in range(a0.shape[0])]
+
+            def ref(*a, _fn=plain, _skip=skip):
+                return _fn(*a, msb_skip=_skip)
+
+            args = [(a0, a1, c["pop"], w, c["asc"], c["wsc"]) for w in wps]
+            kms = time_ms(call, args, 50)
+            lms = time_ms(loop, args, 5)
+            pms = time_ms(ref, args[:1], 2)
+            passes = 1 if skip else 1 + live
+            nbytes = (a0.numel() * passes + c["wp"].numel()
+                      + c["asc"].numel() * 4 + c["wsc"].numel() * 4
+                      + 64 * cc * n * 4)
+            ops = 2.0 * 64 * cc * k * n * passes
+            detail[name].append({
+                "E": 64, "C": cc, "K": k, "N": n, "ms": kms,
+                "loop_ms": lms, "plain_ms": pms,
+                "bound_ms": max(nbytes / peaks[0], ops / peaks[1]) * 1e3,
+                "bound_by": "bytes" if nbytes / peaks[0] >= ops / peaks[1]
+                else "operations"})
+    rows = []
+    pallas = {"sparqle_matmul_batched": "sparqle_matmul.py:209",
+              "sparqle_matmul_draft_batched": "sparqle_matmul.py:142",
+              "sparqle_matmul_packed_batched": "sparqle_matmul.py:250",
+              "sparqle_matmul_packed_draft_batched": "sparqle_matmul.py:159",
+              "quant_matmul_batched": "quant_matmul.py:45"}
+    for name, d in detail.items():
+        t = d[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/sparqle_matmul.cu",
+            "replaces": f"src/repro/kernels/{pallas[name]}",
+            "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "shape": f"E={t['E']} C={t['C']} K={t['K']} N={t['N']} (a "
+                     f"routed gate/up projection at decode; loop of 64 2-D "
+                     f"calls "
+                     f"{t['loop_ms'] * 1e3:.1f} us); also "
+                     + ", ".join(f"C={x['C']} {x['K']}->{x['N']} "
+                                 f"{x['ms'] * 1e3:.1f} us (loop "
+                                 f"{x['loop_ms'] * 1e3:.1f})"
+                                 for x in d[1:])
+                     + f"; the batched instance of the Pallas kernel, on the "
+                       f"reference's batched path {BATCHED_REF}; {cases} "
+                       f"input sets bit-exact (E in {BATCHED_E}, "
+                       f"C in {BATCHED_C}, (K, N) in {BATCHED_KN}, "
+                       f"{POP_PATTERNS}) in {sweep_s:.1f} s",
+            "detail": d})
+    return rows
+
+
+def check_batched_encoder(dev, gen, peaks):
+    """The three batched fused encoders (x (E, C, K), an (E, K) mask):
+    outputs bit-equal to their plain versions (the 2-D plain version
+    expert by expert) over BATCHED_E x BATCHED_C x the K of
+    BATCHED_KN, bf16 (f32 too at E = 8), one launch a call; timed at E =
+    64, C = 1 and 3, K = 2048 beside the plain version and the loop of
+    64 2-D calls. Returns the rows."""
+    from repro_torch.core.packing import pad_k
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparqle_encode as E
+    from repro_torch.kernels.ref import TILE_K, TILE_M
+    entries = {
+        "sparqle_encode_fused_batched": (
+            lambda *a: E.sparqle_encode_fused(*a, with_pbm=False),
+            lambda *a: [t for i, t in enumerate(ref.batched(
+                ref.sparqle_encode_fused_ref)(*a)) if i != 2],
+            lambda e, c, k: 2 * e * c * k, "sparqle_encode.py:69"),
+        "sparqle_quantize_fused_batched": (
+            E.sparqle_quantize_fused,
+            ref.batched(ref.sparqle_quantize_fused_ref),
+            lambda e, c, k: e * c * k, "sparqle_encode.py:40"),
+        "sparqle_encode_packed_fused_batched": (
+            E.sparqle_encode_packed_fused,
+            ref.batched(ref.sparqle_encode_packed_fused_ref),
+            lambda e, c, k: e * c * (pad_k(k) + pad_k(k) // 8),
+            "sparqle_encode.py:105")}
+    t0 = time.perf_counter()
+    cases = 0
+    for e in BATCHED_E:
+        for c in BATCHED_C:
+            for k in sorted({k for k, _ in BATCHED_KN}):
+                for dt in ((torch.bfloat16, torch.float32) if e == 8
+                           else (torch.bfloat16,)):
+                    x = (torch.randn((e, c, k), generator=gen, device=dev)
+                         * torch.rand((e, c, 1), generator=gen,
+                                      device=dev) * 4).to(dt)
+                    x[0, 1:] = 0                   # an expert with one row
+                    mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
+                    for name, (fn, plain, _, _) in entries.items():
+                        got = [t for t in fn(x, mask, -8, 23)
+                               if t is not None]
+                        want = plain(x, mask, -8, 23)
+                        if len(got) != len(want) or not all(
+                                torch.equal(a, b) for a, b in zip(got, want)):
+                            raise AssertionError(
+                                f"{name} differs from its plain version at "
+                                f"E={e} C={c} K={k} {dt}")
+                    cases += 1
+    sweep_s = time.perf_counter() - t0
+    rows = []
+    flat = {"sparqle_encode_fused_batched": lambda *a: E.sparqle_encode_fused(
+                *a, with_pbm=False),
+            "sparqle_quantize_fused_batched": E.sparqle_quantize_fused,
+            "sparqle_encode_packed_fused_batched":
+                E.sparqle_encode_packed_fused}
+    for name, (fn, plain, out_bytes, pallas) in entries.items():
+        x = (torch.randn((8, 3, 2048), generator=gen, device=dev)).to(
+            torch.bfloat16)
+        mask = torch.rand((8, 2048), generator=gen, device=dev) < 0.5
+        check_one_launch(name, lambda: fn(x, mask, -8, 23))
+        d = []
+        for c in (1, 3):
+            e, k = 64, 2048
+            x = (torch.randn((e, c, k), generator=gen, device=dev)
+                 * 2).to(torch.bfloat16)
+            mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
+            args = [(x, mask, -8, 23)]
+            f2 = flat[name]
+
+            def loop(x, mask, lo, hi, _f2=f2):
+                return [_f2(x[i], mask[i], lo, hi) for i in range(x.shape[0])]
+
+            kms = time_ms(fn, args, 100)
+            lms = time_ms(loop, args, 5)
+            pms = time_ms(plain, args, 2)
+            pops = e * -(-c // TILE_M) * -(-k // TILE_K) * 4
+            nbytes = (e * c * k * 2 + e * k + e * c * 4 + out_bytes(e, c, k)
+                      + (0 if "quantize" in name else pops))
+            d.append({"E": e, "C": c, "K": k, "ms": kms, "loop_ms": lms,
+                      "plain_ms": pms, "bound_ms": nbytes / peaks[0] * 1e3,
+                      "bound_by": "bytes"})
+        t = d[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/sparqle_encode.cu",
+            "replaces": f"src/repro/kernels/{pallas}",
+            "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"E=64 C=1 K=2048 bf16, scale included (loop of 64 2-D "
+                     f"calls {t['loop_ms'] * 1e3:.1f} us); C=3 "
+                     f"{d[1]['ms'] * 1e3:.1f} us (loop "
+                     f"{d[1]['loop_ms'] * 1e3:.1f}); the batched instance on "
+                     f"the reference's batched path {BATCHED_REF}; {cases} "
+                     f"input sets bit-exact (E in {BATCHED_E}, C in {BATCHED_C}, K in "
+                     f"{sorted({k for k, _ in BATCHED_KN})}) in "
+                     f"{sweep_s:.1f} s",
+            "detail": d})
+    return rows
+
+
+# The paged decode attention (row 8) at the new architectures' head
+# shapes, hd 128, pages of 16: deepseek-moe-16b (MHA, G = 1: the body
+# masks 3 of every 4 heads in a block), starcoder2-3b (G = 12) and yi-6b
+# (G = 8), beside granite-8b's G = 4 (the row's own timing).
+ZOO_ATTN = (("deepseek-moe-16b", 16, 1), ("starcoder2-3b", 2, 12),
+            ("yi-6b", 4, 8))
+
+
+def check_attention_zoo(dev, gen, peaks):
+    """Row 8 at ZOO_ATTN: within ATTN_TOL of the plain version (f32), timed
+    at B = 8 over up to 16 pages; returns {arch: detail}."""
+    from repro_torch.kernels.kv_attention import kv4_paged_decode_attention
+    from repro_torch.kernels.ref import kv4_paged_decode_attention_ref
+    b, hd, ps, n_s, n_pages = 8, 128, 16, 16, 160
+    out = {}
+    for arch, kvh, g in ZOO_ATTN:
+        pool = kv_pool(dev, gen, n_pages, kvh=kvh)
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+        tables = perm[:b * n_s].reshape(b, n_s).to(torch.int32).contiguous()
+        pos = torch.tensor([0, 15, 16, 17, 100, 143, 255, 200],
+                           dtype=torch.int32, device=dev)
+        q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
+        args = (q, *pool, tables, pos)
+        err = (kv4_paged_decode_attention(*args)
+               - kv4_paged_decode_attention_ref(*args)).abs().max().item()
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"attention at {arch}'s heads: {err}")
+        toks = page_tokens(pos.tolist(), ps, n_s)
+        bound, by = attn_bound(peaks, b, toks, toks, extra=b * n_s * 4 + b * 4,
+                               kvh=kvh, g=g)
+        out[arch] = {"KVH": kvh, "G": g, "max_abs_err": err,
+                     "ms": time_ms(kv4_paged_decode_attention, [args], 200),
+                     "plain_ms": time_ms(kv4_paged_decode_attention_ref,
+                                         [args], 20),
+                     "bound_ms": bound, "bound_by": by}
+    return out
+
+
 def smoke_config_on_card(dev, seed: int):
     """The granite-8b smoke config (hd 16, G 2) served on the card with
     pages of 8: the engine, the speculative engine (greedy streams equal
@@ -1259,6 +1584,7 @@ def granite(dev, seed: int):
 
 
 def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
+                  token_budget: int = 128, table_lookahead: int = 0,
                   **pool_kw):
     """One serve of the prompts through the Engine (``spec_gamma`` 0) or
     the SpeculativeEngine, launch counters zeroed just before and read
@@ -1266,10 +1592,14 @@ def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
     fields); the serve then also records the peak share of held KV bytes
     that demotion reclaims (after every step) and the in-band share
     (``page_msb_sparsity``) of each page just before its demotion, whose
-    reads are kept out of the demote phase's time."""
+    reads are kept out of the demote phase's time.
+    ``table_lookahead`` widens the block table by that many tokens (as
+    the speculative engine's is by gamma)."""
     from repro_torch import kernels
     from repro_torch.launch.serve import make_engine, run_requests
-    eng = make_engine(cfg, params, **SERVE, page_size=16, token_budget=128,
+    shape = dict(SERVE, prompt_len=SERVE["prompt_len"] + table_lookahead)
+    eng = make_engine(cfg, params, **shape, page_size=16,
+                      token_budget=token_budget,
                       prefill_chunk=32, decode_slots=8,
                       spec_gamma=spec_gamma, device=dev, **pool_kw)
     pool, ladder = eng.pool, {"peak": 0.0, "spars": [], "spars_s": 0.0}
@@ -1705,14 +2035,48 @@ def profile_engine(cfg, params, dev, seed: int, spec_gamma: int = 0,
             "encoder_launches": sum(enc)}
 
 
-def cross_check(dev, seed: int):
-    """Granite width, 2 layers, f32: Engine on the card vs on the CPU."""
+def fill_launches(p) -> int:
+    """The drain and fill kernel records of a ``profile_engine`` trace."""
+    return sum(r["launches"] for r in p["drain_fill"])
+
+
+def profile_dense(cfg, params, dense, dev, seed: int, base,
+                  tries: int = 3):
+    """``profile_engine`` of the dense tree beside ``base``, the base
+    tree's trace. Both serves launch the same fills, the engine's own, so
+    while their traces hold different numbers of drain or fill records
+    the shorter trace lost records in CUPTI, not launches on the card
+    (on an H100 one trace of 110,000 kernel records once lacked 70 matmul
+    and 59 fill records of one window), and that trace is taken again,
+    ``tries`` traces at most in all. A dense serve that launched fills of
+    its own keeps more of them whatever the base trace holds. Returns
+    the base and dense traces, the dense one with each attempt's counts."""
+    d = profile_engine(cfg, dense, dev, seed, tag="_dense")
+    attempts = []
+    while True:
+        attempts.append({"fills": fill_launches(d),
+                         "base_fills": fill_launches(base),
+                         "matmul": sum(r["launches"]
+                                       for r in d["matmul_rows"]),
+                         "kernel_launches": d["kernel_launches"]})
+        if fill_launches(d) == fill_launches(base) or len(attempts) == tries:
+            d["attempts"] = attempts
+            return base, d
+        if fill_launches(d) < fill_launches(base):
+            d = profile_engine(cfg, dense, dev, seed, tag="_dense")
+        else:
+            base = profile_engine(cfg, params, dev, seed)
+
+
+def cross_check(dev, seed: int, arch: str = "granite-8b"):
+    """``arch``'s width, 2 layers, f32: Engine on the card vs on the CPU
+    (deepseek-moe-16b: its dense first layer and one MoE layer)."""
     from repro_torch.configs import get_config
     from repro_torch.core.qlinear import tree_to
     from repro_torch.launch.serve import (build_served_params, make_engine,
                                           make_prompts)
     from repro_torch.serving import SamplingParams
-    cfg = get_config("granite-8b").replace(n_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
     params = build_served_params(cfg, seed, "cpu")
     prompts = make_prompts(cfg, seed + 1, 2, 32)
     gen = 4
@@ -1742,18 +2106,197 @@ def cross_check(dev, seed: int):
     err = max((a - b).abs().max().item()
               for a, b in zip(lg_c[:n_cmp], lg_p[:n_cmp]))
     scale = max(b.abs().max().item() for b in lg_p[:n_cmp])
-    log(f"    seed {seed}: max |dlogit| {err:.4g} of max |logit| "
+    log(f"    {arch} seed {seed}: max |dlogit| {err:.4g} of max |logit| "
         f"{scale:.4g} ({err / scale:.4g} rel) over {n_cmp} steps, greedy "
         f"tokens {match}/{total}")
-    if not err <= LOGIT_TOL * scale:
+    tol = LOGIT_TOL_ARCH.get(arch, LOGIT_TOL)
+    if not err <= tol * scale:
         raise AssertionError(f"cross-check logits differ: {err} vs "
-                             f"{LOGIT_TOL} * {scale}")
+                             f"{tol} * {scale}")
     if st_c != st_p:
         raise AssertionError(f"cross-check greedy streams differ: cuda "
                              f"{st_c} vs cpu {st_p}")
-    return {"seed": seed, "max_abs_logit_err": err, "max_abs_logit": scale,
+    return {"arch": arch, "seed": seed, "max_abs_logit_err": err,
+            "max_abs_logit": scale,
             "rel_err": err / scale, "steps_compared": n_cmp,
             "greedy_match": f"{match}/{total}"}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the zoo the engine serves, and serve --ckpt
+# ---------------------------------------------------------------------------
+
+ZOO = ("yi-6b", "starcoder2-3b", "deepseek-moe-16b")
+# a token budget that takes a 32-token chunk of all 8 prompts and 8
+# speculative decode slots (2 gamma + 1 tokens each) in one step, so both
+# engines cut the same chunks
+NODROP_BUDGET = 512
+# the 2-D matmul entries and the batched ones
+BATCHED = ("sparqle_encode_fused_batched", "sparqle_quantize_fused_batched",
+           "sparqle_encode_packed_fused_batched", "sparqle_matmul_batched",
+           "sparqle_matmul_draft_batched", "sparqle_matmul_packed_batched",
+           "sparqle_matmul_packed_draft_batched", "quant_matmul_batched")
+
+
+def summary(r):
+    """TTFT, TPOT and tokens/s of a serve, and its nonzero launches."""
+    return (f"TTFT mean {r['ttft_mean_s'] * 1e3:.1f} ms, TPOT mean "
+            f"{r['tpot_mean_s'] * 1e3:.2f} ms, {r['tokens_per_s']:.1f} tok/s, "
+            f"{r['steps']} steps, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+
+
+def serve_zoo_arch(dev, arch, seed):
+    """``arch`` at full width and depth, weights drawn from ``seed`` on
+    the card, phase 4's serve (8 x 128 x 16, CUDA graphs). For
+    deepseek-moe-16b also gamma = SPEC_GAMMA, dense and the packed wire
+    format (base and gamma): dense and packed streams equal to the base
+    serve's, packed gamma's to gamma's, dense logits bit-equal to
+    SPARQLe's, one verify window bit-equal to its decode steps at full
+    depth, every routed projection one batched encoder and one batched
+    matmul launch (3 a MoE layer and forward). The gamma serve's streams
+    against the base serve's are reported, not required. An expert keeps
+    at most ``capacity`` assignments of the tokens routed together (1 at
+    decode), so which tokens a step batches decides which are dropped;
+    and under a token budget below the batch's prefill, the speculative
+    engine (which charges 2 gamma + 1 tokens a decode slot) cuts other
+    prefill chunks than the base engine. So the two engines route other
+    token sets (JAX's engines part the same way,
+    ``tests/test_torch_moe.py``). The speculative engine's block table
+    is also wider by gamma tokens (10 pages against 9 here), and the
+    attention's split plan and the prefill chunk's softmax width follow
+    the table width, so f32 sums run in another order. With the capacity
+    factor at E (capacity t top_k: no assignment dropped), a budget that
+    prefills every request's chunk each step and the base engine's table
+    as wide as the speculative one's, the gamma serve must give the base
+    serve's streams.
+    Returns {run name: serve summary}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_served_params, make_prompts
+    from repro_torch.models.stages import build_stages
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = build_served_params(cfg, seed, dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    prompts = make_prompts(cfg, seed, SERVE["batch"], SERVE["prompt_len"])
+    moe_layers = sum(st.repeat * sum(ld.ffn == "moe" for ld in st.period)
+                     for st in build_stages(cfg))
+    runs = {"base": serve_granite(dev, cfg, params, prompts)}
+    base = runs["base"]
+    need = ("sparqle_encode_fused", "sparqle_matmul", "kv_attention")
+    if moe_layers:
+        need += ("sparqle_encode_fused_batched", "sparqle_matmul_batched")
+        runs["spec"] = serve_granite(dev, cfg, params, prompts,
+                                     spec_gamma=SPEC_GAMMA)
+        dense = with_fields(params, mode="dense")
+        runs["dense"] = serve_granite(dev, cfg, dense, prompts)
+        runs["dense"]["logits_equal"] = logits_equal(dev, cfg, params, dense,
+                                                     prompts)
+        packed = with_fields(params, wire_format="packed")
+        runs["packed"] = serve_granite(dev, cfg, packed, prompts)
+        runs["packed_spec"] = serve_granite(dev, cfg, packed, prompts,
+                                            spec_gamma=SPEC_GAMMA)
+        del dense, packed
+        # capacity t k: an expert can take every assignment of the call
+        # (E / top_k gives t only up to a float rounding: 8 x 6 x 10.67
+        # rounds to 511, capacity 7)
+        nodrop = cfg.replace(capacity_factor=float(cfg.n_experts))
+        runs["nodrop"] = serve_granite(dev, nodrop, params, prompts,
+                                       token_budget=NODROP_BUDGET,
+                                       table_lookahead=SPEC_GAMMA)
+        runs["nodrop_spec"] = serve_granite(dev, nodrop, params, prompts,
+                                            spec_gamma=SPEC_GAMMA,
+                                            token_budget=NODROP_BUDGET)
+        runs["spec"]["window_vs_decode"] = window_vs_decode(dev, cfg, params,
+                                                            seed)
+    check_path(base, need, UNFUSED + tuple(
+        b for b in BATCHED if b not in need))
+    paths = {"spec": ("sparqle_matmul_draft_batched",),
+             "dense": ("sparqle_quantize_fused_batched",
+                       "quant_matmul_batched"),
+             "packed": ("sparqle_encode_packed_fused_batched",
+                        "sparqle_matmul_packed_batched"),
+             "packed_spec": ("sparqle_matmul_packed_draft_batched",)}
+    same_as = {"spec": None, "packed_spec": "spec", "nodrop": None,
+               "nodrop_spec": "nodrop"}
+    for name, r in runs.items():
+        r["streams_equal_base"] = sum(
+            a == b for a, b in zip(r["streams"], base["streams"]))
+        ref_run = same_as.get(name, "base")
+        if ref_run and r["streams"] != runs[ref_run]["streams"]:
+            raise AssertionError(f"{arch} {name}: streams differ from the "
+                                 f"{ref_run} serve's")
+        if name in paths:
+            check_path(r, paths[name], UNFUSED)
+        if name == "nodrop_spec":
+            check_path(r, paths["spec"], UNFUSED)
+        if moe_layers:
+            # a verify window routes one MoE call a window position
+            fw = sum(n * (SPEC_GAMMA + 1 if ph == "verify" else 1)
+                     for ph, n in r["forwards"].items())
+            enc = sum(r["launches"][k] for k in BATCHED[:3])
+            mm = sum(r["launches"][k] for k in BATCHED[3:])
+            if enc != 3 * moe_layers * fw or mm != 3 * moe_layers * fw:
+                raise AssertionError(
+                    f"{arch} {name}: batched launches {enc}/{mm} for "
+                    f"{moe_layers} MoE layers x {fw} forwards")
+    if moe_layers and not (all(runs["dense"]["logits_equal"].values()) and
+                           all(runs["spec"]["window_vs_decode"].values())):
+        raise AssertionError(f"{arch}: dense logits differ from SPARQLe's "
+                             f"or the verify window from its decode steps")
+    for name, r in runs.items():
+        log(f"[12] {arch} {cfg.n_layers}L d={cfg.d_model} {name}: "
+            f"{r['requests']} requests, {r['tokens']} tokens, streams equal "
+            f"to the base serve's {r['streams_equal_base']}/"
+            f"{len(base['streams'])}"
+            + (f" ({same_as[name]}'s: all)" if same_as.get(name) else "")
+            + f", {summary(r)}, peak {r['peak_mem_gb']:.1f} GB"
+            + (f", logits bit-equal to SPARQLe: {r['logits_equal']}"
+               if "logits_equal" in r else "")
+            + (f", one verify window vs {SPEC_GAMMA + 1} decode steps at "
+               f"{cfg.n_layers}L: {r['window_vs_decode']}, acceptance "
+               f"{r['aggregate']['spec_acceptance_rate']:.4f}"
+               if "window_vs_decode" in r else "")
+            + (f", weights built in {t_build:.1f} s" if name == "base"
+               else ""))
+    del params
+    torch.cuda.empty_cache()
+    return {name: {k: v for k, v in r.items() if k != "aggregate"}
+            for name, r in runs.items()}
+
+
+def ckpt_round_trip(dev, seed):
+    """``serve --ckpt``: the port's ``save`` of deepseek-moe-16b's smoke
+    float params, served through the CLI on the card (restore, quantize
+    one layer at a time on the card, SyntheticLM prompts); streams equal
+    to serving the tree directly."""
+    import shutil
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import quantize_model_params
+    from repro_torch.launch import serve
+    from repro_torch.models.schema import init_params
+    from repro_torch.models.schema_builder import build_schema
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    params = init_params(build_schema(cfg), seed + 11, "cpu")
+    path = ROOT / "build" / "ckpt_round_trip"
+    shutil.rmtree(path, ignore_errors=True)
+    store.save(str(path), {"params": params}, 1)
+    shape = dict(batch=4, prompt_len=21, gen=9)
+    r = serve.main(["--arch", cfg.name, "--smoke", "--ckpt", str(path),
+                    "--batch", "4", "--prompt-len", "21", "--gen", "9",
+                    "--page-size", "8"])
+    direct = quantize_model_params(params, w_bits=cfg.w_bits, tile_k=16,
+                                   device=dev)
+    eng = serve.make_engine(cfg, direct, page_size=8, device=dev, **shape)
+    want = serve.run_requests(eng, serve.synthetic_prompts(
+        cfg, 0, shape["batch"], shape["prompt_len"]), shape["gen"])
+    shutil.rmtree(path, ignore_errors=True)
+    if r["streams"] != want["streams"]:
+        raise AssertionError(f"serve --ckpt streams {r['streams']} != "
+                             f"the tree served directly {want['streams']}")
+    return {"streams_equal": True, "requests": len(r["streams"])}
 
 
 def main() -> int:
@@ -1793,7 +2336,16 @@ def main() -> int:
             check_tiered_attention(dev, gen, peaks),
             check_encoder_packed(dev, gen, peaks),
             *check_matmul_packed(dev, gen, peaks),
-            check_contiguous_attention(dev, gen, peaks)]
+            check_contiguous_attention(dev, gen, peaks),
+            *check_batched_encoder(dev, gen, peaks),
+            *check_batched_matmul(dev, gen, peaks)]
+    attn_zoo = check_attention_zoo(dev, gen, peaks)
+    log("[3] kv4_paged_decode_attention at the zoo's head shapes (B=8, "
+        "hd=128, ps=16, Pmax=16, f32 q): " + "; ".join(
+            f"{a} KVH={d['KVH']} G={d['G']}: {d['ms'] * 1e3:.2f} us vs plain "
+            f"{d['plain_ms'] * 1e3:.1f} us, bound {d['bound_ms'] * 1e3:.2f} "
+            f"us ({d['bound_by']}), err {d['max_abs_err']:.3g}"
+            for a, d in attn_zoo.items()))
     t0 = time.perf_counter()
     n_shapes = check_attention_shapes(dev, gen)
     small = smoke_config_on_card(dev, args.seed)
@@ -1823,7 +2375,7 @@ def main() -> int:
                 f"{f['quant_matmul'] * 1e3:.1f} us, dual pass "
                 f"{f['sparqle_matmul'] * 1e3:.1f} us, draft "
                 f"{f['sparqle_matmul_draft'] * 1e3:.1f} us")
-    detail = {"card": card, "kernels": rows}
+    detail = {"card": card, "kernels": rows, "attention_zoo": attn_zoo}
     # the launch counter of each kernel row, and the phase that reads it
     counter = {"sparqle_encode_fused": ("sparqle_encode_fused", "base"),
                "sparqle_matmul": ("sparqle_matmul", "base"),
@@ -1841,7 +2393,22 @@ def main() -> int:
                "sparqle_matmul_packed_draft": ("sparqle_matmul_packed_draft",
                                                "packed_spec"),
                "kv4_decode_attention": ("kv_attention_contiguous",
-                                        "legacy")}
+                                        "legacy"),
+               # the expert-batched entries: deepseek-moe-16b's serves
+               "sparqle_encode_fused_batched": (
+                   "sparqle_encode_fused_batched", "moe"),
+               "sparqle_matmul_batched": ("sparqle_matmul_batched", "moe"),
+               "sparqle_matmul_draft_batched": (
+                   "sparqle_matmul_draft_batched", "moe_spec"),
+               "sparqle_quantize_fused_batched": (
+                   "sparqle_quantize_fused_batched", "moe_dense"),
+               "quant_matmul_batched": ("quant_matmul_batched", "moe_dense"),
+               "sparqle_encode_packed_fused_batched": (
+                   "sparqle_encode_packed_fused_batched", "moe_packed"),
+               "sparqle_matmul_packed_batched": (
+                   "sparqle_matmul_packed_batched", "moe_packed"),
+               "sparqle_matmul_packed_draft_batched": (
+                   "sparqle_matmul_packed_draft_batched", "moe_packed_spec")}
     if not args.kernels_only:
         cfg, params, prompts, t_build = granite(dev, args.seed)
         # every serve runs before any profiler: a profiled run leaves the
@@ -2059,15 +2626,15 @@ def main() -> int:
         eng["profile"] = profile_engine(cfg, params, dev, args.seed)
         spec["profile"] = profile_engine(cfg, params, dev, args.seed,
                                          SPEC_GAMMA)
-        dn["profile"] = dprof = profile_engine(cfg, dense, dev, args.seed,
-                                               tag="_dense")
+        eng["profile"], dprof = profile_dense(cfg, params, dense, dev,
+                                              args.seed, eng["profile"])
+        dn["profile"] = dprof
         after = serve_granite(dev, cfg, params, prompts)
         split = ", ".join(f"{k['kernel'][:40]} {k['share'] * 100:.1f}% "
                           f"({k['mean_us']:.1f} us x {k['launches']})"
                           for k in eng["profile"]["by_kernel"][:8])
         prof = spec["profile"]
-        fills = [sum(r["launches"] for r in p["drain_fill"])
-                 for p in (eng["profile"], dprof)]
+        fills = [fill_launches(p) for p in (eng["profile"], dprof)]
         log(f"[10] profiled reruns (8 requests x 32 prompt x 8 new, CUDA "
             f"graphs captured by a first run): base device busy "
             f"{eng['profile']['device_busy_s']:.3f} s of "
@@ -2095,7 +2662,8 @@ def main() -> int:
             f"{dprof['matmul_rows']} for {dprof['launches']['quant_matmul']} "
             f"quant_matmul launches, drain or fill rows {dprof['drain_fill']}"
             f", device kernel launches {dprof['kernel_launches']} (base "
-            f"{eng['profile']['kernel_launches']})")
+            f"{eng['profile']['kernel_launches']}); dense traces taken "
+            f"{len(dprof['attempts'])}: {dprof['attempts']}")
         # the dense matmul is one kernel a call: its instance's row counts
         # the wrapper's launches, and no drain or fill comes with it (the
         # engine's own fills, in both runs, are the only ones)
@@ -2118,8 +2686,32 @@ def main() -> int:
             f"tol {LOGIT_TOL} rel), greedy tokens "
             f"{', '.join(r['greedy_match'] for r in xc)}, "
             f"{time.perf_counter() - t0:.1f} s")
+        # phase 12: yi-6b, starcoder2-3b and deepseek-moe-16b at full
+        # width and depth, their 2-layer f32 cross-checks, serve --ckpt
+        zoo = {}
+        for arch in ZOO:
+            t0 = time.perf_counter()
+            zoo[arch] = serve_zoo_arch(dev, arch, args.seed)
+            zoo[arch]["cross_check"] = xz = cross_check(dev, args.seed, arch)
+            log(f"[12] {arch} cross-check 2L f32 cuda vs cpu: max |dlogit| "
+                f"{xz['max_abs_logit_err']:.3g} of max |logit| "
+                f"{xz['max_abs_logit']:.3g} ({xz['rel_err']:.3g} rel, tol "
+                f"{LOGIT_TOL_ARCH.get(arch, LOGIT_TOL)}), greedy tokens "
+                f"{xz['greedy_match']}; "
+                f"{time.perf_counter() - t0:.1f} s for the arch")
+        t0 = time.perf_counter()
+        detail["ckpt_round_trip"] = ckpt_round_trip(dev, args.seed)
+        log(f"[12] serve --ckpt: the port's save of deepseek-moe-16b's smoke "
+            f"float params served through the CLI on the card, streams equal "
+            f"to the tree served directly "
+            f"({detail['ckpt_round_trip']['requests']} requests), "
+            f"{time.perf_counter() - t0:.1f} s")
+        moe = zoo["deepseek-moe-16b"]
         runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn,
-                "packed": pk, "packed_spec": pk_spec, "legacy": lg}
+                "packed": pk, "packed_spec": pk_spec, "legacy": lg,
+                **{f"moe_{k}" if k != "base" else "moe": v
+                   for k, v in moe.items() if k != "cross_check"}}
+        detail["zoo"] = zoo
         strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
                            if k != "aggregate"}
         detail.update(engine=strip(eng), graphs_vs_eager=gve,

@@ -20,6 +20,10 @@ runs the same chain on the packed wire format (``core.packing``): the
 packed encoder and the packed dual-pass (or draft) matmul; the codec is
 exact, so its accumulator equals the unpacked one bit for bit, as in
 JAX's ``_dual_pass_matmul(wire_format="packed")``.
+:func:`expert_linear` runs the same chain on a routed MoE projection,
+x (E, C, K) against the (E, K/2, N) expert weights with a clip mask per
+expert: one batched encoder launch and one batched matmul launch for
+all E experts, as JAX's ``_quantized_apply(batched=True)``.
 
 The clipping constants ``l``/``h`` stay on the CPU whatever the device of
 the weights: they are read on the host at every call (kernel arguments),
@@ -95,9 +99,10 @@ class SparqleLinear:
     """A quantized projection in SPARQLe served form.
 
     ``w.q`` is (K/2, N) when ``packed`` (else (K, N): w_bits > 4 or odd
-    K, which the matmul kernel does not take), or layer-stacked with a
-    leading (L,) axis; ``col_mask`` (K,) bool or None; ``l``/``h`` CPU
-    f32 scalars (or (L,) when stacked). ``wire_format`` 'packed' routes
+    K, which the matmul kernel does not take), (E, K/2, N) for routed
+    experts, or layer-stacked with a leading (L,) axis; ``col_mask``
+    (K,) or (E, K) bool or None; ``l``/``h`` CPU f32 scalars (or (L,)
+    when stacked). ``wire_format`` 'packed' routes
     the activations of a sparqle-mode projection through the packed
     wire format (dense mode ignores it, as in JAX).
     """
@@ -163,31 +168,42 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
     return y
 
 
-def _quantized_apply(x: torch.Tensor, sl: SparqleLinear) -> torch.Tensor:
+def expert_linear(x: torch.Tensor, w: SparqleLinear) -> torch.Tensor:
+    """Batched expert projection: x (E, C, K) @ w (E, K, N), ``w`` a
+    routed-expert :class:`SparqleLinear` (the port serves quantized
+    trees)."""
+    return _quantized_apply(x, w, batched=True)
+
+
+def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
+                     batched: bool = False) -> torch.Tensor:
     """encode with the per-token scale formed in the same launch
     (quantize, clip, split; packed in the wire format when
     ``sl.wire_format`` says so) -> dual pass (LSB pass alone under
     :func:`msb_skip_scope`) -> rescale by the scale the encoder
     returned, or in dense mode quantize + clip -> single pass ->
-    rescale, through the kernel wrappers."""
+    rescale, through the kernel wrappers. ``batched``: x (E, C, K)
+    against (E, K/2, N) expert weights, each expert's rows clipped by
+    its own mask row and drained by its own scales."""
     if sl.mode not in ("sparqle", "dense"):
         raise ValueError(f"mode={sl.mode!r}: expected 'sparqle' or 'dense'")
     if sl.wire_format not in WIRE_FORMATS:
         raise ValueError(f"wire_format={sl.wire_format!r}: expected one of "
                          f"{WIRE_FORMATS}")
-    if sl.w.q.ndim != 2:
-        raise NotImplementedError("batched (expert) projections")
+    if sl.w.q.ndim != (3 if batched else 2):
+        raise ValueError(f"weight {tuple(sl.w.q.shape)}: expected "
+                         f"{'(E, K/2, N)' if batched else '(K/2, N)'}")
     if not sl.packed:
         raise NotImplementedError(
             f"unpacked {sl.w.bits}-bit weight: the W4A8 matmuls take only "
             f"int4 weights packed two per byte along K (pack_int4)")
     orig = x.shape
-    x2 = x.reshape(-1, orig[-1]).contiguous()
+    x2 = (x if batched else x.reshape(-1, orig[-1])).contiguous()
     clip = sl.col_mask is not None and sl.l is not None
     clip_args = (sl.col_mask if clip else None, int(sl.l) if clip else 0,
                  int(sl.h) if clip else 0)
     n = sl.w.q.shape[-1]
-    w_scale = sl.w.scale.reshape(1, n).float()
+    w_scale = sl.w.scale.reshape(*sl.w.q.shape[:-2], 1, n).float()
     if sl.mode == "dense":
         q, scale = sparqle_quantize_fused(x2, *clip_args)
         out = quant_matmul(q, sl.w.q, scale, w_scale)
@@ -218,6 +234,13 @@ def is_quantizable(path: str, leaf) -> bool:
     return bool(_QUANT_LEAF.search(path.rsplit("/", 1)[-1]))
 
 
+def is_expert(path: str) -> bool:
+    """A routed-expert projection, (E, K, N) a layer: under a ``moe/``
+    subtree and not a shared expert's (plain (K, N) despite its place)."""
+    return (("/moe/" in path or path.startswith("moe/"))
+            and "shared" not in path.rsplit("/", 1)[-1])
+
+
 def quantize_leaf(
     leaf: torch.Tensor,
     *,
@@ -230,19 +253,23 @@ def quantize_leaf(
     enable_clipping: bool = True,
     wire_format: str = "unpacked",
 ) -> SparqleLinear:
-    """Quantize one (K, N) projection into served form; the int4 payload
-    is packed two per byte along K unless w_bits > 4 or K is odd.
+    """Quantize one (K, N) projection, or (E, K, N) routed experts, into
+    served form; the int4 payload is packed two per byte along K unless
+    w_bits > 4 or K is odd.
     ``wire_format='packed'`` serves its activations in the packed wire
     format."""
     if wire_format not in WIRE_FORMATS:
         raise ValueError(f"wire_format={wire_format!r}: expected one of "
                          f"{WIRE_FORMATS}")
-    if leaf.ndim != 2:
-        raise NotImplementedError(f"weight rank {leaf.ndim}: only (K, N) "
-                                  f"projections are ported")
-    wq = quantize_weights(leaf, bits=w_bits, axis=0)
-    mask = (importance_mask_tile_aligned(leaf, k_percent, tile_k)
-            if enable_clipping else None)
+    if leaf.ndim not in (2, 3):
+        raise ValueError(f"unsupported weight rank {leaf.ndim}")
+    wq = quantize_weights(leaf, bits=w_bits, axis=-2)
+    mask = None
+    if enable_clipping:   # one mask an expert for (E, K, N)
+        mask = (importance_mask_tile_aligned(leaf, k_percent, tile_k)
+                if leaf.ndim == 2 else torch.stack([
+                    importance_mask_tile_aligned(w, k_percent, tile_k)
+                    for w in leaf]))
     do_pack = w_bits <= 4 and wq.q.shape[-2] % 2 == 0
     if do_pack:
         wq = QuantizedTensor(q=pack_int4(wq.q), scale=wq.scale, zero=wq.zero,
@@ -279,15 +306,22 @@ def quantize_model_params(
     enable_clipping: bool = True,
     tile_k: int = 128,
     wire_format: str = "unpacked",
+    device=None,
 ) -> Dict[str, Any]:
     """Rewrite every projection leaf of a param tree into SPARQLe form;
-    (L, K, N) layer-stacked leaves quantize one layer at a time.
+    layer-stacked leaves quantize one layer at a time. With ``device``
+    every leaf moves there first, a projection one layer at a time, so a
+    host tree (a restored checkpoint) is quantized on the card without a
+    whole float copy of it there. Routed-expert leaves (under ``moe/``,
+    not ``w_shared_*``) are (E, K, N) a layer: (L, E, K, N) stacked,
+    (E, K, N) without the layer axis.
     ``wire_format='packed'`` serves every projection's activations in
     the packed wire format."""
 
     def q1(w):
-        return quantize_leaf(w, w_bits=w_bits, k_percent=k_percent,
-                             clip_l=clip_l, clip_h=clip_h, mode=mode,
+        return quantize_leaf(w.to(device or w.device), w_bits=w_bits,
+                             k_percent=k_percent, clip_l=clip_l,
+                             clip_h=clip_h, mode=mode,
                              enable_clipping=enable_clipping, tile_k=tile_k,
                              wire_format=wire_format)
 
@@ -298,15 +332,15 @@ def quantize_model_params(
             if isinstance(v, dict):
                 out[k] = walk(v, path)
             elif is_quantizable(path, v):
-                if v.ndim == 2:
+                if v.ndim == 2 or (v.ndim == 3 and is_expert(path)):
                     out[k] = q1(v)
-                elif v.ndim == 3:
+                elif v.ndim in (3, 4):
                     out[k] = stack_linears([q1(v[i])
                                             for i in range(v.shape[0])])
                 else:
-                    raise NotImplementedError(f"{path}: rank {v.ndim}")
+                    raise ValueError(f"{path}: rank {v.ndim}")
             else:
-                out[k] = v
+                out[k] = v.to(device or v.device)
         return out
 
     return walk(params)

@@ -173,6 +173,12 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
 // else element by element; SUB_TILES tiles are encoded at once, each
 // thread's 8 elements without branches, warps of rows past M idle;
 // planes leave as 8-byte stores where aligned.
+//
+// Expert-batched (grid z = E > 1): x is (E, M, K) and every output has a
+// leading E axis; expert e = blockIdx.z reads its own (M, K) slab, its
+// own mask row col_mask[e] (an (E, K) mask) and writes its own scale
+// rows, planes and (ceil(M / TILE_M), n_kt) populations, so no TILE_M
+// tile straddles two experts. With E = 1 every offset is 0.
 template <int MODE, bool XBF16, bool SCALE_IN>
 __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
     const void* __restrict__ x, float* __restrict__ scale,
@@ -183,6 +189,19 @@ __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
   __shared__ float amax_w[FUSED_THREADS / 32], scale_s[TILE_M];
   const int x_bf16 = XBF16;
   const int n_kt = (K + TILE_K - 1) / TILE_K;
+  {   // this expert's slabs
+    const long e = blockIdx.z, rows = e * M;
+    x = reinterpret_cast<const char*>(x) + rows * K * (XBF16 ? 2 : 4);
+    scale += rows;
+    if (col_mask != nullptr) col_mask += e * K;
+    const long plane = MODE == MODE_PACKED ? rows * (KP / 2) : rows * K;
+    lsb = reinterpret_cast<char*>(lsb) + plane;
+    if (msb != nullptr) msb = reinterpret_cast<char*>(msb) + plane;
+    if (pbm != nullptr)
+      pbm = reinterpret_cast<char*>(pbm) +
+            (MODE == MODE_PACKED ? rows * (KP / 8) : rows * K);
+    if (pop != nullptr) pop += e * ((M + TILE_M - 1) / TILE_M) * n_kt;
+  }
   const FusedPlan fp = fused_plan(n_kt, SCALE_IN);
   const int t0 = blockIdx.x * fp.tiles, t1 = min(t0 + fp.tiles, n_kt);
   const int W = fp.tiles * TILE_K;                   // smem row, elements
@@ -386,7 +405,7 @@ __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
 template <int MODE, bool XBF16, bool SCALE_IN>
 static int launch_as(const void* x, void* scale, const void* col_mask,
                      int clip_l, int clip_h, void* lsb, void* msb, void* pbm,
-                     void* pop, int M, int K, int KP, void* stream) {
+                     void* pop, int M, int K, int KP, int E, void* stream) {
   const FusedPlan fp = fused_plan((K + TILE_K - 1) / TILE_K, SCALE_IN);
   const size_t smem = fused_smem(fp.tiles, XBF16);
   if (smem > 48 * 1024) {
@@ -395,7 +414,7 @@ static int launch_as(const void* x, void* scale, const void* col_mask,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(fp.blocks, (M + TILE_M - 1) / TILE_M);
+  dim3 grid(fp.blocks, (M + TILE_M - 1) / TILE_M, E);
   sparqle_encode_kernel<MODE, XBF16, SCALE_IN>
       <<<grid, FUSED_THREADS, smem, (cudaStream_t)stream>>>(
           x, (float*)scale, (const uint8_t*)col_mask, clip_l, clip_h, lsb,
@@ -407,14 +426,14 @@ template <int MODE, bool SCALE_IN>
 static int launch(const void* x, int x_bf16, const void* scale,
                   const void* col_mask, int clip_l, int clip_h, void* lsb,
                   void* msb, void* pbm, void* pop, int M, int K, int KP,
-                  void* stream) {
+                  void* stream, int E = 1) {
   void* s = const_cast<void*>(scale);
   return x_bf16 ? launch_as<MODE, true, SCALE_IN>(x, s, col_mask, clip_l,
                                                   clip_h, lsb, msb, pbm, pop,
-                                                  M, K, KP, stream)
+                                                  M, K, KP, E, stream)
                 : launch_as<MODE, false, SCALE_IN>(x, s, col_mask, clip_l,
                                                    clip_h, lsb, msb, pbm,
-                                                   pop, M, K, KP, stream);
+                                                   pop, M, K, KP, E, stream);
 }
 
 // scale (M, 1) f32 in; lsb/msb int8 (M, K), pbm uint8 (M, K) or null,
@@ -473,4 +492,33 @@ extern "C" int sparqle_encode_packed_fused_launch(
   return launch<MODE_PACKED, false>(x, x_bf16, scale, col_mask, clip_l,
                                     clip_h, lsb, msb, pbm, pop, M, K, KP,
                                     stream);
+}
+
+// The expert-batched forms of the three fused entries: x (E, M, K),
+// col_mask (E, K) or null, every output with a leading E axis; one
+// launch encodes all E experts (grid z).
+extern "C" int sparqle_encode_fused_batched_launch(
+    const void* x, int x_bf16, void* scale, const void* col_mask,
+    int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
+    int M, int K, int E, void* stream) {
+  return launch<MODE_ENCODE, false>(x, x_bf16, scale, col_mask, clip_l,
+                                    clip_h, lsb, msb, pbm, pop, M, K, K,
+                                    stream, E);
+}
+
+extern "C" int sparqle_quantize_fused_batched_launch(
+    const void* x, int x_bf16, void* scale, const void* col_mask,
+    int clip_l, int clip_h, void* q, int M, int K, int E, void* stream) {
+  return launch<MODE_QUANTIZE, false>(x, x_bf16, scale, col_mask, clip_l,
+                                      clip_h, q, nullptr, nullptr, nullptr,
+                                      M, K, K, stream, E);
+}
+
+extern "C" int sparqle_encode_packed_fused_batched_launch(
+    const void* x, int x_bf16, void* scale, const void* col_mask,
+    int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
+    int M, int K, int KP, int E, void* stream) {
+  return launch<MODE_PACKED, false>(x, x_bf16, scale, col_mask, clip_l,
+                                    clip_h, lsb, msb, pbm, pop, M, K, KP,
+                                    stream, E);
 }

@@ -302,6 +302,14 @@ __device__ __forceinline__ void drain2(
 // unpacked planes have row stride K and ignore ldp).
 // Warps: 2 column groups of 32 x 2 K halves (k32 steps 0-1 and 2-3 of
 // every K tile); the K halves meet in shared memory at the end.
+// Expert-batched: grid y counts E x the row blocks of one expert's M
+// rows; expert e = blockIdx.y / row blocks reads its own planes (rows
+// eM.. of the (E M, lda) planes), populations, packed weight (rows eK/2..
+// of the (E K/2, N) weight, so the tensor maps stay 2D) and scales, and
+// writes its own (M, N) output and workspace slices. A weight box past
+// the expert's K/2 rows reads the next expert's rows: their activation
+// columns are past K, zero in every plane, so no product changes. With
+// E = 1 every offset is 0.
 template <bool MSB_SKIP, bool PACKED>
 __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     const int8_t* __restrict__ lsb, const int8_t* __restrict__ msb,
@@ -322,8 +330,25 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cg = warp & 1, kh = warp >> 1;        // column group, K half
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * BLOCK_N, m0 = blockIdx.y * BLOCK_M;
+  const int rbe = cdiv(M, BLOCK_M);                // row blocks an expert
+  const int e = blockIdx.y / rbe;
+  const int n0 = blockIdx.x * BLOCK_N, m0 = (blockIdx.y % rbe) * BLOCK_M;
   const int n_kt = cdiv(K, TILE_K);
+  const int K2 = K / 2;
+  const int lda = PACKED ? ldp : K;            // plane row stride, bytes
+  {   // this expert's operands; the TMA rows are offset below
+    const long rows_e = (long)e * M;
+    lsb += rows_e * lda;
+    if (msb != nullptr) msb += rows_e * lda;
+    if (tile_pop != nullptr) tile_pop += (long)e * cdiv(M, TILE_M) * n_kt;
+    wp += (long)e * K2 * N;
+    act_scale += rows_e;
+    w_scale += (long)e * N;
+    if (out != nullptr) out += rows_e * N;
+    if (acc_out != nullptr) acc_out += rows_e * N;
+    if (ws != nullptr) ws += (long)e * gridDim.z * M * N;
+  }
+  const int w_row0 = e * K2, a_row0 = e * M;   // TMA row offsets
   const int kt_lo = blockIdx.z * per;
   const int nk = min(n_kt, kt_lo + per) - kt_lo;
   const int rows = min(BLOCK_M, M - m0);          // valid rows of the block
@@ -339,8 +364,6 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
   const uint32_t s0 = smem_u32(smem);
   int8_t* ring = smem + ((s0 + (MSB_SKIP ? 0 : per) + 1023) & ~1023u) - s0;
 
-  const int K2 = K / 2;
-  const int lda = PACKED ? ldp : K;            // plane row stride, bytes
   const bool w_vec = (N % 16 == 0) && ((uintptr_t)wp % 16 == 0);
   const bool a_vec = (lda % 16 == 0) && ((uintptr_t)lsb % 16 == 0) &&
                      (MSB_SKIP || (uintptr_t)msb % 16 == 0);
@@ -371,12 +394,13 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     if (part != 1) {
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       if (part == 0) mbar_expect(&bar[st], lsb_bytes);
-      if (tma_w) tma_2d(w_s, &wmap, n0, kt * (TILE_K / 2), &bar[st]);
+      if (tma_w)
+        tma_2d(w_s, &wmap, n0, w_row0 + kt * (TILE_K / 2), &bar[st]);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
         if (tma_a && mt < nmt)
           tma_2d(w_s + W_STAGE + mt * TILE_M * ROWB, &lmap, kt * ROWB,
-                 m0 + mt * TILE_M, &bar[st]);
+                 a_row0 + m0 + mt * TILE_M, &bar[st]);
       if (part == 0) return;
     }
     if (part == 1) mbar_expect(&bar[st], msb_bytes);
@@ -384,7 +408,7 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     for (int mt = 0; mt < MT; ++mt)
       if (!MSB_SKIP && tma_a && ((live >> mt) & 1))
         tma_2d(w_s + W_STAGE + a_bytes + mt * TILE_M * ROWB, &mmap,
-               kt * ROWB, m0 + mt * TILE_M, &bar[st]);
+               kt * ROWB, a_row0 + m0 + mt * TILE_M, &bar[st]);
     if (part == 1) mbar_arrive(&bar[st]);
   };
   auto load_w = [&](int st, int i) {
@@ -680,7 +704,7 @@ template <bool MSB_SKIP, bool PACKED>
 int launch(const void* lsb, const void* msb, const void* tile_pop,
            const void* wp, const void* act_scale, const void* w_scale,
            void* out, void* acc_out, void* ws, void* counters, int M, int N,
-           int K, int ldp, int per, cudaStream_t s) {
+           int K, int ldp, int per, cudaStream_t s, int E = 1) {
   static bool attr_set = false;   // above 48 KB needs the opt-in, once
   auto kernel = sparqle_matmul_kernel<MSB_SKIP, PACKED>;
   if (!attr_set) {
@@ -692,15 +716,16 @@ int launch(const void* lsb, const void* msb, const void* tile_pop,
   // the weight (K/2, N) in 64 x 64 boxes, the planes (M, lda) in 16-row
   // boxes of one K tile, swizzled as w_off / a_off lay them out
   CUtensorMap wmap = {}, lmap = {}, mmap = {};
-  const int tma_w = tma_map(&wmap, wp, K / 2, N, N, BLOCK_N, TILE_K / 2,
-                            CU_TENSOR_MAP_SWIZZLE_64B);
+  const int tma_w = tma_map(&wmap, wp, (long)E * (K / 2), N, N, BLOCK_N,
+                            TILE_K / 2, CU_TENSOR_MAP_SWIZZLE_64B);
   const int lda = PACKED ? ldp : K, rowb = PACKED ? TILE_K / 2 : TILE_K;
   const CUtensorMapSwizzle asw =
       PACKED ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   const int tma_a =
-      tma_map(&lmap, lsb, M, lda, lda, rowb, TILE_M, asw) &&
-      (MSB_SKIP || tma_map(&mmap, msb, M, lda, lda, rowb, TILE_M, asw));
-  const dim3 grid(cdiv(N, BLOCK_N), cdiv(M, BLOCK_M),
+      tma_map(&lmap, lsb, (long)E * M, lda, lda, rowb, TILE_M, asw) &&
+      (MSB_SKIP ||
+       tma_map(&mmap, msb, (long)E * M, lda, lda, rowb, TILE_M, asw));
+  const dim3 grid(cdiv(N, BLOCK_N), E * cdiv(M, BLOCK_M),
                   cdiv(cdiv(K, TILE_K), per));
   kernel<<<grid, THREADS, smem_bytes<MSB_SKIP, PACKED>(M, per), s>>>(
       (const int8_t*)lsb, (const int8_t*)msb, (const int32_t*)tile_pop,
@@ -765,4 +790,56 @@ extern "C" int sparqle_matmul_packed_draft_launch(
   return launch<true, true>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
                             out, acc_out, ws, counters, M, N, K, ldp, per,
                             (cudaStream_t)stream);
+}
+
+// The expert-batched forms of the five entries: planes (E, M, K) (or
+// (E, M, ldp)), tile_pop (E, ceil(M/16), ceil(K/128)), the packed weight
+// (E, K/2, N), act_scale (E, M, 1), w_scale (E, 1, N), the result (E, M,
+// N); ws holds (E, splits, M, N) with more than one split, and counters
+// one int a (expert, row block, column block) tile. One launch for all E.
+extern "C" int sparqle_matmul_batched_launch(
+    const void* lsb, const void* msb, const void* tile_pop, const void* wp,
+    const void* act_scale, const void* w_scale, void* out, void* acc_out,
+    void* ws, void* counters, int M, int N, int K, int E, int per,
+    void* stream) {
+  return launch<false, false>(lsb, msb, tile_pop, wp, act_scale, w_scale,
+                              out, acc_out, ws, counters, M, N, K, K, per,
+                              (cudaStream_t)stream, E);
+}
+
+extern "C" int sparqle_matmul_draft_batched_launch(
+    const void* lsb, const void* wp, const void* act_scale,
+    const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
+    int M, int N, int K, int E, int per, void* stream) {
+  return launch<true, false>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
+                             out, acc_out, ws, counters, M, N, K, K, per,
+                             (cudaStream_t)stream, E);
+}
+
+extern "C" int quant_matmul_batched_launch(
+    const void* q, const void* wp, const void* act_scale,
+    const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
+    int M, int N, int K, int E, int per, void* stream) {
+  return launch<true, false>(q, nullptr, nullptr, wp, act_scale, w_scale,
+                             out, acc_out, ws, counters, M, N, K, K, per,
+                             (cudaStream_t)stream, E);
+}
+
+extern "C" int sparqle_matmul_packed_batched_launch(
+    const void* lsb, const void* msb, const void* tile_pop, const void* wp,
+    const void* act_scale, const void* w_scale, void* out, void* acc_out,
+    void* ws, void* counters, int M, int N, int K, int E, int ldp, int per,
+    void* stream) {
+  return launch<false, true>(lsb, msb, tile_pop, wp, act_scale, w_scale,
+                             out, acc_out, ws, counters, M, N, K, ldp, per,
+                             (cudaStream_t)stream, E);
+}
+
+extern "C" int sparqle_matmul_packed_draft_batched_launch(
+    const void* lsb, const void* wp, const void* act_scale,
+    const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
+    int M, int N, int K, int E, int ldp, int per, void* stream) {
+  return launch<true, true>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
+                            out, acc_out, ws, counters, M, N, K, ldp, per,
+                            (cudaStream_t)stream, E);
 }

@@ -1,0 +1,63 @@
+"""Deterministic synthetic token stream (the numpy half of
+``repro.data.pipeline``): a Zipf-distributed Markov chain over a fixed
+random successor table, documents of exponential length packed back to
+back with EOS separators. ``batch_at(step)`` is a pure function of
+(seed, step) and equals the JAX package's batch for the same config."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int = 512
+    seq_len: int = 128
+    global_batch: int = 8
+    seed: int = 1234
+    eos_id: int = 0
+    mean_doc_len: int = 96
+    zipf_a: float = 1.3
+
+
+class SyntheticLM:
+    """Zipf-Markov synthetic language with deterministic per-step
+    batches."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        self.n_succ = 8
+        self.succ = rng.integers(1, cfg.vocab, size=(cfg.vocab, self.n_succ),
+                                 dtype=np.int32)
+        p = 1.0 / np.arange(1, self.n_succ + 1) ** cfg.zipf_a
+        self.slot_p = (p / p.sum()).astype(np.float64)
+
+    def _doc(self, rng: np.random.Generator, length: int) -> np.ndarray:
+        out = np.empty(length, np.int32)
+        t = int(rng.integers(1, self.cfg.vocab))
+        for i in range(length):
+            out[i] = t
+            t = int(self.succ[t, rng.choice(self.n_succ, p=self.slot_p)])
+        return out
+
+    def _packed_row(self, row_seed: int) -> np.ndarray:
+        cfg = self.cfg
+        rng = np.random.default_rng(row_seed)
+        toks: list = []
+        while len(toks) < cfg.seq_len + 1:
+            length = max(4, int(rng.exponential(cfg.mean_doc_len)))
+            toks.extend(self._doc(rng, length).tolist())
+            toks.append(cfg.eos_id)
+        return np.asarray(toks[: cfg.seq_len + 1], np.int32)
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """Pure function of step -> {'tokens', 'targets'} (B, S)."""
+        cfg = self.cfg
+        packed = np.stack([
+            self._packed_row(cfg.seed * 1_000_003 + step * cfg.global_batch
+                             + r)
+            for r in range(cfg.global_batch)])
+        return {"tokens": packed[:, :-1], "targets": packed[:, 1:]}

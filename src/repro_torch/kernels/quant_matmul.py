@@ -27,12 +27,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import quant_matmul_ref
-from repro_torch.kernels.sparqle_matmul import _DRAFT, _operands
+from repro_torch.kernels.ref import plain_for, quant_matmul_ref
+from repro_torch.kernels.sparqle_matmul import _BDRAFT, _DRAFT, _operands
 
 KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "quant_matmul_launch", _DRAFT,
     name="quant_matmul"))
+BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_matmul.cu", "quant_matmul_batched_launch", _BDRAFT,
+    name="quant_matmul_batched"))
 
 
 def quant_matmul(
@@ -43,17 +46,20 @@ def quant_matmul(
     *,
     acc_out: bool = False,
 ) -> torch.Tensor:
-    """(M, N) f32 ``acc * act_scale * w_scale``, or the int32 ``acc``.
+    """(M, N) f32 ``acc * act_scale * w_scale``, or the int32 ``acc``;
+    with a leading expert axis on every operand (q (E, M, K), w_packed
+    (E, K/2, N), ...) the batched instance's one launch computes all E.
     Raises for a CUDA tensor with K > ``MAX_K``."""
     if not q.is_cuda:
-        return quant_matmul_ref(q, w_packed, act_scale, w_scale,
-                                acc_out=acc_out)
-    m, k = q.shape
-    if k != 2 * w_packed.shape[0]:
+        return plain_for(quant_matmul_ref, w_packed.ndim == 3)(
+            q, w_packed, act_scale, w_scale, acc_out=acc_out)
+    m, k = q.shape[-2:]
+    if k != 2 * w_packed.shape[-2]:
         raise ValueError(f"K mismatch: activation {tuple(q.shape)}, packed "
                          f"weight {tuple(w_packed.shape)}")
     res, tail = _operands(q, None, None, w_packed, act_scale, w_scale,
                           (m, k), acc_out=acc_out, msb_skip=True, plane="q")
     if tail is not None:
-        KERNEL.launch(q.data_ptr(), w_packed.data_ptr(), *tail)
+        (KERNEL if w_packed.ndim == 2 else BATCHED_KERNEL).launch(
+            q.data_ptr(), w_packed.data_ptr(), *tail)
     return res

@@ -205,6 +205,30 @@ def quant_matmul_ref(
     return acc.float() * act_scale.float() * w_scale.float()
 
 
+def batched(fn):
+    """The expert-batched form of a 2-D plain version: ``fn`` on each
+    expert's operands (every tensor argument carries a leading E axis;
+    None and Python values are shared), each output stacked along a new
+    leading E axis. The batched kernel entries' contract: one expert's
+    slice of their result is the 2-D entry's result on its slices."""
+    def run(*args, **kw):
+        e = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
+        outs = [fn(*[a[i] if isinstance(a, torch.Tensor) else a
+                     for a in args], **kw) for i in range(e)]
+        if isinstance(outs[0], tuple):
+            return tuple(None if parts[0] is None else torch.stack(parts)
+                         for parts in zip(*outs))
+        return torch.stack(outs)
+    run.__name__ = f"batched_{fn.__name__}"
+    return run
+
+
+def plain_for(fn, expert_batched: bool):
+    """The plain version a wrapper runs on the CPU: ``fn``, or its
+    expert-batched form for operands with a leading expert axis."""
+    return batched(fn) if expert_batched else fn
+
+
 def unpack_kv4(p: torch.Tensor) -> torch.Tensor:
     """(..., hd/2) packed KV nibbles (adjacent hd pairs) -> (..., hd)."""
     lo = (p << 4) >> 4

@@ -34,6 +34,13 @@ amax, forms the scale, then encodes its tiles. The entries that take a
 ``scale`` run the same body without the amax pass, for a caller with a
 scale of its own (an all-reduced amax under tensor parallelism).
 
+Each fused entry also takes a leading expert axis, x (E, M, K) with an
+(E, K) mask: one launch of its batched instance (``*_batched``, grid z
+= E) encodes every expert's slab, the outputs carry the E axis, and the
+populations are per (expert, TILE_M rows, TILE_K columns), so a tile
+never straddles two experts. Their plain versions are the 2-D ones run
+expert by expert (``ref.batched``).
+
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version ``kernels.ref.sparqle_encode_ref`` /
 ``sparqle_quantize_ref`` / ``sparqle_encode_packed_ref`` and their
@@ -47,7 +54,7 @@ import torch
 
 from repro_torch.core.packing import PBM_WORD_BITS, pad_k
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv,
+from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv, plain_for,
                                      sparqle_encode_fused_ref,
                                      sparqle_encode_packed_fused_ref,
                                      sparqle_encode_packed_ref,
@@ -83,6 +90,21 @@ PACKED_FUSED_KERNEL = _build.register(_build.Kernel(
     [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
      _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I,
      _build.P], name="sparqle_encode_packed_fused"))
+
+# The fused entries' expert-batched forms: x (E, M, K), an (E, K) mask,
+# every output with a leading E axis, one launch (grid z = E).
+FUSED_BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_encode_fused_batched_launch",
+    FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    name="sparqle_encode_fused_batched"))
+QUANTIZE_FUSED_BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_quantize_fused_batched_launch",
+    QUANTIZE_FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    name="sparqle_quantize_fused_batched"))
+PACKED_FUSED_BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_encode_packed_fused_batched_launch",
+    PACKED_FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    name="sparqle_encode_packed_fused_batched"))
 
 # Blocks a row group may have, the most tiles a block of the entries that
 # take a scale holds, and the opt-in dynamic shared memory a block may
@@ -120,8 +142,9 @@ def fused_plan(k: int, scale_in: bool = False) -> FusedPlan:
 
 def _check_fused(x, col_mask):
     """The unfused checks on x and the mask, and the shared-memory limit
-    of the fused launch; returns the contiguous mask (or None)."""
-    k = x.shape[1]
+    of the fused launch; returns the contiguous mask (or None). x may
+    carry a leading expert axis (E, M, K), the mask then (E, K)."""
+    k = x.shape[-1]
     _, col_mask = _check(x, None, col_mask)
     need = fused_plan(k).smem(x.dtype == torch.bfloat16)
     if need > MAX_SMEM:
@@ -134,7 +157,10 @@ def _check(x, scale, col_mask):
     """Raise unless the operands are what the kernels take; returns the
     contiguous scale (None for the fused entries, which form their own)
     and the contiguous mask (None without a mask)."""
-    m, k = x.shape
+    lead, (m, k) = x.shape[:-2], x.shape[-2:]
+    if x.ndim not in (2, 3):
+        raise ValueError(f"x must be (M, K) or (E, M, K), got "
+                         f"{tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
     if not x.is_contiguous():
@@ -147,10 +173,23 @@ def _check(x, scale, col_mask):
         scale = scale.contiguous()
     if col_mask is None:
         return scale, None
-    if col_mask.shape != (k,) or col_mask.dtype != torch.bool \
+    if col_mask.shape != lead + (k,) or col_mask.dtype != torch.bool \
             or col_mask.device != x.device:
-        raise ValueError("col_mask must be bool (K,) on x's device")
+        raise ValueError(f"col_mask must be bool {lead + (k,)} on x's "
+                         f"device")
     return scale, col_mask.contiguous()
+
+
+def _launch(kernel, batched_kernel, x, *args) -> None:
+    """One launch of a fused entry on x (M, K), or of its batched form on
+    x (E, M, K) with E appended; nothing to launch for an empty x."""
+    if x.numel() == 0:
+        return
+    head = (x.data_ptr(), int(x.dtype == torch.bfloat16))
+    if x.ndim == 3:
+        batched_kernel.launch(*head, *args, x.shape[0])
+    else:
+        kernel.launch(*head, *args)
 
 
 def sparqle_encode(
@@ -239,8 +278,8 @@ def sparqle_encode_packed(
 
 
 def sparqle_encode_fused(
-    x: torch.Tensor,                # (M, K) f32 / bf16
-    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    x: torch.Tensor,                # (M, K) or (E, M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
     *,
@@ -251,21 +290,19 @@ def sparqle_encode_fused(
     same launch: returns (lsb4, msb4, pbm or None, tile_pop, scale (M, 1)
     f32 = ``activation_scale(x).float()``)."""
     if not x.is_cuda:
-        lsb, msb, pbm, pop, scale = sparqle_encode_fused_ref(x, col_mask, l,
-                                                             h)
+        lsb, msb, pbm, pop, scale = plain_for(sparqle_encode_fused_ref,
+                                              x.ndim == 3)(x, col_mask, l, h)
         return lsb, msb, pbm if with_pbm else None, pop, scale
-    m, k = x.shape
+    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     col_mask = _check_fused(x, col_mask)
-    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    lsb = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    msb = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    pbm = (torch.empty((m, k), dtype=torch.bool, device=x.device)
+    scale = torch.empty(lead + (m, 1), dtype=torch.float32, device=x.device)
+    lsb = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
+    msb = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
+    pbm = (torch.empty(lead + (m, k), dtype=torch.bool, device=x.device)
            if with_pbm else None)
-    pop = torch.empty((_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
+    pop = torch.empty(lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
                       dtype=torch.int32, device=x.device)
-    if m and k:
-        FUSED_KERNEL.launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+    _launch(FUSED_KERNEL, FUSED_BATCHED_KERNEL, x, scale.data_ptr(),
             None if col_mask is None else col_mask.data_ptr(), int(l),
             int(h), lsb.data_ptr(), msb.data_ptr(),
             pbm.data_ptr() if with_pbm else None, pop.data_ptr(), m, k)
@@ -273,30 +310,30 @@ def sparqle_encode_fused(
 
 
 def sparqle_quantize_fused(
-    x: torch.Tensor,                # (M, K) f32 / bf16
-    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    x: torch.Tensor,                # (M, K) or (E, M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`sparqle_quantize` with the scale computed in the same
     launch: returns (q int8 (M, K), scale (M, 1) f32)."""
     if not x.is_cuda:
-        return sparqle_quantize_fused_ref(x, col_mask, l, h)
-    m, k = x.shape
+        return plain_for(sparqle_quantize_fused_ref, x.ndim == 3)(
+            x, col_mask, l, h)
+    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     col_mask = _check_fused(x, col_mask)
-    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    if m and k:
-        QUANTIZE_FUSED_KERNEL.launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+    scale = torch.empty(lead + (m, 1), dtype=torch.float32, device=x.device)
+    q = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
+    _launch(QUANTIZE_FUSED_KERNEL, QUANTIZE_FUSED_BATCHED_KERNEL, x,
+            scale.data_ptr(),
             None if col_mask is None else col_mask.data_ptr(), int(l),
             int(h), q.data_ptr(), m, k)
     return q, scale
 
 
 def sparqle_encode_packed_fused(
-    x: torch.Tensor,                # (M, K) f32 / bf16
-    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    x: torch.Tensor,                # (M, K) or (E, M, K) f32 / bf16
+    col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -305,20 +342,20 @@ def sparqle_encode_packed_fused(
     launch: returns (lsb4 packed, msb4 packed, PBM words, tile_pop,
     scale (M, 1) f32)."""
     if not x.is_cuda:
-        return sparqle_encode_packed_fused_ref(x, col_mask, l, h)
-    m, k = x.shape
+        return plain_for(sparqle_encode_packed_fused_ref,
+                         x.ndim == 3)(x, col_mask, l, h)
+    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     kp = pad_k(k)
     col_mask = _check_fused(x, col_mask)
-    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    lsb = torch.empty((m, kp // 2), dtype=torch.int8, device=x.device)
-    msb = torch.empty((m, kp // 2), dtype=torch.int8, device=x.device)
-    pbm = torch.empty((m, kp // PBM_WORD_BITS), dtype=torch.int32,
+    scale = torch.empty(lead + (m, 1), dtype=torch.float32, device=x.device)
+    lsb = torch.empty(lead + (m, kp // 2), dtype=torch.int8, device=x.device)
+    msb = torch.empty(lead + (m, kp // 2), dtype=torch.int8, device=x.device)
+    pbm = torch.empty(lead + (m, kp // PBM_WORD_BITS), dtype=torch.int32,
                       device=x.device)
-    pop = torch.empty((_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
+    pop = torch.empty(lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
                       dtype=torch.int32, device=x.device)
-    if m and k:
-        PACKED_FUSED_KERNEL.launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+    _launch(PACKED_FUSED_KERNEL, PACKED_FUSED_BATCHED_KERNEL, x,
+            scale.data_ptr(),
             None if col_mask is None else col_mask.data_ptr(), int(l),
             int(h), lsb.data_ptr(), msb.data_ptr(), pbm.data_ptr(),
             pop.data_ptr(), m, k, kp)

@@ -34,6 +34,15 @@ The launch plan and the fragment order inside a tile have plain-Python
 mirrors here (:func:`launch_plan`, :func:`block_tiles`, :func:`k_order`,
 :func:`n_order`, :func:`w_off`, :func:`a_off`), tested on the CPU.
 
+Every entry also takes the expert-batched operands of a routed MoE
+projection: planes (E, M, K), populations (E, ceil(M/TILE_M),
+ceil(K/TILE_K)), the packed weight (E, K/2, N), scales (E, M, 1) and (E,
+1, N). One launch of the entry's ``*_batched`` instance computes every
+expert (the expert index joins the grid's rows; each expert reads its own
+rows, weight and scales), so a routed projection is one launch, not E.
+Their plain versions run the 2-D ones expert by expert
+(``ref.batched``).
+
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version ``kernels.ref.sparqle_matmul_ref`` /
 ``sparqle_matmul_packed_ref``.
@@ -46,7 +55,7 @@ import torch
 
 from repro_torch.core.packing import pad_k
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv,
+from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv, plain_for,
                                      sparqle_matmul_packed_ref,
                                      sparqle_matmul_ref)
 
@@ -63,6 +72,24 @@ PACKED_KERNEL = _build.register(_build.Kernel(
 PACKED_DRAFT_KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "sparqle_matmul_packed_draft_launch",
     _DRAFT[:-1] + [_build.I, _build.P], name="sparqle_matmul_packed_draft"))
+# The expert-batched instances: the same entries with E after K, one
+# launch for every expert (the grid's rows count E x an expert's row
+# blocks).
+_BENTRY = [_build.P] * 10 + [_build.I] * 5 + [_build.P]
+_BDRAFT = [_build.P] * 8 + [_build.I] * 5 + [_build.P]
+BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_matmul.cu", "sparqle_matmul_batched_launch", _BENTRY,
+    name="sparqle_matmul_batched"))
+DRAFT_BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_matmul.cu", "sparqle_matmul_draft_batched_launch", _BDRAFT,
+    name="sparqle_matmul_draft_batched"))
+PACKED_BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_matmul.cu", "sparqle_matmul_packed_batched_launch",
+    _BENTRY[:-1] + [_build.I, _build.P], name="sparqle_matmul_packed_batched"))
+PACKED_DRAFT_BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_matmul.cu", "sparqle_matmul_packed_draft_batched_launch",
+    _BDRAFT[:-1] + [_build.I, _build.P],
+    name="sparqle_matmul_packed_draft_batched"))
 
 # csrc/sparqle_matmul.cu's tiling
 MT = 4                  # m16 tiles a block: the weight is read once per 64 rows
@@ -78,37 +105,46 @@ MAX_K = 65536
 
 class Plan(NamedTuple):
     """One call's grid: ``col_blocks`` x ``row_blocks`` output tiles of
-    BLOCK_M x BLOCK_N, each K range of ``per`` K tiles a split."""
+    BLOCK_M x BLOCK_N for each of ``experts`` experts (1 unbatched),
+    each K range of ``per`` K tiles a split."""
     col_blocks: int
     row_blocks: int
     n_kt: int
     per: int
     splits: int
+    experts: int = 1
+
+    @property
+    def tiles(self) -> int:
+        return self.col_blocks * self.row_blocks * self.experts
 
     @property
     def blocks(self) -> int:
-        return self.col_blocks * self.row_blocks * self.splits
+        return self.tiles * self.splits
 
     @property
     def counters(self) -> int:
         """Arrival counters the split meet needs (one an output tile)."""
-        return self.col_blocks * self.row_blocks if self.splits > 1 else 0
+        return self.tiles if self.splits > 1 else 0
 
     def workspace(self, m: int, n: int) -> int:
-        """int32 elements of the split partials (one (M, N) slice each)."""
-        return self.splits * m * n if self.splits > 1 else 0
+        """int32 elements of the split partials (one (M, N) slice each
+        split and expert)."""
+        return self.splits * self.experts * m * n if self.splits > 1 else 0
 
 
-def launch_plan(m: int, n: int, k: int) -> Plan:
+def launch_plan(m: int, n: int, k: int, e: int = 1) -> Plan:
     """Split K until the grid holds TARGET_BLOCKS blocks where K allows:
     the fewest K tiles a split that still reach it, balanced over the
-    splits. With the output tiles alone at TARGET_BLOCKS, one split."""
+    splits. With the output tiles alone (of all ``e`` experts) at
+    TARGET_BLOCKS, one split; so a split plan has fewer than
+    TARGET_BLOCKS output tiles, and the counter buffer holds them."""
     n_kt = _cdiv(k, TILE_K)
     cols, rows = _cdiv(n, BLOCK_N), _cdiv(m, BLOCK_M)
-    want = max(1, min(n_kt, _cdiv(TARGET_BLOCKS, cols * rows)))
+    want = max(1, min(n_kt, _cdiv(TARGET_BLOCKS, cols * rows * e)))
     per = max(1, n_kt // want)
     per = _cdiv(n_kt, _cdiv(n_kt, per))
-    return Plan(cols, rows, n_kt, per, _cdiv(n_kt, per))
+    return Plan(cols, rows, n_kt, per, _cdiv(n_kt, per), e)
 
 
 def block_tiles(plan: Plan, m: int, n: int, bx: int, by: int,
@@ -185,22 +221,25 @@ def sparqle_matmul(
     With ``msb_skip`` acc is the LSB pass alone and ``msb4``/``tile_pop``
     may be None (they are not read)."""
     if not lsb4.is_cuda:
-        return sparqle_matmul_ref(lsb4, msb4, tile_pop, w_packed, act_scale,
-                                  w_scale, acc_out=acc_out,
-                                  msb_skip=msb_skip)
-    m, k = lsb4.shape
-    k2, n = w_packed.shape
+        return plain_for(sparqle_matmul_ref, w_packed.ndim == 3)(
+            lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
+            acc_out=acc_out, msb_skip=msb_skip)
+    m, k = lsb4.shape[-2:]
+    k2, n = w_packed.shape[-2:]
     if k != 2 * k2:
         raise ValueError(f"K mismatch: planes {tuple(lsb4.shape)}, packed "
                          f"weight {tuple(w_packed.shape)}")
     res, tail = _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
                           (m, k), acc_out=acc_out, msb_skip=msb_skip)
     if tail is not None:
+        one = w_packed.ndim == 2
         if msb_skip:
-            DRAFT_KERNEL.launch(lsb4.data_ptr(), w_packed.data_ptr(), *tail)
+            (DRAFT_KERNEL if one else DRAFT_BATCHED_KERNEL).launch(
+                lsb4.data_ptr(), w_packed.data_ptr(), *tail)
         else:
-            KERNEL.launch(lsb4.data_ptr(), msb4.data_ptr(),
-                          tile_pop.data_ptr(), w_packed.data_ptr(), *tail)
+            (KERNEL if one else BATCHED_KERNEL).launch(
+                lsb4.data_ptr(), msb4.data_ptr(), tile_pop.data_ptr(),
+                w_packed.data_ptr(), *tail)
     return res
 
 
@@ -219,23 +258,26 @@ def sparqle_matmul_packed(
     K padded to a multiple of 32; K is the weight's). With ``msb_skip``
     the LSB4-only draft: ``msb4_packed``/``tile_pop`` may be None."""
     if not lsb4_packed.is_cuda:
-        return sparqle_matmul_packed_ref(
+        return plain_for(sparqle_matmul_packed_ref,
+                         w_packed.ndim == 3)(
             lsb4_packed, msb4_packed, tile_pop, w_packed, act_scale,
             w_scale, acc_out=acc_out, msb_skip=msb_skip)
-    m = lsb4_packed.shape[0]
-    k2, n = w_packed.shape
+    m = lsb4_packed.shape[-2]
+    k2, n = w_packed.shape[-2:]
     ldp = pad_k(2 * k2) // 2
     res, tail = _operands(lsb4_packed, msb4_packed, tile_pop, w_packed,
                           act_scale, w_scale, (m, ldp), acc_out=acc_out,
                           msb_skip=msb_skip)
     if tail is not None:
-        # the entry takes ldp between K and the K tiles a split
+        # the entry takes ldp between K (E when batched) and the K tiles
+        # a split
         tail = tail[:-1] + (ldp, tail[-1])
+        one = w_packed.ndim == 2
         if msb_skip:
-            PACKED_DRAFT_KERNEL.launch(lsb4_packed.data_ptr(),
-                                       w_packed.data_ptr(), *tail)
+            (PACKED_DRAFT_KERNEL if one else PACKED_DRAFT_BATCHED_KERNEL
+             ).launch(lsb4_packed.data_ptr(), w_packed.data_ptr(), *tail)
         else:
-            PACKED_KERNEL.launch(
+            (PACKED_KERNEL if one else PACKED_BATCHED_KERNEL).launch(
                 lsb4_packed.data_ptr(), msb4_packed.data_ptr(),
                 tile_pop.data_ptr(), w_packed.data_ptr(), *tail)
     return res
@@ -246,21 +288,29 @@ def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
               plane: str = "lsb4"):
     """Raise unless the operands are what the kernels take (planes of
     ``plane_shape``; ``plane`` names the first in errors: the dense
-    wrapper passes its q there). Returns the result tensor and the
-    entry's arguments after the weight pointer (None when there is
-    nothing to launch)."""
+    wrapper passes its q there). A weight (E, K/2, N) makes it the
+    expert-batched form: every operand then carries the leading E axis.
+    Returns the result tensor and the entry's arguments after the weight
+    pointer (None when there is nothing to launch): (..., M, N, K,
+    [E,] K tiles a split)."""
+    if w_packed.ndim not in (2, 3):
+        raise ValueError(f"w_packed must be (K/2, N) or (E, K/2, N), got "
+                         f"{tuple(w_packed.shape)}")
+    lead = tuple(w_packed.shape[:-2])
+    e = lead[0] if lead else 1
     m = plane_shape[0]
-    k2, n = w_packed.shape
+    k2, n = w_packed.shape[-2:]
     k = 2 * k2
     dev = lsb4.device
-    operands = [(plane, lsb4, plane_shape, torch.int8),
-                ("w_packed", w_packed, (k2, n), torch.int8),
-                ("act_scale", act_scale, (m, 1), torch.float32),
-                ("w_scale", w_scale, (1, n), torch.float32)]
+    operands = [(plane, lsb4, lead + plane_shape, torch.int8),
+                ("w_packed", w_packed, lead + (k2, n), torch.int8),
+                ("act_scale", act_scale, lead + (m, 1), torch.float32),
+                ("w_scale", w_scale, lead + (1, n), torch.float32)]
     if not msb_skip:
-        operands += [("msb4", msb4, plane_shape, torch.int8),
+        operands += [("msb4", msb4, lead + plane_shape, torch.int8),
                      ("tile_pop", tile_pop,
-                      (_cdiv(m, TILE_M), _cdiv(k, TILE_K)), torch.int32)]
+                      lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
+                      torch.int32)]
     if k > MAX_K:
         raise ValueError(f"K={k} > {MAX_K}: the kernel's int32 accumulator "
                          f"holds 16 x the sum")
@@ -272,16 +322,20 @@ def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    res = torch.empty((m, n), dtype=torch.int32 if acc_out else torch.float32,
+    res = torch.empty(lead + (m, n),
+                      dtype=torch.int32 if acc_out else torch.float32,
                       device=dev)
     counters = _counters(dev)
-    if not (m and n and k):
+    if not (m and n and k and e):
         return res, None
-    plan = launch_plan(m, n, k)
+    plan = launch_plan(m, n, k, e)
+    if plan.counters > counters.numel():
+        raise RuntimeError(f"{plan} needs {plan.counters} arrival counters, "
+                           f"the device has {counters.numel()}")
     ws = (torch.empty(plan.workspace(m, n), dtype=torch.int32, device=dev)
           if plan.splits > 1 else None)
     return res, (act_scale.data_ptr(), w_scale.data_ptr(),
                  None if acc_out else res.data_ptr(),
                  res.data_ptr() if acc_out else None,
                  None if ws is None else ws.data_ptr(), counters.data_ptr(),
-                 m, n, k, plan.per)
+                 m, n, k, *lead, plan.per)

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -84,8 +85,18 @@ class CudaGraph:
         self.mempool = mempool
 
     def capture(self, fn: Callable, args: List[Any]):
-        with torch.cuda.graph(self.graph, pool=self.mempool):
-            return fn(*args)
+        # no garbage collection inside the capture: a collected engine's
+        # graphs would be destroyed there, which a capturing stream does
+        # not permit and which invalidates this capture; dead ones go now
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.mempool):
+                return fn(*args)
+        finally:
+            if enabled:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()

@@ -1,12 +1,20 @@
 """Serving driver on the SPARQLe quantized path (the paged engine).
 
-Requests are admitted FCFS under a token budget into a paged packed-KV4
-pool, prefill is chunked, decode slots are backfilled every step, and
-every projection runs the fused encoder + dual-pass W4A8 matmul kernels
-while decode attention runs the paged KV4 kernel. Weights are drawn from
-``--seed`` on the device and quantized one layer at a time; prompts are
-numpy tokens from the same seed. Prints per-request TTFT/TPOT, tokens/s,
-the achieved MSB4 sparsity and the measured wire compression.
+Serves every architecture the JAX engine serves: granite-8b, yi-6b,
+starcoder2-3b (LayerNorm, biases, GELU MLP) and deepseek-moe-16b (routed
++ shared MoE FFNs). Requests are admitted FCFS under a token budget into
+a paged packed-KV4 pool, prefill is chunked, decode slots are backfilled
+every step, and every projection runs the fused encoder + dual-pass W4A8
+matmul kernels (a routed MoE projection their expert-batched instances,
+one launch each for all experts) while decode attention runs the paged
+KV4 kernel. Weights are drawn from ``--seed`` on the device and
+quantized one layer at a time, or with ``--ckpt DIR`` restored as the
+float tree of the newest complete checkpoint under DIR
+(``checkpoint/store.py``, the JAX package's format) and quantized one
+layer at a time on the device; prompts are the synthetic stream's first
+batch (``data/pipeline.py`` ``SyntheticLM``), as the JAX serve's.
+Prints per-request TTFT/TPOT, tokens/s, the achieved MSB4 sparsity and
+the measured wire compression.
 ``--spec-gamma N`` serves through the self-speculative engine (N
 LSB4-only draft steps and one batched verify per cycle) and also prints
 the draft acceptance rate and the tokens emitted per cycle. ``--mode
@@ -21,6 +29,8 @@ matmul kernels), no sub-precision split.
         --mode dense
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --smoke --device cpu [--spec-gamma 2] [--mode dense]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b [--ckpt DIR]
 
 ``--legacy`` serves the fixed-batch path instead: one whole-prompt
 prefill into a contiguous packed-KV4 cache a layer, then lockstep greedy
@@ -47,12 +57,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.qlinear import quantize_model_params
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import steps as S
 from repro_torch.launch.graphs import CompiledStep
 from repro_torch.models.model import check_paged_support
-from repro_torch.models.schema import init_quantized_params
+from repro_torch.models.schema import abstract_params, init_quantized_params
 from repro_torch.models.schema_builder import build_schema
 from repro_torch.serving import (Engine, PoolConfig, SamplingParams,
                                  SchedulerConfig, SpecConfig,
@@ -73,10 +86,34 @@ def build_served_params(cfg: ModelConfig, seed: int, device, *,
         mode=mode)
 
 
+def restore_served_params(cfg: ModelConfig, path: str, device, *,
+                          mode: str = "sparqle", **quant_kw):
+    """The served tree of the float params in the newest complete
+    checkpoint under ``path`` (JAX's ``store.save`` of ``{"params":
+    tree}``, or the port's): restored on the host, then each projection
+    quantized one layer at a time on ``device``."""
+    step = store.latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no complete checkpoint under {path!r}")
+    like = {"params": abstract_params(build_schema(cfg))}
+    params = store.restore(path, step, like)["params"]
+    return quantize_model_params(params, w_bits=cfg.w_bits, mode=mode,
+                                 device=device, **quant_kw)
+
+
 def make_prompts(cfg: ModelConfig, seed: int, batch: int,
                  prompt_len: int) -> List[List[int]]:
+    """Uniform random prompts (the card smoke's serves)."""
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab, (batch, prompt_len)).tolist()
+
+
+def synthetic_prompts(cfg: ModelConfig, seed: int, batch: int,
+                      prompt_len: int) -> List[List[int]]:
+    """The JAX serve's prompts: ``SyntheticLM``'s first batch."""
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
+                                  global_batch=batch, seed=seed))
+    return data.batch_at(0)["tokens"].tolist()
 
 
 def make_engine(cfg: ModelConfig, params, *, batch: int, prompt_len: int,
@@ -166,7 +203,9 @@ def legacy_serve(cfg: ModelConfig, params, prompts: List[List[int]],
             "decode_step_s": t_decode, "decode_steps": gen - 1}
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Run the CLI; returns the run's summary (its ``streams`` the greedy
+    token streams)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -178,6 +217,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--clip-h", type=float, default=23.0)
     ap.add_argument("--no-clip", action="store_true")
     ap.add_argument("--mode", default="sparqle", choices=["sparqle", "dense"])
+    ap.add_argument("--ckpt", default=None,
+                    help="restore float params from this checkpoint dir")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=0,
@@ -207,15 +248,17 @@ def main(argv: Optional[List[str]] = None) -> None:
     check_paged_support(cfg, "contiguous" if args.legacy else "paged")
     device = resolve_device(args.device)
     t0 = time.perf_counter()
-    params = build_served_params(
-        cfg, args.seed, device, k_percent=args.k_percent,
-        clip_l=args.clip_l, clip_h=args.clip_h,
-        enable_clipping=not args.no_clip,
-        tile_k=16 if args.smoke else 128, mode=args.mode)
-    print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, built and "
-          f"quantized ({args.mode}) on {device} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    prompts = make_prompts(cfg, args.seed, args.batch, args.prompt_len)
+    quant_kw = dict(k_percent=args.k_percent, clip_l=args.clip_l,
+                    clip_h=args.clip_h, enable_clipping=not args.no_clip,
+                    tile_k=16 if args.smoke else 128, mode=args.mode)
+    if args.ckpt:
+        params = restore_served_params(cfg, args.ckpt, device, **quant_kw)
+    else:
+        params = build_served_params(cfg, args.seed, device, **quant_kw)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{'restored' if args.ckpt else 'built'} and quantized "
+          f"({args.mode}) on {device} in {time.perf_counter() - t0:.1f} s")
+    prompts = synthetic_prompts(cfg, args.seed, args.batch, args.prompt_len)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "CPU, plain versions")
     if args.legacy:
@@ -223,7 +266,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"generated {args.batch} x {args.gen} tokens; prefill "
               f"{r['prefill_s'] * 1e3:.1f} ms, "
               f"{r['decode_step_s'] * 1e3:.2f} ms/token ({where})")
-        return
+        return r
     eng = make_engine(cfg, params, batch=args.batch,
                       prompt_len=args.prompt_len, gen=args.gen,
                       page_size=args.page_size, n_pages=args.n_pages,
@@ -254,6 +297,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             json.dump(eng.metrics_snapshot(), f, indent=1)
     if args.trace_out:
         eng.obs.tracer.export_chrome(args.trace_out)
+    return r
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
 """Shared layers of the serving paths (torch twin of
-``repro.models.layers``): RMSNorm, RoPE, embedding, the inter-layer
-activation wire telemetry, and the fixed-batch path's float attention
-(``flash_attention`` over a whole sequence, ``decode_attention`` over a
-dequantized cache — plain torch, as they are plain jnp in JAX)."""
+``repro.models.layers``): RMSNorm, LayerNorm, SiLU and the tanh GELU
+(both rounded op by op as JAX rounds them), RoPE, embedding, the
+inter-layer activation wire telemetry, and the fixed-batch path's float
+attention (``flash_attention`` over a whole sequence,
+``decode_attention`` over a dequantized cache — plain torch, as they are
+plain jnp in JAX)."""
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple
 
 import torch
@@ -24,6 +27,48 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     x = x.float()
     var = (x * x).mean(dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * (1.0 + gamma.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """f32 LayerNorm, cast back to x's dtype:
+    ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
+    dt = x.dtype
+    x = x.float()
+    d = x - x.mean(dim=-1, keepdim=True)
+    var = (d * d).mean(dim=-1, keepdim=True)
+    return (d * torch.rsqrt(var + eps) * gamma + beta).to(dt)
+
+
+def _exactly(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` (a Python float that dtype holds)."""
+    return torch.tensor(v, dtype=torch.float64).to(dtype).item()
+
+
+# jax.nn.gelu(approximate=True)'s constants as JAX casts them to x's
+# dtype, made once here: a Python number that the dtype holds exactly
+# multiplies a tensor of it as that dtype's product does (one rounding of
+# the exact f32 product), and needs no host-to-device copy inside a
+# CUDA-graph capture
+_GELU_CONSTANTS = {dt: (_exactly((2 / math.pi) ** 0.5, dt),
+                        _exactly(0.044715, dt))
+                   for dt in (torch.float32, torch.bfloat16)}
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` op by op, each op rounded to x's
+    dtype as JAX rounds it (``F.gelu(approximate="tanh")`` rounds once
+    and differs at bf16)."""
+    c, a = _GELU_CONSTANTS[x.dtype]
+    inner = c * (x + a * (x * (x * x)))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` op by op, each op rounded to x's dtype (at bf16
+    torch.sigmoid rounds once and differs from JAX in ~1/3 of
+    elements)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

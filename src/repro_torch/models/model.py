@@ -1,5 +1,6 @@
 """Serving subset of the unified model (torch twin of
-``repro.models.model``): a full-attention GQA decoder in SPARQLe mode,
+``repro.models.model``): a full-attention GQA decoder (RMSNorm or
+LayerNorm; a SwiGLU, biased GELU or MoE FFN) in SPARQLe mode,
 served from a paged packed-KV4 pool (the engine) or from one contiguous
 (B, Smax) packed-KV4 cache a layer (``prefill``/``decode_step``, the
 fixed-batch ``serve --legacy`` path).
@@ -35,9 +36,11 @@ from repro_torch.kernels.kv_attention import (
     CONTIGUOUS_BLOCK, kv4_decode_attention, kv4_paged_decode_attention,
     kv4_paged_verify_attention, kv_tiered_paged_decode_attention)
 from repro_torch.kernels.ref import unpack_kv4
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (NEG_INF, AttnSpec,
                                        act_wire_telemetry, embed,
-                                       flash_attention, rms_norm, rope,
+                                       flash_attention, gelu_tanh, layer_norm,
+                                       rms_norm, rope, silu,
                                        stack_sublayer_telemetry)
 from repro_torch.models.stages import LayerDef, build_stages
 
@@ -46,8 +49,8 @@ Cache = Dict[str, Any]
 
 
 def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm_type != "rms":
-        raise NotImplementedError("layer norm is not ported")
+    if cfg.norm_type == "layer":
+        return layer_norm(x, p["gamma"], p["beta"], cfg.rms_eps)
     return rms_norm(x, p["gamma"], cfg.rms_eps)
 
 
@@ -88,18 +91,42 @@ def _attn_qkv(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
 
 
 def dense_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    return _swiglu(cfg, p, _norm(cfg, p["ln2"], x))
+    return _mlp(cfg, p, _norm(cfg, p["ln2"], x))
 
 
-def _swiglu(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
-    """The FFN on its already-normed input."""
+def _mlp(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """The dense FFN on its already-normed input: SwiGLU, or the plain
+    tanh-GELU MLP with its biases."""
+    if cfg.mlp_type == "gelu":
+        return linear(gelu_tanh(linear(h, p["w_fc"], p.get("b_fc"))),
+                      p["w_proj"], p.get("b_proj"))
     if cfg.mlp_type != "swiglu":
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
-    g = linear(h, p["w_gate"])
-    # jax.nn.silu op by op, each rounded to the activation dtype (at bf16
-    # torch.sigmoid rounds once and differs from JAX in ~1/3 of elements)
-    g = g * torch.reciprocal(1 + torch.exp(-g))
+    g = silu(linear(h, p["w_gate"]))
     return linear(g * linear(h, p["w_up"]), p["w_down"])
+
+
+def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The MoE FFN on x (..., D): routed experts over the flattened
+    tokens (capacity from their count), plus the shared experts."""
+    h = _norm(cfg, p["ln2"], x)
+    flat = h.reshape(-1, h.shape[-1])
+    mp = p["moe"]
+    y = moe_lib.moe_ffn(flat, mp["w_router"], mp["w_gate"], mp["w_up"],
+                        mp["w_down"], top_k=cfg.top_k,
+                        capacity_factor=cfg.capacity_factor,
+                        router_type=cfg.router_type)
+    if cfg.n_shared_experts:
+        y = y + moe_lib.shared_expert_ffn(flat, mp["w_shared_gate"],
+                                          mp["w_shared_up"],
+                                          mp["w_shared_down"])
+    return y.reshape(h.shape)
+
+
+def _ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
+         x: torch.Tensor) -> torch.Tensor:
+    """The layer's FFN (dense or MoE) on x (..., D), residual not added."""
+    return (moe_ffn if ld.ffn == "moe" else dense_ffn)(cfg, p, x)
 
 
 def head_logits(cfg: ModelConfig, params: Params,
@@ -130,11 +157,10 @@ def check_paged_support(cfg: ModelConfig, path: str = "paged") -> None:
             f"head_dim required (got kv_bits={cfg.kv_bits}, hd={cfg.hd})")
     for stage in build_stages(cfg):
         for ld in stage.period:
-            if ld.mixer != "attn" or ld.window or ld.ffn != "dense":
+            if ld.mixer != "attn" or ld.window:
                 raise NotImplementedError(
-                    f"{path} serving supports full-attention GQA layers with "
-                    f"a dense FFN only (got mixer={ld.mixer!r}, window="
-                    f"{ld.window}, ffn={ld.ffn!r})")
+                    f"{path} serving supports full-attention GQA layers only "
+                    f"(got mixer={ld.mixer!r}, window={ld.window})")
 
 
 def _layers(cfg: ModelConfig, params: Params, pool: Optional[Cache]):
@@ -233,7 +259,7 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
             y, _ = attn_decode_paged(cfg, ld, p, x, lpool, block_tables, pos,
                                      tier_tables)
             x = x + y
-            x = x + dense_ffn(cfg, p, x[:, None, :])[:, 0]
+            x = x + _ffn(cfg, ld, p, x[:, None, :])[:, 0]
         telemetry: Dict[str, torch.Tensor] = {}
         if with_telemetry:
             telemetry["sparsity"] = _act_subprecision_sparsity(x)
@@ -312,8 +338,14 @@ def verify_window_paged(cfg: ModelConfig, params: Params, pool: Cache,
         tels.append(act_wire_telemetry(x))
         y, _ = attn_verify_paged(cfg, ld, p, x, lpool, block_tables, pos)
         x = x + y
-        x = x + _swiglu(cfg, p, _per_position(   # as decode: (B, 1, D)
-            lambda r: _norm(cfg, p["ln2"], r[:, None, :])[:, 0], x))
+        if ld.ffn == "moe":
+            # one routed-MoE call a window position, on the B rows a
+            # decode step routes: capacity depends on the token count
+            x = x + _per_position(
+                lambda r: moe_ffn(cfg, p, r[:, None, :])[:, 0], x)
+        else:
+            x = x + _mlp(cfg, p, _per_position(   # as decode: (B, 1, D)
+                lambda r: _norm(cfg, p["ln2"], r[:, None, :])[:, 0], x))
     tel = stack_sublayer_telemetry(tels)                     # (L, B, T)
     telemetry = {
         "sparsity": _act_subprecision_sparsity(x).mean(-1),
@@ -400,7 +432,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Cache,
         y, _ = _attn_prefill_chunk_paged(cfg, ld, p, x, lpool, block_table,
                                          start, valid)
         x = x + y
-        x = x + dense_ffn(cfg, p, x)
+        x = x + _ffn(cfg, ld, p, x)   # MoE: all C rows, padding included
     c = tokens.shape[1]
     valid_tok = (torch.arange(c, device=dev) < valid).float()
     # a device scalar: the card divides truly, as JAX does (a Python
@@ -504,13 +536,13 @@ def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,
                       prefix_len, cache):
     y, cache = attn_full(cfg, ld, p, x, positions, prefix_len, cache)
     x = x + y
-    return x + dense_ffn(cfg, p, x), cache
+    return x + _ffn(cfg, ld, p, x), cache
 
 
 def _apply_layer_decode(cfg, ld: LayerDef, p: Params, x, cache, pos):
     y, cache = attn_decode(cfg, ld, p, x, cache, pos)
     x = x + y
-    return x + dense_ffn(cfg, p, x[:, None, :])[:, 0], cache
+    return x + _ffn(cfg, ld, p, x[:, None, :])[:, 0], cache
 
 
 def embed_inputs(cfg: ModelConfig, params: Params,

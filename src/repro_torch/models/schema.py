@@ -16,7 +16,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.qlinear import is_quantizable, quantize_leaf, stack_linears
+from repro_torch.core.qlinear import (is_expert, is_quantizable, quantize_leaf,
+                                      stack_linears)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +77,13 @@ def _sorted_paths(schema: Schema):
     return sorted(paths)
 
 
+def abstract_params(schema: Schema) -> Dict:
+    """The param tree's layout as meta tensors (shapes and dtypes, no
+    storage): the ``like`` tree of ``checkpoint.store.restore``."""
+    return _map_schema(schema, lambda _, s: torch.empty(
+        s.shape, dtype=s.dtype, device="meta"))
+
+
 def init_params(schema: Schema, seed: int, device="cpu") -> Dict:
     """Materialize a float param tree from ``seed`` on ``device``."""
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -92,7 +100,9 @@ def init_quantized_params(schema: Schema, seed: int, device, *,
                           **quant_kw) -> Dict:
     """Materialize the SPARQLe served tree directly: every projection is
     drawn and quantized one layer at a time, so no float copy of the
-    whole model ever exists (granite-8b's would be 32 GB in f32). Other
+    whole model ever exists (granite-8b's would be 32 GB in f32; a
+    routed-expert leaf is drawn (E, K, N) a layer: deepseek-moe-16b's
+    0.74 GB where the stacked leaf would be 19.9 GB). Other
     leaves are drawn whole; ``float_dtype`` casts the embedding table to
     the compute dtype — the model casts it to that dtype at every use
     (lookup and tied head) anyway, so the values are unchanged."""
@@ -103,7 +113,8 @@ def init_quantized_params(schema: Schema, seed: int, device, *,
     for path in _sorted_paths(schema):
         spec = flat[path]
         if is_quantizable(path, torch.empty(spec.shape, device="meta")):
-            if len(spec.shape) == 2:
+            if len(spec.shape) == 2 or (len(spec.shape) == 3
+                                        and is_expert(path)):
                 leaves[path] = quantize_leaf(
                     _init_leaf(gen, spec, device), **quant_kw)
             else:

@@ -1,5 +1,6 @@
-"""Parameter schema of a dense GQA decoder (torch twin of the attention +
-dense-FFN parts of ``repro.models.schema_builder``). Every leaf under
+"""Parameter schema of a GQA decoder with dense (SwiGLU or GELU) or MoE
+FFNs (torch twin of the attention and FFN parts of
+``repro.models.schema_builder``). Every leaf under
 ``stages/s<i>/p<j>`` carries the leading layer (repeat) axis, with the
 projection names ``core.qlinear`` quantizes."""
 from __future__ import annotations
@@ -10,8 +11,9 @@ from repro_torch.models.stages import LayerDef, build_stages
 
 
 def _norm_schema(cfg: ModelConfig, dim: int) -> Schema:
-    if cfg.norm_type != "rms":
-        raise NotImplementedError("layer norm is not ported")
+    if cfg.norm_type == "layer":
+        return {"gamma": ParamSpec((dim,), (None,), init="ones"),
+                "beta": ParamSpec((dim,), (None,), init="zeros")}
     return {"gamma": ParamSpec((dim,), (None,), init="zeros")}
 
 
@@ -38,21 +40,53 @@ def _attn_schema(cfg: ModelConfig) -> Schema:
 
 
 def _dense_ffn_schema(cfg: ModelConfig) -> Schema:
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
     d, f = cfg.d_model, cfg.d_ff
-    return {
-        "ln2": _norm_schema(cfg, d),
-        "w_gate": ParamSpec((d, f), ("embed", "mlp")),
-        "w_up": ParamSpec((d, f), ("embed", "mlp")),
-        "w_down": ParamSpec((f, d), ("mlp", "embed")),
+    s: Schema = {"ln2": _norm_schema(cfg, d)}
+    if cfg.mlp_type == "swiglu":
+        s.update({
+            "w_gate": ParamSpec((d, f), ("embed", "mlp")),
+            "w_up": ParamSpec((d, f), ("embed", "mlp")),
+            "w_down": ParamSpec((f, d), ("mlp", "embed")),
+        })
+    elif cfg.mlp_type == "gelu":      # plain (non-gated) GELU MLP
+        s.update({
+            "w_fc": ParamSpec((d, f), ("embed", "mlp")),
+            "w_proj": ParamSpec((f, d), ("mlp", "embed")),
+        })
+        if cfg.use_bias:
+            s["b_fc"] = ParamSpec((f,), ("mlp",), init="zeros")
+            s["b_proj"] = ParamSpec((d,), (None,), init="zeros")
+    else:
+        raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
+    return s
+
+
+def _moe_ffn_schema(cfg: ModelConfig) -> Schema:
+    """Router, routed experts (E, D, F) / (E, F, D) and the shared
+    experts folded into one wide SwiGLU."""
+    d, e = cfg.d_model, cfg.n_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    moe: Schema = {
+        "w_router": ParamSpec((d, e), ("embed", None)),
+        "w_gate": ParamSpec((e, d, f), ("experts", "embed", None)),
+        "w_up": ParamSpec((e, d, f), ("experts", "embed", None)),
+        "w_down": ParamSpec((e, f, d), ("experts", None, "embed")),
     }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        moe.update({
+            "w_shared_gate": ParamSpec((d, fs), ("embed", "mlp")),
+            "w_shared_up": ParamSpec((d, fs), ("embed", "mlp")),
+            "w_shared_down": ParamSpec((fs, d), ("mlp", "embed")),
+        })
+    return {"ln2": _norm_schema(cfg, d), "moe": moe}
 
 
 def layer_schema(cfg: ModelConfig, ld: LayerDef) -> Schema:
-    if ld.mixer != "attn" or ld.ffn != "dense":
+    if ld.mixer != "attn" or ld.ffn not in ("dense", "moe"):
         raise NotImplementedError(f"layer {ld} is not ported")
-    return {**_attn_schema(cfg), **_dense_ffn_schema(cfg)}
+    ffn = _dense_ffn_schema if ld.ffn == "dense" else _moe_ffn_schema
+    return {**_attn_schema(cfg), **ffn(cfg)}
 
 
 def _stack(schema: Schema, repeat: int) -> Schema:

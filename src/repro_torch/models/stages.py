@@ -1,5 +1,6 @@
 """Layer-stacking plan: stages of repeated periods (copy of
-``repro.models.stages``, the families the port serves)."""
+``repro.models.stages``, the families the port serves: dense
+transformers and MoE)."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +28,8 @@ class Stage:
 
 
 def build_stages(cfg: ModelConfig) -> List[Stage]:
+    if cfg.family == "moe":
+        return _moe_stages(cfg)
     if cfg.family not in ("transformer", "encoder", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     if cfg.global_every:  # gemma3: (global_every-1) local then 1 global
@@ -43,3 +46,20 @@ def build_stages(cfg: ModelConfig) -> List[Stage]:
         return stages
     return [Stage([LayerDef("attn", "dense", window=cfg.sliding_window)],
                   cfg.n_layers)]
+
+
+def _moe_stages(cfg: ModelConfig) -> List[Stage]:
+    """``first_dense`` dense layers, then the MoE layers: every layer
+    (``moe_every`` 1) or periods of ``moe_every`` with the MoE FFN last."""
+    mixer = "mla" if cfg.use_mla else "attn"
+    stages = []
+    if cfg.first_dense:
+        stages.append(Stage([LayerDef(mixer, "dense")], cfg.first_dense))
+    n_moe = cfg.n_layers - cfg.first_dense
+    if cfg.moe_every > 1:
+        period = [LayerDef(mixer, "moe" if i == cfg.moe_every - 1
+                           else "dense") for i in range(cfg.moe_every)]
+        stages.append(Stage(period, n_moe // cfg.moe_every))
+    else:
+        stages.append(Stage([LayerDef(mixer, "moe")], n_moe))
+    return stages

@@ -27,7 +27,11 @@ with decode calls; the contiguous kernel's ``round_kv`` at bf16 unlike
 form (``chip_smoke.check_round_kv``), the ``round_kv=False`` bits at
 f32. The attention instances off the main path (head dims 16-64, pages
 of 1, 5, 8 and 40 tokens, G of 1, 2, 3 and 6) as
-``chip_smoke.check_attention_shapes`` holds them.
+``chip_smoke.check_attention_shapes`` holds them. The expert-batched
+encoders and matmuls (a routed MoE projection): bit-exact with their
+plain versions (the 2-D ones expert by expert) at E = 8 and 64 experts,
+one launch a call; decode attention at the zoo's head shapes (G = 1, 12,
+8) within 1e-4; the deepseek-moe-16b smoke config served on the card.
 """
 import sys
 from pathlib import Path
@@ -44,11 +48,13 @@ from repro_torch.kernels import (kv_attention, quant_matmul, ref,
 from repro_torch.kernels.ref import TILE_K, TILE_M
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import (MATMUL_KN, MATMUL_M, POP_PATTERNS,  # noqa: E402
-                        check_attention_shapes, check_fused_case,
-                        check_matmul_case, check_round_kv, demoted_pool,
-                        encoder_input, long_context, matmul_case,
-                        paged_tiling, smoke_config_on_card)
+from chip_smoke import (BATCHED_KN, MATMUL_KN, MATMUL_M,  # noqa: E402
+                        POP_PATTERNS, batched_case, batched_instances,
+                        check_attention_shapes, check_attention_zoo,
+                        check_batched_matmul_case, check_fused_case,
+                        check_matmul_case, check_one_launch, check_round_kv,
+                        demoted_pool, encoder_input, long_context,
+                        matmul_case, paged_tiling, smoke_config_on_card)
 
 
 @pytest.fixture
@@ -458,3 +464,73 @@ def test_smoke_config_serves_on_card(cuda):
     """The smoke config (hd 16, G 2) with pages of 8 and a fixed-batch
     cache of 30 positions, through the attention kernels."""
     smoke_config_on_card(cuda, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", BATCHED_KN)
+@pytest.mark.parametrize("e,c", [(8, 1), (8, 17), (64, 3)])
+def test_batched_matmul_family_matches_plain(cuda, e, c, k, n):
+    g = torch.Generator(device=cuda).manual_seed(e + c + k)
+    for pattern in POP_PATTERNS:
+        check_batched_matmul_case(batched_case(cuda, g, e, c, k, n, pattern),
+                                  f"at E={e} C={c} K={k} N={n} {pattern}")
+    cs = batched_case(cuda, g, e, c, k, n, "live")
+    for name, (fn, _, planes, skip) in batched_instances().items():
+        check_one_launch(name, lambda: fn(
+            cs[planes[0]], cs[planes[1]], cs["pop"], cs["wp"], cs["asc"],
+            cs["wsc"], msb_skip=skip))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,k", [(8, 1, 2048), (64, 3, 1408),
+                                   (8, 17, 10944), (3, 33, 200)])
+def test_batched_encoders_match_plain(cuda, dtype, e, c, k):
+    """Each expert's slab, mask row, scale rows and populations: the
+    batched launch's outputs = the 2-D plain version's expert by expert
+    (zero and tiny rows included), one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(e * c + k)
+    x, mask = zip(*[encoder_input(cuda, g, c, k, dtype) for _ in range(e)])
+    x, mask = torch.stack(x).contiguous(), torch.stack(mask).contiguous()
+    for fn, plain in (
+            (sparqle_encode.sparqle_encode_fused,
+             ref.sparqle_encode_fused_ref),
+            (sparqle_encode.sparqle_quantize_fused,
+             ref.sparqle_quantize_fused_ref),
+            (sparqle_encode.sparqle_encode_packed_fused,
+             ref.sparqle_encode_packed_fused_ref)):
+        got = fn(x, mask, -8, 23)
+        want = ref.batched(plain)(x, mask, -8, 23)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        check_one_launch(fn.__name__ + "_batched",
+                         lambda: fn(x, mask, -8, 23))
+
+
+@pytest.mark.cuda
+def test_attention_at_the_zoo_head_shapes(cuda):
+    check_attention_zoo(cuda, torch.Generator(device=cuda).manual_seed(23),
+                        (3.35e12, 1979e12, 67e12))
+
+
+@pytest.mark.cuda
+def test_moe_smoke_config_serves_on_card(cuda):
+    """deepseek-moe-16b's smoke config (8 experts, hd 16, MHA): engine and
+    speculative engine on the card, equal greedy streams, the routed
+    projections through the batched kernels."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (build_served_params, make_engine,
+                                          make_prompts, run_requests)
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    params = build_served_params(cfg, 0, cuda, tile_k=16)
+    prompts = make_prompts(cfg, 5, 4, 21)
+    streams = []
+    for gamma in (0, 2):
+        kernels.reset_launch_counts()
+        streams.append(run_requests(make_engine(
+            cfg, params, batch=4, prompt_len=21, gen=9, page_size=8,
+            spec_gamma=gamma, device=cuda), prompts, 9)["streams"])
+        counts = kernels.launch_counts()
+        assert counts["sparqle_matmul_batched"] > 0
+        assert counts["sparqle_encode_fused_batched"] > 0
+    assert streams[0] == streams[1]
