@@ -91,7 +91,23 @@ to chiprun_out/):
      arch's 2-layer f32 cross-check as phase 11's; ``serve --ckpt`` of a
      checkpoint the port's ``save`` wrote, streams equal to serving the
      tree directly;
- 13. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 13. tensor-parallel serving, the ranks of a ("data", "model") mesh
+     sharing the card over gloo (one process a rank, steps eager): the
+     expert-batched encoders that take a scale bit-equal to their plain
+     versions and to their fused twins fed the same scale; granite-8b at
+     full width and depth rebuilt from the seed (checksum equal to phase
+     4's tree), one decode step at meshes 1x2 and 2x2 with logits
+     bit-equal to the single-device step's, and how many logits a 4-row
+     decode step changes against the same rows of the 8-row one; gloo's
+     all-reduce MAX and SUM and all-gather on CUDA int32 and f32 tensors;
+     serves at 1x2 (base, gamma = SPEC_GAMMA, dense: streams equal to
+     phases 4, 5 and 7) and 2x2 (base: phase 4's), deepseek-moe-16b at
+     full width and MOE_TP_LAYERS layers at 2x2 (base, dense, packed:
+     streams equal to its single-device serve's), every rank's streams
+     equal and its weight shard's checksum the parent's cut, rank 0's
+     launch counts through the row-parallel path; TTFT, TPOT and tokens/s
+     as information; NCCL with CUDA graphs only with two cards or more;
+ 14. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -99,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -1585,7 +1602,7 @@ def granite(dev, seed: int):
 
 def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
                   token_budget: int = 128, table_lookahead: int = 0,
-                  **pool_kw):
+                  mesh=None, **pool_kw):
     """One serve of the prompts through the Engine (``spec_gamma`` 0) or
     the SpeculativeEngine, launch counters zeroed just before and read
     just after. ``pool_kw`` arms the KV2 ladder (PoolConfig
@@ -1594,14 +1611,17 @@ def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
     (``page_msb_sparsity``) of each page just before its demotion, whose
     reads are kept out of the demote phase's time.
     ``table_lookahead`` widens the block table by that many tokens (as
-    the speculative engine's is by gamma)."""
+    the speculative engine's is by gamma). With a ``mesh`` (phase 13) the
+    engine serves this rank's shard, and the serve also returns the
+    checksum of the shard it held."""
     from repro_torch import kernels
     from repro_torch.launch.serve import make_engine, run_requests
     shape = dict(SERVE, prompt_len=SERVE["prompt_len"] + table_lookahead)
     eng = make_engine(cfg, params, **shape, page_size=16,
                       token_budget=token_budget,
                       prefill_chunk=32, decode_slots=8,
-                      spec_gamma=spec_gamma, device=dev, **pool_kw)
+                      spec_gamma=spec_gamma, device=dev, mesh=mesh,
+                      **pool_kw)
     pool, ladder = eng.pool, {"peak": 0.0, "spars": [], "spars_s": 0.0}
     if pool.kv2_armed:
         demote, step = pool.demote, eng.step
@@ -1631,7 +1651,10 @@ def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
     r.update(layers=cfg.n_layers, d_model=cfg.d_model, launches=counts,
              peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
              forwards={ph: lat.count(phase=ph) for ph in
-                       ("prefill", "decode", "draft", "verify")})
+                       ("prefill", "decode", "draft", "verify")},
+             step_mode=eng.step_mode)
+    if mesh is not None:
+        r["checksum"] = tree_checksum(eng.params)
     if pool.kv2_armed:
         r["ladder"] = dict(
             ladder, page_bytes=dict(pool._page_bytes),
@@ -2299,6 +2322,431 @@ def ckpt_round_trip(dev, seed):
     return {"streams_equal": True, "requests": len(r["streams"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor-parallel serving, the ranks of a mesh sharing the card
+# ---------------------------------------------------------------------------
+
+# The meshes of granite-8b's sharded serves (deepseek-moe-16b's is the
+# second), and deepseek-moe-16b's depth there: full width, cut to its
+# dense first layer and 3 MoE layers.
+TP_MESHES = ((1, 2), (2, 2))
+MOE_TP_LAYERS = 4
+# a rank waiting this long in a collective fails the phase
+TP_TIMEOUT_S = 600
+
+
+def tree_tensors(tree):
+    """Every tensor of a param tree (projection fields included), in key
+    order."""
+    from repro_torch.core.qlinear import SparqleLinear
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_tensors(tree[k])
+    elif isinstance(tree, SparqleLinear):
+        for t in (tree.w.q, tree.w.scale, tree.w.zero, tree.col_mask,
+                  tree.l, tree.h):
+            if t is not None:
+                yield t
+    elif tree is not None:
+        yield tree
+
+
+def tree_checksum(tree) -> int:
+    """A checksum of a param tree's bytes that also moves when rows move:
+    the sum over tensors of each 4,096-byte row's byte sum times (its
+    index mod 65,521) + 1."""
+    total = 0
+    for t in tree_tensors(tree):
+        b = t.detach().contiguous().view(-1).view(torch.uint8)
+        pad = (-b.numel()) % 4096
+        rows = torch.cat([b, b.new_zeros(pad)]).view(-1, 4096)
+        w = torch.arange(rows.shape[0], device=b.device) % 65521 + 1
+        total += int((rows.sum(1, dtype=torch.int64) * w).sum().item())
+        total %= 2 ** 61 - 1
+    return total
+
+
+def gloo_ops(dev, lay):
+    """The collectives the sharded steps make, on CUDA tensors over the
+    mesh's gloo groups: all-reduce MAX and SUM of int32 and f32 and an
+    all-gather of each over the model and the data group; True each
+    when the result is the one expected."""
+    import torch.distributed as dist
+    from repro_torch.distributed.tp import all_gather
+    out = {}
+    for dt in (torch.int32, torch.float32):
+        for name, group, rank, ways in (
+                ("model", lay.model_group, lay.coords.model_rank,
+                 lay.model_ways),
+                ("data", lay.data_group, lay.coords.data_rank,
+                 lay.data_ways)):
+            v = torch.full((3,), rank + 1, dtype=dt, device=dev)
+            mx, sm = v.clone(), v.clone()
+            dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+            dist.all_reduce(sm, op=dist.ReduceOp.SUM, group=group)
+            want = torch.arange(1, ways + 1, dtype=dt, device=dev)
+            out[f"{name} {str(dt).split('.')[-1]}"] = bool(
+                (mx == ways).all() and (sm == want.sum()).all()
+                and torch.equal(all_gather(v, group),
+                                want.repeat_interleave(3)))
+    out["backends"] = sorted({dist.get_backend(lay.model_group),
+                              dist.get_backend(lay.data_group)})
+    return out
+
+
+def tp_rank(rank, shape, device_type, jobs):
+    """Phase 13 on one rank of a ``shape`` (data, model) mesh: each job in
+    turn — 'ops' (``gloo_ops``), 'decode' (one sharded decode step from a
+    whole pool: its logits), 'serve' (phase 4's serve of a tree through
+    the sharded Engine or SpeculativeEngine, the rank's launch counts and
+    the checksum of its shard). Returns the results, on the host."""
+    from repro_torch.distributed.sharding import shard_pool_state
+    from repro_torch.distributed.tp import shard_params
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh, mesh_layout
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    mesh = make_mesh(*shape, device_type=device_type)
+    lay = mesh_layout(mesh)
+    out = []
+    for job in jobs:
+        kind = job["kind"]
+        if kind == "ops":
+            out.append(gloo_ops(dev, lay))
+        elif kind == "decode":
+            pool = shard_pool_state(job["state"], job["schema"], lay.coords)
+            local = shard_params(job["params"], lay.coords.model_rank,
+                                 lay.model_ways)
+            n = job["token"].shape[0] // lay.data_ways
+            lo = lay.coords.data_rank * n
+            logits, _, _ = S.make_engine_decode(job["cfg"], mesh=mesh)(
+                local, pool, *(t[lo:lo + n] for t in (
+                    job["token"], job["pos"], job["tables"])))
+            # numpy: a tensor handed back through shared memory would
+            # outlive this process
+            out.append(logits.float().cpu().numpy())
+            del pool, local
+        else:
+            tree = job["params"]
+            if job.get("fields"):
+                tree = with_fields(tree, **job["fields"])
+            r = serve_granite(dev, job["cfg"], tree, job["prompts"],
+                              spec_gamma=job.get("gamma", 0), mesh=mesh)
+            r.pop("aggregate")
+            out.append(r)
+        torch.cuda.empty_cache()
+    # release the parent's shared tensors before this process ends
+    jobs.clear()
+    gc.collect()
+    return out
+
+
+def tp_decode_case(dev, cfg, seed: int, shape):
+    """A used pool (random pages) and one decode batch of 8 slots for a
+    mesh of ``shape``: data shard d owns pages [d P/D, (d+1) P/D), each
+    with its null page, and slot s reads pages of the shard its slot
+    lies in. Returns (whole pool state, schema, token, pos, tables in the
+    unsharded pool's ids, tables in shard-local ids)."""
+    from repro_torch.serving.kv_pool import (PoolConfig, init_pool_state,
+                                             pool_schema)
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    d_ways = shape[0]
+    n_s, b = 9, 8
+    per = 1 + n_s * (b // d_ways)        # distinct pages for every slot
+    pc = PoolConfig(n_pages=per * d_ways, page_size=16)
+    state = fill_random(init_pool_state(cfg, pc, dev), g)
+    tables = torch.zeros((b, n_s), dtype=torch.int32, device=dev)
+    pos = torch.randint(16, n_s * 16, (b,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[b - 1] = 0                       # an idle slot on the null page
+    shard = torch.arange(b, device=dev) // (b // d_ways)
+    for d in range(d_ways):
+        free = (torch.randperm(per - 1, generator=g, device=dev) + 1).int()
+        for s in range(d * (b // d_ways), (d + 1) * (b // d_ways)):
+            used = int(pos[s]) // 16 + 1
+            tables[s, :used], free = free[:used], free[used:]
+    tables[b - 1] = 0
+    whole = tables + (shard * per).int()[:, None]
+    token = torch.randint(0, cfg.vocab, (b,), generator=g, device=dev,
+                          dtype=torch.int32)
+    return state, pool_schema(cfg, pc), token, pos, whole, tables
+
+
+def row_count_4_vs_8(dev, cfg, params, state, token, pos, tables):
+    """At full depth: how many logits of the first 4 slots change when a
+    decode step runs those 4 rows alone instead of with all 8 (no
+    sharding: the step of one data rank of two against the
+    single-device step), and which reductions move — rms_norm (f32 and
+    the served dtype) and the tied head on 4 rows inside an 8-row call."""
+    from repro_torch.core.qlinear import linear
+    from repro_torch.launch import steps as S
+    from repro_torch.models.layers import rms_norm
+    step = S.make_engine_decode(cfg)
+    full, _, _ = step(params, clone_tree(state), token, pos, tables)
+    half, _, _ = step(params, clone_tree(state), token[:4], pos[:4],
+                      tables[:4])
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn((8, 1, cfg.d_model), generator=g, device=dev)
+    gamma = params["final_norm"]["gamma"]
+    norm = lambda a: rms_norm(a, gamma, cfg.rms_eps)  # noqa: E731
+    head = lambda a: linear(a, params["embed"]["table"].T)  # noqa: E731
+
+    def differing(fn, a):
+        return int((fn(a[:4]) != fn(a)[:4]).sum().item())
+    return {"logits": int((half != full[:4]).sum().item()),
+            "of": 4 * cfg.vocab,
+            "norm_f32": differing(norm, x),
+            "norm_bf16": differing(norm, x.to(cfg.cdtype)),
+            "head": differing(head, x.to(cfg.cdtype))}
+
+
+def check_scale_in_batched(dev, gen, peaks):
+    """The expert-batched encoder entries that take a scale (x (E, C, K),
+    a scale (E, C, 1), an (E, K) mask), added for the row-parallel routed
+    projection: each bit-equal to its plain version (the 2-D one expert
+    by expert) and to its fused twin fed the fused twin's own scale, over
+    E 8 and 64, C 1 and 3, K 704 (deepseek-moe-16b's routed d_ff on 2
+    model ranks) and 2048, bf16, one launch a call; timed at E = 64, C =
+    1, K = 704. Returns their kernel rows."""
+    from repro_torch.core.packing import pad_k
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparqle_encode as E
+    from repro_torch.kernels.ref import TILE_K, TILE_M
+    entries = {
+        "sparqle_encode_batched": (
+            lambda x, s, m: [t for i, t in enumerate(E.sparqle_encode(
+                x, s, m, -8, 23, with_pbm=False)) if i != 2],
+            lambda x, s, m: [t for i, t in enumerate(ref.batched(
+                ref.sparqle_encode_ref)(x, s, m, -8, 23)) if i != 2],
+            lambda x, m: [t for i, t in enumerate(E.sparqle_encode_fused(
+                x, m, -8, 23, with_pbm=False)) if i != 2],
+            lambda e, c, k: 2 * e * c * k, "sparqle_encode.py:69"),
+        "sparqle_quantize_batched": (
+            lambda x, s, m: E.sparqle_quantize(x, s, m, -8, 23),
+            lambda x, s, m: ref.batched(ref.sparqle_quantize_ref)(
+                x, s, m, -8, 23),
+            lambda x, m: E.sparqle_quantize_fused(x, m, -8, 23),
+            lambda e, c, k: e * c * k, "sparqle_encode.py:40"),
+        "sparqle_encode_packed_batched": (
+            lambda x, s, m: E.sparqle_encode_packed(x, s, m, -8, 23),
+            lambda x, s, m: ref.batched(ref.sparqle_encode_packed_ref)(
+                x, s, m, -8, 23),
+            lambda x, m: E.sparqle_encode_packed_fused(x, m, -8, 23),
+            lambda e, c, k: e * c * (pad_k(k) + pad_k(k) // 8),
+            "sparqle_encode.py:105")}
+    cases = 0
+    for e in (8, 64):
+        for c in (1, 3):
+            for k in (704, 2048):
+                x = (torch.randn((e, c, k), generator=gen, device=dev) * 2
+                     ).to(torch.bfloat16)
+                mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
+                for name, (fn, plain, fused, _, _) in entries.items():
+                    twin = fused(x, mask)
+                    scale = twin[-1]
+                    got = fn(x, scale, mask)
+                    got = list(got) if isinstance(got, (list, tuple)) \
+                        else [got]
+                    want = plain(x, scale, mask)
+                    want = list(want) if isinstance(want, (list, tuple)) \
+                        else [want]
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)) \
+                            or not all(torch.equal(a, b) for a, b in
+                                       zip(got, twin[:-1])):
+                        raise AssertionError(
+                            f"{name} differs from its plain version or its "
+                            f"fused twin at E={e} C={c} K={k}")
+                cases += 1
+    rows = []
+    for name, (fn, plain, fused, out_bytes, pallas) in entries.items():
+        e, c, k = 64, 1, 704
+        x = (torch.randn((e, c, k), generator=gen, device=dev) * 2).to(
+            torch.bfloat16)
+        mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
+        scale = fused(x, mask)[-1]
+        check_one_launch(name, lambda: fn(x, scale, mask))
+        args = [(x, scale, mask)]
+        kms = time_ms(fn, args, 100)
+        pms = time_ms(plain, args, 2)
+        pops = e * -(-c // TILE_M) * -(-k // TILE_K) * 4
+        nbytes = (e * c * k * 2 + e * k + e * c * 4 + out_bytes(e, c, k)
+                  + (0 if "quantize" in name else pops))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/sparqle_encode.cu",
+            "replaces": f"src/repro/kernels/{pallas}",
+            "max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
+            "bound_ms": nbytes / peaks[0] * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "shape": f"E=64 C=1 K=704 bf16, the scale given (the "
+                     f"row-parallel routed down projection of "
+                     f"deepseek-moe-16b on 2 model ranks); {cases} input "
+                     f"sets bit-exact with the plain version and the "
+                     f"fused twin"})
+    return rows
+
+
+def tp_summary(r):
+    return (f"TTFT mean {r['ttft_mean_s'] * 1e3:.1f} ms, TPOT mean "
+            f"{r['tpot_mean_s'] * 1e3:.2f} ms, {r['tokens_per_s']:.1f} tok/s, "
+            f"{r['steps']} steps, steps {r['step_mode']}")
+
+
+def tp_summary_single(d):
+    r = d["moe_single"]
+    return (f"TTFT mean {r['ttft_mean_s'] * 1e3:.1f} ms, TPOT mean "
+            f"{r['tpot_mean_s'] * 1e3:.2f} ms, {r['tokens_per_s']:.1f} tok/s, "
+            f"{r['steps']} steps (graphs)")
+
+
+def tensor_parallel(dev, seed: int, base, spec, dense):
+    """Phase 13 (module docstring): returns its detail and every rank's
+    launch counts of each serve (rank 0's read for the kernels line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.tp import shard_params
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.launch.serve import build_served_params, make_prompts
+    cfg, params, prompts, t_build = granite(dev, seed)
+    if tree_checksum(params) != base["tree_checksum"]:
+        raise AssertionError("granite-8b rebuilt from the seed differs from "
+                             "phase 4's tree")
+    detail = {"granite_build_s": t_build}
+
+    def expected(tree, ways):
+        return [tree_checksum(shard_params(tree, m, ways))
+                for m in range(ways)]
+
+    # the single-device decode step of each mesh's case, and the
+    # row-count finding (4 rows alone against the same 4 inside 8)
+    cases, refs = {}, {}
+    for shape in TP_MESHES:
+        state, schema, token, pos, whole, local = tp_decode_case(
+            dev, cfg, seed, shape)
+        ref, _, _ = S.make_engine_decode(cfg)(params, clone_tree(state),
+                                              token, pos, whole)
+        refs[shape] = ref.float().cpu()
+        cases[shape] = dict(kind="decode", cfg=cfg, params=params,
+                            state=state, schema=schema, token=token,
+                            pos=pos, tables=local if shape[0] > 1 else whole)
+        if shape[0] > 1:
+            detail["row_count_4_vs_8"] = row_count_4_vs_8(
+                dev, cfg, params, state, token, pos, whole)
+    # deepseek-moe-16b at full width, 4 layers: its single-device serve
+    mcfg = get_config("deepseek-moe-16b").replace(n_layers=MOE_TP_LAYERS)
+    mparams = build_served_params(mcfg, seed, dev)
+    mprompts = make_prompts(mcfg, seed, SERVE["batch"], SERVE["prompt_len"])
+    moe_single = serve_granite(dev, mcfg, mparams, mprompts)
+    moe_single.pop("aggregate")
+
+    serve = lambda tree, c, p, **kw: dict(  # noqa: E731
+        kind="serve", cfg=c, params=tree, prompts=p, **kw)
+    jobs = {(1, 2): [dict(kind="ops"), cases[(1, 2)],
+                     serve(params, cfg, prompts),
+                     serve(params, cfg, prompts, gamma=SPEC_GAMMA),
+                     serve(params, cfg, prompts, fields={"mode": "dense"})],
+            (2, 2): [dict(kind="ops"), cases[(2, 2)],
+                     serve(params, cfg, prompts),
+                     serve(mparams, mcfg, mprompts),
+                     serve(mparams, mcfg, mprompts, fields={"mode": "dense"}),
+                     serve(mparams, mcfg, mprompts,
+                           fields={"wire_format": "packed"})]}
+    names = {(1, 2): ["ops", "decode", "base", "spec", "dense"],
+             (2, 2): ["ops", "decode", "base", "moe", "moe_dense",
+                      "moe_packed"]}
+    want_streams = {"base": base["streams"], "spec": spec["streams"],
+                    "dense": dense["streams"],
+                    "moe": moe_single["streams"],
+                    "moe_dense": moe_single["streams"],
+                    "moe_packed": moe_single["streams"]}
+    paths = {"base": ("sparqle_encode_fused", "sparqle_encode",
+                      "sparqle_matmul", "kv_attention"),
+             "spec": ("sparqle_encode", "sparqle_matmul_draft",
+                      "kv_attention_verify"),
+             "dense": ("sparqle_quantize_fused", "sparqle_quantize",
+                       "quant_matmul"),
+             "moe": ("sparqle_encode_fused_batched", "sparqle_encode_batched",
+                     "sparqle_matmul_batched", "sparqle_encode"),
+             "moe_dense": ("sparqle_quantize_batched",
+                           "quant_matmul_batched"),
+             "moe_packed": ("sparqle_encode_packed_batched",
+                            "sparqle_encode_packed",
+                            "sparqle_matmul_packed_batched")}
+    sums = {"granite": {}, "moe": {}}
+    runs = {}
+    for shape, js in jobs.items():
+        d, m = shape
+        t0 = time.perf_counter()
+        res = spawn_world(tp_rank, d * m, shape, dev.type, js,
+                          backend="gloo", device_type=dev.type,
+                          timeout_s=TP_TIMEOUT_S,
+                          deadline_s=TP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        tag = f"{d}x{m}"
+        for i, name in enumerate(names[shape]):
+            per_rank = [r[i] for r in res]
+            runs[tag, name] = per_rank
+            if name == "ops":
+                if not all(all(v for k, v in o.items() if k != "backends")
+                           and o["backends"] == ["gloo"] for o in per_rank):
+                    raise AssertionError(f"gloo collectives on CUDA tensors "
+                                         f"failed at {tag}: {per_rank}")
+            elif name == "decode":
+                equal = [torch.equal(torch.from_numpy(lg), refs[shape])
+                         for lg in per_rank]
+                if not all(equal):
+                    raise AssertionError(f"{tag}: a sharded decode step's "
+                                         f"logits differ from the "
+                                         f"single-device step's: {equal}")
+            else:
+                tree = mparams if name.startswith("moe") else params
+                key = "moe" if name.startswith("moe") else "granite"
+                if m not in sums[key]:
+                    sums[key][m] = expected(tree, m)
+                got = [r["checksum"] for r in per_rank]
+                if got != [sums[key][m][r % m] for r in range(d * m)]:
+                    raise AssertionError(f"{tag} {name}: a rank's weight "
+                                         f"shard differs from the parent's "
+                                         f"cut of the tree")
+                if any(r["streams"] != per_rank[0]["streams"]
+                       for r in per_rank):
+                    raise AssertionError(f"{tag} {name}: ranks' streams "
+                                         f"differ")
+                if per_rank[0]["streams"] != want_streams[name]:
+                    raise AssertionError(
+                        f"{tag} {name}: streams differ from the "
+                        f"single-device serve's: {per_rank[0]['streams']} "
+                        f"vs {want_streams[name]}")
+                check_path(per_rank[0], paths[name])
+        detail[f"wall_{tag}_s"] = wall
+    # NCCL, one card a rank, with the steps captured as CUDA graphs
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        res = spawn_world(tp_rank, 2, (1, 2), "cuda",
+                          [serve(params, cfg, prompts)], backend="nccl",
+                          device_type="cuda", timeout_s=TP_TIMEOUT_S,
+                          deadline_s=TP_TIMEOUT_S)
+        if res[0][0]["streams"] != base["streams"] or \
+                res[0][0]["step_mode"] != "graphs":
+            raise AssertionError("the NCCL mesh serve differs from phase 4")
+        runs["1x2", "nccl"] = [r[0] for r in res]
+        detail["nccl"] = tp_summary(res[0][0])
+    else:
+        detail["nccl"] = (f"not run: {torch.cuda.device_count()} card(s), "
+                          f"NCCL takes one a rank")
+    detail["moe_single"] = {k: moe_single[k] for k in (
+        "ttft_mean_s", "tpot_mean_s", "tokens_per_s", "steps")}
+    detail["runs"] = {f"{t} {n}": {k: v for k, v in rs[0].items()
+                                   if k != "streams"}
+                      for (t, n), rs in runs.items()
+                      if n not in ("ops", "decode")}
+    detail["ops"] = {t: rs[0] for (t, n), rs in runs.items() if n == "ops"}
+    del params, mparams
+    torch.cuda.empty_cache()
+    return detail, runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -2408,7 +2856,15 @@ def main() -> int:
                "sparqle_matmul_packed_batched": (
                    "sparqle_matmul_packed_batched", "moe_packed"),
                "sparqle_matmul_packed_draft_batched": (
-                   "sparqle_matmul_packed_draft_batched", "moe_packed_spec")}
+                   "sparqle_matmul_packed_draft_batched", "moe_packed_spec"),
+               # the expert-batched entries that take a scale: phase 13's
+               # row-parallel routed projections (rank 0's counts)
+               "sparqle_encode_batched": ("sparqle_encode_batched",
+                                          "tp_moe"),
+               "sparqle_quantize_batched": ("sparqle_quantize_batched",
+                                            "tp_moe_dense"),
+               "sparqle_encode_packed_batched": (
+                   "sparqle_encode_packed_batched", "tp_moe_packed")}
     if not args.kernels_only:
         cfg, params, prompts, t_build = granite(dev, args.seed)
         # every serve runs before any profiler: a profiled run leaves the
@@ -2416,6 +2872,8 @@ def main() -> int:
         eng = serve_granite(dev, cfg, params, prompts)
         check_path(eng, ("sparqle_encode_fused", "sparqle_matmul",
                          "kv_attention"), UNFUSED)
+        # phase 13 rebuilds this tree from the seed and checks it is this
+        eng["tree_checksum"] = tree_checksum(params)
         log(f"[4] granite-8b {eng['layers']}L d={eng['d_model']}: "
             f"{eng['requests']} requests, {eng['tokens']} tokens, "
             f"{eng['tokens_per_s']:.1f} tok/s, TTFT mean "
@@ -2706,11 +3164,50 @@ def main() -> int:
             f"to the tree served directly "
             f"({detail['ckpt_round_trip']['requests']} requests), "
             f"{time.perf_counter() - t0:.1f} s")
+        # phase 13: tensor-parallel serving, ranks sharing the card
+        t0 = time.perf_counter()
+        tp_rows = check_scale_in_batched(dev, gen, peaks)
+        tpd, tp_runs = tensor_parallel(dev, args.seed, eng, spec, dn)
+        for r in tp_rows:
+            log(f"[13] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
+                f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} "
+                f"us, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}) "
+                f"at {r['shape']}")
+        ops = "; ".join(f"{t}: " + ", ".join(
+            f"{k} {v}" for k, v in o.items()) for t, o in tpd["ops"].items())
+        log(f"[13] gloo collectives on CUDA tensors over the mesh groups "
+            f"(all-reduce MAX and SUM, all-gather): {ops}")
+        rc = tpd["row_count_4_vs_8"]
+        log(f"[13] granite-8b {cfg.n_layers}L row count: a 4-row decode "
+            f"step against the same rows of the 8-row step (one card, no "
+            f"mesh): logits differing {rc['logits']}/{rc['of']}; 4 rows "
+            f"inside 8: rms_norm f32 {rc['norm_f32']}/{4 * cfg.d_model}, "
+            f"bf16 {rc['norm_bf16']}, tied head {rc['head']}/{rc['of']}; "
+            f"the sharded steps norm their rows at their global places in a "
+            f"zero-padded batch of 8 and gather the rows before the head")
+        for (tag, name), rs in tp_runs.items():
+            if name in ("ops", "decode"):
+                continue
+            r = rs[0]
+            log(f"[13] mesh {tag} {name}: {r['layers']}L d={r['d_model']}, "
+                f"streams equal to the single-device serve's on all "
+                f"{len(rs)} ranks, weight shards = the parent's cut, "
+                f"{tp_summary(r)} (rank 0), launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }")
+        log(f"[13] one decode step at {cfg.n_layers}L, logits bit-equal to "
+            f"the single-device step's at meshes "
+            f"{', '.join(f'{d}x{m}' for d, m in TP_MESHES)} on every rank; "
+            f"NCCL + CUDA graphs: {tpd['nccl']}; deepseek-moe-16b "
+            f"{MOE_TP_LAYERS}L single device {tp_summary_single(tpd)}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        rows += tp_rows
         moe = zoo["deepseek-moe-16b"]
         runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn,
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg,
                 **{f"moe_{k}" if k != "base" else "moe": v
-                   for k, v in moe.items() if k != "cross_check"}}
+                   for k, v in moe.items() if k != "cross_check"},
+                **{f"tp_{n}": rs[0] for (t, n), rs in tp_runs.items()
+                   if n.startswith("moe")}}
         detail["zoo"] = zoo
         strip = lambda r: {k: v for k, v in r.items()  # noqa: E731
                            if k != "aggregate"}
@@ -2723,11 +3220,12 @@ def main() -> int:
                       packed_engine=strip(pk), unpacked_again=strip(again),
                       packed_spec_engine=strip(pk_spec), legacy=lg,
                       after_profilers=strip(after),
-                      cross_check=xc, build_s=t_build)
+                      cross_check=xc, build_s=t_build, tensor_parallel=tpd)
         for r in rows:
             key, phase = counter[r["name"]]
             r["launches"] = runs[phase]["launches"][key]
     else:
+        rows += check_scale_in_batched(dev, gen, peaks)
         for r in rows:
             r["launches"] = 0
     (OUT / "chip_smoke.json").write_text(json.dumps(detail, indent=1,

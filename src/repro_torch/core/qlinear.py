@@ -25,6 +25,16 @@ x (E, C, K) against the (E, K/2, N) expert weights with a clip mask per
 expert: one batched encoder launch and one batched matmul launch for
 all E experts, as JAX's ``_quantized_apply(batched=True)``.
 
+``tp="row"`` marks a row-parallel call site (``distributed/tp.py``).
+Under an active TP context the input features and the weight's K are
+this rank's slices: the linear all-reduces (MAX) the local row amax over
+the model group, forms the global per-token scale from it, encodes with
+the entries that take a scale, runs the matmul with its int32
+accumulator out, all-reduces (SUM) that accumulator once and drains
+``(acc * act_scale) * w_scale`` in f32 as the kernel's epilogue does,
+then adds the bias. Outside a TP context the mark is inert: no launch
+is added and no bit moves.
+
 The clipping constants ``l``/``h`` stay on the CPU whatever the device of
 the weights: they are read on the host at every call (kernel arguments),
 and a device scalar would synchronise the stream each time.
@@ -37,12 +47,18 @@ import re
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.clipping import importance_mask_tile_aligned
-from repro_torch.core.quantize import QuantizedTensor, quantize_weights
+from repro_torch.core.quantize import (QuantizedTensor, quantize_weights,
+                                       scale_from_amax)
+from repro_torch.distributed.tp import tp_ctx
 from repro_torch.kernels.quant_matmul import quant_matmul
-from repro_torch.kernels.sparqle_encode import (sparqle_encode_fused,
+from repro_torch.kernels.sparqle_encode import (sparqle_encode,
+                                                sparqle_encode_fused,
+                                                sparqle_encode_packed,
                                                 sparqle_encode_packed_fused,
+                                                sparqle_quantize,
                                                 sparqle_quantize_fused)
 from repro_torch.kernels.sparqle_matmul import (sparqle_matmul,
                                                 sparqle_matmul_packed)
@@ -155,28 +171,41 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
-           ) -> torch.Tensor:
+def _row_parallel(tp: Optional[str]):
+    """The TP context when ``tp`` marks a row-parallel site under an
+    active context of more than one model rank, else None."""
+    ctx = tp_ctx()
+    return ctx if tp == "row" and ctx is not None and ctx.ways > 1 else None
+
+
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
+           tp: Optional[str] = None) -> torch.Tensor:
     """Universal projection: x (..., K) @ w (K, N) [+ b]; ``w`` is a float
-    tensor or a :class:`SparqleLinear`."""
+    tensor or a :class:`SparqleLinear`. ``tp="row"``: a row-parallel site
+    (module docstring); the bias lands on the reduced output."""
     if isinstance(w, SparqleLinear):
-        y = _quantized_apply(x, w)
+        y = _quantized_apply(x, w, tp=tp)
     else:
         y = x @ w.to(x.dtype)
+        ctx = _row_parallel(tp)
+        if ctx is not None:
+            dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ctx.group)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
 
 
-def expert_linear(x: torch.Tensor, w: SparqleLinear) -> torch.Tensor:
+def expert_linear(x: torch.Tensor, w: SparqleLinear, *,
+                  tp: Optional[str] = None) -> torch.Tensor:
     """Batched expert projection: x (E, C, K) @ w (E, K, N), ``w`` a
     routed-expert :class:`SparqleLinear` (the port serves quantized
-    trees)."""
-    return _quantized_apply(x, w, batched=True)
+    trees). ``tp="row"`` as in :func:`linear`."""
+    return _quantized_apply(x, w, batched=True, tp=tp)
 
 
 def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
-                     batched: bool = False) -> torch.Tensor:
+                     batched: bool = False,
+                     tp: Optional[str] = None) -> torch.Tensor:
     """encode with the per-token scale formed in the same launch
     (quantize, clip, split; packed in the wire format when
     ``sl.wire_format`` says so) -> dual pass (LSB pass alone under
@@ -184,7 +213,8 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
     returned, or in dense mode quantize + clip -> single pass ->
     rescale, through the kernel wrappers. ``batched``: x (E, C, K)
     against (E, K/2, N) expert weights, each expert's rows clipped by
-    its own mask row and drained by its own scales."""
+    its own mask row and drained by its own scales. A row-parallel site
+    under a TP context takes :func:`_row_apply` instead."""
     if sl.mode not in ("sparqle", "dense"):
         raise ValueError(f"mode={sl.mode!r}: expected 'sparqle' or 'dense'")
     if sl.wire_format not in WIRE_FORMATS:
@@ -204,7 +234,10 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
                  int(sl.h) if clip else 0)
     n = sl.w.q.shape[-1]
     w_scale = sl.w.scale.reshape(*sl.w.q.shape[:-2], 1, n).float()
-    if sl.mode == "dense":
+    ctx = _row_parallel(tp)
+    if ctx is not None:
+        out = _row_apply(x2, sl, clip_args, w_scale, ctx.group)
+    elif sl.mode == "dense":
         q, scale = sparqle_quantize_fused(x2, *clip_args)
         out = quant_matmul(q, sl.w.q, scale, w_scale)
     elif sl.wire_format == "packed":
@@ -217,6 +250,31 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
         out = sparqle_matmul(lsb, msb, pop, sl.w.q, scale, w_scale,
                              msb_skip=_MSB_SKIP)
     return out.reshape(*orig[:-1], n).to(x.dtype)
+
+
+def _row_apply(x2: torch.Tensor, sl: SparqleLinear, clip_args,
+               w_scale: torch.Tensor, group) -> torch.Tensor:
+    """The row-parallel chain on this rank's K slice: one MAX all-reduce
+    of the row amax (in f32, which holds x's dtype exactly), the global
+    scale, the scale-taking encoder, the matmul's int32 accumulator, one
+    SUM all-reduce of it, the f32 drain in the kernel epilogue's order."""
+    amax = x2.abs().amax(dim=-1, keepdim=True).float()
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = scale_from_amax(amax.to(x2.dtype)).float()
+    if sl.mode == "dense":
+        q = sparqle_quantize(x2, scale, *clip_args)
+        acc = quant_matmul(q, sl.w.q, scale, w_scale, acc_out=True)
+    elif sl.wire_format == "packed":
+        lsb, msb, _, pop = sparqle_encode_packed(x2, scale, *clip_args)
+        acc = sparqle_matmul_packed(lsb, msb, pop, sl.w.q, scale, w_scale,
+                                    acc_out=True, msb_skip=_MSB_SKIP)
+    else:
+        lsb, msb, _, pop = sparqle_encode(x2, scale, *clip_args,
+                                          with_pbm=False)
+        acc = sparqle_matmul(lsb, msb, pop, sl.w.q, scale, w_scale,
+                             acc_out=True, msb_skip=_MSB_SKIP)
+    dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+    return acc.float() * scale * w_scale
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,11 @@ def quantize_activations(
 def activation_scale(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """The per-token scale of :func:`quantize_activations` alone, in the
     activation's dtype (the fused encoder divides by it)."""
+    return scale_from_amax(x.abs().amax(dim=-1, keepdim=True), bits)
+
+
+def scale_from_amax(amax: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """:func:`activation_scale` of rows whose abs-max is ``amax`` (the
+    row-parallel linear's all-reduced amax), in amax's dtype."""
     _, hi = _qrange(bits)
-    amax = x.abs().amax(dim=-1, keepdim=True)
     return torch.clamp_min(_div(amax, hi), 1e-8)

@@ -494,6 +494,37 @@ extern "C" int sparqle_encode_packed_fused_launch(
                                     stream);
 }
 
+// The expert-batched forms of the three entries that take a scale: x
+// (E, M, K), scale (E, M, 1), col_mask (E, K) or null, every output with
+// a leading E axis; one launch encodes all E experts (grid z). The
+// row-parallel routed projection under tensor parallelism calls them
+// with its all-reduced scale.
+extern "C" int sparqle_encode_batched_launch(
+    const void* x, int x_bf16, const void* scale, const void* col_mask,
+    int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
+    int M, int K, int E, void* stream) {
+  return launch<MODE_ENCODE, true>(x, x_bf16, scale, col_mask, clip_l,
+                                   clip_h, lsb, msb, pbm, pop, M, K, K,
+                                   stream, E);
+}
+
+extern "C" int sparqle_quantize_batched_launch(
+    const void* x, int x_bf16, const void* scale, const void* col_mask,
+    int clip_l, int clip_h, void* q, int M, int K, int E, void* stream) {
+  return launch<MODE_QUANTIZE, true>(x, x_bf16, scale, col_mask, clip_l,
+                                     clip_h, q, nullptr, nullptr, nullptr,
+                                     M, K, K, stream, E);
+}
+
+extern "C" int sparqle_encode_packed_batched_launch(
+    const void* x, int x_bf16, const void* scale, const void* col_mask,
+    int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
+    int M, int K, int KP, int E, void* stream) {
+  return launch<MODE_PACKED, true>(x, x_bf16, scale, col_mask, clip_l,
+                                   clip_h, lsb, msb, pbm, pop, M, K, KP,
+                                   stream, E);
+}
+
 // The expert-batched forms of the three fused entries: x (E, M, K),
 // col_mask (E, K) or null, every output with a leading E axis; one
 // launch encodes all E experts (grid z).

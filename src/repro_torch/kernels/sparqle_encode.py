@@ -34,9 +34,10 @@ amax, forms the scale, then encodes its tiles. The entries that take a
 ``scale`` run the same body without the amax pass, for a caller with a
 scale of its own (an all-reduced amax under tensor parallelism).
 
-Each fused entry also takes a leading expert axis, x (E, M, K) with an
-(E, K) mask: one launch of its batched instance (``*_batched``, grid z
-= E) encodes every expert's slab, the outputs carry the E axis, and the
+Every entry also takes a leading expert axis, x (E, M, K) with an (E,
+K) mask (and an (E, M, 1) scale for the entries that take one): one
+launch of its batched instance (``*_batched``, grid z = E) encodes every
+expert's slab, the outputs carry the E axis, and the
 populations are per (expert, TILE_M rows, TILE_K columns), so a tile
 never straddles two experts. Their plain versions are the 2-D ones run
 expert by expert (``ref.batched``).
@@ -90,6 +91,22 @@ PACKED_FUSED_KERNEL = _build.register(_build.Kernel(
     [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
      _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I,
      _build.P], name="sparqle_encode_packed_fused"))
+
+# The expert-batched forms of the entries that take a scale: x (E, M, K),
+# scale (E, M, 1), an (E, K) mask, one launch (grid z = E); the
+# row-parallel routed projection under tensor parallelism calls them.
+BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_encode_batched_launch",
+    KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    name="sparqle_encode_batched"))
+QUANTIZE_BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_quantize_batched_launch",
+    QUANTIZE_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    name="sparqle_quantize_batched"))
+PACKED_BATCHED_KERNEL = _build.register(_build.Kernel(
+    "sparqle_encode.cu", "sparqle_encode_packed_batched_launch",
+    PACKED_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    name="sparqle_encode_packed_batched"))
 
 # The fused entries' expert-batched forms: x (E, M, K), an (E, K) mask,
 # every output with a leading E axis, one launch (grid z = E).
@@ -166,10 +183,11 @@ def _check(x, scale, col_mask):
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if scale is not None:
-        if scale.shape != (m, 1) or scale.dtype != torch.float32 \
+        if scale.shape != lead + (m, 1) or scale.dtype != torch.float32 \
                 or scale.device != x.device:
-            raise ValueError(f"scale must be f32 (M, 1) on {x.device}, got "
-                             f"{scale.dtype} {tuple(scale.shape)}")
+            raise ValueError(f"scale must be f32 {lead + (m, 1)} on "
+                             f"{x.device}, got {scale.dtype} "
+                             f"{tuple(scale.shape)}")
         scale = scale.contiguous()
     if col_mask is None:
         return scale, None
@@ -193,9 +211,9 @@ def _launch(kernel, batched_kernel, x, *args) -> None:
 
 
 def sparqle_encode(
-    x: torch.Tensor,                # (M, K) f32 / bf16
-    scale: torch.Tensor,            # (M, 1) f32
-    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    x: torch.Tensor,                # (M, K) or (E, M, K) f32 / bf16
+    scale: torch.Tensor,            # (M, 1) or (E, M, 1) f32
+    col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
     *,
@@ -203,74 +221,71 @@ def sparqle_encode(
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
            torch.Tensor]:
     """Returns (lsb4 int8, msb4 int8, pbm bool, tile_pop int32) with
-    tile_pop (ceil(M/TILE_M), ceil(K/TILE_K)); pbm is None unless
-    ``with_pbm``."""
+    tile_pop (ceil(M/TILE_M), ceil(K/TILE_K)), each with x's leading
+    expert axis if it has one; pbm is None unless ``with_pbm``."""
     if not x.is_cuda:
-        lsb, msb, pbm, pop = sparqle_encode_ref(x, scale, col_mask, l, h)
+        lsb, msb, pbm, pop = plain_for(sparqle_encode_ref, x.ndim == 3)(
+            x, scale, col_mask, l, h)
         return lsb, msb, pbm if with_pbm else None, pop
-    m, k = x.shape
+    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     scale, col_mask = _check(x, scale, col_mask)
-    mask_ptr = None if col_mask is None else col_mask.data_ptr()
-    lsb = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    msb = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    pbm = (torch.empty((m, k), dtype=torch.bool, device=x.device)
+    lsb = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
+    msb = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
+    pbm = (torch.empty(lead + (m, k), dtype=torch.bool, device=x.device)
            if with_pbm else None)
-    pop = torch.empty((_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
+    pop = torch.empty(lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
                       dtype=torch.int32, device=x.device)
-    if m and k:
-        KERNEL.launch(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                      scale.data_ptr(), mask_ptr, int(l), int(h),
-                      lsb.data_ptr(), msb.data_ptr(),
-                      pbm.data_ptr() if with_pbm else None,
-                      pop.data_ptr(), m, k)
+    _launch(KERNEL, BATCHED_KERNEL, x, scale.data_ptr(),
+            None if col_mask is None else col_mask.data_ptr(), int(l),
+            int(h), lsb.data_ptr(), msb.data_ptr(),
+            pbm.data_ptr() if with_pbm else None, pop.data_ptr(), m, k)
     return lsb, msb, pbm, pop
 
 
 def sparqle_quantize(
-    x: torch.Tensor,                # (M, K) f32 / bf16
-    scale: torch.Tensor,            # (M, 1) f32
-    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    x: torch.Tensor,                # (M, K) or (E, M, K) f32 / bf16
+    scale: torch.Tensor,            # (M, 1) or (E, M, 1) f32
+    col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
 ) -> torch.Tensor:
-    """The clipped int8 activation q (M, K)."""
+    """The clipped int8 activation q (M, K) (or (E, M, K))."""
     if not x.is_cuda:
-        return sparqle_quantize_ref(x, scale, col_mask, l, h)
-    m, k = x.shape
+        return plain_for(sparqle_quantize_ref, x.ndim == 3)(
+            x, scale, col_mask, l, h)
+    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     scale, col_mask = _check(x, scale, col_mask)
-    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    if m and k:
-        QUANTIZE_KERNEL.launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+    q = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
+    _launch(QUANTIZE_KERNEL, QUANTIZE_BATCHED_KERNEL, x, scale.data_ptr(),
             None if col_mask is None else col_mask.data_ptr(), int(l),
             int(h), q.data_ptr(), m, k)
     return q
 
 
 def sparqle_encode_packed(
-    x: torch.Tensor,                # (M, K) f32 / bf16
-    scale: torch.Tensor,            # (M, 1) f32
-    col_mask: Optional[torch.Tensor] = None,   # (K,) bool
+    x: torch.Tensor,                # (M, K) or (E, M, K) f32 / bf16
+    scale: torch.Tensor,            # (M, 1) or (E, M, 1) f32
+    col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (lsb4 packed (M, Kp/2) int8, msb4 packed (M, Kp/2) int8,
     PBM words (M, Kp/32) int32, tile_pop (ceil(M/TILE_M),
-    ceil(K/TILE_K)) int32) with Kp = ``pad_k(K)``."""
+    ceil(K/TILE_K)) int32) with Kp = ``pad_k(K)``, each with x's leading
+    expert axis if it has one."""
     if not x.is_cuda:
-        return sparqle_encode_packed_ref(x, scale, col_mask, l, h)
-    m, k = x.shape
+        return plain_for(sparqle_encode_packed_ref, x.ndim == 3)(
+            x, scale, col_mask, l, h)
+    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     kp = pad_k(k)
     scale, col_mask = _check(x, scale, col_mask)
-    lsb = torch.empty((m, kp // 2), dtype=torch.int8, device=x.device)
-    msb = torch.empty((m, kp // 2), dtype=torch.int8, device=x.device)
-    pbm = torch.empty((m, kp // PBM_WORD_BITS), dtype=torch.int32,
+    lsb = torch.empty(lead + (m, kp // 2), dtype=torch.int8, device=x.device)
+    msb = torch.empty(lead + (m, kp // 2), dtype=torch.int8, device=x.device)
+    pbm = torch.empty(lead + (m, kp // PBM_WORD_BITS), dtype=torch.int32,
                       device=x.device)
-    pop = torch.empty((_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
+    pop = torch.empty(lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
                       dtype=torch.int32, device=x.device)
-    if m and k:
-        PACKED_KERNEL.launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+    _launch(PACKED_KERNEL, PACKED_BATCHED_KERNEL, x, scale.data_ptr(),
             None if col_mask is None else col_mask.data_ptr(), int(l),
             int(h), lsb.data_ptr(), msb.data_ptr(), pbm.data_ptr(),
             pop.data_ptr(), m, k, kp)

@@ -47,7 +47,9 @@ each replay adds the recorded counts once, so ``launch_counts()`` counts
 the kernel launches executed, graphs or not.
 
 :func:`disable_graphs` makes every call eager, as ``jax.disable_jit()``
-does.
+does. A step built with ``capture=False`` is always eager: a tensor-
+parallel step whose collectives run over gloo (host work, which a CUDA
+graph cannot hold); the engine names that mode in its stats.
 """
 from __future__ import annotations
 
@@ -154,14 +156,18 @@ class CompiledStep:
     is shared by the graphs of one engine. ``graph_type`` makes the
     capture, ``CudaGraph`` by default on a CUDA device; on another
     device the step runs as it is unless one is given (the CPU tests
-    give a traced stand-in)."""
+    give a traced stand-in). ``capture=False`` runs every call eagerly
+    (module docstring)."""
 
     def __init__(self, fn: Callable, device, mempool=None,
-                 graph_type: Optional[Callable] = None):
+                 graph_type: Optional[Callable] = None,
+                 capture: bool = True):
         self.fn = fn
         self.device = torch.device(device)
         if graph_type is None and self.device.type == "cuda":
             graph_type = CudaGraph
+        if not capture:
+            graph_type = None
         self._graph_type = graph_type
         self._mempool = mempool
         self._state: Optional[Tuple[int, ...]] = None

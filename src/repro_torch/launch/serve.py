@@ -42,6 +42,23 @@ caches, runs eagerly.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --legacy
 
+``--mesh D,M`` serves on a ("data", "model") mesh of D x M ranks
+(tensor-parallel serving, ``distributed/tp.py``): the weights are built
+once in this process and reach each rank's process (spawned with
+``torch.multiprocessing``, joined through a ``FileStore`` under a
+temporary directory) through shared memory, or CUDA IPC on a card; each
+rank cuts its shard, builds the same prompts and runs the same host
+loop; rank 0's run is printed. Weights shard Megatron-style over model,
+the pool on KV heads over model and on pages over data, decode slots
+over data; the greedy streams are the single-device serve's. NCCL takes
+one card a rank; with fewer cards than ranks pass ``--dist-backend
+gloo``, which shares the cards and runs the steps eagerly (gloo's
+collectives cannot be captured in a CUDA graph); the run says which.
+``--mesh`` drives the paged engine, not ``--legacy``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --mesh 1,2 --dist-backend gloo
+
 The KV2 precision ladder has no flag here, as in the JAX package's
 serve: arm it through ``make_engine(..., kv2_pages=N)`` or
 ``PoolConfig(kv2_pages=N)``; nor has the packed wire format: serve a
@@ -64,6 +81,8 @@ from repro_torch.core.qlinear import quantize_model_params
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import steps as S
 from repro_torch.launch.graphs import CompiledStep
+from repro_torch.launch.mesh import (make_mesh, mesh_layout, pick_backend,
+                                     spawn_world)
 from repro_torch.models.model import check_paged_support
 from repro_torch.models.schema import abstract_params, init_quantized_params
 from repro_torch.models.schema_builder import build_schema
@@ -120,23 +139,30 @@ def make_engine(cfg: ModelConfig, params, *, batch: int, prompt_len: int,
                 gen: int, page_size: int = 16, n_pages: int = 0,
                 token_budget: int = 128, prefill_chunk: int = 32,
                 decode_slots: int = 8, spec_gamma: int = 0,
-                device="cuda", **pool_kw) -> Engine:
+                device="cuda", mesh=None, **pool_kw) -> Engine:
     """Engine sized like ``repro.launch.serve``: a block table that fits
     prompt + generation (+ the γ-token draft lookahead), and by default a
     pool that fits the batch. ``spec_gamma > 0`` gives the speculative
     engine; ``pool_kw`` are further :class:`PoolConfig` fields (the KV2
     ladder's ``kv2_pages``, ``demote_min_sparsity``,
-    ``demote_after_steps``)."""
+    ``demote_after_steps``). With a ``mesh`` the decode slots round up to
+    a multiple of the data ways, and the default pool gives every data
+    shard room for its share of the batch (a request's pages live in
+    one shard)."""
+    data = 1 if mesh is None else mesh_layout(mesh).data_ways
     pages_per_seq = -(-(prompt_len + gen + spec_gamma) // page_size)
+    n_slots = min(batch, decode_slots)
+    n_slots += (-n_slots) % data
+    n_pages = n_pages or data * (1 + pages_per_seq * -(-batch // data))
+    n_pages += (-n_pages) % data
     kw = dict(
-        pool_config=PoolConfig(
-            n_pages=n_pages or 1 + pages_per_seq * batch,
-            page_size=page_size, **pool_kw),
+        pool_config=PoolConfig(n_pages=n_pages, page_size=page_size,
+                               **pool_kw),
         sched_config=SchedulerConfig(
-            max_decode_batch=min(batch, decode_slots),
+            max_decode_batch=n_slots,
             token_budget=token_budget, prefill_chunk=prefill_chunk,
             max_pages_per_seq=pages_per_seq),
-        device=device)
+        device=device, mesh=mesh)
     if spec_gamma > 0:
         return SpeculativeEngine(cfg, params,
                                  spec=SpecConfig(gamma=spec_gamma), **kw)
@@ -170,6 +196,44 @@ def run_requests(eng: Engine, prompts: List[List[int]],
         "streams": [list(h.out_tokens) for h in handles],
         "aggregate": eng.aggregate_stats(),
     }
+
+
+def serve_rank(rank: int, cfg: ModelConfig, params, prompts, mesh_shape,
+               engine_kw, out_paths=None) -> Dict[str, object]:
+    """One rank of a ``--mesh`` serve (a ``spawn_world`` rank function):
+    this rank's engine on the (data, model) mesh over the whole tree
+    ``params``, the prompts served. Returns the run's summary with
+    ``step_mode``; rank 0 writes the metrics and trace files of
+    ``out_paths`` (metrics, trace), if named."""
+    cuda = torch.cuda.is_available() and engine_kw.get("device") != "cpu"
+    device = (torch.device("cuda", torch.cuda.current_device()) if cuda
+              else torch.device("cpu"))
+    mesh = make_mesh(*mesh_shape, device_type=device.type)
+    eng = make_engine(cfg, params, mesh=mesh, **dict(engine_kw,
+                                                      device=device))
+    r = run_requests(eng, prompts, engine_kw["gen"])
+    r["step_mode"] = eng.step_mode
+    metrics, trace = out_paths or ("", "")
+    if rank == 0 and metrics:
+        with open(metrics, "w") as f:
+            json.dump(eng.metrics_snapshot(), f, indent=1)
+    if rank == 0 and trace:
+        eng.obs.tracer.export_chrome(trace)
+    return r
+
+
+def mesh_serve(cfg: ModelConfig, params, prompts, mesh_shape,
+               backend: str, device, out_paths=None,
+               **engine_kw) -> List[Dict[str, object]]:
+    """Serve ``prompts`` on a (data, model) mesh of spawned ranks (one
+    process each; ``backend`` their collectives'); ``engine_kw`` are
+    :func:`make_engine`'s sizes (``gen`` among them). Returns every
+    rank's summary, rank by rank (their streams are equal: the engine
+    checks after each step)."""
+    d, m = mesh_shape
+    return spawn_world(serve_rank, d * m, cfg, params, prompts, mesh_shape,
+                       dict(engine_kw, device=device.type), out_paths,
+                       backend=backend, device_type=device.type)
 
 
 def legacy_serve(cfg: ModelConfig, params, prompts: List[List[int]],
@@ -231,6 +295,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                          "window per verify cycle (0 = off)")
     ap.add_argument("--legacy", action="store_true",
                     help="fixed-batch serving path (no engine)")
+    ap.add_argument("--mesh", default="",
+                    help="DATA,MODEL mesh of ranks for the engine (e.g. "
+                         "'1,2'): decode slots and pool pages shard over "
+                         "data, weights and KV heads over model; streams "
+                         "equal the single-device serve's")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="collectives of the --mesh ranks: nccl (default "
+                         "on a card; one card a rank) or gloo (shares the "
+                         "cards, steps run eagerly; the CPU's)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -240,6 +313,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                     help="write the Chrome trace-event JSON here")
     args = ap.parse_args(argv)
 
+    mesh_shape = (1, 1)
+    if args.mesh:
+        try:
+            mesh_shape = tuple(int(v) for v in args.mesh.split(","))
+            assert len(mesh_shape) == 2 and min(mesh_shape) >= 1
+        except (ValueError, AssertionError):
+            raise SystemExit(f"--mesh expects 'DATA,MODEL', got "
+                             f"{args.mesh!r}")
+        if args.legacy:
+            raise SystemExit("--mesh drives the paged engine; it has no "
+                             "effect on --legacy (drop one of the two)")
     if args.legacy and (args.metrics_out or args.trace_out):
         raise SystemExit("--metrics-out/--trace-out read the paged "
                          "engine's observability bundle; the --legacy "
@@ -247,6 +331,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     cfg = get_config(args.arch, smoke=args.smoke)
     check_paged_support(cfg, "contiguous" if args.legacy else "paged")
     device = resolve_device(args.device)
+    ranks = mesh_shape[0] * mesh_shape[1]
+    backend = (pick_backend(device, ranks, args.dist_backend)
+               if ranks > 1 else None)
     t0 = time.perf_counter()
     quant_kw = dict(k_percent=args.k_percent, clip_l=args.clip_l,
                     clip_h=args.clip_h, enable_clipping=not args.no_clip,
@@ -267,14 +354,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
               f"{r['prefill_s'] * 1e3:.1f} ms, "
               f"{r['decode_step_s'] * 1e3:.2f} ms/token ({where})")
         return r
-    eng = make_engine(cfg, params, batch=args.batch,
-                      prompt_len=args.prompt_len, gen=args.gen,
-                      page_size=args.page_size, n_pages=args.n_pages,
-                      token_budget=args.token_budget,
-                      prefill_chunk=args.prefill_chunk,
-                      decode_slots=args.decode_slots,
-                      spec_gamma=args.spec_gamma, device=device)
-    r = run_requests(eng, prompts, args.gen)
+    engine_kw = dict(batch=args.batch, prompt_len=args.prompt_len,
+                     gen=args.gen, page_size=args.page_size,
+                     n_pages=args.n_pages, token_budget=args.token_budget,
+                     prefill_chunk=args.prefill_chunk,
+                     decode_slots=args.decode_slots,
+                     spec_gamma=args.spec_gamma)
+    if ranks > 1:
+        runs = mesh_serve(cfg, params, prompts, mesh_shape, backend, device,
+                          (args.metrics_out, args.trace_out), **engine_kw)
+        r = runs[0]
+        print(f"serving on mesh {mesh_shape[0]}x{mesh_shape[1]} ({ranks} "
+              f"ranks, {backend}, steps {r['step_mode']}): decode slots "
+              f"and pool pages sharded over data, weights and KV heads "
+              f"over model")
+    else:
+        eng = make_engine(cfg, params, device=device, **engine_kw)
+        r = run_requests(eng, prompts, args.gen)
     print(f"engine: {r['requests']} requests, {r['tokens']} tokens in "
           f"{r['wall_s']:.2f} s ({r['tokens_per_s']:.1f} tok/s, "
           f"{r['steps']} steps; {where})")
@@ -292,10 +388,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
               f"{agg['spec_tokens_per_step']:.2f} tokens/cycle")
     print(f"  pool: {agg['pool_utilization'] * 100:.0f}% pages in use at "
           f"drain, {agg['pool_evictions']} evictions")
-    if args.metrics_out:
+    if ranks == 1 and args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(eng.metrics_snapshot(), f, indent=1)
-    if args.trace_out:
+    if ranks == 1 and args.trace_out:
         eng.obs.tracer.export_chrome(args.trace_out)
     return r
 

@@ -20,6 +20,22 @@ decode runs the contiguous KV4 kernel on the packed cache, which is
 never dequantized in device memory (JAX dequantizes it to the compute
 dtype and calls the plain ``decode_attention``: equal to rounding at
 f32; at bf16 the two differ by the bf16 rounding of K/V).
+
+Under tensor parallelism (``distributed/tp.py``: a step body runs inside
+``tp_scope``) the same functions run a rank's shard, on a per-shard
+config with the head counts divided by the model ways. The row-parallel
+call sites are marked ``tp="row"`` (``wo``, ``w_down``, ``w_proj``, the
+routed and shared experts' down projections) and the untied head
+all-gathers its vocab shards over the model group. A data-sharded step
+(decode, draft, verify: each data rank holds ``local_rows`` of the
+decode slots) all-gathers the flat batch over the data group before MoE
+routing (capacity and ranking are functions of the whole batch) and the
+final hidden rows before the head, so every rank returns the whole
+batch's logits; and it runs each norm on its rows placed at their global
+positions in a zero-padded batch of the global row count: on the card
+the f32 sum order of a row reduction follows the number of rows, so the
+norms then give the single-device step's bits. Outside a TP context
+nothing of this runs.
 """
 from __future__ import annotations
 
@@ -32,6 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import linear, msb_skip_scope, tree_index
 from repro_torch.core.quantize import quantize_activations, quantize_weights
 from repro_torch.core.sparqle import subprecision_sparsity
+from repro_torch.distributed.tp import all_gather, tp_ctx
 from repro_torch.kernels.kv_attention import (
     CONTIGUOUS_BLOCK, kv4_decode_attention, kv4_paged_decode_attention,
     kv4_paged_verify_attention, kv_tiered_paged_decode_attention)
@@ -49,9 +66,31 @@ Cache = Dict[str, Any]
 
 
 def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm_type == "layer":
-        return layer_norm(x, p["gamma"], p["beta"], cfg.rms_eps)
-    return rms_norm(x, p["gamma"], cfg.rms_eps)
+    """The layer's norm on x (rows, ...). A data-sharded step's local rows
+    run at their global positions in a zero-padded batch of the global
+    row count (module docstring)."""
+    def norm(r):
+        if cfg.norm_type == "layer":
+            return layer_norm(r, p["gamma"], p["beta"], cfg.rms_eps)
+        return rms_norm(r, p["gamma"], cfg.rms_eps)
+
+    ctx = tp_ctx()
+    if ctx is None or ctx.batch_group is None or \
+            x.shape[0] != ctx.local_rows:
+        return norm(x)
+    n, lo = x.shape[0], x.shape[0] * ctx.batch_rank
+    padded = x.new_zeros((n * ctx.batch_ways,) + tuple(x.shape[1:]))
+    padded[lo:lo + n] = x
+    return norm(padded)[lo:lo + n]
+
+
+def _gather_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """A data-sharded step's batch dim ``dim`` of ``t`` gathered over the
+    data group in slot order (``t`` itself otherwise)."""
+    ctx = tp_ctx()
+    if ctx is None or ctx.batch_group is None:
+        return t
+    return all_gather(t, ctx.batch_group, dim)
 
 
 def _kv_quant(cfg: ModelConfig, x: torch.Tensor
@@ -99,18 +138,23 @@ def _mlp(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     tanh-GELU MLP with its biases."""
     if cfg.mlp_type == "gelu":
         return linear(gelu_tanh(linear(h, p["w_fc"], p.get("b_fc"))),
-                      p["w_proj"], p.get("b_proj"))
+                      p["w_proj"], p.get("b_proj"), tp="row")
     if cfg.mlp_type != "swiglu":
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
     g = silu(linear(h, p["w_gate"]))
-    return linear(g * linear(h, p["w_up"]), p["w_down"])
+    return linear(g * linear(h, p["w_up"]), p["w_down"], tp="row")
 
 
 def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """The MoE FFN on x (..., D): routed experts over the flattened
-    tokens (capacity from their count), plus the shared experts."""
+    tokens (capacity from their count), plus the shared experts. A
+    data-sharded step routes the whole batch: the flat rows gathered over
+    the data group (in global slot order, so dispatch, capacity and
+    combine are the single-device ones), its own rows sliced back out."""
     h = _norm(cfg, p["ln2"], x)
     flat = h.reshape(-1, h.shape[-1])
+    t_local = flat.shape[0]
+    flat = _gather_rows(flat)
     mp = p["moe"]
     y = moe_lib.moe_ffn(flat, mp["w_router"], mp["w_gate"], mp["w_up"],
                         mp["w_down"], top_k=cfg.top_k,
@@ -120,6 +164,9 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         y = y + moe_lib.shared_expert_ffn(flat, mp["w_shared_gate"],
                                           mp["w_shared_up"],
                                           mp["w_shared_down"])
+    if y.shape[0] != t_local:
+        lo = tp_ctx().batch_rank * t_local
+        y = y[lo:lo + t_local]
     return y.reshape(h.shape)
 
 
@@ -131,10 +178,17 @@ def _ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
 
 def head_logits(cfg: ModelConfig, params: Params,
                 x: torch.Tensor) -> torch.Tensor:
+    """Final norm and head. The tied head's table is replicated (token
+    lookup needs all of it); an untied head is column-parallel under TP
+    and its vocab shards are all-gathered in model-rank order."""
     x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         return linear(x, params["embed"]["table"].T)
-    return linear(x, params["lm_head"])
+    logits = linear(x, params["lm_head"])
+    ctx = tp_ctx()
+    if ctx is not None and ctx.ways > 1 and logits.shape[-1] != cfg.vocab:
+        logits = all_gather(logits, ctx.group, logits.ndim - 1)
+    return logits
 
 
 def _embed(cfg: ModelConfig, params: Params,
@@ -226,7 +280,7 @@ def attn_decode_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
             q, *kv4, pool["k2_q"], pool["k2_s"], pool["v2_q"], pool["v2_s"],
             block_tables, tier_tables, pos)
     o = o.reshape(b, cfg.n_heads * cfg.hd)
-    return linear(o, p["wo"], p.get("bo")), pool
+    return linear(o, p["wo"], p.get("bo"), tp="row"), pool
 
 
 def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
@@ -260,11 +314,12 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
                                      tier_tables)
             x = x + y
             x = x + _ffn(cfg, ld, p, x[:, None, :])[:, 0]
+        x = _gather_rows(x)
         telemetry: Dict[str, torch.Tensor] = {}
         if with_telemetry:
             telemetry["sparsity"] = _act_subprecision_sparsity(x)
             for key, v in stack_sublayer_telemetry(tels).items():
-                telemetry[f"layer_{key}"] = v
+                telemetry[f"layer_{key}"] = _gather_rows(v, 1)
         logits = head_logits(cfg, params, x[:, None, :])[:, 0]
     return logits, pool, telemetry
 
@@ -314,7 +369,7 @@ def attn_verify_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
         q.reshape(b, t, kvh, g, cfg.hd).contiguous(), pool["k_q"],
         pool["k_s"], pool["v_q"], pool["v_s"], block_tables, pos)
     o = o.reshape(b, t, cfg.n_heads * cfg.hd)
-    return linear(o, p["wo"], p.get("bo")), pool
+    return linear(o, p["wo"], p.get("bo"), tp="row"), pool
 
 
 def verify_window_paged(cfg: ModelConfig, params: Params, pool: Cache,
@@ -346,7 +401,9 @@ def verify_window_paged(cfg: ModelConfig, params: Params, pool: Cache,
         else:
             x = x + _mlp(cfg, p, _per_position(   # as decode: (B, 1, D)
                 lambda r: _norm(cfg, p["ln2"], r[:, None, :])[:, 0], x))
-    tel = stack_sublayer_telemetry(tels)                     # (L, B, T)
+    x = _gather_rows(x)
+    tel = {k: _gather_rows(v, 1)                             # (L, B, T)
+           for k, v in stack_sublayer_telemetry(tels).items()}
     telemetry = {
         "sparsity": _act_subprecision_sparsity(x).mean(-1),
         "layer_sparsity": tel["sparsity"].mean(-1),
@@ -405,7 +462,7 @@ def _attn_prefill_chunk_paged(cfg: ModelConfig, ld: LayerDef, p: Params,
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgij,bjkd->bikgd", pr, v_cat)
     o = o.reshape(1, c, cfg.n_heads * hd).to(x.dtype)
-    return linear(o, p["wo"], p.get("bo")), pool
+    return linear(o, p["wo"], p.get("bo"), tp="row"), pool
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Cache,
@@ -502,7 +559,7 @@ def attn_full(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
         cache["k_s"][:, :s] = ks
         cache["v_q"][:, :s] = vq
         cache["v_s"][:, :s] = vs
-    return linear(o, p["wo"], p.get("bo")), cache
+    return linear(o, p["wo"], p.get("bo"), tp="row"), cache
 
 
 def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
@@ -529,7 +586,7 @@ def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
                              cache["k_q"], cache["k_s"], cache["v_q"],
                              cache["v_s"], pos, bs=bs, round_kv=True)
     o = o.reshape(b, cfg.n_heads * cfg.hd)
-    return linear(o, p["wo"], p.get("bo")), cache
+    return linear(o, p["wo"], p.get("bo"), tp="row"), cache
 
 
 def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,

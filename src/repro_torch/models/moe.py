@@ -73,7 +73,9 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
     expert_in = buf[:-1].reshape(e, cap, d)            # is dropped
     h = silu(expert_linear(expert_in, w_gate))
     h = h * expert_linear(expert_in, w_up)
-    expert_out = expert_linear(h, w_down)
+    # row-parallel under TP (experts shard on their hidden dim): one int32
+    # all-reduce keeps the combine the single-device one
+    expert_out = expert_linear(h, w_down, tp="row")
 
     # combine through the inverse permutation (gathers only): x's dtype
     # times the f32 weights promotes to f32, as in JAX; the top-k sum in
@@ -87,4 +89,5 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
 
 def shared_expert_ffn(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     """Always-on shared experts: one wide SwiGLU over (..., D)."""
-    return linear(silu(linear(x, w_gate)) * linear(x, w_up), w_down)
+    return linear(silu(linear(x, w_gate)) * linear(x, w_up), w_down,
+                  tp="row")

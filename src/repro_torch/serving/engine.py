@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the paged packed-KV4 pool
-(torch twin of ``repro.serving.engine``, single device).
+(torch twin of ``repro.serving.engine``).
 
 Ties together the scheduler, the page pool and the two step functions of
 ``launch/steps.py``: ``prefill_chunk`` — one (1, prefill_chunk) slice of
@@ -17,6 +17,19 @@ promoted first, and cold pages are demoted after each step.
     h = eng.submit([1, 2, 3], SamplingParams(max_new_tokens=8))
     eng.run()
     print(h.out_tokens, h.stats())
+
+``mesh=`` (a ("data", "model") ``DeviceMesh`` of ``launch/mesh.py``)
+makes the engine one rank of a tensor-parallel serve: every rank builds
+the same engine and runs the same host loop (scheduler, pool
+bookkeeping of every data shard, sampling) while its steps run its
+shard (``launch/steps.py``); weights shard Megatron-style on "model",
+the pool on KV heads over "model" and on pages over "data", and decode
+slots split contiguously over "data". Greedy streams, steps and
+evictions equal the single-device engine's. After each step the ranks
+all-gather a digest of the tokens they emitted and raise if any
+differs, so a divergence fails at once rather than hanging in the next
+collective. Under gloo (several ranks on one card) the steps run
+eagerly, which ``step_mode`` and the stats name.
 """
 from __future__ import annotations
 
@@ -28,7 +41,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import tree_to
+from repro_torch.distributed.tp import (all_gather, shard_params,
+                                        validate_tp_config)
 from repro_torch.launch.graphs import CompiledStep
+from repro_torch.launch.mesh import mesh_layout
 from repro_torch.models.model import check_paged_support
 from repro_torch.obs import Observability
 from repro_torch.serving.kv_pool import PagedKVPool, PoolConfig
@@ -53,10 +69,12 @@ class Engine:
                  sched_config: Optional[SchedulerConfig] = None,
                  clock=time.monotonic,
                  obs: Optional[Observability] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """``params`` is the served (quantized) tree; it is moved to
         ``device`` (a no-op for tensors already there). ``obs`` is the
-        metrics registry + tracer every layer reports into."""
+        metrics registry + tracer every layer reports into. ``mesh``
+        (module docstring): ``params`` is the whole tree, of which this
+        rank keeps its shard; a mesh of one rank is no mesh."""
         from repro_torch.launch import steps as S
         check_paged_support(cfg)
         self.device = resolve_device(device)
@@ -64,24 +82,51 @@ class Engine:
         self._clock = clock
         self.obs = obs if obs is not None else Observability(clock=clock)
         self._init_metrics()
+        pool_config = pool_config or PoolConfig()
+        sched_config = sched_config or SchedulerConfig()
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        self.layout = None
+        n_shards, shard = 1, None
+        if self.mesh is not None:
+            self.layout = lay = mesh_layout(self.mesh)
+            validate_tp_config(cfg, lay.model_ways)
+            if sched_config.max_decode_batch % lay.data_ways:
+                raise ValueError(
+                    f"max_decode_batch={sched_config.max_decode_batch} must "
+                    f"divide over the data axis ({lay.data_ways}): each data "
+                    f"shard owns a contiguous slice of decode slots")
+            if pool_config.kv2_pages:
+                raise NotImplementedError(
+                    "the KV2 precision ladder is unsharded-only (kv2_pages "
+                    "> 0 with a mesh is not wired up)")
+            params = shard_params(params, lay.coords.model_rank,
+                                  lay.model_ways)
+            n_shards, shard = lay.data_ways, lay.coords
         self.params = tree_to(params, self.device)
-        self.pool = PagedKVPool(cfg, pool_config or PoolConfig(),
-                                obs=self.obs, device=self.device)
+        self.pool = PagedKVPool(cfg, pool_config, obs=self.obs,
+                                device=self.device, n_shards=n_shards,
+                                shard=shard)
         # the KV2 precision ladder: the decode step gains a tier table,
         # and demotion/promotion run host-side around it
         self._kv2 = self.pool.kv2_armed
-        self.sched = Scheduler(self.pool, sched_config or SchedulerConfig(),
-                               obs=self.obs)
+        self.sched = Scheduler(self.pool, sched_config, obs=self.obs)
         scfg = self.sched.cfg
         self._chunk = scfg.prefill_chunk
         self._n_slots = scfg.max_decode_batch
         self._n_page_steps = scfg.max_pages_per_seq
+        # gloo collectives are host work, which a CUDA graph cannot hold
+        self._gloo = self.layout is not None and self.layout.backend == "gloo"
+        cuda = self.device.type == "cuda"
+        self.step_mode = ("eager" if not cuda else
+                          "eager (gloo collectives)" if self._gloo
+                          else "graphs")
         # one graph memory pool for every step of this engine
         self._mempool = (torch.cuda.graph_pool_handle()
-                         if self.device.type == "cuda" else None)
-        self._prefill_fn = self._compiled(S.make_engine_prefill_chunk(cfg))
-        self._decode_fn = self._compiled(S.make_engine_decode(cfg,
-                                                              kv2=self._kv2))
+                         if cuda and not self._gloo else None)
+        self._prefill_fn = self._compiled(
+            S.make_engine_prefill_chunk(cfg, mesh=self.mesh))
+        self._decode_fn = self._compiled(
+            S.make_engine_decode(cfg, kv2=self._kv2, mesh=self.mesh))
         self._rngs: Dict[int, np.random.Generator] = {}
         self.steps = 0
         self.layer_wire_bytes: Optional[np.ndarray] = None
@@ -140,7 +185,10 @@ class Engine:
             "pages)", unit="bytes")
 
     def _compiled(self, fn) -> CompiledStep:
-        """A step closure run as a compiled step on the engine's device."""
+        """A step closure run as a compiled step on the engine's device
+        (always eagerly under gloo collectives)."""
+        if self._gloo:
+            return CompiledStep(fn, self.device, capture=False)
         return CompiledStep(fn, self.device, mempool=self._mempool)
 
     # -- public API --------------------------------------------------------
@@ -181,9 +229,23 @@ class Engine:
                 # here is first read, tier-routed, by the next step
                 with self._m_step_lat.time(phase="demote"):
                     self.pool.demote_cold()
+        if self.mesh is not None:
+            self._check_lockstep(events)
         self._m_steps.inc()
         self.steps += 1
         return events
+
+    def _check_lockstep(self, events: List[Tuple[int, int]]) -> None:
+        """Raise unless every rank of the mesh emitted the same tokens
+        this step (a digest all-gathered over the world)."""
+        digest = torch.tensor(
+            [[self.steps, len(events), hash(tuple(events)) & (2**62 - 1)]],
+            dtype=torch.int64, device=self.device)
+        got = all_gather(digest, None)
+        if not bool((got == digest).all()):
+            raise RuntimeError(f"mesh ranks diverged at step {self.steps}: "
+                               f"(step, tokens, digest) by rank "
+                               f"{got.tolist()}")
 
     def aggregate_stats(self) -> Dict[str, float]:
         """Pool-level counters to pair with per-request ``req.stats()``."""
@@ -205,6 +267,9 @@ class Engine:
                 r.value("serving_pool_kv_bytes_reclaimed_total"))
             out["kv2_pages_used"] = int(self.pool.kv2_used)
             out["kv_bytes_saved"] = int(self.pool.kv_bytes_saved())
+        if self.mesh is not None:
+            out["mesh"] = f"{self.layout.data_ways}x{self.layout.model_ways}"
+            out["step_mode"] = self.step_mode
         if self.layer_wire_bytes is not None and self.wire_tokens:
             wire = float(self.layer_wire_bytes.sum())
             dense = float(self.layer_dense_bytes.sum())
@@ -268,6 +333,23 @@ class Engine:
         row[:len(tiers)] = tiers
         return row
 
+    def _prefill_tables(self, req: Request) -> np.ndarray:
+        """(D, Pmax) block table of a prefill chunk: one row a data shard,
+        the owner's holding the request's shard-local pages, the others
+        all-null (D = 1 without a mesh)."""
+        d = 1 if self.layout is None else self.layout.data_ways
+        tables = np.zeros((d, self._n_page_steps), np.int32)
+        tables[self.pool.shard_of(req.rid)] = self._block_table_row(req)
+        return tables
+
+    def _local(self, a: np.ndarray) -> np.ndarray:
+        """This data rank's contiguous slice of a per-slot host array."""
+        if self.layout is None or self.layout.data_ways == 1:
+            return a
+        n = self._n_slots // self.layout.data_ways
+        lo = self.layout.coords.data_rank * n
+        return a[lo:lo + n]
+
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
@@ -320,7 +402,7 @@ class Engine:
         logits, self.pool.state, tel = self._prefill_fn(
             self.params, self.pool.state, self._to_dev(toks),
             self._scalar(start), self._scalar(n),
-            self._to_dev(self._block_table_row(req)[None]))
+            self._to_dev(self._prefill_tables(req)))
         tel = self._host(tel)
         req.sparsity_sum += float(tel["sparsity"]) * n
         req.sparsity_n += n
@@ -364,7 +446,8 @@ class Engine:
             for req in decode:
                 tier_rows[req.slot] = self._tier_table_row(req)
             tiers = (self._to_dev(tier_rows),)
-        token, pos, tables = self._decode_inputs(decode)
+        token, pos, tables = (self._local(a)
+                              for a in self._decode_inputs(decode))
         logits, self.pool.state, tel = self._decode_fn(
             self.params, self.pool.state, self._to_dev(token),
             self._to_dev(pos), self._to_dev(tables), *tiers)

@@ -1,5 +1,5 @@
 """Paged packed-KV4 cache pool with the KV2 precision ladder (torch twin
-of ``repro.serving.kv_pool``, one shard).
+of ``repro.serving.kv_pool``).
 
 The pool owns, per layer, a slab of fixed-size pages in the SPARQLe cache
 wire format — K/V int4 nibbles packed two per byte plus one f32 scale per
@@ -14,6 +14,17 @@ pages: nibbles clamped to the int2 band and packed four per byte, with
 their own null page 0. Cold pages of decode-set owners demote to it
 (``demote_cold``; ``demote_for_pressure`` is the scheduler's rung before
 a preemption), and a page about to be written promotes back (``touch``).
+
+Mesh sharding (tensor-parallel serving, ``distributed/``): over the
+model axis every rank holds the same page structure (only the KV-head
+dim is sliced), so one host-side free list drives every model shard in
+lock step and one block table indexes all of them. Over the data axis
+``n_shards`` > 1 splits the pages into per-shard sub-pools, each with
+its own free list and its own null page (local id 0); block tables
+carry shard-local ids and an owner's pages all live in one shard. Every
+rank keeps the host state of every shard (all ranks run the same
+scheduler) and, with ``shard`` coordinates, the device state of its own
+slice only. The KV2 ladder runs unsharded only.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import MeshCoords, local_shape
 from repro_torch.models.model import check_paged_support
 from repro_torch.models.schema import ParamSpec, Schema
 from repro_torch.models.stages import build_stages
@@ -81,12 +93,17 @@ def pool_schema(cfg: ModelConfig, pool: PoolConfig) -> Schema:
         for si, stage in enumerate(build_stages(cfg))}}
 
 
-def init_pool_state(cfg: ModelConfig, pool: PoolConfig, device="cpu"):
-    """Materialize the device page tensors (zeros; scales one)."""
+def init_pool_state(cfg: ModelConfig, pool: PoolConfig, device="cpu",
+                    shard: Optional[MeshCoords] = None):
+    """Materialize the device page tensors (zeros; scales one): the whole
+    pool, or with ``shard`` one mesh rank's slice of it (its data shard's
+    pages, its model shard's KV heads)."""
     def walk(tree):
         if isinstance(tree, ParamSpec):
             fill = torch.ones if tree.init == "ones" else torch.zeros
-            return fill(tree.shape, dtype=tree.dtype, device=device)
+            shape = (tree.shape if shard is None
+                     else local_shape(tree.shape, tree.axes, shard))
+            return fill(shape, dtype=tree.dtype, device=device)
         return {k: walk(v) for k, v in tree.items()}
     return walk(pool_schema(cfg, pool))
 
@@ -97,17 +114,38 @@ class PagedKVPool:
     ``on_evict(owner, pages)`` fires when :meth:`evict` reclaims a live
     owner's pages (the scheduler's preemption hook). ``obs`` registers
     the allocation/release/eviction counters on the engine's registry.
+    ``n_shards`` data shards split the pages (module docstring);
+    ``shard`` (a mesh rank's coordinates) sizes the device state to that
+    rank's slice, else it holds the whole pool.
     """
 
     def __init__(self, cfg: ModelConfig, pool_cfg: PoolConfig, obs=None,
-                 device="cpu"):
-        if pool_cfg.n_pages < 2:
-            raise ValueError("need at least one page beyond the null page")
+                 device="cpu", n_shards: int = 1,
+                 shard: Optional[MeshCoords] = None):
+        if n_shards < 1:
+            raise ValueError(n_shards)
+        if pool_cfg.n_pages % n_shards:
+            raise ValueError(f"n_pages={pool_cfg.n_pages} must divide over "
+                             f"{n_shards} data shards")
+        if pool_cfg.n_pages // n_shards < 2:
+            raise ValueError("need at least one page beyond the null page "
+                             "in every shard")
+        if pool_cfg.kv2_pages and n_shards > 1:
+            raise NotImplementedError(
+                "the KV2 precision ladder supports unsharded pools only "
+                "(kv2_pages > 0 with a data mesh is not wired up)")
         self.cfg = cfg
         self.pool_cfg = pool_cfg
-        self.state = init_pool_state(cfg, pool_cfg, device)
-        self._free = collections.deque(range(1, pool_cfg.n_pages))
+        self.n_shards = n_shards
+        self.pages_per_shard = pool_cfg.n_pages // n_shards
+        self.state = init_pool_state(cfg, pool_cfg, device, shard)
+        self._shard_free = [collections.deque(range(1, self.pages_per_shard))
+                            for _ in range(n_shards)]
+        # shard 0's free list: the whole pool's when unsharded, the only
+        # one the KV2 ladder (unsharded only) takes pages from
+        self._free = self._shard_free[0]
         self._owned: Dict[object, List[int]] = {}
+        self._owner_shard: Dict[object, int] = {}
         self.evictions = 0
         self.on_evict: Optional[Callable[[object, List[int]], None]] = None
         # -- KV2 tier bookkeeping (empty and inert when kv2_pages == 0) ----
@@ -171,25 +209,46 @@ class PagedKVPool:
 
     @property
     def n_usable_pages(self) -> int:
-        return self.pool_cfg.n_pages - 1
+        return self.pool_cfg.n_pages - self.n_shards   # a null page a shard
+
+    @property
+    def usable_pages_per_shard(self) -> int:
+        return self.pages_per_shard - 1
 
     @property
     def num_free(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._shard_free)
+
+    def free_in_shard(self, shard: int) -> int:
+        return len(self._shard_free[shard])
 
     def pages_of(self, owner) -> List[int]:
         return list(self._owned.get(owner, ()))
 
-    def allocate(self, n: int, owner) -> Optional[List[int]]:
-        """Pop ``n`` pages for ``owner``; None (no partial grab) if short."""
+    def shard_of(self, owner) -> int:
+        """Data shard holding ``owner``'s pages (0 when it holds none)."""
+        return self._owner_shard.get(owner, 0)
+
+    def allocate(self, n: int, owner, shard: int = 0) -> Optional[List[int]]:
+        """Pop ``n`` pages of ``shard`` for ``owner``; None (no partial
+        grab) if that shard is short. Ids are shard-local; an owner's
+        pages all come from one shard."""
         if n < 0:
             raise ValueError(n)
+        if not 0 <= shard < self.n_shards:
+            raise ValueError(f"shard {shard} out of range")
+        if self._owner_shard.get(owner, shard) != shard:
+            raise ValueError(
+                f"owner {owner!r} already holds pages in shard "
+                f"{self._owner_shard[owner]}, cannot allocate in {shard}")
         if n == 0:
             return []
-        if n > len(self._free):
+        free = self._shard_free[shard]
+        if n > len(free):
             return None
-        pages = [self._free.popleft() for _ in range(n)]
+        pages = [free.popleft() for _ in range(n)]
         self._owned.setdefault(owner, []).extend(pages)
+        self._owner_shard[owner] = shard
         self._tier.setdefault(owner, []).extend([0] * n)
         self._stamp.setdefault(owner, []).extend([self.clock] * n)
         self._spars.setdefault(owner, []).extend([None] * n)
@@ -197,8 +256,8 @@ class PagedKVPool:
             self._m_alloc.inc(n)
         return pages
 
-    def _free_page(self, page: int, tier: int) -> None:
-        (self._free_kv2 if tier else self._free).append(page)
+    def _free_page(self, page: int, tier: int, shard: int = 0) -> None:
+        (self._free_kv2 if tier else self._shard_free[shard]).append(page)
 
     def release(self, owner) -> List[int]:
         """Return all of ``owner``'s pages to their tiers' free lists."""
@@ -207,8 +266,9 @@ class PagedKVPool:
         self._stamp.pop(owner, None)
         self._spars.pop(owner, None)
         self._demotable.discard(owner)
+        shard = self._owner_shard.pop(owner, 0)
         for p, t in zip(pages, tiers):
-            self._free_page(p, t)
+            self._free_page(p, t, shard)
         if pages and self._m_freed is not None:
             self._m_freed.inc(len(pages))
         return pages
@@ -228,15 +288,17 @@ class PagedKVPool:
             return []
         tail = pages[keep:]
         tail_tiers = self._tier[owner][keep:]
+        shard = self._owner_shard[owner]
         del pages[keep:]
         for m in (self._tier, self._stamp, self._spars):
             del m[owner][keep:]
         if not pages:
             del self._owned[owner]
-            for m in (self._tier, self._stamp, self._spars):
+            for m in (self._tier, self._stamp, self._spars,
+                      self._owner_shard):
                 m.pop(owner, None)
         for p, t in zip(tail, tail_tiers):
-            self._free_page(p, t)
+            self._free_page(p, t, shard)
         if self._m_freed is not None:
             self._m_freed.inc(len(tail))
         return tail
@@ -357,14 +419,15 @@ class PagedKVPool:
             self._m_promote.inc()
         return True
 
-    def _demote_candidates(self, min_age: int):
+    def _demote_candidates(self, shard: Optional[int], min_age: int):
         """(stamp, owner, idx) of demotable pages, coldest first: tier 0,
-        owner in the :meth:`set_demotable` set, at least ``min_age``
-        ticks since the last write, never an owner's final (write
-        frontier) page."""
+        owner in the :meth:`set_demotable` set (and in ``shard`` unless
+        None), at least ``min_age`` ticks since the last write, never an
+        owner's final (write frontier) page."""
         out = []
         for owner, pages in self._owned.items():
-            if owner not in self._demotable:
+            if owner not in self._demotable or (
+                    shard is not None and self.shard_of(owner) != shard):
                 continue
             for i in range(len(pages) - 1):        # frontier page excluded
                 if not self._tier[owner][i] and \
@@ -392,7 +455,7 @@ class PagedKVPool:
         done = 0
         floor = self.pool_cfg.demote_min_sparsity
         for _, owner, i in self._demote_candidates(
-                self.pool_cfg.demote_after_steps):
+                None, self.pool_cfg.demote_after_steps):
             if not self._free_kv2 or (max_pages is not None
                                       and done >= max_pages):
                 break
@@ -402,15 +465,15 @@ class PagedKVPool:
                 done += 1
         return done
 
-    def demote_for_pressure(self, n: int = 1) -> int:
+    def demote_for_pressure(self, shard: int = 0, n: int = 1) -> int:
         """The ladder's rung between "no free page" and preemption: demote
-        up to ``n`` of the coldest non-frontier KV4 pages whatever their
-        sparsity, freeing KV4 pages without evicting anyone. Returns the
-        pages freed."""
+        up to ``n`` of ``shard``'s coldest non-frontier KV4 pages whatever
+        their sparsity, freeing KV4 pages without evicting anyone. Returns
+        the pages freed."""
         if not self.kv2_armed:
             return 0
         done = 0
-        for _, owner, i in self._demote_candidates(1):
+        for _, owner, i in self._demote_candidates(shard, 1):
             if done >= n or not self._free_kv2:
                 break
             if self.demote(owner, i):

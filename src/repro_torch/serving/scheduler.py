@@ -1,6 +1,9 @@
 """Continuous-batching scheduler: FCFS admission under a token budget
-(torch-side copy of ``repro.serving.scheduler`` for one unsharded pool,
-with the speculative lookahead and the KV2 ladder rung).
+(torch-side copy of ``repro.serving.scheduler``, with the speculative
+lookahead, the KV2 ladder rung and the data-sharded pool of
+tensor-parallel serving: decode slots split contiguously over the pool's
+data shards, a request's pages pinned to its slot's shard, preemption
+and the gridlock breaker confined to the contended shard).
 
 Every engine step the scheduler emits a :class:`StepPlan`:
 
@@ -166,6 +169,20 @@ class Scheduler:
         self.running: List[Request] = []
         self._free_slots = list(range(cfg.max_decode_batch))
         self._rid = itertools.count()
+        # slots are handed out in the unsharded scheduler's ascending
+        # order: the slot index is MoE routing's stable tie-break, so
+        # another slot layout would route other bits
+        if cfg.max_decode_batch % pool.n_shards:
+            raise ValueError(
+                f"max_decode_batch={cfg.max_decode_batch} must divide over "
+                f"the pool's {pool.n_shards} data shards")
+        self._slots_per_shard = cfg.max_decode_batch // pool.n_shards
+
+    def _shard(self, req: Request) -> int:
+        """Data shard of the request's decode slot (0 unsharded)."""
+        if self.pool.n_shards == 1 or req.slot is None:
+            return 0
+        return req.slot // self._slots_per_shard
 
     def _lifecycle(self, req: Request, phase: Optional[str], **args) -> None:
         """Close the request's open lifecycle span and open the next."""
@@ -189,10 +206,11 @@ class Scheduler:
             raise ValueError(
                 f"request needs {need} token slots but the block table "
                 f"caps a sequence at {cap} (max_pages_per_seq * page_size)")
-        if need > self.pool.n_usable_pages * self.pool.page_size:
+        room = self.pool.usable_pages_per_shard * self.pool.page_size
+        if need > room:
             raise ValueError(
-                f"request needs {need} token slots; the pool holds only "
-                f"{self.pool.n_usable_pages * self.pool.page_size}")
+                f"request needs {need} token slots; every pool shard holds "
+                f"only {room} (a request's pages live in one data shard)")
         if not prompt:
             raise ValueError("empty prompt")
         if sampling.max_new_tokens < 1:
@@ -272,7 +290,8 @@ class Scheduler:
         have = len(self.pool.pages_of(req.rid))
         if need <= have:
             return True
-        return self.pool.allocate(need - have, req.rid) is not None
+        return self.pool.allocate(need - have, req.rid,
+                                  shard=self._shard(req)) is not None
 
     def schedule(self) -> StepPlan:
         plan = StepPlan(prefill=[], decode=[])
@@ -289,12 +308,16 @@ class Scheduler:
             if req.status != RUNNING:
                 continue
             while not self._ensure_decode_page(req):
-                if self.pool.demote_for_pressure():
+                shard = self._shard(req)
+                if self.pool.demote_for_pressure(shard):
                     continue
+                # only a holder in the same data shard frees its pages
                 victims = [r for r in self.running
-                           if r is not req and r.status == RUNNING]
+                           if r is not req and r.status == RUNNING
+                           and self._shard(r) == shard]
                 victims += [r for r in self.waiting
-                            if r is not req and self.pool.pages_of(r.rid)]
+                            if r is not req and self.pool.pages_of(r.rid)
+                            and self.pool.shard_of(r.rid) == shard]
                 victim = max(victims, key=lambda r: (r.arrival, r.rid),
                              default=None)
                 if victim is None:
@@ -320,8 +343,8 @@ class Scheduler:
                         budget)
             need = self._pages_needed(req.prefilled + chunk)
             have = len(self.pool.pages_of(req.rid))
-            if need > have and self.pool.allocate(need - have,
-                                                  req.rid) is None:
+            if need > have and self.pool.allocate(
+                    need - have, req.rid, shard=self._shard(req)) is None:
                 break
             if req.status != PREFILL:
                 self._lifecycle(req, PREFILL, slot=req.slot)
@@ -334,9 +357,16 @@ class Scheduler:
         # 3. gridlock breaker: everyone mid-prefill holding pages and
         # nobody can move — evict the youngest page holder
         if plan.empty and self.has_work() and not self.running:
-            holders = [r for r in self.waiting if self.pool.pages_of(r.rid)]
-            if len(holders) > 1:
-                self.preempt(max(holders, key=lambda r: (r.arrival, r.rid)))
+            by_shard: dict = {}
+            for r in self.waiting:
+                if self.pool.pages_of(r.rid):
+                    by_shard.setdefault(self.pool.shard_of(r.rid),
+                                        []).append(r)
+            # a shard with two holders is contended: evict its youngest
+            crowded = [rs for rs in by_shard.values() if len(rs) > 1]
+            if crowded:
+                self.preempt(max(crowded[0],
+                                 key=lambda r: (r.arrival, r.rid)))
                 return self.schedule()
             raise RuntimeError(
                 "scheduler gridlock: pool too small for the waiting work")

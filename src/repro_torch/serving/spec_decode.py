@@ -1,5 +1,5 @@
 """Self-speculative decoding: LSB4-only drafting, batched full verification
-(torch twin of ``repro.serving.spec_decode``, single device).
+(torch twin of ``repro.serving.spec_decode``).
 
 SPARQLe's hybrid format holds a free draft model (paper §3.3): a forward
 whose projections run the dense LSB4 pass alone (``qlinear.msb_skip_scope``)
@@ -31,6 +31,10 @@ the wire-byte accounting; ``Request.draft_tokens`` counts the drafts.
     h = eng.submit(prompt, SamplingParams(max_new_tokens=32))
     eng.run()
     h.stats()["spec_acceptance_rate"], h.stats()["spec_tokens_per_step"]
+
+With ``mesh=`` the draft and verify steps run the engine's mesh layout
+(``serving/engine.py``), so a sharded speculative stream equals the
+single-device base engine's.
 """
 from __future__ import annotations
 
@@ -76,7 +80,7 @@ class SpeculativeEngine(Engine):
                  spec: SpecConfig = SpecConfig(),
                  clock=time.monotonic,
                  obs: Optional[Observability] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         from repro_torch.launch import steps as S
         self.spec = spec
         g = spec.gamma
@@ -92,10 +96,11 @@ class SpeculativeEngine(Engine):
             decode_lookahead=g)
         super().__init__(cfg, params, pool_config=pool_config,
                          sched_config=sched_config, clock=clock, obs=obs,
-                         device=device)
+                         device=device, mesh=mesh)
         self._draft_fn = self._compiled(S.make_engine_decode(
-            cfg, msb_skip=True, with_telemetry=False))
-        self._verify_fn = self._compiled(S.make_engine_verify_window(cfg))
+            cfg, msb_skip=True, with_telemetry=False, mesh=self.mesh))
+        self._verify_fn = self._compiled(
+            S.make_engine_verify_window(cfg, mesh=self.mesh))
         r = self.obs.registry
         self._m_spec_proposed = r.counter(
             "serving_spec_draft_proposed_total", "draft tokens the "
@@ -115,12 +120,13 @@ class SpeculativeEngine(Engine):
     def _run_decode(self, decode: List[Request]) -> List[Tuple[int, int]]:
         B, g = self._n_slots, self.spec.gamma
         token, pos, tables = self._decode_inputs(decode)
-        pos_d, tables_d = self._to_dev(pos), self._to_dev(tables)
+        pos_d = self._to_dev(self._local(pos))
+        tables_d = self._to_dev(self._local(tables))
 
         # draft: γ LSB4-only steps, each proposal fed forward host-side
         window = np.zeros((B, g + 1), np.int32)
         window[:, 0] = token
-        cur = self._to_dev(token)
+        cur = self._to_dev(self._local(token))
         dlogs = []
         with self.obs.tracer.span("spec_draft", slots=len(decode), gamma=g):
             with self._m_step_lat.time(phase="draft"):
@@ -134,7 +140,7 @@ class SpeculativeEngine(Engine):
                     for req in decode:
                         nxt[req.slot] = self._sample(req, dlg[req.slot])
                     window[:, i + 1] = nxt
-                    cur = self._to_dev(nxt)
+                    cur = self._to_dev(self._local(nxt))
         draft_logits = np.stack(dlogs, axis=1)              # (B, γ, V)
         self._m_tokens.inc(len(decode) * g, phase="draft")
 
@@ -143,8 +149,8 @@ class SpeculativeEngine(Engine):
                                   window=g + 1):
             with self._m_step_lat.time(phase="verify"):
                 vlg, self.pool.state, tel = self._verify_fn(
-                    self.params, self.pool.state, self._to_dev(window),
-                    pos_d, tables_d)
+                    self.params, self.pool.state,
+                    self._to_dev(self._local(window)), pos_d, tables_d)
                 vlg = vlg.float().cpu().numpy()             # (B, γ+1, V)
         self._m_tokens.inc(len(decode) * (g + 1), phase="verify")
         tel = self._host(tel)

@@ -1,0 +1,172 @@
+"""Rank functions of the tensor-parallel CPU tests (``test_torch_tp.py``,
+``test_torch_sharded_engine.py``): each runs in every process of a gloo
+world that ``repro_torch.launch.mesh.spawn_world`` spawns, and imports
+only the port, so the ranks start without JAX. The tests compute the
+JAX references in the parent and compare."""
+from __future__ import annotations
+
+import collections
+import contextlib
+
+import numpy as np
+import torch.distributed as dist
+
+from repro_torch.core.qlinear import expert_linear, linear, msb_skip_scope
+from repro_torch.distributed.tp import (all_gather, shard_linear,
+                                        slice_for_rank, tp_scope)
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh, mesh_layout
+
+
+@contextlib.contextmanager
+def counting_collectives(counts: collections.Counter):
+    """Count ``torch.distributed`` all-reduces by (op, dtype) and
+    all-gathers while inside."""
+    reduce, gather = dist.all_reduce, dist.all_gather
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        counts["all_reduce", str(op).split(".")[-1], str(t.dtype)] += 1
+        return reduce(t, op=op, group=group, async_op=async_op)
+
+    def all_gather(parts, t, group=None, async_op=False):
+        counts["all_gather", str(t.dtype)] += 1
+        return gather(parts, t, group=group, async_op=async_op)
+
+    dist.all_reduce, dist.all_gather = all_reduce, all_gather
+    try:
+        yield
+    finally:
+        dist.all_reduce, dist.all_gather = reduce, gather
+
+
+def linear_world(rank: int, cases):
+    """Every case of ``cases`` on its mesh: {"id", "mesh" (data, model),
+    "fn" ('linear', 'expert' or 'sharded'), "partition", "x", "sl" (a
+    served SparqleLinear) or "w" (QuantizedTensor) with "col_mask",
+    "clip", "wire_format", "msb_skip"}. Returns {id: (output as numpy,
+    collective counts)} of this rank (numpy: a tensor handed back through
+    shared memory would outlive its process)."""
+    meshes = {}
+    out = {}
+    for c in cases:
+        shape = c["mesh"]
+        if shape not in meshes:
+            meshes[shape] = make_mesh(*shape)
+        mesh = meshes[shape]
+        lay = mesh_layout(mesh)
+        m, ways = lay.coords.model_rank, lay.model_ways
+        counts: collections.Counter = collections.Counter()
+        with counting_collectives(counts), msb_skip_scope(c["msb_skip"]):
+            if c["fn"] == "sharded":
+                y = ops.sparqle_linear_sharded(
+                    c["x"], c["w"], mesh=mesh, partition=c["partition"],
+                    col_mask=c["col_mask"], clip_l=c["clip"][0],
+                    clip_h=c["clip"][1], wire_format=c["wire_format"],
+                    msb_skip=c["msb_skip"])
+            else:
+                apply = linear if c["fn"] == "linear" else expert_linear
+                sl = shard_linear(c["sl"], c["partition"], m, ways)
+                if c["partition"] == "col":
+                    y = all_gather(apply(c["x"], sl), lay.model_group,
+                                   c["x"].ndim - 1)
+                else:
+                    with tp_scope(lay.context()):
+                        y = apply(slice_for_rank(c["x"], -1, m, ways), sl,
+                                  tp="row")
+        out[c["id"]] = (to_numpy(y.float()), dict(counts))
+    return out
+
+
+def engine_world(rank: int, jobs):
+    """Serve each job of a mesh as big as the world: {"id", "mesh",
+    "cfg", "params" (the whole served tree), "prompts", "gen", "gamma",
+    "pool", "sched"}. Returns {id: (streams, steps, evictions,
+    aggregate)}; also the errors of the mesh-validation probes."""
+    from repro_torch.serving import (Engine, SamplingParams, SpecConfig,
+                                     SpeculativeEngine)
+    world = dist.get_world_size()
+    meshes = {}
+    out = {}
+    for job in jobs:
+        shape = job["mesh"]
+        if shape[0] * shape[1] != world:
+            continue
+        if shape not in meshes:
+            meshes[shape] = make_mesh(*shape)
+        kw = dict(pool_config=job["pool"], sched_config=job["sched"],
+                  device="cpu", mesh=meshes[shape])
+        try:
+            if job.get("gamma"):
+                eng = SpeculativeEngine(job["cfg"], job["params"],
+                                        spec=SpecConfig(gamma=job["gamma"]),
+                                        **kw)
+            else:
+                eng = Engine(job["cfg"], job["params"], **kw)
+        except (ValueError, NotImplementedError) as e:
+            out[job["id"]] = (type(e).__name__, str(e))
+            continue
+        hs = [eng.submit(p, SamplingParams(max_new_tokens=job["gen"]))
+              for p in job["prompts"]]
+        eng.run()
+        out[job["id"]] = ([list(h.out_tokens) for h in hs], eng.steps,
+                          eng.pool.evictions, eng.aggregate_stats())
+    return out
+
+
+def decode_world(rank: int, cfg, params, state, schema, inputs):
+    """One sharded decode step for each mesh shape of ``inputs`` ({shape:
+    (token, pos, tables)} of the whole batch, tables in shard-local
+    ids) as big as the world, from the whole pool ``state``: returns
+    {shape: (logits, telemetry, this rank's pool slice after the step)}
+    as numpy."""
+    from repro_torch.distributed.sharding import shard_pool_state
+    from repro_torch.distributed.tp import shard_params
+    from repro_torch.launch import steps as S
+    world = dist.get_world_size()
+    out = {}
+    for shape, batch in inputs.items():
+        if shape[0] * shape[1] != world:
+            continue
+        mesh = make_mesh(*shape)
+        lay = mesh_layout(mesh)
+        pool = shard_pool_state(state, schema, lay.coords)
+        local = shard_params(params, lay.coords.model_rank, lay.model_ways)
+        n = batch[0].shape[0] // lay.data_ways
+        lo = lay.coords.data_rank * n
+        token, pos, tables = (t[lo:lo + n] for t in batch)
+        step = S.make_engine_decode(cfg, mesh=mesh)
+        logits, pool, tel = step(local, pool, token, pos, tables)
+        out[shape] = to_numpy((logits, tel, pool))
+    return out
+
+
+def lockstep_world(rank: int):
+    """An engine step whose ranks emitted different tokens must raise on
+    every rank (the divergence check), not hang."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch.serve import build_served_params
+    from repro_torch.serving import Engine
+    cfg = ModelConfig(name="tiny", family="transformer", n_layers=1,
+                      d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+                      d_ff=64, vocab=64, dtype="float32")
+    eng = Engine(cfg, build_served_params(cfg, 0, "cpu", tile_k=16),
+                 device="cpu", mesh=make_mesh(dist.get_world_size() // 2, 2))
+    eng._check_lockstep([(0, 5)])                 # equal: passes
+    try:
+        eng._check_lockstep([(0, 5 + rank)])
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
+    return np.asarray(tree.detach().cpu())
+
+
+def calls_world(rank: int, calls):
+    """Each (rank function, args) of ``calls`` in turn, in one world."""
+    return [fn(rank, *args) for fn, args in calls]
