@@ -51,9 +51,10 @@ to chiprun_out/):
      greedy stream must equal phase 4's;
   6. serve them with the KV2 precision ladder armed, twice: idle (no
      demotion; streams equal to phase 4's) and an aggressive cold sweep
-     (demotions > 0, reclaimed bytes = demotions x the page saving);
-     every decode step runs the tiered attention kernel, never the KV4
-     one;
+     (demotions > 0, reclaimed bytes = demotions x the page saving;
+     attributed, its decode counted at the KV2 share of the tables its
+     decodes read, which must lie in (0, 1)); every decode step runs the
+     tiered attention kernel, never the KV4 one;
   7. serve them through the dense W4A8 tree of the same int4 weights:
      streams equal to phase 4's, one prefill chunk and one decode step
      at full depth give logits bit-equal to the SPARQLe tree's, and only
@@ -107,7 +108,27 @@ to chiprun_out/):
      equal and its weight shard's checksum the parent's cut, rank 0's
      launch counts through the row-parallel path; TTFT, TPOT and tokens/s
      as information; NCCL with CUDA graphs only with two cards or more;
- 14. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 14. the serve's surface and the core's calibration on the card, run
+     between phases 9 and 10 (before any profiler) on phase 4's tree and
+     prompts: phase 4's and 5's serves again through engines armed with
+     SLO_SPECS and attributed (``Engine.attribute_steps``): streams equal
+     to phases 4 and 5, ``validate_attribution(require=True)`` empty,
+     the loose SLO silent and the tight one violated, and per phase the
+     attributed FLOPs and bytes, the measured mean step, the byte floor
+     and the memory and compute utilisation, each in (0, UTIL_MAX] (not
+     the speculative engine's decode row: it times the whole draft +
+     verify cycle); the decode's attributed bytes at least the bytes of
+     the tensors it must read (``resident_decode_bytes``) and at most
+     DECODE_BYTES_MARGIN above;
+     ``Engine.stream`` of one prompt equal to its phase 4 stream;
+     ``serve.main --slo --attribute --metrics-out`` on the smoke config
+     (snapshot valid, the closing report's sparsity and cost-model
+     prediction); ``global_calibrate`` over the int8 inputs of layer 0's
+     four linear sites on the card and on the CPU (every candidate's
+     sparsity equal, MSE within 1e-6 relative, the same (l, h)) and
+     ``learn_clipping_constants`` on the card against the CPU (l and h
+     within 1e-4);
+ 15. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -128,6 +149,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 OUT = ROOT / "chiprun_out"
+
+# The card's published dense peaks (bytes/s, int8 op/s, f32 flop/s,
+# NVLink bytes/s) by the part's name: one table, which the live
+# attribution's roofline divides by too.
+from repro_torch.core.costmodel import peaks_for  # noqa: E402
+# ... and count each kernel's bytes and operations by the rules the live
+# attribution counts a serving step's by (launch/step_cost.py).
+from repro_torch.launch.step_cost import (attention_work,  # noqa: E402
+                                          encoder_bytes, matmul_work)
 
 # Stated tolerances. Encoder and matmul are integer work (and the same
 # f32 drain multiplies): bit-exact. Attention sums in another order than
@@ -156,21 +186,9 @@ SERVE = dict(batch=8, prompt_len=128, gen=16)
 # Phase 4b: timed serves of each path (eager, graphs) after a warm one.
 GRAPH_ROUNDS = 2
 
-# Published H100 peaks (NVIDIA data sheets; dense): bytes/s, int8 op/s,
-# f32 (non-tensor) flop/s, by the name nvidia-smi reports.
-PEAKS = {"PCIe": (2.0e12, 1513e12, 51e12), "NVL": (3.9e12, 1671e12, 60e12),
-         "SXM": (3.35e12, 1979e12, 67e12)}
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def peaks_for(name: str):
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return PEAKS[key]
-    return PEAKS["SXM"]
 
 
 def time_ms(fn, args_list, iters: int = 20) -> float:
@@ -313,7 +331,7 @@ def time_encoder(dev, gen, peaks, fused, unfused, plain, out_bytes):
     sms = time_ms(unfused, [(x, activation_scale(x).float(), mask, -8, 23)],
                   200)
     pms = time_ms(plain, args, 50)
-    nbytes = m * k * 2 + k + m * 4 + out_bytes(m, k)
+    nbytes = encoder_bytes(m, k, xb=2, mask=k, planes=out_bytes(m, k))
     return {"max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
             "bound_ms": nbytes / peaks[0] * 1e3, "bound_by": "bytes",
             "library_ms": None, "chain_ms": cms,
@@ -512,11 +530,8 @@ def time_matmul_family(dev, gen, peaks, names):
             pms = time_ms(ref, args[:1], 5)
             qa[:m] = c[lib_q]
             lib = time_ms(torch._int_mm, [(qa, c["w"])], 50)
-            passes = 1 if skip else 1 + live
-            plane_bytes = a0.numel() / m        # bytes a row of one plane
-            nbytes = (m * plane_bytes * passes + k * n // 2 + m * 4 + n * 4
-                      + m * n * 4)
-            ops = 2.0 * m * k * n * passes
+            nbytes, ops = matmul_work(m, k, n, plane_row=a0.numel() / m,
+                                      passes=1 if skip else 1 + live)
             detail[name].append({
                 "M": m, "K": k, "N": n, "ms": kms, "plain_ms": pms,
                 "library_ms": lib, "library": f"torch._int_mm at M={ml}",
@@ -594,9 +609,9 @@ def attn_bound(peaks, n_q, toks, work, kv2_toks=0, extra=0, kvh=8, g=4,
     query groups in f32, ``toks`` KV4 (and ``kv2_toks`` KV2) tokens read
     once a kv head, ``extra`` bytes of tables and positions; 4 G hd f32
     flops a kv head for each of ``work`` (query, token) pairs."""
-    nbytes = (n_q * kvh * g * hd * 4 * 2 + toks * kvh * (hd // 2 + 4) * 2
-              + kv2_toks * kvh * (hd // 4 + 4) * 2 + extra)
-    flops = 4.0 * work * kvh * g * hd
+    nbytes, flops = attention_work(n_q, kvh * g, hd, kvh, kv4_tokens=toks,
+                                   kv2_tokens=kv2_toks, pairs=work, qb=4)
+    nbytes += extra
     by = "bytes" if nbytes / peaks[0] >= flops / peaks[2] else "operations"
     return max(nbytes / peaks[0], flops / peaks[2]) * 1e3, by
 
@@ -743,10 +758,8 @@ def check_verify_attention(dev, gen, peaks):
     toks = sum((lp + 1) * ps for lp in last)          # pages read once
     work = sum((min((int(p) + i) // ps, n_s - 1) + 1) * ps
                for p in pos.tolist() for i in range(t))
-    nbytes = (b * t * kvh * g * hd * 4 * 2 + toks * kvh * (hd // 2 + 4) * 2
-              + b * n_s * 4 + b * 4)
-    flops = 4.0 * work * kvh * g * hd
-    bound = max(nbytes / peaks[0], flops / peaks[2]) * 1e3
+    bound, by = attn_bound(peaks, b * t, toks, work,
+                           extra=b * n_s * 4 + b * 4)
     # the long context: windows ending at LONG_POS
     lc = long_context(dev, gen)
     lpos = lc["pos"] - (t - 1)
@@ -772,9 +785,7 @@ def check_verify_attention(dev, gen, peaks):
             "source": "src/repro_torch/csrc/kv_attention.cu",
             "replaces": "src/repro/kernels/kv_attention.py:280",
             "max_abs_err": err, "ms": kms, "plain_ms": pms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / peaks[0] >= flops / peaks[2]
-            else "operations", "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
             "shape": f"B=8 T={t} KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q "
                      f"({t} decode-kernel calls: {loop_ms * 1e3:.1f} us); "
                      f"long context: {lms * 1e3:.1f} us ({t} decode calls "
@@ -922,9 +933,8 @@ def check_tiered_attention(dev, gen, peaks):
                 tok2 += ps
             else:
                 tok4 += ps
-    nbytes = (b * kvh * g * hd * 4 * 2 + tok4 * kvh * (hd // 2 + 4) * 2
-              + tok2 * kvh * (hd // 4 + 4) * 2 + 2 * b * n_s * 4 + b * 4)
-    flops = 4.0 * (tok4 + tok2) * kvh * g * hd
+    bound, by = attn_bound(peaks, b, tok4, tok4 + tok2, kv2_toks=tok2,
+                           extra=2 * b * n_s * 4 + b * 4)
     # the long context, half of each active slot's pages demoted
     kv4, tiered, clamped = demoted_pool(dev, gen, b, kvh, hd, ps, LONG_NS,
                                         1 + b * LONG_NS)
@@ -947,9 +957,7 @@ def check_tiered_attention(dev, gen, peaks):
             "source": "src/repro_torch/csrc/kv_attention.cu",
             "replaces": "src/repro/kernels/kv_attention.py:366",
             "max_abs_err": err, "ms": kms, "plain_ms": pms,
-            "bound_ms": max(nbytes / peaks[0], flops / peaks[2]) * 1e3,
-            "bound_by": "bytes" if nbytes / peaks[0] >= flops / peaks[2]
-            else "operations", "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
             "shape": f"B=8 KVH=8 G=4 hd=128 ps=16 Pmax=16, f32 q, "
                      f"{tok2 // ps} of {(tok4 + tok2) // ps} pages read "
                      f"from KV2 (decode kernel on the clamped pages: "
@@ -1127,8 +1135,7 @@ def check_contiguous_attention(dev, gen, peaks):
     dec = time_ms(kv4_paged_decode_attention, [paged_args], 200)
     pms = time_ms(kv4_decode_attention_ref, [f32_args], 20)
     toks = sum((int(p) // bs + 1) * bs for p in pos.tolist())
-    nbytes = b * kvh * g * hd * 4 * 2 + toks * kvh * (hd // 2 + 4) * 2 + b * 4
-    flops = 4.0 * toks * kvh * g * hd
+    bound, by = attn_bound(peaks, b, toks, toks, extra=b * 4)
     # the long context: S = LONG_NS * 16, the pages tiled as in the pool
     ls = LONG_NS * bs
     caches = [tuple(x.reshape(b, ls, *x.shape[2:]) for x in kv_pool(
@@ -1147,9 +1154,7 @@ def check_contiguous_attention(dev, gen, peaks):
             "source": "src/repro_torch/csrc/kv_attention.cu",
             "replaces": "src/repro/kernels/kv_attention.py:148",
             "max_abs_err": err, "ms": kms, "plain_ms": pms,
-            "bound_ms": max(nbytes / peaks[0], flops / peaks[2]) * 1e3,
-            "bound_by": "bytes" if nbytes / peaks[0] >= flops / peaks[2]
-            else "operations", "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
             "shape": f"B=8 S=256 KVH=8 G=4 hd=128 bs={bs}, f32 q (paged "
                      f"kernel on the same cache in pages of {bs}: "
                      f"{dec * 1e3:.1f} us; bf16 q with round_kv, the "
@@ -1359,11 +1364,9 @@ def check_batched_matmul(dev, gen, peaks):
             kms = time_ms(call, args, 50)
             lms = time_ms(loop, args, 5)
             pms = time_ms(ref, args[:1], 2)
-            passes = 1 if skip else 1 + live
-            nbytes = (a0.numel() * passes + c["wp"].numel()
-                      + c["asc"].numel() * 4 + c["wsc"].numel() * 4
-                      + 64 * cc * n * 4)
-            ops = 2.0 * 64 * cc * k * n * passes
+            nbytes, ops = (64 * w for w in matmul_work(
+                cc, k, n, plane_row=a0.numel() / (64 * cc),
+                passes=1 if skip else 1 + live))
             detail[name].append({
                 "E": 64, "C": cc, "K": k, "N": n, "ms": kms,
                 "loop_ms": lms, "plain_ms": pms,
@@ -1478,8 +1481,9 @@ def check_batched_encoder(dev, gen, peaks):
             lms = time_ms(loop, args, 5)
             pms = time_ms(plain, args, 2)
             pops = e * -(-c // TILE_M) * -(-k // TILE_K) * 4
-            nbytes = (e * c * k * 2 + e * k + e * c * 4 + out_bytes(e, c, k)
-                      + (0 if "quantize" in name else pops))
+            nbytes = encoder_bytes(e * c, k, xb=2, mask=e * k,
+                                   planes=out_bytes(e, c, k)
+                                   + (0 if "quantize" in name else pops))
             d.append({"E": e, "C": c, "K": k, "ms": kms, "loop_ms": lms,
                       "plain_ms": pms, "bound_ms": nbytes / peaks[0] * 1e3,
                       "bound_by": "bytes"})
@@ -1605,8 +1609,10 @@ def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
                   mesh=None, **pool_kw):
     """One serve of the prompts through the Engine (``spec_gamma`` 0) or
     the SpeculativeEngine, launch counters zeroed just before and read
-    just after. ``pool_kw`` arms the KV2 ladder (PoolConfig
-    fields); the serve then also records the peak share of held KV bytes
+    just after. ``pool_kw`` are further ``make_engine`` keywords: the
+    SLOs and attribution of phase 14 (``slos``, ``attribute``; the serve
+    then also returns the engine's metrics snapshot), or the KV2
+    ladder's PoolConfig fields; the ladder's serve also records the peak share of held KV bytes
     that demotion reclaims (after every step) and the in-band share
     (``page_msb_sparsity``) of each page just before its demotion, whose
     reads are kept out of the demote phase's time.
@@ -1655,6 +1661,10 @@ def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
              step_mode=eng.step_mode)
     if mesh is not None:
         r["checksum"] = tree_checksum(eng.params)
+    if r["attribution"] is not None:
+        r["snapshot"] = eng.metrics_snapshot()
+        r["resident_bytes"] = resident_decode_bytes(eng)
+        r["kv2_share"] = eng.kv2_table_share()
     if pool.kv2_armed:
         r["ladder"] = dict(
             ladder, page_bytes=dict(pool._page_bytes),
@@ -2323,6 +2333,266 @@ def ckpt_round_trip(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the serve's surface on the card — SLOs, per-step attribution,
+# Engine.stream, the CLI's reports — and the calibration half of the core
+# ---------------------------------------------------------------------------
+
+# a loose TTFT objective that must hold and a TPOT one no card meets
+SLO_SPECS = "ttft:p95<60,tpot:p50<1e-4"
+UTIL_MAX = 1.05
+# The decode step's attributed bytes over what it must read at the least
+# (resident_decode_bytes): the rest is the activations, planes, outputs,
+# q and the attention output, the new K/V, the embedding rows and the
+# logits — about 3% of granite-8b's weights + KV at 8 slots.
+DECODE_BYTES_MARGIN = 0.05
+
+
+def resident_decode_bytes(eng) -> int:
+    """What one decode step of ``eng`` must read at the least, summed from
+    the tensors themselves (not by step_cost's per-kernel rules): every
+    projection's packed weight, scales and clip mask, the tied head's
+    table (an untied head is a projection), and the KV of every slot's
+    block table at its full width, at the pool's own bytes a KV4 page."""
+    from repro_torch.core.qlinear import SparqleLinear
+
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        if isinstance(t, SparqleLinear):
+            return sum(x.numel() * x.element_size()
+                       for x in (t.w.q, t.w.scale, t.col_mask)
+                       if x is not None)
+        return 0
+
+    total = nbytes(eng.params)
+    if not isinstance(eng.params.get("lm_head"), SparqleLinear):
+        table = eng.params["embed"]["table"]
+        total += table.numel() * table.element_size()
+    return total + (eng._n_slots * eng._n_page_steps
+                    * eng.pool._page_bytes[0])
+
+
+def attributed_serve(dev, cfg, params, prompts, spec_gamma: int = 0):
+    """Phase 4's serve (or 5's) through an engine armed with SLO_SPECS and
+    attributed (``Engine.attribute_steps``): its summary with the
+    validated snapshot's problems, each phase's attribution report and
+    the SLO report. Raises when a phase's utilisation is <= 0 or above
+    UTIL_MAX (the step's host time must cover its device work), or when
+    the decode's attributed bytes fall below what it must read
+    (``resident_decode_bytes``) or above that by more than
+    DECODE_BYTES_MARGIN. The speculative engine's ``decode`` row times
+    the whole draft + verify cycle against one decode step's cost (as
+    the JAX package's does), so no utilisation is read from it."""
+    from repro_torch.obs import parse_slo_list
+    from repro_torch.obs.validate import validate_attribution
+    r = serve_granite(dev, cfg, params, prompts, spec_gamma=spec_gamma,
+                      slos=parse_slo_list(SLO_SPECS), attribute=True)
+    r["attribution_problems"] = validate_attribution(r.pop("snapshot"),
+                                                     require=True)
+    got, least = r["attribution"]["decode"]["hbm_bytes"], r["resident_bytes"]
+    r["decode_bytes_over_resident"] = got / least
+    if not least <= got <= least * (1 + DECODE_BYTES_MARGIN):
+        raise AssertionError(f"decode attributed {got} B against {least} B "
+                             f"of weights, scales, head and KV")
+    for phase, row in r["attribution"].items():
+        if row.get("cycle"):
+            continue
+        for key in ("memory_util", "compute_util"):
+            if not 0.0 < row.get(key, 0.0) <= UTIL_MAX:
+                raise AssertionError(f"{phase} {key} = {row.get(key)}: "
+                                     f"outside (0, {UTIL_MAX}]")
+    return r
+
+
+def phase_rows(r) -> str:
+    """Per phase: FLOPs and bytes a step, measured mean step, the byte
+    floor (bytes over the card's HBM rate), memory and compute
+    utilisation (the speculative engine's decode labelled as the whole
+    cycle it times)."""
+    return "; ".join(
+        f"{ph}{' (whole draft+verify cycle)' if c.get('cycle') else ''} "
+        f"{c['flops'] / 1e9:.3f} GFLOP, {c['hbm_bytes'] / 1e9:.4f} GB, "
+        f"{c['steps']} steps of {c['mean_step_s'] * 1e3:.3f} ms (floor "
+        f"{c['floor_s'] * 1e3:.4f} ms), memory util {c['memory_util']:.4f}, "
+        f"compute util {c['compute_util']:.6f}"
+        for ph, c in sorted(r["attribution"].items()))
+
+
+def stream_one(dev, cfg, params, prompts, index: int):
+    """``Engine.stream`` of prompt ``index`` with the others in flight."""
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.serving import SamplingParams
+    eng = make_engine(cfg, params, **SERVE, page_size=16, token_budget=128,
+                      prefill_chunk=32, decode_slots=8, device=dev)
+    hs = [eng.submit(p, SamplingParams(max_new_tokens=SERVE["gen"]))
+          for p in prompts]
+    got = list(eng.stream(hs[index]))
+    if got != hs[index].out_tokens:
+        raise AssertionError("Engine.stream yielded other tokens than the "
+                             "request's out_tokens")
+    eng.run()
+    return got
+
+
+def serve_cli(dev):
+    """``serve.main`` on the granite-8b smoke config on the card with
+    --slo, --attribute and --metrics-out: the snapshot validated, the
+    closing report's two lines' values."""
+    from repro_torch.launch import serve
+    from repro_torch.obs.validate import (validate_attribution,
+                                          validate_snapshot)
+    path = OUT / "phase14_metrics.json"
+    r = serve.main(["--arch", "granite-8b", "--smoke", "--device", str(dev),
+                    "--batch", "4", "--prompt-len", "21", "--gen", "9",
+                    "--page-size", "8", "--slo", SLO_SPECS, "--attribute",
+                    "--metrics-out", str(path)])
+    snap = json.loads(path.read_text())
+    problems = validate_snapshot(snap) + validate_attribution(snap,
+                                                              require=True)
+    if problems or r["slo"] is None or "hidden_sparsity" not in r or \
+            "costmodel" not in r:
+        raise AssertionError(f"serve --slo --attribute: {problems}")
+    return {"hidden_sparsity": r["hidden_sparsity"],
+            "tpot_pct": r["costmodel"]["tpot_latency_pct"],
+            "slo": {x["slo"]: x["violations"] for x in r["slo"]}}
+
+
+def layer0_sites(cfg, params, prompts, dev):
+    """The int8 inputs (per-token quantized) of layer 0's four linear
+    sites — q/k/v, o, gate/up, down — on the prompts, each with its
+    projection's clip mask and scale: (q, mask, scale) a site."""
+    from repro_torch.core.quantize import quantize_activations
+    from repro_torch.models import model as M
+
+    class Enough(Exception):
+        pass
+
+    seen, linear = [], M.linear
+
+    def capture(x, w, *a, **k):
+        seen.append((x, w))
+        if len(seen) == 7:              # wq wk wv wo w_gate w_up w_down
+            raise Enough
+        return linear(x, w, *a, **k)
+
+    M.linear = capture
+    try:
+        with torch.no_grad():
+            M.forward_hidden(cfg, params, {"tokens": torch.tensor(
+                prompts, dtype=torch.int32, device=dev)})
+    except Enough:
+        pass
+    finally:
+        M.linear = linear
+    out = []
+    for i in (0, 3, 4, 6):
+        x, w = seen[i]
+        qt = quantize_activations(x.reshape(-1, x.shape[-1]))
+        out.append((qt.q, w.col_mask, qt.scale))
+    return out
+
+
+def calibrate(sites):
+    """``global_calibrate`` over the sites: a candidate's error is the
+    mean squared clip error in real units over the four sites, its
+    sparsity their mean MSB4 sparsity. Returns (result, every
+    candidate's (l, h, mse, sparsity))."""
+    from repro_torch.core.clipping import apply_clipping, global_calibrate
+    from repro_torch.core.sparqle import subprecision_sparsity
+    seen = []
+
+    def eval_fn(l, h):
+        mse = sp = 0.0
+        for q, mask, scale in sites:
+            c = apply_clipping(q, mask, l, h)
+            err = (c.float() - q.float()) * scale
+            mse += float(torch.mean(err * err)) / len(sites)
+            sp += float(subprecision_sparsity(c)) / len(sites)
+        seen.append((l, h, mse, sp))
+        return mse, sp
+
+    return global_calibrate(eval_fn), seen
+
+
+def algorithm1(device):
+    """``learn_clipping_constants`` on ``tests/test_clipping.py``'s
+    Algorithm 1 setup (int8 batches in [-40, 56), all columns masked,
+    tau 4, (l, h) from (-1, 16), 23 epochs, lr 1, alpha 0.5), its data
+    drawn from a fixed seed, run on ``device``."""
+    from repro_torch.core.clipping import (init_clip_params,
+                                           learn_clipping_constants,
+                                           soft_clipping)
+    g = torch.Generator().manual_seed(0)
+    data = torch.randint(-40, 56, (4, 32, 16), generator=g,
+                         dtype=torch.int8)
+    mask = torch.ones((16,), device=device)
+
+    def apply_clip(cp, batch):
+        y, m = soft_clipping(batch, mask, cp["l"][0], cp["h"][0], tau=4.0)
+        return y * 0.01, torch.mean(m)
+
+    def apply_base(batch):
+        return batch.float() * 0.01
+
+    cp, hist = learn_clipping_constants(
+        apply_clip, apply_base, data,
+        init_clip_params(1, l0=-1.0, h0=16.0, device=device), epochs=23,
+        lr=1.0, alpha=0.5)
+    return float(cp["l"][0]), float(cp["h"][0]), hist
+
+
+def calibration_on_card(dev, cfg, params, prompts):
+    """Phase 14(e): the sweep on the card and on the CPU over the same
+    sites (every candidate's sparsity equal, MSE within 1e-6 relative,
+    the same (l, h) chosen), and Algorithm 1 on the card against the CPU
+    (learned l and h within 1e-4)."""
+    sites = layer0_sites(cfg, params, prompts, dev)
+    card, card_all = calibrate(sites)
+    cpu, cpu_all = calibrate([tuple(t.cpu() for t in s) for s in sites])
+    for a, b in zip(card_all, cpu_all):
+        if a[:2] != b[:2] or a[3] != b[3] or \
+                abs(a[2] - b[2]) > 1e-6 * max(abs(b[2]), 1e-30):
+            raise AssertionError(f"calibration candidate differs: card {a} "
+                                 f"vs cpu {b}")
+    if (card.l, card.h) != (cpu.l, cpu.h):
+        raise AssertionError(f"calibration chose {(card.l, card.h)} on the "
+                             f"card, {(cpu.l, cpu.h)} on the CPU")
+    lc, hc, _ = algorithm1(dev)
+    lp, hp, _ = algorithm1(torch.device("cpu"))
+    if abs(lc - lp) > 1e-4 or abs(hc - hp) > 1e-4:
+        raise AssertionError(f"Algorithm 1: card (l, h) = {(lc, hc)}, CPU "
+                             f"{(lp, hp)}")
+    return {"chosen": (card.l, card.h), "candidates": len(card_all),
+            "sparsity": card.sparsity, "mse": card.error,
+            "algorithm1_card": (lc, hc), "algorithm1_cpu": (lp, hp)}
+
+
+def serve_surface(dev, cfg, params, prompts, base, spec):
+    """Phase 14 (a)-(e) on phase 4's tree and prompts; ``base``/``spec``
+    are phases 4 and 5's serves, whose streams these must give."""
+    t0 = time.perf_counter()
+    out = {"base": attributed_serve(dev, cfg, params, prompts),
+           "spec": attributed_serve(dev, cfg, params, prompts, SPEC_GAMMA)}
+    for name, want in (("base", base), ("spec", spec)):
+        r = out[name]
+        viol = {x["slo"]: x["violations"] for x in r["slo"]}
+        if r["streams"] != want["streams"]:
+            raise AssertionError(f"attributed {name} serve: streams differ")
+        if r["attribution_problems"]:
+            raise AssertionError(f"attributed {name} serve: "
+                                 f"{r['attribution_problems']}")
+        if viol["ttft:p95<60"] != 0 or viol["tpot:p50<1e-4"] < 1:
+            raise AssertionError(f"{name} SLO violations {viol}")
+    out["stream"] = stream_one(dev, cfg, params, prompts, 3)
+    if out["stream"] != base["streams"][3]:
+        raise AssertionError("Engine.stream differs from phase 4's stream")
+    out["cli"] = serve_cli(dev)
+    out["calibration"] = calibration_on_card(dev, cfg, params, prompts)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 13: tensor-parallel serving, the ranks of a mesh sharing the card
 # ---------------------------------------------------------------------------
 
@@ -2571,8 +2841,9 @@ def check_scale_in_batched(dev, gen, peaks):
         kms = time_ms(fn, args, 100)
         pms = time_ms(plain, args, 2)
         pops = e * -(-c // TILE_M) * -(-k // TILE_K) * 4
-        nbytes = (e * c * k * 2 + e * k + e * c * 4 + out_bytes(e, c, k)
-                  + (0 if "quantize" in name else pops))
+        nbytes = encoder_bytes(e * c, k, xb=2, mask=e * k,
+                               planes=out_bytes(e, c, k)
+                               + (0 if "quantize" in name else pops))
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/sparqle_encode.cu",
@@ -2948,7 +3219,8 @@ def main() -> int:
         idle = serve_granite(dev, cfg, params, prompts, kv2_pages=n_pages,
                              demote_after_steps=10**9)
         kv2 = serve_granite(dev, cfg, params, prompts, kv2_pages=n_pages,
-                            demote_after_steps=1, demote_min_sparsity=0.0)
+                            demote_after_steps=1, demote_min_sparsity=0.0,
+                            attribute=True)
         lad = kv2["ladder"]
         per_page = lad["page_bytes"][0] - lad["page_bytes"][1]
         agg2 = kv2["aggregate"]
@@ -2971,7 +3243,14 @@ def main() -> int:
             f"streams equal to phase 4: {sum(same_kv2)}/{len(same_kv2)}, "
             f"TPOT mean {kv2['tpot_mean_s'] * 1e3:.2f} ms (idle "
             f"{idle['tpot_mean_s'] * 1e3:.2f}, base "
-            f"{eng['tpot_mean_s'] * 1e3:.2f}), launches {kv2['launches']}")
+            f"{eng['tpot_mean_s'] * 1e3:.2f}), launches {kv2['launches']}; "
+            f"attributed decode "
+            f"{kv2['attribution']['decode']['hbm_bytes'] / 1e9:.6f} GB a "
+            f"step at the KV2 share of its table reads "
+            f"{kv2['kv2_share']:.4f}")
+        if not 0 < kv2["kv2_share"] < 1:
+            raise AssertionError(f"KV2 sweep: the decodes read a KV2 share "
+                                 f"of {kv2['kv2_share']}")
         for run in (idle, kv2):
             check_path(run, ("sparqle_encode_fused", "sparqle_matmul",
                              "kv_attention_tiered"),
@@ -3080,6 +3359,33 @@ def main() -> int:
         if not lg["vs_engine_2l"]["equal"]:
             raise AssertionError("legacy streams differ from the engine's "
                                  "with the prefill unchunked")
+        # phase 14 runs here, before the profilers of phase 10 (a profiled
+        # process stays slower on the host): the serve's surface on phase
+        # 4's tree and prompts, and the core's calibration on the card
+        surf = serve_surface(dev, cfg, params, prompts, eng, spec)
+        for name in ("base", "spec"):
+            r = surf[name]
+            log(f"[14] {card}: granite-8b {cfg.n_layers}L attributed "
+                f"{name} serve (SLOs {SLO_SPECS}): streams equal to phase "
+                f"{4 if name == 'base' else 5}, validate_attribution [], "
+                f"SLO violations "
+                f"{ {x['slo']: x['violations'] for x in r['slo']} }; "
+                f"decode bytes {r['decode_bytes_over_resident']:.4f} x the "
+                f"{r['resident_bytes'] / 1e9:.4f} GB of weights, scales, "
+                f"head and KV it must read; {phase_rows(r)}")
+        cal = surf["calibration"]
+        log(f"[14] {card}: Engine.stream of prompt 3 = its phase 4 stream; "
+            f"serve --slo --attribute --metrics-out (smoke config on the "
+            f"card): snapshot valid, SLO violations {surf['cli']['slo']}, "
+            f"hidden MSB4 sparsity {surf['cli']['hidden_sparsity']:.4f}, "
+            f"cost-model TPOT -{surf['cli']['tpot_pct']:.2f}% (the paper's "
+            f"accelerator); calibration of layer 0's four sites on phase "
+            f"4's prompts: {cal['candidates']} candidates equal on the card "
+            f"and the CPU, chose (l, h) = {cal['chosen']} (sparsity "
+            f"{cal['sparsity']:.4f}, mse {cal['mse']:.4g}); Algorithm 1 "
+            f"card {cal['algorithm1_card']} vs CPU {cal['algorithm1_cpu']}; "
+            f"{surf['wall_s']:.1f} s")
+        detail["serve_surface"] = surf
         # phase 10: where the time goes, then the base serve once more
         eng["profile"] = profile_engine(cfg, params, dev, args.seed)
         spec["profile"] = profile_engine(cfg, params, dev, args.seed,

@@ -104,3 +104,20 @@ def scale_from_amax(amax: torch.Tensor, bits: int = 8) -> torch.Tensor:
     row-parallel linear's all-reduced amax), in amax's dtype."""
     _, hi = _qrange(bits)
     return torch.clamp_min(_div(amax, hi), 1e-8)
+
+
+def quantize_kv(kv: torch.Tensor, bits: int = 4) -> QuantizedTensor:
+    """KV-cache quantization (per head-dim-channel scales), KV4 in the
+    paper."""
+    return quantize_weights(kv, bits=bits, axis=-1)
+
+
+def dequantize(t: QuantizedTensor) -> torch.Tensor:
+    return t.dequantize()
+
+
+def fake_quantize(x: torch.Tensor, bits: int = 8,
+                  per_token: bool = True) -> torch.Tensor:
+    """Quantize-dequantize in one op."""
+    return quantize_activations(x, bits=bits,
+                                per_token=per_token).dequantize()

@@ -14,7 +14,11 @@ float tree of the newest complete checkpoint under DIR
 layer at a time on the device; prompts are the synthetic stream's first
 batch (``data/pipeline.py`` ``SyntheticLM``), as the JAX serve's.
 Prints per-request TTFT/TPOT, tokens/s, the achieved MSB4 sparsity and
-the measured wire compression.
+the measured wire compression, then the closing report of both paths:
+the MSB4 sparsity of the prompts' hidden stream (``forward_hidden``)
+and the paper accelerator's cost-model prediction at that sparsity
+(``core/costmodel.py`` ``evaluate_model``: the §4 model, not a
+measurement of the card).
 ``--spec-gamma N`` serves through the self-speculative engine (N
 LSB4-only draft steps and one batched verify per cycle) and also prints
 the draft acceptance rate and the tokens emitted per cycle. ``--mode
@@ -59,6 +63,20 @@ collectives cannot be captured in a CUDA graph); the run says which.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --mesh 1,2 --dist-backend gloo
 
+``--slo SPEC`` (repeatable, comma lists: ``ttft:p95<0.5``,
+``tpot:p50<0.05``, ``queue_depth:p50<4``) arms the engine's SLO watchdog
+and prints each SLO's windowed percentile, violations and burn rate;
+``--attribute`` counts each serving step's work from its shapes
+(``launch/step_cost.py``) and prints per phase the attributed FLOPs and
+HBM bytes a step, then the achieved bytes/s and the memory and compute
+utilisation against the card's peaks (``obs/attribution.py``). Both
+drive the paged engine's observability and are refused with
+``--legacy``. Under ``--mesh`` every rank attributes its own shard and
+rank 0's report is printed.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --slo ttft:p95<60,tpot:p50<0.05 --attribute --metrics-out m.json
+
 The KV2 precision ladder has no flag here, as in the JAX package's
 serve: arm it through ``make_engine(..., kv2_pages=N)`` or
 ``PoolConfig(kv2_pages=N)``; nor has the packed wire format: serve a
@@ -77,15 +95,20 @@ import torch
 from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.costmodel import (HardwareConfig, evaluate_model,
+                                        lm_shape_of)
 from repro_torch.core.qlinear import quantize_model_params
+from repro_torch.core.quantize import quantize_activations
+from repro_torch.core.sparqle import subprecision_sparsity
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import steps as S
 from repro_torch.launch.graphs import CompiledStep
 from repro_torch.launch.mesh import (make_mesh, mesh_layout, pick_backend,
                                      spawn_world)
-from repro_torch.models.model import check_paged_support
+from repro_torch.models.model import check_paged_support, forward_hidden
 from repro_torch.models.schema import abstract_params, init_quantized_params
 from repro_torch.models.schema_builder import build_schema
+from repro_torch.obs.slo import parse_slo_list
 from repro_torch.serving import (Engine, PoolConfig, SamplingParams,
                                  SchedulerConfig, SpecConfig,
                                  SpeculativeEngine)
@@ -139,7 +162,8 @@ def make_engine(cfg: ModelConfig, params, *, batch: int, prompt_len: int,
                 gen: int, page_size: int = 16, n_pages: int = 0,
                 token_budget: int = 128, prefill_chunk: int = 32,
                 decode_slots: int = 8, spec_gamma: int = 0,
-                device="cuda", mesh=None, **pool_kw) -> Engine:
+                device="cuda", mesh=None, slos=None, attribute: bool = False,
+                **pool_kw) -> Engine:
     """Engine sized like ``repro.launch.serve``: a block table that fits
     prompt + generation (+ the γ-token draft lookahead), and by default a
     pool that fits the batch. ``spec_gamma > 0`` gives the speculative
@@ -148,7 +172,8 @@ def make_engine(cfg: ModelConfig, params, *, batch: int, prompt_len: int,
     ``demote_after_steps``). With a ``mesh`` the decode slots round up to
     a multiple of the data ways, and the default pool gives every data
     shard room for its share of the batch (a request's pages live in
-    one shard)."""
+    one shard). ``slos`` arm the SLO watchdog; ``attribute`` attributes
+    the engine's steps (``Engine.attribute_steps``)."""
     data = 1 if mesh is None else mesh_layout(mesh).data_ways
     pages_per_seq = -(-(prompt_len + gen + spec_gamma) // page_size)
     n_slots = min(batch, decode_slots)
@@ -162,16 +187,22 @@ def make_engine(cfg: ModelConfig, params, *, batch: int, prompt_len: int,
             max_decode_batch=n_slots,
             token_budget=token_budget, prefill_chunk=prefill_chunk,
             max_pages_per_seq=pages_per_seq),
-        device=device, mesh=mesh)
+        device=device, mesh=mesh, slos=slos)
     if spec_gamma > 0:
-        return SpeculativeEngine(cfg, params,
-                                 spec=SpecConfig(gamma=spec_gamma), **kw)
-    return Engine(cfg, params, **kw)
+        eng = SpeculativeEngine(cfg, params,
+                                spec=SpecConfig(gamma=spec_gamma), **kw)
+    else:
+        eng = Engine(cfg, params, **kw)
+    if attribute:
+        eng.attribute_steps()
+    return eng
 
 
 def run_requests(eng: Engine, prompts: List[List[int]],
                  gen: int) -> Dict[str, object]:
-    """Submit every prompt, drain the engine, and summarise the run."""
+    """Submit every prompt, drain the engine, and summarise the run (with
+    the SLO report and the attribution report when the engine has
+    them)."""
     t0 = time.perf_counter()
     handles = [eng.submit(p, SamplingParams(max_new_tokens=gen))
                for p in prompts]
@@ -195,7 +226,63 @@ def run_requests(eng: Engine, prompts: List[List[int]],
         "steps": eng.steps,
         "streams": [list(h.out_tokens) for h in handles],
         "aggregate": eng.aggregate_stats(),
+        "slo": eng.slo.report() if eng.slo is not None else None,
+        "attribution": attribution_report(eng),
     }
+
+
+def attribution_report(eng: Engine) -> Optional[Dict[str, Dict]]:
+    """Per attributed phase: its static cost (``StepAttribution.summary``)
+    joined with the measured step times as the gauges hold them after
+    the last refresh: ``steps``, ``mean_step_s``, achieved
+    ``flops_per_s``/``bytes_per_s`` and ``compute_util``/``memory_util``
+    against the engine's peaks, ``floor_s`` (bytes over the peak HBM
+    rate). The speculative engine's ``decode`` row is marked ``cycle``:
+    its timed phase is the whole draft + verify cycle, joined with one
+    decode step's cost as the JAX package joins it. None for an engine
+    never attributed."""
+    attr = eng._attr
+    if attr is None:
+        return None
+    reg, lat = eng.obs.registry, eng._m_step_lat
+    spec = isinstance(eng, SpeculativeEngine)
+    out = {}
+    for phase, row in attr.summary().items():
+        row = dict(row, steps=lat.count(phase=phase),
+                   floor_s=row["hbm_bytes"] / attr.hw.hbm_bw,
+                   cycle=spec and phase == "decode")
+        if row["steps"]:
+            row.update(
+                mean_step_s=lat.mean(phase=phase),
+                flops_per_s=reg.value("serving_roofline_achieved_flops_per_s",
+                                      phase=phase),
+                bytes_per_s=reg.value("serving_roofline_achieved_bytes_per_s",
+                                      phase=phase),
+                compute_util=reg.value("serving_roofline_compute_util_ratio",
+                                       phase=phase),
+                memory_util=reg.value("serving_roofline_memory_util_ratio",
+                                      phase=phase))
+        out[phase] = row
+    return out
+
+
+def closing_report(cfg: ModelConfig, params, prompts: List[List[int]],
+                   device) -> Dict[str, object]:
+    """The MSB4 sparsity of the prompts' hidden stream (``forward_hidden``,
+    per-token int8) and the paper accelerator's cost-model prediction at
+    that sparsity (``evaluate_model`` with the §4 knobs: a model of the
+    paper's accelerator, not of the card), as the JAX serve reports."""
+    tokens = torch.tensor(prompts, dtype=torch.int32, device=device)
+    with torch.no_grad():
+        hidden = forward_hidden(cfg, params, {"tokens": tokens})
+    q = quantize_activations(hidden.reshape(-1, hidden.shape[-1]), bits=8,
+                             per_token=True).q
+    s = float(subprecision_sparsity(q))
+    b, plen = tokens.shape
+    imp = evaluate_model(lm_shape_of(cfg), s, HardwareConfig(),
+                         prefill_tokens=plen * b,
+                         decode_batch=b).improvements()
+    return {"hidden_sparsity": s, "costmodel": imp}
 
 
 def serve_rank(rank: int, cfg: ModelConfig, params, prompts, mesh_shape,
@@ -304,6 +391,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                     help="collectives of the --mesh ranks: nccl (default "
                          "on a card; one card a rank) or gloo (shares the "
                          "cards, steps run eagerly; the CPU's)")
+    ap.add_argument("--slo", action="append", default=[],
+                    help="declarative SLO spec, repeatable and/or "
+                         "comma-separated (e.g. --slo ttft:p95<0.25 "
+                         "--slo queue_depth:p50<4): the engine watches the "
+                         "signal's sliding-window percentile and reports "
+                         "violations and burn rate")
+    ap.add_argument("--attribute", action="store_true",
+                    help="count each serving step's work from its shapes "
+                         "(FLOPs, HBM bytes, collective bytes) and join it "
+                         "with the measured step times: roofline and "
+                         "cost-model drift gauges")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions")
@@ -328,6 +426,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         raise SystemExit("--metrics-out/--trace-out read the paged "
                          "engine's observability bundle; the --legacy "
                          "path has none (drop one of the two)")
+    if args.legacy and (args.slo or args.attribute):
+        raise SystemExit("--slo/--attribute drive the paged engine's "
+                         "observability; the --legacy path has none "
+                         "(drop one of the two)")
+    slos = [slo for spec in args.slo for slo in parse_slo_list(spec)]
     cfg = get_config(args.arch, smoke=args.smoke)
     check_paged_support(cfg, "contiguous" if args.legacy else "paged")
     device = resolve_device(args.device)
@@ -353,13 +456,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         print(f"generated {args.batch} x {args.gen} tokens; prefill "
               f"{r['prefill_s'] * 1e3:.1f} ms, "
               f"{r['decode_step_s'] * 1e3:.2f} ms/token ({where})")
-        return r
+        return _close(r, cfg, params, prompts, device)
     engine_kw = dict(batch=args.batch, prompt_len=args.prompt_len,
                      gen=args.gen, page_size=args.page_size,
                      n_pages=args.n_pages, token_budget=args.token_budget,
                      prefill_chunk=args.prefill_chunk,
                      decode_slots=args.decode_slots,
-                     spec_gamma=args.spec_gamma)
+                     spec_gamma=args.spec_gamma, slos=slos,
+                     attribute=args.attribute)
     if ranks > 1:
         runs = mesh_serve(cfg, params, prompts, mesh_shape, backend, device,
                           (args.metrics_out, args.trace_out), **engine_kw)
@@ -388,11 +492,46 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
               f"{agg['spec_tokens_per_step']:.2f} tokens/cycle")
     print(f"  pool: {agg['pool_utilization'] * 100:.0f}% pages in use at "
           f"drain, {agg['pool_evictions']} evictions")
+    for phase, c in sorted((r["attribution"] or {}).items()):
+        print(f"attributed {phase}: {c['flops'] / 1e6:.1f} MFLOP/step, "
+              f"{c['hbm_bytes'] / 1e6:.1f} MB HBM/step, "
+              f"{c['coll_bytes_total'] / 1e3:.1f} kB collectives "
+              f"(counted in {c['compile_seconds']:.3f} s)")
+        if c["steps"]:
+            timed = " (timed: the whole draft+verify cycle)" \
+                if c["cycle"] else ""
+            print(f"  {phase}{timed}: {c['steps']} steps, mean "
+                  f"{c['mean_step_s'] * 1e3:.3f} ms (byte floor "
+                  f"{c['floor_s'] * 1e3:.3f} ms), achieved "
+                  f"{c['bytes_per_s'] / 1e9:.2f} GB/s, memory util "
+                  f"{c['memory_util']:.4f}, compute util "
+                  f"{c['compute_util']:.5f} ({where})")
+    for rep in r["slo"] or []:
+        state = "VIOLATING" if rep["violating"] else "ok"
+        print(f"  SLO {rep['slo']}: p{rep['percentile']:g} = "
+              f"{rep['value']:.4g} {rep['unit']} (target "
+              f"{rep['target']:g}) [{state}], {rep['violations']} "
+              f"violation(s), burn rate {rep['burn_rate']:.2f}")
     if ranks == 1 and args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(eng.metrics_snapshot(), f, indent=1)
     if ranks == 1 and args.trace_out:
         eng.obs.tracer.export_chrome(args.trace_out)
+    return _close(r, cfg, params, prompts, device)
+
+
+def _close(r: Dict[str, object], cfg: ModelConfig, params, prompts,
+           device) -> Dict[str, object]:
+    """Print the closing report and add it to the summary ``r``."""
+    r.update(closing_report(cfg, params, prompts, device))
+    imp = r["costmodel"]
+    print(f"MSB4 sub-precision sparsity of hidden activations: "
+          f"{r['hidden_sparsity'] * 100:.1f}%")
+    print("cost-model prediction at this sparsity (the paper's "
+          f"accelerator): TTFT -{imp['ttft_latency_pct']:.1f}%, "
+          f"TPOT -{imp['tpot_latency_pct']:.1f}%, "
+          f"prefill E -{imp['prefill_energy_pct']:.1f}%, "
+          f"decode E -{imp['decode_energy_pct']:.1f}%")
     return r
 
 

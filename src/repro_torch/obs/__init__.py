@@ -3,7 +3,15 @@
 The engine owns one :class:`Observability` and hands it to the scheduler
 and page pool, which register under the JAX package's metric names, so
 its metric catalog (``docs/observability.md``) reads the port's
-snapshots unchanged. SLOs and step attribution wait for a later slice.
+snapshots unchanged. Beside the registry and tracer:
+
+  * validate    — snapshot, attribution/SLO-family and Chrome-trace
+                  validators;
+  * attribution — per-step cost counted from the step's shapes, joined
+                  with measured step times: roofline utilization against
+                  the card's peaks and cost-model drift gauges;
+  * slo         — declarative serving SLOs (sliding-window percentiles,
+                  burn rate, edge-triggered violation watchdog).
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ from repro_torch.obs.metrics import (DEFAULT_LATENCY_BUCKETS, METRIC_NAME_RE,
                                      MetricsRegistry)
 from repro_torch.obs.trace import (ENGINE_TRACK, REQUEST_TRACK_BASE,
                                    SpanHandle, Tracer)
+from repro_torch.obs.validate import validate_chrome_trace, validate_snapshot
 
 
 class Observability:
@@ -26,6 +35,17 @@ class Observability:
                              enabled=trace)
 
 
+# attribution/slo import AFTER Observability: host-only leaf modules
+# importing repro_torch.obs.metrics directly, re-exported here without a
+# package-init cycle
+from repro_torch.obs.attribution import StepAttribution, StepCost  # noqa: E402
+from repro_torch.obs.slo import (SLO, SLOMonitor, SlidingWindow,  # noqa: E402
+                                 attach_engine_slos, parse_slo,
+                                 parse_slo_list)
+
 __all__ = ["Counter", "DEFAULT_LATENCY_BUCKETS", "ENGINE_TRACK", "Gauge",
            "Histogram", "METRIC_NAME_RE", "MetricsRegistry", "Observability",
-           "REQUEST_TRACK_BASE", "SpanHandle", "Tracer"]
+           "REQUEST_TRACK_BASE", "SLO", "SLOMonitor", "SlidingWindow",
+           "SpanHandle", "StepAttribution", "StepCost", "Tracer",
+           "attach_engine_slos", "parse_slo", "parse_slo_list",
+           "validate_chrome_trace", "validate_snapshot"]

@@ -15,8 +15,15 @@ promoted first, and cold pages are demoted after each step.
 
     eng = Engine(cfg, qparams)                 # device="cuda" by default
     h = eng.submit([1, 2, 3], SamplingParams(max_new_tokens=8))
-    eng.run()
+    for tok in eng.stream(h):                  # or eng.run()
+        ...
     print(h.out_tokens, h.stats())
+
+``slos=`` arms the SLO watchdog (``obs/slo.py``) on TTFT, TPOT and the
+queue depth; ``attribute_steps()`` counts each step's work from its
+shapes (``launch/step_cost.py``) and joins it with the measured step
+times into the roofline and cost-model drift gauges
+(``obs/attribution.py``).
 
 ``mesh=`` (a ("data", "model") ``DeviceMesh`` of ``launch/mesh.py``)
 makes the engine one rank of a tensor-parallel serve: every rank builds
@@ -34,7 +41,7 @@ eagerly, which ``step_mode`` and the stats name.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +53,7 @@ from repro_torch.distributed.tp import (all_gather, shard_params,
 from repro_torch.launch.graphs import CompiledStep
 from repro_torch.launch.mesh import mesh_layout
 from repro_torch.models.model import check_paged_support
-from repro_torch.obs import Observability
+from repro_torch.obs import Observability, attach_engine_slos
 from repro_torch.serving.kv_pool import PagedKVPool, PoolConfig
 from repro_torch.serving.scheduler import (Request, SamplingParams, Scheduler,
                                            SchedulerConfig)
@@ -69,12 +76,14 @@ class Engine:
                  sched_config: Optional[SchedulerConfig] = None,
                  clock=time.monotonic,
                  obs: Optional[Observability] = None,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None, slos=None):
         """``params`` is the served (quantized) tree; it is moved to
         ``device`` (a no-op for tensors already there). ``obs`` is the
         metrics registry + tracer every layer reports into. ``mesh``
         (module docstring): ``params`` is the whole tree, of which this
-        rank keeps its shard; a mesh of one rank is no mesh."""
+        rank keeps its shard; a mesh of one rank is no mesh. ``slos``
+        (``obs.slo.SLO``s) arms the SLO watchdog: ``ttft``/``tpot`` are
+        fed at emit time, ``queue_depth`` once a scheduler iteration."""
         from repro_torch.launch import steps as S
         check_paged_support(cfg)
         self.device = resolve_device(device)
@@ -82,6 +91,11 @@ class Engine:
         self._clock = clock
         self.obs = obs if obs is not None else Observability(clock=clock)
         self._init_metrics()
+        self.slo = attach_engine_slos(self, slos)
+        self._attr = None   # StepAttribution, built by attribute_steps()
+        # block-table entries the decodes read, and those on KV2 pages
+        self._table_entries = self._table_kv2 = 0
+        self._attr_kv2_share = 0.0     # the share decode was counted at
         pool_config = pool_config or PoolConfig()
         sched_config = sched_config or SchedulerConfig()
         self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
@@ -198,6 +212,18 @@ class Engine:
         return self.sched.submit([int(t) for t in prompt], sampling,
                                  self._clock())
 
+    def stream(self, req: Request) -> Iterator[int]:
+        """Drive the engine until ``req`` finishes, yielding its tokens
+        as they are produced (other in-flight requests progress too)."""
+        seen = 0
+        while True:
+            while seen < len(req.out_tokens):
+                yield req.out_tokens[seen]
+                seen += 1
+            if req.done:
+                return
+            self.step()
+
     def run(self, max_steps: int = 100_000) -> None:
         """Step until every submitted request has finished."""
         for _ in range(max_steps):
@@ -215,6 +241,8 @@ class Engine:
                 self.pool.tick()
             with self._m_step_lat.time(phase="schedule"):
                 plan = self.sched.schedule()
+            if self.slo is not None:
+                self.slo.observe("queue_depth", float(len(self.sched.waiting)))
             for req, start, n in plan.prefill:
                 with tr.span("prefill_chunk", rid=req.rid, start=start, n=n):
                     with self._m_step_lat.time(phase="prefill"):
@@ -246,6 +274,78 @@ class Engine:
             raise RuntimeError(f"mesh ranks diverged at step {self.steps}: "
                                f"(step, tokens, digest) by rank "
                                f"{got.tolist()}")
+
+    # -- performance attribution ------------------------------------------
+
+    def attribute_steps(self, hw=None):
+        """Count the work of each serving step (prefill chunk, decode; the
+        speculative engine adds draft and verify) from its shapes
+        (``launch/step_cost.py``, this rank's share under a mesh) and
+        register it (``serving_step_attr_*``). Explicit and idempotent:
+        call once after construction (``serve.py --attribute`` does).
+
+        ``hw`` (``costmodel.HardwareConfig``) sets the roofline peaks;
+        by default the peaks of the engine's card
+        (``costmodel.hardware_for``), or the H100 SXM's on the CPU.
+        Returns the ``StepAttribution``.
+        """
+        from repro_torch.obs.attribution import StepAttribution
+        if self._attr is None:
+            self._attr = StepAttribution(self.obs,
+                                         hw=hw or self._card_hardware())
+        if "prefill" not in self._attr.phases():
+            self._attr.attribute(
+                "prefill", lambda: self._step_cost("prefill", self._chunk),
+                tokens_per_step=self._chunk,
+                predict_seconds=self._phase_predictor("prefill"))
+        if "decode" not in self._attr.phases():
+            self._attr.attribute(
+                "decode", lambda: self._step_cost("decode", self._n_slots),
+                tokens_per_step=self._n_slots,
+                predict_seconds=self._phase_predictor("decode"))
+        return self._attr
+
+    def _card_hardware(self):
+        from repro_torch.core import costmodel as CM
+        if self.device.type == "cuda":
+            return CM.hardware_for(torch.cuda.get_device_name(self.device))
+        return CM.HardwareConfig()
+
+    def _step_cost(self, phase: str, rows: int, window: int = 1,
+                   kv2_share: float = 0.0):
+        from repro_torch.launch.step_cost import step_cost
+        lay = self.layout
+        return step_cost(
+            self.cfg, self.params, phase, rows=rows,
+            table_tokens=self._n_page_steps * self.pool.page_size,
+            window=window, data_ways=lay.data_ways if lay else 1,
+            model_ways=lay.model_ways if lay else 1, kv2_share=kv2_share)
+
+    def kv2_table_share(self) -> float:
+        """The share of block-table entries the decode steps so far read
+        from KV2 pages (every slot's row at the table's full width, the
+        unit the decode's attributed bytes count); 0 before a decode and
+        on an engine without the KV2 ladder."""
+        return self._table_kv2 / self._table_entries \
+            if self._table_entries else 0.0
+
+    def _phase_predictor(self, phase: str):
+        """sparsity -> predicted seconds/step closure over
+        ``costmodel.phase_cost`` (the paper's §4 accelerator)."""
+        from repro_torch.core import costmodel as CM
+        shape = CM.lm_shape_of(self.cfg)
+        hw = self._attr.hw
+        decode = phase != "prefill"
+        m_tokens = self._chunk if phase == "prefill" else self._n_slots
+        seq_for_attn = self._n_page_steps * self.pool.page_size
+
+        def predict(sparsity: float) -> float:
+            layers = CM.lm_linear_layers(
+                shape, m_tokens, sparsity, seq_for_attn=seq_for_attn,
+                decode=decode)
+            cost = CM.phase_cost(layers, hw, sparqle=True)
+            return cost.cycles / (hw.freq_ghz * 1e9)
+        return predict
 
     def aggregate_stats(self) -> Dict[str, float]:
         """Pool-level counters to pair with per-request ``req.stats()``."""
@@ -292,6 +392,41 @@ class Engine:
             for i in range(per_tok.shape[0]):
                 self._g_layer_wire.set(float(per_tok[i]), layer=str(i))
                 self._g_layer_sparsity.set(float(spars[i]), layer=str(i))
+        self._join_attribution()
+
+    def _join_attribution(self) -> None:
+        """Join the attributed step costs with the measured
+        ``serving_step_seconds`` means (every timed phase ends in a host
+        read of the step's outputs, so its host time covers the device
+        work, CUDA graphs included) into the roofline and drift gauges,
+        and the measured wire bytes/token with Eq. 1 per layer. A KV2
+        engine's decode is counted again first, at the share of its table
+        the decodes so far read from KV2 pages."""
+        if self._attr is None:
+            return
+        mean_sparsity = 0.0
+        if self.layer_sparsity_sum is not None and self.wire_tokens:
+            mean_sparsity = float(
+                self.layer_sparsity_sum.mean() / self.wire_tokens)
+        share = self.kv2_table_share()
+        if share != self._attr_kv2_share and "decode" in self._attr.phases():
+            self._attr.recount("decode", lambda: self._step_cost(
+                "decode", self._n_slots, kv2_share=share))
+            self._attr_kv2_share = share
+        for phase in self._attr.phases():
+            if self._m_step_lat.count(phase=phase):
+                self._attr.observe_runtime(
+                    phase, self._m_step_lat.mean(phase=phase),
+                    sparsity=mean_sparsity)
+        if self.layer_wire_bytes is not None and self.wire_tokens:
+            from repro_torch.core.packing import PBM_WORD_BITS, pad_k
+            kp = pad_k(self.cfg.d_model)
+            fixed = kp / 2.0 + (kp // PBM_WORD_BITS) * 4.0  # LSB4 + PBM
+            spars = self.layer_sparsity_sum / self.wire_tokens
+            predicted = float(sum(fixed + (1.0 - s) * kp / 2.0
+                                  for s in spars))  # Eq. 1 per layer
+            measured = float(self.layer_wire_bytes.sum() / self.wire_tokens)
+            self._attr.observe_wire(measured, predicted)
 
     def metrics_snapshot(self) -> Dict[str, object]:
         self._refresh_gauges()
@@ -381,9 +516,15 @@ class Engine:
         now = self._clock()
         if req.t_first is None:
             req.t_first = now
-            self._m_ttft.observe(now - req.arrival)
+            ttft = now - req.arrival
+            self._m_ttft.observe(ttft)
+            if self.slo is not None:
+                self.slo.observe("ttft", ttft)
         elif req.t_last is not None:
-            self._m_tpot.observe(now - req.t_last)
+            tpot = now - req.t_last
+            self._m_tpot.observe(tpot)
+            if self.slo is not None:
+                self.slo.observe("tpot", tpot)
         req.t_last = now
         self._m_emitted.inc()
         req.context.append(token)
@@ -446,6 +587,8 @@ class Engine:
             for req in decode:
                 tier_rows[req.slot] = self._tier_table_row(req)
             tiers = (self._to_dev(tier_rows),)
+            self._table_kv2 += int(tier_rows.sum())
+            self._table_entries += tier_rows.size
         token, pos, tables = (self._local(a)
                               for a in self._decode_inputs(decode))
         logits, self.pool.state, tel = self._decode_fn(

@@ -80,7 +80,7 @@ class SpeculativeEngine(Engine):
                  spec: SpecConfig = SpecConfig(),
                  clock=time.monotonic,
                  obs: Optional[Observability] = None,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None, slos=None):
         from repro_torch.launch import steps as S
         self.spec = spec
         g = spec.gamma
@@ -96,7 +96,7 @@ class SpeculativeEngine(Engine):
             decode_lookahead=g)
         super().__init__(cfg, params, pool_config=pool_config,
                          sched_config=sched_config, clock=clock, obs=obs,
-                         device=device, mesh=mesh)
+                         device=device, mesh=mesh, slos=slos)
         self._draft_fn = self._compiled(S.make_engine_decode(
             cfg, msb_skip=True, with_telemetry=False, mesh=self.mesh))
         self._verify_fn = self._compiled(
@@ -114,6 +114,49 @@ class SpeculativeEngine(Engine):
         self._m_spec_emitted = r.counter(
             "serving_spec_tokens_emitted_total", "tokens emitted by "
             "accept/correct/bonus across all cycles", unit="tokens")
+
+    # -- performance attribution ------------------------------------------
+
+    def attribute_steps(self, hw=None):
+        """Extend the base attribution with the speculative steps. The
+        timed ``draft`` phase wraps the whole γ-step host loop, so the
+        draft is attributed with ``calls_per_step=γ``; ``verify`` is one
+        (γ+1)-token window step a phase."""
+        attr = super().attribute_steps(hw=hw)
+        g = self.spec.gamma
+        if "draft" not in attr.phases():
+            attr.attribute(
+                "draft", lambda: self._step_cost("draft", self._n_slots),
+                tokens_per_step=self._n_slots * g, calls_per_step=g,
+                predict_seconds=self._spec_predictor("draft"))
+        if "verify" not in attr.phases():
+            attr.attribute(
+                "verify",
+                lambda: self._step_cost("verify", self._n_slots, g + 1),
+                tokens_per_step=self._n_slots * (g + 1),
+                predict_seconds=self._spec_predictor("verify"))
+        return attr
+
+    def _spec_predictor(self, phase: str):
+        """sparsity -> predicted seconds per TIMED phase: γ LSB4-only
+        decode rounds for draft, one (γ+1)-token window for verify."""
+        from repro_torch.core import costmodel as CM
+        shape = CM.lm_shape_of(self.cfg)
+        hw = self._attr.hw
+        g = self.spec.gamma
+        seq_for_attn = self._n_page_steps * self.pool.page_size
+        lsb_only = phase == "draft"
+        m_tokens = self._n_slots if lsb_only else self._n_slots * (g + 1)
+        calls = g if lsb_only else 1
+
+        def predict(sparsity: float) -> float:
+            layers = CM.lm_linear_layers(
+                shape, m_tokens, sparsity, seq_for_attn=seq_for_attn,
+                decode=True)
+            cost = CM.phase_cost(layers, hw, sparqle=True,
+                                 lsb_only=lsb_only)
+            return calls * cost.cycles / (hw.freq_ghz * 1e9)
+        return predict
 
     # -- decode path -------------------------------------------------------
 

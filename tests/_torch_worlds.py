@@ -39,6 +39,77 @@ def counting_collectives(counts: collections.Counter):
         dist.all_reduce, dist.all_gather = reduce, gather
 
 
+@contextlib.contextmanager
+def collective_bytes(acc: collections.Counter):
+    """Sum the payload bytes of ``torch.distributed`` all-reduces (the
+    tensor reduced) and all-gathers (the tensors received) while inside,
+    by the kind names of the attribution."""
+    reduce, gather = dist.all_reduce, dist.all_gather
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        acc["all-reduce"] += t.numel() * t.element_size()
+        return reduce(t, op=op, group=group, async_op=async_op)
+
+    def all_gather(parts, t, group=None, async_op=False):
+        acc["all-gather"] += sum(p.numel() * p.element_size() for p in parts)
+        return gather(parts, t, group=group, async_op=async_op)
+
+    dist.all_reduce, dist.all_gather = all_reduce, all_gather
+    try:
+        yield
+    finally:
+        dist.all_reduce, dist.all_gather = reduce, gather
+
+
+def attribution_world(rank: int, jobs):
+    """Each job of a mesh as big as the world ({"id", "mesh", "cfg",
+    "params", "prompts", "gen", "gamma", "pool", "sched"}): an attributed
+    engine serves the prompts while the bytes passed to
+    ``torch.distributed`` are summed over the first call of each step
+    kind. Returns {id: {phase: (counted bytes of one call, attributed
+    collective bytes of one step, calls a step)}}."""
+    from repro_torch.serving import (Engine, SamplingParams, SpecConfig,
+                                     SpeculativeEngine)
+    world = dist.get_world_size()
+    out = {}
+    for job in jobs:
+        shape = job["mesh"]
+        if shape[0] * shape[1] != world:
+            continue
+        kw = dict(pool_config=job["pool"], sched_config=job["sched"],
+                  device="cpu", mesh=make_mesh(*shape))
+        if job.get("gamma"):
+            eng = SpeculativeEngine(job["cfg"], job["params"],
+                                    spec=SpecConfig(gamma=job["gamma"]), **kw)
+        else:
+            eng = Engine(job["cfg"], job["params"], **kw)
+        attr = eng.attribute_steps()
+        counted = {}
+
+        def counting(phase, fn):
+            def call(*args):
+                acc: collections.Counter = collections.Counter()
+                with collective_bytes(acc):
+                    res = fn(*args)
+                counted.setdefault(phase, dict(acc))
+                return res
+            return call
+
+        for phase, name in (("prefill", "_prefill_fn"),
+                            ("decode", "_decode_fn"), ("draft", "_draft_fn"),
+                            ("verify", "_verify_fn")):
+            if hasattr(eng, name):
+                setattr(eng, name, counting(phase, getattr(eng, name)))
+        for p in job["prompts"]:
+            eng.submit(p, SamplingParams(max_new_tokens=job["gen"]))
+        eng.run()
+        out[job["id"]] = {
+            phase: (counted[phase], attr.cost(phase).coll_bytes,
+                    attr.cost(phase).calls_per_step)
+            for phase in counted}
+    return out
+
+
 def linear_world(rank: int, cases):
     """Every case of ``cases`` on its mesh: {"id", "mesh" (data, model),
     "fn" ('linear', 'expert' or 'sharded'), "partition", "x", "sl" (a

@@ -7,8 +7,10 @@ sharded decode step reproduces the port's single-device logits,
 telemetry and page writes bit for bit (and JAX's telemetry, its logits
 within the port's stated 1e-4); the data-sharded pool gives JAX's page ids and
 free lists under one random operation sequence; the engine's mesh
-validation and its divergence check. Each world of processes is spawned
-once for the module (two ranks for the 1x2 meshes, four for 2x2 and
+validation and its divergence check; each step's attributed collective
+bytes (``launch/step_cost.py``) equal the bytes the step passes to
+``torch.distributed``. Each world of processes is spawned once for the
+module (two ranks for the 1x2 meshes, four for 2x2 and
 1x4), with a time limit.
 """
 import dataclasses
@@ -35,8 +37,8 @@ from repro_torch.launch.mesh import spawn_world
 from repro_torch.serving import PagedKVPool, PoolConfig, SchedulerConfig
 from repro_torch.serving.kv_pool import pool_schema
 
-from _torch_worlds import (calls_world, decode_world, engine_world,
-                           lockstep_world)
+from _torch_worlds import (attribution_world, calls_world, decode_world,
+                           engine_world, lockstep_world)
 
 TIMEOUT_S = 240
 CFG = JConfig(name="tiny-serve", family="transformer", n_layers=2,
@@ -61,6 +63,11 @@ ENGINES = [("tf-1x2", CFG, (1, 2), 0, 0), ("tf-2x2", CFG, (2, 2), 0, 0),
            ("spec-tf-1x2", CFG, (1, 2), 2, 0),
            ("spec-tf-2x2", CFG, (2, 2), 2, 0),
            ("spec-moe-2x2", CFG_MOE, (2, 2), 2, 1)]
+# attributed collective bytes against the bytes counted in one call of
+# each step kind: (id, cfg, mesh, gamma)
+ATTRIBUTED = [("tf-1x2", CFG, (1, 2), 0), ("tf-2x2", CFG, (2, 2), 0),
+              ("moe-2x2", CFG_MOE, (2, 2), 0),
+              ("spec-tf-2x2", CFG, (2, 2), 2)]
 
 
 def _tcfg(cfg):
@@ -144,10 +151,16 @@ def setup(tmp_path_factory):
     dec = (decode_world, (tcfg, tree, tstate, schema, {
         (1, 2): tuple(convert_tree(a) for a in whole),
         (2, 2): tuple(convert_tree(a) for a in local)}))
+    attributed = [dict(id=aid, mesh=shape, cfg=_tcfg(cfg),
+                       params=trees[(cfg.name, 0)], prompts=_prompts(cfg)[:3],
+                       gen=3, gamma=gamma, pool=PoolConfig(**POOL),
+                       sched=SchedulerConfig(**SCHED))
+                  for aid, cfg, shape, gamma in ATTRIBUTED]
     out = {}
     for world in (2, 4):
         res = spawn_world(calls_world, world,
-                          [(engine_world, (jobs,)), dec, (lockstep_world, ())],
+                          [(engine_world, (jobs,)), dec, (lockstep_world, ()),
+                           (attribution_world, (attributed,))],
                           timeout_s=TIMEOUT_S, deadline_s=TIMEOUT_S,
                           store_dir=str(tmp_path_factory.mktemp("world")))
         out[world] = res
@@ -217,6 +230,31 @@ def test_engine_mesh_validation(setup):
     assert two["bad-batch"][0] == "ValueError"
     assert "max_decode_batch" in two["bad-batch"][1]
     assert two["kv2"][0] == "NotImplementedError"
+
+
+@pytest.mark.parametrize("aid,cfg,shape,gamma", ATTRIBUTED,
+                         ids=[a[0] for a in ATTRIBUTED])
+def test_attributed_collective_bytes_equal_counted(setup, aid, cfg, shape,
+                                                   gamma):
+    """On every rank, for each step kind the engine ran (prefill, decode;
+    draft and verify at gamma 2): the collective bytes ``attribute_steps``
+    counts from the step's shapes, per call, equal the bytes a wrapper of
+    ``dist.all_reduce``/``dist.all_gather`` sees in the step's first
+    call, kind by kind."""
+    phases = {"prefill", "decode"} | ({"draft", "verify"} if gamma else set())
+    if gamma:
+        phases.discard("decode")
+    for r, res in enumerate(_ranks(setup, shape)):
+        got = res[3][aid]
+        assert set(got) == phases, f"rank {r}"
+        for phase, (counted, attributed, calls) in got.items():
+            per_call = {k: v / calls for k, v in attributed.items()}
+            for kind in ("all-reduce", "all-gather"):
+                assert per_call[kind] == counted.get(kind, 0), \
+                    (r, phase, kind, per_call, counted)
+            assert per_call["total"] == sum(counted.values())
+            if shape[1] > 1:
+                assert counted["all-reduce"] > 0
 
 
 @pytest.mark.parametrize("world", [2, 4])
