@@ -20,8 +20,11 @@ to chiprun_out/):
      at a long context of ~4,096 tokens and, untimed, at the other head
      dims, page sizes and G of ATTN_SHAPES, with the granite-8b smoke
      config served on the card; decode attention also at the zoo's head
-     shapes, G = 1, 12 and 8) and time kernel, plain version and
-     library call; the expert-batched encoders (three modes) and matmuls
+     shapes, G = 1, 12 and 8; the contiguous attention's sliding window
+     at gemma3-27b's shape and its hd-256 instance at paligemma-3b's,
+     within ATTN_TOL, round_kv within a bf16 ulp, a window that does not
+     bind bit-equal to none, hd 256 bit-equal to the paged kernel) and
+     time kernel, plain version and library call; the expert-batched encoders (three modes) and matmuls
      (five entries) bit-exact with their plain versions over BATCHED_E x
      BATCHED_C x BATCHED_KN (x POP_PATTERNS), one launch a call, timed at
      E = 64, C = 1 and 3 beside the loop of 64 2-D calls; the five entries of the W4A8 matmul body (full, draft,
@@ -128,7 +131,20 @@ to chiprun_out/):
      sparsity equal, MSE within 1e-6 relative, the same (l, h)) and
      ``learn_clipping_constants`` on the card against the CPU (l and h
      within 1e-4);
- 15. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 15. the gemma family through ``--legacy``, after phase 13 (its trees
+     freed): gemma3-27b (62 layers, 2 requests x 2,048 prompt tokens x
+     16 new: the sliding window binds in the prefill and in every decode
+     step) and paligemma-3b (18 layers, 8 x (256 patches + 256 tokens) x
+     16) at full width, bf16, weights from the seed, decode as CUDA
+     graphs: prefill time, decode step time and launch counts (the
+     windowed contiguous attention once a local layer and step, the
+     global layers' instance, seven matmuls a layer and forward, no paged
+     attention), the decode step replayed against its eager calls at full
+     depth (bit-equal), each arch's 2-layer f32 card vs CPU cross-check
+     of the fixed-batch path (GEMMA_XC; logits within LOGIT_TOL, greedy
+     streams identical), ``serve.main --legacy --smoke`` of both and
+     their exit without ``--legacy``;
+ 16. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -604,16 +620,23 @@ def long_context(dev, gen):
 
 
 def attn_bound(peaks, n_q, toks, work, kv2_toks=0, extra=0, kvh=8, g=4,
-               hd=128):
+               hd=128, qb=4, qk_bf16=False):
     """(bound ms, what bounds it) of an attention call: q and out of n_q
-    query groups in f32, ``toks`` KV4 (and ``kv2_toks`` KV2) tokens read
-    once a kv head, ``extra`` bytes of tables and positions; 4 G hd f32
-    flops a kv head for each of ``work`` (query, token) pairs."""
+    query groups at ``qb`` bytes (f32: 4), ``toks`` KV4 (and ``kv2_toks``
+    KV2) tokens read once a kv head, ``extra`` bytes of tables and
+    positions; 4 G hd flops a kv head for each of ``work`` (query, token)
+    pairs, half of them q.k and half p.v. The p.v half is f32 (p is), at
+    the f32 rate; so is q.k, unless ``qk_bf16`` (a bf16 q with
+    ``round_kv``: both operands bf16), at the bf16 tensor-core rate, half
+    the int8 rate on every H100 part. The two halves run on separate
+    units, so the operations take the longer of the two."""
     nbytes, flops = attention_work(n_q, kvh * g, hd, kvh, kv4_tokens=toks,
-                                   kv2_tokens=kv2_toks, pairs=work, qb=4)
+                                   kv2_tokens=kv2_toks, pairs=work, qb=qb)
     nbytes += extra
-    by = "bytes" if nbytes / peaks[0] >= flops / peaks[2] else "operations"
-    return max(nbytes / peaks[0], flops / peaks[2]) * 1e3, by
+    t_ops = (max(flops / peaks[1], flops / 2 / peaks[2]) if qk_bf16
+             else flops / peaks[2])
+    by = "bytes" if nbytes / peaks[0] >= t_ops else "operations"
+    return max(nbytes / peaks[0], t_ops) * 1e3, by
 
 
 def page_tokens(pos, ps, n_s, t=1):
@@ -1057,18 +1080,21 @@ def paged_tiling(cache, bs, gen):
     return (*pages, perm.reshape(b, n_s).to(torch.int32).contiguous())
 
 
-def check_round_kv(rounded, unrounded, q, cache, pos, where=""):
+def check_round_kv(rounded, unrounded, q, cache, pos, where="", window=0):
     """The contiguous kernel's round_kv=True at a bf16 q (``rounded``;
-    ``unrounded`` its round_kv=False output): it differs from
-    round_kv=False, lies within one bf16 ulp of each element's own
-    magnitude (plus 2^-20 for the f32 sums' order) of the plain
-    version's round_kv form, and nearer that form than the plain
-    f32-dequant one."""
+    ``unrounded`` its round_kv=False output; both with the sliding
+    ``window``): it differs from round_kv=False, lies within one bf16 ulp
+    of each element's own magnitude (plus 2^-20 for the f32 sums' order)
+    of the plain version's round_kv form, and nearer that form than the
+    plain f32-dequant one. At a window of 1 the output is one V row,
+    which the bf16 output rounds alike either way: only the ulp bound
+    holds there."""
     from repro_torch.kernels.ref import kv4_decode_attention_ref
-    want = kv4_decode_attention_ref(q, *cache, pos, round_kv=True).float()
-    plain = kv4_decode_attention_ref(q, *cache, pos).float()
+    want = kv4_decode_attention_ref(q, *cache, pos, round_kv=True,
+                                    window=window).float()
+    plain = kv4_decode_attention_ref(q, *cache, pos, window=window).float()
     got = rounded.float()
-    if torch.equal(rounded, unrounded):
+    if window != 1 and torch.equal(rounded, unrounded):
         raise AssertionError(f"round_kv changed no bit at bf16 {where}")
     _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
     tol = torch.ldexp(torch.ones_like(got), e - 8) + 2 ** -20
@@ -1077,7 +1103,7 @@ def check_round_kv(rounded, unrounded, q, cache, pos, where=""):
         raise AssertionError(f"round_kv: {bad} elements beyond one bf16 ulp "
                              f"of the plain round_kv form {where}")
     near, far = ((got - w).abs().sum().item() for w in (want, plain))
-    if not near < far:
+    if window != 1 and not near < far:
         raise AssertionError(f"round_kv: no nearer the plain round_kv form "
                              f"({near}) than the f32-dequant one ({far}) "
                              f"{where}")
@@ -1166,13 +1192,173 @@ def check_contiguous_attention(dev, gen, peaks):
                        {"key": "round_kv_bf16", "ms": rms}]}
 
 
+# Row 7's instances the gemma family's --legacy decode runs, at its
+# shapes (contiguous caches of prompt + 16 positions, blocks of 16):
+# gemma3-27b's local layers, a sliding window of 1,024 over 2,048 + 16
+# positions at KVH 16, G 2, hd 128; paligemma-3b's hd 256 at KVH 1, G 8
+# over 256 patches + 256 tokens + 16. WINDOW_POS are ranks at different
+# positions (the window binding for some, not for others); WINDOWS are
+# windows of 1, a block +- 1, one not a multiple of the block (its start
+# mid-block) and gemma3's; a window >= pos + 1 must give window 0's bits.
+GEMMA3_ATTN = dict(b=2, s=2064, kvh=16, g=2, hd=128, window=1024)
+PALIGEMMA_ATTN = dict(b=8, s=528, kvh=1, g=8, hd=256)
+WINDOW_POS = ((2063, 700), (1100, 2048), (16, 1023))
+WINDOWS = (1, 15, 16, 17, 1000, 1024)
+HD256_POS = (527, 512, 300, 0, 15, 16, 17, 400)
+HD256_WINDOWS = (1, 17, 100)
+ATTN_COPIES = 6
+
+
+def contiguous_cache(dev, gen, b, s, kvh, hd):
+    """A random contiguous KV4 cache (k_q, k_s, v_q, v_s), each (B, S, ...)."""
+    return tuple(x.reshape(b, s, *x.shape[2:]).contiguous() for x in
+                 kv_pool(dev, gen, b * s // 16, 16, kvh, hd))
+
+
+def check_window_case(q, cache, pos, window, where=""):
+    """The contiguous kernel with a sliding ``window`` against its plain
+    version: f32 q within ATTN_TOL (round_kv both ways, the same bits),
+    bf16 q with round_kv as check_round_kv says; a window that binds for
+    no rank (window >= pos + 1) bit-equal to window 0 in every form.
+    Returns the f32 error."""
+    from repro_torch.kernels.kv_attention import kv4_decode_attention
+    from repro_torch.kernels.ref import kv4_decode_attention_ref
+    err = 0.0
+    for qq in (q, q.to(torch.bfloat16)):
+        got = kv4_decode_attention(qq, *cache, pos, window=window)
+        rounded = kv4_decode_attention(qq, *cache, pos, window=window,
+                                       round_kv=True)
+        if qq.dtype == torch.float32:
+            err = (got - kv4_decode_attention_ref(q, *cache, pos,
+                                                  window=window)
+                   ).abs().max().item()
+            if not err <= ATTN_TOL:
+                raise AssertionError(f"windowed attention {where} window="
+                                     f"{window}: max err {err}")
+            if not torch.equal(rounded, got):
+                raise AssertionError(f"windowed attention f32 {where}: "
+                                     f"round_kv changed the bits")
+        else:
+            check_round_kv(rounded, got, qq, cache, pos,
+                           f"{where} window={window}", window)
+        if window >= int(pos.max()) + 1:
+            for a, rk in ((got, False), (rounded, True)):
+                if not torch.equal(a, kv4_decode_attention(
+                        qq, *cache, pos, round_kv=rk)):
+                    raise AssertionError(
+                        f"window {window} >= pos + 1 {where}: not window "
+                        f"0's bits ({qq.dtype}, round_kv={rk})")
+    return err
+
+
+def check_gemma_attention(dev, gen, peaks):
+    """Row 7's new instances at the gemma family's shapes (GEMMA3_ATTN,
+    PALIGEMMA_ATTN): the sliding window over WINDOWS x WINDOW_POS and
+    windows that do not bind (check_window_case); hd 256 within ATTN_TOL
+    of its plain version (round_kv at bf16 as check_round_kv says), with
+    HD256_WINDOWS, and bit-exact with the paged kernel on pages that tile
+    its cache. Each timed at its main-path call (bf16 q, round_kv, the
+    decode's positions) over ATTN_COPIES caches, beside the same call
+    without the window (the cost of reading the whole cache). Bounds:
+    ``step_cost.attention_work`` with min(pos + 1, window) tokens a
+    sequence. Returns the two rows."""
+    from repro_torch.kernels.kv_attention import (kv4_decode_attention,
+                                                  kv4_paged_decode_attention)
+    from repro_torch.kernels.ref import kv4_decode_attention_ref
+    rows = []
+    # gemma3-27b: the sliding window
+    a = GEMMA3_ATTN
+    b, s, kvh, g, hd, win = (a[k] for k in ("b", "s", "kvh", "g", "hd",
+                                            "window"))
+    cache = contiguous_cache(dev, gen, b, s, kvh, hd)
+    err, n = 0.0, 0
+    for p in WINDOW_POS:
+        pos = torch.tensor(p, dtype=torch.int32, device=dev)
+        q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
+        for w in WINDOWS + (max(p) + 1, s + 100):
+            err = max(err, check_window_case(q, cache, pos, w,
+                                             f"gemma3 pos={p}"))
+            n += 1
+    caches = [cache] + [contiguous_cache(dev, gen, b, s, kvh, hd)
+                        for _ in range(ATTN_COPIES - 1)]
+    pos = torch.full((b,), s - 9, dtype=torch.int32, device=dev)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    args = [(q, *c, pos) for c in caches]
+    wms = time_ms(lambda *x: kv4_decode_attention(*x, round_kv=True,
+                                                  window=win), args, 200)
+    fms = time_ms(lambda *x: kv4_decode_attention(*x, round_kv=True), args,
+                  200)
+    pms = time_ms(lambda *x: kv4_decode_attention_ref(*x, round_kv=True,
+                                                      window=win),
+                  args[:1], 20)
+    toks = sum(min(int(x) + 1, win) for x in pos.tolist())
+    bound, by = attn_bound(peaks, b, toks, toks, extra=b * 4, kvh=kvh, g=g,
+                           hd=hd, qb=2, qk_bf16=True)
+    rows.append({
+        "name": "kv4_decode_attention_window", "route": "cuda",
+        "source": "src/repro_torch/csrc/kv_attention.cu",
+        "replaces": "src/repro/kernels/kv_attention.py:148",
+        "max_abs_err": err, "ms": wms, "plain_ms": pms, "bound_ms": bound,
+        "bound_by": by, "library_ms": None,
+        "shape": f"B={b} S={s} KVH={kvh} G={g} hd={hd} bs=16, window {win} "
+                 f"at pos {s - 9}, bf16 q with round_kv (gemma3-27b's local "
+                 f"layers); the same call without the window, reading the "
+                 f"whole cache: {fms * 1e3:.1f} us; {n} (pos, window) cases "
+                 f"checked",
+        "detail": [{"key": "no_window", "ms": fms}]})
+    # paligemma-3b: hd 256
+    a = PALIGEMMA_ATTN
+    b, s, kvh, g, hd = (a[k] for k in ("b", "s", "kvh", "g", "hd"))
+    cache = contiguous_cache(dev, gen, b, s, kvh, hd)
+    pos = torch.tensor(HD256_POS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev)
+    got = kv4_decode_attention(q, *cache, pos)
+    err = (got - kv4_decode_attention_ref(q, *cache, pos)).abs().max().item()
+    if not err <= ATTN_TOL:
+        raise AssertionError(f"hd 256 attention: max err {err}")
+    if not torch.equal(got, kv4_paged_decode_attention(
+            q, *paged_tiling(cache, 16, gen), pos)):
+        raise AssertionError("hd 256 contiguous attention: not the paged "
+                             "kernel's bits on pages that tile its cache")
+    qb16 = q.to(torch.bfloat16)
+    check_round_kv(kv4_decode_attention(qb16, *cache, pos, round_kv=True),
+                   kv4_decode_attention(qb16, *cache, pos), qb16, cache, pos,
+                   "hd 256")
+    for w in HD256_WINDOWS + (s,):
+        err = max(err, check_window_case(q, cache, pos, w, "hd 256"))
+    caches = [cache] + [contiguous_cache(dev, gen, b, s, kvh, hd)
+                        for _ in range(ATTN_COPIES - 1)]
+    pos = torch.full((b,), s - 9, dtype=torch.int32, device=dev)
+    args = [(qb16, *c, pos) for c in caches]
+    hms = time_ms(lambda *x: kv4_decode_attention(*x, round_kv=True), args,
+                  200)
+    pms = time_ms(lambda *x: kv4_decode_attention_ref(*x, round_kv=True),
+                  args[:1], 20)
+    toks = sum(int(x) + 1 for x in pos.tolist())
+    bound, by = attn_bound(peaks, b, toks, toks, extra=b * 4, kvh=kvh, g=g,
+                           hd=hd, qb=2, qk_bf16=True)
+    rows.append({
+        "name": "kv4_decode_attention_hd256", "route": "cuda",
+        "source": "src/repro_torch/csrc/kv_attention.cu",
+        "replaces": "src/repro/kernels/kv_attention.py:148",
+        "max_abs_err": err, "ms": hms, "plain_ms": pms, "bound_ms": bound,
+        "bound_by": by, "library_ms": None,
+        "shape": f"B={b} S={s} KVH={kvh} G={g} hd={hd} bs=16 at pos {s - 9}, "
+                 f"bf16 q with round_kv (paligemma-3b's decode); checked at "
+                 f"pos {HD256_POS}, windows {HD256_WINDOWS} and against the "
+                 f"paged kernel"})
+    return rows
+
+
 # The attention kernel's instances off the main path, (hd, G, ps): the
 # smoke config's head shape (hd 16, G 2) with pages of 8, each head dim
-# instantiated, groups that are no multiple of 4, pages of a size read at
-# run time (one token, 5, 40: three tiles, the last short) beside the
-# compile-time 16.
+# instantiated (256 with its rings in dynamic shared memory, at
+# paligemma-3b's G 8 and at G 2), groups that are no multiple of 4, pages
+# of a size read at run time (one token, 5, 40: three tiles, the last
+# short) beside the compile-time 16.
 ATTN_SHAPES = ((16, 2, 8), (32, 3, 16), (64, 6, 40), (128, 4, 5),
-               (16, 1, 1))
+               (16, 1, 1), (256, 8, 16), (256, 2, 40))
 
 
 def check_attention_shapes(dev, gen):
@@ -3018,6 +3204,196 @@ def tensor_parallel(dev, seed: int, base, spec, dense):
     return detail, runs
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the gemma family through the fixed-batch path (--legacy)
+# ---------------------------------------------------------------------------
+
+# The legacy serves at full width and depth: gemma3-27b, 2 requests x
+# 2,048 prompt tokens (its window of 1,024 binds in the prefill and in
+# every decode step) x 16 new; paligemma-3b, 8 requests x (256 patches +
+# 256 prompt tokens) x 16 new. ``tokens`` counts the prompt tokens after
+# the patches; the sequences are multiples of flash attention's blocks.
+GEMMA_SERVES = {"gemma3-27b": dict(batch=2, tokens=2048, gen=16),
+                "paligemma-3b": dict(batch=8, tokens=256, gen=16)}
+# The 2-layer f32 cross-checks at full width, card against CPU. gemma3-27b
+# with a global layer every 2 (one local and one global layer run) and a
+# window of 64 over a 128-token prompt, so that the window binds: at
+# 2,048 tokens the CPU's plain path would not fit the time limit.
+# paligemma-3b with 32 prompt tokens after its 256 patches.
+GEMMA_XC = {"gemma3-27b": (dict(global_every=2, sliding_window=64), 128),
+            "paligemma-3b": ({}, 32)}
+GEMMA_XC_GEN = 4
+# projections a layer: wq, wk, wv, wo and the GeGLU's w_gate, w_up, w_down
+GEMMA_LINEARS = 7
+
+
+def serve_gemma(dev, arch, seed):
+    """``arch`` at full width and depth, served weights drawn from
+    ``seed`` on the card: GEMMA_SERVES' fixed-batch serve through
+    ``legacy_serve`` (decode steps as CUDA graphs), launch counters zeroed
+    just before and read just after: the windowed contiguous attention
+    once a local layer and decode step, the plain one (gemma3) or the
+    hd-256 instance (paligemma) once a global layer and step, no paged
+    attention, seven matmuls a layer and forward. Then the decode step
+    replayed against its eager calls at full depth (as phase 4b's
+    ``legacy_decode`` case: a random cache of the serve's length, random
+    tokens, positions that pass the window). Returns the summary."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.serve import (build_served_params, legacy_serve,
+                                          make_prompts, vlm_patches)
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.stages import build_stages
+    cfg = get_config(arch)
+    shape = GEMMA_SERVES[arch]
+    b, n, gen = shape["batch"], shape["tokens"], shape["gen"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_served_params(cfg, seed, dev)
+    torch.cuda.synchronize()
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_prefix": cfg.n_prefix, "build_s": time.perf_counter() - t0,
+           "build_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "weights_gb": torch.cuda.memory_allocated(dev) / 1e9}
+    prompts = make_prompts(cfg, seed, b, n)
+    patches = vlm_patches(cfg, seed, b, dev) if cfg.family == "vlm" else None
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    r = legacy_serve(cfg, params, prompts, gen, dev, patches)
+    out.update(r, launches=kernels.launch_counts(),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    if any(len(x) != gen or not all(0 <= t < cfg.vocab for t in x)
+           for x in r["streams"]):
+        raise AssertionError(f"{arch} legacy streams: {r['streams']}")
+    steps = r["decode_steps"]
+    local = sum(st.repeat * sum(1 for ld in st.period if ld.window)
+                for st in build_stages(cfg))
+    glob = "kv_attention_contiguous" + ("_hd256" if cfg.hd == 256 else "")
+    want = {"kv_attention_contiguous_window": local * steps,
+            glob: (cfg.n_layers - local) * steps,
+            "sparqle_matmul": GEMMA_LINEARS * cfg.n_layers * (1 + steps)}
+    counts = out["launches"]
+    others = [k for k in ("kv_attention", "kv_attention_verify",
+                          "kv_attention_tiered", "kv_attention_contiguous",
+                          "kv_attention_contiguous_hd256") + UNFUSED
+              if k not in want]
+    if any(counts[k] != v for k, v in want.items()) or \
+            any(counts[k] for k in others) or \
+            not counts["sparqle_encode_fused"]:
+        raise AssertionError(f"{arch} legacy launches {counts}: want {want}, "
+                             f"none of {others}")
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    span = cfg.n_prefix + n + gen
+    cache = fill_random(init_cache(cfg, b, span, dev), g)
+    calls = []
+    for i in range(4):
+        tok = torch.randint(0, cfg.vocab, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos = torch.randint(0, span, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos[0] = span - 1 - i
+        calls.append((tok, pos))
+    out["replay_vs_eager"] = replay_vs_eager(
+        dev, ("legacy_decode", S.make_serve_decode(cfg), (params, cache),
+              calls))
+    if not out["replay_vs_eager"]:
+        raise AssertionError(f"{arch}: the graph-replayed decode step "
+                             f"differs from its eager calls")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def legacy_cross_check(dev, arch, seed):
+    """``arch``'s width at 2 layers, f32, with GEMMA_XC's replacements:
+    the fixed-batch prefill and GEMMA_XC_GEN - 1 greedy decode steps on
+    the card (kernels) and on the CPU (plain versions), the same weights
+    (drawn on the card) and prompts; logits within LOGIT_TOL of max
+    |logit| at every step and the greedy streams identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import tree_to
+    from repro_torch.launch.serve import (build_served_params, make_prompts,
+                                          vlm_patches)
+    from repro_torch.models import model as M
+    over, n = GEMMA_XC[arch]
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32", **over)
+    params = build_served_params(cfg, seed, dev)
+    prompts = make_prompts(cfg, seed + 1, 2, n)
+    patches = (vlm_patches(cfg, seed + 1, 2, dev) if cfg.family == "vlm"
+               else None)
+    plen = cfg.n_prefix + n
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        tree = params if name == "cuda" else tree_to(params, device)
+        batch = {"tokens": torch.tensor(prompts, dtype=torch.int32,
+                                        device=device)}
+        if patches is not None:
+            batch["patches"] = patches.to(device)
+        with torch.no_grad():
+            logits, cache = M.prefill(cfg, tree, batch,
+                                      max_len=plen + GEMMA_XC_GEN)
+            steps, toks = [logits.float().cpu()], [logits.argmax(-1)]
+            for i in range(GEMMA_XC_GEN - 1):
+                pos = torch.full((2,), plen + i, dtype=torch.int32,
+                                 device=device)
+                logits, cache = M.decode_step(cfg, tree, cache,
+                                              toks[-1].to(torch.int32), pos)
+                steps.append(logits.float().cpu())
+                toks.append(logits.argmax(-1))
+        runs[name] = (steps, torch.stack(toks, 1).cpu().tolist())
+        del tree, cache
+    (lg_c, st_c), (lg_p, st_p) = runs["cuda"], runs["cpu"]
+    n_cmp = len(lg_p) if st_c == st_p else 1
+    err = max((a - b).abs().max().item()
+              for a, b in zip(lg_c[:n_cmp], lg_p[:n_cmp]))
+    scale = max(b.abs().max().item() for b in lg_p[:n_cmp])
+    match = sum(a == b for x, y in zip(st_c, st_p) for a, b in zip(x, y))
+    total = sum(len(x) for x in st_p)
+    if not err <= LOGIT_TOL * scale:
+        raise AssertionError(f"{arch} legacy cross-check logits differ: "
+                             f"{err} vs {LOGIT_TOL} * {scale}")
+    if st_c != st_p:
+        raise AssertionError(f"{arch} legacy cross-check greedy streams "
+                             f"differ: cuda {st_c} vs cpu {st_p}")
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "config": dict(over, n_layers=2, dtype="float32",
+                                         prompt_tokens=n),
+            "max_abs_logit_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "steps_compared": n_cmp,
+            "greedy_match": f"{match}/{total}"}
+
+
+def gemma_cli():
+    """``serve.main --legacy --smoke`` of both archs on the card (streams
+    of the asked length, the closing report), and without ``--legacy``
+    the JAX serve's exit: the window or the VLM named, then "(this arch
+    serves via --legacy only)". Returns {arch: (hidden sparsity, exit
+    message)}."""
+    from repro_torch.launch import serve
+    out = {}
+    for arch in GEMMA_SERVES:
+        r = serve.main(["--arch", arch, "--legacy", "--smoke", "--batch",
+                        "2", "--prompt-len", "24", "--gen", "4"])
+        if [len(x) for x in r["streams"]] != [4, 4] or \
+                not 0 <= r["hidden_sparsity"] <= 1:
+            raise AssertionError(f"serve --legacy --smoke {arch}: {r}")
+        try:
+            serve.main(["--arch", arch, "--smoke"])
+        except SystemExit as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"serve {arch} without --legacy did not "
+                                 f"exit")
+        if not (msg.endswith("\n(this arch serves via --legacy only)")
+                and ("window=" in msg or "got vlm" in msg)):
+            raise AssertionError(f"serve {arch} without --legacy: {msg!r}")
+        out[arch] = (r["hidden_sparsity"], msg.replace("\n", " "))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -3056,6 +3432,7 @@ def main() -> int:
             check_encoder_packed(dev, gen, peaks),
             *check_matmul_packed(dev, gen, peaks),
             check_contiguous_attention(dev, gen, peaks),
+            *check_gemma_attention(dev, gen, peaks),
             *check_batched_encoder(dev, gen, peaks),
             *check_batched_matmul(dev, gen, peaks)]
     attn_zoo = check_attention_zoo(dev, gen, peaks)
@@ -3113,6 +3490,11 @@ def main() -> int:
                                                "packed_spec"),
                "kv4_decode_attention": ("kv_attention_contiguous",
                                         "legacy"),
+               # row 7's instances of the gemma family's --legacy serves
+               "kv4_decode_attention_window": (
+                   "kv_attention_contiguous_window", "gemma3"),
+               "kv4_decode_attention_hd256": (
+                   "kv_attention_contiguous_hd256", "paligemma"),
                # the expert-batched entries: deepseek-moe-16b's serves
                "sparqle_encode_fused_batched": (
                    "sparqle_encode_fused_batched", "moe"),
@@ -3340,7 +3722,9 @@ def main() -> int:
         log(f"[9] granite-8b {cfg.n_layers}L --legacy {SERVE['batch']} x "
             f"{SERVE['prompt_len']} x {SERVE['gen']}: prefill "
             f"{lg['prefill_s'] * 1e3:.1f} ms, decode "
-            f"{lg['decode_step_s'] * 1e3:.2f} ms/step over {steps} steps "
+            f"{lg['decode_step_s'] * 1e3:.2f} ms/step over "
+            f"{lg['decode_timed_steps']} graph replays (warm-up and capture "
+            f"{lg['decode_warmup_s'] * 1e3:.1f} ms) "
             f"(engine TPOT {eng['tpot_mean_s'] * 1e3:.2f} ms), streams "
             f"equal to phase 4: {sum(same_lg)}/{len(same_lg)} (not "
             f"required: the engine prefills in chunks of 32), launches "
@@ -3507,9 +3891,47 @@ def main() -> int:
             f"{MOE_TP_LAYERS}L single device {tp_summary_single(tpd)}; "
             f"{time.perf_counter() - t0:.1f} s")
         rows += tp_rows
+        # phase 15: the gemma family through --legacy, last of the serves
+        # (phases 12 and 13 freed their trees)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t15 = time.perf_counter()
+        gemma = {}
+        for arch in GEMMA_SERVES:
+            t0 = time.perf_counter()
+            gemma[arch] = r = serve_gemma(dev, arch, args.seed)
+            r["cross_check"] = xg = legacy_cross_check(dev, arch, args.seed)
+            shape = GEMMA_SERVES[arch]
+            pre = f"{r['n_prefix']} patches + " if r["n_prefix"] else ""
+            log(f"[15] {card}: {arch} {r['layers']}L d={r['d_model']} "
+                f"--legacy {shape['batch']} x ({pre}{shape['tokens']}) x "
+                f"{shape['gen']}: prefill {r['prefill_s'] * 1e3:.1f} ms, "
+                f"decode {r['decode_step_s'] * 1e3:.2f} ms/step over "
+                f"{r['decode_timed_steps']} graph replays (of "
+                f"{r['decode_steps']} steps; warm-up and capture "
+                f"{r['decode_warmup_s'] * 1e3:.1f} ms), launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} }, weights "
+                f"{r['weights_gb']:.2f} GB built in {r['build_s']:.1f} s "
+                f"(build peak {r['build_peak_gb']:.1f} GB), serve peak "
+                f"{r['peak_mem_gb']:.1f} GB; decode step replayed vs eager "
+                f"at {r['layers']}L, bits equal: {r['replay_vs_eager']}; "
+                f"2L f32 {xg['config']} cuda vs cpu: max |dlogit| "
+                f"{xg['max_abs_logit_err']:.3g} of max |logit| "
+                f"{xg['max_abs_logit']:.3g} ({xg['rel_err']:.3g} rel, tol "
+                f"{LOGIT_TOL}), greedy tokens {xg['greedy_match']}; "
+                f"{time.perf_counter() - t0:.1f} s")
+        cli = gemma_cli()
+        log(f"[15] serve --legacy --smoke on the card: "
+            + "; ".join(f"{a}: hidden MSB4 sparsity {sp:.4f}, without "
+                        f"--legacy exits: {msg!r}"
+                        for a, (sp, msg) in cli.items())
+            + f"; phase 15 {time.perf_counter() - t15:.1f} s")
+        detail["gemma"] = {"serves": gemma, "cli": cli}
         moe = zoo["deepseek-moe-16b"]
         runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn,
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg,
+                "gemma3": gemma["gemma3-27b"],
+                "paligemma": gemma["paligemma-3b"],
                 **{f"moe_{k}" if k != "base" else "moe": v
                    for k, v in moe.items() if k != "cross_check"},
                 **{f"tp_{n}": rs[0] for (t, n), rs in tp_runs.items()

@@ -11,7 +11,10 @@
 //     whose tier id is 1 comes from the KV2 slab (P2, PS, KVH, HD/4),
 //     four signed 2-bit fields a byte, field f of byte j = element 4j+f;
 //   kv4_decode_attention (`_kernel`): the contiguous (B, S, KVH, HD/2)
-//     cache read as pages of PS tokens, page i of sequence b = block i.
+//     cache read as pages of PS tokens, page i of sequence b = block i;
+//     with a sliding window (gemma3's local layers; the Pallas kernel has
+//     none, JAX's fixed-batch decode masks it in XLA) keys j with
+//     pos - j < window only.
 // K/V pages hold int4 nibbles two per byte along HD (byte j: element 2j
 // low, 2j+1 high) and one f32 scale per (token, kv head). Semantics of
 // `_flash_core`: f32 online softmax, scale HD**-0.5, NEG_INF = -2e38,
@@ -33,9 +36,10 @@
 // or the tier table, so a verify call and T decode calls, a tiered call
 // over tier-0 pages and a decode call, a contiguous call and a paged
 // call on pages that tile its cache all split and merge alike and give
-// the same bits (held on the card). `kernels/kv_attention.py`
-// `split_plan` mirrors it and `tests/test_torch_attention_plan.py` tests
-// it on the CPU.
+// the same bits (held on the card); only a sliding window whose start
+// passes block 0 splits by its span's width instead (below).
+// `kernels/kv_attention.py` `split_plan` and `window_span` mirror them
+// and `tests/test_torch_attention_plan.py` tests them on the CPU.
 //
 // A block is one cluster rank of one query group (b[, t], kv head h, 4
 // of its G query heads: ceil(G / 4) groups a kv head, the heads of the
@@ -43,8 +47,8 @@
 // pages in tiles of 16 token rows (the QK MMA's M): a page of ps tokens
 // is ceil(ps / 16) tiles, and the rows of a tile past the page's end
 // load nothing, read as zeros and are masked. The body is a template on
-// the head dim HD (16, 32, 64 or 128: HD / 16 k-steps and m-tiles) and on
-// PS, the page size: 16, the engine's, at compile time, or 0 for any
+// the head dim HD (16, 32, 64, 128 or 256: HD / 16 k-steps and m-tiles)
+// and on PS, the page size: 16, the engine's, at compile time, or 0 for any
 // other size read at run time (a separate instance, so the main path's
 // loop keeps its constant trip counts). Each warp runs its own
 // online-softmax state; no block barrier in the tile loop, and every warp
@@ -79,6 +83,32 @@
 // nibbles dequantized by the 2^23 magic number, took 8.0 and 48.6 us
 // where this one takes 7.0 and 39.0 (smoke shape, ~4,096 tokens; H100,
 // `PERF.md` PR 16).
+//
+// Sliding window (the contiguous kernel only; window 0 = none). Keys j
+// with pos - window < j <= pos: a sequence reads only its blocks
+// lo = max(0, pos - window + 1) / PS .. pos / PS, and masks the keys of
+// block lo below the window's start. lo is computed on the device from
+// pos (the fixed-batch decode replays as a CUDA graph). A sequence whose
+// window starts past block 0 (lo > 0) splits its live blocks by the plan
+// of the window's span, NSW = min(NS, (window + PS - 2) / PS + 1) blocks
+// (the most a window can touch), block lo being the plan's page 0; one
+// with lo = 0 keeps the plan of NS, so a window >= pos + 1 (lo = 0,
+// nothing masked) gives window 0's bits. The launch takes the larger of
+// the two plans' clusters; a rank past its sequence's plan is not live
+// and drains nothing. So a window that binds reads min(pos + 1, window)
+// tokens rounded out to whole blocks, spread over the whole cluster.
+// A masked key's p is set to 0 outright (a tile wholly below the start
+// may come first, while m is still NEG_INF); in window 0's paths that
+// select changes no bit, their masked p being exp(-2e38 - m) = 0.
+//
+// HD 256 (paligemma-3b): the warps' cp.async rings (55,296 bytes) would
+// take the block's static shared memory past 48 KB, so that instance
+// keeps its rings in dynamic shared memory (opted in once a device with
+// cudaFuncSetAttribute, at its first launch there: an eager call, before
+// any graph capture); the instances up to HD 128 keep them static, as
+// before.
+// STAGES is not cut: one ring stage of HD 256 is 4,608 bytes, and even
+// one stage would leave the static total past 48 KB.
 //
 // Float operations are spelled with the _rn intrinsics, so that no
 // instance contracts a multiply and an add where another does not: the
@@ -116,13 +146,16 @@ constexpr int STAGES = 3;        // tiles a warp has in flight
 // of 4 or 8 rows fall in distinct banks (HD 128: 80 and 48 bytes).
 template <int HD>
 struct Shape {
-  static_assert(HD % 16 == 0 && HD <= 128, "HD: 16, 32, 64 or 128");
+  static_assert(HD % 16 == 0 && HD <= 256, "HD: 16, 32, 64, 128 or 256");
   static constexpr int KS = HD / 16;
   static constexpr int OUTS = GQ * HD;
   static constexpr int RB4 = HD / 2, RB2 = HD / 4;
   static constexpr int C4 = RB4 < 16 ? RB4 : 16, C2 = RB2 < 16 ? RB2 : 16;
   static constexpr int RW4 = HD / 8 + 4, RW2 = HD / 16 + 4;
   static constexpr int RING = 2 * TR * RW4;   // words a stage: K, V rows
+  // the warps' rings in dynamic shared memory (above HD 128), their bytes
+  static constexpr bool DYN = HD > 128;
+  static constexpr int RING_BYTES = WARPS * STAGES * RING * 4;
 };
 
 struct Split {
@@ -133,6 +166,12 @@ __host__ __device__ inline Split split_plan(int ns) {
   const int ppw = (ns + WARPS * MAX_CLUSTER - 1) / (WARPS * MAX_CLUSTER);
   const int ppb = WARPS * ppw;
   return {ppw, ppb, (ns + ppb - 1) / ppb};
+}
+
+// The most blocks of ps tokens that a window of `window` keys touches,
+// at most the table's NS: the plan width of a windowed sequence.
+__host__ __device__ inline int window_span(int ns, int ps, int window) {
+  return min(ns, (window + ps - 2) / ps + 1);
 }
 
 // A block's first access to another block's shared memory must follow
@@ -236,12 +275,12 @@ __device__ __forceinline__ void stage_rows(uint32_t* ring, const int8_t* kp,
     const float* __restrict__ v2_scale,                                    \
     const int32_t* __restrict__ tables, const int32_t* __restrict__ tiers, \
     const int32_t* __restrict__ pos, void* __restrict__ out, int T,        \
-    int KVH, int G, int ps_rt, int NS, float scale
+    int KVH, int G, int ps_rt, int NS, int window, float scale
 
 // grid (cluster, KVH * ceil(G/GQ), B * T), cluster (cluster, 1, 1);
 // q/out (B, T, KVH, G, HD), query position pos[b] + t; pages of PS
 // tokens (PS = 0: ps_rt). The contiguous cache is (B, NS * ps, KVH,
-// HD/2) and its scales (B, NS * ps, KVH).
+// HD/2) and its scales (B, NS * ps, KVH); `window` is read only there.
 template <int HD, int PS, bool TIERED, bool CONTIGUOUS, bool ROUND_KV>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(PAGED_ARGS) {
@@ -250,8 +289,12 @@ attention_kernel(PAGED_ARGS) {
   constexpr int RW4 = SH::RW4, RW2 = SH::RW2, V_AT = TR * RW4;
   __shared__ float acc_w[WARPS][OUTS];
   // a warp's ring of STAGES tiles in flight: K rows then V rows, 16 rows
-  // of RW4 (KV2: RW2) words each; and their K and V scales
-  __shared__ __align__(16) uint32_t kv_ring[WARPS][STAGES][SH::RING];
+  // of RW4 (KV2: RW2) words each, warp w's stage st at (w STAGES + st)
+  // RING; static up to HD 128, dynamic above; and their K and V scales
+  __shared__ __align__(16) uint32_t
+      kv_ring_s[SH::DYN ? 4 : WARPS * STAGES * SH::RING];
+  extern __shared__ __align__(16) uint32_t kv_ring_d[];
+  uint32_t* const kv_ring = SH::DYN ? kv_ring_d : kv_ring_s;
   // Q^T as the QK MMA's B fragments, three bf16 terms of each f32 q, one
   // word a lane: shared by the block's warps, out of their registers
   __shared__ uint32_t q_frag[3][KS][2][32];
@@ -267,13 +310,20 @@ attention_kernel(PAGED_ARGS) {
   const int rank = (int)cluster.block_rank();
   const int ps = PS ? PS : ps_rt;
   const int tpp = (ps + TR - 1) / TR;           // tiles a page
-  const Split sp = split_plan(NS);
   const int GS = (G + GQ - 1) / GQ;
   const int h = blockIdx.y / GS, gs = blockIdx.y % GS;
   const int nh = min(GQ, G - gs * GQ);          // the block's live heads
   const int b = blockIdx.z / T, t = blockIdx.z % T;
   const int p = pos[b] + t;
   const int last = min(max(p, 0) / ps, NS - 1);
+  // a window's first key and first block lo; the plan's page slots are
+  // blocks lo + i, live up to last_v (window 0: lo = 0, start 0), split
+  // by the window span's plan when lo > 0, else by NS's
+  const bool windowed = CONTIGUOUS && window > 0;
+  const int start = windowed ? p - window + 1 : 0;
+  const int lo = windowed ? min(max(start, 0) / ps, last) : 0;
+  const int last_v = last - lo;
+  const Split sp = split_plan(lo > 0 ? window_span(NS, ps, window) : NS);
   const long qbase = ((((long)b * T + t) * KVH + h) * G + gs * GQ) * HD;
   const int32_t* table = CONTIGUOUS ? nullptr : tables + (long)b * NS;
   const int32_t* tier = TIERED ? tiers + (long)b * NS : nullptr;
@@ -287,11 +337,12 @@ attention_kernel(PAGED_ARGS) {
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bstart = rank * sp.ppb;
-  const bool block_live = bstart <= last;
+  const bool block_live = bstart <= last_v;
 
   // Every warp runs sp.ppw * tpp tile iterations, a number the whole grid
-  // shares: no shuffle sits in a branch the compiler cannot prove
-  // warp-uniform (it would wrap each in a collective). A page past pos,
+  // shares (a windowed call: all of a sequence's blocks): no shuffle sits
+  // in a branch the compiler cannot prove warp-uniform (it would wrap
+  // each in a collective). A page past pos,
   // or past the table, loads nothing, reads as zeros and is masked.
   const int first = bstart + warp * sp.ppw;
   const int n_it = sp.ppw * tpp;
@@ -345,11 +396,11 @@ attention_kernel(PAGED_ARGS) {
     // masked p and stale rows add exact zeros
     auto issue = [&](int it, int st) {
       const int step = first + it / tpp, row0 = (it % tpp) * TR;
-      uint32_t* ring = kv_ring[warp][st];
+      uint32_t* ring = kv_ring + (warp * STAGES + st) * SH::RING;
       float* sc = sc_ring[warp][st];
-      if (step <= last) {
+      if (step <= last_v) {
         const int nrows = min(TR, ps - row0);
-        const long page = CONTIGUOUS ? step : __ldg(table + step);
+        const long page = CONTIGUOUS ? lo + step : __ldg(table + step);
         const bool kv2 = TIERED && __ldg(tier + step) == 1;
         const long tok0 = (page * ps + row0) * KVH + h;   // the tile's row 0
         if (kv2)
@@ -386,9 +437,9 @@ attention_kernel(PAGED_ARGS) {
       __syncwarp();                         // the tile's copies landed
       const int step = first + it / tpp, row0 = (it % tpp) * TR;
       const int nrows = min(TR, ps - row0);
-      const bool kv2 = TIERED && step <= last && __ldg(tier + step) == 1;
+      const bool kv2 = TIERED && step <= last_v && __ldg(tier + step) == 1;
       const int rs = kv2 ? RW2 : RW4;
-      const uint32_t* k_rows = kv_ring[warp][st];
+      const uint32_t* k_rows = kv_ring + (warp * STAGES + st) * SH::RING;
       const uint32_t* v_rows = k_rows + V_AT;
       const float* scl = sc_ring[warp][st];   // ks[16], vs[16]
 
@@ -448,16 +499,18 @@ attention_kernel(PAGED_ARGS) {
                           __fadd_rn(sc6[4][j], sc6[5][j]));
       // scores: sc[2 i + e] is token g + 8 i, head 2t + e
       float s[4];
+      bool live[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int tok = g + 8 * i;
-        const bool live =
-            step <= last && tok < nrows && step * ps + row0 + tok <= p;
+        const int at = (lo + step) * ps + row0 + tok;   // the key's position
+        live[i] = step <= last_v && tok < nrows && at <= p &&
+                  (!windowed || at >= start);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float dot = ROUND_KV ? sc[2 * i + e]
                                      : __fmul_rn(sc[2 * i + e], scl[tok]);
-          s[2 * i + e] = live ? __fmul_rn(dot, scale) : NEG_INF;
+          s[2 * i + e] = live[i] ? __fmul_rn(dot, scale) : NEG_INF;
         }
       }
       // online softmax of heads 2t, 2t + 1 over the tile's 16 tokens (the
@@ -473,6 +526,10 @@ attention_kernel(PAGED_ARGS) {
         corr[e] = expf(__fsub_rn(m[e], mn));
         pr[e] = expf(__fsub_rn(s[e], mn));
         pr[2 + e] = expf(__fsub_rn(s[2 + e], mn));
+        if (CONTIGUOUS) {           // a masked key adds nothing (see top)
+          pr[e] = live[0] ? pr[e] : 0.0f;
+          pr[2 + e] = live[1] ? pr[2 + e] : 0.0f;
+        }
         float sum = __fadd_rn(pr[e], pr[2 + e]);
 #pragma unroll
         for (int off = 4; off < 32; off <<= 1)
@@ -595,7 +652,7 @@ attention_kernel(PAGED_ARGS) {
   if (block_live) {
     // the live warps' states in warp order: the block's partial, pushed
     // to the rank that drains each output
-    const int nw = min(WARPS, (last - bstart) / sp.ppw + 1);
+    const int nw = min(WARPS, (last_v - bstart) / sp.ppw + 1);
     for (int o = threadIdx.x; o < OUTS; o += THREADS) {
       const int g = o / HD;
       float mm = m_w[0][g], ll = l_w[0][g], aa = acc_w[0][o];
@@ -620,7 +677,7 @@ attention_kernel(PAGED_ARGS) {
   }
   cluster.sync();   // the pushes landed; nothing remote is read after this
   // the live ranks' partials in rank order; heads past G are not written
-  const int live_ranks = last / sp.ppb + 1;
+  const int live_ranks = last_v / sp.ppb + 1;
   const int o_end = min(nh * HD, (rank + 1) * per);
   for (int o = rank * per + threadIdx.x; o < o_end; o += THREADS) {
     const int g = o / HD, ol = o - rank * per;
@@ -643,39 +700,63 @@ attention_kernel(PAGED_ARGS) {
   }
 }
 
+// The devices whose hd-256 opt-in launch_as remembers (the attribute is
+// set on the current device's context); a device past them sets it at
+// every launch.
+constexpr int MAX_DEVICES = 64;
+
 // The operands of one call: the paged kernels read k2/v2 and the tier
 // table only in their TIERED instance, the table not in CONTIGUOUS.
 struct Call {
   const void *q, *k_pages, *k_scale, *v_pages, *v_scale, *k2_pages,
       *k2_scale, *v2_pages, *v2_scale, *tables, *tiers, *pos;
   void* out;
-  int q_bf16, B, T, KVH, G, hd, ps, NS;
+  int q_bf16, B, T, KVH, G, hd, ps, NS, window;
   void* stream;
 };
 
 template <int HD, int PS, bool TIERED, bool CONTIGUOUS, bool ROUND_KV>
 static int launch_as(const Call& c) {
-  const Split sp = split_plan(c.NS);
+  using SH = Shape<HD>;
+  auto kernel = attention_kernel<HD, PS, TIERED, CONTIGUOUS, ROUND_KV>;
+  if (SH::DYN) {        // once an instance and device, before its first use
+    static bool opted_in[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= MAX_DEVICES || !opted_in[dev]) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SH::RING_BYTES);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < MAX_DEVICES) opted_in[dev] = true;
+    }
+  }
+  // the larger of the two plans' clusters a windowed call may split by
+  int cluster = split_plan(c.NS).cluster;
+  if (c.window > 0)
+    cluster = max(cluster,
+                  split_plan(window_span(c.NS, c.ps, c.window)).cluster);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(sp.cluster, c.KVH * ((c.G + GQ - 1) / GQ), c.B * c.T);
+  cfg.gridDim = dim3(cluster, c.KVH * ((c.G + GQ - 1) / GQ), c.B * c.T);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = SH::DYN ? SH::RING_BYTES : 0;
   cfg.stream = (cudaStream_t)c.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = sp.cluster;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, attention_kernel<HD, PS, TIERED, CONTIGUOUS, ROUND_KV>, c.q,
+      &cfg, kernel, c.q,
       c.q_bf16, (const int8_t*)c.k_pages, (const float*)c.k_scale,
       (const int8_t*)c.v_pages, (const float*)c.v_scale,
       (const int8_t*)c.k2_pages, (const float*)c.k2_scale,
       (const int8_t*)c.v2_pages, (const float*)c.v2_scale,
       (const int32_t*)c.tables, (const int32_t*)c.tiers,
-      (const int32_t*)c.pos, c.out, c.T, c.KVH, c.G, c.ps, c.NS,
+      (const int32_t*)c.pos, c.out, c.T, c.KVH, c.G, c.ps, c.NS, c.window,
       (float)pow((double)HD, -0.5));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -688,6 +769,7 @@ static int launch_hd(const Call& c) {
     case 32: return launch_as<32, PS, TIERED, CONTIGUOUS, ROUND_KV>(c);
     case 64: return launch_as<64, PS, TIERED, CONTIGUOUS, ROUND_KV>(c);
     case 128: return launch_as<128, PS, TIERED, CONTIGUOUS, ROUND_KV>(c);
+    case 256: return launch_as<256, PS, TIERED, CONTIGUOUS, ROUND_KV>(c);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -696,7 +778,8 @@ static int launch_hd(const Call& c) {
 // run-time one
 template <bool TIERED, bool CONTIGUOUS, bool ROUND_KV>
 static int launch(const Call& c) {
-  if (c.G < 1 || c.ps < 1 || c.NS < 1) return (int)cudaErrorInvalidValue;
+  if (c.G < 1 || c.ps < 1 || c.NS < 1 || c.window < 0)
+    return (int)cudaErrorInvalidValue;
   return c.ps == TR ? launch_hd<TR, TIERED, CONTIGUOUS, ROUND_KV>(c)
                     : launch_hd<0, TIERED, CONTIGUOUS, ROUND_KV>(c);
 }
@@ -709,7 +792,7 @@ extern "C" int kv4_paged_decode_launch(
   return launch<false, false, false>(
       {q, k_pages, k_scale, v_pages, v_scale, nullptr, nullptr, nullptr,
        nullptr, tables, nullptr, pos, out, q_bf16, B, 1, KVH, G, hd, ps, NS,
-       stream});
+       0, stream});
 }
 
 // the decode kernel with T window tokens a sequence
@@ -721,7 +804,7 @@ extern "C" int kv4_paged_verify_launch(
   return launch<false, false, false>(
       {q, k_pages, k_scale, v_pages, v_scale, nullptr, nullptr, nullptr,
        nullptr, tables, nullptr, pos, out, q_bf16, B, T, KVH, G, hd, ps, NS,
-       stream});
+       0, stream});
 }
 
 extern "C" int kv_tiered_paged_decode_launch(
@@ -733,17 +816,19 @@ extern "C" int kv_tiered_paged_decode_launch(
   return launch<true, false, false>(
       {q, k_pages, k_scale, v_pages, v_scale, k2_pages, k2_scale, v2_pages,
        v2_scale, tables, tiers, pos, out, q_bf16, B, 1, KVH, G, hd, ps, NS,
-       stream});
+       0, stream});
 }
 
-// k_q/v_q (B, S, KVH, HD/2), k_s/v_s (B, S, KVH), S = NS * ps.
+// k_q/v_q (B, S, KVH, HD/2), k_s/v_s (B, S, KVH), S = NS * ps; a
+// sliding window of `window` keys (0: none).
 extern "C" int kv4_decode_launch(
     const void* q, int q_bf16, const void* k_q, const void* k_s,
     const void* v_q, const void* v_s, const void* pos, void* out, int B,
-    int KVH, int G, int hd, int ps, int NS, int round_kv, void* stream) {
+    int KVH, int G, int hd, int ps, int NS, int round_kv, int window,
+    void* stream) {
   const Call c{q, k_q, k_s, v_q, v_s, nullptr, nullptr, nullptr, nullptr,
                nullptr, nullptr, pos, out, q_bf16, B, 1, KVH, G, hd, ps, NS,
-               stream};
+               window, stream};
   if (round_kv && q_bf16) return launch<false, true, true>(c);
   return launch<false, true, false>(c);
 }

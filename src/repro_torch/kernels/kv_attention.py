@@ -36,10 +36,14 @@ instance of the same body: bit-exact with the paged kernel on pages of
 ``bs`` that tile the same cache (held on the card). ``round_kv=True``
 (what ``models.model.attn_decode`` passes) runs a third instance that
 rounds each dequantized K and V element to bf16 first when q is bf16,
-as JAX's fixed-batch decode does.
+as JAX's fixed-batch decode does. ``window`` (gemma3's local layers)
+masks keys more than ``window - 1`` behind pos and reads only the blocks
+the window spans (``csrc/kv_attention.cu``); its calls and the hd-256
+instance (paligemma-3b) count apart (``kv_attention_contiguous_window``,
+``kv_attention_contiguous_hd256``).
 
 On the card the kernels take a head dim in ``HEAD_DIMS`` (one template
-instance each), pages of any size (16, the engine's default, has its own
+instance each; 256 keeps its cp.async rings in dynamic shared memory), pages of any size (16, the engine's default, has its own
 compile-time instance; the kernel walks a page in tiles of 16 token
 rows) and any G (the query heads go to the blocks ``GQ`` at a time, the
 last block's heads past G masked); the wrappers raise on another head
@@ -72,16 +76,26 @@ TIERED_KERNEL = _build.register(_build.Kernel(
     "kv_attention.cu", "kv_tiered_paged_decode_launch",
     [_build.P, _build.I] + [_build.P] * 12 + [_build.I] * 6 + [_build.P],
     name="kv_attention_tiered"))
+_CONTIGUOUS_ARGS = [_build.P, _build.I] + [_build.P] * 6 + [_build.I] * 8 + [
+    _build.P]
 CONTIGUOUS_KERNEL = _build.register(_build.Kernel(
-    "kv_attention.cu", "kv4_decode_launch",
-    [_build.P, _build.I] + [_build.P] * 6 + [_build.I] * 7 + [_build.P],
+    "kv_attention.cu", "kv4_decode_launch", _CONTIGUOUS_ARGS,
     name="kv_attention_contiguous"))
+# The contiguous kernel's sliding-window calls (gemma3's local layers) and
+# its hd-256 instance (paligemma-3b), counted apart: the same entry point.
+CONTIGUOUS_WINDOW_KERNEL = _build.register(_build.Kernel(
+    "kv_attention.cu", "kv4_decode_launch", _CONTIGUOUS_ARGS,
+    name="kv_attention_contiguous_window"))
+CONTIGUOUS_HD256_KERNEL = _build.register(_build.Kernel(
+    "kv_attention.cu", "kv4_decode_launch", _CONTIGUOUS_ARGS,
+    name="kv_attention_contiguous_hd256"))
 
 # The kernel's compile-time shape (``csrc/kv_attention.cu``): the head
 # dims it is instantiated for, token rows a tile (the page size of its
 # compile-time instance), query heads a block, warps a block, blocks a
 # cluster.
-HEAD_DIMS, TILE_ROWS, GQ, WARPS, MAX_CLUSTER = (16, 32, 64, 128), 16, 4, 4, 8
+HEAD_DIMS = (16, 32, 64, 128, 256)
+TILE_ROWS, GQ, WARPS, MAX_CLUSTER = 16, 4, 4, 8
 
 # Tokens per cache block of the contiguous kernel: the engine's page
 # size, so that the fixed-batch and the paged decode give the same bits.
@@ -106,6 +120,15 @@ def split_plan(n_s: int) -> SplitPlan:
     ppw = -(-n_s // (WARPS * MAX_CLUSTER))
     ppb = WARPS * ppw
     return SplitPlan(ppw, ppb, -(-n_s // ppb))
+
+
+def window_span(n_s: int, ps: int, window: int) -> int:
+    """The kernel's ``window_span``: the most blocks of ``ps`` tokens a
+    window of ``window`` keys touches, at most the table width. A
+    sequence whose window starts past block 0 splits its live blocks by
+    ``split_plan(window_span(...))``; a windowed call launches the
+    larger cluster of that plan and ``split_plan(n_s)``."""
+    return min(n_s, (window + ps - 2) // ps + 1)
 
 
 def page_owner(plan: SplitPlan, i: int) -> Tuple[int, int]:
@@ -279,16 +302,19 @@ def kv4_decode_attention(
     *,
     bs: int = CONTIGUOUS_BLOCK,
     round_kv: bool = False,
+    window: int = 0,
 ) -> torch.Tensor:
     """(B, KVH, G, hd) attention output in q's dtype over the contiguous
-    cache, positions <= pos, in blocks of ``bs`` tokens (S must be a
-    multiple of ``bs``). ``round_kv`` with a bf16 q rounds each
-    dequantized K and V element to bf16 first (JAX's fixed-batch
-    decode); the default reads them in f32, the Pallas kernel's
-    contract, and is bit-exact with the paged kernel."""
+    cache, positions j <= pos and, with a sliding ``window`` (0: none),
+    pos - j < window, in blocks of ``bs`` tokens (S must be a multiple
+    of ``bs``). ``round_kv`` with a bf16 q rounds each dequantized K and
+    V element to bf16 first (JAX's fixed-batch decode); the default
+    reads them in f32, the Pallas kernel's contract, and is bit-exact
+    with the paged kernel. A window reads only the blocks it spans;
+    one that does not bind (window >= pos + 1) gives window 0's bits."""
     if not q.is_cuda:
         return kv4_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos,
-                                        round_kv=round_kv)
+                                        round_kv=round_kv, window=window)
     if q.ndim != 4 or k_q.ndim != 4:
         raise ValueError(f"q must be (B, KVH, G, hd) and k_q (B, S, KVH, "
                          f"hd/2), got {tuple(q.shape)}, {tuple(k_q.shape)}")
@@ -297,6 +323,8 @@ def kv4_decode_attention(
     if bs <= 0 or s % bs:
         raise ValueError(f"cache length {s} is not a multiple of the block "
                          f"size {bs}")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
     for name, t, shape, dt in (
@@ -314,9 +342,12 @@ def kv4_decode_attention(
     _check_card_shape(hd, (k_q, v_q))
     n_s = s // bs
     out = torch.empty_like(q)
+    kernel = (CONTIGUOUS_WINDOW_KERNEL if window else
+              CONTIGUOUS_HD256_KERNEL if hd == 256 else CONTIGUOUS_KERNEL)
     if b and kvh and n_s:
-        CONTIGUOUS_KERNEL.launch(
+        kernel.launch(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
             k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, kvh, g, hd, bs, n_s, int(round_kv))
+            out.data_ptr(), b, kvh, g, hd, bs, n_s, int(round_kv),
+            int(window))
     return out

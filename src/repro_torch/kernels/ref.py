@@ -261,9 +261,11 @@ def kv4_decode_attention_ref(
     v_s: torch.Tensor,
     pos: torch.Tensor,      # (B,) int32
     round_kv: bool = False,
+    window: int = 0,
 ) -> torch.Tensor:
     """Decode attention over the contiguous packed-KV4 cache, f32
-    softmax, positions <= pos. ``round_kv`` with a bf16 q: every
+    softmax, positions j <= pos and, with a sliding ``window`` (0: none),
+    pos - j < window. ``round_kv`` with a bf16 q: every
     dequantized K and V element is rounded to bf16 before it is used,
     as JAX's fixed-batch decode dequantizes into the activation dtype
     (no effect on an f32 q)."""
@@ -271,7 +273,7 @@ def kv4_decode_attention_ref(
     v = unpack_kv4(v_q).float() * v_s[..., None]
     if round_kv and q.dtype == torch.bfloat16:
         k, v = k.to(q.dtype).float(), v.to(q.dtype).float()
-    return decode_attention_f32(q, k, v, pos)
+    return decode_attention_f32(q, k, v, pos, window)
 
 
 def _gather_pages(pages, scales, tables, unpack) -> torch.Tensor:
@@ -283,13 +285,16 @@ def _gather_pages(pages, scales, tables, unpack) -> torch.Tensor:
     return x.reshape(b, n_s * ps, kvh, -1)
 
 
-def decode_attention_f32(q, k, v, pos) -> torch.Tensor:
+def decode_attention_f32(q, k, v, pos, window: int = 0) -> torch.Tensor:
     """f32 attention of q (B, KVH, G, hd) over dequantized k/v
-    (B, S, KVH, hd), masked to positions <= pos; output in q's dtype."""
+    (B, S, KVH, hd), masked to positions j <= pos and, with a sliding
+    ``window``, pos - j < window; output in q's dtype."""
     hd = q.shape[-1]
     s = torch.einsum("bhgd,bjhd->bhgj", q.float(), k) * hd ** -0.5
-    allow = (torch.arange(k.shape[1], device=q.device)[None, :]
-             <= pos.long()[:, None])
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    allow = j <= pos.long()[:, None]
+    if window:
+        allow = allow & ((pos.long()[:, None] - j) < window)
     s = torch.where(allow[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgj,bjhd->bhgd", p, v)

@@ -188,6 +188,12 @@ class CompiledStep:
         return cap(args)
 
     @property
+    def captures(self) -> bool:
+        """Whether calls are captured and replayed (else each runs as it
+        is)."""
+        return self._graph_type is not None and not _EAGER
+
+    @property
     def graphs(self) -> int:
         """Call shapes captured so far."""
         return len(self._captures)

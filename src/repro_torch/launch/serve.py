@@ -46,6 +46,19 @@ caches, runs eagerly.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --legacy
 
+The gemma family serves through ``--legacy`` only, as in the JAX
+package, whose paged check refuses sliding windows and VLMs (without
+``--legacy`` the serve exits naming the window or the VLM):
+gemma3-27b (5 sliding-window layers of 1,024 keys to 1 global, qk-norm,
+GeGLU) and paligemma-3b (a bidirectional prefix of 256 stub image
+patches, drawn from ``--seed``, in front of ``--prompt-len`` minus 256
+prompt tokens; hd 256).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
+        --legacy --prompt-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --legacy --prompt-len 512
+
 ``--mesh D,M`` serves on a ("data", "model") mesh of D x M ranks
 (tensor-parallel serving, ``distributed/tp.py``): the weights are built
 once in this process and reach each rank's process (spawned with
@@ -105,7 +118,8 @@ from repro_torch.launch import steps as S
 from repro_torch.launch.graphs import CompiledStep
 from repro_torch.launch.mesh import (make_mesh, mesh_layout, pick_backend,
                                      spawn_world)
-from repro_torch.models.model import check_paged_support, forward_hidden
+from repro_torch.models.model import (check_contiguous_support,
+                                      check_paged_support, forward_hidden)
 from repro_torch.models.schema import abstract_params, init_quantized_params
 from repro_torch.models.schema_builder import build_schema
 from repro_torch.obs.slo import parse_slo_list
@@ -267,18 +281,20 @@ def attribution_report(eng: Engine) -> Optional[Dict[str, Dict]]:
 
 
 def closing_report(cfg: ModelConfig, params, prompts: List[List[int]],
-                   device) -> Dict[str, object]:
+                   device, patches: Optional[torch.Tensor] = None
+                   ) -> Dict[str, object]:
     """The MSB4 sparsity of the prompts' hidden stream (``forward_hidden``,
-    per-token int8) and the paper accelerator's cost-model prediction at
-    that sparsity (``evaluate_model`` with the §4 knobs: a model of the
-    paper's accelerator, not of the card), as the JAX serve reports."""
-    tokens = torch.tensor(prompts, dtype=torch.int32, device=device)
+    per-token int8; a VLM's ``patches`` in front) and the paper
+    accelerator's cost-model prediction at that sparsity
+    (``evaluate_model`` with the §4 knobs: a model of the paper's
+    accelerator, not of the card), as the JAX serve reports."""
+    batch = _batch(prompts, device, patches)
     with torch.no_grad():
-        hidden = forward_hidden(cfg, params, {"tokens": tokens})
+        hidden = forward_hidden(cfg, params, batch)
     q = quantize_activations(hidden.reshape(-1, hidden.shape[-1]), bits=8,
                              per_token=True).q
     s = float(subprecision_sparsity(q))
-    b, plen = tokens.shape
+    b, plen = hidden.shape[:2]
     imp = evaluate_model(lm_shape_of(cfg), s, HardwareConfig(),
                          prefill_tokens=plen * b,
                          decode_batch=b).improvements()
@@ -323,14 +339,44 @@ def mesh_serve(cfg: ModelConfig, params, prompts, mesh_shape,
                        backend=backend, device_type=device.type)
 
 
+def _batch(prompts: List[List[int]], device,
+           patches: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The model's batch: the prompts' tokens and, for a VLM, the patch
+    embeddings that go in front of them."""
+    batch = {"tokens": torch.tensor(prompts, dtype=torch.int32,
+                                    device=device)}
+    if patches is not None:
+        batch["patches"] = patches
+    return batch
+
+
+def vlm_patches(cfg: ModelConfig, seed: int, batch: int,
+                device) -> torch.Tensor:
+    """A VLM's stub image prefix: (batch, n_prefix, D) standard normal
+    patch embeddings in the compute dtype, drawn from ``seed`` with an
+    explicit generator on ``device``. These are not the JAX serve's
+    ``jax.random.PRNGKey(1)`` draws (the two generators differ); the
+    parity tests hand the same numpy patches to both packages."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, cfg.n_prefix, cfg.d_model), generator=g,
+                       device=device).to(cfg.cdtype)
+
+
 def legacy_serve(cfg: ModelConfig, params, prompts: List[List[int]],
-                 gen: int, device) -> Dict[str, object]:
+                 gen: int, device, patches: Optional[torch.Tensor] = None
+                 ) -> Dict[str, object]:
     """The fixed-batch path: one prefill of the whole (equal-length)
-    prompts into contiguous caches of prompt + ``gen`` positions, then
-    ``gen - 1`` lockstep greedy decode steps. Returns the streams and
-    the prefill and per-step decode times."""
-    tokens = torch.tensor(prompts, dtype=torch.int32, device=device)
-    b, plen = tokens.shape
+    prompts, behind a VLM's ``patches`` (B, n_prefix, D), into contiguous
+    caches of prefix + prompt + ``gen`` positions, then ``gen - 1``
+    lockstep greedy decode steps. Returns the streams, the prefill time,
+    ``decode_warmup_s`` (the steps before the decode's graph replays: its
+    eager warm-up and its capture, or the first step where nothing is
+    captured; none if no step would be left after them) and
+    ``decode_step_s``, the mean of the ``decode_timed_steps`` after it."""
+    batch = _batch(prompts, device, patches)
+    b, plen = batch["tokens"].shape
+    if patches is not None:
+        plen += patches.shape[1]
     prefill = S.make_serve_prefill(cfg, plen + gen)
     decode = CompiledStep(S.make_serve_decode(cfg), device)
 
@@ -339,19 +385,29 @@ def legacy_serve(cfg: ModelConfig, params, prompts: List[List[int]],
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    tok, cache = prefill(params, {"tokens": tokens})
+    tok, cache = prefill(params, batch)
     sync()
     t_prefill = time.perf_counter() - t0
     out = [tok]
-    t0 = time.perf_counter()
-    for i in range(gen - 1):
+    steps = gen - 1
+    # the steps before the graph replays (eager warm-up, capture) are
+    # timed apart, unless that would leave no step to time
+    warm = 2 if decode.captures else 1
+    warm = warm if warm < steps else 0
+    t0 = t1 = time.perf_counter()
+    for i in range(steps):
+        if i == warm:
+            sync()
+            t1 = time.perf_counter()
         pos = torch.full((b,), plen + i, dtype=torch.int32, device=device)
         tok, cache = decode(params, cache, tok, pos)
         out.append(tok)
     sync()
-    t_decode = (time.perf_counter() - t0) / max(1, gen - 1)
+    t2 = time.perf_counter()
     return {"streams": torch.stack(out, 1).tolist(), "prefill_s": t_prefill,
-            "decode_step_s": t_decode, "decode_steps": gen - 1}
+            "decode_step_s": (t2 - t1) / max(1, steps - warm),
+            "decode_warmup_s": t1 - t0, "decode_steps": steps,
+            "decode_timed_steps": steps - warm}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
@@ -432,7 +488,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                          "(drop one of the two)")
     slos = [slo for spec in args.slo for slo in parse_slo_list(spec)]
     cfg = get_config(args.arch, smoke=args.smoke)
-    check_paged_support(cfg, "contiguous" if args.legacy else "paged")
+    if args.legacy:
+        check_contiguous_support(cfg)
+    else:
+        try:
+            check_paged_support(cfg)
+        except NotImplementedError as e:
+            raise SystemExit(f"{e}\n(this arch serves via --legacy only)")
+    if cfg.family == "vlm" and args.prompt_len <= cfg.n_prefix:
+        raise SystemExit(f"--prompt-len {args.prompt_len} must exceed "
+                         f"{cfg.name}'s {cfg.n_prefix} image-prefix "
+                         f"positions")
     device = resolve_device(args.device)
     ranks = mesh_shape[0] * mesh_shape[1]
     backend = (pick_backend(device, ranks, args.dist_backend)
@@ -449,14 +515,22 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
           f"{'restored' if args.ckpt else 'built'} and quantized "
           f"({args.mode}) on {device} in {time.perf_counter() - t0:.1f} s")
     prompts = synthetic_prompts(cfg, args.seed, args.batch, args.prompt_len)
+    patches = None
+    if cfg.family == "vlm":
+        # the JAX serve's batch: n_prefix patches, then the first
+        # prompt_len - n_prefix tokens of each prompt
+        patches = vlm_patches(cfg, args.seed, args.batch, device)
+        prompts = [p[:args.prompt_len - cfg.n_prefix] for p in prompts]
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "CPU, plain versions")
     if args.legacy:
-        r = legacy_serve(cfg, params, prompts, args.gen, device)
+        r = legacy_serve(cfg, params, prompts, args.gen, device, patches)
         print(f"generated {args.batch} x {args.gen} tokens; prefill "
               f"{r['prefill_s'] * 1e3:.1f} ms, "
-              f"{r['decode_step_s'] * 1e3:.2f} ms/token ({where})")
-        return _close(r, cfg, params, prompts, device)
+              f"{r['decode_step_s'] * 1e3:.2f} ms/token over "
+              f"{r['decode_timed_steps']} steps after a warm-up of "
+              f"{r['decode_warmup_s'] * 1e3:.1f} ms ({where})")
+        return _close(r, cfg, params, prompts, device, patches)
     engine_kw = dict(batch=args.batch, prompt_len=args.prompt_len,
                      gen=args.gen, page_size=args.page_size,
                      n_pages=args.n_pages, token_budget=args.token_budget,
@@ -521,9 +595,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
 
 def _close(r: Dict[str, object], cfg: ModelConfig, params, prompts,
-           device) -> Dict[str, object]:
+           device, patches: Optional[torch.Tensor] = None
+           ) -> Dict[str, object]:
     """Print the closing report and add it to the summary ``r``."""
-    r.update(closing_report(cfg, params, prompts, device))
+    r.update(closing_report(cfg, params, prompts, device, patches))
     imp = r["costmodel"]
     print(f"MSB4 sub-precision sparsity of hidden activations: "
           f"{r['hidden_sparsity'] * 100:.1f}%")

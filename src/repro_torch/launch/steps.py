@@ -43,8 +43,9 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 def make_serve_prefill(cfg: ModelConfig, max_len: int):
-    """(params, batch {"tokens": (B, S)}) -> (greedy next token (B,)
-    int32, contiguous caches of ``max_len`` positions)."""
+    """(params, batch {"tokens": (B, S)}, and for a VLM "patches"
+    (B, n_prefix, D) in front of them) -> (greedy next token (B,) int32,
+    contiguous caches of ``max_len`` positions)."""
 
     @torch.no_grad()
     def serve_prefill(params, batch):

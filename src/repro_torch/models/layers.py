@@ -116,16 +116,23 @@ class AttnSpec(NamedTuple):
 
 
 def _check_spec(spec: AttnSpec) -> None:
-    if not spec.causal or spec.window or spec.prefix_len:
+    if not spec.causal:
         raise NotImplementedError(
-            f"{spec}: only causal attention without a window or a "
-            f"bidirectional prefix is ported")
+            f"{spec}: bidirectional (encoder) attention is not ported")
 
 
 def _mask(qi: torch.Tensor, kj: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
-    """(len(qi), len(kj)) boolean allow-mask from absolute positions."""
+    """(len(qi), len(kj)) boolean allow-mask from absolute positions:
+    causal, a bidirectional prefix (keys < ``prefix_len`` seen by every
+    query), a sliding window (``qi - kj < window``)."""
     _check_spec(spec)
-    return kj[None, :] <= qi[:, None]
+    qi, kj = qi[:, None], kj[None, :]
+    allow = kj <= qi
+    if spec.prefix_len:
+        allow = allow | (kj < spec.prefix_len)
+    if spec.window:
+        allow = allow & ((qi - kj) < spec.window)
+    return allow
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -175,11 +182,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor,
                      spec: AttnSpec) -> torch.Tensor:
     """One new token per sequence: q (B, H, hd) over a dequantized cache
-    (B, Smax, KVH, hd), positions <= pos (B,); f32 softmax, output in
-    q's dtype. The plain version of the contiguous KV4 decode kernel."""
+    (B, Smax, KVH, hd), positions <= pos (B,) and, with a window, > pos -
+    window; f32 softmax, output in q's dtype. The plain version of the
+    contiguous KV4 decode kernel."""
     _check_spec(spec)
     b, h, hd = q.shape
     kvh = k_cache.shape[2]
     out = decode_attention_f32(q.reshape(b, kvh, h // kvh, hd),
-                               k_cache.float(), v_cache.float(), pos)
+                               k_cache.float(), v_cache.float(), pos,
+                               spec.window)
     return out.reshape(b, h, v_cache.shape[-1])

@@ -1,9 +1,12 @@
 """Serving subset of the unified model (torch twin of
-``repro.models.model``): a full-attention GQA decoder (RMSNorm or
-LayerNorm; a SwiGLU, biased GELU or MoE FFN) in SPARQLe mode,
-served from a paged packed-KV4 pool (the engine) or from one contiguous
-(B, Smax) packed-KV4 cache a layer (``prefill``/``decode_step``, the
-fixed-batch ``serve --legacy`` path).
+``repro.models.model``): a GQA decoder (RMSNorm or LayerNorm, optional
+qk-norm; a SwiGLU, GeGLU, biased GELU or MoE FFN) in SPARQLe mode,
+served from a paged packed-KV4 pool (the engine: full-attention
+token-only decoders, as JAX's ``check_paged_support`` allows) or from
+one contiguous (B, Smax) packed-KV4 cache a layer (``prefill``/
+``decode_step``, the fixed-batch ``serve --legacy`` path, which also
+takes sliding-window layers and a VLM's bidirectional image prefix: the
+gemma family).
 
 Params keep the JAX tree layout — ``params["stages"]["s0"]["p0"]["wq"]``
 with a leading layer axis — and the JAX ``lax.scan`` over layers is a
@@ -134,14 +137,16 @@ def dense_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
-    """The dense FFN on its already-normed input: SwiGLU, or the plain
-    tanh-GELU MLP with its biases."""
+    """The dense FFN on its already-normed input: SwiGLU, GeGLU (the
+    gemma family: the tanh GELU as the gate), or the plain tanh-GELU MLP
+    with its biases."""
     if cfg.mlp_type == "gelu":
         return linear(gelu_tanh(linear(h, p["w_fc"], p.get("b_fc"))),
                       p["w_proj"], p.get("b_proj"), tp="row")
-    if cfg.mlp_type != "swiglu":
+    if cfg.mlp_type not in ("swiglu", "geglu"):
         raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
-    g = silu(linear(h, p["w_gate"]))
+    act = silu if cfg.mlp_type == "swiglu" else gelu_tanh
+    g = act(linear(h, p["w_gate"]))
     return linear(g * linear(h, p["w_up"]), p["w_down"], tp="row")
 
 
@@ -194,27 +199,49 @@ def head_logits(cfg: ModelConfig, params: Params,
 def _embed(cfg: ModelConfig, params: Params,
            tokens: torch.Tensor) -> torch.Tensor:
     x = embed(tokens, params["embed"]["table"]).to(cfg.cdtype)
-    if cfg.name.startswith("gemma"):
+    if cfg.family == "vlm" or cfg.name.startswith("gemma"):  # gemma scaling
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
     return x
 
 
-def check_paged_support(cfg: ModelConfig, path: str = "paged") -> None:
-    """Raise unless every layer fits the port's serving paths (``path``
-    names the one asked for: 'paged' or 'contiguous')."""
-    if cfg.family in ("encoder", "vlm"):
-        raise NotImplementedError(
-            f"{path} serving needs a token-only decoder, got {cfg.family}")
+def _check_kv4(cfg: ModelConfig, what: str) -> None:
     if cfg.kv_bits != 4 or cfg.hd % 2:
         raise NotImplementedError(
-            f"{path} KV cache stores packed int4 KV: kv_bits=4, even "
-            f"head_dim required (got kv_bits={cfg.kv_bits}, hd={cfg.hd})")
+            f"{what} stores packed int4 KV: kv_bits=4, even head_dim "
+            f"required (got kv_bits={cfg.kv_bits}, hd={cfg.hd})")
+
+
+def check_paged_support(cfg: ModelConfig) -> None:
+    """Raise unless every layer fits the paged attention serving path
+    (the engines): JAX's check, refusing windows and VLMs too."""
+    if cfg.family in ("encoder", "vlm"):
+        raise NotImplementedError(
+            f"paged serving needs a token-only decoder, got {cfg.family}")
+    _check_kv4(cfg, "paged pool")
     for stage in build_stages(cfg):
         for ld in stage.period:
             if ld.mixer != "attn" or ld.window:
                 raise NotImplementedError(
-                    f"{path} serving supports full-attention GQA layers only "
+                    f"paged serving supports full-attention GQA layers only "
                     f"(got mixer={ld.mixer!r}, window={ld.window})")
+
+
+def check_contiguous_support(cfg: ModelConfig) -> None:
+    """Raise unless every layer fits the port's contiguous-cache path
+    (``prefill``/``decode_step``, ``serve --legacy``): GQA attention
+    layers, sliding windows and a VLM's bidirectional prefix included;
+    encoders, MLA and SSD layers are not ported yet."""
+    if cfg.family == "encoder":
+        raise NotImplementedError(
+            "contiguous serving: encoder models (bidirectional attention, "
+            "no decode step) are not ported")
+    _check_kv4(cfg, "contiguous KV cache")
+    for stage in build_stages(cfg):
+        for ld in stage.period:
+            if ld.mixer != "attn":
+                raise NotImplementedError(
+                    f"contiguous serving: {ld.mixer!r} layers are not "
+                    f"ported (got mixer={ld.mixer!r})")
 
 
 def _layers(cfg: ModelConfig, params: Params, pool: Optional[Cache]):
@@ -568,7 +595,9 @@ def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     new token's K/V land at ``pos`` in place; the contiguous KV4 kernel
     reads the packed cache in blocks of ``CONTIGUOUS_BLOCK`` tokens (or
     of the largest divisor of Smax it shares with that), each K and V
-    element dequantized in x's dtype, as JAX's ``_kv_dequant`` does."""
+    element dequantized in x's dtype, as JAX's ``_kv_dequant`` does; a
+    sliding-window layer's keys more than ``ld.window - 1`` behind pos
+    are masked and their blocks not read."""
     b, _ = x.shape
     kvh, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     theta = ld.rope_theta or cfg.rope_theta
@@ -584,7 +613,8 @@ def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     bs = math.gcd(cache["k_q"].shape[1], CONTIGUOUS_BLOCK)
     o = kv4_decode_attention(q.reshape(b, kvh, g, cfg.hd).contiguous(),
                              cache["k_q"], cache["k_s"], cache["v_q"],
-                             cache["v_s"], pos, bs=bs, round_kv=True)
+                             cache["v_s"], pos, bs=bs, round_kv=True,
+                             window=ld.window)
     o = o.reshape(b, cfg.n_heads * cfg.hd)
     return linear(o, p["wo"], p.get("bo"), tp="row"), cache
 
@@ -604,16 +634,26 @@ def _apply_layer_decode(cfg, ld: LayerDef, p: Params, x, cache, pos):
 
 def embed_inputs(cfg: ModelConfig, params: Params,
                  batch: Dict[str, torch.Tensor]):
-    """Returns (x (B, S, D), positions (S,), prefix_len) of a token-only
-    decoder."""
-    x = _embed(cfg, params, batch["tokens"])
-    return x, torch.arange(x.shape[1], device=x.device), 0
+    """Returns (x (B, S, D), positions (S,), prefix_len). A VLM's
+    ``batch["patches"]`` (B, n_prefix, D), the stub vision tower's
+    precomputed embeddings, go in front of the token embeddings and
+    attend bidirectionally (``prefix_len`` = their count); the gemma
+    family's sqrt(d) scaling covers both."""
+    if cfg.family != "vlm":
+        x = _embed(cfg, params, batch["tokens"])
+        return x, torch.arange(x.shape[1], device=x.device), 0
+    dt = cfg.cdtype
+    patches = batch["patches"].to(dt)
+    tok = embed(batch["tokens"], params["embed"]["table"]).to(dt)
+    x = torch.cat([patches, tok], dim=1) * torch.tensor(cfg.d_model ** 0.5,
+                                                         dtype=dt)
+    return x, torch.arange(x.shape[1], device=x.device), patches.shape[1]
 
 
 def forward_hidden(cfg: ModelConfig, params: Params,
                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Forward without the head (final pre-norm hidden states)."""
-    check_paged_support(cfg, "contiguous")
+    check_contiguous_support(cfg)
     x, positions, prefix_len = embed_inputs(cfg, params, batch)
     for ld, p, _ in _layers(cfg, params, None):
         x, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len, None)
@@ -631,7 +671,7 @@ def prefill(cfg: ModelConfig, params: Params,
             ) -> Tuple[torch.Tensor, Cache]:
     """Prefill: logits of the LAST position (B, V) and the caches of
     Smax = ``max_len`` positions."""
-    check_paged_support(cfg, "contiguous")
+    check_contiguous_support(cfg)
     x, positions, prefix_len = embed_inputs(cfg, params, batch)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
     for ld, p, lcache in _layers(cfg, params, cache):

@@ -1,5 +1,5 @@
-"""Parameter schema of a GQA decoder with dense (SwiGLU or GELU) or MoE
-FFNs (torch twin of the attention and FFN parts of
+"""Parameter schema of a GQA decoder with dense (SwiGLU, GeGLU or GELU)
+or MoE FFNs (torch twin of the attention and FFN parts of
 ``repro.models.schema_builder``). Every leaf under
 ``stages/s<i>/p<j>`` carries the leading layer (repeat) axis, with the
 projection names ``core.qlinear`` quantizes."""
@@ -42,7 +42,7 @@ def _attn_schema(cfg: ModelConfig) -> Schema:
 def _dense_ffn_schema(cfg: ModelConfig) -> Schema:
     d, f = cfg.d_model, cfg.d_ff
     s: Schema = {"ln2": _norm_schema(cfg, d)}
-    if cfg.mlp_type == "swiglu":
+    if cfg.mlp_type in ("swiglu", "geglu"):
         s.update({
             "w_gate": ParamSpec((d, f), ("embed", "mlp")),
             "w_up": ParamSpec((d, f), ("embed", "mlp")),

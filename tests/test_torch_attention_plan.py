@@ -96,19 +96,26 @@ def _fold(states, skip_empty):
     return live0, out
 
 
-def emulate(q, kd, vd, tables, pos, skip_empty=True):
+def emulate(q, kd, vd, tables, pos, skip_empty=True, window=0):
     """Split-KV decode as the kernel splits it: q (B, KVH, G, hd) f32 over
     dequantized pages kd/vd (P, ps, KVH, hd) through tables (B, NS), each
     page in tiles of TILE_ROWS tokens (the kernel's rows past the page's
-    end are masked: -2e38 to the max, exact zeros to the sums)."""
+    end are masked: -2e38 to the max, exact zeros to the sums). With a
+    sliding ``window`` (the contiguous kernel's): the pages from lo =
+    max(0, pos - window + 1) // ps are the plan's pages 0.., split by the
+    window span's plan when lo > 0 (else by the table width's), keys
+    below pos - window + 1 are masked and their p set to 0."""
     b, kvh, g, hd = q.shape
     ps, n_s = kd.shape[1], tables.shape[1]
-    plan = A.split_plan(n_s)
     scale = hd ** -0.5
     out = torch.empty_like(q)
     for bi in range(b):
         p = int(pos[bi])
         last = min(max(p, 0) // ps, n_s - 1)
+        start = p - window + 1 if window else 0
+        lo = min(max(start, 0) // ps, last) if window else 0
+        last_v = last - lo
+        plan = A.split_plan(A.window_span(n_s, ps, window) if lo else n_s)
         blocks = []
         for rank in range(plan.cluster):
             warps = []
@@ -117,25 +124,29 @@ def emulate(q, kd, vd, tables, pos, skip_empty=True):
                 m = torch.full((kvh, g), ref.NEG_INF)
                 lsum = torch.zeros((kvh, g))
                 acc = torch.zeros((kvh, g, hd))
-                wlast = min(first + plan.pages_per_warp - 1, last)
+                wlast = min(first + plan.pages_per_warp - 1, last_v)
                 for step in range(first, wlast + 1):
-                    page = int(tables[bi, step])
+                    page = int(tables[bi, lo + step])
                     for r0 in range(0, ps, A.TILE_ROWS):
                         rows = slice(r0, min(ps, r0 + A.TILE_ROWS))
                         # (KVH, 1, rows, hd)
                         k = kd[page, rows].permute(1, 0, 2)[:, None]
                         v = vd[page, rows].permute(1, 0, 2)[:, None]
                         s = (q[bi][:, :, None, :] * k).sum(-1) * scale
-                        tok = step * ps + r0 + torch.arange(k.shape[2])
-                        s = torch.where(tok <= p, s, ref.NEG_INF)
+                        tok = ((lo + step) * ps + r0
+                               + torch.arange(k.shape[2]))
+                        live = (tok <= p) & (tok >= start)
+                        s = torch.where(live, s, ref.NEG_INF)
                         mn = torch.maximum(m, s.amax(-1))
                         corr = torch.exp(m - mn)
                         pr = torch.exp(s - mn[..., None])
+                        if window:
+                            pr = torch.where(live, pr, 0.0)
                         lsum = lsum * corr + pr.sum(-1)
                         acc = (acc * corr[..., None]
                                + (pr[..., None] * v).sum(-2))
                         m = mn
-                warps.append((first <= last, m, lsum, acc))
+                warps.append((first <= last_v, m, lsum, acc))
             live, st = _fold(warps, skip_empty)
             blocks.append((live, *st))
         _, (m, lsum, acc) = _fold(blocks, skip_empty)
@@ -242,6 +253,76 @@ def test_emulated_contiguous_equals_paged_tiling():
                     generator=torch.Generator().manual_seed(13))
     assert torch.equal(emulate(q, kd, vd, implicit, pos),
                        emulate(q, kd[perm], vd[perm], shuffled, pos))
+
+
+def _contiguous(seed, b, n_s, ps, kvh, hd):
+    """A contiguous cache of b sequences x n_s blocks of ps tokens as
+    pages with the kernel's implicit table b * NS + i, and its packed
+    (B, S, ...) form for the plain version."""
+    kp, ks, vp, vs = _pool(seed, b * n_s, ps, kvh, hd)
+    implicit = torch.arange(b * n_s, dtype=torch.int32).reshape(b, n_s)
+    packed = tuple(x.reshape(b, n_s * ps, *x.shape[2:])
+                   for x in (kp, ks, vp, vs))
+    return _deq(kp, ks), _deq(vp, vs), implicit, packed
+
+
+@pytest.mark.parametrize("window", [1, 3, 4, 5, 7, 13, 40, 1000])
+@pytest.mark.parametrize("ps,n_s", [(4, 40), (16, 9), (40, 5)])
+def test_emulated_window_matches_plain_attention(window, ps, n_s):
+    """The windowed contiguous decode as the kernel splits it: windows of
+    1, of a block +- 1, not a multiple of one, starting mid-block (and,
+    with blocks of 40 = three tiles, a tile wholly below the start read
+    first); within 1e-5 of the plain version at each pos."""
+    b, kvh, g, hd = 4, 2, 3, 16
+    kd, vd, implicit, packed = _contiguous(window + ps, b, n_s, ps, kvh, hd)
+    s = n_s * ps
+    pos = torch.tensor([0, ps + 1, s // 2 + 3, s - 1], dtype=torch.int32)
+    q = torch.randn((b, kvh, g, hd),
+                    generator=torch.Generator().manual_seed(window))
+    want = ref.kv4_decode_attention_ref(q, *packed, pos, window=window)
+    got = emulate(q, kd, vd, implicit, pos, window=window)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n_s", [9, 70, 129])
+def test_emulated_window_that_does_not_bind_gives_window0_bits(n_s):
+    """window >= pos + 1: lo = 0 and no key masked, so the plan is the
+    table width's as at window 0 and the bits are window 0's, also where
+    a warp reads several pages (NS 70, 129: 3 and 5 a warp)."""
+    b, kvh, g, hd, ps = 3, 2, 2, 16, 4
+    kd, vd, implicit, _ = _contiguous(n_s, b, n_s, ps, kvh, hd)
+    pos = torch.tensor([5, n_s * ps // 2, n_s * ps - 1], dtype=torch.int32)
+    q = torch.randn((b, kvh, g, hd), generator=torch.Generator().manual_seed(1))
+    plain = emulate(q, kd, vd, implicit, pos)
+    for window in (n_s * ps, n_s * ps + 7):
+        assert torch.equal(emulate(q, kd, vd, implicit, pos, window=window),
+                           plain)
+    # a window of pos + 1 for each sequence alone
+    for bi in range(b):
+        w = int(pos[bi]) + 1
+        assert torch.equal(emulate(q[bi:bi + 1], kd, vd, implicit[bi:bi + 1],
+                                   pos[bi:bi + 1], window=w), plain[bi:bi + 1])
+
+
+@pytest.mark.parametrize("n_s,ps,window", [(129, 16, 1024), (129, 16, 1000),
+                                           (33, 16, 500), (256, 16, 17),
+                                           (40, 40, 1000)])
+def test_window_span_plan_covers_every_live_block(n_s, ps, window):
+    """A window past block 0 touches at most ``window_span`` blocks, and
+    their plan's cluster fits the launch's (the larger of the two
+    plans'); gemma3-27b's 2,064-position cache with its window of 1,024
+    splits 65 blocks 3 a warp where the table's plan takes 5."""
+    span = A.window_span(n_s, ps, window)
+    launch = max(A.split_plan(n_s).cluster, A.split_plan(span).cluster)
+    assert launch <= A.MAX_CLUSTER
+    for p in range(window, n_s * ps):
+        lo, last = (p - window + 1) // ps, p // ps
+        assert last - lo + 1 <= span
+        plan = A.split_plan(span)
+        assert A.page_owner(plan, last - lo)[0] < plan.cluster <= launch
+    if (n_s, window) == (129, 1024):
+        assert (span, A.split_plan(span).pages_per_warp,
+                A.split_plan(n_s).pages_per_warp) == (65, 3, 5)
 
 
 # ---------------------------------------------------------------------------

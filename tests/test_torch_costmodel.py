@@ -8,6 +8,7 @@ H100 parts (the numbers ``chip_smoke.py`` divides its bounds by), and no
 TPU peak anywhere in the port."""
 import dataclasses
 import re
+import sys
 from pathlib import Path
 
 import pytest
@@ -135,3 +136,25 @@ def test_no_tpu_peak_in_the_port():
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert "from repro_torch.core.costmodel import" in smoke
     assert "PEAKS = {" not in smoke
+
+
+def test_attention_bound_takes_bf16_products_at_the_tensor_core_rate():
+    """``chip_smoke.attn_bound`` at row 7h's timed call (B 8, KVH 1, G 8,
+    hd 256, 520 tokens a sequence, bf16 q with ``round_kv``): q.k, bf16
+    by bf16, at the bf16 tensor-core rate (half the int8 rate), p.v (p is
+    f32) at the f32 rate, so the call is bound by its bytes. Both halves
+    at the f32 rate, as for an f32 q, bind it by operations."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import attn_bound
+    peaks = T.peaks_for("NVIDIA H100 80GB HBM3")
+    b, g, hd, toks = 8, 8, 256, 8 * 520
+    kw = dict(extra=b * 4, kvh=1, g=g, hd=hd, qb=2)
+    nbytes = 2 * b * g * hd * 2 + toks * 2 * (hd // 2 + 4) + b * 4
+    flops = 4.0 * toks * g * hd
+    ms, by = attn_bound(peaks, b, toks, toks, qk_bf16=True, **kw)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert flops / 2 / 67e12 < nbytes / 3.35e12
+    ms, by = attn_bound(peaks, b, toks, toks, **kw)
+    assert by == "operations"
+    assert ms == pytest.approx(flops / 67e12 * 1e3)

@@ -319,6 +319,40 @@ def test_runner_returns_clones(params, monkeypatch):
     assert all(torch.equal(o, k) for o, k in zip(outs, kept))
 
 
+@pytest.mark.parametrize("graphs,gen,warm", [(True, 6, 2), (False, 6, 1),
+                                             (True, 3, 0)])
+def test_legacy_decode_time_is_the_steps_after_warmup(params, monkeypatch,
+                                                      graphs, gen, warm):
+    """``legacy_serve`` times the decode's warm-up apart: its eager call
+    and its capture under graphs, its first step without, none when no
+    step would be left. On a clock that such a step moves by 100 and a
+    replay (or a later eager step) by 1, ``decode_step_s`` is 1 and
+    ``decode_warmup_s`` 100 a warm-up step."""
+    clock = [0.0]
+
+    class Clocked(CompiledStep):
+        def __init__(self, fn, device):
+            super().__init__(fn, device,
+                             graph_type=FxGraph if graphs else None)
+            self.calls = 0
+
+        def __call__(self, *args):
+            later = self.graphs > 0 if self.captures else self.calls > 0
+            self.calls += 1
+            out = super().__call__(*args)
+            clock[0] += 1.0 if later else 100.0
+            return out
+
+    monkeypatch.setattr(serve_mod, "CompiledStep", Clocked)
+    monkeypatch.setattr(serve_mod, "time",
+                        SimpleNamespace(perf_counter=lambda: clock[0]))
+    r = legacy_serve(TCFG, params, make_prompts(TCFG, 0, 2, 8), gen, CPU)
+    assert r["decode_steps"] == gen - 1
+    assert r["decode_timed_steps"] == gen - 1 - warm
+    assert r["decode_warmup_s"] == 100.0 * warm
+    assert r["decode_step_s"] == (1.0 if warm else 100.0)
+
+
 @pytest.mark.parametrize("kind", ["base", "spec", "kv2"])
 def test_engines_through_traced_runner(params, monkeypatch, kind):
     """The engine (base, γ = 2, the KV2 ladder's aggressive sweep) with

@@ -25,9 +25,14 @@ populations to their plain versions and to the entries fed the scale. The split-
 with decode calls; the contiguous kernel's ``round_kv`` at bf16 unlike
 ``round_kv=False`` and within one bf16 ulp of each element of its plain
 form (``chip_smoke.check_round_kv``), the ``round_kv=False`` bits at
-f32. The attention instances off the main path (head dims 16-64, pages
-of 1, 5, 8 and 40 tokens, G of 1, 2, 3 and 6) as
-``chip_smoke.check_attention_shapes`` holds them. The expert-batched
+f32. The attention instances off the main path (head dims 16-64 and
+256, pages of 1, 5, 8, 16 and 40 tokens, G of 1, 2, 3, 6 and 8) as
+``chip_smoke.check_attention_shapes`` holds them. The contiguous
+kernel's sliding window at gemma3-27b's shape and its hd-256 instance at
+paligemma-3b's (``chip_smoke.check_window_case``: within 1e-4 of the
+plain version, round_kv within one bf16 ulp, a window that does not bind
+giving window 0's bits), and both archs' smoke configs through
+``--legacy`` on the card and on the CPU: the same greedy streams. The expert-batched
 encoders and matmuls (a routed MoE projection): bit-exact with their
 plain versions (the 2-D ones expert by expert) at E = 8 and 64 experts,
 one launch a call; decode attention at the zoo's head shapes (G = 1, 12,
@@ -48,13 +53,16 @@ from repro_torch.kernels import (kv_attention, quant_matmul, ref,
 from repro_torch.kernels.ref import TILE_K, TILE_M
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import (BATCHED_KN, MATMUL_KN, MATMUL_M,  # noqa: E402
-                        POP_PATTERNS, batched_case, batched_instances,
-                        check_attention_shapes, check_attention_zoo,
-                        check_batched_matmul_case, check_fused_case,
-                        check_matmul_case, check_one_launch, check_round_kv,
-                        demoted_pool, encoder_input, long_context,
-                        matmul_case, paged_tiling, smoke_config_on_card)
+from chip_smoke import (BATCHED_KN, GEMMA3_ATTN,  # noqa: E402
+                        HD256_POS, MATMUL_KN, MATMUL_M, PALIGEMMA_ATTN,
+                        POP_PATTERNS, WINDOW_POS, WINDOWS, batched_case,
+                        batched_instances, check_attention_shapes,
+                        check_attention_zoo, check_batched_matmul_case,
+                        check_fused_case, check_matmul_case,
+                        check_one_launch, check_round_kv, check_window_case,
+                        contiguous_cache, demoted_pool, encoder_input,
+                        long_context, matmul_case, paged_tiling,
+                        smoke_config_on_card)
 
 
 @pytest.fixture
@@ -534,3 +542,59 @@ def test_moe_smoke_config_serves_on_card(cuda):
         assert counts["sparqle_matmul_batched"] > 0
         assert counts["sparqle_encode_fused_batched"] > 0
     assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", WINDOW_POS)
+def test_contiguous_window_at_gemma3_shape(cuda, pos):
+    a = GEMMA3_ATTN
+    g = torch.Generator(device=cuda).manual_seed(sum(pos))
+    cache = contiguous_cache(cuda, g, a["b"], a["s"], a["kvh"], a["hd"])
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    q = torch.randn((a["b"], a["kvh"], a["g"], a["hd"]), generator=g,
+                    device=cuda)
+    for w in WINDOWS + (max(pos) + 1,):
+        check_window_case(q, cache, p, w, f"pos={pos}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 1, 17, 100, 528])
+def test_contiguous_hd256_at_paligemma_shape(cuda, window):
+    a = PALIGEMMA_ATTN
+    g = torch.Generator(device=cuda).manual_seed(window + 3)
+    cache = contiguous_cache(cuda, g, a["b"], a["s"], a["kvh"], a["hd"])
+    p = torch.tensor(HD256_POS, dtype=torch.int32, device=cuda)
+    q = torch.randn((a["b"], a["kvh"], a["g"], a["hd"]), generator=g,
+                    device=cuda)
+    check_window_case(q, cache, p, window, "hd 256")
+    got = kv_attention.kv4_decode_attention(q, *cache, p)
+    assert torch.equal(got, kv_attention.kv4_paged_decode_attention(
+        q, *paged_tiling(cache, 16, g), p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-27b", "paligemma-3b"])
+def test_gemma_smoke_legacy_on_card_matches_cpu(cuda, arch):
+    """The smoke config at f32 through ``--legacy`` on the card (the
+    windowed contiguous kernel for gemma3's local layers) and on the CPU:
+    the same greedy streams, the window binding (prompt 20 past 16)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import tree_to
+    from repro_torch.launch.serve import (build_served_params, legacy_serve,
+                                          make_prompts, vlm_patches)
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    params = build_served_params(cfg, 0, "cpu", tile_k=16)
+    prompts = make_prompts(cfg, 4, 3, 20)
+    patches = (vlm_patches(cfg, 4, 3, "cpu") if cfg.family == "vlm"
+               else None)
+    cpu = legacy_serve(cfg, params, prompts, 6, torch.device("cpu"),
+                       patches)
+    kernels.reset_launch_counts()
+    card = legacy_serve(cfg, tree_to(params, cuda), prompts, 6, cuda,
+                        None if patches is None else patches.to(cuda))
+    assert card["streams"] == cpu["streams"]
+    counts = kernels.launch_counts()
+    assert counts["kv_attention_contiguous"] > 0
+    assert (counts["kv_attention_contiguous_window"] > 0) == (
+        arch == "gemma3-27b")

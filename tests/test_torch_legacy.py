@@ -91,10 +91,16 @@ def test_flash_attention_matches_jax():
                                rtol=0)
     whole = tlayers.flash_attention(_t(q), _t(k), _t(v), tlayers.AttnSpec())
     np.testing.assert_allclose(whole.numpy(), got.numpy(), atol=1e-5, rtol=0)
-    for spec in (tlayers.AttnSpec(window=8), tlayers.AttnSpec(prefix_len=4),
-                 tlayers.AttnSpec(causal=False)):
-        with pytest.raises(NotImplementedError):
-            tlayers.flash_attention(_t(q), _t(k), _t(v), spec)
+    for kw in (dict(window=8), dict(prefix_len=4)):
+        want = jlayers.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                       jlayers.AttnSpec(**kw), bq=16, bkv=32)
+        got = tlayers.flash_attention(_t(q), _t(k), _t(v),
+                                      tlayers.AttnSpec(**kw), bq=16, bkv=32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=0)
+    with pytest.raises(NotImplementedError):
+        tlayers.flash_attention(_t(q), _t(k), _t(v),
+                                tlayers.AttnSpec(causal=False))
 
 
 def test_contiguous_attention_plain_matches_jax():
@@ -197,10 +203,30 @@ def test_forward_matches_jax_and_prefill(qparams, tparams):
     np.testing.assert_array_equal(last.numpy(), got[:, -1].numpy())
 
 
-def test_contiguous_path_rejects_windowed_layers(tparams):
-    cfg = TCFG.replace(sliding_window=4)
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        TM.prefill(cfg, tparams, {"tokens": _t(_tokens(2, 1, 4))}, max_len=8)
+def test_contiguous_path_serves_windowed_layers_as_jax(qparams, tparams):
+    """A sliding window of 4 on the same weights: the contiguous path's
+    prefill (the window binding inside the 10-token prompt) and decode
+    steps give JAX's logits and greedy tokens; the paged path still
+    refuses the window, as JAX's does."""
+    jcfg, cfg = CFG.replace(sliding_window=4), TCFG.replace(sliding_window=4)
+    with pytest.raises(NotImplementedError, match="full-attention"):
+        TM.check_paged_support(cfg)
+    toks = _tokens(2, 2, 10)
+    jlog, jcache = JM.prefill(jcfg, qparams, {"tokens": jnp.asarray(toks)},
+                              max_len=14)
+    tlog, tcache = TM.prefill(cfg, tparams, {"tokens": _t(toks)}, max_len=14)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
+                               rtol=0)
+    for i in range(3):
+        tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)
+        pos = np.full((2,), 10 + i, np.int32)
+        jlog, jcache = JM.decode_step(jcfg, qparams, jcache, jnp.asarray(tok),
+                                      jnp.asarray(pos))
+        tlog, tcache = TM.decode_step(cfg, tparams, tcache, _t(tok), _t(pos))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-4,
+                                   rtol=0)
+        assert (np.argmax(tlog.numpy(), -1) ==
+                np.argmax(np.asarray(jlog), -1)).all()
 
 
 def _legacy_greedy(prefill, decode, params, prompt, gen, wrap):

@@ -217,11 +217,12 @@ def test_biased_gelu_mlp_and_layer_norm_block_match_jax(dtype):
 
 def test_check_paged_support_accepts_the_zoo():
     for arch in ARCHS + ("granite-8b",):
-        for path in ("paged", "contiguous"):
-            TM.check_paged_support(get_config(arch), path)
+        TM.check_paged_support(get_config(arch))
+        TM.check_contiguous_support(get_config(arch))
     cfg = get_config("yi-6b").replace(sliding_window=64)
     with pytest.raises(NotImplementedError, match="full-attention"):
         TM.check_paged_support(cfg)
+    TM.check_contiguous_support(cfg)
 
 
 # ---------------------------------------------------------------------------
