@@ -34,7 +34,8 @@ to chiprun_out/):
      plain version, packed against unpacked and dense against the dual
      pass on the planes of the same q; at M = 8 and 32 the dense entry,
      the dual pass and the draft are timed on the same q under each
-     population pattern;
+     population pattern; untimed, deepseek-v3-671b's shapes (V3_KN,
+     V3_ENCODE_K at V3_M; the batched entries at E = 256, V3_BATCHED);
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
      launch counters zeroed just before and read just after; from here
@@ -144,7 +145,24 @@ to chiprun_out/):
      of the fixed-batch path (GEMMA_XC; logits within LOGIT_TOL, greedy
      streams identical), ``serve.main --legacy --smoke`` of both and
      their exit without ``--legacy``;
- 16. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 16. deepseek-v3-671b through ``--legacy``, after phase 15 (its trees
+     freed): full width (d 7,168, 128 MLA heads on the 512-wide packed
+     compressed cache, 256 experts top-8 sigmoid, the 129,280-word untied
+     head) at 3 dense + 4 MoE layers and the MTP block, bf16, weights
+     from the seed (an expert layer drawn a chunk of experts at a time):
+     build time and peak, V3_SERVE's serve (8 x 128 x 16, decode as CUDA
+     graphs): prefill time, decode step time, launch counts (the fused
+     encoder and dual-pass matmul for each plain projection, the batched
+     pair at E = 256 for each routed one, no attention kernel), the
+     decode step's logits and caches replayed against its eager calls at
+     full depth (bit-equal), the MTP logits once; the 2-layer f32 card vs
+     CPU cross-check (V3_XC: 16 experts) of the fixed-batch path, the
+     card fed the CPU's greedy tokens, and of the MTP logits (within the
+     arch's LOGIT_TOL_ARCH; greedy tokens equal at every step but at
+     most V3_XC_PARTED near-ties, top-2 gap <= V3_XC_TIE, reported);
+     ``serve.main --legacy --smoke`` and its exit without ``--legacy``,
+     naming the mla mixer;
+ 17. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -191,7 +209,14 @@ LOGIT_TOL = 0.04
 # near-tie that the f32 sum order flips also moves a token's FFN output.
 # Its limit is about twice the worst reading; the greedy streams must
 # agree as for every arch.
-LOGIT_TOL_ARCH = {"deepseek-moe-16b": 0.1}
+LOGIT_TOL_ARCH = {"deepseek-moe-16b": 0.1, "deepseek-v3-671b": 0.13}
+# deepseek-v3-671b (phase 16, 2 layers f32, 16 experts): readings 0.0658,
+# 0.0548, 0.0547 of max |logit| on seeds 0-2 (MTP logits 0.0620, 0.0574,
+# 0.0619; NVIDIA H100 80GB HBM3, 700.00 W), traced to int8 roundings that ulp-level f32 differences
+# flip (the attention output's quantization before wo, 2e-4 of the layer
+# out; the dense FFN's 18,432-wide down projection, 2%) and to the MoE
+# layer's top-8-of-16 routing, which the moved input reroutes (8%). Its
+# limit is about twice the worst reading.
 XC_SEEDS = 3
 SPEC_GAMMA = 2
 # The encoder entries that take a scale: no serve launches them, since
@@ -199,8 +224,9 @@ SPEC_GAMMA = 2
 UNFUSED = ("sparqle_encode", "sparqle_quantize", "sparqle_encode_packed")
 # The granite-8b serve of phases 4 and 5.
 SERVE = dict(batch=8, prompt_len=128, gen=16)
-# Phase 4b: timed serves of each path (eager, graphs) after a warm one.
-GRAPH_ROUNDS = 2
+# Phase 4b: timed serves of each path (eager, graphs) after a warm one
+# (one round since phase 16 came in: the smoke's wall passed 700 s).
+GRAPH_ROUNDS = 1
 
 
 def log(msg: str) -> None:
@@ -1691,6 +1717,70 @@ def check_batched_encoder(dev, gen, peaks):
                      f"{sweep_s:.1f} s",
             "detail": d})
     return rows
+
+
+# deepseek-v3-671b's projection shapes, swept untimed in phase 3 (the
+# plain projections at M = 8 decode, 17 ragged and 1,024 the --legacy
+# prefill; each (K, N) as (in, out)): wq_a, wkv_a (N = 576), wq_b, wo,
+# the dense layers' gate/up and down, the head; the fused encoders at
+# their K; the routed experts at E = 256, C = 1 (decode: 64 assignments
+# over 256 experts) and 32 (the prefill's 8 x 128 tokens x 8 / 256).
+V3_M = (8, 17, 1024)
+V3_KN = ((7168, 1536), (7168, 576), (1536, 24576), (16384, 7168),
+         (7168, 18432), (18432, 7168), (7168, 129280))
+V3_ENCODE_K = (7168, 1536, 16384, 18432, 2048)
+V3_BATCHED = dict(e=256, c=(1, 32), kn=((7168, 2048), (2048, 7168)))
+
+
+def check_deepseek_shapes(dev, gen):
+    """Untimed: the five matmul entries (check_matmul_case) over V3_M x
+    V3_KN x POP_PATTERNS, the fused encoders (check_fused_case) over V3_M
+    x V3_ENCODE_K x bf16, f32, and the five batched matmul entries and
+    three batched encoders at V3_BATCHED (E = 256), each bit-exact with
+    its plain version. Returns the counts of input sets."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparqle_encode as E
+    n = {"matmul": 0, "encoder": 0, "batched_matmul": 0,
+         "batched_encoder": 0}
+    for k, nn in V3_KN:
+        for m in V3_M:
+            for pattern in POP_PATTERNS:
+                check_matmul_case(matmul_case(dev, gen, m, k, nn, pattern),
+                                  f"at M={m} K={k} N={nn} pop={pattern}")
+                n["matmul"] += 1
+    for k in V3_ENCODE_K:
+        for m in V3_M:
+            for dt in (torch.bfloat16, torch.float32):
+                check_fused_case(*encoder_input(dev, gen, m, k, dt),
+                                 f"at M={m} K={k} {dt}")
+                n["encoder"] += 1
+    e = V3_BATCHED["e"]
+    encoders = (
+        (lambda *a: E.sparqle_encode_fused(*a, with_pbm=False),
+         lambda *a: [t for i, t in enumerate(ref.batched(
+             ref.sparqle_encode_fused_ref)(*a)) if i != 2]),
+        (E.sparqle_quantize_fused,
+         ref.batched(ref.sparqle_quantize_fused_ref)),
+        (E.sparqle_encode_packed_fused,
+         ref.batched(ref.sparqle_encode_packed_fused_ref)))
+    for c in V3_BATCHED["c"]:
+        for k, nn in V3_BATCHED["kn"]:
+            check_batched_matmul_case(
+                batched_case(dev, gen, e, c, k, nn, "alternating"),
+                f"at E={e} C={c} K={k} N={nn}")
+            n["batched_matmul"] += 1
+            x = (torch.randn((e, c, k), generator=gen, device=dev)
+                 * 2).to(torch.bfloat16)
+            mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
+            for fn, plain in encoders:
+                got = [t for t in fn(x, mask, -8, 23) if t is not None]
+                want = plain(x, mask, -8, 23)
+                if len(got) != len(want) or not all(
+                        torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"a batched encoder differs from its "
+                                         f"plain version at E={e} C={c} K={k}")
+            n["batched_encoder"] += 1
+    return n
 
 
 # The paged decode attention (row 8) at the new architectures' head
@@ -3394,6 +3484,229 @@ def gemma_cli():
     return out
 
 
+# Phase 16: deepseek-v3-671b through --legacy at full width (d 7,168, 128
+# MLA heads on a 512-wide compressed cache, 256 experts top-8 sigmoid, the
+# 129,280-word untied head, the MTP block) and cut depth: its 3 dense
+# layers and 4 MoE layers (its 671 B parameters do not fit the card).
+V3_LAYERS = 7
+V3_SERVE = dict(batch=8, tokens=128, gen=16)
+# projections a layer and forward: MLA's wq_a, wq_b, wkv_a, wo (wkv_b is
+# absorbed through its dequantized weight, no launch); the dense FFN's 3;
+# a MoE layer's shared expert 3 (plain) and routed experts 3 (batched)
+V3_MLA_LINEARS, V3_FFN_LINEARS = 4, 3
+# The 2-layer f32 cross-check (one dense, one MoE layer) at full width,
+# card against CPU, with 16 routed experts, top-8 kept: the CPU's plain
+# routed projection unpacks every expert's weight to f64 in turn (117 MB
+# an expert and projection), so 256 experts would take minutes a forward
+# there; 16 short prompt tokens, MTP logits on the prompt's hidden states.
+V3_XC = dict(n_experts=16)
+V3_XC_TOKENS = 16
+V3_XC_GEN = 4
+# The card's greedy token may part from the CPU's only at a near-tie, a
+# step where the CPU's top-1 logit leads its top-2 by at most V3_XC_TIE
+# (absolute): on seeds 0-2 one step in 8 parted, at gaps 0.113, 0.212
+# and 0.023 (NVIDIA H100 80GB HBM3, 700.00 W). At most V3_XC_PARTED
+# steps a run may part.
+V3_XC_TIE = 0.25
+V3_XC_PARTED = 1
+
+
+def serve_deepseek_v3(dev, seed):
+    """deepseek-v3-671b at full width and V3_LAYERS layers, weights drawn
+    from ``seed`` on the card (a routed-expert layer a chunk of experts
+    at a time): build time and peak; V3_SERVE's fixed-batch serve through
+    ``legacy_serve`` (decode as CUDA graphs), launch counters zeroed just
+    before and read just after: the fused encoder and dual-pass matmul for
+    every plain projection, one batched encoder and one batched matmul
+    for every routed one (E = 256), no attention kernel (MLA attends in
+    f32 torch, as JAX in XLA); the decode step's logits and caches
+    replayed against its eager calls at full depth (bit-equal); the MTP
+    logits of 2 prompts once (finite, (2, S-1, V)). Returns the summary."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (build_served_params, legacy_serve,
+                                          make_prompts)
+    from repro_torch.models import model as M
+    from repro_torch.models.stages import build_stages
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=V3_LAYERS)
+    b, n, gen = V3_SERVE["batch"], V3_SERVE["tokens"], V3_SERVE["gen"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_served_params(cfg, seed, dev)
+    torch.cuda.synchronize()
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "build_s": time.perf_counter() - t0,
+           "build_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "weights_gb": torch.cuda.memory_allocated(dev) / 1e9}
+    prompts = make_prompts(cfg, seed, b, n)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    r = legacy_serve(cfg, params, prompts, gen, dev)
+    out.update(r, launches=kernels.launch_counts(),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    if any(len(x) != gen or not all(0 <= t < cfg.vocab for t in x)
+           for x in r["streams"]):
+        raise AssertionError(f"deepseek-v3 legacy streams: {r['streams']}")
+    stages = build_stages(cfg)
+    n_moe = sum(st.repeat for st in stages if st.period[0].ffn == "moe")
+    plain = (V3_MLA_LINEARS * cfg.n_layers
+             + V3_FFN_LINEARS * cfg.n_layers + 1)      # + the head
+    forwards = 1 + r["decode_steps"]
+    want = {"sparqle_encode_fused": plain * forwards,
+            "sparqle_matmul": plain * forwards,
+            "sparqle_encode_fused_batched": 3 * n_moe * forwards,
+            "sparqle_matmul_batched": 3 * n_moe * forwards}
+    counts = out["launches"]
+    extra = {k: v for k, v in counts.items() if v and k not in want}
+    if any(counts[k] != v for k, v in want.items()) or extra:
+        raise AssertionError(f"deepseek-v3 legacy launches {counts}: want "
+                             f"{want} and no other")
+    # the decode step's logits and caches: graph replays vs eager calls
+    g = torch.Generator(device=dev).manual_seed(seed + 29)
+    span = n + gen
+    cache = fill_random(M.init_cache(cfg, b, span, dev), g)
+    calls = []
+    for i in range(4):
+        tok = torch.randint(0, cfg.vocab, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos = torch.randint(0, span, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos[0] = span - 1 - i
+        calls.append((tok, pos))
+
+    @torch.no_grad()
+    def decode_logits(params, cache, token, pos):
+        return M.decode_step(cfg, params, cache, token, pos)
+
+    out["replay_vs_eager"] = replay_vs_eager(
+        dev, ("legacy_decode", decode_logits, (params, cache), calls))
+    if not out["replay_vs_eager"]:
+        raise AssertionError("deepseek-v3: the graph-replayed decode step "
+                             "differs from its eager calls")
+    del cache
+    # the MTP head once on the card (the reference runs it in training)
+    batch = {"tokens": torch.tensor(prompts[:2], dtype=torch.int32,
+                                    device=dev)}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden = M.forward_hidden(cfg, params, batch)
+        mtp = M.mtp_logits(cfg, params, hidden, batch)
+        torch.cuda.synchronize()
+    out["mtp_s"] = time.perf_counter() - t0
+    out["mtp_shape"] = list(mtp.shape)
+    if out["mtp_shape"] != [2, n - 1, cfg.vocab] or \
+            not torch.isfinite(mtp).all():
+        raise AssertionError(f"deepseek-v3 mtp logits {out['mtp_shape']}, "
+                             f"finite {bool(torch.isfinite(mtp).all())}")
+    del params, hidden, mtp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_cross_check(dev, seed):
+    """deepseek-v3-671b's widths at 2 layers (one dense, one MoE), f32,
+    with V3_XC's cut, the same weights (drawn on the card) and prompts on
+    the CPU (plain versions) and on the card (kernels): the fixed-batch
+    prefill of 2 x V3_XC_TOKENS tokens and V3_XC_GEN - 1 decode steps,
+    the CPU greedy and the card fed the CPU's tokens, so that every
+    step's logits are compared on the same inputs; the MTP logits of the
+    prompts' hidden states. Logits and MTP logits within the arch's
+    tolerance of max |logit|; the card's greedy token equal to the CPU's
+    at every step but at most V3_XC_PARTED near-ties: steps whose CPU
+    top-1 leads its top-2 by no more than V3_XC_TIE (the near-ties are
+    counted, and the parted steps reported with their gaps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import tree_to
+    from repro_torch.launch.serve import build_served_params, make_prompts
+    from repro_torch.models import model as M
+    cfg = get_config("deepseek-v3-671b").replace(
+        n_layers=2, first_dense=1, dtype="float32", **V3_XC)
+    params = build_served_params(cfg, seed, dev)
+    prompts = make_prompts(cfg, seed + 1, 2, V3_XC_TOKENS)
+    plen = V3_XC_TOKENS
+    runs, fed = {}, None
+    for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        tree = params if name == "cuda" else tree_to(params, device)
+        batch = {"tokens": torch.tensor(prompts, dtype=torch.int32,
+                                        device=device)}
+        with torch.no_grad():
+            mtp = M.mtp_logits(cfg, tree, M.forward_hidden(cfg, tree, batch),
+                               batch).float().cpu()
+            logits, cache = M.prefill(cfg, tree, batch,
+                                      max_len=plen + V3_XC_GEN)
+            steps = [logits.float().cpu()]
+            for i in range(V3_XC_GEN - 1):
+                tok = (steps[-1].argmax(-1) if fed is None else fed[:, i])
+                pos = torch.full((2,), plen + i, dtype=torch.int32,
+                                 device=device)
+                logits, cache = M.decode_step(
+                    cfg, tree, cache, tok.to(device, torch.int32), pos)
+                steps.append(logits.float().cpu())
+        runs[name] = (torch.stack(steps, 1), mtp)
+        fed = runs["cpu"][0].argmax(-1)
+        del tree, cache
+    (lg_p, mtp_p), (lg_c, mtp_c) = runs["cpu"], runs["cuda"]
+    err, scale = (lg_c - lg_p).abs().max().item(), lg_p.abs().max().item()
+    mtp_err = (mtp_c - mtp_p).abs().max().item()
+    mtp_scale = mtp_p.abs().max().item()
+    greedy_c, greedy_p = lg_c.argmax(-1), lg_p.argmax(-1)
+    same = greedy_c == greedy_p
+    top2 = lg_p.topk(2, -1).values
+    step_err = (lg_c - lg_p).abs().amax(-1)                   # (B, steps)
+    near_tie = top2[..., 0] - top2[..., 1] <= V3_XC_TIE
+    out = {"config": dict(V3_XC, n_layers=2, first_dense=1, dtype="float32",
+                          prompt_tokens=plen),
+           "max_abs_logit_err": err, "max_abs_logit": scale,
+           "rel_err": err / scale, "mtp_rel_err": mtp_err / mtp_scale,
+           "max_abs_mtp_logit": mtp_scale,
+           "greedy_match": f"{int(same.sum())}/{same.numel()}",
+           "near_ties": int(near_tie.sum()),
+           # where the card chose another token: (sequence, step, the
+           # CPU's top-1 minus top-2 logit, that step's max |dlogit|)
+           "parted": [(b, t, (top2[b, t, 0] - top2[b, t, 1]).item(),
+                       step_err[b, t].item())
+                      for b, t in (~same).nonzero().tolist()]}
+    del params
+    torch.cuda.empty_cache()
+    tol = LOGIT_TOL_ARCH.get("deepseek-v3-671b", LOGIT_TOL)
+    if not (err <= tol * scale and mtp_err <= tol * mtp_scale):
+        raise AssertionError(f"deepseek-v3 cross-check logits differ: {out} "
+                             f"(tol {tol})")
+    if not (same | near_tie).all() or (~same).sum() > V3_XC_PARTED:
+        raise AssertionError(f"deepseek-v3 cross-check greedy tokens "
+                             f"differ beyond {V3_XC_PARTED} near-tie "
+                             f"(top-2 gap <= {V3_XC_TIE}): {out}")
+    return out
+
+
+def deepseek_cli():
+    """``serve.main --legacy --smoke`` of deepseek-v3-671b on the card
+    (streams of the asked length, the closing report), and without
+    ``--legacy`` the JAX serve's exit naming the mla mixer. Returns
+    (hidden sparsity, exit message)."""
+    from repro_torch.launch import serve
+    arch = "deepseek-v3-671b"
+    r = serve.main(["--arch", arch, "--legacy", "--smoke", "--batch", "2",
+                    "--prompt-len", "24", "--gen", "4"])
+    if [len(x) for x in r["streams"]] != [4, 4] or \
+            not 0 <= r["hidden_sparsity"] <= 1:
+        raise AssertionError(f"serve --legacy --smoke {arch}: {r}")
+    try:
+        serve.main(["--arch", arch, "--smoke"])
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"serve {arch} without --legacy did not exit")
+    if not (msg.endswith("\n(this arch serves via --legacy only)")
+            and "mixer='mla'" in msg):
+        raise AssertionError(f"serve {arch} without --legacy: {msg!r}")
+    return r["hidden_sparsity"], msg.replace("\n", " ")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -3460,6 +3773,17 @@ def main() -> int:
         f"q=-128 w=-8), all five entries bit-exact with their plain "
         f"versions, packed = unpacked and dense = dual pass, f32 and int32 "
         f"outputs, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    v3 = check_deepseek_shapes(dev, gen)
+    log(f"[3] deepseek-v3-671b shapes, all bit-exact with their plain "
+        f"versions: the five matmul entries on {v3['matmul']} input sets "
+        f"(M in {V3_M}, (K, N) in {V3_KN}, populations {POP_PATTERNS}), the "
+        f"fused encoders on {v3['encoder']} (K in {V3_ENCODE_K}, bf16 and "
+        f"f32), the five batched matmul entries and three batched encoders "
+        f"at E={V3_BATCHED['e']}, C in {V3_BATCHED['c']}, (K, N) in "
+        f"{V3_BATCHED['kn']} ({v3['batched_matmul']} and "
+        f"{v3['batched_encoder']} input sets); "
+        f"{time.perf_counter() - t0:.1f} s")
     for r in rows:
         log(f"[3] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
             f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
@@ -3927,11 +4251,47 @@ def main() -> int:
                         for a, (sp, msg) in cli.items())
             + f"; phase 15 {time.perf_counter() - t15:.1f} s")
         detail["gemma"] = {"serves": gemma, "cli": cli}
+        # phase 16: deepseek-v3-671b through --legacy, after phase 15
+        # freed the gemma trees
+        t16 = time.perf_counter()
+        v3 = serve_deepseek_v3(dev, args.seed)
+        log(f"[16] {card}: deepseek-v3-671b {v3['layers']}L "
+            f"d={v3['d_model']} (3 dense + 4 MoE layers, MTP block) "
+            f"--legacy {V3_SERVE['batch']} x {V3_SERVE['tokens']} x "
+            f"{V3_SERVE['gen']}: weights {v3['weights_gb']:.2f} GB built "
+            f"in {v3['build_s']:.1f} s (build peak "
+            f"{v3['build_peak_gb']:.1f} GB), prefill "
+            f"{v3['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{v3['decode_step_s'] * 1e3:.2f} ms/step over "
+            f"{v3['decode_timed_steps']} graph replays (of "
+            f"{v3['decode_steps']} steps; warm-up and capture "
+            f"{v3['decode_warmup_s'] * 1e3:.1f} ms), serve peak "
+            f"{v3['peak_mem_gb']:.1f} GB, launches "
+            f"{ {k: v for k, v in v3['launches'].items() if v} }; decode "
+            f"step replayed vs eager at {v3['layers']}L, logits and caches "
+            f"bit-equal: {v3['replay_vs_eager']}; MTP logits "
+            f"{v3['mtp_shape']} finite in {v3['mtp_s'] * 1e3:.1f} ms")
+        t0 = time.perf_counter()
+        xv = deepseek_cross_check(dev, args.seed)
+        v3["cross_check"] = xv
+        v3["cli"] = cli3 = deepseek_cli()
+        log(f"[16] deepseek-v3-671b 2L f32 {xv['config']} cuda vs cpu: max "
+            f"|dlogit| {xv['max_abs_logit_err']:.3g} of max |logit| "
+            f"{xv['max_abs_logit']:.3g} ({xv['rel_err']:.3g} rel, tol "
+            f"{LOGIT_TOL_ARCH.get('deepseek-v3-671b', LOGIT_TOL)}), MTP "
+            f"logits {xv['mtp_rel_err']:.3g} rel, greedy tokens "
+            f"{xv['greedy_match']} (the card fed the CPU's tokens; "
+            f"{xv['near_ties']} near-ties, top-2 gap <= {V3_XC_TIE}; parted "
+            f"(seq, step, top-2 gap, max |dlogit|): {xv['parted']}); serve --legacy --smoke: hidden MSB4 "
+            f"sparsity {cli3[0]:.4f}, without --legacy exits: {cli3[1]!r}; "
+            f"{time.perf_counter() - t0:.1f} s; phase 16 "
+            f"{time.perf_counter() - t16:.1f} s")
+        detail["deepseek_v3"] = v3
         moe = zoo["deepseek-moe-16b"]
         runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn,
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg,
                 "gemma3": gemma["gemma3-27b"],
-                "paligemma": gemma["paligemma-3b"],
+                "paligemma": gemma["paligemma-3b"], "deepseek_v3": v3,
                 **{f"moe_{k}" if k != "base" else "moe": v
                    for k, v in moe.items() if k != "cross_check"},
                 **{f"tp_{n}": rs[0] for (t, n), rs in tp_runs.items()

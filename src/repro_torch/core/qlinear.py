@@ -131,6 +131,16 @@ class SparqleLinear:
     packed: bool = False
     wire_format: str = "unpacked"
 
+    def unpacked_q(self) -> torch.Tensor:
+        """The int4 values unpacked along K (int8), any leading axes."""
+        return unpack_int4(self.w.q) if self.packed else self.w.q
+
+    def dequantize(self) -> torch.Tensor:
+        """The float weight the quantized one stands for, f32: ``q *
+        scale + zero`` as JAX's ``SparqleLinear.dequantize`` forms it
+        (the absorbed MLA attention's ``wkv_b``)."""
+        return self.unpacked_q().float() * self.w.scale + self.w.zero
+
     def layer(self, i: int) -> "SparqleLinear":
         """The ``i``-th layer of a layer-stacked projection. The host
         constants ``l``/``h`` are split in numpy, so no tensor op is
@@ -340,17 +350,32 @@ def quantize_leaf(
         mode=mode, packed=do_pack, wire_format=wire_format)
 
 
-def stack_linears(sls) -> SparqleLinear:
-    """Stack per-layer ``SparqleLinear``s along a new leading (L,) axis."""
-    st = lambda ts: None if ts[0] is None else torch.stack(ts)  # noqa: E731
+def _join(sls, op, host: bool) -> SparqleLinear:
+    """``SparqleLinear``s joined by ``op`` (``torch.cat`` or
+    ``torch.stack``): weights and masks, and with ``host`` the clip
+    constants ``l``/``h`` too (else the first's are kept)."""
+    j = lambda ts: None if ts[0] is None else op(ts)  # noqa: E731
     first = sls[0]
+    clips = dict(l=j([s.l for s in sls]), h=j([s.h for s in sls])) \
+        if host else {}
     return dataclasses.replace(
         first,
-        w=QuantizedTensor(st([s.w.q for s in sls]),
-                          st([s.w.scale for s in sls]),
-                          st([s.w.zero for s in sls]), first.w.bits),
-        col_mask=st([s.col_mask for s in sls]),
-        l=st([s.l for s in sls]), h=st([s.h for s in sls]))
+        w=QuantizedTensor(j([s.w.q for s in sls]),
+                          j([s.w.scale for s in sls]),
+                          j([s.w.zero for s in sls]), first.w.bits),
+        col_mask=j([s.col_mask for s in sls]), **clips)
+
+
+def concat_experts(sls) -> SparqleLinear:
+    """Join routed-expert ``SparqleLinear``s quantized a chunk of experts
+    at a time, (E_i, K/2, N) each, along the expert axis: the whole
+    leaf's, since the scales (over K) and the masks are per expert."""
+    return sls[0] if len(sls) == 1 else _join(sls, torch.cat, host=False)
+
+
+def stack_linears(sls) -> SparqleLinear:
+    """Stack per-layer ``SparqleLinear``s along a new leading (L,) axis."""
+    return _join(sls, torch.stack, host=True)
 
 
 def quantize_model_params(

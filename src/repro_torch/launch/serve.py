@@ -59,6 +59,16 @@ prompt tokens; hd 256).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
         --legacy --prompt-len 512
 
+deepseek-v3-671b serves through ``--legacy`` only too (the paged check
+refuses its MLA layers, naming the ``mla`` mixer): absorbed MLA on a
+packed-int4 compressed KV cache, 256 routed experts with top-8 sigmoid
+routing after 3 dense layers, an untied head. Its 671 B parameters do
+not fit one card; ``chip_smoke.py`` serves it at full width and cut
+depth (``cfg.replace(n_layers=7)``: the 3 dense and 4 MoE layers).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --smoke --legacy
+
 ``--mesh D,M`` serves on a ("data", "model") mesh of D x M ranks
 (tensor-parallel serving, ``distributed/tp.py``): the weights are built
 once in this process and reach each rank's process (spawned with

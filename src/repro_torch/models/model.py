@@ -6,7 +6,8 @@ token-only decoders, as JAX's ``check_paged_support`` allows) or from
 one contiguous (B, Smax) packed-KV4 cache a layer (``prefill``/
 ``decode_step``, the fixed-batch ``serve --legacy`` path, which also
 takes sliding-window layers and a VLM's bidirectional image prefix: the
-gemma family).
+gemma family; and deepseek-v3's MLA layers, absorbed attention on a
+packed compressed-KV cache, with its MTP head ``mtp_logits``).
 
 Params keep the JAX tree layout — ``params["stages"]["s0"]["p0"]["wq"]``
 with a leading layer axis — and the JAX ``lax.scan`` over layers is a
@@ -48,7 +49,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.qlinear import linear, msb_skip_scope, tree_index
+from repro_torch.core.qlinear import (SparqleLinear, linear, msb_skip_scope,
+                                      tree_index)
 from repro_torch.core.quantize import quantize_activations, quantize_weights
 from repro_torch.core.sparqle import subprecision_sparsity
 from repro_torch.distributed.tp import all_gather, tp_ctx
@@ -204,11 +206,16 @@ def _embed(cfg: ModelConfig, params: Params,
     return x
 
 
-def _check_kv4(cfg: ModelConfig, what: str) -> None:
-    if cfg.kv_bits != 4 or cfg.hd % 2:
+def _check_kv4(cfg: ModelConfig, what: str, mla: bool = False) -> None:
+    """Packed KV4 needs kv_bits 4 and an even width of what is packed:
+    the head dim, or MLA's compressed KV (``kv_lora_rank``)."""
+    name, short, width = (("kv_lora_rank", "kv_lora_rank",
+                           cfg.kv_lora_rank) if mla
+                          else ("head_dim", "hd", cfg.hd))  # JAX's words
+    if cfg.kv_bits != 4 or width % 2:
         raise NotImplementedError(
-            f"{what} stores packed int4 KV: kv_bits=4, even head_dim "
-            f"required (got kv_bits={cfg.kv_bits}, hd={cfg.hd})")
+            f"{what} stores packed int4 KV: kv_bits=4, even {name} "
+            f"required (got kv_bits={cfg.kv_bits}, {short}={width})")
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
@@ -229,19 +236,23 @@ def check_paged_support(cfg: ModelConfig) -> None:
 def check_contiguous_support(cfg: ModelConfig) -> None:
     """Raise unless every layer fits the port's contiguous-cache path
     (``prefill``/``decode_step``, ``serve --legacy``): GQA attention
-    layers, sliding windows and a VLM's bidirectional prefix included;
-    encoders, MLA and SSD layers are not ported yet."""
+    layers, sliding windows and a VLM's bidirectional prefix included,
+    and MLA layers (deepseek-v3, whose packed cache is the compressed
+    KV: its ``kv_lora_rank`` must be even, its ``hd`` is never read);
+    encoders and SSD layers are not ported yet."""
     if cfg.family == "encoder":
         raise NotImplementedError(
             "contiguous serving: encoder models (bidirectional attention, "
             "no decode step) are not ported")
-    _check_kv4(cfg, "contiguous KV cache")
-    for stage in build_stages(cfg):
-        for ld in stage.period:
-            if ld.mixer != "attn":
-                raise NotImplementedError(
-                    f"contiguous serving: {ld.mixer!r} layers are not "
-                    f"ported (got mixer={ld.mixer!r})")
+    mixers = {ld.mixer for stage in build_stages(cfg) for ld in stage.period}
+    for mixer in sorted(mixers - set(_MIXER_FULL)):
+        raise NotImplementedError(
+            f"contiguous serving: {mixer!r} layers are not ported "
+            f"(got mixer={mixer!r})")
+    if "attn" in mixers:
+        _check_kv4(cfg, "contiguous KV cache")
+    if "mla" in mixers:
+        _check_kv4(cfg, "contiguous MLA cache", mla=True)
 
 
 def _layers(cfg: ModelConfig, params: Params, pool: Optional[Cache]):
@@ -547,20 +558,32 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Cache,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cpu") -> Cache:
-    """Zeroed contiguous caches, the layout JAX's ``prefill`` returns."""
-    kvh, hp = cfg.n_kv_heads, cfg.hd // 2
+    """Zeroed contiguous caches, the layout JAX's ``prefill`` returns: a
+    GQA layer's packed K/V (B, Smax, KVH, hd/2) and their scales, an MLA
+    layer's packed compressed KV ``ckv_q`` (B, Smax, kv_lora_rank/2), its
+    scales ``ckv_s`` (B, Smax) and the shared rope key ``kr`` (B, Smax,
+    qk_rope_dim) in the compute dtype; each layer-stacked."""
+    def zeros(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     stages = {}
     for si, stage in enumerate(build_stages(cfg)):
         per = {}
-        for pi in range(len(stage.period)):
-            lead = (stage.repeat, batch, max_len, kvh)
+        for pi, ld in enumerate(stage.period):
+            lead = (stage.repeat, batch, max_len)
+            if ld.mixer == "mla":
+                per[f"p{pi}"] = {
+                    "ckv_q": zeros(lead + (cfg.kv_lora_rank // 2,),
+                                   torch.int8),
+                    "ckv_s": zeros(lead),
+                    "kr": zeros(lead + (cfg.qk_rope_dim,), cfg.cdtype)}
+                continue
+            kv = lead + (cfg.n_kv_heads,)
             per[f"p{pi}"] = {
-                "k_q": torch.zeros(lead + (hp,), dtype=torch.int8,
-                                   device=device),
-                "k_s": torch.zeros(lead, device=device),
-                "v_q": torch.zeros(lead + (hp,), dtype=torch.int8,
-                                   device=device),
-                "v_s": torch.zeros(lead, device=device)}
+                "k_q": zeros(kv + (cfg.hd // 2,), torch.int8),
+                "k_s": zeros(kv),
+                "v_q": zeros(kv + (cfg.hd // 2,), torch.int8),
+                "v_s": zeros(kv)}
         stages[f"s{si}"] = per
     return {"stages": stages}
 
@@ -619,15 +642,173 @@ def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     return linear(o, p["wo"], p.get("bo"), tp="row"), cache
 
 
+# ---------------------------------------------------------------------------
+# MLA mixer (deepseek-v3): absorbed attention on the compressed KV cache
+#
+# As in JAX, attention scores are taken directly against the compressed
+# KV (``ckv``, kv_lora_rank wide) and the shared rope key: W_uk is
+# absorbed into the query and W_uv applied to the context, so no per-head
+# K/V is ever formed. The absorbed products contract activations with
+# activations, so they stay float (f32): plain torch einsums, as they are
+# XLA einsums in the reference (no Pallas kernel computes them); the
+# cache is packed KV4 and dequantized whole at each decode step, as JAX
+# dequantizes it.
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(cfg: ModelConfig, p: Params, h: torch.Tensor, positions):
+    """h (..., D) -> q_nope (..., H, dn), q_rope (..., H, dr), roped."""
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    cq = rms_norm(linear(h, p["wq_a"]), p["q_norm"], cfg.rms_eps)
+    q = linear(cq, p["wq_b"]).reshape(*h.shape[:-1], H, dn + dr)
+    return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_ckv(cfg: ModelConfig, p: Params, h: torch.Tensor, positions):
+    """h (..., D) -> the normed compressed KV (..., rkv) and the roped
+    shared rope key (..., dr)."""
+    rkv = cfg.kv_lora_rank
+    ckv_full = linear(h, p["wkv_a"])
+    ckv = rms_norm(ckv_full[..., :rkv], p["kv_norm"], cfg.rms_eps)
+    kr = rope(ckv_full[..., rkv:][..., None, :], positions, cfg.rope_theta)
+    return ckv, kr[..., 0, :]
+
+
+def _mla_absorbed_weights(cfg: ModelConfig, p: Params):
+    """``wkv_b`` split into W_uk (rkv, H, dn) and W_uv (rkv, H, dv); a
+    quantized ``wkv_b`` through its f32 dequantized form (absorption is a
+    float rewrite)."""
+    w = p["wkv_b"]
+    if isinstance(w, SparqleLinear):
+        w = w.dequantize()
+    dn = cfg.qk_nope_dim
+    w = w.reshape(cfg.kv_lora_rank, cfg.n_heads, dn + cfg.v_head_dim)
+    return w[..., :dn], w[..., dn:]
+
+
+def _softmax(s: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax``'s steps on the last axis (a true division)."""
+    un = torch.exp(s - s.amax(-1, keepdim=True))
+    return un / un.sum(-1, keepdim=True)
+
+
+def _mla_flash(qn, qr, ckv, kr, w_uk, w_uv, *, causal: bool,
+               bq: int = 512, bkv: int = 1024) -> torch.Tensor:
+    """Blockwise absorbed MLA attention, JAX's block loop: q_nope/q_rope
+    (B, S, H, dn/dr) over ckv (B, S, rkv) and kr (B, S, dr); returns
+    (B, S, H, dv) in q's dtype. A sequence the blocks do not divide is
+    tail-padded (causal only: the mask hides the padded keys from every
+    real query)."""
+    b, s_orig, h, dn = qn.shape
+    dr = qr.shape[-1]
+    scale = (dn + dr) ** -0.5
+    bq, bkv = min(bq, s_orig), min(bkv, s_orig)
+    pad = max((-s_orig) % bq, (-s_orig) % bkv)
+    if pad:
+        assert causal, "non-causal MLA would attend padded positions"
+        qn, qr, ckv, kr = (torch.cat([t, t.new_zeros(
+            (b, pad) + tuple(t.shape[2:]))], 1) for t in (qn, qr, ckv, kr))
+    s = s_orig + pad
+    if s % bq or s % bkv:
+        raise ValueError(f"blocks ({bq}, {bkv}) do not divide {s}")
+    dev = qn.device
+    wk, wv = w_uk.float(), w_uv.float()
+    outs = []
+    for iq in range(s // bq):
+        rows = slice(iq * bq, (iq + 1) * bq)
+        q_eff = torch.einsum("bihd,rhd->bihr", qn[:, rows].float(), wk)
+        qrb = qr[:, rows].float()
+        qpos = iq * bq + torch.arange(bq, device=dev)
+        m = torch.full((b, h, bq), NEG_INF, device=dev)
+        den = torch.zeros((b, h, bq), device=dev)
+        acc = torch.zeros((b, h, bq, ckv.shape[-1]), device=dev)
+        for jk in range(s // bkv):
+            cols = slice(jk * bkv, (jk + 1) * bkv)
+            cb, krb = ckv[:, cols].float(), kr[:, cols].float()
+            sc = torch.einsum("bihr,bjr->bhij", q_eff, cb)
+            sc = sc + torch.einsum("bihd,bjd->bhij", qrb, krb)
+            sc = sc * scale
+            if causal:
+                kpos = jk * bkv + torch.arange(bkv, device=dev)
+                sc = torch.where(kpos[None, :] <= qpos[:, None], sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            pr = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            den = den * corr + pr.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhij,bjr->bhir", pr,
+                                                       cb)
+            m = m_new
+        ctx = acc / torch.clamp_min(den, 1e-30)[..., None]
+        outs.append(torch.einsum("bhir,rhd->bihd", ctx, wv).to(qn.dtype))
+    return torch.cat(outs, 1)[:, :s_orig]
+
+
+def mla_full(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
+             positions: torch.Tensor, prefix_len: int,
+             cache: Optional[Cache]) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Prefill MLA over the whole sequence, x (B, S, D). With a layer
+    ``cache`` the packed compressed KV, its scales and the rope keys of
+    positions [0, S) are written into it in place."""
+    b, s, _ = x.shape
+    h = _norm(cfg, p["ln"], x)
+    qn, qr = _mla_q(cfg, p, h, positions)
+    ckv, kr = _mla_ckv(cfg, p, h, positions)
+    w_uk, w_uv = _mla_absorbed_weights(cfg, p)
+    o = _mla_flash(qn, qr, ckv, kr, w_uk, w_uv, causal=cfg.causal)
+    if cache is not None:
+        cq, cs = _kv_quant(cfg, ckv)
+        cache["ckv_q"][:, :s] = cq
+        cache["ckv_s"][:, :s] = cs
+        cache["kr"][:, :s] = kr
+    return linear(o.reshape(b, s, cfg.n_heads * cfg.v_head_dim),
+                  p["wo"]), cache
+
+
+def mla_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
+               cache: Cache, pos: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One-token MLA against the contiguous compressed cache, x (B, D).
+    The new token's compressed KV is quantized into the cache at ``pos``
+    in place, then the whole cache is dequantized to x's dtype and the
+    f32 softmax masked to positions <= pos, as in JAX."""
+    b, _ = x.shape
+    H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    h = _norm(cfg, p["ln"], x)
+    qn, qr = _mla_q(cfg, p, h, pos)                  # (B, H, dn/dr)
+    ckv_new, kr_new = _mla_ckv(cfg, p, h, pos)       # (B, rkv) / (B, dr)
+    cq, cs = _kv_quant(cfg, ckv_new)
+    bidx, at = torch.arange(b, device=x.device), pos.long()
+    cache["ckv_q"][bidx, at] = cq
+    cache["ckv_s"][bidx, at] = cs
+    cache["kr"][bidx, at] = kr_new
+    ckv = _kv_dequant(cfg, cache["ckv_q"], cache["ckv_s"], x.dtype).float()
+    w_uk, w_uv = _mla_absorbed_weights(cfg, p)
+    q_eff = torch.einsum("bhd,rhd->bhr", qn.float(), w_uk.float())
+    sc = torch.einsum("bhr,bjr->bhj", q_eff, ckv)
+    sc = sc + torch.einsum("bhd,bjd->bhj", qr.float(), cache["kr"].float())
+    sc = sc * (dn + dr) ** -0.5
+    allow = (torch.arange(ckv.shape[1], device=x.device)[None, :]
+             <= pos[:, None])
+    pr = _softmax(torch.where(allow[:, None, :], sc, NEG_INF))
+    ctx = torch.einsum("bhj,bjr->bhr", pr, ckv)
+    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv.float())
+    return linear(o.reshape(b, H * dv).to(x.dtype), p["wo"]), cache
+
+
+_MIXER_FULL = {"attn": attn_full, "mla": mla_full}
+_MIXER_DEC = {"attn": attn_decode, "mla": mla_decode}
+
+
 def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,
                       prefix_len, cache):
-    y, cache = attn_full(cfg, ld, p, x, positions, prefix_len, cache)
+    y, cache = _MIXER_FULL[ld.mixer](cfg, ld, p, x, positions, prefix_len,
+                                     cache)
     x = x + y
     return x + _ffn(cfg, ld, p, x), cache
 
 
 def _apply_layer_decode(cfg, ld: LayerDef, p: Params, x, cache, pos):
-    y, cache = attn_decode(cfg, ld, p, x, cache, pos)
+    y, cache = _MIXER_DEC[ld.mixer](cfg, ld, p, x, cache, pos)
     x = x + y
     return x + _ffn(cfg, ld, p, x[:, None, :])[:, 0], cache
 
@@ -689,3 +870,25 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     for ld, p, lcache in _layers(cfg, params, cache):
         x, _ = _apply_layer_decode(cfg, ld, p, x, lcache, pos)
     return head_logits(cfg, params, x[:, None, :])[:, 0], cache
+
+
+def mtp_logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """deepseek-v3's multi-token prediction: token t+2 from the trunk's
+    hidden state at t and the embedding of token t+1. ``hidden`` is the
+    trunk's final pre-norm hidden states (B, S, D) (``forward_hidden``);
+    returns logits (B, S-1, V), position i predicting tokens[i+2], through
+    ``mtp_depth`` MLA + dense blocks and the trunk's head. The reference
+    runs it in training only; no serve calls it."""
+    mp = params["mtp"]
+    tok = batch["tokens"]
+    h = _norm(cfg, mp["norm_h"], hidden[:, :-1, :])
+    e = _norm(cfg, mp["norm_e"],
+              embed(tok[:, 1:], params["embed"]["table"]).to(h.dtype))
+    x = linear(torch.cat([h, e], dim=-1), mp["proj"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    ld = LayerDef("mla" if cfg.use_mla else "attn", "dense")
+    for rep in range(cfg.mtp_depth):
+        x, _ = _apply_layer_full(cfg, ld, tree_index(mp["block"], rep), x,
+                                 positions, 0, None)
+    return head_logits(cfg, params, x)

@@ -16,8 +16,15 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.qlinear import (is_expert, is_quantizable, quantize_leaf,
+from repro_torch.core.qlinear import (concat_experts, is_expert,
+                                      is_quantizable, quantize_leaf,
                                       stack_linears)
+
+# A routed-expert leaf is drawn and quantized a chunk of experts at a
+# time, each chunk's f32 draw at most this many bytes: one chunk, the
+# whole layer, for every arch but deepseek-v3-671b, whose (256, 7168,
+# 2048) layer is 15.0 GB in f32 (deepseek-moe-16b's is 0.74 GB).
+EXPERT_DRAW_BYTES = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +102,23 @@ def init_params(schema: Schema, seed: int, device="cpu") -> Dict:
     return _map_schema(schema, lambda p, s: leaves[p])
 
 
+def _quantized_draw(gen: torch.Generator, spec: ParamSpec, device,
+                    shape, expert: bool, quant_kw) -> object:
+    """One layer's projection (``shape``) drawn and quantized; a
+    routed-expert layer a chunk of at most EXPERT_DRAW_BYTES of experts
+    at a time, the chunks joined (quantization is per expert, so the join
+    is the whole leaf's quantization of the same draw)."""
+    if not expert:
+        return quantize_leaf(_init_leaf(gen, spec, device, shape=shape),
+                             **quant_kw)
+    per = max(1, EXPERT_DRAW_BYTES // (math.prod(shape[1:]) * 4))
+    return concat_experts([
+        quantize_leaf(_init_leaf(gen, spec, device,
+                                 shape=(min(per, shape[0] - e0),)
+                                 + tuple(shape[1:])), **quant_kw)
+        for e0 in range(0, shape[0], per)])
+
+
 def init_quantized_params(schema: Schema, seed: int, device, *,
                           float_dtype: Optional[torch.dtype] = None,
                           **quant_kw) -> Dict:
@@ -105,7 +129,10 @@ def init_quantized_params(schema: Schema, seed: int, device, *,
     0.74 GB where the stacked leaf would be 19.9 GB). Other
     leaves are drawn whole; ``float_dtype`` casts the embedding table to
     the compute dtype — the model casts it to that dtype at every use
-    (lookup and tied head) anyway, so the values are unchanged."""
+    (lookup and tied head) anyway, so the values are unchanged. A
+    routed-expert layer is drawn at most EXPERT_DRAW_BYTES of experts at
+    a time (deepseek-v3-671b's layer would be 15.0 GB in f32 drawn
+    whole)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     flat = {}
     _map_schema(schema, lambda p, s: flat.__setitem__(p, s))
@@ -113,15 +140,14 @@ def init_quantized_params(schema: Schema, seed: int, device, *,
     for path in _sorted_paths(schema):
         spec = flat[path]
         if is_quantizable(path, torch.empty(spec.shape, device="meta")):
-            if len(spec.shape) == 2 or (len(spec.shape) == 3
-                                        and is_expert(path)):
-                leaves[path] = quantize_leaf(
-                    _init_leaf(gen, spec, device), **quant_kw)
+            expert = is_expert(path)
+            if len(spec.shape) == 2 or (len(spec.shape) == 3 and expert):
+                leaves[path] = _quantized_draw(gen, spec, device, spec.shape,
+                                               expert, quant_kw)
             else:
                 leaves[path] = stack_linears([
-                    quantize_leaf(_init_leaf(gen, spec, device,
-                                             shape=spec.shape[1:]),
-                                  **quant_kw)
+                    _quantized_draw(gen, spec, device, spec.shape[1:],
+                                    expert, quant_kw)
                     for _ in range(spec.shape[0])])
         else:
             x = _init_leaf(gen, spec, device)

@@ -1,7 +1,8 @@
-"""Parameter schema of a GQA decoder with dense (SwiGLU, GeGLU or GELU)
-or MoE FFNs (torch twin of the attention and FFN parts of
-``repro.models.schema_builder``). Every leaf under
-``stages/s<i>/p<j>`` carries the leading layer (repeat) axis, with the
+"""Parameter schema of a decoder with GQA or MLA attention and dense
+(SwiGLU, GeGLU or GELU) or MoE FFNs, and deepseek-v3's MTP block (torch
+twin of the attention, MLA, FFN and MTP parts of
+``repro.models.schema_builder``). Every leaf under ``stages/s<i>/p<j>``
+(and ``mtp/block``) carries the leading layer (repeat) axis, with the
 projection names ``core.qlinear`` quantizes."""
 from __future__ import annotations
 
@@ -37,6 +38,25 @@ def _attn_schema(cfg: ModelConfig) -> Schema:
         s["q_norm"] = ParamSpec((hd,), (None,), init="zeros")
         s["k_norm"] = ParamSpec((hd,), (None,), init="zeros")
     return s
+
+
+def _mla_schema(cfg: ModelConfig) -> Schema:
+    """deepseek-v3's MLA: the q low-rank pair with its norm, the joint
+    compressed-KV + shared rope-key projection with the KV norm, the KV
+    up-projection (absorbed at run time) and the output."""
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "ln": _norm_schema(cfg, d),
+        "wq_a": ParamSpec((d, rq), ("embed", None)),
+        "q_norm": ParamSpec((rq,), (None,), init="zeros"),
+        "wq_b": ParamSpec((rq, h * (dn + dr)), (None, "heads_flat")),
+        "wkv_a": ParamSpec((d, rkv + dr), ("embed", None)),
+        "kv_norm": ParamSpec((rkv,), (None,), init="zeros"),
+        "wkv_b": ParamSpec((rkv, h * (dn + dv)), (None, "heads_flat")),
+        "wo": ParamSpec((h * dv, d), ("heads_flat", "embed")),
+    }
 
 
 def _dense_ffn_schema(cfg: ModelConfig) -> Schema:
@@ -83,10 +103,11 @@ def _moe_ffn_schema(cfg: ModelConfig) -> Schema:
 
 
 def layer_schema(cfg: ModelConfig, ld: LayerDef) -> Schema:
-    if ld.mixer != "attn" or ld.ffn not in ("dense", "moe"):
+    if ld.mixer not in ("attn", "mla") or ld.ffn not in ("dense", "moe"):
         raise NotImplementedError(f"layer {ld} is not ported")
+    mixer = _attn_schema if ld.mixer == "attn" else _mla_schema
     ffn = _dense_ffn_schema if ld.ffn == "dense" else _moe_ffn_schema
-    return {**_attn_schema(cfg), **ffn(cfg)}
+    return {**mixer(cfg), **ffn(cfg)}
 
 
 def _stack(schema: Schema, repeat: int) -> Schema:
@@ -112,4 +133,15 @@ def build_schema(cfg: ModelConfig) -> Schema:
             for pi, ld in enumerate(stage.period)}
     if not cfg.tie_embeddings:
         schema["lm_head"] = ParamSpec((d, v), ("embed", "vocab"), scale=0.02)
+    if cfg.mtp_depth:
+        # deepseek-v3's multi-token prediction: one extra block a depth,
+        # sharing the embedding and the head with the trunk
+        mtp_ld = LayerDef("mla" if cfg.use_mla else "attn", "dense")
+        mcfg = cfg if cfg.d_ff else cfg.replace(d_ff=cfg.moe_d_ff * 4)
+        schema["mtp"] = {
+            "norm_h": _norm_schema(cfg, d),
+            "norm_e": _norm_schema(cfg, d),
+            "proj": ParamSpec((2 * d, d), (None, "embed")),
+            "block": _stack(layer_schema(mcfg, mtp_ld), cfg.mtp_depth),
+        }
     return schema

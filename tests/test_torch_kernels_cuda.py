@@ -37,6 +37,10 @@ encoders and matmuls (a routed MoE projection): bit-exact with their
 plain versions (the 2-D ones expert by expert) at E = 8 and 64 experts,
 one launch a call; decode attention at the zoo's head shapes (G = 1, 12,
 8) within 1e-4; the deepseek-moe-16b smoke config served on the card.
+deepseek-v3-671b's shapes: the five matmul entries at its (K, N) pairs
+(wkv_a's N = 576 among them), bit-exact, and the batched matmul entries
+and encoders at E = 256 with one launch a call; its smoke config through
+``--legacy`` on the card and on the CPU: the same greedy streams.
 """
 import sys
 from pathlib import Path
@@ -55,7 +59,8 @@ from repro_torch.kernels.ref import TILE_K, TILE_M
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (BATCHED_KN, GEMMA3_ATTN,  # noqa: E402
                         HD256_POS, MATMUL_KN, MATMUL_M, PALIGEMMA_ATTN,
-                        POP_PATTERNS, WINDOW_POS, WINDOWS, batched_case,
+                        POP_PATTERNS, V3_BATCHED, V3_KN, WINDOW_POS,
+                        WINDOWS, batched_case,
                         batched_instances, check_attention_shapes,
                         check_attention_zoo, check_batched_matmul_case,
                         check_fused_case, check_matmul_case,
@@ -598,3 +603,69 @@ def test_gemma_smoke_legacy_on_card_matches_cpu(cuda, arch):
     assert counts["kv_attention_contiguous"] > 0
     assert (counts["kv_attention_contiguous_window"] > 0) == (
         arch == "gemma3-27b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", V3_KN)
+def test_matmul_family_at_deepseek_v3_shapes(cuda, k, n):
+    """The five entries bit-exact at deepseek-v3-671b's projections (N =
+    576 for wkv_a: 9 column blocks of 64), decode and prefill rows."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    for m in (8, 17, 1024):
+        for pattern in POP_PATTERNS:
+            check_matmul_case(matmul_case(cuda, g, m, k, n, pattern),
+                              f"at M={m} K={k} N={n} pop={pattern}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", V3_BATCHED["c"])
+@pytest.mark.parametrize("k,n", V3_BATCHED["kn"])
+def test_batched_family_at_256_experts(cuda, c, k, n):
+    """deepseek-v3-671b's routed projections: 256 experts, C = 1 (decode)
+    and 32 (the legacy prefill), the five batched matmul entries and the
+    three batched encoders bit-exact with their plain versions, one
+    launch a call."""
+    e = V3_BATCHED["e"]
+    g = torch.Generator(device=cuda).manual_seed(e + c + k)
+    check_batched_matmul_case(batched_case(cuda, g, e, c, k, n, "alternating"),
+                              f"at E={e} C={c} K={k} N={n}")
+    cs = batched_case(cuda, g, e, c, k, n, "live")
+    for name, (fn, _, planes, skip) in batched_instances().items():
+        check_one_launch(name, lambda: fn(
+            cs[planes[0]], cs[planes[1]], cs["pop"], cs["wp"], cs["asc"],
+            cs["wsc"], msb_skip=skip))
+    x = (torch.randn((e, c, k), generator=g, device=cuda) * 2).to(
+        torch.bfloat16)
+    mask = torch.rand((e, k), generator=g, device=cuda) < 0.5
+    for fn, plain in ((sparqle_encode.sparqle_encode_fused,
+                       ref.sparqle_encode_fused_ref),
+                      (sparqle_encode.sparqle_encode_packed_fused,
+                       ref.sparqle_encode_packed_fused_ref)):
+        got = fn(x, mask, -8, 23)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, ref.batched(plain)(x, mask, -8, 23)))
+        check_one_launch(fn.__name__ + "_batched",
+                         lambda: fn(x, mask, -8, 23))
+
+
+@pytest.mark.cuda
+def test_deepseek_v3_smoke_legacy_on_card_matches_cpu(cuda):
+    """deepseek-v3-671b's smoke config at f32 through ``--legacy`` on the
+    card and on the CPU: the same greedy streams, the routed projections
+    through the batched kernels and no attention kernel."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import tree_to
+    from repro_torch.launch.serve import (build_served_params, legacy_serve,
+                                          make_prompts)
+    cfg = get_config("deepseek-v3-671b", smoke=True).replace(dtype="float32")
+    params = build_served_params(cfg, 0, "cpu", tile_k=16)
+    prompts = make_prompts(cfg, 4, 3, 20)
+    cpu = legacy_serve(cfg, params, prompts, 6, torch.device("cpu"))
+    kernels.reset_launch_counts()
+    card = legacy_serve(cfg, tree_to(params, cuda), prompts, 6, cuda)
+    assert card["streams"] == cpu["streams"]
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert set(counts) == {"sparqle_encode_fused", "sparqle_matmul",
+                           "sparqle_encode_fused_batched",
+                           "sparqle_matmul_batched"}
