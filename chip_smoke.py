@@ -35,7 +35,9 @@ to chiprun_out/):
      pass on the planes of the same q; at M = 8 and 32 the dense entry,
      the dual pass and the draft are timed on the same q under each
      population pattern; untimed, deepseek-v3-671b's shapes (V3_KN,
-     V3_ENCODE_K at V3_M; the batched entries at E = 256, V3_BATCHED);
+     V3_ENCODE_K at V3_M; the batched entries at E = 256, V3_BATCHED) and
+     the SSD family's (SSD_KN, SSD_ENCODE_K at SSD_M; jamba's batched
+     entries at E = 16, SSD_BATCHED);
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
      launch counters zeroed just before and read just after; from here
@@ -142,7 +144,7 @@ to chiprun_out/):
      global layers' instance, seven matmuls a layer and forward, no paged
      attention), the decode step replayed against its eager calls at full
      depth (bit-equal), each arch's 2-layer f32 card vs CPU cross-check
-     of the fixed-batch path (GEMMA_XC; logits within LOGIT_TOL, greedy
+     of the fixed-batch path (LEGACY_XC; logits within LOGIT_TOL, greedy
      streams identical), ``serve.main --legacy --smoke`` of both and
      their exit without ``--legacy``;
  16. deepseek-v3-671b through ``--legacy``, after phase 15 (its trees
@@ -162,7 +164,25 @@ to chiprun_out/):
      most V3_XC_PARTED near-ties, top-2 gap <= V3_XC_TIE, reported);
      ``serve.main --legacy --smoke`` and its exit without ``--legacy``,
      naming the mla mixer;
- 17. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 17. the SSD family through ``--legacy``, after phase 16 (its trees
+     freed): mamba2-2.7b (64 SSD layers, no FFN, tied head) and
+     jamba-v0.1-52b (32 layers: 4 periods of 7 SSD + 1 attention, MoE of
+     16 experts top-2 on every second layer) at full width and depth,
+     bf16, weights from the seed: build time and peak, SSD_SERVE's serve
+     (8 x 128 x 16, decode as CUDA graphs): prefill time, decode step
+     time with the warm-up and capture timed apart, launch counts (the
+     fused encoder and dual-pass matmul for each plain projection, the
+     batched pair at E = 16 for each routed one, the contiguous attention
+     once an attention layer and step, no other kernel), the prefill's
+     logits and SSD states finite (the reference's chunked scan
+     overflows to NaN at the serve's chunk of 128), the decode step's
+     byte floor and the replay's share of it, the decode step's logits
+     and SSD states replayed against its eager calls at full depth
+     (bit-equal); each arch's 2-layer f32 card vs CPU cross-check
+     (LEGACY_XC; logits within LOGIT_TOL, greedy streams identical);
+     ``serve.main --legacy --smoke`` of both and their exit without
+     ``--legacy``, naming the ssd mixer;
+ 18. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -1730,31 +1750,41 @@ V3_KN = ((7168, 1536), (7168, 576), (1536, 24576), (16384, 7168),
          (7168, 18432), (18432, 7168), (7168, 129280))
 V3_ENCODE_K = (7168, 1536, 16384, 18432, 2048)
 V3_BATCHED = dict(e=256, c=(1, 32), kn=((7168, 2048), (2048, 7168)))
+# mamba2-2.7b's and jamba-v0.1-52b's, swept alike: the SSD mixer's input
+# projections (N = 10,576 and 16,544: a ragged last 64-column block) and
+# output projections; the fused encoders at the K phase 3 does not sweep
+# (4,096 and 14,336 it does); jamba's routed experts at E = 16, C = 1
+# (decode: 8 tokens x top-2 over 16 experts) and 128 (the prefill's 8 x
+# 128 tokens x 2 / 16).
+SSD_M = (8, 17, 1024)
+SSD_KN = ((2560, 10576), (5120, 2560), (4096, 16544), (8192, 4096))
+SSD_ENCODE_K = (2560, 5120, 8192)
+SSD_BATCHED = dict(e=16, c=(1, 128), kn=((4096, 14336), (14336, 4096)))
 
 
-def check_deepseek_shapes(dev, gen):
-    """Untimed: the five matmul entries (check_matmul_case) over V3_M x
-    V3_KN x POP_PATTERNS, the fused encoders (check_fused_case) over V3_M
-    x V3_ENCODE_K x bf16, f32, and the five batched matmul entries and
-    three batched encoders at V3_BATCHED (E = 256), each bit-exact with
-    its plain version. Returns the counts of input sets."""
+def check_arch_shapes(dev, gen, ms, kns, encode_ks, batched):
+    """Untimed: the five matmul entries (check_matmul_case) over ms x kns
+    x POP_PATTERNS, the fused encoders (check_fused_case) over ms x
+    encode_ks x bf16, f32, and the five batched matmul entries and three
+    batched encoders at ``batched`` (its E, C and (K, N)), each bit-exact
+    with its plain version. Returns the counts of input sets."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparqle_encode as E
     n = {"matmul": 0, "encoder": 0, "batched_matmul": 0,
          "batched_encoder": 0}
-    for k, nn in V3_KN:
-        for m in V3_M:
+    for k, nn in kns:
+        for m in ms:
             for pattern in POP_PATTERNS:
                 check_matmul_case(matmul_case(dev, gen, m, k, nn, pattern),
                                   f"at M={m} K={k} N={nn} pop={pattern}")
                 n["matmul"] += 1
-    for k in V3_ENCODE_K:
-        for m in V3_M:
+    for k in encode_ks:
+        for m in ms:
             for dt in (torch.bfloat16, torch.float32):
                 check_fused_case(*encoder_input(dev, gen, m, k, dt),
                                  f"at M={m} K={k} {dt}")
                 n["encoder"] += 1
-    e = V3_BATCHED["e"]
+    e = batched["e"]
     encoders = (
         (lambda *a: E.sparqle_encode_fused(*a, with_pbm=False),
          lambda *a: [t for i, t in enumerate(ref.batched(
@@ -1763,8 +1793,8 @@ def check_deepseek_shapes(dev, gen):
          ref.batched(ref.sparqle_quantize_fused_ref)),
         (E.sparqle_encode_packed_fused,
          ref.batched(ref.sparqle_encode_packed_fused_ref)))
-    for c in V3_BATCHED["c"]:
-        for k, nn in V3_BATCHED["kn"]:
+    for c in batched["c"]:
+        for k, nn in batched["kn"]:
             check_batched_matmul_case(
                 batched_case(dev, gen, e, c, k, nn, "alternating"),
                 f"at E={e} C={c} K={k} N={nn}")
@@ -2623,6 +2653,20 @@ UTIL_MAX = 1.05
 DECODE_BYTES_MARGIN = 0.05
 
 
+def tree_bytes(tree, floats: bool = True) -> int:
+    """The bytes of a param or cache tree's tensors: each projection's
+    packed weight, scales and clip mask, and every other tensor whole
+    (``floats``) or not at all."""
+    from repro_torch.core.qlinear import SparqleLinear
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v, floats) for v in tree.values())
+    if isinstance(tree, SparqleLinear):
+        return sum(x.numel() * x.element_size()
+                   for x in (tree.w.q, tree.w.scale, tree.col_mask)
+                   if x is not None)
+    return tree.numel() * tree.element_size() if floats else 0
+
+
 def resident_decode_bytes(eng) -> int:
     """What one decode step of ``eng`` must read at the least, summed from
     the tensors themselves (not by step_cost's per-kernel rules): every
@@ -2630,20 +2674,9 @@ def resident_decode_bytes(eng) -> int:
     table (an untied head is a projection), and the KV of every slot's
     block table at its full width, at the pool's own bytes a KV4 page."""
     from repro_torch.core.qlinear import SparqleLinear
-
-    def nbytes(t):
-        if isinstance(t, dict):
-            return sum(nbytes(v) for v in t.values())
-        if isinstance(t, SparqleLinear):
-            return sum(x.numel() * x.element_size()
-                       for x in (t.w.q, t.w.scale, t.col_mask)
-                       if x is not None)
-        return 0
-
-    total = nbytes(eng.params)
+    total = tree_bytes(eng.params, floats=False)
     if not isinstance(eng.params.get("lm_head"), SparqleLinear):
-        table = eng.params["embed"]["table"]
-        total += table.numel() * table.element_size()
+        total += tree_bytes(eng.params["embed"])
     return total + (eng._n_slots * eng._n_page_steps
                     * eng.pool._page_bytes[0])
 
@@ -3305,16 +3338,86 @@ def tensor_parallel(dev, seed: int, base, spec, dense):
 # the patches; the sequences are multiples of flash attention's blocks.
 GEMMA_SERVES = {"gemma3-27b": dict(batch=2, tokens=2048, gen=16),
                 "paligemma-3b": dict(batch=8, tokens=256, gen=16)}
-# The 2-layer f32 cross-checks at full width, card against CPU. gemma3-27b
-# with a global layer every 2 (one local and one global layer run) and a
-# window of 64 over a 128-token prompt, so that the window binds: at
-# 2,048 tokens the CPU's plain path would not fit the time limit.
-# paligemma-3b with 32 prompt tokens after its 256 patches.
-GEMMA_XC = {"gemma3-27b": (dict(global_every=2, sliding_window=64), 128),
-            "paligemma-3b": ({}, 32)}
-GEMMA_XC_GEN = 4
+# The 2-layer f32 cross-checks of the fixed-batch path at full width,
+# card against CPU (phases 15 and 17): the config's replacements and the
+# prompt tokens. gemma3-27b with a global layer every 2 (one local and one
+# global layer run) and a window of 64 over a 128-token prompt, so that
+# the window binds: at 2,048 tokens the CPU's plain path would not fit
+# the time limit. paligemma-3b with 32 prompt tokens after its 256
+# patches. mamba2-2.7b's first 2 layers; jamba-v0.1-52b as one period of
+# 2 ([ssd + dense, attn + moe]) with 4 experts (top-2 kept: the CPU's
+# plain routed projection unpacks every expert's weight in turn, and
+# jamba's experts are 4x deepseek-v3's); both over 128 tokens, the
+# serve's chunk of 128 positions.
+LEGACY_XC = {"gemma3-27b": (dict(global_every=2, sliding_window=64), 128),
+             "paligemma-3b": ({}, 32),
+             "mamba2-2.7b": ({}, 128),
+             "jamba-v0.1-52b": (dict(attn_every=2, n_experts=4), 128)}
+LEGACY_XC_GEN = 4
 # projections a layer: wq, wk, wv, wo and the GeGLU's w_gate, w_up, w_down
 GEMMA_LINEARS = 7
+
+
+def build_on_card(dev, cfg, seed):
+    """The served tree of ``cfg`` drawn from ``seed`` on the card, its
+    build time, peak and resident bytes. Returns (params, summary)."""
+    from repro_torch.launch.serve import build_served_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_served_params(cfg, seed, dev)
+    torch.cuda.synchronize()
+    return params, {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                    "build_s": time.perf_counter() - t0,
+                    "build_peak_gb": torch.cuda.max_memory_allocated(dev)
+                    / 1e9,
+                    "weights_gb": torch.cuda.memory_allocated(dev) / 1e9}
+
+
+def counted_legacy_serve(dev, cfg, params, prompts, gen, patches=None):
+    """``legacy_serve`` of ``prompts`` (decode as CUDA graphs), the launch
+    counters zeroed just before and read just after, and its peak; raises
+    unless every stream has ``gen`` tokens of the vocabulary. Returns the
+    run's summary with ``launches`` and ``peak_mem_gb``."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import legacy_serve
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    r = legacy_serve(cfg, params, prompts, gen, dev, patches)
+    r.update(launches=kernels.launch_counts(),
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    if any(len(x) != gen or not all(0 <= t < cfg.vocab for t in x)
+           for x in r["streams"]):
+        raise AssertionError(f"{cfg.name} legacy streams: {r['streams']}")
+    return r
+
+
+def legacy_replay(dev, cfg, params, b, span, seed) -> bool:
+    """The fixed-batch decode step at full depth through a compiled step
+    (warm-up, capture, replays) and eagerly (phase 4b's ``legacy_decode``
+    case, the logits returned): a random cache of ``span`` positions,
+    random tokens and positions, row 0 at the cache's last positions (past
+    any window); True when the logits and every cache tensor (packed KV,
+    SSD states) are bit-equal after each call."""
+    from repro_torch.models import model as M
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = fill_random(M.init_cache(cfg, b, span, dev), g)
+    calls = []
+    for i in range(4):
+        tok = torch.randint(0, cfg.vocab, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos = torch.randint(0, span, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pos[0] = span - 1 - i
+        calls.append((tok, pos))
+
+    @torch.no_grad()
+    def decode_logits(params, cache, token, pos):
+        return M.decode_step(cfg, params, cache, token, pos)
+
+    return replay_vs_eager(dev, ("legacy_decode", decode_logits,
+                                 (params, cache), calls))
 
 
 def serve_gemma(dev, arch, seed):
@@ -3325,37 +3428,20 @@ def serve_gemma(dev, arch, seed):
     once a local layer and decode step, the plain one (gemma3) or the
     hd-256 instance (paligemma) once a global layer and step, no paged
     attention, seven matmuls a layer and forward. Then the decode step
-    replayed against its eager calls at full depth (as phase 4b's
-    ``legacy_decode`` case: a random cache of the serve's length, random
-    tokens, positions that pass the window). Returns the summary."""
-    from repro_torch import kernels
+    replayed against its eager calls at full depth (``legacy_replay``
+    over a cache of the serve's length). Returns the summary."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import steps as S
-    from repro_torch.launch.serve import (build_served_params, legacy_serve,
-                                          make_prompts, vlm_patches)
-    from repro_torch.models.model import init_cache
+    from repro_torch.launch.serve import make_prompts, vlm_patches
     from repro_torch.models.stages import build_stages
     cfg = get_config(arch)
     shape = GEMMA_SERVES[arch]
     b, n, gen = shape["batch"], shape["tokens"], shape["gen"]
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = build_served_params(cfg, seed, dev)
-    torch.cuda.synchronize()
-    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
-           "n_prefix": cfg.n_prefix, "build_s": time.perf_counter() - t0,
-           "build_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "weights_gb": torch.cuda.memory_allocated(dev) / 1e9}
+    params, out = build_on_card(dev, cfg, seed)
+    out["n_prefix"] = cfg.n_prefix
     prompts = make_prompts(cfg, seed, b, n)
     patches = vlm_patches(cfg, seed, b, dev) if cfg.family == "vlm" else None
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
-    r = legacy_serve(cfg, params, prompts, gen, dev, patches)
-    out.update(r, launches=kernels.launch_counts(),
-               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
-    if any(len(x) != gen or not all(0 <= t < cfg.vocab for t in x)
-           for x in r["streams"]):
-        raise AssertionError(f"{arch} legacy streams: {r['streams']}")
+    r = counted_legacy_serve(dev, cfg, params, prompts, gen, patches)
+    out.update(r)
     steps = r["decode_steps"]
     local = sum(st.repeat * sum(1 for ld in st.period if ld.window)
                 for st in build_stages(cfg))
@@ -3373,41 +3459,30 @@ def serve_gemma(dev, arch, seed):
             not counts["sparqle_encode_fused"]:
         raise AssertionError(f"{arch} legacy launches {counts}: want {want}, "
                              f"none of {others}")
-    g = torch.Generator(device=dev).manual_seed(seed + 23)
-    span = cfg.n_prefix + n + gen
-    cache = fill_random(init_cache(cfg, b, span, dev), g)
-    calls = []
-    for i in range(4):
-        tok = torch.randint(0, cfg.vocab, (b,), generator=g, device=dev,
-                            dtype=torch.int32)
-        pos = torch.randint(0, span, (b,), generator=g, device=dev,
-                            dtype=torch.int32)
-        pos[0] = span - 1 - i
-        calls.append((tok, pos))
-    out["replay_vs_eager"] = replay_vs_eager(
-        dev, ("legacy_decode", S.make_serve_decode(cfg), (params, cache),
-              calls))
+    out["replay_vs_eager"] = legacy_replay(dev, cfg, params, b,
+                                           cfg.n_prefix + n + gen, seed + 23)
     if not out["replay_vs_eager"]:
         raise AssertionError(f"{arch}: the graph-replayed decode step "
                              f"differs from its eager calls")
-    del params, cache
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def legacy_cross_check(dev, arch, seed):
-    """``arch``'s width at 2 layers, f32, with GEMMA_XC's replacements:
-    the fixed-batch prefill and GEMMA_XC_GEN - 1 greedy decode steps on
+    """``arch``'s width at 2 layers, f32, with LEGACY_XC's replacements:
+    the fixed-batch prefill and LEGACY_XC_GEN - 1 greedy decode steps on
     the card (kernels) and on the CPU (plain versions), the same weights
-    (drawn on the card) and prompts; logits within LOGIT_TOL of max
-    |logit| at every step and the greedy streams identical."""
+    (drawn on the card) and prompts; logits finite and within the arch's
+    LOGIT_TOL of max |logit| at every step and the greedy streams
+    identical."""
     from repro_torch.configs import get_config
     from repro_torch.core.qlinear import tree_to
     from repro_torch.launch.serve import (build_served_params, make_prompts,
                                           vlm_patches)
     from repro_torch.models import model as M
-    over, n = GEMMA_XC[arch]
+    over, n = LEGACY_XC[arch]
     cfg = get_config(arch).replace(n_layers=2, dtype="float32", **over)
     params = build_served_params(cfg, seed, dev)
     prompts = make_prompts(cfg, seed + 1, 2, n)
@@ -3423,9 +3498,9 @@ def legacy_cross_check(dev, arch, seed):
             batch["patches"] = patches.to(device)
         with torch.no_grad():
             logits, cache = M.prefill(cfg, tree, batch,
-                                      max_len=plen + GEMMA_XC_GEN)
+                                      max_len=plen + LEGACY_XC_GEN)
             steps, toks = [logits.float().cpu()], [logits.argmax(-1)]
-            for i in range(GEMMA_XC_GEN - 1):
+            for i in range(LEGACY_XC_GEN - 1):
                 pos = torch.full((2,), plen + i, dtype=torch.int32,
                                  device=device)
                 logits, cache = M.decode_step(cfg, tree, cache,
@@ -3441,9 +3516,10 @@ def legacy_cross_check(dev, arch, seed):
     scale = max(b.abs().max().item() for b in lg_p[:n_cmp])
     match = sum(a == b for x, y in zip(st_c, st_p) for a, b in zip(x, y))
     total = sum(len(x) for x in st_p)
-    if not err <= LOGIT_TOL * scale:
+    tol = LOGIT_TOL_ARCH.get(arch, LOGIT_TOL)
+    if not err <= tol * scale:      # False for NaN too
         raise AssertionError(f"{arch} legacy cross-check logits differ: "
-                             f"{err} vs {LOGIT_TOL} * {scale}")
+                             f"{err} vs {tol} * {scale}")
     if st_c != st_p:
         raise AssertionError(f"{arch} legacy cross-check greedy streams "
                              f"differ: cuda {st_c} vs cpu {st_p}")
@@ -3456,15 +3532,16 @@ def legacy_cross_check(dev, arch, seed):
             "greedy_match": f"{match}/{total}"}
 
 
-def gemma_cli():
-    """``serve.main --legacy --smoke`` of both archs on the card (streams
+def legacy_cli(archs, names):
+    """``serve.main --legacy --smoke`` of each arch on the card (streams
     of the asked length, the closing report), and without ``--legacy``
-    the JAX serve's exit: the window or the VLM named, then "(this arch
-    serves via --legacy only)". Returns {arch: (hidden sparsity, exit
+    the JAX serve's exit: what the paged path refuses named (one of
+    ``names``: the window, the VLM, the mixer), then "(this arch serves
+    via --legacy only)". Returns {arch: (hidden sparsity, exit
     message)}."""
     from repro_torch.launch import serve
     out = {}
-    for arch in GEMMA_SERVES:
+    for arch in archs:
         r = serve.main(["--arch", arch, "--legacy", "--smoke", "--batch",
                         "2", "--prompt-len", "24", "--gen", "4"])
         if [len(x) for x in r["streams"]] != [4, 4] or \
@@ -3478,7 +3555,7 @@ def gemma_cli():
             raise AssertionError(f"serve {arch} without --legacy did not "
                                  f"exit")
         if not (msg.endswith("\n(this arch serves via --legacy only)")
-                and ("window=" in msg or "got vlm" in msg)):
+                and any(name in msg for name in names)):
             raise AssertionError(f"serve {arch} without --legacy: {msg!r}")
         out[arch] = (r["hidden_sparsity"], msg.replace("\n", " "))
     return out
@@ -3522,33 +3599,16 @@ def serve_deepseek_v3(dev, seed):
     f32 torch, as JAX in XLA); the decode step's logits and caches
     replayed against its eager calls at full depth (bit-equal); the MTP
     logits of 2 prompts once (finite, (2, S-1, V)). Returns the summary."""
-    from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import (build_served_params, legacy_serve,
-                                          make_prompts)
+    from repro_torch.launch.serve import make_prompts
     from repro_torch.models import model as M
     from repro_torch.models.stages import build_stages
     cfg = get_config("deepseek-v3-671b").replace(n_layers=V3_LAYERS)
     b, n, gen = V3_SERVE["batch"], V3_SERVE["tokens"], V3_SERVE["gen"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = build_served_params(cfg, seed, dev)
-    torch.cuda.synchronize()
-    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
-           "build_s": time.perf_counter() - t0,
-           "build_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "weights_gb": torch.cuda.memory_allocated(dev) / 1e9}
+    params, out = build_on_card(dev, cfg, seed)
     prompts = make_prompts(cfg, seed, b, n)
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
-    r = legacy_serve(cfg, params, prompts, gen, dev)
-    out.update(r, launches=kernels.launch_counts(),
-               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
-    if any(len(x) != gen or not all(0 <= t < cfg.vocab for t in x)
-           for x in r["streams"]):
-        raise AssertionError(f"deepseek-v3 legacy streams: {r['streams']}")
+    r = counted_legacy_serve(dev, cfg, params, prompts, gen)
+    out.update(r)
     stages = build_stages(cfg)
     n_moe = sum(st.repeat for st in stages if st.period[0].ffn == "moe")
     plain = (V3_MLA_LINEARS * cfg.n_layers
@@ -3564,28 +3624,11 @@ def serve_deepseek_v3(dev, seed):
         raise AssertionError(f"deepseek-v3 legacy launches {counts}: want "
                              f"{want} and no other")
     # the decode step's logits and caches: graph replays vs eager calls
-    g = torch.Generator(device=dev).manual_seed(seed + 29)
-    span = n + gen
-    cache = fill_random(M.init_cache(cfg, b, span, dev), g)
-    calls = []
-    for i in range(4):
-        tok = torch.randint(0, cfg.vocab, (b,), generator=g, device=dev,
-                            dtype=torch.int32)
-        pos = torch.randint(0, span, (b,), generator=g, device=dev,
-                            dtype=torch.int32)
-        pos[0] = span - 1 - i
-        calls.append((tok, pos))
-
-    @torch.no_grad()
-    def decode_logits(params, cache, token, pos):
-        return M.decode_step(cfg, params, cache, token, pos)
-
-    out["replay_vs_eager"] = replay_vs_eager(
-        dev, ("legacy_decode", decode_logits, (params, cache), calls))
+    out["replay_vs_eager"] = legacy_replay(dev, cfg, params, b, n + gen,
+                                           seed + 29)
     if not out["replay_vs_eager"]:
         raise AssertionError("deepseek-v3: the graph-replayed decode step "
                              "differs from its eager calls")
-    del cache
     # the MTP head once on the card (the reference runs it in training)
     batch = {"tokens": torch.tensor(prompts[:2], dtype=torch.int32,
                                     device=dev)}
@@ -3683,28 +3726,111 @@ def deepseek_cross_check(dev, seed):
     return out
 
 
-def deepseek_cli():
-    """``serve.main --legacy --smoke`` of deepseek-v3-671b on the card
-    (streams of the asked length, the closing report), and without
-    ``--legacy`` the JAX serve's exit naming the mla mixer. Returns
-    (hidden sparsity, exit message)."""
-    from repro_torch.launch import serve
-    arch = "deepseek-v3-671b"
-    r = serve.main(["--arch", arch, "--legacy", "--smoke", "--batch", "2",
-                    "--prompt-len", "24", "--gen", "4"])
-    if [len(x) for x in r["streams"]] != [4, 4] or \
-            not 0 <= r["hidden_sparsity"] <= 1:
-        raise AssertionError(f"serve --legacy --smoke {arch}: {r}")
-    try:
-        serve.main(["--arch", arch, "--smoke"])
-    except SystemExit as e:
-        msg = str(e)
-    else:
-        raise AssertionError(f"serve {arch} without --legacy did not exit")
-    if not (msg.endswith("\n(this arch serves via --legacy only)")
-            and "mixer='mla'" in msg):
-        raise AssertionError(f"serve {arch} without --legacy: {msg!r}")
-    return r["hidden_sparsity"], msg.replace("\n", " ")
+# Phase 17: the SSD family through --legacy at full width and depth:
+# mamba2-2.7b (64 SSD layers, no FFN, tied head) and jamba-v0.1-52b (32
+# layers: 4 periods of 7 SSD + 1 attention, MoE of 16 experts top-2 on
+# every second layer), 8 requests x 128 prompt tokens x 16 new, bf16.
+SSD_SERVES = ("mamba2-2.7b", "jamba-v0.1-52b")
+SSD_SERVE = dict(batch=8, tokens=128, gen=16)
+# plain projections a layer and forward, by mixer and by FFN: the SSD
+# mixer's w_in and w_out, attention's wq, wk, wv, wo, the dense SwiGLU's
+# three; a MoE layer's three routed projections run batched (its router
+# is a float matmul), and a tied head is a float matmul too
+SSD_LINEARS = {"ssd": 2, "attn": 4, "dense": 3, "moe": 0, "none": 0}
+
+
+def legacy_decode_bytes(cfg, params, cache) -> int:
+    """What one fixed-batch decode step must move at the least, summed
+    from the tensors themselves: every projection's packed weight, scales
+    and clip mask and every other layer leaf read once (all experts of a
+    routed layer, as the batched kernels read them), the tied head's
+    table, every cache tensor read once (the whole KV cache: its
+    positions past the step's are a few percent at the serve's end) and
+    the SSD states and conv tails written once more."""
+    total = tree_bytes({k: v for k, v in params.items() if k != "embed"})
+    if cfg.tie_embeddings:
+        total += tree_bytes(params["embed"])
+    total += tree_bytes(cache)
+    for stage in cache["stages"].values():
+        for layer in stage.values():
+            total += sum(tree_bytes(layer[k]) for k in ("h", "conv")
+                         if k in layer)
+    return total
+
+
+def serve_ssd(dev, arch, seed, peaks):
+    """``arch`` at full width and depth, served weights drawn from
+    ``seed`` on the card (jamba's routed layers a chunk of experts at a
+    time): build time and peak; SSD_SERVE's fixed-batch serve through
+    ``legacy_serve`` (decode as CUDA graphs), launch counters zeroed just
+    before and read just after: the fused encoder and dual-pass matmul
+    for every plain projection (SSD_LINEARS, an untied head), one batched
+    encoder and one batched matmul for every routed one (E = 16), the
+    contiguous attention once an attention layer and decode step, no
+    other kernel; the serve's prompts prefilled once more, its logits and
+    every SSD state and conv tail finite (the reference's chunked scan
+    overflows to NaN at this chunk); the byte floor of a decode step
+    (``legacy_decode_bytes`` over the card's byte rate) and the replay's
+    share of it; the decode step's logits, SSD states and caches replayed
+    against its eager calls at full depth (bit-equal). Returns the
+    summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import model as M
+    from repro_torch.models.stages import build_stages
+    cfg = get_config(arch)
+    b, n, gen = SSD_SERVE["batch"], SSD_SERVE["tokens"], SSD_SERVE["gen"]
+    params, out = build_on_card(dev, cfg, seed)
+    prompts = make_prompts(cfg, seed, b, n)
+    r = counted_legacy_serve(dev, cfg, params, prompts, gen)
+    out.update(r)
+    layers = [(ld, st.repeat) for st in build_stages(cfg)
+              for ld in st.period]
+    plain = sum(rep * (SSD_LINEARS[ld.mixer] + SSD_LINEARS[ld.ffn])
+                for ld, rep in layers) + (0 if cfg.tie_embeddings else 1)
+    routed = sum(3 * rep for ld, rep in layers if ld.ffn == "moe")
+    attn = sum(rep for ld, rep in layers if ld.mixer == "attn")
+    forwards, steps = 1 + r["decode_steps"], r["decode_steps"]
+    want = {"sparqle_encode_fused": plain * forwards,
+            "sparqle_matmul": plain * forwards}
+    if routed:
+        want.update(sparqle_encode_fused_batched=routed * forwards,
+                    sparqle_matmul_batched=routed * forwards)
+    if attn:
+        want["kv_attention_contiguous"] = attn * steps
+    counts = out["launches"]
+    extra = {k: v for k, v in counts.items() if v and k not in want}
+    out["per_forward"] = {"plain": plain, "routed": routed,
+                          "attention_per_step": attn}
+    if any(counts[k] != v for k, v in want.items()) or extra:
+        raise AssertionError(f"{arch} legacy launches {counts}: want {want} "
+                             f"and no other")
+    batch = {"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)}
+    with torch.no_grad():
+        logits, cache = M.prefill(cfg, params, batch, max_len=n + gen)
+    states = [layer[k] for stage in cache["stages"].values()
+              for layer in stage.values() for k in ("h", "conv")
+              if k in layer]
+    out["prefill_finite"] = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for t in states)
+    out["prefill_max_abs_logit"] = logits.float().abs().max().item()
+    if not out["prefill_finite"]:
+        raise AssertionError(f"{arch}: the prefill's logits or SSD states "
+                             f"are not finite")
+    out["state_mb"] = sum(t.numel() * t.element_size() for t in states) / 1e6
+    out["decode_floor_gb"] = legacy_decode_bytes(cfg, params, cache) / 1e9
+    out["decode_floor_ms"] = out["decode_floor_gb"] * 1e9 / peaks[0] * 1e3
+    out["floor_share"] = out["decode_floor_ms"] / (r["decode_step_s"] * 1e3)
+    del logits, cache, states
+    out["replay_vs_eager"] = legacy_replay(dev, cfg, params, b, n + gen,
+                                           seed + 31)
+    if not out["replay_vs_eager"]:
+        raise AssertionError(f"{arch}: the graph-replayed decode step "
+                             f"differs from its eager calls")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -3773,17 +3899,22 @@ def main() -> int:
         f"q=-128 w=-8), all five entries bit-exact with their plain "
         f"versions, packed = unpacked and dense = dual pass, f32 and int32 "
         f"outputs, {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    v3 = check_deepseek_shapes(dev, gen)
-    log(f"[3] deepseek-v3-671b shapes, all bit-exact with their plain "
-        f"versions: the five matmul entries on {v3['matmul']} input sets "
-        f"(M in {V3_M}, (K, N) in {V3_KN}, populations {POP_PATTERNS}), the "
-        f"fused encoders on {v3['encoder']} (K in {V3_ENCODE_K}, bf16 and "
-        f"f32), the five batched matmul entries and three batched encoders "
-        f"at E={V3_BATCHED['e']}, C in {V3_BATCHED['c']}, (K, N) in "
-        f"{V3_BATCHED['kn']} ({v3['batched_matmul']} and "
-        f"{v3['batched_encoder']} input sets); "
-        f"{time.perf_counter() - t0:.1f} s")
+    for arch, shapes in (
+            ("deepseek-v3-671b", (V3_M, V3_KN, V3_ENCODE_K, V3_BATCHED)),
+            ("mamba2-2.7b and jamba-v0.1-52b",
+             (SSD_M, SSD_KN, SSD_ENCODE_K, SSD_BATCHED))):
+        t0 = time.perf_counter()
+        ms, kns, encode_ks, batched = shapes
+        sw = check_arch_shapes(dev, gen, *shapes)
+        log(f"[3] {arch} shapes, all bit-exact with their plain versions: "
+            f"the five matmul entries on {sw['matmul']} input sets (M in "
+            f"{ms}, (K, N) in {kns}, populations {POP_PATTERNS}), the fused "
+            f"encoders on {sw['encoder']} (K in {encode_ks}, bf16 and f32), "
+            f"the five batched matmul entries and three batched encoders at "
+            f"E={batched['e']}, C in {batched['c']}, (K, N) in "
+            f"{batched['kn']} ({sw['batched_matmul']} and "
+            f"{sw['batched_encoder']} input sets); "
+            f"{time.perf_counter() - t0:.1f} s")
     for r in rows:
         log(f"[3] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
             f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} us, "
@@ -4244,7 +4375,7 @@ def main() -> int:
                 f"{xg['max_abs_logit']:.3g} ({xg['rel_err']:.3g} rel, tol "
                 f"{LOGIT_TOL}), greedy tokens {xg['greedy_match']}; "
                 f"{time.perf_counter() - t0:.1f} s")
-        cli = gemma_cli()
+        cli = legacy_cli(GEMMA_SERVES, ("window=", "got vlm"))
         log(f"[15] serve --legacy --smoke on the card: "
             + "; ".join(f"{a}: hidden MSB4 sparsity {sp:.4f}, without "
                         f"--legacy exits: {msg!r}"
@@ -4274,7 +4405,8 @@ def main() -> int:
         t0 = time.perf_counter()
         xv = deepseek_cross_check(dev, args.seed)
         v3["cross_check"] = xv
-        v3["cli"] = cli3 = deepseek_cli()
+        v3["cli"] = cli3 = legacy_cli(("deepseek-v3-671b",),
+                                      ("mixer='mla'",))["deepseek-v3-671b"]
         log(f"[16] deepseek-v3-671b 2L f32 {xv['config']} cuda vs cpu: max "
             f"|dlogit| {xv['max_abs_logit_err']:.3g} of max |logit| "
             f"{xv['max_abs_logit']:.3g} ({xv['rel_err']:.3g} rel, tol "
@@ -4287,6 +4419,46 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s; phase 16 "
             f"{time.perf_counter() - t16:.1f} s")
         detail["deepseek_v3"] = v3
+        # phase 17: the SSD family through --legacy, after phase 16 freed
+        # its trees
+        t17 = time.perf_counter()
+        ssd = {}
+        for arch in SSD_SERVES:
+            t0 = time.perf_counter()
+            ssd[arch] = r = serve_ssd(dev, arch, args.seed, peaks)
+            r["cross_check"] = xs = legacy_cross_check(dev, arch, args.seed)
+            log(f"[17] {card}: {arch} {r['layers']}L d={r['d_model']} "
+                f"--legacy {SSD_SERVE['batch']} x {SSD_SERVE['tokens']} x "
+                f"{SSD_SERVE['gen']}: weights {r['weights_gb']:.2f} GB built "
+                f"in {r['build_s']:.1f} s (build peak "
+                f"{r['build_peak_gb']:.1f} GB), prefill "
+                f"{r['prefill_s'] * 1e3:.1f} ms (logits and SSD states "
+                f"finite: {r['prefill_finite']}, max |logit| "
+                f"{r['prefill_max_abs_logit']:.3g}), decode "
+                f"{r['decode_step_s'] * 1e3:.2f} ms/step over "
+                f"{r['decode_timed_steps']} graph replays (of "
+                f"{r['decode_steps']} steps; warm-up and capture "
+                f"{r['decode_warmup_s'] * 1e3:.1f} ms), byte floor "
+                f"{r['decode_floor_ms']:.3f} ms for "
+                f"{r['decode_floor_gb']:.3f} GB a step (SSD states "
+                f"{r['state_mb']:.1f} MB read and written), replay at "
+                f"{r['floor_share']:.3f} of the floor; serve peak "
+                f"{r['peak_mem_gb']:.1f} GB, launches "
+                f"{ {k: v for k, v in r['launches'].items() if v} } "
+                f"({r['per_forward']} a forward); decode step replayed vs "
+                f"eager at {r['layers']}L, logits and states bit-equal: "
+                f"{r['replay_vs_eager']}; 2L f32 {xs['config']} cuda vs cpu: "
+                f"max |dlogit| {xs['max_abs_logit_err']:.3g} of max |logit| "
+                f"{xs['max_abs_logit']:.3g} ({xs['rel_err']:.3g} rel, tol "
+                f"{LOGIT_TOL_ARCH.get(arch, LOGIT_TOL)}), greedy tokens "
+                f"{xs['greedy_match']}; {time.perf_counter() - t0:.1f} s")
+        cli = legacy_cli(SSD_SERVES, ("mixer='ssd'",))
+        log(f"[17] serve --legacy --smoke on the card: "
+            + "; ".join(f"{a}: hidden MSB4 sparsity {sp:.4f}, without "
+                        f"--legacy exits: {msg!r}"
+                        for a, (sp, msg) in cli.items())
+            + f"; phase 17 {time.perf_counter() - t17:.1f} s")
+        detail["ssd"] = {"serves": ssd, "cli": cli}
         moe = zoo["deepseek-moe-16b"]
         runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn,
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg,

@@ -69,6 +69,18 @@ depth (``cfg.replace(n_layers=7)``: the 3 dense and 4 MoE layers).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v3-671b --smoke --legacy
 
+The SSD family serves through ``--legacy`` only too (the paged check
+refuses its SSD layers, naming the ``ssd`` mixer): mamba2-2.7b (64
+Mamba-2 SSD layers, no FFN, tied head) and jamba-v0.1-52b (4 periods of
+7 SSD layers and 1 attention layer, a 16-expert top-2 MoE on every second
+layer); an SSD layer's cache holds its recurrent state and conv tail
+in place of K/V.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --legacy --prompt-len 128
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --legacy --prompt-len 128
+
 ``--mesh D,M`` serves on a ("data", "model") mesh of D x M ranks
 (tensor-parallel serving, ``distributed/tp.py``): the weights are built
 once in this process and reach each rank's process (spawned with

@@ -6,8 +6,10 @@ token-only decoders, as JAX's ``check_paged_support`` allows) or from
 one contiguous (B, Smax) packed-KV4 cache a layer (``prefill``/
 ``decode_step``, the fixed-batch ``serve --legacy`` path, which also
 takes sliding-window layers and a VLM's bidirectional image prefix: the
-gemma family; and deepseek-v3's MLA layers, absorbed attention on a
-packed compressed-KV cache, with its MTP head ``mtp_logits``).
+gemma family; deepseek-v3's MLA layers, absorbed attention on a packed
+compressed-KV cache, with its MTP head ``mtp_logits``; and Mamba-2's SSD
+mixer, mamba2's and jamba's, on a recurrent state and conv tail a
+layer).
 
 Params keep the JAX tree layout — ``params["stages"]["s0"]["p0"]["wq"]``
 with a leading layer axis — and the JAX ``lax.scan`` over layers is a
@@ -59,6 +61,7 @@ from repro_torch.kernels.kv_attention import (
     kv4_paged_verify_attention, kv_tiered_paged_decode_attention)
 from repro_torch.kernels.ref import unpack_kv4
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import (NEG_INF, AttnSpec,
                                        act_wire_telemetry, embed,
                                        flash_attention, gelu_tanh, layer_norm,
@@ -177,10 +180,13 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(h.shape)
 
 
-def _ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
-         x: torch.Tensor) -> torch.Tensor:
-    """The layer's FFN (dense or MoE) on x (..., D), residual not added."""
-    return (moe_ffn if ld.ffn == "moe" else dense_ffn)(cfg, p, x)
+def _add_ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
+             x: torch.Tensor) -> torch.Tensor:
+    """x (..., D) plus the layer's FFN (dense or MoE) on it; x itself for
+    a layer without one (mamba2's ``ffn="none"``)."""
+    if ld.ffn == "none":
+        return x
+    return x + (moe_ffn if ld.ffn == "moe" else dense_ffn)(cfg, p, x)
 
 
 def head_logits(cfg: ModelConfig, params: Params,
@@ -237,9 +243,11 @@ def check_contiguous_support(cfg: ModelConfig) -> None:
     """Raise unless every layer fits the port's contiguous-cache path
     (``prefill``/``decode_step``, ``serve --legacy``): GQA attention
     layers, sliding windows and a VLM's bidirectional prefix included,
-    and MLA layers (deepseek-v3, whose packed cache is the compressed
-    KV: its ``kv_lora_rank`` must be even, its ``hd`` is never read);
-    encoders and SSD layers are not ported yet."""
+    MLA layers (deepseek-v3, whose packed cache is the compressed KV: its
+    ``kv_lora_rank`` must be even, its ``hd`` is never read) and SSD
+    layers (mamba2, jamba: the KV4 check only where an attention layer
+    exists; mamba2 has no heads, its ``hd`` is never read); encoders are
+    not ported yet."""
     if cfg.family == "encoder":
         raise NotImplementedError(
             "contiguous serving: encoder models (bidirectional attention, "
@@ -351,7 +359,7 @@ def decode_step_paged(cfg: ModelConfig, params: Params, pool: Cache,
             y, _ = attn_decode_paged(cfg, ld, p, x, lpool, block_tables, pos,
                                      tier_tables)
             x = x + y
-            x = x + _ffn(cfg, ld, p, x[:, None, :])[:, 0]
+            x = _add_ffn(cfg, ld, p, x[:, None, :])[:, 0]
         x = _gather_rows(x)
         telemetry: Dict[str, torch.Tensor] = {}
         if with_telemetry:
@@ -527,7 +535,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params: Params, pool: Cache,
         y, _ = _attn_prefill_chunk_paged(cfg, ld, p, x, lpool, block_table,
                                          start, valid)
         x = x + y
-        x = x + _ffn(cfg, ld, p, x)   # MoE: all C rows, padding included
+        x = _add_ffn(cfg, ld, p, x)   # MoE: all C rows, padding included
     c = tokens.shape[1]
     valid_tok = (torch.arange(c, device=dev) < valid).float()
     # a device scalar: the card divides truly, as JAX does (a Python
@@ -562,7 +570,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     GQA layer's packed K/V (B, Smax, KVH, hd/2) and their scales, an MLA
     layer's packed compressed KV ``ckv_q`` (B, Smax, kv_lora_rank/2), its
     scales ``ckv_s`` (B, Smax) and the shared rope key ``kr`` (B, Smax,
-    qk_rope_dim) in the compute dtype; each layer-stacked."""
+    qk_rope_dim) in the compute dtype, an SSD layer's state ``h`` (B, G,
+    H/G, P, N) f32 and conv tail ``conv`` (B, W-1, d_inner + 2GN) in the
+    compute dtype (no Smax: the state is the sequence's summary); each
+    layer-stacked."""
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -571,6 +582,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         per = {}
         for pi, ld in enumerate(stage.period):
             lead = (stage.repeat, batch, max_len)
+            if ld.mixer == "ssd":
+                din, g, n, p_, nh = _ssd_dims(cfg)
+                per[f"p{pi}"] = {
+                    "h": zeros((stage.repeat, batch, g, nh // g, p_, n)),
+                    "conv": zeros((stage.repeat, batch, cfg.conv_width - 1,
+                                   din + 2 * g * n), cfg.cdtype)}
+                continue
             if ld.mixer == "mla":
                 per[f"p{pi}"] = {
                     "ckv_q": zeros(lead + (cfg.kv_lora_rank // 2,),
@@ -795,8 +813,82 @@ def mla_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     return linear(o.reshape(b, H * dv).to(x.dtype), p["wo"]), cache
 
 
-_MIXER_FULL = {"attn": attn_full, "mla": mla_full}
-_MIXER_DEC = {"attn": attn_decode, "mla": mla_decode}
+# ---------------------------------------------------------------------------
+# SSD mixer (mamba2 / jamba): the joint input projection, the causal conv,
+# the chunked scan (prefill) or one recurrence step (decode), the gated
+# norm and the output projection. The two projections run the kernels;
+# the mixer between them is f32 torch, as it is XLA in the reference
+# (``models/ssd.py``). The layer's state and conv tail are written into
+# the cache in place.
+# ---------------------------------------------------------------------------
+
+
+def _ssd_dims(cfg: ModelConfig):
+    din = cfg.d_inner
+    g, n, p_ = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    return din, g, n, p_, din // p_
+
+
+def _ssd_in_split(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    """The input projection's output -> z (gate), xbc (the conv's input:
+    x, B, C) and dt (one a head)."""
+    din, g, n, _, _ = _ssd_dims(cfg)
+    return (zxbcdt[..., :din], zxbcdt[..., din:2 * din + 2 * g * n],
+            zxbcdt[..., 2 * din + 2 * g * n:])
+
+
+def ssd_full(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
+             positions: torch.Tensor, prefix_len: int,
+             cache: Optional[Cache]) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """The SSD mixer over the whole sequence, x (B, S, D). With a layer
+    ``cache`` the final state and the last W-1 positions of the raw
+    (pre-conv) x, B, C are written into it in place."""
+    b, s, _ = x.shape
+    din, g, n, p_, nh = _ssd_dims(cfg)
+    h = _norm(cfg, p["ln"], x)
+    z, xbc, dt = _ssd_in_split(cfg, linear(h, p["w_in"]))
+    conv_out = silu(ssd_lib.causal_conv1d(xbc, p["conv_w"], p["conv_b"]))
+    xs = conv_out[..., :din].reshape(b, s, g, nh // g, p_)
+    b_in = conv_out[..., din:din + g * n].reshape(b, s, g, n)
+    c_in = conv_out[..., din + g * n:].reshape(b, s, g, n)
+    dt = ssd_lib.softplus(dt + p["dt_bias"]).reshape(b, s, g, nh // g)
+    y, h_fin = ssd_lib.ssd_chunked(xs, dt, p["a_log"], b_in, c_in,
+                                   p["d_skip"], cfg.ssm_chunk)
+    y = ssd_lib.gated_rms_norm(y.reshape(b, s, din), z, p["gn"],
+                               cfg.rms_eps)
+    if cache is not None:
+        cache["h"].copy_(h_fin)
+        cache["conv"].copy_(xbc[:, s - (cfg.conv_width - 1):s])
+    return linear(y, p["w_out"]), cache
+
+
+def ssd_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
+               cache: Cache, pos: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One recurrence step, x (B, D): the conv over the cached tail and
+    the new token, one SSD state update; the new state and tail are
+    copied into the layer's cache views (a CUDA graph's buffers keep
+    their addresses). ``pos`` is not read: the state is position-free."""
+    b, _ = x.shape
+    din, g, n, p_, nh = _ssd_dims(cfg)
+    h = _norm(cfg, p["ln"], x)
+    z, xbc, dt = _ssd_in_split(cfg, linear(h, p["w_in"]))
+    conv_new, conv_out = ssd_lib.conv1d_step(cache["conv"], xbc,
+                                             p["conv_w"], p["conv_b"])
+    conv_out = silu(conv_out)
+    xs = conv_out[..., :din].reshape(b, g, nh // g, p_)
+    b_in = conv_out[..., din:din + g * n].reshape(b, g, n)
+    c_in = conv_out[..., din + g * n:].reshape(b, g, n)
+    dt = ssd_lib.softplus(dt + p["dt_bias"]).reshape(b, g, nh // g)
+    y, h_new = ssd_lib.ssd_decode_step(cache["h"], xs, dt, p["a_log"],
+                                       b_in, c_in, p["d_skip"])
+    cache["h"].copy_(h_new)
+    cache["conv"].copy_(conv_new)
+    y = ssd_lib.gated_rms_norm(y.reshape(b, din), z, p["gn"], cfg.rms_eps)
+    return linear(y, p["w_out"]), cache
+
+
+_MIXER_FULL = {"attn": attn_full, "mla": mla_full, "ssd": ssd_full}
+_MIXER_DEC = {"attn": attn_decode, "mla": mla_decode, "ssd": ssd_decode}
 
 
 def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,
@@ -804,13 +896,13 @@ def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,
     y, cache = _MIXER_FULL[ld.mixer](cfg, ld, p, x, positions, prefix_len,
                                      cache)
     x = x + y
-    return x + _ffn(cfg, ld, p, x), cache
+    return _add_ffn(cfg, ld, p, x), cache
 
 
 def _apply_layer_decode(cfg, ld: LayerDef, p: Params, x, cache, pos):
     y, cache = _MIXER_DEC[ld.mixer](cfg, ld, p, x, cache, pos)
     x = x + y
-    return x + _ffn(cfg, ld, p, x[:, None, :])[:, 0], cache
+    return _add_ffn(cfg, ld, p, x[:, None, :])[:, 0], cache
 
 
 def embed_inputs(cfg: ModelConfig, params: Params,

@@ -1,9 +1,9 @@
-"""Parameter schema of a decoder with GQA or MLA attention and dense
-(SwiGLU, GeGLU or GELU) or MoE FFNs, and deepseek-v3's MTP block (torch
-twin of the attention, MLA, FFN and MTP parts of
-``repro.models.schema_builder``). Every leaf under ``stages/s<i>/p<j>``
-(and ``mtp/block``) carries the leading layer (repeat) axis, with the
-projection names ``core.qlinear`` quantizes."""
+"""Parameter schema of a decoder with GQA, MLA or SSD mixers and dense
+(SwiGLU, GeGLU or GELU), MoE or no FFNs, and deepseek-v3's MTP block
+(torch twin of ``repro.models.schema_builder``'s decoder parts). Every
+leaf under ``stages/s<i>/p<j>`` (and ``mtp/block``) carries the leading
+layer (repeat) axis, with the projection names ``core.qlinear``
+quantizes."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -59,6 +59,27 @@ def _mla_schema(cfg: ModelConfig) -> Schema:
     }
 
 
+def _ssd_schema(cfg: ModelConfig) -> Schema:
+    """The Mamba-2 SSD mixer: the joint input projection to z, x, B, C and
+    dt; the depthwise conv over x, B, C; A's log, the skip D, dt's bias,
+    the gated norm's gain; the output projection."""
+    d, din = cfg.d_model, cfg.d_inner
+    g, n, p_ = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    nh = din // p_
+    conv_ch = din + 2 * g * n
+    return {
+        "ln": _norm_schema(cfg, d),
+        "w_in": ParamSpec((d, 2 * din + 2 * g * n + nh), ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.conv_width, conv_ch), (None, "conv")),
+        "conv_b": ParamSpec((conv_ch,), ("conv",), init="zeros"),
+        "a_log": ParamSpec((g, nh // g), (None, None), init="zeros"),
+        "d_skip": ParamSpec((g, nh // g), (None, None), init="ones"),
+        "dt_bias": ParamSpec((nh,), (None,), init="zeros"),
+        "gn": ParamSpec((din,), (None,), init="zeros"),
+        "w_out": ParamSpec((din, d), ("mlp", "embed")),
+    }
+
+
 def _dense_ffn_schema(cfg: ModelConfig) -> Schema:
     d, f = cfg.d_model, cfg.d_ff
     s: Schema = {"ln2": _norm_schema(cfg, d)}
@@ -102,12 +123,15 @@ def _moe_ffn_schema(cfg: ModelConfig) -> Schema:
     return {"ln2": _norm_schema(cfg, d), "moe": moe}
 
 
+_MIXERS = {"attn": _attn_schema, "mla": _mla_schema, "ssd": _ssd_schema}
+_FFNS = {"dense": _dense_ffn_schema, "moe": _moe_ffn_schema,
+         "none": lambda cfg: {}}
+
+
 def layer_schema(cfg: ModelConfig, ld: LayerDef) -> Schema:
-    if ld.mixer not in ("attn", "mla") or ld.ffn not in ("dense", "moe"):
+    if ld.mixer not in _MIXERS or ld.ffn not in _FFNS:
         raise NotImplementedError(f"layer {ld} is not ported")
-    mixer = _attn_schema if ld.mixer == "attn" else _mla_schema
-    ffn = _dense_ffn_schema if ld.ffn == "dense" else _moe_ffn_schema
-    return {**mixer(cfg), **ffn(cfg)}
+    return {**_MIXERS[ld.mixer](cfg), **_FFNS[ld.ffn](cfg)}
 
 
 def _stack(schema: Schema, repeat: int) -> Schema:

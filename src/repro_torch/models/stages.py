@@ -1,6 +1,7 @@
 """Layer-stacking plan: stages of repeated periods (copy of
-``repro.models.stages``, the families the port serves: dense
-transformers and MoE)."""
+``repro.models.stages``): dense transformers, MoE, the SSD hybrid
+(jamba: one period of ``attn_every`` layers, attention in the middle)
+and the pure SSD stack (mamba2)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +31,10 @@ class Stage:
 def build_stages(cfg: ModelConfig) -> List[Stage]:
     if cfg.family == "moe":
         return _moe_stages(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_stages(cfg)
+    if cfg.family == "ssm":
+        return [Stage([LayerDef("ssd", "none")], cfg.n_layers)]
     if cfg.family not in ("transformer", "encoder", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     if cfg.global_every:  # gemma3: (global_every-1) local then 1 global
@@ -63,3 +68,18 @@ def _moe_stages(cfg: ModelConfig) -> List[Stage]:
     else:
         stages.append(Stage([LayerDef(mixer, "moe")], n_moe))
     return stages
+
+
+def _hybrid_stages(cfg: ModelConfig) -> List[Stage]:
+    """jamba: one period of ``attn_every`` layers repeated, attention at
+    the period's middle and SSD elsewhere, the MoE FFN where
+    ``i % moe_every == moe_every - 1`` (dense elsewhere)."""
+    ae = cfg.attn_every or 8
+    period = []
+    for i in range(ae):
+        mixer = "attn" if i == ae // 2 else "ssd"
+        ffn = "moe" if (cfg.n_experts and i % cfg.moe_every ==
+                        cfg.moe_every - 1) else "dense"
+        period.append(LayerDef(mixer, ffn))
+    assert cfg.n_layers % ae == 0, (cfg.n_layers, ae)
+    return [Stage(period, cfg.n_layers // ae)]

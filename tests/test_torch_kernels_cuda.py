@@ -40,7 +40,12 @@ one launch a call; decode attention at the zoo's head shapes (G = 1, 12,
 deepseek-v3-671b's shapes: the five matmul entries at its (K, N) pairs
 (wkv_a's N = 576 among them), bit-exact, and the batched matmul entries
 and encoders at E = 256 with one launch a call; its smoke config through
-``--legacy`` on the card and on the CPU: the same greedy streams.
+``--legacy`` on the card and on the CPU: the same greedy streams. The SSD
+family's shapes: the five matmul entries at mamba2-2.7b's and
+jamba-v0.1-52b's projections (N = 10,576 and 16,544: a ragged last
+column block), the fused encoders at their K, the batched entries at
+jamba's E = 16; both smoke configs through ``--legacy`` on the card and
+on the CPU: the same greedy streams.
 """
 import sys
 from pathlib import Path
@@ -59,7 +64,8 @@ from repro_torch.kernels.ref import TILE_K, TILE_M
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (BATCHED_KN, GEMMA3_ATTN,  # noqa: E402
                         HD256_POS, MATMUL_KN, MATMUL_M, PALIGEMMA_ATTN,
-                        POP_PATTERNS, V3_BATCHED, V3_KN, WINDOW_POS,
+                        POP_PATTERNS, SSD_BATCHED, SSD_ENCODE_K, SSD_KN,
+                        SSD_M, V3_BATCHED, V3_KN, WINDOW_POS,
                         WINDOWS, batched_case,
                         batched_instances, check_attention_shapes,
                         check_attention_zoo, check_batched_matmul_case,
@@ -625,7 +631,13 @@ def test_batched_family_at_256_experts(cuda, c, k, n):
     and 32 (the legacy prefill), the five batched matmul entries and the
     three batched encoders bit-exact with their plain versions, one
     launch a call."""
-    e = V3_BATCHED["e"]
+    check_batched_family(cuda, V3_BATCHED["e"], c, k, n)
+
+
+def check_batched_family(cuda, e, c, k, n):
+    """The five batched matmul entries and the two batched encoders that
+    take no scale at E experts, bit-exact with their plain versions, one
+    launch a call."""
     g = torch.Generator(device=cuda).manual_seed(e + c + k)
     check_batched_matmul_case(batched_case(cuda, g, e, c, k, n, "alternating"),
                               f"at E={e} C={c} K={k} N={n}")
@@ -669,3 +681,65 @@ def test_deepseek_v3_smoke_legacy_on_card_matches_cpu(cuda):
     assert set(counts) == {"sparqle_encode_fused", "sparqle_matmul",
                            "sparqle_encode_fused_batched",
                            "sparqle_matmul_batched"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", SSD_KN)
+def test_matmul_family_at_ssd_shapes(cuda, k, n):
+    """The five entries bit-exact at the SSD family's projections: the
+    input projections' N = 10,576 and 16,544 (a ragged last block of 64
+    columns) and the output projections, decode and prefill rows."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    for m in SSD_M:
+        for pattern in POP_PATTERNS:
+            check_matmul_case(matmul_case(cuda, g, m, k, n, pattern),
+                              f"at M={m} K={k} N={n} pop={pattern}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", SSD_ENCODE_K)
+def test_fused_encoders_at_ssd_k(cuda, dtype, k):
+    """The fused-scale encoders at the SSD family's K (d_model 2,560,
+    mamba2's d_inner 5,120, jamba's 8,192) against their plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    for m in SSD_M:
+        check_fused_case(*encoder_input(cuda, g, m, k, dtype),
+                         f"at M={m} K={k} {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", SSD_BATCHED["c"])
+@pytest.mark.parametrize("k,n", SSD_BATCHED["kn"])
+def test_batched_family_at_16_experts(cuda, c, k, n):
+    """jamba-v0.1-52b's routed projections: 16 experts, C = 1 (decode)
+    and 128 (the legacy prefill), as the 256-expert case."""
+    check_batched_family(cuda, SSD_BATCHED["e"], c, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_ssd_smoke_legacy_on_card_matches_cpu(cuda, arch):
+    """The SSD family's smoke configs at f32 through ``--legacy`` on the
+    card and on the CPU: the same greedy streams; mamba2 through the
+    plain projections' kernels only, jamba's routed projections through
+    the batched kernels and its attention layer through the contiguous
+    one."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import tree_to
+    from repro_torch.launch.serve import (build_served_params, legacy_serve,
+                                          make_prompts)
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    params = build_served_params(cfg, 0, "cpu", tile_k=16)
+    prompts = make_prompts(cfg, 4, 3, 20)
+    cpu = legacy_serve(cfg, params, prompts, 6, torch.device("cpu"))
+    kernels.reset_launch_counts()
+    card = legacy_serve(cfg, tree_to(params, cuda), prompts, 6, cuda)
+    assert card["streams"] == cpu["streams"]
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    want = {"sparqle_encode_fused", "sparqle_matmul"}
+    if arch == "jamba-v0.1-52b":
+        want |= {"sparqle_encode_fused_batched", "sparqle_matmul_batched",
+                 "kv_attention_contiguous"}
+    assert set(counts) == want
