@@ -107,8 +107,9 @@ to chiprun_out/):
      bit-equal to the single-device step's, and how many logits a 4-row
      decode step changes against the same rows of the 8-row one; gloo's
      all-reduce MAX and SUM and all-gather on CUDA int32 and f32 tensors;
-     serves at 1x2 (base, gamma = SPEC_GAMMA, dense: streams equal to
-     phases 4, 5 and 7) and 2x2 (base: phase 4's), deepseek-moe-16b at
+     granite-8b cut to TP_GRANITE_LAYERS layers served at 1x2 (base,
+     gamma = SPEC_GAMMA, dense) and 2x2 (base), streams equal to the
+     single-device serves of the same cut tree, deepseek-moe-16b at
      full width and MOE_TP_LAYERS layers at 2x2 (base, dense, packed:
      streams equal to its single-device serve's), every rank's streams
      equal and its weight shard's checksum the parent's cut, rank 0's
@@ -182,7 +183,19 @@ to chiprun_out/):
      (LEGACY_XC; logits within LOGIT_TOL, greedy streams identical);
      ``serve.main --legacy --smoke`` of both and their exit without
      ``--legacy``, naming the ssd mixer;
- 18. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 18. training, after phase 17 (its trees freed): starcoder2-3b at
+     full width and depth, bf16 compute on f32 masters, 3 steps of
+     ``launch/steps.make_train_step`` (microbatches of 4, CE chunks of
+     128, remat) on one 8 x 128 ``SyntheticLM`` batch, losses finite and
+     falling, step times and peak memory; its trained tree quantized and
+     served by the Engine (rows 1, 3 and 8 launched, every step's logits
+     finite); hubert-xlarge (48 L, bidirectional) at full width and
+     depth, 2 steps on frames drawn from the seed; ``launch/train.main``
+     on the granite-8b smoke config in a child process under
+     ``torch.use_deterministic_algorithms``: a run with an injected
+     failure and async checkpoints ends bit-equal to a clean run, and
+     ``--resume auto`` continues from the clean run's last checkpoint;
+ 19. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -193,6 +206,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2910,6 +2924,11 @@ def serve_surface(dev, cfg, params, prompts, base, spec):
 # dense first layer and 3 MoE layers.
 TP_MESHES = ((1, 2), (2, 2))
 MOE_TP_LAYERS = 4
+# granite-8b's depth in the sharded serves: its first 12 of 36 layers,
+# each serve held against the single-device serve of the same cut tree
+# (at 36 the eager gloo serves took 176-316 s and the smoke passed 800 s);
+# the sharded decode step stays at full depth
+TP_GRANITE_LAYERS = 12
 # a rank waiting this long in a collective fails the phase
 TP_TIMEOUT_S = 600
 
@@ -3181,7 +3200,17 @@ def tp_summary_single(d):
             f"{r['steps']} steps (graphs)")
 
 
-def tensor_parallel(dev, seed: int, base, spec, dense):
+def first_layers(tree, n: int):
+    """A layer-stacked param subtree cut to its first ``n`` layers."""
+    from repro_torch.core.qlinear import SparqleLinear, stack_linears
+    if isinstance(tree, dict):
+        return {k: first_layers(v, n) for k, v in tree.items()}
+    if isinstance(tree, SparqleLinear):
+        return stack_linears([tree.layer(i) for i in range(n)])
+    return tree[:n]
+
+
+def tensor_parallel(dev, seed: int, base):
     """Phase 13 (module docstring): returns its detail and every rank's
     launch counts of each serve (rank 0's read for the kernels line)."""
     from repro_torch.configs import get_config
@@ -3214,6 +3243,16 @@ def tensor_parallel(dev, seed: int, base, spec, dense):
         if shape[0] > 1:
             detail["row_count_4_vs_8"] = row_count_4_vs_8(
                 dev, cfg, params, state, token, pos, whole)
+    # granite cut to TP_GRANITE_LAYERS: its single-device serves
+    scfg = cfg.replace(n_layers=TP_GRANITE_LAYERS)
+    sparams = dict(params, stages={k: first_layers(v, TP_GRANITE_LAYERS)
+                                   for k, v in params["stages"].items()})
+    single = {"base": serve_granite(dev, scfg, sparams, prompts),
+              "spec": serve_granite(dev, scfg, sparams, prompts,
+                                    spec_gamma=SPEC_GAMMA),
+              "dense": serve_granite(dev, scfg,
+                                     with_fields(sparams, mode="dense"),
+                                     prompts)}
     # deepseek-moe-16b at full width, 4 layers: its single-device serve
     mcfg = get_config("deepseek-moe-16b").replace(n_layers=MOE_TP_LAYERS)
     mparams = build_served_params(mcfg, seed, dev)
@@ -3224,11 +3263,11 @@ def tensor_parallel(dev, seed: int, base, spec, dense):
     serve = lambda tree, c, p, **kw: dict(  # noqa: E731
         kind="serve", cfg=c, params=tree, prompts=p, **kw)
     jobs = {(1, 2): [dict(kind="ops"), cases[(1, 2)],
-                     serve(params, cfg, prompts),
-                     serve(params, cfg, prompts, gamma=SPEC_GAMMA),
-                     serve(params, cfg, prompts, fields={"mode": "dense"})],
+                     serve(sparams, scfg, prompts),
+                     serve(sparams, scfg, prompts, gamma=SPEC_GAMMA),
+                     serve(sparams, scfg, prompts, fields={"mode": "dense"})],
             (2, 2): [dict(kind="ops"), cases[(2, 2)],
-                     serve(params, cfg, prompts),
+                     serve(sparams, scfg, prompts),
                      serve(mparams, mcfg, mprompts),
                      serve(mparams, mcfg, mprompts, fields={"mode": "dense"}),
                      serve(mparams, mcfg, mprompts,
@@ -3236,11 +3275,10 @@ def tensor_parallel(dev, seed: int, base, spec, dense):
     names = {(1, 2): ["ops", "decode", "base", "spec", "dense"],
              (2, 2): ["ops", "decode", "base", "moe", "moe_dense",
                       "moe_packed"]}
-    want_streams = {"base": base["streams"], "spec": spec["streams"],
-                    "dense": dense["streams"],
-                    "moe": moe_single["streams"],
-                    "moe_dense": moe_single["streams"],
-                    "moe_packed": moe_single["streams"]}
+    want_streams = {name: r["streams"] for name, r in single.items()}
+    want_streams.update(moe=moe_single["streams"],
+                        moe_dense=moe_single["streams"],
+                        moe_packed=moe_single["streams"])
     paths = {"base": ("sparqle_encode_fused", "sparqle_encode",
                       "sparqle_matmul", "kv_attention"),
              "spec": ("sparqle_encode", "sparqle_matmul_draft",
@@ -3281,7 +3319,7 @@ def tensor_parallel(dev, seed: int, base, spec, dense):
                                          f"logits differ from the "
                                          f"single-device step's: {equal}")
             else:
-                tree = mparams if name.startswith("moe") else params
+                tree = mparams if name.startswith("moe") else sparams
                 key = "moe" if name.startswith("moe") else "granite"
                 if m not in sums[key]:
                     sums[key][m] = expected(tree, m)
@@ -3322,7 +3360,10 @@ def tensor_parallel(dev, seed: int, base, spec, dense):
                       for (t, n), rs in runs.items()
                       if n not in ("ops", "decode")}
     detail["ops"] = {t: rs[0] for (t, n), rs in runs.items() if n == "ops"}
-    del params, mparams
+    detail["granite_single"] = {name: {k: r[k] for k in (
+        "ttft_mean_s", "tpot_mean_s", "tokens_per_s", "steps")}
+        for name, r in single.items()}
+    del params, sparams, mparams
     torch.cuda.empty_cache()
     return detail, runs
 
@@ -3833,16 +3874,267 @@ def serve_ssd(dev, arch, seed, peaks):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training on the card (no hand-written kernel lies on the train
+# step: the float tree's products are torch.matmul, as they are XLA's
+# dot_general in the reference); the trained tree then serves through the
+# kernels of rows 1, 3 and 8
+# ---------------------------------------------------------------------------
+
+TRAIN_LM = "starcoder2-3b"
+TRAIN = dict(batch=8, seq=128, steps=3)
+TRAIN_KNOBS = dict(microbatch=4, ce_chunk=128)
+TRAIN_ENCODER = "hubert-xlarge"
+ENCODER_TRAIN = dict(batch=8, seq=128, steps=2)
+# the trained tree's serve: one prefill chunk a prompt, then decode steps
+TRAIN_SERVE = dict(batch=8, prompt_len=32, gen=4)
+# the CLI's loop, run in a child process under deterministic algorithms
+TRAIN_CLI = dict(arch="granite-8b", steps=12, ckpt_every=5, fail=8,
+                 resume_steps=4)
+TRAIN_CLI_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+TRAIN_CLI_TIMEOUT_S = 300
+
+
+def _reset_peak(dev) -> None:
+    torch.empty(1, device=dev)     # before it, the call finds no allocator
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def timed_train_steps(dev, state, step_fn, batch, n: int):
+    """``n`` steps on one batch; a step's wall time ends with its loss
+    and grad norm read to the host and the device synchronized."""
+    rows = []
+    for _ in range(n):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize(dev)
+        rows.append({"loss": loss, "grad_norm": gnorm,
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    return state, rows
+
+
+def _finite_logits(eng):
+    """Wrap the engine's prefill-chunk and decode steps so that each
+    records whether its logits are all finite (a device flag, read after
+    the serve)."""
+    flags = []
+    for name in ("_prefill_fn", "_decode_fn"):
+        def checked(*args, fn=getattr(eng, name)):
+            out = fn(*args)
+            flags.append(torch.isfinite(out[0]).all())
+            return out
+        setattr(eng, name, checked)
+    return flags
+
+
+def train_lm(dev, seed):
+    """Phase 18a: ``TRAIN_LM`` at full width and depth, bf16 compute on
+    f32 masters with bf16 moments, drawn from ``seed`` on the card:
+    TRAIN["steps"] steps of ``make_train_step`` (TRAIN_KNOBS: two
+    microbatches of 4, CE chunks of 128) on one fixed ``SyntheticLM``
+    batch of 8 x 128, each loss finite, the last below the first; then
+    the optimizer state freed, the trained tree quantized and served by
+    the Engine (TRAIN_SERVE: a 32-token prefill chunk a prompt, then
+    decode steps of the 8 sequences), the launch counters zeroed just
+    before and read just after: the fused encoder, the dual-pass matmul
+    and the paged attention (rows 1, 3 and 8) launched, every step's
+    logits finite."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import quantize_model_params
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.serve import make_engine, run_requests
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim.adamw import OptConfig
+    cfg = get_config(TRAIN_LM)
+    ocfg = OptConfig(warmup_steps=1, total_steps=TRAIN["steps"])
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    state = build_state(cfg, ocfg, seed, dev)
+    torch.cuda.synchronize(dev)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "build_s": time.perf_counter() - t0,
+           "state_gb": tree_bytes({"p": state.params, "mu": state.opt.mu,
+                                   "nu": state.opt.nu}) / 1e9}
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                  global_batch=TRAIN["batch"], seed=seed))
+    batch = shard_batch(data.batch_at(0), dev)
+    step_fn = S.make_train_step(cfg, ocfg, S.TrainKnobs(**TRAIN_KNOBS))
+    state, out["steps"] = timed_train_steps(dev, state, step_fn, batch,
+                                            TRAIN["steps"])
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [r["loss"] for r in out["steps"]]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name} training: losses {losses}: want "
+                             f"finite and the last below the first")
+    params = state.params
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qparams = quantize_model_params(params, w_bits=cfg.w_bits)
+    torch.cuda.synchronize(dev)
+    out["quantize_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    prompts = data.batch_at(1)["tokens"][:, :TRAIN_SERVE["prompt_len"]]
+    eng = make_engine(cfg, qparams, **TRAIN_SERVE, page_size=16,
+                      token_budget=128, prefill_chunk=32, decode_slots=8,
+                      device=dev)
+    flags = _finite_logits(eng)
+    kernels.reset_launch_counts()
+    r = run_requests(eng, prompts.tolist(), TRAIN_SERVE["gen"])
+    out["launches"] = counts = kernels.launch_counts()
+    out["serve_steps"] = len(flags)
+    out["logits_finite"] = bool(torch.stack(flags).all())
+    out["streams"] = r["streams"]
+    need = ("sparqle_encode_fused", "sparqle_matmul", "kv_attention")
+    if not all(counts[k] for k in need) or not out["logits_finite"] or any(
+            len(s) != TRAIN_SERVE["gen"] for s in r["streams"]):
+        raise AssertionError(f"{cfg.name} trained-tree serve: launches "
+                             f"{counts} (need {need}), logits finite "
+                             f"{out['logits_finite']}, streams "
+                             f"{r['streams']}")
+    del eng, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_encoder(dev, seed):
+    """Phase 18b: ``TRAIN_ENCODER`` (bidirectional attention, the stub
+    frontend's frames in) at full width and depth, bf16: ENCODER_TRAIN
+    steps on frames and targets drawn from ``seed`` on the card, the
+    losses finite and the second below the first + 1.0 (the reference's
+    check of a smoke train step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim.adamw import OptConfig
+    cfg = get_config(TRAIN_ENCODER)
+    ocfg = OptConfig(warmup_steps=1, total_steps=4)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    state = build_state(cfg, ocfg, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 18)
+    b, s = ENCODER_TRAIN["batch"], ENCODER_TRAIN["seq"]
+    batch = {"frames": torch.randn((b, s, cfg.d_model), generator=g,
+                                   device=dev).to(cfg.cdtype),
+             "targets": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                      device=dev, dtype=torch.int32)}
+    torch.cuda.synchronize(dev)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "build_s": time.perf_counter() - t0,
+           "state_gb": tree_bytes({"p": state.params, "mu": state.opt.mu,
+                                   "nu": state.opt.nu}) / 1e9}
+    step_fn = S.make_train_step(cfg, ocfg, S.TrainKnobs(ce_chunk=s))
+    state, out["steps"] = timed_train_steps(dev, state, step_fn, batch,
+                                            ENCODER_TRAIN["steps"])
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [r["loss"] for r in out["steps"]]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[1] < losses[0] + 1.0:
+        raise AssertionError(f"{cfg.name} training: losses {losses}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_cli_child(path: str) -> None:
+    """Phase 18c's child process (``--train-cli PATH``), started with
+    ``CUBLAS_WORKSPACE_CONFIG`` set: under
+    ``torch.use_deterministic_algorithms(True)`` (the card's atomics,
+    the embedding's backward among them, otherwise sum in a run-dependent
+    order), ``launch/train.main`` on TRAIN_CLI's arch ``--smoke`` twice —
+    clean, and with an injected failure and async checkpoints — then a
+    ``--resume auto`` run from the clean run's final checkpoint; the two
+    final checkpoints' params compared bit for bit. Writes the summary
+    to ``path`` as JSON."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import train
+    torch.use_deterministic_algorithms(True)
+    c = TRAIN_CLI
+    with tempfile.TemporaryDirectory() as d:
+        def run(name, *extra, steps=c["steps"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                r = train.main(["--arch", c["arch"], "--smoke",
+                                "--steps", str(steps),
+                                "--ckpt-every", str(c["ckpt_every"]),
+                                "--log-every", "4", "--ckpt-dir",
+                                f"{d}/{name}", *extra])
+            r["stdout"] = buf.getvalue()
+            return r
+        clean = run("clean")
+        fault = run("fault", "--inject-fail", str(c["fail"]), "--async-ckpt")
+        final = {name: store.restore(f"{d}/{name}", c["steps"],
+                                     clean["state"])
+                 for name in ("clean", "fault")}
+        same = all(torch.equal(a, b) for a, b in zip(
+            store.flatten(final["clean"].params),
+            store.flatten(final["fault"].params)))
+        resume = run("clean", "--resume", "auto", steps=c["resume_steps"])
+    summary = {"device": torch.cuda.get_device_name(0),
+               "deterministic": torch.are_deterministic_algorithms_enabled(),
+               "params_bit_equal": same,
+               "restarts": fault["report"].restarts,
+               "faults_seen": fault["report"].faults_seen,
+               "resume_start": resume["start"]}
+    for name, r in (("clean", clean), ("fault", fault), ("resume", resume)):
+        summary[name] = {"losses": r["losses"], "ms_per_step": r["ms_per_step"],
+                         "steps_run": r["report"].steps_run,
+                         "stdout": r["stdout"]}
+    Path(path).write_text(json.dumps(summary, indent=1))
+
+
+def train_cli():
+    """Phase 18c: :func:`train_cli_child` in a child process (its
+    environment carries TRAIN_CLI_ENV before CUDA starts); raises unless
+    the faulted run's final params equal the clean run's bit for bit
+    with one restart, every loss is finite and the resumed run started
+    at the clean run's last step."""
+    path = OUT / "train_cli.json"
+    path.unlink(missing_ok=True)
+    env = dict(os.environ, **TRAIN_CLI_ENV)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--train-cli", str(path)], env=env,
+                          capture_output=True, text=True,
+                          timeout=TRAIN_CLI_TIMEOUT_S)
+    if proc.returncode or not path.exists():
+        raise AssertionError(f"train CLI child failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    r = json.loads(path.read_text())
+    losses = [x for k in ("clean", "fault", "resume")
+              for x in r[k]["losses"]]
+    if not (r["params_bit_equal"] and r["restarts"] == 1
+            and r["resume_start"] == TRAIN_CLI["steps"]
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"train CLI on the card: {r}")
+    return r
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-3)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-cli", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    if args.train_cli:           # phase 18c's child process
+        train_cli_child(args.train_cli)
+        return 0
     from repro_torch import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4312,7 +4604,7 @@ def main() -> int:
         # phase 13: tensor-parallel serving, ranks sharing the card
         t0 = time.perf_counter()
         tp_rows = check_scale_in_batched(dev, gen, peaks)
-        tpd, tp_runs = tensor_parallel(dev, args.seed, eng, spec, dn)
+        tpd, tp_runs = tensor_parallel(dev, args.seed, eng)
         for r in tp_rows:
             log(f"[13] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
                 f"{r['ms'] * 1e3:.1f} us vs plain {r['plain_ms'] * 1e3:.1f} "
@@ -4459,6 +4751,52 @@ def main() -> int:
                         for a, (sp, msg) in cli.items())
             + f"; phase 17 {time.perf_counter() - t17:.1f} s")
         detail["ssd"] = {"serves": ssd, "cli": cli}
+        # phase 18: training, after phase 17 freed its trees
+        t18 = time.perf_counter()
+        lm = train_lm(dev, args.seed)
+        st = lm["steps"]
+        log(f"[18] {card}: {lm['arch']} {lm['layers']}L d={lm['d_model']} "
+            f"trained at full width and depth (bf16 compute, f32 masters, "
+            f"bf16 moments: state {lm['state_gb']:.2f} GB built in "
+            f"{lm['build_s']:.1f} s), {TRAIN['batch']} x {TRAIN['seq']} "
+            f"SyntheticLM batch, microbatches of "
+            f"{TRAIN_KNOBS['microbatch']}, CE chunks of "
+            f"{TRAIN_KNOBS['ce_chunk']}, remat: losses "
+            f"{[round(r['loss'], 4) for r in st]}, grad norms "
+            f"{[round(r['grad_norm'], 4) for r in st]}, step ms "
+            f"{[round(r['ms'], 1) for r in st]} (steps 2-3 mean "
+            f"{sum(r['ms'] for r in st[1:]) / len(st[1:]):.1f} ms, "
+            f"synchronized), peak {lm['peak_gb']:.2f} GB; trained tree "
+            f"quantized in {lm['quantize_s']:.1f} s and served "
+            f"({TRAIN_SERVE['batch']} x {TRAIN_SERVE['prompt_len']} + "
+            f"{TRAIN_SERVE['gen']}, {lm['serve_steps']} engine steps, logits "
+            f"finite: {lm['logits_finite']}), launches "
+            f"{ {k: v for k, v in lm['launches'].items() if v} }")
+        enc = train_encoder(dev, args.seed)
+        st = enc["steps"]
+        log(f"[18] {card}: {enc['arch']} {enc['layers']}L "
+            f"d={enc['d_model']} (bidirectional) trained at full width and "
+            f"depth, bf16, frames {ENCODER_TRAIN['batch']} x "
+            f"{ENCODER_TRAIN['seq']} x {enc['d_model']}: state "
+            f"{enc['state_gb']:.2f} GB, losses "
+            f"{[round(r['loss'], 4) for r in st]}, grad norms "
+            f"{[round(r['grad_norm'], 4) for r in st]}, step ms "
+            f"{[round(r['ms'], 1) for r in st]}, peak {enc['peak_gb']:.2f} GB")
+        cl = train_cli()
+        log(f"[18] launch/train.main {TRAIN_CLI['arch']} --smoke on the card "
+            f"in a child process (CUBLAS_WORKSPACE_CONFIG=:4096:8, "
+            f"torch.use_deterministic_algorithms(True)): "
+            f"{TRAIN_CLI['steps']} steps, --ckpt-every "
+            f"{TRAIN_CLI['ckpt_every']}, clean losses "
+            f"{[round(x, 4) for x in cl['clean']['losses'][::4]]} (every 4th)"
+            f"; with --inject-fail {TRAIN_CLI['fail']} --async-ckpt: "
+            f"{cl['restarts']} restart, {cl['fault']['steps_run']} steps run, "
+            f"final params bit-equal to the clean run's: "
+            f"{cl['params_bit_equal']}; --resume auto started at step "
+            f"{cl['resume_start']}; "
+            f"{cl['clean']['ms_per_step']:.1f} ms/step clean; phase 18 "
+            f"{time.perf_counter() - t18:.1f} s")
+        detail["train"] = {"lm": lm, "encoder": enc, "cli": cl}
         moe = zoo["deepseek-moe-16b"]
         runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn,
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg,

@@ -1,5 +1,5 @@
 """Checkpoints as npz shards + a manifest, in the JAX package's format
-(torch twin of the synchronous half of ``repro.checkpoint.store``)::
+(torch twin of ``repro.checkpoint.store``)::
 
     <dir>/step_000123/
         manifest.json      # step, leaf shapes/dtypes, shards, status
@@ -7,8 +7,9 @@
 
 A checkpoint counts once its manifest says ``"status": "complete"``
 (written last; the directory is published by one rename). Leaves are
-stored in JAX's flatten order of the tree: dict keys sorted, depth
-first. So the JAX package restores what :func:`save` writes and
+stored in JAX's flatten order of the tree: dict keys sorted, a
+NamedTuple's fields (a ``TrainState``, an ``OptState``) in field order,
+depth first. So the JAX package restores what :func:`save` writes and
 :func:`restore` reads what JAX's ``store.save`` wrote; a tree's layout
 comes from the ``like`` tree the caller passes, never from the
 manifest's ``treedef`` string (which :func:`save` writes for JAX's
@@ -16,24 +17,35 @@ readers of the manifest and nothing here parses).
 
 bf16 leaves are stored as their uint16 bit patterns (npz has no bf16)
 and come back through an int16 view into ``torch.bfloat16``, so neither
-side needs ``ml_dtypes``. The async writer and pruning are training
-infrastructure and are not ported.
+side needs ``ml_dtypes``. :class:`AsyncWriter` writes from a background
+thread (a one-deep pipeline: the train loop blocks only on the previous
+write) and :func:`prune` keeps the newest few checkpoints.
 """
 from __future__ import annotations
 
 import json
 import os
+import queue
 import re
 import shutil
+import threading
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def flatten(tree: Any) -> List[Any]:
-    """Leaves in JAX's flatten order: dict keys sorted, depth first."""
+    """Leaves in JAX's flatten order: dict keys sorted, NamedTuple fields
+    in field order, depth first."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in flatten(tree[k])]
+    if _is_namedtuple(tree):
+        return [leaf for child in tree for leaf in flatten(child)]
     return [tree]
 
 
@@ -44,6 +56,8 @@ def unflatten(like: Any, leaves: List[Any]) -> Any:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*[build(child) for child in node])
         return next(it)
     return build(like)
 
@@ -60,14 +74,14 @@ def _encode(t: torch.Tensor) -> tuple:
 def _decode(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     if dtype_name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a).astype(
-        np.dtype(dtype_name), copy=False).copy())
+    return torch.from_numpy(np.array(a, dtype=np.dtype(dtype_name)))
 
 
 def save(path: str, tree: Any, step: int,
          shard_bytes: int = 512 * 2**20) -> str:
-    """Write ``tree`` (nested dicts of tensors) as checkpoint ``step``
-    under ``path``; returns the checkpoint directory."""
+    """Write ``tree`` (nested dicts and NamedTuples of tensors) as
+    checkpoint ``step`` under ``path``; returns the checkpoint
+    directory."""
     ckdir = os.path.join(path, f"step_{step:09d}")
     tmp = ckdir + ".tmp"
     if os.path.exists(tmp):
@@ -76,7 +90,8 @@ def save(path: str, tree: Any, step: int,
     leaves = [_encode(t) for t in flatten(tree)]
     manifest: Dict[str, Any] = {
         "step": step,
-        "treedef": f"sorted-key nested dicts, {len(leaves)} leaves",
+        "treedef": f"sorted-key nested dicts and NamedTuples, "
+                   f"{len(leaves)} leaves",
         "n_leaves": len(leaves),
         "leaves": [{"shape": list(a.shape), "dtype": name}
                    for a, name in leaves],
@@ -156,3 +171,66 @@ def restore(path: str, step: int, like: Any) -> Any:
                              f"{tuple(ref.shape)}")
         out.append(t.to(ref.dtype))
     return unflatten(like, out)
+
+
+def prune(path: str, keep: int = 3) -> None:
+    """Delete all but the newest ``keep`` checkpoints (all with 0)."""
+    if not os.path.isdir(path):
+        return
+    steps = sorted(
+        int(m.group(1)) for m in
+        (re.fullmatch(r"step_(\d+)", n) for n in os.listdir(path)) if m)
+    for s in steps[:-keep] if keep else steps:
+        shutil.rmtree(os.path.join(path, f"step_{s:09d}"), ignore_errors=True)
+
+
+def place_like(tree: Any, like: Any) -> Any:
+    """``tree``'s leaves moved to the devices of ``like``'s (a restored
+    state onto the devices of the state it replaces)."""
+    return unflatten(like, [t.to(ref.device) for t, ref in zip(
+        flatten(tree), flatten(like))])
+
+
+class AsyncWriter:
+    """Background checkpoint writer: the step loop blocks only to bound
+    the pipeline at one write in flight. ``submit`` copies the tree to
+    host tensors before it returns, so the loop may update the state in
+    place at once; a write's error surfaces at the next submit or at
+    close. Each write prunes to the newest ``keep``."""
+
+    def __init__(self, path: str, keep: int = 3):
+        self.path = path
+        self.keep = keep
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            tree, step = item
+            try:
+                save(self.path, tree, step)
+                prune(self.path, self.keep)
+            except BaseException as e:   # surfaced on next submit/close
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def submit(self, tree: Any, step: int) -> None:
+        if self._err:
+            raise RuntimeError("async checkpoint write failed") from self._err
+        # a new host copy of every leaf (a CPU leaf's too): the loop may
+        # update the state in place as soon as this returns
+        self._q.put((unflatten(tree, [t.detach().to("cpu", copy=True)
+                                      for t in flatten(tree)]), step))
+
+    def close(self) -> None:
+        self._q.join()
+        self._q.put(None)
+        self._thread.join()
+        if self._err:
+            raise RuntimeError("async checkpoint write failed") from self._err

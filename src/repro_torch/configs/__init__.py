@@ -1,16 +1,18 @@
-"""Model configurations the port serves (``--arch <id>`` -> config)."""
+"""Model configurations the port serves or trains (``--arch <id>`` ->
+config)."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (deepseek_moe_16b, deepseek_v3_671b,
-                                 gemma3_27b, granite_8b, jamba_v01_52b,
-                                 mamba2_2p7b, paligemma_3b, starcoder2_3b,
-                                 yi_6b)
+                                 gemma3_27b, granite_8b, hubert_xlarge,
+                                 jamba_v01_52b, mamba2_2p7b, paligemma_3b,
+                                 starcoder2_3b, yi_6b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = [granite_8b, yi_6b, starcoder2_3b, deepseek_moe_16b, gemma3_27b,
-            paligemma_3b, deepseek_v3_671b, mamba2_2p7b, jamba_v01_52b]
+            paligemma_3b, deepseek_v3_671b, mamba2_2p7b, jamba_v01_52b,
+            hubert_xlarge]
 
 ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKES: Dict[str, ModelConfig] = {m.CONFIG.name: m.SMOKE for m in _MODULES}

@@ -1,4 +1,5 @@
-"""JAX param / pool trees (as numpy arrays) -> the port's torch trees.
+"""JAX param / pool / train-state trees (as numpy arrays) -> the port's
+torch trees, and a port train state back to numpy.
 
 Both packages keep the same nested-dict layout, so conversion is a tree
 map. A quantized JAX projection is recognised by its fields (``w.q``,
@@ -52,8 +53,44 @@ def convert_tree(tree: Any, device="cpu") -> Any:
     return to_tensor(tree, device)
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bf16 as ``ml_dtypes.bfloat16`` (the
+    JAX side's dtype; ``ml_dtypes`` is imported only for a bf16 leaf)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def to_numpy_tree(tree: Any) -> Any:
     """torch tree -> numpy tree (for comparisons against JAX output)."""
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    return to_numpy(tree)
+
+
+def convert_train_state(state: Any, device="cpu"):
+    """A JAX ``TrainState`` (params and ``OptState`` step/mu/nu; read by
+    field name, each leaf through ``numpy.asarray``) -> the port's, on
+    ``device``, so both packages can start from the same state."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import OptState
+    opt = state.opt
+    return TrainState(convert_tree(state.params, device),
+                      OptState(to_tensor(opt.step, device),
+                               convert_tree(opt.mu, device),
+                               convert_tree(opt.nu, device)))
+
+
+def train_state_to_numpy(state: Any):
+    """The port's ``TrainState`` -> the same NamedTuples with numpy
+    leaves (bf16 moments as ``ml_dtypes.bfloat16``): the JAX package
+    rebuilds its ``TrainState(params, OptState(step, mu, nu))`` from
+    them."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import OptState
+    opt = state.opt
+    return TrainState(to_numpy_tree(state.params),
+                      OptState(to_numpy(opt.step), to_numpy_tree(opt.mu),
+                               to_numpy_tree(opt.nu)))

@@ -205,11 +205,15 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     return y
 
 
-def expert_linear(x: torch.Tensor, w: SparqleLinear, *,
+def expert_linear(x: torch.Tensor, w, *,
                   tp: Optional[str] = None) -> torch.Tensor:
-    """Batched expert projection: x (E, C, K) @ w (E, K, N), ``w`` a
-    routed-expert :class:`SparqleLinear` (the port serves quantized
-    trees). ``tp="row"`` as in :func:`linear`."""
+    """Batched expert projection: x (E, C, K) @ w (E, K, N). A
+    routed-expert :class:`SparqleLinear` (a served tree) runs the batched
+    kernels; a float weight (a trained tree) takes :func:`linear`'s float
+    branch, one batched product with the weight cast to x's dtype.
+    ``tp="row"`` as in :func:`linear`."""
+    if not isinstance(w, SparqleLinear):
+        return linear(x, w, tp=tp)
     return _quantized_apply(x, w, batched=True, tp=tp)
 
 

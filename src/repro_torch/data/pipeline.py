@@ -1,14 +1,18 @@
-"""Deterministic synthetic token stream (the numpy half of
+"""Deterministic synthetic token stream (torch twin of
 ``repro.data.pipeline``): a Zipf-distributed Markov chain over a fixed
 random successor table, documents of exponential length packed back to
-back with EOS separators. ``batch_at(step)`` is a pure function of
-(seed, step) and equals the JAX package's batch for the same config."""
+back with EOS separators. ``batch_at(step, host_slice)`` is a pure
+function of (seed, step) and equals the JAX package's batch for the same
+config: a restarted job replays its batches bit for bit, and a host can
+build only its own rows. :func:`shard_batch` places a batch on one
+device; the multi-host placement onto a mesh waits for mesh training."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +57,28 @@ class SyntheticLM:
             toks.append(cfg.eos_id)
         return np.asarray(toks[: cfg.seq_len + 1], np.int32)
 
-    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
-        """Pure function of step -> {'tokens', 'targets'} (B, S)."""
+    def batch_at(self, step: int, host_slice: Optional[slice] = None
+                 ) -> Dict[str, np.ndarray]:
+        """Pure function of step -> {'tokens', 'targets'} (B, S); with
+        ``host_slice`` only those rows of the global batch."""
         cfg = self.cfg
+        rows = range(cfg.global_batch)[host_slice or slice(None)]
         packed = np.stack([
             self._packed_row(cfg.seed * 1_000_003 + step * cfg.global_batch
                              + r)
-            for r in range(cfg.global_batch)])
+            for r in rows])
         return {"tokens": packed[:, :-1], "targets": packed[:, 1:]}
+
+    def iter_batches(self, start_step: int = 0) -> Iterator[Dict]:
+        step = start_step
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+def shard_batch(batch: Dict[str, np.ndarray],
+                device) -> Dict[str, torch.Tensor]:
+    """A host batch (numpy arrays) as tensors on ``device``: the
+    one-device form of JAX's ``shard_batch``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}

@@ -1,8 +1,15 @@
-"""The serving step functions (torch twin of the serving steps of
-``repro.launch.steps``), as plain closures over the config: the engine's
-prefill, decode (full or LSB4-only draft) and speculative verify window,
-and the fixed-batch path's whole-prompt prefill and decode over
-contiguous caches (``make_serve_prefill``/``make_serve_decode``).
+"""The step functions (torch twin of ``repro.launch.steps``), as plain
+closures over the config: the train step (``make_train_step``: the loss
+with its chunked CE, remat, the MoE aux loss and the MTP term,
+microbatched gradient accumulation, optional int8 gradient compression,
+AdamW), the engine's prefill, decode (full or LSB4-only draft) and
+speculative verify window, and the fixed-batch path's whole-prompt
+prefill and decode over contiguous caches
+(``make_serve_prefill``/``make_serve_decode``).
+
+The train step runs eagerly, on the float tree: no hand-written kernel
+lies on it (the reference trains through XLA's ``dot_general``, flash
+attention and MoE dispatch too).
 
 The decode step takes a (B, Pmax) tier table too when the KV2 precision
 ladder is armed. All keep the JAX steps' static shapes — a (1, C) prefill
@@ -29,13 +36,201 @@ the same tokens.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Dict, NamedTuple, Tuple
+
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from repro_torch.checkpoint import store
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.tp import shard_model_config, tp_scope
 from repro_torch.launch.mesh import mesh_layout
 from repro_torch.models import model as M
+from repro_torch.optim.adamw import (OptConfig, OptState, adamw_update,
+                                     compress_grads, decompress_grads)
+
+
+# ---------------------------------------------------------------------------
+# training: the loss, the train step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainKnobs:
+    microbatch: int = 0          # 0 = no accumulation (whole batch at once)
+    remat: bool = True
+    ce_chunk: int = 512          # sequence chunk for the chunked CE
+    mtp_weight: float = 0.3
+    aux_weight: float = 0.01
+    compress_pod_grads: bool = False
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: OptState
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in f32. logits (..., V), targets (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def chunked_ce(cfg: ModelConfig, params, hidden: torch.Tensor,
+               targets: torch.Tensor, chunk: int) -> torch.Tensor:
+    """CE over the vocab head without materializing (B, S, V) logits.
+
+    The head and CE of each sequence chunk run under
+    ``torch.utils.checkpoint``, recomputed in the backward pass, so the
+    peak logits are (B, chunk, V) in f32, as JAX's ``jax.checkpoint``
+    inside its scan gives. A sequence the chunk does not divide is
+    tail-padded with target -1, which counts nothing."""
+    b, s, _ = hidden.shape
+    if tuple(targets.shape) != (b, s):
+        raise ValueError(f"targets {tuple(targets.shape)} for hidden "
+                         f"{tuple(hidden.shape)}")
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+
+    def one(h, t):
+        logits = M.head_logits(cfg, params, h).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp_min(t, 0).long()[..., None])[..., 0]
+        valid = (t >= 0).float()
+        return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s + pad, chunk):
+        loss, n = torch.utils.checkpoint.checkpoint(
+            one, hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
+            use_reentrant=False)
+        tot, cnt = tot + loss, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def cast_params_for_compute(cfg: ModelConfig, params):
+    """The f32 leaves cast to the compute dtype once, before any use, as
+    JAX's (its FSDP gathers then move bf16); autograd takes the grads
+    back to the f32 masters through the cast. MoE expert subtrees stay
+    f32, as the reference keeps them (a workaround of its CPU backend,
+    kept here so both packages compute the same function)."""
+    dt = cfg.cdtype
+
+    def walk(tree, in_moe=False):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, in_moe or k == "moe")
+            elif not in_moe and v.dtype == torch.float32:
+                out[k] = v.to(dt)
+            else:
+                out[k] = v
+        return out
+
+    return walk(params)
+
+
+def loss_fn(cfg: ModelConfig, knobs: TrainKnobs, params,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics): the chunked CE (a VLM's over its text positions),
+    plus ``aux_weight`` x the MoE load-balance loss and, with an MTP head,
+    ``mtp_weight`` x its CE (position i predicts tokens[i+2] =
+    targets[i+1])."""
+    params = cast_params_for_compute(cfg, params)
+    hidden, aux = M.forward_hidden(cfg, params, batch, remat=knobs.remat,
+                                   with_aux=True)
+    targets = batch["targets"]
+    if cfg.family == "vlm":      # targets cover only the text positions
+        hidden_t = hidden[:, cfg.n_prefix:cfg.n_prefix + targets.shape[1]]
+    else:
+        hidden_t = hidden
+    ce = chunked_ce(cfg, params, hidden_t, targets, knobs.ce_chunk)
+    loss = ce + knobs.aux_weight * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth:
+        mtp_ce = _xent(M.mtp_logits(cfg, params, hidden, batch),
+                       targets[:, 1:])
+        loss = loss + knobs.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics
+
+
+def make_accum_grads(cfg: ModelConfig, knobs: TrainKnobs = TrainKnobs()):
+    """Returns ``accum_grads(params, batch) -> (loss, metrics, grads)``,
+    the gradient half of the train step: the grads of the f32 master
+    params by autograd, summed over microbatches of ``knobs.microbatch``
+    rows in the reference's order (each leaf's ``.grad`` takes the first
+    microbatch's grad and adds the next ones in place: 0 + g1 + g2 ...,
+    then / n, the count as a 0-d tensor). A leaf the loss does not reach
+    (an encoder's token table) gets a zero grad, as ``jax.grad`` gives."""
+
+    def accum_grads(params, batch):
+        leaves = [p.detach().requires_grad_() for p in store.flatten(params)]
+        tracked = store.unflatten(params, leaves)
+        mb = knobs.microbatch
+        b = batch["targets"].shape[0]
+        if not mb or mb >= b:
+            loss, metrics = loss_fn(cfg, knobs, tracked, batch)
+            loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            if b % mb:
+                raise ValueError(f"batch {b} is not a multiple of the "
+                                 f"microbatch {mb}")
+            n = b // mb
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            for i in range(n):
+                ub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                loss_i, _ = loss_fn(cfg, knobs, tracked, ub)
+                loss_i.backward()
+                lsum = lsum + loss_i.detach()
+            nt = torch.tensor(float(n), device=lsum.device)
+            for leaf in leaves:
+                if leaf.grad is not None:
+                    leaf.grad.div_(nt)
+            loss = lsum / nt
+            metrics = {"ce": loss}
+        grads = [leaf.grad if leaf.grad is not None
+                 else torch.zeros_like(leaf) for leaf in leaves]
+        return loss.detach(), metrics, store.unflatten(params, grads)
+
+    return accum_grads
+
+
+def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
+                    knobs: TrainKnobs = TrainKnobs()):
+    """Returns ``train_step(state, batch) -> (state, metrics)``:
+    :func:`make_accum_grads`'s grads, int8-quantized and dequantized with
+    ``compress_pod_grads`` as the reference's step does, then
+    :func:`adamw_update`, which writes the new params and moments in
+    place: the state passed in is the state returned (the JAX step
+    donates it). The metrics are 0-d device tensors; the step reads
+    nothing to the host."""
+    accum_grads = make_accum_grads(cfg, knobs)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        loss, metrics, grads = accum_grads(state.params, batch)
+        if knobs.compress_pod_grads:
+            # int8 EF compression of the cross-pod gradient reduction,
+            # quantized and dequantized in the step as the reference does
+            q, _err = compress_grads(grads)
+            grads = decompress_grads(q)
+        new_params, opt, om = adamw_update(state.params, grads, state.opt,
+                                           ocfg)
+        metrics = dict(metrics, loss=loss, **om)
+        return TrainState(new_params, opt), metrics
+
+    return train_step
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Shared layers of the serving paths (torch twin of
 ``repro.models.layers``): RMSNorm, LayerNorm, SiLU and the tanh GELU
 (both rounded op by op as JAX rounds them), RoPE, embedding, the
-inter-layer activation wire telemetry, and the fixed-batch path's float
-attention (``flash_attention`` over a whole sequence,
+inter-layer activation wire telemetry, and the float attention of the
+fixed-batch path and of training (``flash_attention`` over a whole
+sequence, causal or bidirectional,
 ``decode_attention`` over a dequantized cache — plain torch, as they are
 plain jnp in JAX)."""
 from __future__ import annotations
@@ -64,6 +65,13 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax``'s steps on the last axis (a true division by the
+    sum)."""
+    un = torch.exp(x - x.amax(-1, keepdim=True))
+    return un / un.sum(-1, keepdim=True)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` op by op, each op rounded to x's dtype (at bf16
     torch.sigmoid rounds once and differs from JAX in ~1/3 of
@@ -115,21 +123,19 @@ class AttnSpec(NamedTuple):
     prefix_len: int = 0      # positions < prefix_len attend bidirectionally
 
 
-def _check_spec(spec: AttnSpec) -> None:
-    if not spec.causal:
-        raise NotImplementedError(
-            f"{spec}: bidirectional (encoder) attention is not ported")
-
-
 def _mask(qi: torch.Tensor, kj: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
-    """(len(qi), len(kj)) boolean allow-mask from absolute positions:
-    causal, a bidirectional prefix (keys < ``prefix_len`` seen by every
-    query), a sliding window (``qi - kj < window``)."""
-    _check_spec(spec)
+    """(len(qi), len(kj)) boolean allow-mask from absolute positions: all
+    keys for a bidirectional (encoder) spec; under ``causal`` keys <= the
+    query and a bidirectional prefix (keys < ``prefix_len`` seen by every
+    query); a sliding window (``qi - kj < window``) in both."""
     qi, kj = qi[:, None], kj[None, :]
-    allow = kj <= qi
-    if spec.prefix_len:
-        allow = allow | (kj < spec.prefix_len)
+    allow = torch.ones(torch.broadcast_shapes(qi.shape, kj.shape),
+                       dtype=torch.bool, device=qi.device)
+    if spec.causal:
+        causal_ok = kj <= qi
+        if spec.prefix_len:
+            causal_ok = causal_ok | (kj < spec.prefix_len)
+        allow = allow & causal_ok
     if spec.window:
         allow = allow & ((qi - kj) < spec.window)
     return allow
@@ -185,7 +191,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (B, Smax, KVH, hd), positions <= pos (B,) and, with a window, > pos -
     window; f32 softmax, output in q's dtype. The plain version of the
     contiguous KV4 decode kernel."""
-    _check_spec(spec)
     b, h, hd = q.shape
     kvh = k_cache.shape[2]
     out = decode_attention_f32(q.reshape(b, kvh, h // kvh, hd),

@@ -1,7 +1,9 @@
-"""Serving subset of the unified model (torch twin of
-``repro.models.model``): a GQA decoder (RMSNorm or LayerNorm, optional
-qk-norm; a SwiGLU, GeGLU, biased GELU or MoE FFN) in SPARQLe mode,
-served from a paged packed-KV4 pool (the engine: full-attention
+"""The unified model (torch twin of ``repro.models.model``): a GQA
+decoder (RMSNorm or LayerNorm, optional qk-norm; a SwiGLU, GeGLU, biased
+GELU or MoE FFN) or a bidirectional encoder (hubert: the stub frontend's
+frames in, no decode step), trained on its float tree through
+``forward_hidden`` (remat, the MoE load-balance loss) and served in
+SPARQLe mode from a paged packed-KV4 pool (the engine: full-attention
 token-only decoders, as JAX's ``check_paged_support`` allows) or from
 one contiguous (B, Smax) packed-KV4 cache a layer (``prefill``/
 ``decode_step``, the fixed-batch ``serve --legacy`` path, which also
@@ -49,6 +51,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qlinear import (SparqleLinear, linear, msb_skip_scope,
@@ -65,7 +68,7 @@ from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import (NEG_INF, AttnSpec,
                                        act_wire_telemetry, embed,
                                        flash_attention, gelu_tanh, layer_norm,
-                                       rms_norm, rope, silu,
+                                       rms_norm, rope, silu, softmax,
                                        stack_sublayer_telemetry)
 from repro_torch.models.stages import LayerDef, build_stages
 
@@ -155,12 +158,18 @@ def _mlp(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     return linear(g * linear(h, p["w_up"]), p["w_down"], tp="row")
 
 
-def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+            with_aux: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The MoE FFN on x (..., D): routed experts over the flattened
     tokens (capacity from their count), plus the shared experts. A
     data-sharded step routes the whole batch: the flat rows gathered over
     the data group (in global slot order, so dispatch, capacity and
-    combine are the single-device ones), its own rows sliced back out."""
+    combine are the single-device ones), its own rows sliced back out.
+
+    Returns (output, the load-balance aux loss, an f32 scalar over the
+    routed rows, with ``with_aux``; None without: the serving steps never
+    read it, as XLA drops it from JAX's)."""
     h = _norm(cfg, p["ln2"], x)
     flat = h.reshape(-1, h.shape[-1])
     t_local = flat.shape[0]
@@ -174,10 +183,12 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         y = y + moe_lib.shared_expert_ffn(flat, mp["w_shared_gate"],
                                           mp["w_shared_up"],
                                           mp["w_shared_down"])
+    aux = (moe_lib.load_balance_loss(flat, mp["w_router"], cfg.top_k)
+           if with_aux else None)
     if y.shape[0] != t_local:
         lo = tp_ctx().batch_rank * t_local
         y = y[lo:lo + t_local]
-    return y.reshape(h.shape)
+    return y.reshape(h.shape), aux
 
 
 def _add_ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
@@ -186,7 +197,9 @@ def _add_ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
     a layer without one (mamba2's ``ffn="none"``)."""
     if ld.ffn == "none":
         return x
-    return x + (moe_ffn if ld.ffn == "moe" else dense_ffn)(cfg, p, x)
+    if ld.ffn == "moe":
+        return x + moe_ffn(cfg, p, x)[0]
+    return x + dense_ffn(cfg, p, x)
 
 
 def head_logits(cfg: ModelConfig, params: Params,
@@ -246,12 +259,13 @@ def check_contiguous_support(cfg: ModelConfig) -> None:
     MLA layers (deepseek-v3, whose packed cache is the compressed KV: its
     ``kv_lora_rank`` must be even, its ``hd`` is never read) and SSD
     layers (mamba2, jamba: the KV4 check only where an attention layer
-    exists; mamba2 has no heads, its ``hd`` is never read); encoders are
-    not ported yet."""
+    exists; mamba2 has no heads, its ``hd`` is never read); encoders have
+    no decode step (the JAX serve refuses them too): they train only."""
     if cfg.family == "encoder":
         raise NotImplementedError(
             "contiguous serving: encoder models (bidirectional attention, "
-            "no decode step) are not ported")
+            "no decode step) do not serve; they train "
+            "(repro_torch.launch.train)")
     mixers = {ld.mixer for stage in build_stages(cfg) for ld in stage.period}
     for mixer in sorted(mixers - set(_MIXER_FULL)):
         raise NotImplementedError(
@@ -270,11 +284,27 @@ def _layers(cfg: ModelConfig, params: Params, pool: Optional[Cache]):
     for si, stage in enumerate(build_stages(cfg)):
         sp = params["stages"][f"s{si}"]
         sc = None if pool is None else pool["stages"][f"s{si}"]
+        per = [_unbind_layers(sp[f"p{pi}"], stage.repeat)
+               for pi in range(len(stage.period))]
         for rep in range(stage.repeat):
             for pi, ld in enumerate(stage.period):
-                yield (ld, tree_index(sp[f"p{pi}"], rep),
+                yield (ld, per[pi][rep],
                        None if sc is None else
                        {k: v[rep] for k, v in sc[f"p{pi}"].items()})
+
+
+def _unbind_layers(tree, n: int):
+    """A layer-stacked param subtree as ``n`` per-layer subtrees: float
+    leaves through one ``torch.unbind`` each (the same views as indexing;
+    under autograd one backward stacks the layers' gradients, where n
+    selects would each write a zero-filled gradient of the whole stack),
+    a ``SparqleLinear`` through its ``layer``."""
+    if isinstance(tree, dict):
+        per = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    if isinstance(tree, SparqleLinear):
+        return [tree.layer(i) for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _act_subprecision_sparsity(x: torch.Tensor) -> torch.Tensor:
@@ -443,7 +473,7 @@ def verify_window_paged(cfg: ModelConfig, params: Params, pool: Cache,
             # one routed-MoE call a window position, on the B rows a
             # decode step routes: capacity depends on the token count
             x = x + _per_position(
-                lambda r: moe_ffn(cfg, p, r[:, None, :])[:, 0], x)
+                lambda r: moe_ffn(cfg, p, r[:, None, :])[0][:, 0], x)
         else:
             x = x + _mlp(cfg, p, _per_position(   # as decode: (B, 1, D)
                 lambda r: _norm(cfg, p["ln2"], r[:, None, :])[:, 0], x))
@@ -704,12 +734,6 @@ def _mla_absorbed_weights(cfg: ModelConfig, p: Params):
     return w[..., :dn], w[..., dn:]
 
 
-def _softmax(s: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax``'s steps on the last axis (a true division)."""
-    un = torch.exp(s - s.amax(-1, keepdim=True))
-    return un / un.sum(-1, keepdim=True)
-
-
 def _mla_flash(qn, qr, ckv, kr, w_uk, w_uv, *, causal: bool,
                bq: int = 512, bkv: int = 1024) -> torch.Tensor:
     """Blockwise absorbed MLA attention, JAX's block loop: q_nope/q_rope
@@ -807,7 +831,7 @@ def mla_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     sc = sc * (dn + dr) ** -0.5
     allow = (torch.arange(ckv.shape[1], device=x.device)[None, :]
              <= pos[:, None])
-    pr = _softmax(torch.where(allow[:, None, :], sc, NEG_INF))
+    pr = softmax(torch.where(allow[:, None, :], sc, NEG_INF))
     ctx = torch.einsum("bhj,bjr->bhr", pr, ckv)
     o = torch.einsum("bhr,rhd->bhd", ctx, w_uv.float())
     return linear(o.reshape(b, H * dv).to(x.dtype), p["wo"]), cache
@@ -892,11 +916,16 @@ _MIXER_DEC = {"attn": attn_decode, "mla": mla_decode, "ssd": ssd_decode}
 
 
 def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,
-                      prefix_len, cache):
+                      prefix_len, cache, with_aux: bool = False):
+    """One layer over the whole sequence. Returns (x, cache, the MoE
+    layer's load-balance loss with ``with_aux``, else None)."""
     y, cache = _MIXER_FULL[ld.mixer](cfg, ld, p, x, positions, prefix_len,
                                      cache)
     x = x + y
-    return _add_ffn(cfg, ld, p, x), cache
+    if ld.ffn == "moe":
+        y, aux = moe_ffn(cfg, p, x, with_aux=with_aux)
+        return x + y, cache, aux
+    return _add_ffn(cfg, ld, p, x), cache, None
 
 
 def _apply_layer_decode(cfg, ld: LayerDef, p: Params, x, cache, pos):
@@ -907,11 +936,16 @@ def _apply_layer_decode(cfg, ld: LayerDef, p: Params, x, cache, pos):
 
 def embed_inputs(cfg: ModelConfig, params: Params,
                  batch: Dict[str, torch.Tensor]):
-    """Returns (x (B, S, D), positions (S,), prefix_len). A VLM's
+    """Returns (x (B, S, D), positions (S,), prefix_len). An encoder's
+    ``batch["frames"]`` (B, S, D) are the stub frontend's precomputed
+    frame embeddings, cast to the compute dtype. A VLM's
     ``batch["patches"]`` (B, n_prefix, D), the stub vision tower's
     precomputed embeddings, go in front of the token embeddings and
     attend bidirectionally (``prefix_len`` = their count); the gemma
     family's sqrt(d) scaling covers both."""
+    if cfg.family == "encoder":
+        x = batch["frames"].to(cfg.cdtype)
+        return x, torch.arange(x.shape[1], device=x.device), 0
     if cfg.family != "vlm":
         x = _embed(cfg, params, batch["tokens"])
         return x, torch.arange(x.shape[1], device=x.device), 0
@@ -924,19 +958,41 @@ def embed_inputs(cfg: ModelConfig, params: Params,
 
 
 def forward_hidden(cfg: ModelConfig, params: Params,
-                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Forward without the head (final pre-norm hidden states)."""
-    check_contiguous_support(cfg)
+                   batch: Dict[str, torch.Tensor], *, remat: bool = False,
+                   with_aux: bool = False):
+    """Forward without the head (final pre-norm hidden states) [, the
+    MoE layers' load-balance losses summed in f32, in layer order].
+
+    ``remat``: each layer runs under ``torch.utils.checkpoint`` (not
+    reentrant), which keeps only the layer's input and recomputes the
+    rest in the backward pass: the counterpart of JAX's
+    ``jax.checkpoint(nothing_saveable)`` over the layer scan. Any arch
+    runs, encoders and VLMs included; with no cache nothing is written in
+    place, so autograd differentiates every mixer."""
     x, positions, prefix_len = embed_inputs(cfg, params, batch)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for ld, p, _ in _layers(cfg, params, None):
-        x, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len, None)
-    return x
+        def layer(h, ld=ld, p=p):
+            h, _, aux = _apply_layer_full(cfg, ld, p, h, positions,
+                                          prefix_len, None, with_aux)
+            return h, aux
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(layer, x,
+                                                       use_reentrant=False)
+        else:
+            x, aux = layer(x)
+        if aux is not None:
+            total = total + aux
+    return (x, total) if with_aux else x
 
 
 def forward(cfg: ModelConfig, params: Params,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
-    return head_logits(cfg, params, forward_hidden(cfg, params, batch))
+            batch: Dict[str, torch.Tensor], *, remat: bool = False,
+            with_aux: bool = False):
+    """Full-sequence forward -> logits (B, S, V) [, aux loss]."""
+    x, aux = forward_hidden(cfg, params, batch, remat=remat, with_aux=True)
+    logits = head_logits(cfg, params, x)
+    return (logits, aux) if with_aux else logits
 
 
 def prefill(cfg: ModelConfig, params: Params,
@@ -948,8 +1004,8 @@ def prefill(cfg: ModelConfig, params: Params,
     x, positions, prefix_len = embed_inputs(cfg, params, batch)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
     for ld, p, lcache in _layers(cfg, params, cache):
-        x, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len,
-                                 lcache)
+        x, _, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len,
+                                    lcache)
     return head_logits(cfg, params, x[:, -1:, :])[:, 0], cache
 
 
@@ -957,7 +1013,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 token: torch.Tensor, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step. token (B,) int32, pos (B,) int32 -> logits
-    (B, V); the cache is updated in place and returned."""
+    (B, V); the cache is updated in place and returned. An encoder has
+    no decode step."""
+    if cfg.family == "encoder":
+        raise ValueError("encoder-only model has no decode step")
     x = _embed(cfg, params, token)
     for ld, p, lcache in _layers(cfg, params, cache):
         x, _ = _apply_layer_decode(cfg, ld, p, x, lcache, pos)
@@ -970,8 +1029,8 @@ def mtp_logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     hidden state at t and the embedding of token t+1. ``hidden`` is the
     trunk's final pre-norm hidden states (B, S, D) (``forward_hidden``);
     returns logits (B, S-1, V), position i predicting tokens[i+2], through
-    ``mtp_depth`` MLA + dense blocks and the trunk's head. The reference
-    runs it in training only; no serve calls it."""
+    ``mtp_depth`` MLA + dense blocks and the trunk's head. Training's
+    loss reads it (``launch/steps.py``); no serve calls it."""
     mp = params["mtp"]
     tok = batch["tokens"]
     h = _norm(cfg, mp["norm_h"], hidden[:, :-1, :])
@@ -981,6 +1040,6 @@ def mtp_logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     positions = torch.arange(x.shape[1], device=x.device)
     ld = LayerDef("mla" if cfg.use_mla else "attn", "dense")
     for rep in range(cfg.mtp_depth):
-        x, _ = _apply_layer_full(cfg, ld, tree_index(mp["block"], rep), x,
-                                 positions, 0, None)
+        x, _, _ = _apply_layer_full(cfg, ld, tree_index(mp["block"], rep),
+                                    x, positions, 0, None)
     return head_logits(cfg, params, x)

@@ -2,13 +2,16 @@
 parts of ``repro.models.moe``): softmax/sigmoid top-k routing, the
 sort-based dispatch into an (E, C, D) capacity buffer, the batched
 expert SwiGLU and the inverse-permutation combine, plus the always-on
-shared experts.
+shared experts and training's load-balance loss. The expert-parallel
+forms (``moe_ffn_local_ep``, ``moe_ffn_dist``'s shard_map branch) are not
+ported: on one device ``moe_ffn_dist`` is :func:`moe_ffn`.
 
 Every step is a device op on static shapes (capacity is a function of
 the token count only), with no host read, so the steps that run it
 capture as CUDA graphs. The routed expert projections go through
-:func:`repro_torch.core.qlinear.expert_linear`: on the card one batched
-encoder launch and one batched matmul launch each, for all E experts.
+:func:`repro_torch.core.qlinear.expert_linear`: for a served tree on the
+card one batched encoder launch and one batched matmul launch each, for
+all E experts; for a float (training) tree one batched product.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.qlinear import expert_linear, linear
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import silu, softmax
 
 
 def router(x: torch.Tensor, w_router: torch.Tensor, router_type: str,
@@ -31,9 +34,22 @@ def router(x: torch.Tensor, w_router: torch.Tensor, router_type: str,
     if router_type == "sigmoid":
         topv, topi = torch.topk(torch.sigmoid(logits), top_k, dim=-1)
         return topv / topv.sum(-1, keepdim=True).clamp_min(1e-9), topi
-    # jax.nn.softmax's steps (a true division by the sum)
-    un = torch.exp(logits - logits.amax(-1, keepdim=True))
-    return torch.topk(un / un.sum(-1, keepdim=True), top_k, dim=-1)
+    return torch.topk(softmax(logits), top_k, dim=-1)
+
+
+def load_balance_loss(x: torch.Tensor, w_router: torch.Tensor,
+                      top_k: int) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss over x (T, D), as JAX's:
+    f32 router logits, softmax, the top-k assignment counts (exact
+    integers; no gradient flows through them), ``e * sum(frac_tokens *
+    frac_probs)``."""
+    probs = softmax(x.float() @ w_router.float())
+    e = probs.shape[-1]
+    topi = torch.topk(probs, top_k, dim=-1)[1]
+    counts = torch.bincount(topi.reshape(-1), minlength=e).float()
+    frac_tokens = counts / counts.sum().clamp_min(1.0)
+    frac_probs = probs.mean(dim=0)
+    return e * torch.sum(frac_tokens * frac_probs)
 
 
 def capacity(tokens: int, top_k: int, n_experts: int,

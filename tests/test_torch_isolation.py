@@ -43,7 +43,8 @@ def test_port_package_is_found():
 def test_importing_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.kernels; "
+            "repro_torch.kernels, repro_torch.launch.train, "
+            "repro_torch.optim.adamw, repro_torch.distributed.fault; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")

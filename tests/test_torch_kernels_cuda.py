@@ -45,8 +45,13 @@ family's shapes: the five matmul entries at mamba2-2.7b's and
 jamba-v0.1-52b's projections (N = 10,576 and 16,544: a ragged last
 column block), the fused encoders at their K, the batched entries at
 jamba's E = 16; both smoke configs through ``--legacy`` on the card and
-on the CPU: the same greedy streams.
+on the CPU: the same greedy streams. Training: granite-8b's and
+hubert-xlarge's smoke configs train two steps on the card, twice from
+one seed in a child process under ``torch.use_deterministic_algorithms``
+(cuBLAS's workspace set before CUDA starts): every loss finite, no
+blow-up, the two runs' states bit-equal.
 """
+import math
 import sys
 from pathlib import Path
 
@@ -743,3 +748,65 @@ def test_ssd_smoke_legacy_on_card_matches_cpu(cuda, arch):
         want |= {"sparqle_encode_fused_batched", "sparqle_matmul_batched",
                  "kv_attention_contiguous"}
     assert set(counts) == want
+
+
+# a two-step smoke train, run twice from one seed in a child process whose
+# environment sets cuBLAS's workspace before CUDA starts, as
+# use_deterministic_algorithms needs
+_TRAIN_TWICE = r"""
+import json, sys, torch
+from repro_torch.configs import get_config
+from repro_torch.checkpoint import store
+from repro_torch.launch import steps as S
+from repro_torch.launch.train import build_state
+from repro_torch.optim.adamw import OptConfig
+torch.use_deterministic_algorithms(True)
+dev = torch.device("cuda")
+cfg = get_config(sys.argv[1], smoke=True)
+ocfg = OptConfig(warmup_steps=1, total_steps=4)
+g = torch.Generator(device=dev).manual_seed(3)
+if cfg.family == "encoder":
+    batch = {"frames": torch.randn((4, 24, cfg.d_model), generator=g,
+                                   device=dev)}
+else:
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 24), generator=g,
+                                     device=dev, dtype=torch.int32)}
+batch["targets"] = torch.randint(0, cfg.vocab, (4, 24), generator=g,
+                                 device=dev, dtype=torch.int32)
+runs = []
+for _ in range(2):
+    state = build_state(cfg, ocfg, 0, dev)
+    step = S.make_train_step(cfg, ocfg, S.TrainKnobs(microbatch=2, ce_chunk=8))
+    losses = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    runs.append((losses, [t.cpu() for t in store.flatten(state)]))
+print(json.dumps({"losses": [r[0] for r in runs], "bit_equal": all(
+    torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))}))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "hubert-xlarge"])
+def test_smoke_train_on_card_finite_and_deterministic(cuda, arch):
+    """Two train steps of the smoke config (bf16, two microbatches, remat,
+    chunked CE) on the card, twice from one seed under
+    ``torch.use_deterministic_algorithms``: every loss finite, the second
+    step's below the first's + 1.0 (the reference's smoke check), and
+    the two runs' states (params, moments, step) bit-equal."""
+    import json
+    import os
+    import subprocess
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", _TRAIN_TWICE, arch],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    for losses in r["losses"]:
+        assert all(map(math.isfinite, losses)), r
+        assert losses[1] < losses[0] + 1.0, r
+    assert r["bit_equal"], r

@@ -91,16 +91,15 @@ def test_flash_attention_matches_jax():
                                rtol=0)
     whole = tlayers.flash_attention(_t(q), _t(k), _t(v), tlayers.AttnSpec())
     np.testing.assert_allclose(whole.numpy(), got.numpy(), atol=1e-5, rtol=0)
-    for kw in (dict(window=8), dict(prefix_len=4)):
+    # the bidirectional (encoder) spec, alone and with a window
+    for kw in (dict(window=8), dict(prefix_len=4), dict(causal=False),
+               dict(causal=False, window=8)):
         want = jlayers.flash_attention(*map(jnp.asarray, (q, k, v)),
                                        jlayers.AttnSpec(**kw), bq=16, bkv=32)
         got = tlayers.flash_attention(_t(q), _t(k), _t(v),
                                       tlayers.AttnSpec(**kw), bq=16, bkv=32)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                    rtol=0)
-    with pytest.raises(NotImplementedError):
-        tlayers.flash_attention(_t(q), _t(k), _t(v),
-                                tlayers.AttnSpec(causal=False))
 
 
 def test_contiguous_attention_plain_matches_jax():
