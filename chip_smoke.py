@@ -195,7 +195,22 @@ to chiprun_out/):
      ``torch.use_deterministic_algorithms``: a run with an injected
      failure and async checkpoints ends bit-equal to a clean run, and
      ``--resume auto`` continues from the clean run's last checkpoint;
- 19. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 19. training on a (data, model) mesh, after phase 18: deepseek-moe-16b
+     at full width, its first MOE_TP_LAYERS of 28 layers, on a 2x2 mesh
+     of ranks sharing the card over gloo (master params and moments
+     sharded over data, Megatron over model, the routed experts on the
+     expert axis; capacity factor ceil(E / top_k), so nothing drops),
+     MESH_TRAIN["steps"] steps of two microbatches of 4 on one 8 x 128
+     batch, then the same tree and batch at 1x1: step 1's loss within
+     MESH_LOSS_RTOL and grad norm within MESH_GNORM_RTOL of 1x1's, the
+     leaves whole over model bit-equal across the ranks, the ranks'
+     peaks summed within MESH_PEAK_SUM_GB (19a); the trained params
+     gathered onto rank 0, which quantizes and serves them as phase 18
+     serves its tree (rows 1, 3, 1e, 3e and 8 launched, logits finite;
+     the kernel line's launches of those rows, 19b); phase 18c's clean
+     and faulted CLI runs at ``--data-axis 2 --dist-backend gloo``: the
+     faulted run bit-equal to the clean one with one restart (19c);
+ 20. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -209,6 +224,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3941,12 +3957,9 @@ def train_lm(dev, seed):
     before and read just after: the fused encoder, the dual-pass matmul
     and the paged attention (rows 1, 3 and 8) launched, every step's
     logits finite."""
-    from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.core.qlinear import quantize_model_params
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
     from repro_torch.launch import steps as S
-    from repro_torch.launch.serve import make_engine, run_requests
     from repro_torch.launch.train import build_state
     from repro_torch.optim.adamw import OptConfig
     cfg = get_config(TRAIN_LM)
@@ -3975,13 +3988,28 @@ def train_lm(dev, seed):
     del state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
+    prompts = data.batch_at(1)["tokens"][:, :TRAIN_SERVE["prompt_len"]]
+    out.update(serve_trained(dev, cfg, params, prompts, (
+        "sparqle_encode_fused", "sparqle_matmul", "kv_attention")))
+    return out
+
+
+def serve_trained(dev, cfg, params, prompts, need):
+    """A trained float tree (consumed) quantized and served by the Engine
+    with graphs (TRAIN_SERVE: a 32-token prefill chunk a prompt, then
+    decode steps), the launch counters zeroed just before the serve and
+    read just after: raises unless every kernel counter of ``need``
+    launched, every step's logits are finite and every stream is whole.
+    Returns the quantize time, launches, steps and streams."""
+    from repro_torch import kernels
+    from repro_torch.core.qlinear import quantize_model_params
+    from repro_torch.launch.serve import make_engine, run_requests
     t0 = time.perf_counter()
     qparams = quantize_model_params(params, w_bits=cfg.w_bits)
     torch.cuda.synchronize(dev)
-    out["quantize_s"] = time.perf_counter() - t0
-    del params
+    out = {"quantize_s": time.perf_counter() - t0}
+    params.clear()
     gc.collect()
-    prompts = data.batch_at(1)["tokens"][:, :TRAIN_SERVE["prompt_len"]]
     eng = make_engine(cfg, qparams, **TRAIN_SERVE, page_size=16,
                       token_budget=128, prefill_chunk=32, decode_slots=8,
                       device=dev)
@@ -3992,7 +4020,6 @@ def train_lm(dev, seed):
     out["serve_steps"] = len(flags)
     out["logits_finite"] = bool(torch.stack(flags).all())
     out["streams"] = r["streams"]
-    need = ("sparqle_encode_fused", "sparqle_matmul", "kv_attention")
     if not all(counts[k] for k in need) or not out["logits_finite"] or any(
             len(s) != TRAIN_SERVE["gen"] for s in r["streams"]):
         raise AssertionError(f"{cfg.name} trained-tree serve: launches "
@@ -4045,7 +4072,7 @@ def train_encoder(dev, seed):
     return out
 
 
-def train_cli_child(path: str) -> None:
+def train_cli_child(path: str, mesh: bool = False) -> None:
     """Phase 18c's child process (``--train-cli PATH``), started with
     ``CUBLAS_WORKSPACE_CONFIG`` set: under
     ``torch.use_deterministic_algorithms(True)`` (the card's atomics,
@@ -4054,14 +4081,18 @@ def train_cli_child(path: str) -> None:
     clean, and with an injected failure and async checkpoints — then a
     ``--resume auto`` run from the clean run's final checkpoint; the two
     final checkpoints' params compared bit for bit. Writes the summary
-    to ``path`` as JSON."""
+    to ``path`` as JSON. ``mesh`` (phase 19c, ``--train-cli-mesh PATH``):
+    the clean and faulted runs at ``--data-axis MESH_CLI_AXIS
+    --dist-backend gloo`` (its ranks, spawned by ``main``, run
+    deterministic too), no resumed run."""
     import contextlib
     import io
-    import tempfile
     from repro_torch.checkpoint import store
     from repro_torch.launch import train
     torch.use_deterministic_algorithms(True)
     c = TRAIN_CLI
+    on_mesh = (["--data-axis", str(MESH_CLI_AXIS), "--dist-backend", "gloo"]
+               if mesh else [])
     with tempfile.TemporaryDirectory() as d:
         def run(name, *extra, steps=c["steps"]):
             buf = io.StringIO()
@@ -4070,7 +4101,7 @@ def train_cli_child(path: str) -> None:
                                 "--steps", str(steps),
                                 "--ckpt-every", str(c["ckpt_every"]),
                                 "--log-every", "4", "--ckpt-dir",
-                                f"{d}/{name}", *extra])
+                                f"{d}/{name}", *on_mesh, *extra])
             r["stdout"] = buf.getvalue()
             return r
         clean = run("clean")
@@ -4081,44 +4112,206 @@ def train_cli_child(path: str) -> None:
         same = all(torch.equal(a, b) for a, b in zip(
             store.flatten(final["clean"].params),
             store.flatten(final["fault"].params)))
-        resume = run("clean", "--resume", "auto", steps=c["resume_steps"])
-    summary = {"device": torch.cuda.get_device_name(0),
+        resume = (None if mesh else
+                  run("clean", "--resume", "auto", steps=c["resume_steps"]))
+    summary = {"device": torch.cuda.get_device_name(0), "argv": on_mesh,
                "deterministic": torch.are_deterministic_algorithms_enabled(),
                "params_bit_equal": same,
                "restarts": fault["report"].restarts,
                "faults_seen": fault["report"].faults_seen,
-               "resume_start": resume["start"]}
-    for name, r in (("clean", clean), ("fault", fault), ("resume", resume)):
+               "resume_start": resume["start"] if resume else None}
+    runs = (("clean", clean), ("fault", fault)) + (
+        (("resume", resume),) if resume else ())
+    for name, r in runs:
         summary[name] = {"losses": r["losses"], "ms_per_step": r["ms_per_step"],
                          "steps_run": r["report"].steps_run,
                          "stdout": r["stdout"]}
     Path(path).write_text(json.dumps(summary, indent=1))
 
 
-def train_cli():
-    """Phase 18c: :func:`train_cli_child` in a child process (its
-    environment carries TRAIN_CLI_ENV before CUDA starts); raises unless
-    the faulted run's final params equal the clean run's bit for bit
-    with one restart, every loss is finite and the resumed run started
-    at the clean run's last step."""
-    path = OUT / "train_cli.json"
+def train_cli(mesh: bool = False):
+    """Phase 18c (19c with ``mesh``): :func:`train_cli_child` in a child
+    process (its environment carries TRAIN_CLI_ENV before CUDA starts);
+    raises unless the faulted run's final params equal the clean run's
+    bit for bit with one restart, every loss is finite and (one device)
+    the resumed run started at the clean run's last step."""
+    path = OUT / ("train_cli_mesh.json" if mesh else "train_cli.json")
     path.unlink(missing_ok=True)
     env = dict(os.environ, **TRAIN_CLI_ENV)
+    flag = "--train-cli-mesh" if mesh else "--train-cli"
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--train-cli", str(path)], env=env,
+                           flag, str(path)], env=env,
                           capture_output=True, text=True,
                           timeout=TRAIN_CLI_TIMEOUT_S)
     if proc.returncode or not path.exists():
         raise AssertionError(f"train CLI child failed ({proc.returncode}):\n"
                              f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     r = json.loads(path.read_text())
-    losses = [x for k in ("clean", "fault", "resume")
+    losses = [x for k in ("clean", "fault", "resume") if k in r
               for x in r[k]["losses"]]
     if not (r["params_bit_equal"] and r["restarts"] == 1
-            and r["resume_start"] == TRAIN_CLI["steps"]
+            and (mesh or r["resume_start"] == TRAIN_CLI["steps"])
             and all(math.isfinite(x) for x in losses)):
         raise AssertionError(f"train CLI on the card: {r}")
     return r
+
+
+# ---------------------------------------------------------------------------
+# phase 19: training on a (data, model) mesh of ranks sharing the card
+# over gloo (state sharded over data, Megatron over model, routed experts
+# on the expert axis), the trained tree served, the CLI on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_ARCH = "deepseek-moe-16b"
+# full width, its first MOE_TP_LAYERS of 28 layers (1 dense, 3 MoE), as
+# phase 13 cuts it; one step (two ran 19.2-43.2 s each at 2x2 over gloo
+# and phase 19 184.3 s, past its 180)
+MESH_TRAIN = dict(batch=8, seq=128, steps=1, mesh=(2, 2))
+MESH_TRAIN_KNOBS = dict(microbatch=4, ce_chunk=128)
+# 2x2 against 1x1 on the same tree and batch: step 1's loss and grad norm
+MESH_LOSS_RTOL = 0.005
+MESH_GNORM_RTOL = 0.02
+# the four ranks' peaks together must fit the one card
+MESH_PEAK_SUM_GB = 80.0
+# the CLI on a mesh (19c): phase 18c's run at --data-axis 2
+MESH_CLI_AXIS = 2
+
+
+def mesh_train_config():
+    """MESH_TRAIN_ARCH cut to MOE_TP_LAYERS layers, at capacity factor
+    ceil(E / top_k), so no assignment drops and the local routing of the
+    data shards keeps what the whole batch's routing keeps."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH_TRAIN_ARCH).replace(n_layers=MOE_TP_LAYERS)
+    return cfg.replace(capacity_factor=float(math.ceil(cfg.n_experts
+                                                       / cfg.top_k)))
+
+
+def mesh_train_rank(rank, cfg, seed, device_type="cuda"):
+    """Phase 19a on one rank of the MESH_TRAIN mesh (a ``spawn_world``
+    rank function) for ``cfg``: this rank's slice of the state drawn leaf
+    by leaf, MESH_TRAIN["steps"] sharded steps on its rows of one
+    SyntheticLM batch, its peak memory, the checksums of its leaves whole
+    over model; then the trained params gathered onto rank 0, which
+    serves them as phase 18a serves its tree (19b; the other ranks have
+    freed their memory and returned). Returns the rank's numbers."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core.qlinear import tree_to
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import OptConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    tm = S.TrainMesh(cfg, make_mesh(*MESH_TRAIN["mesh"],
+                                    device_type=device_type))
+    ocfg = OptConfig(warmup_steps=1, total_steps=MESH_TRAIN["steps"])
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    state = tm.build_state(ocfg, seed, dev)
+    torch.cuda.synchronize(dev)
+    c = tm.layout.coords
+    out = {"rank": rank, "data_rank": c.data_rank,
+           "build_s": time.perf_counter() - t0,
+           "state_gb": tree_bytes({"p": state.params, "mu": state.opt.mu,
+                                   "nu": state.opt.nu}) / 1e9}
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MESH_TRAIN["seq"],
+                                  global_batch=MESH_TRAIN["batch"],
+                                  seed=seed))
+    batch = shard_batch(data.batch_at(0), dev, data_rank=c.data_rank,
+                        data_ways=c.data_ways,
+                        microbatch=MESH_TRAIN_KNOBS["microbatch"])
+    step_fn = S.make_train_step(cfg, ocfg, S.TrainKnobs(**MESH_TRAIN_KNOBS),
+                                mesh=tm)
+    state, out["steps"] = timed_train_steps(dev, state, step_fn, batch,
+                                            MESH_TRAIN["steps"])
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    pls = store.flatten(tm.shards.placements)
+    out["replicated"] = [(pl.data_dim is None, tree_checksum(t)) for t, pl in
+                         zip(store.flatten(state.params), pls)
+                         if pl.model_dim is None]
+    params = state.params
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whole = tm.gather(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tm.barrier()                 # every rank's cards' memory released
+    out["gather_s"] = time.perf_counter() - t0
+    if whole is not None:
+        prompts = data.batch_at(1)["tokens"][:, :TRAIN_SERVE["prompt_len"]]
+        out["serve"] = serve_trained(dev, cfg, tree_to(whole, dev), prompts, (
+            "sparqle_encode_fused", "sparqle_matmul",
+            "sparqle_encode_fused_batched", "sparqle_matmul_batched",
+            "kv_attention"))
+    return out
+
+
+def mesh_train(dev, cfg, seed):
+    """Phases 19a and 19b (module docstring): the MESH_TRAIN world of
+    ranks sharing the card over gloo (rank 0 serves the trained tree),
+    then the same tree on the same batch at 1x1 after the world has
+    ended. Raises unless every loss is finite, step 1's loss is within
+    MESH_LOSS_RTOL and its grad norm within MESH_GNORM_RTOL of 1x1's, the
+    leaves whole over model are bit-equal across the ranks (checksums),
+    and the ranks' peaks sum to at most MESH_PEAK_SUM_GB."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim.adamw import OptConfig
+    d, m = MESH_TRAIN["mesh"]
+    t0 = time.perf_counter()
+    ranks = spawn_world(mesh_train_rank, d * m, cfg, seed, dev.type,
+                        backend="gloo", device_type=dev.type,
+                        timeout_s=TP_TIMEOUT_S, deadline_s=TP_TIMEOUT_S)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "capacity_factor": cfg.capacity_factor,
+           "world_s": time.perf_counter() - t0, "ranks": ranks,
+           "serve": ranks[0].pop("serve")}
+    # 1x1: the one-device step on the same tree (the same draws) and batch
+    ocfg = OptConfig(warmup_steps=1, total_steps=MESH_TRAIN["steps"])
+    _reset_peak(dev)
+    state = build_state(cfg, ocfg, seed, dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MESH_TRAIN["seq"],
+                                  global_batch=MESH_TRAIN["batch"],
+                                  seed=seed))
+    step_fn = S.make_train_step(cfg, ocfg, S.TrainKnobs(**MESH_TRAIN_KNOBS))
+    state, out["single"] = timed_train_steps(
+        dev, state, step_fn, shard_batch(data.batch_at(0), dev),
+        MESH_TRAIN["steps"])
+    out["single_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_s, one = ranks[0]["steps"], out["single"]
+    out["loss_rel"] = abs(mesh_s[0]["loss"] - one[0]["loss"]) / abs(
+        one[0]["loss"])
+    out["gnorm_rel"] = abs(mesh_s[0]["grad_norm"] - one[0]["grad_norm"]) / \
+        abs(one[0]["grad_norm"])
+    out["peak_sum_gb"] = sum(r["peak_gb"] for r in ranks)
+    rows = {r["data_rank"]: r["replicated"] for r in ranks
+            if r["rank"] % m == 0}
+    out["replicated_equal"] = all(
+        r["replicated"] == rows[r["data_rank"]]
+        and [x for whole, x in r["replicated"] if whole]
+        == [x for whole, x in ranks[0]["replicated"] if whole]
+        for r in ranks)
+    out["replicated_leaves"] = len(ranks[0]["replicated"])
+    losses = [x["loss"] for r in ranks for x in r["steps"]] + [
+        x["loss"] for x in one]
+    if not (all(math.isfinite(x) for x in losses)
+            and out["loss_rel"] <= MESH_LOSS_RTOL
+            and out["gnorm_rel"] <= MESH_GNORM_RTOL
+            and out["replicated_equal"]
+            and out["peak_sum_gb"] <= MESH_PEAK_SUM_GB):
+        raise AssertionError(f"{cfg.name} mesh training: {out}")
+    return out
 
 
 def main() -> int:
@@ -4127,13 +4320,15 @@ def main() -> int:
                     help="stop after the kernel checks (phases 1-3)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train-cli", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--train-cli-mesh", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    if args.train_cli:           # phase 18c's child process
-        train_cli_child(args.train_cli)
+    if args.train_cli or args.train_cli_mesh:   # phase 18c's, 19c's child
+        train_cli_child(args.train_cli or args.train_cli_mesh,
+                        mesh=bool(args.train_cli_mesh))
         return 0
     from repro_torch import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4220,9 +4415,12 @@ def main() -> int:
                 f"{f['sparqle_matmul_draft'] * 1e3:.1f} us")
     detail = {"card": card, "kernels": rows, "attention_zoo": attn_zoo}
     # the launch counter of each kernel row, and the phase that reads it
-    counter = {"sparqle_encode_fused": ("sparqle_encode_fused", "base"),
-               "sparqle_matmul": ("sparqle_matmul", "base"),
-               "kv4_paged_decode_attention": ("kv_attention", "base"),
+    # rows 1, 3, 1e, 3e and 8: the launches of phase 19b's serve (the
+    # tree trained on the mesh, the last path the smoke drives)
+    counter = {"sparqle_encode_fused": ("sparqle_encode_fused",
+                                        "mesh_serve"),
+               "sparqle_matmul": ("sparqle_matmul", "mesh_serve"),
+               "kv4_paged_decode_attention": ("kv_attention", "mesh_serve"),
                "sparqle_matmul_draft": ("sparqle_matmul_draft", "spec"),
                "kv4_paged_verify_attention": ("kv_attention_verify",
                                               "spec"),
@@ -4244,8 +4442,9 @@ def main() -> int:
                    "kv_attention_contiguous_hd256", "paligemma"),
                # the expert-batched entries: deepseek-moe-16b's serves
                "sparqle_encode_fused_batched": (
-                   "sparqle_encode_fused_batched", "moe"),
-               "sparqle_matmul_batched": ("sparqle_matmul_batched", "moe"),
+                   "sparqle_encode_fused_batched", "mesh_serve"),
+               "sparqle_matmul_batched": ("sparqle_matmul_batched",
+                                          "mesh_serve"),
                "sparqle_matmul_draft_batched": (
                    "sparqle_matmul_draft_batched", "moe_spec"),
                "sparqle_quantize_fused_batched": (
@@ -4797,8 +4996,52 @@ def main() -> int:
             f"{cl['clean']['ms_per_step']:.1f} ms/step clean; phase 18 "
             f"{time.perf_counter() - t18:.1f} s")
         detail["train"] = {"lm": lm, "encoder": enc, "cli": cl}
+        # phase 19: training on a (data, model) mesh sharing the card
+        t19 = time.perf_counter()
+        mt = mesh_train(dev, mesh_train_config(), args.seed)
+        r0, ms = mt["ranks"][0], mt["serve"]
+        log(f"[19] {card}: {mt['arch']} {mt['layers']}L "
+            f"d={mt['d_model']} trained on a "
+            f"{MESH_TRAIN['mesh'][0]}x{MESH_TRAIN['mesh'][1]} mesh of "
+            f"ranks sharing the card over gloo (capacity factor "
+            f"{mt['capacity_factor']:g}, {MESH_TRAIN['batch']} x "
+            f"{MESH_TRAIN['seq']}, microbatches of "
+            f"{MESH_TRAIN_KNOBS['microbatch']}): losses "
+            f"{[round(x['loss'], 4) for x in r0['steps']]} against 1x1 "
+            f"{[round(x['loss'], 4) for x in mt['single']]} (step 1 "
+            f"rel {mt['loss_rel']:.2e}), grad norms "
+            f"{[round(x['grad_norm'], 4) for x in r0['steps']]} against "
+            f"{[round(x['grad_norm'], 4) for x in mt['single']]} (rel "
+            f"{mt['gnorm_rel']:.2e}); step ms rank 0 "
+            f"{[round(x['ms'], 1) for x in r0['steps']]}, 1x1 "
+            f"{[round(x['ms'], 1) for x in mt['single']]}; peaks GB "
+            f"{[round(r['peak_gb'], 2) for r in mt['ranks']]} (sum "
+            f"{mt['peak_sum_gb']:.2f}; 1x1 {mt['single_peak_gb']:.2f}), "
+            f"state a rank {r0['state_gb']:.2f} GB built in "
+            f"{r0['build_s']:.1f} s; {mt['replicated_leaves']} leaves "
+            f"whole over model bit-equal across ranks: "
+            f"{mt['replicated_equal']}; world {mt['world_s']:.1f} s")
+        log(f"[19] {card}: the 2x2-trained tree gathered onto rank 0 "
+            f"({r0['gather_s']:.1f} s), quantized in {ms['quantize_s']:.1f} "
+            f"s and served there ({TRAIN_SERVE['batch']} x "
+            f"{TRAIN_SERVE['prompt_len']} + {TRAIN_SERVE['gen']}, "
+            f"{ms['serve_steps']} engine steps, logits finite: "
+            f"{ms['logits_finite']}), launches "
+            f"{ {k: v for k, v in ms['launches'].items() if v} }")
+        mcl = train_cli(mesh=True)
+        log(f"[19] launch/train.main {TRAIN_CLI['arch']} --smoke "
+            f"--data-axis {MESH_CLI_AXIS} --dist-backend gloo in a child "
+            f"process (deterministic algorithms): clean losses "
+            f"{[round(x, 4) for x in mcl['clean']['losses'][::4]]} (every "
+            f"4th); with --inject-fail {TRAIN_CLI['fail']} --async-ckpt: "
+            f"{mcl['restarts']} restart, {mcl['fault']['steps_run']} steps "
+            f"run, final params bit-equal to the clean run's: "
+            f"{mcl['params_bit_equal']}; {mcl['clean']['ms_per_step']:.1f} "
+            f"ms/step clean; phase 19 {time.perf_counter() - t19:.1f} s")
+        detail["mesh_train"] = {"train": mt, "serve": ms, "cli": mcl}
         moe = zoo["deepseek-moe-16b"]
-        runs = {"base": eng, "spec": spec, "kv2": kv2, "dense": dn,
+        runs = {"base": eng, "mesh_serve": ms, "spec": spec, "kv2": kv2,
+                "dense": dn,
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg,
                 "gemma3": gemma["gemma3-27b"],
                 "paligemma": gemma["paligemma-3b"], "deepseek_v3": v3,

@@ -15,6 +15,12 @@ comes from the ``like`` tree the caller passes, never from the
 manifest's ``treedef`` string (which :func:`save` writes for JAX's
 readers of the manifest and nothing here parses).
 
+A mesh run's checkpoint is the same whole tree: :func:`save_sharded`
+gathers a sharded state onto rank 0, which writes it while the others
+wait at a barrier, and :func:`restore_sharded` reads it on every rank and
+cuts each rank's slice, so a checkpoint restores at any mesh shape (the
+mesh object is ``launch/steps.TrainMesh``).
+
 bf16 leaves are stored as their uint16 bit patterns (npz has no bf16)
 and come back through an int16 view into ``torch.bfloat16``, so neither
 side needs ``ml_dtypes``. :class:`AsyncWriter` writes from a background
@@ -49,6 +55,17 @@ def flatten(tree: Any) -> List[Any]:
     return [tree]
 
 
+def leaf_paths(tree: Dict[str, Any], prefix: str = "") -> List[str]:
+    """'a/b/c' paths of a nested dict's leaves, in :func:`flatten`'s
+    order."""
+    out: List[str] = []
+    for k in sorted(tree):
+        path = f"{prefix}/{k}" if prefix else k
+        out += (leaf_paths(tree[k], path) if isinstance(tree[k], dict)
+                else [path])
+    return out
+
+
 def unflatten(like: Any, leaves: List[Any]) -> Any:
     """``like``'s structure filled with ``leaves`` (JAX's order)."""
     it = iter(leaves)
@@ -75,6 +92,17 @@ def _decode(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     if dtype_name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a, dtype=np.dtype(dtype_name)))
+
+
+def to_host(tree: Any) -> Any:
+    """``tree`` with each tensor leaf as (numpy array, dtype name), the
+    bytes a checkpoint stores: picklable to another process, which
+    :func:`from_host` turns back into CPU tensors bit for bit."""
+    return unflatten(tree, [_encode(t) for t in flatten(tree)])
+
+
+def from_host(tree: Any) -> Any:
+    return unflatten(tree, [_decode(*leaf) for leaf in flatten(tree)])
 
 
 def save(path: str, tree: Any, step: int,
@@ -173,6 +201,26 @@ def restore(path: str, step: int, like: Any) -> Any:
     return unflatten(like, out)
 
 
+def save_sharded(path: str, state: Any, step: int, mesh,
+                 writer: Optional["AsyncWriter"] = None) -> None:
+    """Checkpoint ``step`` of a sharded ``state``: the whole tree gathered
+    onto rank 0 and written there (through ``writer`` if given: only the
+    write is asynchronous), then a barrier. Every rank calls it."""
+    whole = mesh.gather(state)
+    if whole is not None:
+        if writer is not None:
+            writer.submit(whole, step)
+        else:
+            save(path, whole, step)
+    mesh.barrier()
+
+
+def restore_sharded(path: str, step: int, like: Any, mesh) -> Any:
+    """Checkpoint ``step`` (any mesh's, or a one-device save) cut to this
+    rank's slices of ``like``'s leaves, on their devices."""
+    return mesh.local(restore(path, step, mesh.whole_like(like)), like)
+
+
 def prune(path: str, keep: int = 3) -> None:
     """Delete all but the newest ``keep`` checkpoints (all with 0)."""
     if not os.path.isdir(path):
@@ -227,6 +275,12 @@ class AsyncWriter:
         # update the state in place as soon as this returns
         self._q.put((unflatten(tree, [t.detach().to("cpu", copy=True)
                                       for t in flatten(tree)]), step))
+
+    def flush(self) -> None:
+        """Wait until every submitted write has ended."""
+        self._q.join()
+        if self._err:
+            raise RuntimeError("async checkpoint write failed") from self._err
 
     def close(self) -> None:
         self._q.join()

@@ -33,7 +33,10 @@ the entries that take a scale, runs the matmul with its int32
 accumulator out, all-reduces (SUM) that accumulator once and drains
 ``(acc * act_scale) * w_scale`` in f32 as the kernel's epilogue does,
 then adds the bias. Outside a TP context the mark is inert: no launch
-is added and no bit moves.
+is added and no bit moves. Under a mesh train step (``TPContext.train``)
+a float row-parallel site sums its partial output through
+``distributed.tp.reduce_from_model`` (an all-reduce autograd can
+differentiate) instead of the in-place all-reduce of serving.
 
 The clipping constants ``l``/``h`` stay on the CPU whatever the device of
 the weights: they are read on the host at every call (kernel arguments),
@@ -52,7 +55,7 @@ import torch.distributed as dist
 from repro_torch.core.clipping import importance_mask_tile_aligned
 from repro_torch.core.quantize import (QuantizedTensor, quantize_weights,
                                        scale_from_amax)
-from repro_torch.distributed.tp import tp_ctx
+from repro_torch.distributed.tp import reduce_from_model, tp_ctx
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.sparqle_encode import (sparqle_encode,
                                                 sparqle_encode_fused,
@@ -198,7 +201,9 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     else:
         y = x @ w.to(x.dtype)
         ctx = _row_parallel(tp)
-        if ctx is not None:
+        if ctx is not None and ctx.train:    # autograd: reduce-from-model
+            y = reduce_from_model(y)
+        elif ctx is not None:
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ctx.group)
     if b is not None:
         y = y + b.to(y.dtype)

@@ -5,7 +5,7 @@ back with EOS separators. ``batch_at(step, host_slice)`` is a pure
 function of (seed, step) and equals the JAX package's batch for the same
 config: a restarted job replays its batches bit for bit, and a host can
 build only its own rows. :func:`shard_batch` places a batch on one
-device; the multi-host placement onto a mesh waits for mesh training."""
+device, or a data rank's rows of it on a mesh."""
 from __future__ import annotations
 
 import dataclasses
@@ -76,9 +76,33 @@ class SyntheticLM:
             step += 1
 
 
-def shard_batch(batch: Dict[str, np.ndarray],
-                device) -> Dict[str, torch.Tensor]:
-    """A host batch (numpy arrays) as tensors on ``device``: the
-    one-device form of JAX's ``shard_batch``."""
+def data_rows(batch_rows: int, microbatch: int, data_rank: int,
+              data_ways: int) -> np.ndarray:
+    """The global batch rows a data rank holds: its contiguous 1/D slice
+    of EACH microbatch (``microbatch`` rows; 0: the whole batch is one),
+    in order. B=8, microbatch 4, D=2: rank 0 holds rows 0, 1, 4, 5. A
+    data-sharded train step's microbatch i is then the reference's
+    microbatch i, its rows cut over data as the reference's dispatch cuts
+    them (MoE capacity and the aux loss are per microbatch)."""
+    mb = microbatch if 0 < microbatch < batch_rows else batch_rows
+    if batch_rows % mb or mb % data_ways:
+        raise ValueError(f"batch {batch_rows}, microbatch {mb}: the "
+                         f"microbatch must divide the batch and split "
+                         f"{data_ways} ways over data")
+    per = mb // data_ways
+    starts = np.arange(0, batch_rows, mb) + data_rank * per
+    return (starts[:, None] + np.arange(per)[None, :]).reshape(-1)
+
+
+def shard_batch(batch: Dict[str, np.ndarray], device, *,
+                data_rank: int = 0, data_ways: int = 1,
+                microbatch: int = 0) -> Dict[str, torch.Tensor]:
+    """A host batch (numpy arrays) as tensors on ``device``: the whole
+    batch (the one-device form of JAX's ``shard_batch``), or with
+    ``data_ways`` > 1 the rows :func:`data_rows` gives this data rank."""
+    if data_ways > 1:
+        rows = data_rows(len(next(iter(batch.values()))), microbatch,
+                         data_rank, data_ways)
+        batch = {k: v[rows] for k, v in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}

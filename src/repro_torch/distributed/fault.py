@@ -22,6 +22,14 @@ Pass ``registry=`` (a ``repro_torch.obs.MetricsRegistry``) to mirror the
 restarts, restores, checkpoints, and the wall time redone
 (``fault_time_lost_seconds``: from the restored-from checkpoint to each
 fault). A restored state lands on the devices of the state it replaces.
+
+On a mesh (``mesh=``, a ``launch/steps.TrainMesh``) every rank runs the
+loop on its slice of the state: a checkpoint is the whole tree, gathered
+and written by rank 0 (``store.save_sharded``), and a restore reads it
+and cuts each rank's slice. An injected fault or a straggler on one rank
+is agreed by an all-reduce of a flag before the loop acts on it, so every
+rank restores together (a fault raised inside a step's collectives on
+one rank alone would stall the others until the collective timeout).
 """
 from __future__ import annotations
 
@@ -116,6 +124,7 @@ class RestartableLoop:
         injector: Optional[FaultInjector] = None,
         async_ckpt: bool = False,
         registry: Optional[Any] = None,
+        mesh: Optional[Any] = None,
     ):
         self.step_fn = step_fn
         self.make_batch = make_batch
@@ -124,7 +133,10 @@ class RestartableLoop:
         self.max_restarts = max_restarts
         self.monitor = DeadlineMonitor(deadline_s)
         self.injector = injector
-        self.writer = store.AsyncWriter(ckpt_dir) if async_ckpt else None
+        self.mesh = mesh
+        root = mesh is None or mesh.rank == 0
+        self.writer = (store.AsyncWriter(ckpt_dir) if async_ckpt and root
+                       else None)
         self.report = LoopReport()
         self._last_ckpt_t: Optional[float] = None
         if registry is not None:
@@ -152,7 +164,10 @@ class RestartableLoop:
             self._m_restores = self._m_ckpts = self._g_time_lost = None
 
     def _save(self, state: Any, step: int) -> None:
-        if self.writer is not None:
+        if self.mesh is not None:
+            store.save_sharded(self.ckpt_dir, state, step, self.mesh,
+                               self.writer)
+        elif self.writer is not None:
             self.writer.submit(state, step)
         else:
             store.save(self.ckpt_dir, state, step)
@@ -161,15 +176,37 @@ class RestartableLoop:
             self._m_ckpts.inc()
 
     def _restore_latest(self, like: Any):
+        if self.mesh is not None:     # every rank reads the same newest
+            if self.writer is not None:
+                self.writer.flush()
+            self.mesh.barrier()
         step = store.latest_step(self.ckpt_dir)
         if step is None:
             return None
-        state = store.place_like(store.restore(self.ckpt_dir, step, like),
-                                 like)
+        if self.mesh is not None:
+            state = store.restore_sharded(self.ckpt_dir, step, like,
+                                          self.mesh)
+        else:
+            state = store.place_like(
+                store.restore(self.ckpt_dir, step, like), like)
         self.report.restores += 1
         if self._m_restores is not None:
             self._m_restores.inc()
         return step, state
+
+    def _check_injector(self, step: int) -> None:
+        """The injector's plan for ``step``; on a mesh a fault on any rank
+        raises on every rank."""
+        if self.mesh is None:
+            self.injector.check(step)
+            return
+        err: Optional[StepFault] = None
+        try:
+            self.injector.check(step)
+        except StepFault as e:
+            err = e
+        if self.mesh.any(err is not None):
+            raise err or StepFault(f"a peer rank faulted at step {step}")
 
     def run(self, state: Any, start_step: int, n_steps: int):
         """Run ``n_steps`` with checkpoint/restart. Returns (state, metrics
@@ -185,10 +222,13 @@ class RestartableLoop:
             try:
                 self.monitor.begin()
                 if self.injector is not None:
-                    self.injector.check(step)
+                    self._check_injector(step)
                 batch = self.make_batch(step)
                 state, metrics = self.step_fn(state, batch)
                 self.monitor.end()
+                if self.mesh is not None and self.mesh.any(
+                        self.monitor.tripped):
+                    self.monitor.tripped = True
                 self.monitor.raise_if_tripped()
                 step += 1
                 self.report.steps_run += 1

@@ -1,6 +1,9 @@
-"""How the paged pool state shards over a ``("data", "model")`` mesh: the
-serving part of ``repro.distributed.sharding``'s logical-axis rule table
-(``spec_for`` with ``pages -> data`` and ``kv_heads -> model``).
+"""Logical-axis sharding over a ``("data", "model")`` mesh (torch twin of
+``repro.distributed.sharding``): the paged pool state of serving, and the
+float train state of mesh training.
+
+Serving. The paged pool state shards by the serving part of the rule
+table (``spec_for`` with ``pages -> data`` and ``kv_heads -> model``).
 
 A pool leaf is declared with logical axes (``serving/kv_pool.py``
 ``pool_schema``: ``("layers", "pages", None, "kv_heads", None)``). A rank
@@ -10,17 +13,55 @@ shard's pages and its model shard's KV heads. A dim the mesh axis does
 not divide raises (the reference leaves it replicated; the serving path
 validates before it gets here, and a silent replication would break the
 shard-local page ids).
+
+Training. :data:`DEFAULT_RULES` and :func:`spec_for` are the reference's
+rule table and its placement, divisibility fallback to replication and
+each mesh axis claimed once (by the first dim that asks) included.
+:func:`train_placements` places every leaf of a float train tree by its
+schema's logical axes: over ``data`` on the dim the table maps there
+(``embed``/``fsdp``: the reference's baseline profile, FSDP everywhere),
+over ``model`` in the Megatron column/row pattern (``heads_flat``,
+``mlp``, ``vocab`` -> model) with routed experts on the expert axis. The
+embedding table is the one exception: token lookup reads all of it, so it
+stays whole over model (its ``embed`` dim keeps its ``data`` placement).
+Master params and both moments share the placement. :class:`TrainShards`
+cuts a rank's slice of a whole tree, draws a rank's slice of the init
+leaf by leaf, and gathers a sharded tree whole onto rank 0.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint.store import flatten, leaf_paths, unflatten
 from repro_torch.distributed.tp import slice_for_rank
 
 RULES: Dict[str, str] = {"pages": "data", "kv_heads": "model"}
+
+# the reference's logical-axis rule table (repro.distributed.sharding)
+DEFAULT_RULES: Dict[Optional[str], Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "seq": (),
+    "kv_seq": ("data", "model"),
+    "embed": ("data", "pod"),
+    "heads": ("model",),
+    "heads_flat": ("model",),
+    "kv_heads": ("model",),
+    "pages": ("data",),
+    "qk_dim": (),
+    "mlp": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "capacity": ("data",),
+    "layers": (),
+    "fsdp": ("data",),
+    "conv": (),
+    "state": (),
+    None: (),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,3 +105,176 @@ def shard_pool_state(state, schema, coords: MeshCoords):
         return {k: shard_pool_state(v, schema[k], coords)
                 for k, v in state.items()}
     return shard_tensor(state, schema.axes, coords)
+
+
+# ---------------------------------------------------------------------------
+# training: the rule table, the placement of a float train tree
+# ---------------------------------------------------------------------------
+
+def _axes_for(logical: Optional[str], dim: int, mesh_shape: Dict[str, int],
+              rules: Dict, used: set) -> Optional[Tuple[str, ...]]:
+    """Mesh axes for one dim, or None if unmapped or indivisible: axes an
+    earlier dim claimed are skipped, divisibility falls back over the
+    prefixes of the rule's axes."""
+    names = tuple(n for n in rules.get(logical, ())
+                  if n in mesh_shape and n not in used)
+    for cut in range(len(names), 0, -1):
+        sub = names[:cut]
+        t = 1
+        for n in sub:
+            t *= mesh_shape[n]
+        if dim % t == 0 and t > 1:
+            return sub
+    return None
+
+
+def spec_for(logical_axes: Sequence[Optional[str]], shape: Sequence[int],
+             mesh_shape: Dict[str, int],
+             rules: Optional[Dict] = None) -> Tuple:
+    """The reference's ``spec_for`` on a mesh of ``mesh_shape`` ({axis:
+    size}): per dim a mesh axis name, a tuple of them, or None, trailing
+    Nones dropped (the entries of its ``PartitionSpec``)."""
+    rules = DEFAULT_RULES if rules is None else rules
+    used: set = set()
+    entries: List[Any] = []
+    for logical, dim in zip(logical_axes, shape):
+        axes = _axes_for(logical, dim, mesh_shape, rules, used)
+        if axes:
+            used.update(axes)
+            entries.append(axes if len(axes) > 1 else axes[0])
+        else:
+            entries.append(None)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a leaf is cut: the dim sharded over ``data`` and the dim
+    sharded over ``model`` (None: whole over that axis)."""
+    data_dim: Optional[int] = None
+    model_dim: Optional[int] = None
+
+
+REPLICATED = Placement()
+# the leaf that stays whole over model whatever the table says
+WHOLE_OVER_MODEL = frozenset({"embed/table"})
+
+
+def train_placements(schema, data_ways: int, model_ways: int,
+                     prefix: str = ""):
+    """The :class:`Placement` of every leaf of a ParamSpec tree (module
+    docstring)."""
+    if isinstance(schema, dict):
+        return {k: train_placements(v, data_ways, model_ways,
+                                    f"{prefix}/{k}" if prefix else k)
+                for k, v in schema.items()}
+    spec = spec_for(schema.axes, schema.shape,
+                    {"data": data_ways, "model": model_ways})
+    dims = {ax: i for i, ax in enumerate(spec) if ax is not None}
+    if any(not isinstance(ax, str) for ax in dims):
+        raise ValueError(f"{prefix}: {spec} cuts a dim over two axes")
+    model_dim = None if prefix in WHOLE_OVER_MODEL else dims.get("model")
+    return Placement(dims.get("data"), model_dim)
+
+
+class TrainShards:
+    """One rank's view of a float train tree sharded by its placements
+    (a tree of :class:`Placement` of the same structure as the trees
+    given): its coordinates and the groups of its data column, its model
+    row and the world."""
+
+    def __init__(self, placements, coords: MeshCoords, data_group=None,
+                 model_group=None):
+        self.placements = placements
+        self.coords = coords
+        self.data_group = data_group
+        self.model_group = model_group
+
+    def _leaves(self, tree, placements=None):
+        return flatten(tree), flatten(placements or self.placements)
+
+    def cut(self, t: torch.Tensor, pl: Placement) -> torch.Tensor:
+        """This rank's slice of a whole leaf ``t`` placed ``pl``."""
+        c = self.coords
+        if pl.data_dim is not None:
+            t = slice_for_rank(t, pl.data_dim, c.data_rank, c.data_ways)
+        if pl.model_dim is not None:
+            t = slice_for_rank(t, pl.model_dim, c.model_rank, c.model_ways)
+        return t
+
+    def local(self, tree, placements=None):
+        """This rank's slice of every leaf of a whole tree, in storage of
+        its own (an in-place update of it leaves ``tree`` as it was)."""
+        leaves, pls = self._leaves(tree, placements)
+        return unflatten(tree, [self.cut(t, pl).clone()
+                                for t, pl in zip(leaves, pls)])
+
+    def counts_norm(self, pl: Placement) -> bool:
+        """Whether this rank adds the leaf's piece into a sum over the
+        world (a global norm): every piece once, a replica at coordinate
+        0 of the axis it is whole over."""
+        c = self.coords
+        return ((pl.data_dim is not None or c.data_rank == 0)
+                and (pl.model_dim is not None or c.model_rank == 0))
+
+    def gather_data(self, t: torch.Tensor, pl: Placement) -> torch.Tensor:
+        """A leaf whole over data (its model slice), from this rank's."""
+        if pl.data_dim is None or self.coords.data_ways == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.coords.data_ways)]
+        dist.all_gather(parts, t.contiguous(), group=self.data_group)
+        return torch.cat(parts, pl.data_dim)
+
+    def gather_root(self, tree, placements=None, device="cpu"):
+        """The whole tree on world rank 0 (on ``device``), None elsewhere;
+        every rank calls it. A leaf at a time, rank r's piece at (r //
+        model, r % model): under gloo gathered onto rank 0 through host
+        memory (the card holds no more than the piece), else all-gathered
+        over the world on the device."""
+        c = self.coords
+        world = c.data_ways * c.model_ways
+        root = dist.get_rank() == 0
+        host = dist.get_backend() == "gloo"
+        leaves, pls = self._leaves(tree, placements)
+        out = []
+        for t, pl in zip(leaves, pls):
+            piece = t.detach().to("cpu" if host else t.device).contiguous()
+            parts = ([torch.empty_like(piece) for _ in range(world)]
+                     if root or not host else None)
+            if host:
+                dist.gather(piece, parts, dst=0)
+            else:
+                dist.all_gather(parts, piece)
+            if not root:
+                continue
+            parts = [p.to(device) for p in parts]
+            rows = []
+            for d in range(c.data_ways):
+                row = parts[d * c.model_ways:(d + 1) * c.model_ways]
+                rows.append(row[0] if pl.model_dim is None
+                            else torch.cat(row, pl.model_dim))
+            out.append(rows[0] if pl.data_dim is None
+                       else torch.cat(rows, pl.data_dim))
+            del parts, rows
+        return unflatten(tree, out) if root else None
+
+    def init_params(self, schema, seed: int, device):
+        """This rank's slice of ``models.schema.init_params(schema, seed,
+        device)``: every leaf drawn whole from the one generator in its
+        order (so the bits are the one-device init's), cut, and the rest
+        freed before the next draw."""
+        from repro_torch.models.schema import (_init_leaf, _map_schema,
+                                               _sorted_paths)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        specs: Dict[str, Any] = {}
+        _map_schema(schema, lambda p, s: specs.__setitem__(p, s))
+        pls = dict(zip(leaf_paths(self.placements),
+                       flatten(self.placements)))
+        leaves = {}
+        for path in _sorted_paths(schema):
+            whole = _init_leaf(gen, specs[path], device)
+            leaves[path] = self.cut(whole, pls[path]).clone()
+            del whole
+        return _map_schema(schema, lambda p, s: leaves[p])

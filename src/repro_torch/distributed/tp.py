@@ -33,6 +33,18 @@ Column-parallel linears are exact by construction. :func:`tp_scope`
 installs the context a step body runs under; outside it the ``tp="row"``
 marks of the model code are inert and the single-device path is
 unchanged, launch for launch.
+
+Training (``TPContext.train``) runs the same model code on float shards
+under autograd, so its collectives are ``torch.autograd.Function``s
+(Megatron's f and g): :func:`model_input` (copy-to-model: identity
+forward, the grad all-reduced over model in backward) at the input of a
+column-parallel block, :func:`reduce_from_model` (all-reduce forward in
+f32, identity backward) at a row-parallel output,
+:func:`gather_from_model` (the vocab shards all-gathered, own slice of
+the grad back) at the untied head, and :func:`gather_rows` (the
+microbatch's rows all-gathered over data, own rows of the grad back)
+before a replicated MoE's routing. The backward pass (and a remat
+layer's recompute) must run inside the scope too.
 """
 from __future__ import annotations
 
@@ -57,13 +69,21 @@ class TPContext:
     model axis (``ways`` ranks). ``batch_group`` is set when the step's
     batch is sharded over the data axis (decode, draft, verify; not the
     replicated prefill): ``batch_ways`` ranks, this one ``batch_rank``,
-    each holding ``local_rows`` rows of the global batch."""
+    each holding ``local_rows`` rows of the global batch. ``train``: a
+    mesh train step (module docstring) at model rank ``model_rank``, on
+    data rank ``data_rank`` of ``data_ways`` (``data_group``), each
+    holding its rows of every microbatch."""
     ways: int = 1
     group: Any = None
     batch_group: Any = None
     batch_ways: int = 1
     batch_rank: int = 0
     local_rows: int = 0
+    train: bool = False
+    model_rank: int = 0
+    data_group: Any = None
+    data_ways: int = 1
+    data_rank: int = 0
 
 
 _TP: Optional[TPContext] = None
@@ -74,7 +94,8 @@ def tp_scope(ctx: Optional[TPContext]) -> Iterator[None]:
     """Run the enclosed step body under ``ctx`` (None: single device)."""
     global _TP
     prev = _TP
-    active = ctx is not None and (ctx.ways > 1 or ctx.batch_group is not None)
+    active = ctx is not None and (ctx.ways > 1 or ctx.batch_group is not None
+                                  or ctx.train)
     _TP = ctx if active else None
     try:
         yield
@@ -95,6 +116,95 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts, dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the grad all-reduced (SUM) over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce (SUM, in f32) forward, cast back; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.float().contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """All-gather along ``dim`` forward; this rank's slice of the grad."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = dist.get_rank(ctx.group) * ctx.n
+        return g.narrow(ctx.dim, lo, ctx.n).contiguous(), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Copy-to-``group``: identity forward, grad all-reduced backward."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(y: torch.Tensor, group) -> torch.Tensor:
+    """Reduce-from-``group``: f32 SUM all-reduce forward, identity
+    backward."""
+    return _ReduceFrom.apply(y, group)
+
+
+def _train_model_ctx() -> Optional[TPContext]:
+    ctx = _TP
+    return ctx if ctx is not None and ctx.train and ctx.ways > 1 else None
+
+
+def model_input(x: torch.Tensor) -> torch.Tensor:
+    """x entering a column-parallel block (or a leaf replicated over model
+    used on model-sharded activations) under a train step of model
+    ways > 1: copy-to-model. ``x`` itself otherwise."""
+    ctx = _train_model_ctx()
+    return x if ctx is None else copy_to(x, ctx.group)
+
+
+def reduce_from_model(y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel partial output summed over model (train step)."""
+    ctx = _train_model_ctx()
+    return y if ctx is None else reduce_from(y, ctx.group)
+
+
+def gather_from_model(y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The model ranks' shards of ``y`` along ``dim`` (train step)."""
+    ctx = _train_model_ctx()
+    return y if ctx is None else _GatherFrom.apply(y, ctx.group,
+                                                   dim % y.ndim)
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """The data ranks' rows of ``t`` (dim 0) in data-rank order under a
+    train step of data ways > 1; this rank's rows of the grad back."""
+    ctx = _TP
+    if ctx is None or not ctx.train or ctx.data_ways == 1:
+        return t
+    return _GatherFrom.apply(t, ctx.data_group, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,25 @@ The train step runs eagerly, on the float tree: no hand-written kernel
 lies on it (the reference trains through XLA's ``dot_general``, flash
 attention and MoE dispatch too).
 
+``make_train_step(..., mesh=)`` trains on a ("data", "model") mesh, one
+process a rank (the reference's jit under ``mesh_context``). The state
+is sharded by ``distributed/sharding.train_placements`` (f32 masters and
+both moments over data, FSDP; the Megatron cut over model, routed experts
+on the expert axis; :class:`TrainMesh`). Once a step each rank casts its
+slices to the compute dtype (MoE subtrees stay f32, as
+:func:`cast_params_for_compute` keeps them) and all-gathers them over
+data; every microbatch reuses that copy. Each data rank runs the
+microbatches on its rows of each (``data.pipeline.data_rows``) under the
+train TP context (``distributed/tp.py``: the model code's collectives as
+autograd functions); each leaf's f32 grad is summed over data and cut to
+the rank's data slice as the backward pass produces it (a microbatch's
+grads are never held whole over data), the microbatches' sums added,
+then divided by n and by D; a leaf whole over model takes model rank
+0's grad (its grad is the same sum on every model rank, but the card's
+atomics may order it otherwise), so replicated leaves stay bit-equal
+across ranks. The loss and metrics are all-reduced over the world, equal
+on every rank.
+
 The decode step takes a (B, Pmax) tier table too when the KV2 precision
 ladder is armed. All keep the JAX steps' static shapes — a (1, C) prefill
 chunk whose start and valid count are (1,) device tensors, a (B,) decode
@@ -46,11 +65,17 @@ import torch.utils.checkpoint
 
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.tp import shard_model_config, tp_scope
-from repro_torch.launch.mesh import mesh_layout
+from repro_torch.distributed.sharding import (REPLICATED, Placement,
+                                              TrainShards, train_placements)
+from repro_torch.distributed.tp import (TPContext, copy_to,
+                                        shard_model_config, slice_for_rank,
+                                        tp_scope)
+from repro_torch.launch.mesh import MeshLayout, mesh_layout
 from repro_torch.models import model as M
+from repro_torch.models.schema_builder import build_schema
 from repro_torch.optim.adamw import (OptConfig, OptState, adamw_update,
-                                     compress_grads, decompress_grads)
+                                     compress_grads, decompress_grads,
+                                     init_opt_state)
 
 
 # ---------------------------------------------------------------------------
@@ -208,29 +233,238 @@ def make_accum_grads(cfg: ModelConfig, knobs: TrainKnobs = TrainKnobs()):
 
 
 def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
-                    knobs: TrainKnobs = TrainKnobs()):
+                    knobs: TrainKnobs = TrainKnobs(), *, mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``:
     :func:`make_accum_grads`'s grads, int8-quantized and dequantized with
     ``compress_pod_grads`` as the reference's step does, then
     :func:`adamw_update`, which writes the new params and moments in
     place: the state passed in is the state returned (the JAX step
     donates it). The metrics are 0-d device tensors; the step reads
-    nothing to the host."""
-    accum_grads = make_accum_grads(cfg, knobs)
+    nothing to the host. With a ``mesh`` (a ("data", "model")
+    ``DeviceMesh`` or a :class:`TrainMesh`) the state and the batch are
+    this rank's (module docstring): :func:`make_sharded_grads`, the
+    compression's scales from each leaf's global amax, the norm over the
+    world."""
+    if mesh is None:
+        accum_grads, counted = make_accum_grads(cfg, knobs), None
+    else:
+        tm = mesh if isinstance(mesh, TrainMesh) else TrainMesh(cfg, mesh)
+        accum_grads, counted = make_sharded_grads(cfg, knobs, tm), \
+            tm.counted()
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         loss, metrics, grads = accum_grads(state.params, batch)
         if knobs.compress_pod_grads:
             # int8 EF compression of the cross-pod gradient reduction,
             # quantized and dequantized in the step as the reference does
-            q, _err = compress_grads(grads)
+            q, _err = compress_grads(grads, global_amax=counted is not None)
             grads = decompress_grads(q)
         new_params, opt, om = adamw_update(state.params, grads, state.opt,
-                                           ocfg)
+                                           ocfg, counted)
         metrics = dict(metrics, loss=loss, **om)
         return TrainState(new_params, opt), metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# training on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# leaves whole over model that a train step uses on model-sharded
+# activations: column biases (cut to the rank's columns) and the qk norms'
+# gains (the rank's heads); both enter through copy-to-model
+_COL_BIAS_KEYS = frozenset({"bq", "bk", "bv", "b_fc"})
+_HEAD_GAIN_KEYS = frozenset({"q_norm", "k_norm"})
+
+
+class TrainMesh:
+    """A rank's mesh-training view: its :class:`MeshLayout`, the per-shard
+    config, and the :class:`TrainShards` of the param tree (the moments
+    share the params' placements, the step is replicated). Also what the
+    restartable loop needs of a mesh (``distributed/fault.py``): the
+    whole state gathered onto rank 0, a whole state cut to this rank,
+    agreement on a flag, a barrier."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        lay = mesh if isinstance(mesh, MeshLayout) else mesh_layout(mesh)
+        M.check_train_mesh(cfg, lay.model_ways)
+        self.cfg, self.layout = cfg, lay
+        self.lcfg = shard_model_config(cfg, lay.model_ways)
+        self.schema = build_schema(cfg)
+        self.shards = TrainShards(
+            train_placements(self.schema, lay.data_ways, lay.model_ways),
+            lay.coords, lay.data_group, lay.model_group)
+
+    @property
+    def rank(self) -> int:
+        c = self.layout.coords
+        return c.data_rank * c.model_ways + c.model_rank
+
+    def context(self) -> TPContext:
+        c = self.layout.coords
+        return TPContext(ways=c.model_ways, group=self.layout.model_group,
+                         train=True, model_rank=c.model_rank,
+                         data_group=self.layout.data_group,
+                         data_ways=c.data_ways, data_rank=c.data_rank)
+
+    def counted(self):
+        """Per param leaf: whether this rank counts it in the norm."""
+        return [self.shards.counts_norm(pl)
+                for pl in store.flatten(self.shards.placements)]
+
+    def placements(self, tree):
+        """The placements of a sharded state (the moments share the
+        params', the step is whole) or of a param tree."""
+        pls = self.shards.placements
+        if isinstance(tree, TrainState):
+            return TrainState(pls, OptState(step=REPLICATED, mu=pls, nu=pls))
+        return pls
+
+    def build_state(self, ocfg: OptConfig, seed: int, device) -> TrainState:
+        """This rank's slice of ``launch.train.build_state`` (the params
+        drawn leaf by leaf, the one-device bits) and zeroed moments."""
+        params = self.shards.init_params(self.schema, seed, device)
+        return TrainState(params, init_opt_state(params, ocfg))
+
+    def gather(self, tree):
+        """A sharded state (or param tree) whole on rank 0, on the CPU;
+        None on the other ranks."""
+        return self.shards.gather_root(tree, self.placements(tree))
+
+    def whole_like(self, tree):
+        """Meta tensors of the whole tree a sharded ``tree`` cuts."""
+        pls = store.flatten(self.placements(tree))
+        c = self.layout.coords
+
+        def whole(t, pl: Placement):
+            shape = list(t.shape)
+            if pl.data_dim is not None:
+                shape[pl.data_dim] *= c.data_ways
+            if pl.model_dim is not None:
+                shape[pl.model_dim] *= c.model_ways
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+
+        return store.unflatten(tree, [whole(t, pl) for t, pl in
+                                      zip(store.flatten(tree), pls)])
+
+    def local(self, whole, like):
+        """This rank's cut of a whole tree, on the devices of ``like``'s
+        leaves (a sharded tree of the same structure)."""
+        return store.place_like(
+            self.shards.local(whole, self.placements(like)), like)
+
+    def any(self, flag: bool) -> bool:
+        """True on every rank when ``flag`` is True on any."""
+        t = torch.tensor([int(flag)], dtype=torch.int32)
+        if self.layout.backend == "nccl":
+            t = t.cuda()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+
+def _world_mean(t: torch.Tensor, world: int) -> torch.Tensor:
+    t = t.detach().float().clone()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t / torch.tensor(float(world), device=t.device)
+
+
+def make_sharded_grads(cfg: ModelConfig, knobs: TrainKnobs, tm: TrainMesh):
+    """Returns ``grads(params, batch) -> (loss, metrics, grads)`` on a
+    rank's sharded params and its rows of the batch (module docstring):
+    the grads are this rank's slices, f32: each microbatch's summed over
+    data, those sums added in the one-device order (first + next ...),
+    then / n and / D; the loss and metrics the world's means. The
+    forward and backward passes run under the train TP context."""
+    coords, lay, sh = tm.layout.coords, tm.layout, tm.shards
+    world = coords.data_ways * coords.model_ways
+    dt = cfg.cdtype
+    model_root = tm.rank - coords.model_rank     # model rank 0 of this row
+
+    def wrap(path: str, t: torch.Tensor, pl: Placement) -> torch.Tensor:
+        key = path.rsplit("/", 1)[-1]
+        if coords.model_ways == 1 or pl.model_dim is not None:
+            return t
+        if key in _COL_BIAS_KEYS:
+            return slice_for_rank(copy_to(t, lay.model_group), -1,
+                                  coords.model_rank, coords.model_ways)
+        if key in _HEAD_GAIN_KEYS:
+            return copy_to(t, lay.model_group)
+        return t
+
+    def sharded_grads(params, batch):
+        paths = store.leaf_paths(params)
+        pls = store.flatten(sh.placements)
+        compute = []
+        with torch.no_grad():
+            for path, t, pl in zip(paths, store.flatten(params), pls):
+                if "/moe/" not in f"/{path}" and t.dtype == torch.float32:
+                    t = t.to(dt)
+                compute.append(sh.gather_data(t, pl))
+        b = batch["targets"].shape[0]
+        mb = knobs.microbatch // coords.data_ways if knobs.microbatch else 0
+        n = b // mb if mb and mb < b else 1
+        if n > 1 and b % mb:
+            raise ValueError(f"{b} local rows, local microbatch {mb}")
+        acc = [None] * len(compute)
+        lsum = None
+
+        def accumulate(j):
+            # as soon as the backward pass has a leaf's grad: summed over
+            # data, cut to this rank's data slice and added into its f32
+            # sum; so no rank holds more than one leaf's grad whole over
+            # data (every rank's backward meets the leaves in one order)
+            def hook(t):
+                g = t.grad.float()
+                t.grad = None
+                if coords.data_ways > 1:
+                    dist.all_reduce(g, op=dist.ReduceOp.SUM,
+                                    group=lay.data_group)
+                    if pls[j].data_dim is not None:
+                        g = slice_for_rank(g, pls[j].data_dim,
+                                           coords.data_rank,
+                                           coords.data_ways).clone()
+                acc[j] = g if acc[j] is None else acc[j].add_(g)
+            return hook
+
+        with tp_scope(tm.context()):
+            for i in range(n):
+                ub = (batch if n == 1 else
+                      {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
+                tracked = [c.detach().requires_grad_() for c in compute]
+                for j, t in enumerate(tracked):
+                    t.register_post_accumulate_grad_hook(accumulate(j))
+                tree = store.unflatten(params, [
+                    wrap(path, t, pl)
+                    for path, t, pl in zip(paths, tracked, pls)])
+                loss_i, metrics = loss_fn(tm.lcfg, knobs, tree, ub)
+                loss_i.backward()
+                lsum = loss_i.detach() if lsum is None else \
+                    lsum + loss_i.detach()
+                del tracked, tree, loss_i
+        del compute
+        if n > 1:
+            nt = torch.tensor(float(n), device=lsum.device)
+            acc = [a.div_(nt) if a is not None else None for a in acc]
+            loss, metrics = lsum / nt, {"ce": lsum / nt}
+        else:
+            loss, metrics = lsum, {k: v.detach() for k, v in metrics.items()}
+        dways = torch.tensor(float(coords.data_ways), device=lsum.device)
+        grads = []
+        for a, p, pl in zip(acc, store.flatten(params), pls):
+            g = (torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 if a is None else a.div_(dways))
+            if coords.model_ways > 1 and pl.model_dim is None:
+                dist.broadcast(g, src=model_root, group=lay.model_group)
+            grads.append(g)
+        loss = _world_mean(loss, world)
+        metrics = {k: _world_mean(v, world) for k, v in metrics.items()}
+        return loss, metrics, store.unflatten(params, grads)
+
+    return sharded_grads
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:

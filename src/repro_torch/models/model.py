@@ -44,6 +44,15 @@ positions in a zero-padded batch of the global row count: on the card
 the f32 sum order of a row reduction follows the number of rows, so the
 norms then give the single-device step's bits. Outside a TP context
 nothing of this runs.
+
+A mesh train step (``TPContext.train``, ``launch/steps.py``) runs the
+same functions on a rank's float shards under autograd: column-parallel
+inputs through copy-to-model, row-parallel outputs through
+reduce-from-model, the untied head's vocab shards gathered, attention on
+the rank's heads (``shard_model_config``), and the MoE by
+``moe_ffn_dist``'s rules (:func:`_moe_ffn_train`). Each data rank holds
+its rows of every microbatch and norms them alone: training's contract
+is a tolerance, so the zero-padded norm of serving is not used.
 """
 from __future__ import annotations
 
@@ -58,7 +67,9 @@ from repro_torch.core.qlinear import (SparqleLinear, linear, msb_skip_scope,
                                       tree_index)
 from repro_torch.core.quantize import quantize_activations, quantize_weights
 from repro_torch.core.sparqle import subprecision_sparsity
-from repro_torch.distributed.tp import all_gather, tp_ctx
+from repro_torch.distributed.tp import (all_gather, gather_from_model,
+                                        model_input, tp_ctx,
+                                        validate_tp_config)
 from repro_torch.kernels.kv_attention import (
     CONTIGUOUS_BLOCK, kv4_decode_attention, kv4_paged_decode_attention,
     kv4_paged_verify_attention, kv_tiered_paged_decode_attention)
@@ -127,6 +138,7 @@ def _attn_qkv(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
     """h (..., D) -> q (..., H, hd), k/v (..., KVH, hd), roped. ``window``:
     h is a (B, T, D) verify window, whose q/k norms run per position."""
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = model_input(h)
     q = linear(h, p["wq"], p.get("bq"))
     k = linear(h, p["wk"], p.get("bk"))
     v = linear(h, p["wv"], p.get("bv"))
@@ -148,6 +160,7 @@ def _mlp(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     """The dense FFN on its already-normed input: SwiGLU, GeGLU (the
     gemma family: the tanh GELU as the gate), or the plain tanh-GELU MLP
     with its biases."""
+    h = model_input(h)
     if cfg.mlp_type == "gelu":
         return linear(gelu_tanh(linear(h, p["w_fc"], p.get("b_fc"))),
                       p["w_proj"], p.get("b_proj"), tp="row")
@@ -172,6 +185,10 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     read it, as XLA drops it from JAX's)."""
     h = _norm(cfg, p["ln2"], x)
     flat = h.reshape(-1, h.shape[-1])
+    ctx = tp_ctx()
+    if ctx is not None and ctx.train:
+        y, aux = _moe_ffn_train(cfg, p["moe"], flat, with_aux, ctx)
+        return y.reshape(h.shape), aux
     t_local = flat.shape[0]
     flat = _gather_rows(flat)
     mp = p["moe"]
@@ -189,6 +206,45 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         lo = tp_ctx().batch_rank * t_local
         y = y[lo:lo + t_local]
     return y.reshape(h.shape), aux
+
+
+def _moe_ffn_train(cfg: ModelConfig, mp: Params, flat: torch.Tensor,
+                   with_aux: bool, ctx) -> Tuple[torch.Tensor,
+                                                 Optional[torch.Tensor]]:
+    """A mesh train step's MoE on this data rank's rows flat (T_local, D):
+    routed by ``moe_ffn_dist``'s rules, the shared experts column/row,
+    and this rank's rows' term of the global aux loss (the top-k counts
+    all-reduced over data)."""
+    y = moe_lib.moe_ffn_dist(
+        flat, mp["w_router"], mp["w_gate"], mp["w_up"], mp["w_down"],
+        top_k=cfg.top_k, model_rank=ctx.model_rank, model_ways=ctx.ways,
+        group=ctx.group, capacity_factor=cfg.capacity_factor,
+        router_type=cfg.router_type)
+    if cfg.n_shared_experts:
+        y = y + moe_lib.shared_expert_ffn(flat, mp["w_shared_gate"],
+                                          mp["w_shared_up"],
+                                          mp["w_shared_down"])
+    aux = (moe_lib.load_balance_loss(
+        flat, mp["w_router"], cfg.top_k,
+        count_group=ctx.data_group if ctx.data_ways > 1 else None)
+        if with_aux else None)
+    return y, aux
+
+
+def check_train_mesh(cfg: ModelConfig, model_ways: int) -> None:
+    """Raise unless a train step can shard ``cfg`` ``model_ways`` ways on
+    the model axis: the TP divisibility checks (``validate_tp_config``),
+    and no MLA or SSD layer above one model rank (ROADMAP A9). The data
+    axis alone trains every arch the one-device step trains."""
+    if model_ways <= 1:
+        return
+    mixers = {ld.mixer for st in build_stages(cfg) for ld in st.period}
+    if cfg.use_mla or mixers - {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: training at model ways {model_ways} shards GQA "
+            f"attention only (mixers {sorted(mixers)}); MLA and SSD layers "
+            f"on a model axis are ROADMAP A9")
+    validate_tp_config(cfg, model_ways)
 
 
 def _add_ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
@@ -210,10 +266,11 @@ def head_logits(cfg: ModelConfig, params: Params,
     x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         return linear(x, params["embed"]["table"].T)
-    logits = linear(x, params["lm_head"])
+    logits = linear(model_input(x), params["lm_head"])
     ctx = tp_ctx()
     if ctx is not None and ctx.ways > 1 and logits.shape[-1] != cfg.vocab:
-        logits = all_gather(logits, ctx.group, logits.ndim - 1)
+        logits = (gather_from_model(logits) if ctx.train else
+                  all_gather(logits, ctx.group, logits.ndim - 1))
     return logits
 
 

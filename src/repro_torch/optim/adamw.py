@@ -20,16 +20,24 @@ state is 38 GB), one leaf at a time and a leaf above ``SLICE_BYTES`` one
 layer slice at a time, so its f32 temporaries stay one slice wide; the
 bits are those of the out-of-place formula. Microbatch accumulation
 lives in ``launch/steps.py``.
+
+On a mesh each rank holds its slice of every leaf (``distributed/
+sharding.py``): the global norm sums each piece once over the world (a
+replicated leaf at one rank of each axis it is whole over: ``counted``),
+and :func:`compress_grads` takes each leaf's scale from its global amax
+(``global_amax``), so the int8 payload is the one-device payload's slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.store import flatten as tree_leaves
+from repro_torch.checkpoint.store import unflatten
 
 # A leaf larger than this (in f32) is updated a slice of its leading
 # (layer) axis at a time: starcoder2-3b's stacked w_fc is 4.53 GB.
@@ -102,12 +110,28 @@ def cosine_lr(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(leaf[i].float()))
+               for i in _slices(leaf))
+
+
+def global_norm(tree: Any, counted: Optional[List[bool]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX's order) of each leaf's f32 sum
-    of squares; a leaf above SLICE_BYTES summed a slice at a time."""
-    return torch.sqrt(sum(
-        sum(torch.sum(torch.square(leaf[i].float())) for i in _slices(leaf))
-        for leaf in tree_leaves(tree)))
+    of squares; a leaf above SLICE_BYTES summed a slice at a time. With
+    ``counted`` (a rank's slices of a sharded tree: one flag a leaf, as
+    ``TrainShards.counts_norm`` gives) the flagged leaves' sums are added
+    and the total all-reduced over the world, so every rank holds the
+    whole tree's norm."""
+    leaves = tree_leaves(tree)
+    if counted is None:
+        return torch.sqrt(sum(_sum_squares(leaf) for leaf in leaves))
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for leaf, c in zip(leaves, counted, strict=True):
+        if c:
+            total = total + _sum_squares(leaf)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM)
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -122,13 +146,14 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 
 def adamw_update(params: Any, grads: Any, state: OptState,
-                 cfg: OptConfig) -> Tuple[Any, OptState,
-                                          Dict[str, torch.Tensor]]:
+                 cfg: OptConfig, counted: Optional[List[bool]] = None
+                 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step on the f32 master params, IN PLACE: the params and
     the state's moments are overwritten (module docstring) and returned
     in a new ``OptState`` with the next step. The grads are clipped by
-    their global norm on the fly, a slice at a time."""
-    norm = global_norm(grads)
+    their global norm on the fly, a slice at a time; ``counted``: a
+    rank's slices of sharded trees (:func:`global_norm`)."""
+    norm = global_norm(grads, counted)
     scale = _clip_scale(norm, cfg.grad_clip)
     step = state.step + 1
     lr = cosine_lr(cfg, step)
@@ -156,24 +181,32 @@ def adamw_update(params: Any, grads: Any, state: OptState,
 # int8 error-feedback gradient compression (cross-pod all-reduce shrink)
 # ---------------------------------------------------------------------------
 
-def compress_grads(grads: Any, error: Any = None):
+def compress_grads(grads: Any, error: Any = None, *,
+                   global_amax: bool = False):
     """Quantize gradients to int8 with a per-leaf scale + error feedback.
 
     Returns (q_tree of {'q', 'scale'} leaves, new_error): the caller
     all-reduces the int8 payload (4x fewer bytes than f32), then
     :func:`decompress_grads`; ``error`` carries this step's quantization
-    residual into the next."""
+    residual into the next. ``global_amax``: the leaves are a rank's
+    slices of sharded grads; each leaf's amax is taken over the world
+    (one MAX all-reduce of all of them), so its scale, and its int8
+    payload, are the whole leaf's."""
     if error is None:
         error = tree_map(torch.zeros_like, grads)
+    fed = tree_map(lambda g, e: g + e.to(g.dtype), grads, error)
+    amaxes = [torch.max(torch.abs(g)) for g in tree_leaves(fed)]
+    if global_amax:
+        stacked = torch.stack(amaxes)
+        dist.all_reduce(stacked, op=dist.ReduceOp.MAX)
+        amaxes = list(stacked.unbind())
 
-    def comp(g, e):
-        g = g + e.to(g.dtype)
-        amax = torch.max(torch.abs(g)) + 1e-12
-        s = amax / _const(127.0, g)
+    def comp(g, amax):
+        s = (amax + 1e-12) / _const(127.0, g)
         q = torch.clamp(torch.round(g / s), -127, 127).to(torch.int8)
         return {"q": q, "scale": s}, g - q.to(g.dtype) * s
 
-    pairs = tree_map(comp, grads, error)
+    pairs = tree_map(comp, fed, unflatten(fed, amaxes))
     return tree_map(lambda t: t[0], pairs), tree_map(lambda t: t[1], pairs)
 
 

@@ -1,14 +1,17 @@
 """Rank functions of the tensor-parallel CPU tests (``test_torch_tp.py``,
-``test_torch_sharded_engine.py``): each runs in every process of a gloo
-world that ``repro_torch.launch.mesh.spawn_world`` spawns, and imports
-only the port, so the ranks start without JAX. The tests compute the
+``test_torch_sharded_engine.py``, ``test_torch_mesh_train.py``): each
+runs in every process of a gloo world that
+``repro_torch.launch.mesh.spawn_world`` spawns, and imports only the
+port, so the ranks start without JAX. The tests compute the
 JAX references in the parent and compare."""
 from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.core.qlinear import expert_linear, linear, msb_skip_scope
@@ -241,3 +244,116 @@ def to_numpy(tree):
 def calls_world(rank: int, calls):
     """Each (rank function, args) of ``calls`` in turn, in one world."""
     return [fn(rank, *args) for fn, args in calls]
+
+
+def _payload(qtree):
+    """The int8 leaves of a ``compress_grads`` tree, in the param tree's
+    structure."""
+    if "q" in qtree and not isinstance(qtree["q"], dict):
+        return qtree["q"]
+    return {k: _payload(v) for k, v in qtree.items()}
+
+
+def mesh_train_world(rank: int, jobs):
+    """Mesh training jobs of a mesh as big as the world, each a dict with
+    "id", "mesh" (data, model), "kind" and its inputs (whole trees as CPU
+    tensors, batches as numpy):
+
+      * 'ep': ``moe_ffn_dist`` on this data rank's rows of "x" with this
+        model rank's experts; loss sum(y * r). Returns the output, the
+        grads of the rows, the router and the rank's expert slices.
+      * 'step': the sharded grads and one sharded train step from the
+        whole "state" on the whole "batch" ("knobs", "ocfg"), the
+        compression of the whole "grads" cut to the rank. Returns the
+        loss, metrics, the gathered grads, int8 payload and new state,
+        and (data rank, [(whole over data too, checksum)]) of the leaves
+        whole over model.
+      * 'ckpt': from "state", "steps" sharded steps, a mesh checkpoint
+        saved under "dir" at the end, one more step; the gathered states
+        at the checkpoint and after.
+      * 'restore': the newest checkpoint under "dir" restored on this
+        mesh, one step; the gathered state after.
+
+    Each rank returns {id: result}: every rank its 'ep' results, rank 0
+    the others (trees through ``store.to_host``), the other ranks their
+    checksums only."""
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim.adamw import compress_grads
+    world = dist.get_world_size()
+    out = {}
+    for job in jobs:
+        shape = job["mesh"]
+        if shape[0] * shape[1] != world:
+            continue
+        mesh = make_mesh(*shape)
+        lay = mesh_layout(mesh)
+        c = lay.coords
+        if job["kind"] == "ep":
+            x = slice_for_rank(job["x"], 0, c.data_rank, c.data_ways)
+            r = slice_for_rank(job["r"], 0, c.data_rank, c.data_ways)
+            x = x.clone().requires_grad_()
+            wr = job["w_router"].clone().requires_grad_()
+            ws = [slice_for_rank(job[k], 0, c.model_rank, c.model_ways
+                                 ).clone().requires_grad_()
+                  for k in ("w_gate", "w_up", "w_down")]
+            y = moe_lib.moe_ffn_dist(
+                x, wr, *ws, top_k=job["top_k"], model_rank=c.model_rank,
+                model_ways=c.model_ways, group=lay.model_group,
+                capacity_factor=job["cf"])
+            (y * r).sum().backward()
+            out[job["id"]] = to_numpy((y, x.grad, wr.grad,
+                                       tuple(w.grad for w in ws)))
+            continue
+        cfg = job["cfg"]
+        tm = S.TrainMesh(cfg, mesh)
+        state = tm.shards.local(job["state"], tm.placements(job["state"]))
+        step = S.make_train_step(cfg, job["ocfg"], job["knobs"], mesh=tm)
+
+        def rows(b):
+            return shard_batch(b, "cpu", data_rank=c.data_rank,
+                               data_ways=c.data_ways,
+                               microbatch=job["knobs"].microbatch)
+
+        if job["kind"] == "step":
+            batch = rows(job["batch"])
+            loss, metrics, grads = S.make_sharded_grads(
+                cfg, job["knobs"], tm)(state.params, batch)
+            q, _ = compress_grads(tm.shards.local(job["grads"]),
+                                  global_amax=True)
+            got = {"loss": float(loss),
+                   "metrics": {k: float(v) for k, v in metrics.items()},
+                   "grads": tm.gather(grads),
+                   "payload": tm.gather(_payload(q))}
+            state, m = step(state, batch)
+            got["step_metrics"] = {k: float(v) for k, v in m.items()}
+            got["state"] = tm.gather(state)
+            pls = store.flatten(tm.shards.placements)
+            got["replicated"] = (c.data_rank, [
+                (pl.data_dim is None,
+                 hashlib.sha256(t.contiguous().view(-1).view(torch.uint8)
+                                .numpy().tobytes()).hexdigest())
+                for t, pl in zip(store.flatten(state.params), pls)
+                if pl.model_dim is None])
+        elif job["kind"] == "ckpt":
+            for i in range(job["steps"]):
+                state, _ = step(state, rows(job["batches"][i]))
+            store.save_sharded(job["dir"], state, job["steps"], tm)
+            got = {"at_ckpt": tm.gather(state)}
+            state, m = step(state, rows(job["batches"][job["steps"]]))
+            got["loss"] = float(m["loss"])
+            got["after"] = tm.gather(state)
+        else:
+            latest = store.latest_step(job["dir"])
+            state = store.restore_sharded(job["dir"], latest, state, tm)
+            state, m = step(state, rows(job["batches"][latest]))
+            got = {"loss": float(m["loss"]), "after": tm.gather(state)}
+        if rank == 0:
+            out[job["id"]] = {k: (store.to_host(v) if k in (
+                "grads", "payload", "state", "at_ckpt", "after") else v)
+                for k, v in got.items()}
+        else:
+            out[job["id"]] = {"replicated": got.get("replicated")}
+    return out
