@@ -210,7 +210,23 @@ to chiprun_out/):
      the kernel line's launches of those rows, 19b); phase 18c's clean
      and faulted CLI runs at ``--data-axis 2 --dist-backend gloo``: the
      faulted run bit-equal to the clean one with one restart (19c);
- 20. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 20. MLA and SSD layers trained on a model axis, after phase 19: in one
+     1x2 world of ranks sharing the card over gloo, deepseek-v3-671b at
+     full width cut to its layer 0 (absorbed MLA, the dense FFN of
+     18,432) with its MTP block and 129,280-word untied head (20a), then
+     mamba2-2.7b at full width, MLA_SSD_TRAIN's 16 of 64 layers (20b),
+     each one step of two microbatches of 4 on one 8 x 128 batch; then
+     both at 1x1 on the same trees and batches in a child process of
+     its own (deepseek-v3's 1x1 state alone is ~44 GB, so never beside
+     the world): step 1's loss within MESH_LOSS_RTOL and grad norm within
+     MESH_GNORM_RTOL of 1x1's, the leaves whole over model and the SSD
+     mixer's B/C runs held whole bit-equal across the ranks, the ranks'
+     peaks summed within MESH_PEAK_SUM_GB; each trained tree gathered
+     onto rank 0, quantized and served there through ``--legacy``
+     (MLA_SSD_SERVE; the prefill's and a decode step's logits finite,
+     rows 1 and 3 launched: the kernel line's launches of those rows,
+     20c);
+ 21. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -2965,18 +2981,27 @@ def tree_tensors(tree):
         yield tree
 
 
+CHECKSUM_ROWS = 1 << 14          # rows summed at a time (64 MB of bytes)
+
+
 def tree_checksum(tree) -> int:
     """A checksum of a param tree's bytes that also moves when rows move:
     the sum over tensors of each 4,096-byte row's byte sum times (its
-    index mod 65,521) + 1."""
+    index mod 65,521) + 1; CHECKSUM_ROWS rows at a time, so its int64
+    temporaries stay small beside a table of gigabytes."""
     total = 0
     for t in tree_tensors(tree):
         b = t.detach().contiguous().view(-1).view(torch.uint8)
         pad = (-b.numel()) % 4096
-        rows = torch.cat([b, b.new_zeros(pad)]).view(-1, 4096)
-        w = torch.arange(rows.shape[0], device=b.device) % 65521 + 1
-        total += int((rows.sum(1, dtype=torch.int64) * w).sum().item())
-        total %= 2 ** 61 - 1
+        if pad:
+            b = torch.cat([b, b.new_zeros(pad)])
+        rows = b.view(-1, 4096)
+        for r0 in range(0, rows.shape[0], CHECKSUM_ROWS):
+            part = rows[r0:r0 + CHECKSUM_ROWS]
+            w = torch.arange(r0, r0 + part.shape[0],
+                             device=b.device) % 65521 + 1
+            total += int((part.sum(1, dtype=torch.int64) * w).sum().item())
+            total %= 2 ** 61 - 1
     return total
 
 
@@ -4187,14 +4212,17 @@ def mesh_train_config():
                                                        / cfg.top_k)))
 
 
-def mesh_train_rank(rank, cfg, seed, device_type="cuda"):
-    """Phase 19a on one rank of the MESH_TRAIN mesh (a ``spawn_world``
-    rank function) for ``cfg``: this rank's slice of the state drawn leaf
-    by leaf, MESH_TRAIN["steps"] sharded steps on its rows of one
-    SyntheticLM batch, its peak memory, the checksums of its leaves whole
-    over model; then the trained params gathered onto rank 0, which
-    serves them as phase 18a serves its tree (19b; the other ranks have
-    freed their memory and returned). Returns the rank's numbers."""
+def mesh_train_rank(rank, cfg, seed, device_type="cuda",
+                    mesh=MESH_TRAIN["mesh"], legacy=False):
+    """Phase 19a on one rank of a ``mesh`` (MESH_TRAIN's; a
+    ``spawn_world`` rank function) for ``cfg``: this rank's slice of the
+    state drawn leaf by leaf, MESH_TRAIN["steps"] sharded steps on its
+    rows of one SyntheticLM batch, its peak memory, the checksums of its
+    leaves whole over model (and of a segmented leaf's runs held whole);
+    then the trained params gathered onto rank 0, which serves them as
+    phase 18a serves its tree (19b), or through ``--legacy`` with
+    ``legacy`` (20c); the other ranks have freed their memory and
+    returned. Returns the rank's numbers."""
     from repro_torch.checkpoint import store
     from repro_torch.core.qlinear import tree_to
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
@@ -4205,8 +4233,7 @@ def mesh_train_rank(rank, cfg, seed, device_type="cuda"):
     torch.backends.cudnn.allow_tf32 = False
     dev = (torch.device("cuda", torch.cuda.current_device())
            if device_type == "cuda" else torch.device(device_type))
-    tm = S.TrainMesh(cfg, make_mesh(*MESH_TRAIN["mesh"],
-                                    device_type=device_type))
+    tm = S.TrainMesh(cfg, make_mesh(*mesh, device_type=device_type))
     ocfg = OptConfig(warmup_steps=1, total_steps=MESH_TRAIN["steps"])
     _reset_peak(dev)
     t0 = time.perf_counter()
@@ -4229,9 +4256,12 @@ def mesh_train_rank(rank, cfg, seed, device_type="cuda"):
                                             MESH_TRAIN["steps"])
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     pls = store.flatten(tm.shards.placements)
-    out["replicated"] = [(pl.data_dim is None, tree_checksum(t)) for t, pl in
-                         zip(store.flatten(state.params), pls)
-                         if pl.model_dim is None]
+    out["replicated"] = [
+        (pl.data_dim is None, tree_checksum(r))
+        for t, pl in zip(store.flatten(state.params), pls)
+        for r in ([t] if pl.model_dim is None else
+                  [t.narrow(pl.model_dim, lo, n)
+                   for lo, n in tm.shards.runs(pl, cut=False)])]
     params = state.params
     del state, step_fn
     gc.collect()
@@ -4243,7 +4273,10 @@ def mesh_train_rank(rank, cfg, seed, device_type="cuda"):
     torch.cuda.empty_cache()
     tm.barrier()                 # every rank's cards' memory released
     out["gather_s"] = time.perf_counter() - t0
-    if whole is not None:
+    if whole is not None and legacy:
+        out["serve"] = serve_trained_legacy(dev, cfg, tree_to(whole, dev),
+                                            seed)
+    elif whole is not None:
         prompts = data.batch_at(1)["tokens"][:, :TRAIN_SERVE["prompt_len"]]
         out["serve"] = serve_trained(dev, cfg, tree_to(whole, dev), prompts, (
             "sparqle_encode_fused", "sparqle_matmul",
@@ -4252,29 +4285,14 @@ def mesh_train_rank(rank, cfg, seed, device_type="cuda"):
     return out
 
 
-def mesh_train(dev, cfg, seed):
-    """Phases 19a and 19b (module docstring): the MESH_TRAIN world of
-    ranks sharing the card over gloo (rank 0 serves the trained tree),
-    then the same tree on the same batch at 1x1 after the world has
-    ended. Raises unless every loss is finite, step 1's loss is within
-    MESH_LOSS_RTOL and its grad norm within MESH_GNORM_RTOL of 1x1's, the
-    leaves whole over model are bit-equal across the ranks (checksums),
-    and the ranks' peaks sum to at most MESH_PEAK_SUM_GB."""
+def single_train(dev, cfg, seed):
+    """The one-device step of phases 19 and 20 on the mesh run's tree
+    (the same draws) and batch: MESH_TRAIN["steps"] steps, their losses,
+    grad norms and times, and the peak."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch
     from repro_torch.launch import steps as S
-    from repro_torch.launch.mesh import spawn_world
     from repro_torch.launch.train import build_state
     from repro_torch.optim.adamw import OptConfig
-    d, m = MESH_TRAIN["mesh"]
-    t0 = time.perf_counter()
-    ranks = spawn_world(mesh_train_rank, d * m, cfg, seed, dev.type,
-                        backend="gloo", device_type=dev.type,
-                        timeout_s=TP_TIMEOUT_S, deadline_s=TP_TIMEOUT_S)
-    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "capacity_factor": cfg.capacity_factor,
-           "world_s": time.perf_counter() - t0, "ranks": ranks,
-           "serve": ranks[0].pop("serve")}
-    # 1x1: the one-device step on the same tree (the same draws) and batch
     ocfg = OptConfig(warmup_steps=1, total_steps=MESH_TRAIN["steps"])
     _reset_peak(dev)
     state = build_state(cfg, ocfg, seed, dev)
@@ -4282,21 +4300,30 @@ def mesh_train(dev, cfg, seed):
                                   global_batch=MESH_TRAIN["batch"],
                                   seed=seed))
     step_fn = S.make_train_step(cfg, ocfg, S.TrainKnobs(**MESH_TRAIN_KNOBS))
-    state, out["single"] = timed_train_steps(
+    state, steps = timed_train_steps(
         dev, state, step_fn, shard_batch(data.batch_at(0), dev),
         MESH_TRAIN["steps"])
-    out["single_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
     del state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_s, one = ranks[0]["steps"], out["single"]
+    return steps, peak
+
+
+def mesh_against_single(out, ranks, single, model_ways: int) -> None:
+    """Fill ``out`` with a mesh run's comparison against its 1x1 run:
+    step 1's loss and grad norm, the ranks' peaks summed, and whether
+    the checksums of what is whole over model agree across the ranks;
+    raise unless every loss is finite and all are within the limits
+    (MESH_LOSS_RTOL, MESH_GNORM_RTOL, MESH_PEAK_SUM_GB)."""
+    mesh_s, one = ranks[0]["steps"], single
     out["loss_rel"] = abs(mesh_s[0]["loss"] - one[0]["loss"]) / abs(
         one[0]["loss"])
     out["gnorm_rel"] = abs(mesh_s[0]["grad_norm"] - one[0]["grad_norm"]) / \
         abs(one[0]["grad_norm"])
     out["peak_sum_gb"] = sum(r["peak_gb"] for r in ranks)
     rows = {r["data_rank"]: r["replicated"] for r in ranks
-            if r["rank"] % m == 0}
+            if r["rank"] % model_ways == 0}
     out["replicated_equal"] = all(
         r["replicated"] == rows[r["data_rank"]]
         and [x for whole, x in r["replicated"] if whole]
@@ -4310,7 +4337,150 @@ def mesh_train(dev, cfg, seed):
             and out["gnorm_rel"] <= MESH_GNORM_RTOL
             and out["replicated_equal"]
             and out["peak_sum_gb"] <= MESH_PEAK_SUM_GB):
-        raise AssertionError(f"{cfg.name} mesh training: {out}")
+        raise AssertionError(f"{out.get('arch')} mesh training: {out}")
+
+
+def mesh_train(dev, cfg, seed):
+    """Phases 19a and 19b (module docstring): the MESH_TRAIN world of
+    ranks sharing the card over gloo (rank 0 serves the trained tree),
+    then the same tree on the same batch at 1x1 after the world has
+    ended. Raises unless every loss is finite, step 1's loss is within
+    MESH_LOSS_RTOL and its grad norm within MESH_GNORM_RTOL of 1x1's, the
+    leaves whole over model are bit-equal across the ranks (checksums),
+    and the ranks' peaks sum to at most MESH_PEAK_SUM_GB."""
+    from repro_torch.launch.mesh import spawn_world
+    d, m = MESH_TRAIN["mesh"]
+    t0 = time.perf_counter()
+    ranks = spawn_world(mesh_train_rank, d * m, cfg, seed, dev.type,
+                        backend="gloo", device_type=dev.type,
+                        timeout_s=TP_TIMEOUT_S, deadline_s=TP_TIMEOUT_S)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "capacity_factor": cfg.capacity_factor,
+           "world_s": time.perf_counter() - t0, "ranks": ranks,
+           "serve": ranks[0].pop("serve")}
+    # 1x1: the one-device step on the same tree (the same draws) and batch
+    out["single"], out["single_peak_gb"] = single_train(dev, cfg, seed)
+    mesh_against_single(out, ranks, out["single"], m)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: MLA and SSD layers trained on a model axis (1x2, ranks sharing
+# the card over gloo) against 1x1; each trained tree served through
+# --legacy
+# ---------------------------------------------------------------------------
+
+# full width; the depth cut is forced by memory: deepseek-v3's layer 0
+# (MLA, the dense FFN) with its MTP block and untied head is ~3.1 B
+# params, ~4.1 B summed over the two ranks (the embedding is whole on
+# both), ~14 B a param (f32 master and grad, bf16 moments and compute
+# copy): ~58 GB over the two ranks, ~44 GB at 1x1; one of its MoE layers
+# alone (11.3 B params) fits no card's train state, so its MoE on the
+# expert axis is checked on the CPU only. mamba2-2.7b: 16 of 64 layers
+# (40.2 M params a layer; ~0.9 B over the ranks with the tied embedding)
+MLA_SSD_TRAIN = {"deepseek-v3-671b": dict(n_layers=1, first_dense=1),
+                 "mamba2-2.7b": dict(n_layers=16)}
+MLA_SSD_MESH = (1, 2)
+# each trained tree's --legacy serve on rank 0: prompts of MLA_SSD_SERVE
+MLA_SSD_SERVE = dict(batch=4, tokens=32, gen=4)
+
+
+def mla_ssd_configs():
+    from repro_torch.configs import get_config
+    return [get_config(arch).replace(**cut)
+            for arch, cut in MLA_SSD_TRAIN.items()]
+
+
+def serve_trained_legacy(dev, cfg, params, seed):
+    """Phase 20c: a trained float tree (consumed) quantized and served
+    through ``--legacy`` (MLA_SSD_SERVE's prompts from ``seed``): the
+    prefill's and one decode step's logits finite, then the counted
+    serve (``counted_legacy_serve``: the counters zeroed just before and
+    read just after); raises unless rows 1 and 3 (the fused encoder and
+    the dual-pass matmul) launched and no attention kernel did (MLA and
+    SSD attend in torch). Returns the quantize time, launches, times."""
+    from repro_torch.core.qlinear import quantize_model_params
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    qparams = quantize_model_params(params, w_bits=cfg.w_bits)
+    torch.cuda.synchronize(dev)
+    out = {"quantize_s": time.perf_counter() - t0}
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, n, gen = (MLA_SSD_SERVE[k] for k in ("batch", "tokens", "gen"))
+    prompts = make_prompts(cfg, seed, b, n)
+    with torch.no_grad():
+        tokens = torch.tensor(prompts, dtype=torch.int32, device=dev)
+        logits, cache = M.prefill(cfg, qparams, {"tokens": tokens},
+                                  max_len=n + 1)
+        step, _ = M.decode_step(cfg, qparams, cache, logits.argmax(-1).to(
+            torch.int32), torch.full((b,), n, dtype=torch.int32, device=dev))
+        out["logits_finite"] = bool(torch.isfinite(logits).all()
+                                    and torch.isfinite(step).all())
+    del cache
+    r = counted_legacy_serve(dev, cfg, qparams, prompts, gen)
+    out.update({k: r[k] for k in ("launches", "prefill_s", "decode_step_s",
+                                  "streams", "peak_mem_gb")})
+    counts = out["launches"]
+    need = ("sparqle_encode_fused", "sparqle_matmul")
+    if not (all(counts[k] for k in need) and out["logits_finite"]) or any(
+            v for k, v in counts.items() if k.startswith("kv_attention")):
+        raise AssertionError(f"{cfg.name} trained-tree --legacy serve: "
+                             f"launches {counts} (need {need}, no "
+                             f"attention kernel), logits finite "
+                             f"{out['logits_finite']}")
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_ssd_rank(rank, seed, device_type="cuda"):
+    """Phase 20a/20b/20c on one rank of the MLA_SSD_MESH world: each
+    config of ``mla_ssd_configs`` in turn through ``mesh_train_rank``
+    (its tree served through ``--legacy`` on rank 0)."""
+    return [mesh_train_rank(rank, cfg, seed, device_type, MLA_SSD_MESH,
+                            legacy=True) for cfg in mla_ssd_configs()]
+
+
+def mla_ssd_single(rank, seed, device_type="cuda"):
+    """Phase 20's 1x1 runs, in a child process of their own: each config
+    of ``mla_ssd_configs`` through ``single_train``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    return [single_train(dev, cfg, seed) for cfg in mla_ssd_configs()]
+
+
+def mla_ssd_train(dev, seed):
+    """Phase 20 (module docstring): the MLA_SSD_MESH world, then the 1x1
+    child; raises unless each arch's mesh run holds against its 1x1 run
+    (``mesh_against_single``). Returns each arch's summary."""
+    from repro_torch.launch.mesh import spawn_world
+    d, m = MLA_SSD_MESH
+    t0 = time.perf_counter()
+    ranks = spawn_world(mla_ssd_rank, d * m, seed, dev.type,
+                        backend="gloo", device_type=dev.type,
+                        timeout_s=TP_TIMEOUT_S, deadline_s=TP_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (single,) = spawn_world(mla_ssd_single, 1, seed, dev.type,
+                            backend="gloo", device_type=dev.type,
+                            timeout_s=TP_TIMEOUT_S, deadline_s=TP_TIMEOUT_S)
+    single_s = time.perf_counter() - t0
+    out = {}
+    for i, cfg in enumerate(mla_ssd_configs()):
+        per = [r[i] for r in ranks]
+        o = {"arch": cfg.name, "layers": cfg.n_layers,
+             "d_model": cfg.d_model, "ranks": per,
+             "serve": per[0].pop("serve"), "single": single[i][0],
+             "single_peak_gb": single[i][1]}
+        mesh_against_single(o, per, o["single"], m)
+        out[cfg.name] = o
+    out["world_s"], out["single_s"] = world_s, single_s
     return out
 
 
@@ -4415,11 +4585,13 @@ def main() -> int:
                 f"{f['sparqle_matmul_draft'] * 1e3:.1f} us")
     detail = {"card": card, "kernels": rows, "attention_zoo": attn_zoo}
     # the launch counter of each kernel row, and the phase that reads it
-    # rows 1, 3, 1e, 3e and 8: the launches of phase 19b's serve (the
-    # tree trained on the mesh, the last path the smoke drives)
+    # rows 1 and 3: the launches of phase 20c's --legacy serves (the
+    # trees trained with MLA and SSD layers on a model axis, the last path
+    # the smoke drives); 1e, 3e and 8: of phase 19b's serve (the tree
+    # trained on the 2x2 mesh)
     counter = {"sparqle_encode_fused": ("sparqle_encode_fused",
-                                        "mesh_serve"),
-               "sparqle_matmul": ("sparqle_matmul", "mesh_serve"),
+                                        "mla_ssd_serve"),
+               "sparqle_matmul": ("sparqle_matmul", "mla_ssd_serve"),
                "kv4_paged_decode_attention": ("kv_attention", "mesh_serve"),
                "sparqle_matmul_draft": ("sparqle_matmul_draft", "spec"),
                "kv4_paged_verify_attention": ("kv_attention_verify",
@@ -5039,8 +5211,49 @@ def main() -> int:
             f"{mcl['params_bit_equal']}; {mcl['clean']['ms_per_step']:.1f} "
             f"ms/step clean; phase 19 {time.perf_counter() - t19:.1f} s")
         detail["mesh_train"] = {"train": mt, "serve": ms, "cli": mcl}
+        # phase 20: MLA and SSD layers trained on a model axis
+        t20 = time.perf_counter()
+        mls = mla_ssd_train(dev, args.seed)
+        for arch in MLA_SSD_TRAIN:
+            a = mls[arch]
+            r0, sv = a["ranks"][0], a["serve"]
+            log(f"[20] {card}: {arch} {a['layers']}L d={a['d_model']} "
+                f"trained at {MLA_SSD_MESH[0]}x{MLA_SSD_MESH[1]} (ranks "
+                f"sharing the card over gloo; {MESH_TRAIN['batch']} x "
+                f"{MESH_TRAIN['seq']}, microbatches of "
+                f"{MESH_TRAIN_KNOBS['microbatch']}, CE chunks of "
+                f"{MESH_TRAIN_KNOBS['ce_chunk']}): loss "
+                f"{r0['steps'][0]['loss']:.6f} against 1x1 "
+                f"{a['single'][0]['loss']:.6f} (rel {a['loss_rel']:.2e}), "
+                f"grad norm {r0['steps'][0]['grad_norm']:.6f} against "
+                f"{a['single'][0]['grad_norm']:.6f} (rel "
+                f"{a['gnorm_rel']:.2e}); step ms rank 0 "
+                f"{r0['steps'][0]['ms']:.1f}, 1x1 "
+                f"{a['single'][0]['ms']:.1f}; peaks GB "
+                f"{[round(r['peak_gb'], 2) for r in a['ranks']]} (sum "
+                f"{a['peak_sum_gb']:.2f}; 1x1 {a['single_peak_gb']:.2f}), "
+                f"state a rank {r0['state_gb']:.2f} GB built in "
+                f"{r0['build_s']:.1f} s; {a['replicated_leaves']} leaves "
+                f"and runs whole over model bit-equal across ranks: "
+                f"{a['replicated_equal']}")
+            log(f"[20] {card}: the 1x2-trained {arch} tree gathered onto "
+                f"rank 0 ({r0['gather_s']:.1f} s), quantized in "
+                f"{sv['quantize_s']:.1f} s and served through --legacy "
+                f"({MLA_SSD_SERVE['batch']} x {MLA_SSD_SERVE['tokens']} + "
+                f"{MLA_SSD_SERVE['gen']}: prefill {sv['prefill_s'] * 1e3:.1f}"
+                f" ms, decode step {sv['decode_step_s'] * 1e3:.2f} ms, "
+                f"logits finite: {sv['logits_finite']}), launches "
+                f"{ {k: v for k, v in sv['launches'].items() if v} }")
+        log(f"[20] world {mls['world_s']:.1f} s, 1x1 child "
+            f"{mls['single_s']:.1f} s; phase 20 "
+            f"{time.perf_counter() - t20:.1f} s")
+        detail["mla_ssd_train"] = mls
+        launches = [mls[a]["serve"]["launches"] for a in MLA_SSD_TRAIN]
+        mla_ssd_serve = {"launches": {k: sum(c[k] for c in launches)
+                                      for k in launches[0]}}
         moe = zoo["deepseek-moe-16b"]
-        runs = {"base": eng, "mesh_serve": ms, "spec": spec, "kv2": kv2,
+        runs = {"base": eng, "mesh_serve": ms,
+                "mla_ssd_serve": mla_ssd_serve, "spec": spec, "kv2": kv2,
                 "dense": dn,
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg,
                 "gemma3": gemma["gemma3-27b"],

@@ -24,7 +24,13 @@ over ``model`` in the Megatron column/row pattern (``heads_flat``,
 ``mlp``, ``vocab`` -> model) with routed experts on the expert axis. The
 embedding table is the one exception: token lookup reads all of it, so it
 stays whole over model (its ``embed`` dim keeps its ``data`` placement).
-Master params and both moments share the placement. :class:`TrainShards`
+An SSD mixer's packed leaves take a *segmented* model cut instead of the
+table's contiguous one: ``w_in``'s columns ``[z | x | B | C | dt]`` and
+the conv's channels ``[x | B | C]`` are cut segment by segment, each rank
+taking its heads' slice of z, x and dt, and of B and C its groups' slice
+when the model ways divide the groups, else B and C whole (one group:
+every rank computes them). Master params and both moments share the
+placement. :class:`TrainShards`
 cuts a rank's slice of a whole tree, draws a rank's slice of the init
 leaf by leaf, and gathers a sharded tree whole onto rank 0.
 """
@@ -149,12 +155,23 @@ def spec_for(logical_axes: Sequence[Optional[str]], shape: Sequence[int],
     return tuple(entries)
 
 
+Segments = Tuple[Tuple[int, bool], ...]
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where a leaf is cut: the dim sharded over ``data`` and the dim
-    sharded over ``model`` (None: whole over that axis)."""
+    sharded over ``model`` (None: whole over that axis). ``segments``
+    (a segmented model cut, module docstring): the model dim's runs in
+    order, each (its whole width, whether it is cut); a rank holds each
+    cut run's slice and each uncut run whole, in that order."""
     data_dim: Optional[int] = None
     model_dim: Optional[int] = None
+    segments: Optional[Segments] = None
+
+    def local_runs(self, ways: int) -> List[Tuple[int, bool]]:
+        """(width a rank holds, cut) of each segment."""
+        return [(n // ways if cut else n, cut) for n, cut in self.segments]
 
 
 REPLICATED = Placement()
@@ -162,19 +179,41 @@ REPLICATED = Placement()
 WHOLE_OVER_MODEL = frozenset({"embed/table"})
 
 
+def _ssd_segments(layer, model_ways: int) -> Dict[str, Segments]:
+    """The segmented cuts of an SSD layer's schema (its widths read from
+    the leaves: ``gn`` is d_inner wide, ``a_log`` (.., G, H/G),
+    ``dt_bias`` H, the conv ``d_inner + 2 G N``)."""
+    din, g = layer["gn"].shape[-1], layer["a_log"].shape[-2]
+    nh = layer["dt_bias"].shape[-1]
+    gn = (layer["conv_b"].shape[-1] - din) // 2
+    bc_cut = g % model_ways == 0
+    xbc = ((din, True), (gn, bc_cut), (gn, bc_cut))
+    return {"w_in": ((din, True),) + xbc + ((nh, True),),
+            "conv_w": xbc, "conv_b": xbc}
+
+
 def train_placements(schema, data_ways: int, model_ways: int,
-                     prefix: str = ""):
+                     prefix: str = "", segments: Optional[Segments] = None):
     """The :class:`Placement` of every leaf of a ParamSpec tree (module
     docstring)."""
     if isinstance(schema, dict):
+        segs = (_ssd_segments(schema, model_ways)
+                if model_ways > 1 and "w_in" in schema else {})
         return {k: train_placements(v, data_ways, model_ways,
-                                    f"{prefix}/{k}" if prefix else k)
+                                    f"{prefix}/{k}" if prefix else k,
+                                    segs.get(k))
                 for k, v in schema.items()}
     spec = spec_for(schema.axes, schema.shape,
                     {"data": data_ways, "model": model_ways})
     dims = {ax: i for i, ax in enumerate(spec) if ax is not None}
     if any(not isinstance(ax, str) for ax in dims):
         raise ValueError(f"{prefix}: {spec} cuts a dim over two axes")
+    if segments is not None:
+        for n, cut in segments:
+            if cut and n % model_ways:
+                raise ValueError(f"{prefix}: a segment of {n} does not "
+                                 f"divide {model_ways} ways")
+        return Placement(dims.get("data"), len(schema.shape) - 1, segments)
     model_dim = None if prefix in WHOLE_OVER_MODEL else dims.get("model")
     return Placement(dims.get("data"), model_dim)
 
@@ -200,9 +239,43 @@ class TrainShards:
         c = self.coords
         if pl.data_dim is not None:
             t = slice_for_rank(t, pl.data_dim, c.data_rank, c.data_ways)
-        if pl.model_dim is not None:
+        if pl.segments is not None:
+            runs = t.split([n for n, _ in pl.segments], pl.model_dim)
+            t = torch.cat([slice_for_rank(r, pl.model_dim, c.model_rank,
+                                          c.model_ways) if cut else r
+                           for r, (_, cut) in zip(runs, pl.segments)],
+                          pl.model_dim)
+        elif pl.model_dim is not None:
             t = slice_for_rank(t, pl.model_dim, c.model_rank, c.model_ways)
         return t
+
+    def join_model(self, pieces: List[torch.Tensor], pl: Placement
+                   ) -> torch.Tensor:
+        """The leaf whole over model from the model ranks' pieces in
+        model-rank order (inverse of :meth:`cut` along model)."""
+        if pl.model_dim is None:
+            return pieces[0]
+        if pl.segments is None:
+            return torch.cat(pieces, pl.model_dim)
+        widths = [n for n, _ in pl.local_runs(self.coords.model_ways)]
+        runs = [p.split(widths, pl.model_dim) for p in pieces]
+        return torch.cat([
+            torch.cat([r[i] for r in runs], pl.model_dim) if cut
+            else runs[0][i] for i, (_, cut) in enumerate(pl.segments)],
+            pl.model_dim)
+
+    def runs(self, pl: Placement, cut: bool) -> List[Tuple[int, int]]:
+        """(offset, width) along the model dim of the runs of a segmented
+        piece that are cut (``cut``) or whole over model; none for a
+        leaf cut otherwise."""
+        if pl.segments is None:
+            return []
+        out, lo = [], 0
+        for n, c in pl.local_runs(self.coords.model_ways):
+            if c == cut:
+                out.append((lo, n))
+            lo += n
+        return out
 
     def local(self, tree, placements=None):
         """This rank's slice of every leaf of a whole tree, in storage of
@@ -211,13 +284,18 @@ class TrainShards:
         return unflatten(tree, [self.cut(t, pl).clone()
                                 for t, pl in zip(leaves, pls)])
 
-    def counts_norm(self, pl: Placement) -> bool:
+    def counts_norm(self, pl: Placement):
         """Whether this rank adds the leaf's piece into a sum over the
         world (a global norm): every piece once, a replica at coordinate
-        0 of the axis it is whole over."""
+        0 of the axis it is whole over. A segmented piece off model rank
+        0 counts only its cut runs: (the model dim, [(offset, width)])."""
         c = self.coords
-        return ((pl.data_dim is not None or c.data_rank == 0)
-                and (pl.model_dim is not None or c.model_rank == 0))
+        if not ((pl.data_dim is not None or c.data_rank == 0)
+                and (pl.model_dim is not None or c.model_rank == 0)):
+            return False
+        if pl.segments is None or c.model_rank == 0:
+            return True
+        return pl.model_dim, self.runs(pl, cut=True)
 
     def gather_data(self, t: torch.Tensor, pl: Placement) -> torch.Tensor:
         """A leaf whole over data (its model slice), from this rank's."""
@@ -250,11 +328,9 @@ class TrainShards:
             if not root:
                 continue
             parts = [p.to(device) for p in parts]
-            rows = []
-            for d in range(c.data_ways):
-                row = parts[d * c.model_ways:(d + 1) * c.model_ways]
-                rows.append(row[0] if pl.model_dim is None
-                            else torch.cat(row, pl.model_dim))
+            rows = [self.join_model(
+                parts[d * c.model_ways:(d + 1) * c.model_ways], pl)
+                for d in range(c.data_ways)]
             out.append(rows[0] if pl.data_dim is None
                        else torch.cat(rows, pl.data_dim))
             del parts, rows

@@ -214,7 +214,10 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
 def validate_tp_config(cfg: ModelConfig, ways: int) -> None:
     """Raise listing every dimension the model axis cannot divide. The
     row-parallel FFN weights are packed two int4 values a byte along K,
-    so each shard's K slice must hold whole bytes: d_ff % (2 ways)."""
+    so each shard's K slice must hold whole bytes: d_ff % (2 ways). An
+    SSD mixer (``ssm_state`` set) is cut by heads, ``d_inner /
+    ssm_head_dim``; its B/C groups either divide too (a rank takes whole
+    groups with their heads) or are one group, whole on every rank."""
     if ways <= 1:
         return
     problems: List[str] = []
@@ -222,6 +225,14 @@ def validate_tp_config(cfg: ModelConfig, ways: int) -> None:
         problems.append(f"n_heads={cfg.n_heads} % model={ways}")
     if cfg.n_kv_heads % ways:
         problems.append(f"n_kv_heads={cfg.n_kv_heads} % model={ways}")
+    if cfg.ssm_state:
+        nh = cfg.d_inner // cfg.ssm_head_dim
+        if nh % ways:
+            problems.append(f"SSD heads d_inner/ssm_head_dim={nh} % "
+                            f"model={ways}")
+        if cfg.ssm_groups != 1 and cfg.ssm_groups % ways:
+            problems.append(f"ssm_groups={cfg.ssm_groups} % model={ways} "
+                            f"(and not 1)")
     if cfg.d_ff and cfg.d_ff % (2 * ways):
         problems.append(f"d_ff={cfg.d_ff} % 2*model={2 * ways}")
     if cfg.moe_d_ff and cfg.moe_d_ff % (2 * ways):
@@ -237,7 +248,9 @@ def validate_tp_config(cfg: ModelConfig, ways: int) -> None:
 def shard_model_config(cfg: ModelConfig, ways: int) -> ModelConfig:
     """The config a shard's step body runs: head counts divided by the
     model ways, ``head_dim`` pinned so ``cfg.hd`` keeps its global value;
-    every other field as it is (shapes follow the sharded params)."""
+    every other field as it is (shapes follow the sharded params: an SSD
+    mixer reads its shard's widths from them, ``models/model.py``
+    ``_ssd_dims``)."""
     if ways <= 1:
         return cfg
     validate_tp_config(cfg, ways)

@@ -26,7 +26,8 @@ the rank's data slice as the backward pass produces it (a microbatch's
 grads are never held whole over data), the microbatches' sums added,
 then divided by n and by D; a leaf whole over model takes model rank
 0's grad (its grad is the same sum on every model rank, but the card's
-atomics may order it otherwise), so replicated leaves stay bit-equal
+atomics may order it otherwise), as do the runs of a segmented leaf held
+whole (an SSD mixer's B/C columns), so replicated leaves stay bit-equal
 across ranks. The loss and metrics are all-reduced over the world, equal
 on every rank.
 
@@ -272,10 +273,14 @@ def make_train_step(cfg: ModelConfig, ocfg: OptConfig,
 # ---------------------------------------------------------------------------
 
 # leaves whole over model that a train step uses on model-sharded
-# activations: column biases (cut to the rank's columns) and the qk norms'
-# gains (the rank's heads); both enter through copy-to-model
+# activations: column biases (cut to the rank's columns), the qk norms'
+# gains (the rank's heads; not MLA's ``q_norm``, the norm of the q LoRA's
+# rank, which runs before the copy to model) and an SSD mixer's per-head
+# leaves (cut to the rank's heads: ``a_log``/``d_skip`` (.., G, H/G) to
+# its heads' (groups, heads a group)); all enter through copy-to-model
 _COL_BIAS_KEYS = frozenset({"bq", "bk", "bv", "b_fc"})
 _HEAD_GAIN_KEYS = frozenset({"q_norm", "k_norm"})
+_SSD_HEAD_KEYS = frozenset({"a_log", "d_skip", "dt_bias", "gn"})
 
 
 class TrainMesh:
@@ -341,7 +346,9 @@ class TrainMesh:
             shape = list(t.shape)
             if pl.data_dim is not None:
                 shape[pl.data_dim] *= c.data_ways
-            if pl.model_dim is not None:
+            if pl.segments is not None:
+                shape[pl.model_dim] = sum(n for n, _ in pl.segments)
+            elif pl.model_dim is not None:
                 shape[pl.model_dim] *= c.model_ways
             return torch.empty(shape, dtype=t.dtype, device="meta")
 
@@ -384,20 +391,32 @@ def make_sharded_grads(cfg: ModelConfig, knobs: TrainKnobs, tm: TrainMesh):
     dt = cfg.cdtype
     model_root = tm.rank - coords.model_rank     # model rank 0 of this row
 
-    def wrap(path: str, t: torch.Tensor, pl: Placement) -> torch.Tensor:
+    def wrap(path: str, t: torch.Tensor, pl: Placement,
+             mla: bool) -> torch.Tensor:
         key = path.rsplit("/", 1)[-1]
         if coords.model_ways == 1 or pl.model_dim is not None:
             return t
+        mine = (coords.model_rank, coords.model_ways)
         if key in _COL_BIAS_KEYS:
-            return slice_for_rank(copy_to(t, lay.model_group), -1,
-                                  coords.model_rank, coords.model_ways)
-        if key in _HEAD_GAIN_KEYS:
+            return slice_for_rank(copy_to(t, lay.model_group), -1, *mine)
+        if key in _HEAD_GAIN_KEYS and not mla:
             return copy_to(t, lay.model_group)
+        if key in _SSD_HEAD_KEYS:
+            t = copy_to(t, lay.model_group)
+            if key in ("a_log", "d_skip"):       # (.., G, H/G): by head
+                heads = slice_for_rank(t.flatten(-2), -1, *mine)
+                g = t.shape[-2]
+                g = g // coords.model_ways if g % coords.model_ways == 0 \
+                    else g
+                return heads.unflatten(-1, (g, -1))
+            return slice_for_rank(t, -1, *mine)
         return t
 
     def sharded_grads(params, batch):
         paths = store.leaf_paths(params)
         pls = store.flatten(sh.placements)
+        known = set(paths)
+        mla = [f"{p.rsplit('/', 1)[0]}/wq_a" in known for p in paths]
         compute = []
         with torch.no_grad():
             for path, t, pl in zip(paths, store.flatten(params), pls):
@@ -438,8 +457,7 @@ def make_sharded_grads(cfg: ModelConfig, knobs: TrainKnobs, tm: TrainMesh):
                 for j, t in enumerate(tracked):
                     t.register_post_accumulate_grad_hook(accumulate(j))
                 tree = store.unflatten(params, [
-                    wrap(path, t, pl)
-                    for path, t, pl in zip(paths, tracked, pls)])
+                    wrap(*leaf) for leaf in zip(paths, tracked, pls, mla)])
                 loss_i, metrics = loss_fn(tm.lcfg, knobs, tree, ub)
                 loss_i.backward()
                 lsum = loss_i.detach() if lsum is None else \
@@ -459,6 +477,10 @@ def make_sharded_grads(cfg: ModelConfig, knobs: TrainKnobs, tm: TrainMesh):
                  if a is None else a.div_(dways))
             if coords.model_ways > 1 and pl.model_dim is None:
                 dist.broadcast(g, src=model_root, group=lay.model_group)
+            for lo, w in sh.runs(pl, cut=False):    # B/C runs whole over model
+                run = g.narrow(pl.model_dim, lo, w).contiguous()
+                dist.broadcast(run, src=model_root, group=lay.model_group)
+                g.narrow(pl.model_dim, lo, w).copy_(run)
             grads.append(g)
         loss = _world_mean(loss, world)
         metrics = {k: _world_mean(v, world) for k, v in metrics.items()}

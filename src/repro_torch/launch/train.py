@@ -16,10 +16,12 @@ one-device init leaf by leaf, and no rank holds the whole tree. A
 checkpoint is the whole tree in the one-device format, written by rank
 0, so it restores at any mesh shape. Rank 0's lines are printed when the
 world ends, and :func:`main` returns what the one-device run returns,
-with the state gathered whole. At model ways > 1 the heads, KV heads and
-FFN widths must divide (else ValueError), and MLA and SSD layers are
-refused (ROADMAP A9). Under ``torch.use_deterministic_algorithms`` the
-ranks run deterministic too.
+with the state gathered whole. At model ways > 1 GQA, MLA and SSD
+mixers are cut by head (an SSD mixer's ``w_in`` and conv by segment,
+``distributed/sharding.py``): the heads, KV heads, SSD heads and FFN
+widths must divide, and SSD B/C groups divide or are one (else
+ValueError, before any rank starts). Under
+``torch.use_deterministic_algorithms`` the ranks run deterministic too.
 
 Examples::
 
@@ -27,6 +29,10 @@ Examples::
         --smoke --device cpu --steps 12 --inject-fail 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch \\
         deepseek-moe-16b --smoke --device cpu --data-axis 2 --model-axis 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch \\
+        deepseek-v3-671b --smoke --device cpu --model-axis 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+        --smoke --device cpu --data-axis 2 --model-axis 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \\
         --smoke --steps 50 --ckpt-dir ck --resume auto
 

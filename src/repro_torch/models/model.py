@@ -50,7 +50,11 @@ same functions on a rank's float shards under autograd: column-parallel
 inputs through copy-to-model, row-parallel outputs through
 reduce-from-model, the untied head's vocab shards gathered, attention on
 the rank's heads (``shard_model_config``), and the MoE by
-``moe_ffn_dist``'s rules (:func:`_moe_ffn_train`). Each data rank holds
+``moe_ffn_dist``'s rules (:func:`_moe_ffn_train`). MLA and SSD mixers
+run the rank's heads too (:func:`mla_full`, :func:`ssd_full`): every
+path from a tensor whole over model to the heads takes one copy-to-model,
+placed after what every rank computes whole (the q and KV LoRA norms;
+an SSD mixer's B and C, after its conv). Each data rank holds
 its rows of every microbatch and norms them alone: training's contract
 is a tolerance, so the zero-padded norm of serving is not used.
 """
@@ -233,18 +237,13 @@ def _moe_ffn_train(cfg: ModelConfig, mp: Params, flat: torch.Tensor,
 
 def check_train_mesh(cfg: ModelConfig, model_ways: int) -> None:
     """Raise unless a train step can shard ``cfg`` ``model_ways`` ways on
-    the model axis: the TP divisibility checks (``validate_tp_config``),
-    and no MLA or SSD layer above one model rank (ROADMAP A9). The data
-    axis alone trains every arch the one-device step trains."""
-    if model_ways <= 1:
-        return
-    mixers = {ld.mixer for st in build_stages(cfg) for ld in st.period}
-    if cfg.use_mla or mixers - {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: training at model ways {model_ways} shards GQA "
-            f"attention only (mixers {sorted(mixers)}); MLA and SSD layers "
-            f"on a model axis are ROADMAP A9")
-    validate_tp_config(cfg, model_ways)
+    the model axis: the TP divisibility checks (``validate_tp_config``:
+    the attention and MLA heads, the KV heads, the FFN widths, an untied
+    vocab, an SSD mixer's heads and B/C groups). GQA, MLA and SSD mixers
+    all shard by head; the data axis alone trains every arch the
+    one-device step trains."""
+    if model_ways > 1:
+        validate_tp_config(cfg, model_ways)
 
 
 def _add_ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
@@ -670,7 +669,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         for pi, ld in enumerate(stage.period):
             lead = (stage.repeat, batch, max_len)
             if ld.mixer == "ssd":
-                din, g, n, p_, nh = _ssd_dims(cfg)
+                din, g, n, p_ = (cfg.d_inner, cfg.ssm_groups,
+                                 cfg.ssm_state, cfg.ssm_head_dim)
+                nh = din // p_
                 per[f"p{pi}"] = {
                     "h": zeros((stage.repeat, batch, g, nh // g, p_, n)),
                     "conv": zeros((stage.repeat, batch, cfg.conv_width - 1,
@@ -762,10 +763,14 @@ def attn_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
 
 
 def _mla_q(cfg: ModelConfig, p: Params, h: torch.Tensor, positions):
-    """h (..., D) -> q_nope (..., H, dn), q_rope (..., H, dr), roped."""
+    """h (..., D) -> q_nope (..., H, dn), q_rope (..., H, dr), roped. A
+    mesh train step copies the q LoRA's normed output to model, where the
+    rank's heads begin (``wq_a`` and ``q_norm`` are whole over model:
+    their grads are then the whole sums on every rank)."""
     H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     cq = rms_norm(linear(h, p["wq_a"]), p["q_norm"], cfg.rms_eps)
-    q = linear(cq, p["wq_b"]).reshape(*h.shape[:-1], H, dn + dr)
+    q = linear(model_input(cq), p["wq_b"]).reshape(*h.shape[:-1], H,
+                                                   dn + dr)
     return q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -847,20 +852,26 @@ def mla_full(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
              cache: Optional[Cache]) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Prefill MLA over the whole sequence, x (B, S, D). With a layer
     ``cache`` the packed compressed KV, its scales and the rope keys of
-    positions [0, S) are written into it in place."""
+    positions [0, S) are written into it in place. A mesh train step
+    runs the rank's heads (``wq_b``, ``wkv_b`` cut by head, ``wo``
+    row-parallel): the compressed KV and the rope key, computed whole on
+    every model rank, enter the per-head products through copy-to-model,
+    as the q LoRA's output does (:func:`_mla_q`), so every path from a
+    leaf whole over model to the heads takes one model-group sum."""
     b, s, _ = x.shape
     h = _norm(cfg, p["ln"], x)
     qn, qr = _mla_q(cfg, p, h, positions)
     ckv, kr = _mla_ckv(cfg, p, h, positions)
     w_uk, w_uv = _mla_absorbed_weights(cfg, p)
-    o = _mla_flash(qn, qr, ckv, kr, w_uk, w_uv, causal=cfg.causal)
+    o = _mla_flash(qn, qr, model_input(ckv), model_input(kr), w_uk, w_uv,
+                   causal=cfg.causal)
     if cache is not None:
         cq, cs = _kv_quant(cfg, ckv)
         cache["ckv_q"][:, :s] = cq
         cache["ckv_s"][:, :s] = cs
         cache["kr"][:, :s] = kr
     return linear(o.reshape(b, s, cfg.n_heads * cfg.v_head_dim),
-                  p["wo"]), cache
+                  p["wo"], tp="row"), cache
 
 
 def mla_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
@@ -904,18 +915,40 @@ def mla_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _ssd_dims(cfg: ModelConfig):
-    din = cfg.d_inner
-    g, n, p_ = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
-    return din, g, n, p_, din // p_
+def _ssd_dims(cfg: ModelConfig, p: Params):
+    """(d_inner, groups, state, head dim, heads) of the layer's mixer as
+    its params hold it: a mesh train step's shard (its heads, its groups
+    or all of them) reads its widths from its leaves, the one-device
+    mixer the config's."""
+    din, g = p["gn"].shape[-1], p["a_log"].shape[-2]
+    return din, g, cfg.ssm_state, cfg.ssm_head_dim, p["dt_bias"].shape[-1]
 
 
-def _ssd_in_split(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    """The input projection's output -> z (gate), xbc (the conv's input:
-    x, B, C) and dt (one a head)."""
-    din, g, n, _, _ = _ssd_dims(cfg)
-    return (zxbcdt[..., :din], zxbcdt[..., din:2 * din + 2 * g * n],
-            zxbcdt[..., 2 * din + 2 * g * n:])
+def _ssd_bc_whole(cfg: ModelConfig, p: Params) -> bool:
+    """Whether a mesh train step's shard holds B and C whole (one group
+    over model ranks that share it) rather than its groups' slice."""
+    ctx = tp_ctx()
+    return (ctx is not None and ctx.train and ctx.ways > 1
+            and p["a_log"].shape[-2] == cfg.ssm_groups)
+
+
+def _ssd_in(cfg: ModelConfig, p: Params, h: torch.Tensor):
+    """The input projection of the normed h -> z (gate), xbc (the conv's
+    input: x, B, C) and dt (one a head). On a mesh train step z, x and dt
+    are column-parallel (h through copy-to-model); B and C, whole on
+    every model rank when the groups do not divide, come from the plain
+    h in a product of their own (their copy to model follows the conv,
+    :func:`ssd_full`)."""
+    din, g, n, _, _ = _ssd_dims(cfg, p)
+    w, bc = p["w_in"], 2 * din + 2 * g * n
+    if _ssd_bc_whole(cfg, p):
+        hm = model_input(h)
+        zx = linear(hm, w[..., :2 * din])
+        return (zx[..., :din],
+                torch.cat([zx[..., din:], linear(h, w[..., 2 * din:bc])], -1),
+                linear(hm, w[..., bc:]))
+    zxbcdt = linear(model_input(h), w)
+    return zxbcdt[..., :din], zxbcdt[..., din:bc], zxbcdt[..., bc:]
 
 
 def ssd_full(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
@@ -923,24 +956,33 @@ def ssd_full(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
              cache: Optional[Cache]) -> Tuple[torch.Tensor, Optional[Cache]]:
     """The SSD mixer over the whole sequence, x (B, S, D). With a layer
     ``cache`` the final state and the last W-1 positions of the raw
-    (pre-conv) x, B, C are written into it in place."""
+    (pre-conv) x, B, C are written into it in place. A mesh train step
+    runs the rank's heads (``distributed/sharding.py``'s segmented cut):
+    B and C held whole enter the heads through copy-to-model after the
+    conv and SiLU, the gated norm's mean of squares is a model-group sum
+    over the global d_inner, and ``w_out`` is row-parallel."""
     b, s, _ = x.shape
-    din, g, n, p_, nh = _ssd_dims(cfg)
+    din, g, n, p_, nh = _ssd_dims(cfg, p)
     h = _norm(cfg, p["ln"], x)
-    z, xbc, dt = _ssd_in_split(cfg, linear(h, p["w_in"]))
+    z, xbc, dt = _ssd_in(cfg, p, h)
     conv_out = silu(ssd_lib.causal_conv1d(xbc, p["conv_w"], p["conv_b"]))
     xs = conv_out[..., :din].reshape(b, s, g, nh // g, p_)
-    b_in = conv_out[..., din:din + g * n].reshape(b, s, g, n)
-    c_in = conv_out[..., din + g * n:].reshape(b, s, g, n)
+    bc = conv_out[..., din:]
+    if _ssd_bc_whole(cfg, p):
+        bc = model_input(bc)
+    b_in = bc[..., :g * n].reshape(b, s, g, n)
+    c_in = bc[..., g * n:].reshape(b, s, g, n)
     dt = ssd_lib.softplus(dt + p["dt_bias"]).reshape(b, s, g, nh // g)
     y, h_fin = ssd_lib.ssd_chunked(xs, dt, p["a_log"], b_in, c_in,
                                    p["d_skip"], cfg.ssm_chunk)
+    ctx = tp_ctx()
+    ways = ctx.ways if ctx is not None and ctx.train else 1
     y = ssd_lib.gated_rms_norm(y.reshape(b, s, din), z, p["gn"],
-                               cfg.rms_eps)
+                               cfg.rms_eps, ways=ways)
     if cache is not None:
         cache["h"].copy_(h_fin)
         cache["conv"].copy_(xbc[:, s - (cfg.conv_width - 1):s])
-    return linear(y, p["w_out"]), cache
+    return linear(y, p["w_out"], tp="row"), cache
 
 
 def ssd_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
@@ -950,9 +992,9 @@ def ssd_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     copied into the layer's cache views (a CUDA graph's buffers keep
     their addresses). ``pos`` is not read: the state is position-free."""
     b, _ = x.shape
-    din, g, n, p_, nh = _ssd_dims(cfg)
+    din, g, n, p_, nh = _ssd_dims(cfg, p)
     h = _norm(cfg, p["ln"], x)
-    z, xbc, dt = _ssd_in_split(cfg, linear(h, p["w_in"]))
+    z, xbc, dt = _ssd_in(cfg, p, h)
     conv_new, conv_out = ssd_lib.conv1d_step(cache["conv"], xbc,
                                              p["conv_w"], p["conv_b"])
     conv_out = silu(conv_out)

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.tp import model_input, reduce_from_model
 from repro_torch.models.layers import silu
 
 
@@ -139,10 +140,19 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+                   eps: float = 1e-6, ways: int = 1) -> torch.Tensor:
     """Mamba-2's output gate, norm(y * silu(z)) with the zero-centred
-    gain ``(1 + gamma)``, in f32, cast back to y's dtype."""
+    gain ``(1 + gamma)``, in f32, cast back to y's dtype. ``ways`` > 1:
+    a mesh train step's shard holds 1/ways of the channels (its heads),
+    so the mean of squares is the model group's sum of each rank's sum,
+    over the global width: reduced in the forward pass and, through
+    copy-to-model, in the backward pass, where each rank's share of the
+    variance's grad is the whole grad."""
     dt = y.dtype
     yz = y.float() * silu(z.float())
-    var = (yz * yz).mean(dim=-1, keepdim=True)
+    if ways == 1:
+        var = (yz * yz).mean(dim=-1, keepdim=True)
+    else:
+        ss = model_input(reduce_from_model((yz * yz).sum(-1, keepdim=True)))
+        var = ss / (yz.shape[-1] * ways)
     return ((yz * torch.rsqrt(var + eps)) * (1.0 + gamma.float())).to(dt)

@@ -55,12 +55,16 @@ def build_stages(cfg: ModelConfig) -> List[Stage]:
 
 def _moe_stages(cfg: ModelConfig) -> List[Stage]:
     """``first_dense`` dense layers, then the MoE layers: every layer
-    (``moe_every`` 1) or periods of ``moe_every`` with the MoE FFN last."""
+    (``moe_every`` 1) or periods of ``moe_every`` with the MoE FFN last.
+    A depth cut to the dense layers alone (``n_layers == first_dense``)
+    has no MoE stage (one of no layers would hold empty leaves)."""
     mixer = "mla" if cfg.use_mla else "attn"
     stages = []
     if cfg.first_dense:
         stages.append(Stage([LayerDef(mixer, "dense")], cfg.first_dense))
     n_moe = cfg.n_layers - cfg.first_dense
+    if n_moe <= 0 < cfg.first_dense:
+        return stages
     if cfg.moe_every > 1:
         period = [LayerDef(mixer, "moe" if i == cfg.moe_every - 1
                            else "dense") for i in range(cfg.moe_every)]

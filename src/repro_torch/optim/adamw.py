@@ -16,9 +16,9 @@ so a step reads nothing back to the host.
 
 :func:`adamw_update` writes the new params and moments INTO the given
 tensors (the JAX step donates its state; an f32 copy of starcoder2-3b's
-state is 38 GB), one leaf at a time and a leaf above ``SLICE_BYTES`` one
-layer slice at a time, so its f32 temporaries stay one slice wide; the
-bits are those of the out-of-place formula. Microbatch accumulation
+state is 38 GB), one leaf at a time and a leaf above ``SLICE_BYTES`` a
+run of its leading axis at a time, so its f32 temporaries stay one slice
+wide; the bits are those of the out-of-place formula. Microbatch accumulation
 lives in ``launch/steps.py``.
 
 On a mesh each rank holds its slice of every leaf (``distributed/
@@ -39,8 +39,8 @@ import torch.distributed as dist
 from repro_torch.checkpoint.store import flatten as tree_leaves
 from repro_torch.checkpoint.store import unflatten
 
-# A leaf larger than this (in f32) is updated a slice of its leading
-# (layer) axis at a time: starcoder2-3b's stacked w_fc is 4.53 GB.
+# A leaf larger than this (in f32) is updated a run of its leading
+# (layer or row) axis at a time: starcoder2-3b's stacked w_fc is 4.53 GB.
 SLICE_BYTES = 1 << 30
 
 
@@ -82,10 +82,15 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def _slices(t: torch.Tensor) -> Iterator:
-    """Indices that cover ``t``: the whole of it, or each index of its
-    leading axis when it is larger than SLICE_BYTES in f32."""
+    """Indices that cover ``t``: the whole of it, or, when it is larger
+    than SLICE_BYTES in f32, runs of its leading axis of at most
+    SLICE_BYTES each (one index where a single one is larger): a stacked
+    leaf's layers, or an embedding table's rows (deepseek-v3's 129,280 x
+    7,168 is 3.7 GB)."""
     if t.ndim >= 2 and t.numel() * 4 > SLICE_BYTES:
-        yield from range(t.shape[0])
+        step = max(1, SLICE_BYTES // (t[0].numel() * 4))
+        for i in range(0, t.shape[0], step):
+            yield slice(i, i + step)
     else:
         yield slice(None)
 
@@ -115,21 +120,26 @@ def _sum_squares(leaf: torch.Tensor) -> torch.Tensor:
                for i in _slices(leaf))
 
 
-def global_norm(tree: Any, counted: Optional[List[bool]] = None
+def global_norm(tree: Any, counted: Optional[List] = None
                 ) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX's order) of each leaf's f32 sum
     of squares; a leaf above SLICE_BYTES summed a slice at a time. With
-    ``counted`` (a rank's slices of a sharded tree: one flag a leaf, as
-    ``TrainShards.counts_norm`` gives) the flagged leaves' sums are added
-    and the total all-reduced over the world, so every rank holds the
-    whole tree's norm."""
+    ``counted`` (a rank's slices of a sharded tree: one entry a leaf, as
+    ``TrainShards.counts_norm`` gives: True, False, or (dim, [(offset,
+    width)]) for the runs of the leaf to count) the counted sums are
+    added and the total all-reduced over the world, so every rank holds
+    the whole tree's norm."""
     leaves = tree_leaves(tree)
     if counted is None:
         return torch.sqrt(sum(_sum_squares(leaf) for leaf in leaves))
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for leaf, c in zip(leaves, counted, strict=True):
-        if c:
+        if c is True:
             total = total + _sum_squares(leaf)
+        elif c:
+            dim, runs = c
+            for lo, n in runs:
+                total = total + _sum_squares(leaf.narrow(dim, lo, n))
     dist.all_reduce(total, op=dist.ReduceOp.SUM)
     return torch.sqrt(total)
 
@@ -146,7 +156,7 @@ def clip_by_global_norm(grads: Any, max_norm: float
 
 
 def adamw_update(params: Any, grads: Any, state: OptState,
-                 cfg: OptConfig, counted: Optional[List[bool]] = None
+                 cfg: OptConfig, counted: Optional[List] = None
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step on the f32 master params, IN PLACE: the params and
     the state's moments are overwritten (module docstring) and returned

@@ -1,5 +1,6 @@
 """Rank functions of the tensor-parallel CPU tests (``test_torch_tp.py``,
-``test_torch_sharded_engine.py``, ``test_torch_mesh_train.py``): each
+``test_torch_sharded_engine.py``, ``test_torch_mesh_train.py``,
+``test_torch_mesh_train_mla_ssd.py``): each
 runs in every process of a gloo world that
 ``repro_torch.launch.mesh.spawn_world`` spawns, and imports only the
 port, so the ranks start without JAX. The tests compute the
@@ -254,6 +255,30 @@ def _payload(qtree):
     return {k: _payload(v) for k, v in qtree.items()}
 
 
+def _checksum(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def _gated_norm_rank(job, lay):
+    """The 'gnorm' job of :func:`mesh_train_world`."""
+    from repro_torch.distributed.tp import TPContext, copy_to
+    from repro_torch.models.ssd import gated_rms_norm
+    c = lay.coords
+    mine = (c.model_rank, c.model_ways)
+    y, z = (slice_for_rank(job[k], -1, *mine).requires_grad_()
+            for k in ("y", "z"))
+    r = slice_for_rank(job["r"], -1, *mine)
+    gn = job["gn"].clone().requires_grad_()
+    ctx = TPContext(ways=c.model_ways, group=lay.model_group, train=True,
+                    model_rank=c.model_rank)
+    with tp_scope(ctx):
+        gl = slice_for_rank(copy_to(gn, lay.model_group), -1, *mine)
+        out = gated_rms_norm(y, z, gl, job["eps"], ways=c.model_ways)
+        (out * r).sum().backward()
+    return to_numpy((out, y.grad, z.grad, gn.grad))
+
+
 def mesh_train_world(rank: int, jobs):
     """Mesh training jobs of a mesh as big as the world, each a dict with
     "id", "mesh" (data, model), "kind" and its inputs (whole trees as CPU
@@ -273,10 +298,17 @@ def mesh_train_world(rank: int, jobs):
         at the checkpoint and after.
       * 'restore': the newest checkpoint under "dir" restored on this
         mesh, one step; the gathered state after.
+      * 'gnorm': the SSD gated norm on this model rank's channels of
+        "y" and "z" (its heads), the gain "gn" through copy-to-model and
+        the rank's slice, ``ways`` = the model ways, under the train TP
+        context; loss sum(out * r). Returns the rank's output and the
+        grads of its y and z channels and of the whole gain.
 
-    Each rank returns {id: result}: every rank its 'ep' results, rank 0
-    the others (trees through ``store.to_host``), the other ranks their
-    checksums only."""
+    Each rank returns {id: result}: every rank its 'ep' and 'gnorm'
+    results, rank 0 the others (trees through ``store.to_host``), the
+    other ranks their checksums only. The checksums cover the leaves
+    whole over model and the runs of segmented leaves whole over model
+    (an SSD mixer's B/C columns held whole)."""
     from repro_torch.checkpoint import store
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch import steps as S
@@ -307,6 +339,9 @@ def mesh_train_world(rank: int, jobs):
             out[job["id"]] = to_numpy((y, x.grad, wr.grad,
                                        tuple(w.grad for w in ws)))
             continue
+        if job["kind"] == "gnorm":
+            out[job["id"]] = _gated_norm_rank(job, lay)
+            continue
         cfg = job["cfg"]
         tm = S.TrainMesh(cfg, mesh)
         state = tm.shards.local(job["state"], tm.placements(job["state"]))
@@ -331,12 +366,13 @@ def mesh_train_world(rank: int, jobs):
             got["step_metrics"] = {k: float(v) for k, v in m.items()}
             got["state"] = tm.gather(state)
             pls = store.flatten(tm.shards.placements)
-            got["replicated"] = (c.data_rank, [
-                (pl.data_dim is None,
-                 hashlib.sha256(t.contiguous().view(-1).view(torch.uint8)
-                                .numpy().tobytes()).hexdigest())
-                for t, pl in zip(store.flatten(state.params), pls)
-                if pl.model_dim is None])
+            whole = []
+            for t, pl in zip(store.flatten(state.params), pls):
+                runs = ([t] if pl.model_dim is None else
+                        [t.narrow(pl.model_dim, lo, n)
+                         for lo, n in tm.shards.runs(pl, cut=False)])
+                whole += [(pl.data_dim is None, _checksum(r)) for r in runs]
+            got["replicated"] = (c.data_rank, whole)
         elif job["kind"] == "ckpt":
             for i in range(job["steps"]):
                 state, _ = step(state, rows(job["batches"][i]))

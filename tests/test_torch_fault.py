@@ -171,17 +171,17 @@ def test_train_cli_recovers(tmp_path, capsys):
 def test_train_cli_refusals():
     """The reference's refusals, and the port's: a frontend stub arch
     (encoder, VLM) from the CLI; the meshes it cannot shard, before any
-    rank starts (starcoder2's 2 KV heads over 4 model ranks; MLA on a
-    model axis: ROADMAP A9); the card when there is none."""
+    rank starts (starcoder2's 2 KV heads over 4 model ranks; mamba2's 8
+    SSD heads over 3); the card when there is none."""
     for arch in ("hubert-xlarge", "paligemma-3b"):
         with pytest.raises(SystemExit, match="non-LM"):
             train.main(["--arch", arch, "--smoke", "--device", "cpu"])
     with pytest.raises(ValueError, match="n_kv_heads"):
         train.main(["--arch", "starcoder2-3b", "--smoke", "--device", "cpu",
                     "--model-axis", "4"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        train.main(["--arch", "deepseek-v3-671b", "--smoke", "--device",
-                    "cpu", "--model-axis", "2"])
+    with pytest.raises(ValueError, match="SSD heads"):
+        train.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
+                    "--model-axis", "3"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train.main(["--arch", "granite-8b", "--smoke", "--steps", "1"])

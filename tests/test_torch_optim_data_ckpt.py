@@ -12,6 +12,7 @@ bf16 moments within one bf16 ulp (f32 ops in the reference's order;
 relative; ``compress_grads``' int8 ``q`` and f32 ``scale`` bit-equal;
 batches, checkpoints and the leaf order exact.
 """
+import dataclasses
 import json
 import os
 
@@ -101,24 +102,33 @@ def test_adamw_given_jax_grads_matches(moment_dtype):
 
 def test_adamw_slices_give_the_whole_leaf_bits(monkeypatch):
     """A leaf above ``SLICE_BYTES`` is updated (and summed for the norm) a
-    layer slice at a time: the updated params and moments equal the
-    whole-leaf update's bits; the norm within 1e-6 relative."""
-    cfg = adamw.OptConfig(warmup_steps=1, total_steps=3)
-    params, grads = _t(_tree(1)), _t(_tree(2))
-    runs = []
-    for limit in (adamw.SLICE_BYTES, 64):
+    run of its leading axis at a time, as many indices as fit the limit
+    (one where a single one is larger): the updated params and moments
+    equal the whole-leaf update's bits; the norm within 1e-6 relative.
+    At two layers a run the norm sums in another order, so the bits are
+    compared with the clip off."""
+    def update(cfg, limit):
         monkeypatch.setattr(adamw, "SLICE_BYTES", limit)
         p = {k: v.clone() if not isinstance(v, dict) else
              {a: b.clone() for a, b in v.items()} for k, v in params.items()}
         s = adamw.init_opt_state(p, cfg)
-        p, s, m = adamw.adamw_update(p, grads, s, cfg)
-        runs.append((p, s, m))
+        return adamw.adamw_update(p, grads, s, cfg)
+
+    def same(a, b):
+        for x, y in zip(store.flatten(a[0]) + store.flatten(a[1]),
+                        store.flatten(b[0]) + store.flatten(b[1])):
+            assert torch.equal(x, y)
+        assert float(b[2]["grad_norm"]) == pytest.approx(
+            float(a[2]["grad_norm"]), rel=1e-6)
+
+    cfg = adamw.OptConfig(warmup_steps=1, total_steps=3)
+    params, grads = _t(_tree(1)), _t(_tree(2))
+    same(update(cfg, adamw.SLICE_BYTES), update(cfg, 64))
     assert len(list(adamw._slices(params["w"]))) == 3
-    for a, b in zip(*(store.flatten(r[0]) + store.flatten(r[1])
-                      for r in runs)):
-        assert torch.equal(a, b)
-    assert float(runs[1][2]["grad_norm"]) == pytest.approx(
-        float(runs[0][2]["grad_norm"]), rel=1e-6)
+    loose = dataclasses.replace(cfg, grad_clip=1e9)
+    same(update(loose, adamw.SLICE_BYTES), update(loose, 1024))
+    # a layer of w is 512 bytes in f32: two a run at 1,024
+    assert list(adamw._slices(params["w"])) == [slice(0, 2), slice(2, 4)]
 
 
 @pytest.mark.parametrize("warm,total", [(1, 4), (100, 10_000), (5, 5)])
