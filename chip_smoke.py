@@ -226,15 +226,32 @@ to chiprun_out/):
      (MLA_SSD_SERVE; the prefill's and a decode step's logits finite,
      rows 1 and 3 launched: the kernel line's launches of those rows,
      20c);
- 21. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 21. the examples and the static checks, after phase 20: the port's
+     ``examples/*_torch.py`` driven through their ``main`` on the card —
+     the quickstart at the cost model's own linear (2048 x 4096 ->
+     11008: rows 3 and 6 launched once each, dual pass = dense bit for
+     bit, 21a), calibrate-and-serve on granite-8b at full width cut to
+     2 layers (the global sweep's (l, h) and every candidate's sparsity
+     equal to a CPU run of the sweep on the card's calibration stream,
+     Algorithm 1 within ALG1_TOL of the CPU's, served tokens in the
+     vocab, rows 1, 3 and 7 launched, 21b), train-with-failover at its
+     full config (d 512, 60 steps: one restart, the restored params
+     bit-equal, the last loss below the first, 21c) — and ``python -m
+     repro_torch.analysis --check --no-mesh`` in a child process,
+     started with the phase and run on the CPU beside it (exit 0, 21d);
+ 22. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import functools
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
@@ -4484,6 +4501,169 @@ def mla_ssd_train(dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the examples and the static checks
+# ---------------------------------------------------------------------------
+
+# 21a: the quickstart at the linear its cost model prices
+QUICKSTART_ARGV = ["--m", "2048", "--k", "4096", "--n", "11008"]
+# 21b: the calibrate-and-serve recipe at granite-8b's full width, 2 layers
+CALIBRATE_ARGV = ["--full", "--layers", "2"]
+# 21c: the failover run at the example's full config, its 60 steps
+FAILOVER_ARGV = ["--d-model", "512"]
+# Algorithm 1's learned (l, h), card against CPU: f32 SGD on the same
+# stream, gradients summed in other orders
+ALG1_TOL = 1e-4
+ANALYSIS_TIMEOUT_S = 300
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(dev, name: str, argv):
+    """One example's ``main`` on the card with the launch counters zeroed
+    just before and read just after; its printout goes to
+    ``chiprun_out/<name>.txt``. Returns (the module, its result, the
+    nonzero launch counts, seconds)."""
+    from repro_torch import kernels
+    ex = load_example(name)
+    buf = io.StringIO()
+    torch.cuda.synchronize(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        r = ex.main([*argv, "--device", "cuda"])
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    (OUT / f"{name}.txt").write_text(buf.getvalue())
+    return ex, r, counts, secs
+
+
+def start_analysis():
+    """21d: ``python -m repro_torch.analysis --check --no-mesh`` in a
+    child process, on the CPU, while the card runs 21a-c."""
+    log_file = open(OUT / "analysis.txt", "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--check",
+         "--no-mesh", "--report", str(OUT / "analysis_report.json")],
+        cwd=ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT)
+    return proc, log_file, time.perf_counter()
+
+
+def finish_analysis(proc, log_file, t0) -> dict:
+    """Wait for 21d's child; raises unless it exits 0 with no stale
+    allowlist entry."""
+    try:
+        rc = proc.wait(timeout=max(1.0, ANALYSIS_TIMEOUT_S -
+                                   (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    finally:
+        log_file.close()
+    secs = time.perf_counter() - t0
+    text = (OUT / "analysis.txt").read_text()
+    if rc or "warning: stale" in text:
+        raise AssertionError(f"repro_torch.analysis --check exited {rc}:\n"
+                             f"{text[-4000:]}")
+    summary = [ln for ln in text.splitlines()
+               if ln.startswith("repro_torch.analysis v")]
+    return {"rc": rc, "seconds": secs, "summary": summary[-1]}
+
+
+def examples_phase(dev, seed: int) -> dict:
+    """Phase 21 (module docstring). Raises on any failed check."""
+    child = start_analysis()
+    try:
+        out = {"quickstart": quickstart_on_card(dev, seed),
+               "calibrate": calibrate_on_card(dev, seed),
+               "failover": failover_on_card(dev, seed)}
+    except BaseException:
+        child[0].kill()
+        child[0].wait()
+        child[1].close()
+        raise
+    out["analysis"] = finish_analysis(*child)
+    return out
+
+
+def quickstart_on_card(dev, seed: int) -> dict:
+    """21a: rows 3 and 6 launched once each; dual pass = dense."""
+    _, r, counts, secs = run_example(
+        dev, "quickstart_torch", QUICKSTART_ARGV + ["--seed", str(seed)])
+    if counts != {"sparqle_matmul": 1, "quant_matmul": 1} or not r["exact"]:
+        raise AssertionError(f"quickstart on the card: launches {counts}, "
+                             f"exact {r['exact']}")
+    return {"launches": counts, "s": secs, "exact": r["exact"],
+            "s0": r["s0"], "s1": r["s1"], "skipped": r["skipped"],
+            "latency_saved": r["latency_saved"],
+            "energy_saved": r["energy_saved"]}
+
+
+def calibrate_on_card(dev, seed: int) -> dict:
+    """21b: the recipe on the card, its sweep and Algorithm 1 rerun on
+    the CPU from the card's calibration stream, the served tokens."""
+    ex, r, counts, secs = run_example(
+        dev, "calibrate_and_serve_torch",
+        CALIBRATE_ARGV + ["--seed", str(seed)])
+    cfg = r["cfg"]
+    q8, mask = r["q8"].cpu(), r["mask"].cpu()
+    t0 = time.perf_counter()
+    best, cands = ex.sweep(q8, mask)
+    (l1, h1), _ = ex.algorithm1(q8, mask, float(best.l), float(best.h))
+    cpu_s = time.perf_counter() - t0
+    card = r["best"]
+    alg1_err = max(abs(l1 - r["clip"][0]), abs(h1 - r["clip"][1]))
+    tokens = [t for row in r["tokens"] for t in row]
+    ok = ((card.l, card.h) == (best.l, best.h)
+          and [c[3] for c in r["candidates"]] == [c[3] for c in cands]
+          and alg1_err <= ALG1_TOL
+          and all(0 <= t < cfg.vocab for t in tokens))
+    check_path({"launches": collections.defaultdict(int, counts)},
+               ("sparqle_encode_fused", "sparqle_matmul",
+                "kv_attention_contiguous"), UNFUSED)
+    if not ok:
+        raise AssertionError(
+            f"calibrate-and-serve on the card: sweep ({card.l}, {card.h}) "
+            f"vs CPU ({best.l}, {best.h}), Algorithm 1 |err| {alg1_err}, "
+            f"tokens {r['tokens']}")
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts, "s": secs, "cpu_s": cpu_s,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "lh": (card.l, card.h), "sparsity": card.sparsity,
+            "candidates": len(cands), "learned": (l1, h1),
+            "alg1_err": alg1_err, "tokens": tokens[:ex.GEN]}
+
+
+def failover_on_card(dev, seed: int) -> dict:
+    """21c: one restart, restored params bit-equal, the loss falls."""
+    _, r, _, secs = run_example(dev, "train_with_failover_torch",
+                                FAILOVER_ARGV + ["--seed", str(seed)])
+    losses = r["losses"]
+    if not (r["report"].restarts == 1 and r["restored_equal"]
+            and losses[-1] < losses[0]
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"failover on the card: {r['report']}, "
+                             f"restored equal {r['restored_equal']}, "
+                             f"losses {losses[0]} -> {losses[-1]}")
+    return {"s": secs, "params_m": r["n_params"] / 1e6,
+            "restarts": r["report"].restarts,
+            "steps_run": r["report"].steps_run,
+            "restored_step": r["restored_step"],
+            "loss": (losses[0], losses[-1])}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -4585,19 +4765,19 @@ def main() -> int:
                 f"{f['sparqle_matmul_draft'] * 1e3:.1f} us")
     detail = {"card": card, "kernels": rows, "attention_zoo": attn_zoo}
     # the launch counter of each kernel row, and the phase that reads it
-    # rows 1 and 3: the launches of phase 20c's --legacy serves (the
-    # trees trained with MLA and SSD layers on a model axis, the last path
-    # the smoke drives); 1e, 3e and 8: of phase 19b's serve (the tree
-    # trained on the 2x2 mesh)
+    # rows 1, 3 and 7: the launches of phase 21b's calibrate-and-serve
+    # example, 6: of 21a's quickstart (the last paths the smoke drives);
+    # 1e, 3e and 8: of phase 19b's serve (the tree trained on the 2x2
+    # mesh)
     counter = {"sparqle_encode_fused": ("sparqle_encode_fused",
-                                        "mla_ssd_serve"),
-               "sparqle_matmul": ("sparqle_matmul", "mla_ssd_serve"),
+                                        "calibrate"),
+               "sparqle_matmul": ("sparqle_matmul", "calibrate"),
                "kv4_paged_decode_attention": ("kv_attention", "mesh_serve"),
                "sparqle_matmul_draft": ("sparqle_matmul_draft", "spec"),
                "kv4_paged_verify_attention": ("kv_attention_verify",
                                               "spec"),
                "sparqle_quantize_fused": ("sparqle_quantize_fused", "dense"),
-               "quant_matmul": ("quant_matmul", "dense"),
+               "quant_matmul": ("quant_matmul", "quickstart"),
                "kv_tiered_paged_decode_attention": ("kv_attention_tiered",
                                                     "kv2"),
                "sparqle_encode_packed_fused": ("sparqle_encode_packed_fused",
@@ -4606,7 +4786,7 @@ def main() -> int:
                "sparqle_matmul_packed_draft": ("sparqle_matmul_packed_draft",
                                                "packed_spec"),
                "kv4_decode_attention": ("kv_attention_contiguous",
-                                        "legacy"),
+                                        "calibrate"),
                # row 7's instances of the gemma family's --legacy serves
                "kv4_decode_attention_window": (
                    "kv_attention_contiguous_window", "gemma3"),
@@ -5248,12 +5428,45 @@ def main() -> int:
             f"{mls['single_s']:.1f} s; phase 20 "
             f"{time.perf_counter() - t20:.1f} s")
         detail["mla_ssd_train"] = mls
+        # phase 21: the examples and the static checks
+        t21 = time.perf_counter()
+        exs = examples_phase(dev, args.seed)
+        qs, cb, fo, an = (exs[k] for k in ("quickstart", "calibrate",
+                                           "failover", "analysis"))
+        log(f"[21] {card}: examples/quickstart_torch.py at "
+            f"{' x '.join(QUICKSTART_ARGV[1::2])}: dual pass = dense "
+            f"bit for bit {qs['exact']}, launches {qs['launches']}, MSB4 "
+            f"sparsity {qs['s0'] * 100:.1f}% -> {qs['s1'] * 100:.1f}% "
+            f"clipped, {qs['skipped'] * 100:.0f}% of tiles skipped, cost "
+            f"model latency -{qs['latency_saved']:.1f}% energy "
+            f"-{qs['energy_saved']:.1f}%; {qs['s']:.1f} s (21a)")
+        log(f"[21] {card}: examples/calibrate_and_serve_torch.py "
+            f"{' '.join(CALIBRATE_ARGV)} (granite-8b {cb['layers']}L "
+            f"d={cb['d_model']}): sweep (l, h) = {cb['lh']} and all "
+            f"{cb['candidates']} candidates' sparsity equal to the CPU's, "
+            f"Algorithm 1 ({cb['learned'][0]:.4f}, {cb['learned'][1]:.4f}) "
+            f"|card - CPU| {cb['alg1_err']:.2e}, tokens[0] {cb['tokens']}, "
+            f"launches {cb['launches']}; {cb['s']:.1f} s on the card, "
+            f"{cb['cpu_s']:.1f} s for the CPU rerun (21b)")
+        log(f"[21] {card}: examples/train_with_failover_torch.py "
+            f"{' '.join(FAILOVER_ARGV)} ({fo['params_m']:.1f}M params): "
+            f"{fo['restarts']} restart, {fo['steps_run']} steps run, "
+            f"restored step {fo['restored_step']} bit-equal, loss "
+            f"{fo['loss'][0]:.4f} -> {fo['loss'][1]:.4f}; {fo['s']:.1f} s "
+            f"(21c)")
+        log(f"[21] {card}: python -m repro_torch.analysis --check "
+            f"--no-mesh in a child process: exit {an['rc']}, no stale "
+            f"entry, {an['summary']}, "
+            f"{an['seconds']:.1f} s beside 21a-c; phase 21 "
+            f"{time.perf_counter() - t21:.1f} s")
+        detail["examples"] = exs
         launches = [mls[a]["serve"]["launches"] for a in MLA_SSD_TRAIN]
         mla_ssd_serve = {"launches": {k: sum(c[k] for c in launches)
                                       for k in launches[0]}}
         moe = zoo["deepseek-moe-16b"]
         runs = {"base": eng, "mesh_serve": ms,
                 "mla_ssd_serve": mla_ssd_serve, "spec": spec, "kv2": kv2,
+                "quickstart": qs, "calibrate": cb,
                 "dense": dn,
                 "packed": pk, "packed_spec": pk_spec, "legacy": lg,
                 "gemma3": gemma["gemma3-27b"],

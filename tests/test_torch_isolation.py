@@ -1,6 +1,6 @@
-"""Guards of the port's boundary: ``src/repro_torch`` and
-``chip_smoke.py`` import neither JAX nor the JAX package, and importing
-the port loads no JAX."""
+"""Guards of the port's boundary: ``src/repro_torch``, ``chip_smoke.py``
+and the port's examples (``examples/*_torch.py``) import neither JAX nor
+the JAX package, and importing the port loads no JAX."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path: Path):

@@ -9,9 +9,13 @@ within the port's stated 1e-4); the data-sharded pool gives JAX's page ids and
 free lists under one random operation sequence; the engine's mesh
 validation and its divergence check; each step's attributed collective
 bytes (``launch/step_cost.py``) equal the bytes the step passes to
-``torch.distributed``. Each world of processes is spawned once for the
-module (two ranks for the 1x2 meshes, four for 2x2 and
-1x4), with a time limit.
+``torch.distributed``; the static checker's mesh traces
+(``repro_torch.analysis.stepcheck``: every engine step kind of its tiny
+transformer config at 1x2 and 2x2; ``python -m repro_torch.analysis``
+adds the MoE config) meet TXP001-005, every collective allowlisted and
+every collective entry of the allowlist matched. Each world of
+processes is spawned once for the module (two ranks for the 1x2
+meshes, four for 2x2 and 1x4), with a time limit.
 """
 import dataclasses
 
@@ -30,6 +34,8 @@ from repro.serving import PagedKVPool as JPool
 from repro.serving import PoolConfig as JPoolConfig
 from repro.serving import SamplingParams as JSampling
 from repro.serving import SchedulerConfig as JSched
+from repro_torch.analysis.findings import Allowlist, apply_allowlist
+from repro_torch.analysis.stepcheck import MESHES, mesh_rank
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import convert_tree
 from repro_torch.launch import steps as TS
@@ -160,7 +166,8 @@ def setup(tmp_path_factory):
     for world in (2, 4):
         res = spawn_world(calls_world, world,
                           [(engine_world, (jobs,)), dec, (lockstep_world, ()),
-                           (attribution_world, (attributed,))],
+                           (attribution_world, (attributed,)),
+                           (mesh_rank, (MESHES, ("transformer",)))],
                           timeout_s=TIMEOUT_S, deadline_s=TIMEOUT_S,
                           store_dir=str(tmp_path_factory.mktemp("world")))
         out[world] = res
@@ -336,6 +343,39 @@ def test_pool_shard_capacity_and_validation():
     with pytest.raises(NotImplementedError):  # KV2 runs unsharded
         PagedKVPool(tcfg, PoolConfig(n_pages=8, page_size=4, kv2_pages=4),
                     n_shards=2)
+
+
+# ---------------------------------------------------------------------------
+# the static checker's mesh traces
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_mesh_step_contracts(setup, shape):
+    """Rank 0's findings of every step kind traced at this mesh: all
+    allowlisted (collectives, the host clipping constants), none of
+    TXP002-004 (one int32 SUM and one f32 MAX over model a row-parallel
+    linear, 2 a transformer decode layer; the accumulator's dtype; the
+    draft's MSB elision)."""
+    ranks = _ranks(setup, shape)
+    found = ranks[0][4]
+    assert all(r[4] is None for r in ranks[1:])
+    active, _ = apply_allowlist(found, Allowlist.load())
+    assert active == [], "\n".join(f.render() for f in active)
+    assert {f.rule_id for f in found} == {"TXP001", "TXP005"}
+    keys = {f.key for f in found if f.rule_id == "TXP001"}
+    assert {"decode:all_reduce_sum:model:int32",
+            "decode:all_reduce_max:model:float32"} <= keys
+    assert any(":data:" in k for k in keys) == (shape[0] > 1)
+
+
+def test_mesh_traces_match_every_collective_entry(setup):
+    """Over both worlds every TXP001 entry of the allowlist matches a
+    collective (none is stale)."""
+    al = Allowlist.load()
+    for shape in ((1, 2), (2, 2)):
+        apply_allowlist(_ranks(setup, shape)[0][4], al)
+    assert [e.pattern for e in al.stale_entries()
+            if e.rule_id == "TXP001"] == []
 
 
 # ---------------------------------------------------------------------------
