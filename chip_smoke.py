@@ -196,7 +196,7 @@ to chiprun_out/):
      failure and async checkpoints ends bit-equal to a clean run, and
      ``--resume auto`` continues from the clean run's last checkpoint;
  19. training on a (data, model) mesh, after phase 18: deepseek-moe-16b
-     at full width, its first MOE_TP_LAYERS of 28 layers, on a 2x2 mesh
+     at full width, its first MESH_TRAIN_LAYERS of 28 layers, on a 2x2 mesh
      of ranks sharing the card over gloo (master params and moments
      sharded over data, Megatron over model, the routed experts on the
      expert axis; capacity factor ceil(E / top_k), so nothing drops),
@@ -239,7 +239,22 @@ to chiprun_out/):
      bit-equal, the last loss below the first, 21c) — and ``python -m
      repro_torch.analysis --check --no-mesh`` in a child process,
      started with the phase and run on the CPU beside it (exit 0, 21d);
- 22. the ``kernels`` JSON line, the card line, then the ``ok`` line.
+ 22. the dry-run and the ``--legacy`` steps on a mesh, after phase 21:
+     ``python -m repro_torch.launch.dryrun --list`` (32 cells, 8 skips)
+     and DRYRUN_CELLS planned on the host in child processes started
+     before phase 16 (no card visible: meta tensors, rank 0 of a fake
+     16x16 world, 22a); each of those cells as rank 0 of a fake world on
+     the card, one call of its whole step on random data with the
+     collectives elided: ``max_memory_allocated`` within max(PEAK_REL,
+     PEAK_ABS_B) of the plan's peak, each kernel's launches = its op's
+     count in the plan's trace, the step timed (22b); beside 22b, a world
+     of two gloo ranks sharing the card runs granite-8b at
+     MESH_LEGACY_LAYERS layers, full width, f32 through the ``--legacy``
+     steps at 1x2 (batch 8) and 2x1 (batch 1): every rank's greedy tokens
+     equal one device's, logits within LOGIT_TOL (22c). Phase 3 also
+     holds row 7p (the partial decode) against its plain version and its
+     merge against row 7 (``check_partial_attention``);
+ 23. the ``kernels`` JSON line, the card line, then the ``ok`` line.
 Any failed check raises, so the script exits non-zero without the last
 line. It needs a CUDA card and the rest of the repository beside it.
 """
@@ -1299,6 +1314,154 @@ def check_contiguous_attention(dev, gen, peaks):
             "detail": [{"key": "long", "ms": lms, "bound_ms": lbound,
                         "bound_by": lby},
                        {"key": "round_kv_bf16", "ms": rms}]}
+
+
+# Row 7p: the partial decode over a slice of the contiguous cache, the
+# --legacy decode on a mesh whose cache is cut along its positions; timed
+# at decode_32k's shard on 16x16 (granite-8b: B = 128 / 16 = 8 rows, the
+# 32,768 positions over 16 model ranks = 2,048, KVH 8, G 4, hd 128).
+PARTIAL_ATTN = dict(b=8, s=2048, kvh=8, g=4, hd=128)
+# gemma3-27b long_500k's shard on 16x16 (B = 1, the 524,288 positions
+# over all 256 ranks = 2,048, KVH 16, G 2, hd 128, bf16 q with round_kv),
+# the query at the last position: (window, slice start) of a local layer
+# (window 1,024) on rank 0 (wholly before the window), on a rank the
+# window's start cuts and on the last rank, and of a global layer
+# (window 0) on rank 0
+PARTIAL_LONG = dict(b=1, s=2048, kvh=16, g=2, hd=128, pos=524287)
+PARTIAL_LONG_CASES = ((1024, 0), (1024, 524288 - 2048 - 512),
+                      (1024, 524288 - 2048), (0, 0))
+PARTIAL_SLICES = (1, 2, 16)
+PARTIAL_POS = (2047, 0, 5, 700, 1023, 1024, 1500, 2000)
+
+
+def check_partial_attention(dev, gen, peaks):
+    """Row 7p against its plain version (out and lse, f32 q, ATTN_TOL),
+    each slice of 1, 2 and 16 (some wholly past pos: out 0, lse -inf),
+    with and without a window, at hd 128 and 256; the slices merged
+    (``kernels.ref.merge_partials``) against one row-7 call on the whole
+    cache (ATTN_TOL; bf16 q with round_kv within a bf16 step); timed at
+    decode_32k's shard (PARTIAL_ATTN, every position live), the timed
+    inputs and long_500k's shard (PARTIAL_LONG) held against the plain
+    version too (ATTN_TOL): ``max_abs_err`` is the worst of every f32
+    and main-path case."""
+    from repro_torch.kernels.kv_attention import (
+        kv4_decode_attention, kv4_decode_attention_partial)
+    from repro_torch.kernels.ref import (kv4_decode_attention_partial_ref,
+                                         merge_partials)
+    err, cases = 0.0, 0
+    for kvh, g, hd in ((8, 4, 128), (1, 8, 256)):
+        b, s = 8, 512
+        cache = contiguous_cache(dev, gen, b, s, kvh, hd)
+        pos = torch.tensor([p % s for p in PARTIAL_POS], dtype=torch.int32,
+                           device=dev)
+        for dt, window in ((torch.float32, 0), (torch.float32, 100),
+                           (torch.bfloat16, 0)):
+            q = torch.randn((b, kvh, g, hd), generator=gen,
+                            device=dev).to(dt)
+            rk = dt == torch.bfloat16
+            whole = kv4_decode_attention(q, *cache, pos, round_kv=rk,
+                                         window=window).float()
+            for n in PARTIAL_SLICES:
+                n_loc = s // n
+                outs, lses = [], []
+                for r in range(n):
+                    part = tuple(t[:, r * n_loc:(r + 1) * n_loc].contiguous()
+                                 for t in cache)
+                    o, l_ = kv4_decode_attention_partial(
+                        q, *part, pos, start=r * n_loc, round_kv=rk,
+                        window=window)
+                    wo, wl = kv4_decode_attention_partial_ref(
+                        q, *part, pos, start=r * n_loc, round_kv=rk,
+                        window=window)
+                    if not torch.equal(torch.isinf(l_), torch.isinf(wl)):
+                        raise AssertionError(f"7p hd={hd}: empty slices "
+                                             f"differ from the plain ones")
+                    live = torch.isfinite(wl)
+                    e = max((o - wo).abs().max().item(),
+                            (l_ - wl)[live].abs().max().item()
+                            if live.any() else 0.0)
+                    tol = ATTN_TOL if not rk else 2 ** -7
+                    if not e <= tol:
+                        raise AssertionError(f"7p hd={hd} {dt} window "
+                                             f"{window} slice {r}/{n}: err "
+                                             f"{e}")
+                    outs.append(o)
+                    lses.append(l_)
+                    if not rk:
+                        err = max(err, e)
+                    cases += 1
+                m = (merge_partials(outs, lses) - whole).abs().max().item()
+                tol = ATTN_TOL if not rk else 2 ** -7 * max(
+                    1.0, whole.abs().max().item())
+                if not m <= tol:
+                    raise AssertionError(f"7p hd={hd} {dt} window {window}: "
+                                         f"merged {n} slices err {m} against "
+                                         f"row 7")
+                if not rk:
+                    err = max(err, m)
+    c = PARTIAL_ATTN
+    caches = [contiguous_cache(dev, gen, c["b"], c["s"], c["kvh"], c["hd"])
+              for _ in range(ATTN_COPIES)]
+    q = torch.randn((c["b"], c["kvh"], c["g"], c["hd"]), generator=gen,
+                    device=dev)
+    pos = torch.full((c["b"],), 32767, dtype=torch.int32, device=dev)
+    args = [(q, *cc, pos) for cc in caches]
+    kms = time_ms(kv4_decode_attention_partial, args, 60)
+    pms = time_ms(kv4_decode_attention_partial_ref, args[:1], 5)
+    # the main path's shapes: the timed call's inputs, and long_500k's
+    # shard, each against the plain version (out and lse, ATTN_TOL)
+    main_err = partial_case_err(args[0], {}, "decode_32k's shard")
+    lc = PARTIAL_LONG
+    lcache = contiguous_cache(dev, gen, lc["b"], lc["s"], lc["kvh"],
+                              lc["hd"])
+    lq = torch.randn((lc["b"], lc["kvh"], lc["g"], lc["hd"]), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    lpos = torch.full((lc["b"],), lc["pos"], dtype=torch.int32, device=dev)
+    for window, start in PARTIAL_LONG_CASES:
+        main_err = max(main_err, partial_case_err(
+            (lq, *lcache, lpos), dict(start=start, round_kv=True,
+                                      window=window),
+            f"long_500k's shard, window {window}, start {start}"))
+    err = max(err, main_err)
+    toks = c["b"] * c["s"]
+    bound, by = attn_bound(peaks, c["b"], toks, toks,
+                           extra=c["b"] * 4 + c["b"] * c["kvh"] * c["g"] * 4,
+                           kvh=c["kvh"], g=c["g"], hd=c["hd"])
+    return {"name": "kv4_decode_attention_partial", "route": "cuda",
+            "source": "src/repro_torch/csrc/kv_attention.cu",
+            "replaces": "src/repro/kernels/kv_attention.py:148",
+            "max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": f"decode_32k's shard on 16x16: B={c['b']} "
+                     f"S={c['s']} KVH={c['kvh']} G={c['g']} hd={c['hd']}, "
+                     f"f32 q, every position live; {cases} slices checked "
+                     f"(hd 128 and 256, {PARTIAL_SLICES} slices, window 0 "
+                     f"and 100, bf16 round_kv); at the main path's shapes "
+                     f"(the timed call, and long_500k's shard at "
+                     f"{len(PARTIAL_LONG_CASES)} (window, start)): "
+                     f"{main_err:.3g}",
+            "detail": [{"key": "main_path_shapes", "max_abs_err": main_err}]}
+
+
+def partial_case_err(args, kw, where) -> float:
+    """Row 7p on ``args`` (q, the cache slice, pos) and keywords ``kw``
+    against its plain version: the same empty queries (lse -inf, out 0),
+    out and the live lse within ATTN_TOL. Returns the error."""
+    from repro_torch.kernels.kv_attention import kv4_decode_attention_partial
+    from repro_torch.kernels.ref import kv4_decode_attention_partial_ref
+    o, lse = kv4_decode_attention_partial(*args, **kw)
+    wo, wl = kv4_decode_attention_partial_ref(*args, **kw)
+    empty = torch.isinf(wl)
+    if not (torch.equal(torch.isinf(lse), empty)
+            and (o[empty] == 0).all().item()):
+        raise AssertionError(f"7p at {where}: empty queries differ from "
+                             f"the plain version's")
+    live = ~empty
+    e = max((o - wo).abs().max().item(),
+            (lse - wl)[live].abs().max().item() if live.any() else 0.0)
+    if not e <= ATTN_TOL:
+        raise AssertionError(f"7p at {where}: err {e}")
+    return e
 
 
 # Row 7's instances the gemma family's --legacy decode runs, at its
@@ -2970,14 +3133,16 @@ def serve_surface(dev, cfg, params, prompts, base, spec):
 
 # The meshes of granite-8b's sharded serves (deepseek-moe-16b's is the
 # second), and deepseek-moe-16b's depth there: full width, cut to its
-# dense first layer and 3 MoE layers.
+# dense first layer and 1 MoE layer (3 until the smoke with phase 22
+# passed 1,000 s).
 TP_MESHES = ((1, 2), (2, 2))
-MOE_TP_LAYERS = 4
-# granite-8b's depth in the sharded serves: its first 12 of 36 layers,
+MOE_TP_LAYERS = 2
+# granite-8b's depth in the sharded serves: its first 4 of 36 layers,
 # each serve held against the single-device serve of the same cut tree
-# (at 36 the eager gloo serves took 176-316 s and the smoke passed 800 s);
-# the sharded decode step stays at full depth
-TP_GRANITE_LAYERS = 12
+# (at 36 the eager gloo serves took 176-316 s and the smoke passed 800 s;
+# 12 until phase 22 came in and the smoke passed 1,000 s, then 8 until
+# it passed 1,000 s again); the sharded decode step stays at full depth
+TP_GRANITE_LAYERS = 4
 # a rank waiting this long in a collective fails the phase
 TP_TIMEOUT_S = 600
 
@@ -3311,7 +3476,8 @@ def tensor_parallel(dev, seed: int, base):
               "dense": serve_granite(dev, scfg,
                                      with_fields(sparams, mode="dense"),
                                      prompts)}
-    # deepseek-moe-16b at full width, 4 layers: its single-device serve
+    # deepseek-moe-16b at full width, MOE_TP_LAYERS: its single-device
+    # serve
     mcfg = get_config("deepseek-moe-16b").replace(n_layers=MOE_TP_LAYERS)
     mparams = build_served_params(mcfg, seed, dev)
     mprompts = make_prompts(mcfg, seed, SERVE["batch"], SERVE["prompt_len"])
@@ -4205,9 +4371,10 @@ def train_cli(mesh: bool = False):
 # ---------------------------------------------------------------------------
 
 MESH_TRAIN_ARCH = "deepseek-moe-16b"
-# full width, its first MOE_TP_LAYERS of 28 layers (1 dense, 3 MoE), as
-# phase 13 cuts it; one step (two ran 19.2-43.2 s each at 2x2 over gloo
-# and phase 19 184.3 s, past its 180)
+# full width, its first MESH_TRAIN_LAYERS of 28 layers (1 dense, 1 MoE;
+# 4 until phase 22 came in: the smoke passed 1,000 s); one step (two ran
+# 19.2-43.2 s each at 2x2 over gloo and phase 19 184.3 s, past its 180)
+MESH_TRAIN_LAYERS = 2
 MESH_TRAIN = dict(batch=8, seq=128, steps=1, mesh=(2, 2))
 MESH_TRAIN_KNOBS = dict(microbatch=4, ce_chunk=128)
 # 2x2 against 1x1 on the same tree and batch: step 1's loss and grad norm
@@ -4220,11 +4387,11 @@ MESH_CLI_AXIS = 2
 
 
 def mesh_train_config():
-    """MESH_TRAIN_ARCH cut to MOE_TP_LAYERS layers, at capacity factor
+    """MESH_TRAIN_ARCH cut to MESH_TRAIN_LAYERS layers, at capacity factor
     ceil(E / top_k), so no assignment drops and the local routing of the
     data shards keeps what the whole batch's routing keeps."""
     from repro_torch.configs import get_config
-    cfg = get_config(MESH_TRAIN_ARCH).replace(n_layers=MOE_TP_LAYERS)
+    cfg = get_config(MESH_TRAIN_ARCH).replace(n_layers=MESH_TRAIN_LAYERS)
     return cfg.replace(capacity_factor=float(math.ceil(cfg.n_experts
                                                        / cfg.top_k)))
 
@@ -4664,6 +4831,286 @@ def failover_on_card(dev, seed: int) -> dict:
             "loss": (losses[0], losses[-1])}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the dry-run, its plan held against rank 0 on the card, and the
+# --legacy steps on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# ``python -m repro_torch.launch.dryrun --list``: the reference's 32
+# runnable cells and 8 skips
+DRYRUN_LIST_CELLS = 32
+DRYRUN_LIST_SKIPS = 8
+DRYRUN_LIST_HEAD = ("starcoder2-3b train_4k", "starcoder2-3b prefill_32k",
+                    "starcoder2-3b decode_32k", "granite-8b train_4k")
+# the four cells planned on the host (22a) and run as rank 0 on the card
+# (22b), on 16x16 under the baseline profile
+DRYRUN_CELLS = (("granite-8b", "decode_32k"), ("gemma3-27b", "long_500k"),
+                ("granite-8b", "prefill_32k"), ("starcoder2-3b", "train_4k"))
+DRYRUN_TIMEOUT_S = 600
+# rank 0's measured peak within max(PEAK_REL, PEAK_ABS_B) of the plan's
+PEAK_REL = 0.05
+PEAK_ABS_B = 256 * 2 ** 20
+# each kernel op of a trace and the counters of its launches
+OP_KERNELS = {
+    "sparqle_encode": ("sparqle_encode", "sparqle_encode_batched"),
+    "sparqle_quantize": ("sparqle_quantize", "sparqle_quantize_batched"),
+    "sparqle_encode_packed": ("sparqle_encode_packed",
+                              "sparqle_encode_packed_batched"),
+    "sparqle_encode_fused": ("sparqle_encode_fused",
+                             "sparqle_encode_fused_batched"),
+    "sparqle_quantize_fused": ("sparqle_quantize_fused",
+                               "sparqle_quantize_fused_batched"),
+    "sparqle_encode_packed_fused": ("sparqle_encode_packed_fused",
+                                    "sparqle_encode_packed_fused_batched"),
+    "sparqle_matmul": ("sparqle_matmul", "sparqle_matmul_batched",
+                       "sparqle_matmul_draft", "sparqle_matmul_draft_batched"),
+    "sparqle_matmul_packed": ("sparqle_matmul_packed",
+                              "sparqle_matmul_packed_batched",
+                              "sparqle_matmul_packed_draft",
+                              "sparqle_matmul_packed_draft_batched"),
+    "quant_matmul": ("quant_matmul", "quant_matmul_batched"),
+    "kv4_paged_decode_attention": ("kv_attention",),
+    "kv4_paged_verify_attention": ("kv_attention_verify",),
+    "kv_tiered_paged_decode_attention": ("kv_attention_tiered",),
+    "kv4_decode_attention": ("kv_attention_contiguous",
+                             "kv_attention_contiguous_window",
+                             "kv_attention_contiguous_hd256"),
+    "kv4_decode_attention_partial": ("kv_attention_partial",),
+}
+# 22c: granite-8b's width at MESH_LEGACY_LAYERS layers, f32, served through
+# the --legacy steps at 1x2 (batch 8) and 2x1 (batch 1) against one device
+MESH_LEGACY_LAYERS = 2
+MESH_LEGACY_CASES = (((1, 2), 8), ((2, 1), 1))
+MESH_LEGACY_PROMPT, MESH_LEGACY_GEN, MESH_LEGACY_MAXLEN = 64, 8, 128
+
+
+def start_dryrun():
+    """22a: ``--list``, then the four cells planned on the host, each in a
+    child process of its own (``python -m repro_torch.launch.dryrun``,
+    fake CUDA tensors, no card), while the card runs the other phases."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    listing = subprocess.run(cmd + ["--list"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, check=True,
+                             timeout=120).stdout.splitlines()
+    cells = [ln for ln in listing if not ln.startswith("SKIP")]
+    skips = [ln for ln in listing if ln.startswith("SKIP")]
+    if (len(cells), len(skips)) != (DRYRUN_LIST_CELLS, DRYRUN_LIST_SKIPS) \
+            or tuple(cells[:4]) != DRYRUN_LIST_HEAD:
+        raise AssertionError(f"dryrun --list: {len(cells)} cells, "
+                             f"{len(skips)} skips: {listing[:6]}")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log_file = open(OUT / f"dryrun_{arch}__{shape}.txt", "w")
+        procs.append((arch, shape, log_file, subprocess.Popen(
+            cmd + ["--arch", arch, "--shape", shape, "--mesh", "singlepod",
+                   "--out", str(OUT / "dryrun")],
+            cwd=ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT)))
+    return {"procs": procs, "t0": time.perf_counter(), "cells": len(cells),
+            "skips": len(skips)}
+
+
+def finish_dryrun(state) -> dict:
+    """Wait for 22a's children; raises unless each exits 0. Returns the
+    records by (arch, shape) and the host's wall time."""
+    recs = {}
+    for arch, shape, log_file, proc in state["procs"]:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (
+                time.perf_counter() - state["t0"])))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+        finally:
+            log_file.close()
+        text = (OUT / f"dryrun_{arch}__{shape}.txt").read_text()
+        if rc:
+            raise AssertionError(f"dryrun {arch} {shape} exited {rc}:\n"
+                                 f"{text[-3000:]}")
+        recs[(arch, shape)] = json.loads(
+            (OUT / "dryrun" / "singlepod" / f"{arch}__{shape}.json"
+             ).read_text())
+    return {"records": recs, "s": time.perf_counter() - state["t0"],
+            "cells": state["cells"], "skips": state["skips"]}
+
+
+def dryrun_on_card(dev, seed: int, plans) -> dict:
+    """22b: each planned cell as rank 0 of a fake 16x16 world on the card,
+    one call of its whole step on real tensors of random contents,
+    collectives elided, timed (wall, synchronised): the peak of
+    ``torch.cuda.max_memory_allocated`` against the plan's within
+    max(PEAK_REL, PEAK_ABS_B), each kernel's launches equal to the count
+    of its op in the plan's trace."""
+    from repro_torch import kernels
+    from repro_torch.launch.dryrun import lower_cell
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        plan = plans[(arch, shape)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_peak(dev)
+        base = torch.cuda.memory_allocated(dev)
+        kernels.reset_launch_counts()
+        rec = lower_cell(arch, shape, "singlepod", fake=False,
+                         device=str(dev), fill_seed=seed, timed=1,
+                         tally_run=False)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        counts = kernels.launch_counts()
+        tol = max(PEAK_REL * plan["peak_b"], PEAK_ABS_B)
+        if not abs(peak - plan["peak_b"]) <= tol:
+            raise AssertionError(f"22b {arch} {shape}: measured peak {peak} "
+                                 f"B against the plan's {plan['peak_b']} B")
+        for op, n in plan["kernel_ops"].items():
+            got = sum(counts[k] for k in OP_KERNELS[op])
+            if got != n:
+                raise AssertionError(f"22b {arch} {shape}: {op} launched "
+                                     f"{got} times, traced {n}")
+        if sum(counts.values()) != sum(plan["kernel_ops"].values()):
+            raise AssertionError(f"22b {arch} {shape}: launches {counts} "
+                                 f"beyond the plan's {plan['kernel_ops']}")
+        out[(arch, shape)] = {"peak_b": peak, "plan_b": plan["peak_b"],
+                              "step_s": rec["step_s"], "launches": counts,
+                              "flops": plan["flops_hlo"],
+                              "coll_b": plan["collective_bytes"]["total"]}
+        del rec
+    return out
+
+
+def mesh_legacy_config():
+    from repro_torch.configs import get_config
+    return get_config("granite-8b").replace(n_layers=MESH_LEGACY_LAYERS,
+                                            dtype="float32")
+
+
+def mesh_legacy_run(dev, seed: int, batch: int, shape=None, rank: int = 0):
+    """granite-8b at MESH_LEGACY_LAYERS layers, f32, drawn from ``seed``:
+    prefill of ``batch`` prompts and MESH_LEGACY_GEN greedy decode steps
+    through the --legacy steps, on one device or (``shape``) as ``rank``
+    of a (data, model) world of ranks sharing the card over gloo. Returns
+    the rank's tokens and logits (numpy) and its launch counts."""
+    from repro_torch import kernels
+    from repro_torch.distributed.tp import tp_scope
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import mesh_coords, serve_groups
+    from repro_torch.models import model as M
+    from repro_torch.models.schema import init_quantized_params
+    from repro_torch.models.schema_builder import build_schema
+    cfg = mesh_legacy_config()
+    params = init_quantized_params(build_schema(cfg), seed, dev,
+                                   float_dtype=cfg.cdtype)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab, (batch, MESH_LEGACY_PROMPT),
+                           generator=g, device=dev, dtype=torch.int32)
+    pre_ctx = dec_ctx = None
+    if shape is not None:
+        layout = {"data": shape[0], "model": shape[1]}
+        groups = serve_groups(layout)
+        coords = mesh_coords(layout, rank)
+        sms = [S.serve_mesh(cfg, layout, coords, groups,
+                            global_batch=batch, max_len=MESH_LEGACY_MAXLEN,
+                            kind=k) for k in ("prefill", "decode")]
+        params = sms[0].local(params, sms[0].specs)
+        tokens = sms[0].local(tokens, S.batch_specs(
+            {"t": tokens}, layout)["t"])
+        pre_ctx = S.serve_context(sms[0])
+        dec_ctx = S.serve_context(sms[1], tokens.shape[0])
+    kernels.reset_launch_counts()
+    toks, logits = [], []
+    with torch.no_grad():
+        with tp_scope(pre_ctx):
+            lg, cache = M.prefill(cfg, params, {"tokens": tokens},
+                                  max_len=MESH_LEGACY_MAXLEN)
+        for i in range(MESH_LEGACY_GEN + 1):
+            tok = torch.argmax(lg, -1).to(torch.int32)
+            toks.append(tok.cpu().numpy())
+            logits.append(lg.float().cpu().numpy())
+            if i == MESH_LEGACY_GEN:
+                break
+            pos = torch.full_like(tok, MESH_LEGACY_PROMPT + i)
+            with tp_scope(dec_ctx):
+                lg, cache = M.decode_step(cfg, params, cache, tok, pos)
+    torch.cuda.synchronize()
+    return {"tokens": toks, "logits": logits,
+            "launches": kernels.launch_counts()}
+
+
+def mesh_legacy_rank(rank, seed):
+    """22c's rank (a world of 2): each MESH_LEGACY_CASES shape in turn on
+    its card; rank 0 first runs the one-device references. Returns
+    {shape: its run} and, on rank 0, {"single": {batch: run}}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    if rank == 0:
+        out["single"] = {b: mesh_legacy_run(dev, seed, b)
+                         for _, b in MESH_LEGACY_CASES}
+    for shape, batch in MESH_LEGACY_CASES:
+        out[shape] = mesh_legacy_run(dev, seed, batch, shape, rank)
+    return out
+
+
+def start_mesh_legacy(seed: int):
+    """22c's world of two ranks sharing the card over gloo, in a thread
+    beside 22b: returns (the thread, the list its ranks' results land
+    in)."""
+    import threading
+    from repro_torch.launch.mesh import spawn_world
+    got: list = []
+
+    def world():
+        try:
+            got.extend(spawn_world(mesh_legacy_rank, 2, seed,
+                                   backend="gloo", device_type="cuda",
+                                   timeout_s=TP_TIMEOUT_S))
+        except BaseException as e:   # re-raised by finish_mesh_legacy
+            got.append(e)
+
+    th = threading.Thread(target=world)
+    th.start()
+    return th, got
+
+
+def finish_mesh_legacy(state) -> dict:
+    """22c: the --legacy steps on a (data, model) mesh of ranks sharing the
+    card over gloo, at 1x2 (the batch over data, the cache cut along its
+    positions over model) and 2x1 with one sequence (the cache cut over
+    data): every rank's greedy tokens equal the one-device run's rows,
+    its logits within LOGIT_TOL of their max; the partial attention
+    (row 7p) launched where the cache is cut."""
+    th, ranks = state
+    th.join()
+    if len(ranks) != 2 or isinstance(ranks[0], BaseException):
+        raise AssertionError(f"22c: the world failed: {ranks}")
+    out = {}
+    for shape, batch in MESH_LEGACY_CASES:
+        single = ranks[0]["single"][batch]
+        worst, equal = 0.0, True
+        for rank, r in enumerate(ranks):
+            r = r[shape]
+            rows = r["tokens"][0].shape[0]
+            lo = (rank // shape[1]) * rows if rows != batch else 0
+            for a, b in zip(r["tokens"], single["tokens"]):
+                equal &= bool((a == b[lo:lo + rows]).all())
+            for a, b in zip(r["logits"], single["logits"]):
+                ref = b[lo:lo + rows]
+                worst = max(worst, float(abs(a - ref).max()
+                                         / max(abs(ref).max(), 1e-30)))
+            if r["launches"]["kv_attention_partial"] == 0:
+                raise AssertionError(f"22c {shape}: rank {rank} launched no "
+                                     f"partial attention")
+        if not equal or worst > LOGIT_TOL:
+            raise AssertionError(f"22c {shape} B={batch}: tokens equal "
+                                 f"{equal}, logits {worst:.3g} of max")
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "batch": batch, "tokens_equal": equal, "logit_rel": worst,
+            "partial_launches": ranks[0][shape]["launches"][
+                "kv_attention_partial"]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true",
@@ -4709,6 +5156,7 @@ def main() -> int:
             *check_matmul_packed(dev, gen, peaks),
             check_contiguous_attention(dev, gen, peaks),
             *check_gemma_attention(dev, gen, peaks),
+            check_partial_attention(dev, gen, peaks),
             *check_batched_encoder(dev, gen, peaks),
             *check_batched_matmul(dev, gen, peaks)]
     attn_zoo = check_attention_zoo(dev, gen, peaks)
@@ -4792,6 +5240,9 @@ def main() -> int:
                    "kv_attention_contiguous_window", "gemma3"),
                "kv4_decode_attention_hd256": (
                    "kv_attention_contiguous_hd256", "paligemma"),
+               # row 7p: phase 22b's rank 0 on the card (the decode cells)
+               "kv4_decode_attention_partial": ("kv_attention_partial",
+                                                "dryrun_card"),
                # the expert-batched entries: deepseek-moe-16b's serves
                "sparqle_encode_fused_batched": (
                    "sparqle_encode_fused_batched", "mesh_serve"),
@@ -5225,6 +5676,9 @@ def main() -> int:
                         for a, (sp, msg) in cli.items())
             + f"; phase 15 {time.perf_counter() - t15:.1f} s")
         detail["gemma"] = {"serves": gemma, "cli": cli}
+        # phase 22a: the dry-run's four cells planned on the host, beside
+        # phases 16-21 on the card
+        dry = start_dryrun()
         # phase 16: deepseek-v3-671b through --legacy, after phase 15
         # freed the gemma trees
         t16 = time.perf_counter()
@@ -5460,11 +5914,53 @@ def main() -> int:
             f"{an['seconds']:.1f} s beside 21a-c; phase 21 "
             f"{time.perf_counter() - t21:.1f} s")
         detail["examples"] = exs
+        # phase 22: the dry-run's plan against rank 0 on the card, and the
+        # --legacy steps on a (data, model) mesh
+        t22 = time.perf_counter()
+        plans = finish_dryrun(dry)
+        log(f"[22] dry-run on the host: --list {plans['cells']} cells, "
+            f"{plans['skips']} skips; planned on 16x16 (baseline, meta "
+            f"tensors, rank 0 of a fake world of 256): " + "; ".join(
+                f"{a} {sh}: peak {r['peak_b'] / 2**30:.2f} GiB (arguments "
+                f"{r['memory']['argument_size_b'] / 2**30:.2f}), "
+                f"{r['flops_hlo']:.3e} FLOPs, collectives "
+                f"{r['collective_bytes']['total']:.3e} B, fits "
+                f"{r['device_memory_of']}: {r['fits']}, traced in "
+                f"{r['lower_s']} s" for (a, sh), r in
+                plans["records"].items())
+            + f"; {plans['s']:.1f} s beside phases 16-21 (22a)")
+        mleg_state = start_mesh_legacy(args.seed)     # 22c beside 22b
+        dcard = dryrun_on_card(dev, args.seed, plans["records"])
+        log(f"[22] {card}: rank 0 of 16x16 on the card, random data, "
+            f"collectives elided: " + "; ".join(
+                f"{a} {sh}: peak {r['peak_b'] / 2**30:.3f} GiB measured, "
+                f"{r['plan_b'] / 2**30:.3f} planned, step "
+                f"{r['step_s'] * 1e3:.1f} ms (collectives elided, random "
+                f"data), launches = traced ops"
+                for (a, sh), r in dcard.items()) + " (22b, beside 22c)")
+        mleg = finish_mesh_legacy(mleg_state)
+        log(f"[22] {card}: granite-8b {MESH_LEGACY_LAYERS}L full width f32 "
+            f"--legacy steps on a mesh, ranks sharing the card over gloo, "
+            f"prefill {MESH_LEGACY_PROMPT} + {MESH_LEGACY_GEN} decode "
+            f"tokens: " + "; ".join(
+                f"{m} B={r['batch']}: tokens equal to one device "
+                f"{r['tokens_equal']}, logits {r['logit_rel']:.2e} of max "
+                f"(tol {LOGIT_TOL}), rank 0's 7p launches "
+                f"{r['partial_launches']}" for m, r in mleg.items())
+            + f" (22c); phase 22 {time.perf_counter() - t22:.1f} s")
+        detail["dryrun"] = {
+            "plans": {f"{a}__{sh}": r for (a, sh), r in
+                      plans["records"].items()},
+            "card": {f"{a}__{sh}": r for (a, sh), r in dcard.items()},
+            "mesh_legacy": mleg}
+        dry_launches = {k: sum(r["launches"][k] for r in dcard.values())
+                        for k in next(iter(dcard.values()))["launches"]}
         launches = [mls[a]["serve"]["launches"] for a in MLA_SSD_TRAIN]
         mla_ssd_serve = {"launches": {k: sum(c[k] for c in launches)
                                       for k in launches[0]}}
         moe = zoo["deepseek-moe-16b"]
         runs = {"base": eng, "mesh_serve": ms,
+                "dryrun_card": {"launches": dry_launches},
                 "mla_ssd_serve": mla_ssd_serve, "spec": spec, "kv2": kv2,
                 "quickstart": qs, "calibrate": cb,
                 "dense": dn,

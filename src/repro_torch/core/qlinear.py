@@ -166,6 +166,22 @@ class SparqleLinear:
             col_mask=mv(self.col_mask))
 
 
+@dataclasses.dataclass
+class ShardedLinear(SparqleLinear):
+    """One rank's compute form of a projection cut over the model axis of
+    a serving mesh (``distributed.tp.ServeMesh.compute``): ``cut``
+    'col' (the rank's output channels: q, scale and zero cut along N) or
+    'row' (the rank's K slice of the packed q and of the mask, scales
+    whole); the rank's index ``rank`` of ``ways`` over ``group``. A
+    row-cut projection takes the whole input (it slices the rank's K
+    itself) or the rank's slice, and runs the row-parallel chain
+    (:func:`_row_apply`) whatever the call site's mark."""
+    cut: str = "col"
+    rank: int = 0
+    ways: int = 1
+    group: Any = None
+
+
 def tree_index(tree, i: int):
     """Layer ``i`` of a layer-stacked param subtree."""
     if isinstance(tree, dict):
@@ -188,7 +204,8 @@ def _row_parallel(tp: Optional[str]):
     """The TP context when ``tp`` marks a row-parallel site under an
     active context of more than one model rank, else None."""
     ctx = tp_ctx()
-    return ctx if tp == "row" and ctx is not None and ctx.ways > 1 else None
+    return ctx if (tp == "row" and ctx is not None and ctx.ways > 1
+                   and ctx.serve_mesh is None) else None
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
@@ -199,13 +216,19 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     if isinstance(w, SparqleLinear):
         y = _quantized_apply(x, w, tp=tp)
     else:
-        y = x @ w.to(x.dtype)
         ctx = _row_parallel(tp)
+        if ctx is not None and ctx.train and x.shape[-1] != w.shape[-2]:
+            # the whole input of a row-cut weight (a train step's gathered
+            # heads): the rank's K slice of it
+            x = x.narrow(-1, ctx.model_rank * w.shape[-2], w.shape[-2])
+        y = x @ w.to(x.dtype)
         if ctx is not None and ctx.train:    # autograd: reduce-from-model
             y = reduce_from_model(y)
         elif ctx is not None:
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ctx.group)
     if b is not None:
+        if isinstance(w, ShardedLinear) and b.shape[-1] != y.shape[-1]:
+            b = b.narrow(-1, w.rank * y.shape[-1], y.shape[-1])  # col cut
         y = y + b.to(y.dtype)
     return y
 
@@ -254,7 +277,15 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
     n = sl.w.q.shape[-1]
     w_scale = sl.w.scale.reshape(*sl.w.q.shape[:-2], 1, n).float()
     ctx = _row_parallel(tp)
-    if ctx is not None:
+    if isinstance(sl, ShardedLinear) and sl.cut == "row":
+        k_loc = sl.w.q.shape[-2] * 2
+        if x2.shape[-1] == k_loc * sl.ways:     # the whole input
+            x2 = x2.narrow(-1, sl.rank * k_loc, k_loc).contiguous()
+        elif x2.shape[-1] != k_loc:
+            raise ValueError(f"row-cut projection of K {k_loc} a rank: "
+                             f"input of {x2.shape[-1]}")
+        out = _row_apply(x2, sl, clip_args, w_scale, sl.group)
+    elif ctx is not None:
         out = _row_apply(x2, sl, clip_args, w_scale, ctx.group)
     elif sl.mode == "dense":
         q, scale = sparqle_quantize_fused(x2, *clip_args)

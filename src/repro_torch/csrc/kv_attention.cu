@@ -14,7 +14,11 @@
 //     cache read as pages of PS tokens, page i of sequence b = block i;
 //     with a sliding window (gemma3's local layers; the Pallas kernel has
 //     none, JAX's fixed-batch decode masks it in XLA) keys j with
-//     pos - j < window only.
+//     pos - j < window only; and on a slice of that cache whose first
+//     token is global position pos0 (row 7p, the `--legacy` decode on a
+//     mesh whose cache is cut along its positions: the partitioned
+//     softmax GSPMD lowers), its output in f32 beside the log-sum-exp
+//     of the slice's scores, for a merge over the slices.
 // K/V pages hold int4 nibbles two per byte along HD (byte j: element 2j
 // low, 2j+1 high) and one f32 scale per (token, kv head). Semantics of
 // `_flash_core`: f32 online softmax, scale HD**-0.5, NEG_INF = -2e38,
@@ -275,12 +279,17 @@ __device__ __forceinline__ void stage_rows(uint32_t* ring, const int8_t* kp,
     const float* __restrict__ v2_scale,                                    \
     const int32_t* __restrict__ tables, const int32_t* __restrict__ tiers, \
     const int32_t* __restrict__ pos, void* __restrict__ out, int T,        \
-    int KVH, int G, int ps_rt, int NS, int window, float scale
+    int KVH, int G, int ps_rt, int NS, int window, float scale, int pos0, \
+    float* __restrict__ lse
 
 // grid (cluster, KVH * ceil(G/GQ), B * T), cluster (cluster, 1, 1);
 // q/out (B, T, KVH, G, HD), query position pos[b] + t; pages of PS
 // tokens (PS = 0: ps_rt). The contiguous cache is (B, NS * ps, KVH,
-// HD/2) and its scales (B, NS * ps, KVH); `window` is read only there.
+// HD/2) and its scales (B, NS * ps, KVH); `window` is read only there,
+// and so are `pos0`, the global position of the cache's first token (a
+// slice's: positions and the window are global, 0 elsewhere), and `lse`
+// (a slice's call: out in f32 and the log-sum-exp of the scaled scores
+// (B, KVH, G); null elsewhere).
 template <int HD, int PS, bool TIERED, bool CONTIGUOUS, bool ROUND_KV>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(PAGED_ARGS) {
@@ -314,7 +323,7 @@ attention_kernel(PAGED_ARGS) {
   const int h = blockIdx.y / GS, gs = blockIdx.y % GS;
   const int nh = min(GQ, G - gs * GQ);          // the block's live heads
   const int b = blockIdx.z / T, t = blockIdx.z % T;
-  const int p = pos[b] + t;
+  const int p = pos[b] + t - pos0;              // in the cache's positions
   const int last = min(max(p, 0) / ps, NS - 1);
   // a window's first key and first block lo; the plan's page slots are
   // blocks lo + i, live up to last_v (window 0: lo = 0, start 0), split
@@ -692,7 +701,11 @@ attention_kernel(PAGED_ARGS) {
       mm = mn;
     }
     const float res = __fdiv_rn(aa, fmaxf(ll, 1e-30f));
-    if (q_bf16)
+    if (lse) {                      // a slice: out in f32, and the lse
+      reinterpret_cast<float*>(out)[qbase + o] = res;
+      if (o % HD == 0)
+        lse[qbase / HD + g] = ll > 0.0f ? __fadd_rn(mm, logf(ll)) : -INFINITY;
+    } else if (q_bf16)
       reinterpret_cast<__nv_bfloat16*>(out)[qbase + o] =
           __float2bfloat16_rn(res);
     else
@@ -713,6 +726,8 @@ struct Call {
   void* out;
   int q_bf16, B, T, KVH, G, hd, ps, NS, window;
   void* stream;
+  int pos0;       // a slice's first global position, and its lse output
+  float* lse;
 };
 
 template <int HD, int PS, bool TIERED, bool CONTIGUOUS, bool ROUND_KV>
@@ -757,7 +772,7 @@ static int launch_as(const Call& c) {
       (const int8_t*)c.v2_pages, (const float*)c.v2_scale,
       (const int32_t*)c.tables, (const int32_t*)c.tiers,
       (const int32_t*)c.pos, c.out, c.T, c.KVH, c.G, c.ps, c.NS, c.window,
-      (float)pow((double)HD, -0.5));
+      (float)pow((double)HD, -0.5), c.pos0, c.lse);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -829,6 +844,26 @@ extern "C" int kv4_decode_launch(
   const Call c{q, k_q, k_s, v_q, v_s, nullptr, nullptr, nullptr, nullptr,
                nullptr, nullptr, pos, out, q_bf16, B, 1, KVH, G, hd, ps, NS,
                window, stream};
+  if (round_kv && q_bf16) return launch<false, true, true>(c);
+  return launch<false, true, false>(c);
+}
+
+// Row 7p, the same instances on a slice of the contiguous cache (the
+// `--legacy` decode on a mesh whose cache is cut along its positions):
+// k_q/v_q (B, S, KVH, HD/2) hold global positions pos0 .. pos0 + S - 1,
+// S = NS * ps; pos and the window are global. out (B, KVH, G, HD) f32 is
+// the attention over the slice's live keys, lse (B, KVH, G) f32 the
+// log-sum-exp of their scaled scores; a query with no live key in the
+// slice gets out 0 and lse -inf, so that the merge over the slices (max
+// of the lse, sum of exp(lse - max) * out and of exp(lse - max)) drops it.
+extern "C" int kv4_decode_partial_launch(
+    const void* q, int q_bf16, const void* k_q, const void* k_s,
+    const void* v_q, const void* v_s, const void* pos, void* out, void* lse,
+    int B, int KVH, int G, int hd, int ps, int NS, int pos0, int round_kv,
+    int window, void* stream) {
+  const Call c{q, k_q, k_s, v_q, v_s, nullptr, nullptr, nullptr, nullptr,
+               nullptr, nullptr, pos, out, q_bf16, B, 1, KVH, G, hd, ps, NS,
+               window, stream, pos0, (float*)lse};
   if (round_kv && q_bf16) return launch<false, true, true>(c);
   return launch<false, true, false>(c);
 }

@@ -14,6 +14,11 @@ not divide raises (the reference leaves it replicated; the serving path
 validates before it gets here, and a silent replication would break the
 shard-local page ids).
 
+The dry-run and the ``--legacy`` steps on a mesh place a served tree,
+its caches and the inputs by :func:`spec_for` too, under a profile's
+rules (:func:`profile_rules`: ``tuned`` keeps weights whole over data
+where they fit); :func:`local_dims` is a leaf's shape on one rank.
+
 Training. :data:`DEFAULT_RULES` and :func:`spec_for` are the reference's
 rule table and its placement, divisibility fallback to replication and
 each mesh axis claimed once (by the first dim that asks) included.
@@ -155,6 +160,59 @@ def spec_for(logical_axes: Sequence[Optional[str]], shape: Sequence[int],
     return tuple(entries)
 
 
+def merged_rules(overrides: Optional[Dict] = None) -> Dict:
+    """The rule table with a profile's ``overrides`` on top (the
+    reference's ``mesh_context(mesh, rules=...)``)."""
+    rules = dict(DEFAULT_RULES)
+    rules.update(overrides or {})
+    return rules
+
+
+def axis_ways(entry, mesh_shape: Dict[str, int]) -> int:
+    """Ranks a dim is cut over: the product of its spec entry's axes."""
+    if entry is None:
+        return 1
+    names = (entry,) if isinstance(entry, str) else entry
+    n = 1
+    for a in names:
+        n *= mesh_shape[a]
+    return n
+
+
+def local_dims(shape: Sequence[int], spec: Sequence, mesh_shape: Dict[str, int]
+               ) -> Tuple[int, ...]:
+    """``shape`` as one rank holds it under the ``spec_for`` entries
+    ``spec`` (trailing dims whole)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // axis_ways(e, mesh_shape) for n, e in zip(shape, spec))
+
+
+def profile_rules(profile: str, cfg, kind: str, mesh_shape: Dict[str, int],
+                  global_batch: int = 0) -> Dict:
+    """Rule overrides a performance profile makes (the reference's).
+
+    ``baseline``: FSDP everywhere (no override). ``tuned``: params whole
+    over the data axes (``embed: ()``) when the resident state a rank
+    would hold over the model axis alone is below 8 GB: 8 bytes a param
+    training (f32 master and two bf16 moments), 1.2 serving (int4 weights
+    and their scales), except a decode whose batch is smaller than the
+    data ways (``long_500k``: one token a step, weights stay sharded)."""
+    if profile == "baseline":
+        return {}
+    if profile != "tuned":
+        raise ValueError(f"unknown profile {profile!r}: baseline or tuned")
+    data_ways = 1
+    for a in ("pod", "data"):
+        data_ways *= mesh_shape.get(a, 1)
+    if kind == "decode" and 0 < global_batch < data_ways:
+        return {}
+    from repro_torch.models.registry import model_schema, param_count
+    n = param_count(model_schema(cfg))
+    model_ways = mesh_shape.get("model", 1)
+    resident = n * (8.0 if kind == "train" else 1.2) / model_ways
+    return {"embed": ()} if resident < 8e9 else {}
+
+
 Segments = Tuple[Tuple[int, bool], ...]
 
 
@@ -193,18 +251,20 @@ def _ssd_segments(layer, model_ways: int) -> Dict[str, Segments]:
 
 
 def train_placements(schema, data_ways: int, model_ways: int,
-                     prefix: str = "", segments: Optional[Segments] = None):
+                     prefix: str = "", segments: Optional[Segments] = None,
+                     rules: Optional[Dict] = None):
     """The :class:`Placement` of every leaf of a ParamSpec tree (module
-    docstring)."""
+    docstring), under ``rules`` (a profile's table, ``merged_rules``;
+    the default table without)."""
     if isinstance(schema, dict):
         segs = (_ssd_segments(schema, model_ways)
                 if model_ways > 1 and "w_in" in schema else {})
         return {k: train_placements(v, data_ways, model_ways,
                                     f"{prefix}/{k}" if prefix else k,
-                                    segs.get(k))
+                                    segs.get(k), rules)
                 for k, v in schema.items()}
     spec = spec_for(schema.axes, schema.shape,
-                    {"data": data_ways, "model": model_ways})
+                    {"data": data_ways, "model": model_ways}, rules)
     dims = {ax: i for i, ax in enumerate(spec) if ax is not None}
     if any(not isinstance(ax, str) for ax in dims):
         raise ValueError(f"{prefix}: {spec} cuts a dim over two axes")

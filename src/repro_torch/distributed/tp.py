@@ -29,7 +29,11 @@ row-parallel SPARQLe linear (``core/qlinear.py`` with ``tp="row"``)
      addition is associative), then drains ``(acc * act_scale) *
      w_scale`` in f32 as the kernel's epilogue does.
 
-Column-parallel linears are exact by construction. :func:`tp_scope`
+Column-parallel linears are exact by construction. The ``--legacy``
+steps on a (pod, data, model) mesh (:class:`ServeMesh`) place every leaf
+as the reference's ``spec_for`` does and compute with the cut weights
+(``core/qlinear.py`` ``ShardedLinear``), FSDP leaves gathered over data
+a layer at a time. :func:`tp_scope`
 installs the context a step body runs under; outside it the ``tp="row"``
 marks of the model code are inert and the single-device path is
 unchanged, launch for launch.
@@ -50,7 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -84,6 +88,7 @@ class TPContext:
     data_group: Any = None
     data_ways: int = 1
     data_rank: int = 0
+    serve_mesh: Any = None
 
 
 _TP: Optional[TPContext] = None
@@ -95,7 +100,7 @@ def tp_scope(ctx: Optional[TPContext]) -> Iterator[None]:
     global _TP
     prev = _TP
     active = ctx is not None and (ctx.ways > 1 or ctx.batch_group is not None
-                                  or ctx.train)
+                                  or ctx.train or ctx.serve_mesh is not None)
     _TP = ctx if active else None
     try:
         yield
@@ -161,6 +166,24 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, lo, ctx.n).contiguous(), None, None
 
 
+class _GatherSum(torch.autograd.Function):
+    """All-gather along the last dim forward; the grads summed over the
+    group, then this rank's slice, backward (a reduce-scatter): for a
+    gathered tensor whose consumers differ from rank to rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return all_gather(x, group, x.ndim - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        lo = dist.get_rank(ctx.group) * ctx.n
+        return g.narrow(-1, lo, ctx.n).contiguous(), None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Copy-to-``group``: identity forward, grad all-reduced backward."""
     return _CopyTo.apply(x, group)
@@ -198,6 +221,15 @@ def gather_from_model(y: torch.Tensor, dim: int = -1) -> torch.Tensor:
                                                    dim % y.ndim)
 
 
+def gather_heads(y: torch.Tensor) -> torch.Tensor:
+    """A column-parallel q/k/v projection's output whole over model under
+    a train step whose model ways do not divide the heads (attention
+    then runs every head on every model rank, ``models/model.py``
+    ``_attn_qkv``): all-gathered forward, its grads reduce-scattered."""
+    ctx = _train_model_ctx()
+    return y if ctx is None else _GatherSum.apply(y, ctx.group)
+
+
 def gather_rows(t: torch.Tensor) -> torch.Tensor:
     """The data ranks' rows of ``t`` (dim 0) in data-rank order under a
     train step of data ways > 1; this rank's rows of the grad back."""
@@ -211,19 +243,28 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
 # per-shard model config
 # ---------------------------------------------------------------------------
 
-def validate_tp_config(cfg: ModelConfig, ways: int) -> None:
+def heads_divide(cfg: ModelConfig, ways: int) -> bool:
+    """Whether the model ways divide the attention heads and KV heads."""
+    return cfg.n_heads % ways == 0 and cfg.n_kv_heads % ways == 0
+
+
+def validate_tp_config(cfg: ModelConfig, ways: int,
+                       heads: bool = True) -> None:
     """Raise listing every dimension the model axis cannot divide. The
     row-parallel FFN weights are packed two int4 values a byte along K,
     so each shard's K slice must hold whole bytes: d_ff % (2 ways). An
     SSD mixer (``ssm_state`` set) is cut by heads, ``d_inner /
     ssm_head_dim``; its B/C groups either divide too (a rank takes whole
-    groups with their heads) or are one group, whole on every rank."""
+    groups with their heads) or are one group, whole on every rank.
+    ``heads=False`` leaves out the attention heads and an untied vocab (a
+    train step that gathers the heads, :func:`gather_heads`, and keeps a
+    head the ways do not divide whole on every rank)."""
     if ways <= 1:
         return
     problems: List[str] = []
-    if cfg.n_heads % ways:
+    if heads and cfg.n_heads % ways:
         problems.append(f"n_heads={cfg.n_heads} % model={ways}")
-    if cfg.n_kv_heads % ways:
+    if heads and cfg.n_kv_heads % ways:
         problems.append(f"n_kv_heads={cfg.n_kv_heads} % model={ways}")
     if cfg.ssm_state:
         nh = cfg.d_inner // cfg.ssm_head_dim
@@ -237,7 +278,7 @@ def validate_tp_config(cfg: ModelConfig, ways: int) -> None:
         problems.append(f"d_ff={cfg.d_ff} % 2*model={2 * ways}")
     if cfg.moe_d_ff and cfg.moe_d_ff % (2 * ways):
         problems.append(f"moe_d_ff={cfg.moe_d_ff} % 2*model={2 * ways}")
-    if not cfg.tie_embeddings and cfg.vocab % ways:
+    if heads and not cfg.tie_embeddings and cfg.vocab % ways:
         problems.append(f"vocab={cfg.vocab} % model={ways}")
     if problems:
         raise ValueError(
@@ -245,15 +286,18 @@ def validate_tp_config(cfg: ModelConfig, ways: int) -> None:
             f"axis: " + ", ".join(problems))
 
 
-def shard_model_config(cfg: ModelConfig, ways: int) -> ModelConfig:
+def shard_model_config(cfg: ModelConfig, ways: int,
+                       heads_only: bool = False) -> ModelConfig:
     """The config a shard's step body runs: head counts divided by the
     model ways, ``head_dim`` pinned so ``cfg.hd`` keeps its global value;
     every other field as it is (shapes follow the sharded params: an SSD
     mixer reads its shard's widths from them, ``models/model.py``
-    ``_ssd_dims``)."""
+    ``_ssd_dims``). ``heads_only``: the caller has checked the widths it
+    cuts (a train step that keeps an undivided head whole)."""
     if ways <= 1:
         return cfg
-    validate_tp_config(cfg, ways)
+    if not heads_only:        # (else the caller validated what it cuts)
+        validate_tp_config(cfg, ways)
     return cfg.replace(n_heads=cfg.n_heads // ways,
                        n_kv_heads=cfg.n_kv_heads // ways, head_dim=cfg.hd)
 
@@ -325,3 +369,167 @@ def shard_params(tree: Dict[str, Any], rank: int, ways: int
                 for k, v in t.items()}
 
     return walk(tree)
+
+
+# ---------------------------------------------------------------------------
+# the --legacy steps on a (pod, data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ("pod", "data", "model")
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one dim's ``spec_for`` entry (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def gather_packed(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """A packed int4 leaf (two values a byte along K) whole over ``group``
+    along ``dim``: the K/2 bytes of the ranks' slices concatenated in
+    group-rank order. ``qschema`` cuts the packed leaf along its bytes,
+    so each rank holds whole bytes and the concatenation is the whole
+    leaf's."""
+    return all_gather(t, group, dim)
+
+
+@dataclasses.dataclass
+class ServeMesh:
+    """What a ``--legacy`` step needs of a (pod, data, model) mesh: its
+    shape, this rank's coordinates, the process group over every set of
+    axes (the ranks that differ only there, in global-rank order:
+    ``pod`` major, then ``data``, then ``model``), the ``spec_for``
+    entries of every leaf of the served tree (``specs``, the tree of
+    ``models/qschema.py`` ``tree_specs`` under the profile's rules) and
+    of the caches (``cache_specs``), and the batch's entry.
+
+    Every leaf is held as its placement says: a dim cut over data (and
+    pod: FSDP's ``embed``) is gathered whole over those axes a layer at a
+    time (:meth:`compute`); a dim cut over model stays cut, and a
+    projection cut over model computes with it as a
+    ``core.qlinear.ShardedLinear``: column-cut (its output the rank's
+    columns) or row-cut (the rank's K slice, one int32 SUM and one f32
+    MAX all-reduce over model). Pod and data act as one data group of
+    their ranks in global-rank order: FSDP's shard order over (data,
+    pod) is then (pod, data), the same bytes a rank."""
+    mesh_shape: Dict[str, int]
+    coords: Dict[str, int]
+    groups: Dict[Tuple[str, ...], Any]
+    specs: Any
+    cache_specs: Any
+    batch_entry: Any
+    global_batch: int
+    rules: Any = None
+
+    def _axes(self, entry) -> Tuple[str, ...]:
+        names = set(entry_axes(entry))
+        return tuple(a for a in MESH_AXES if a in names)
+
+    def ways(self, entry) -> int:
+        n = 1
+        for a in entry_axes(entry):
+            n *= self.mesh_shape[a]
+        return n
+
+    def index(self, entry) -> int:
+        """This rank's index along ``entry``'s axes, in global-rank
+        order."""
+        i = 0
+        for a in self._axes(entry):
+            i = i * self.mesh_shape[a] + self.coords[a]
+        return i
+
+    def group(self, entry):
+        return self.groups[self._axes(entry)]
+
+    @property
+    def model_ways(self) -> int:
+        return self.mesh_shape.get("model", 1)
+
+    @property
+    def batch_ways(self) -> int:
+        return self.ways(self.batch_entry)
+
+    def gather(self, t: torch.Tensor, dim: int, entry) -> torch.Tensor:
+        """``t`` whole along ``dim`` over ``entry``'s axes."""
+        if self.ways(entry) == 1:
+            return t
+        return all_gather(t, self.group(entry), dim)
+
+    def _data_whole(self, t, spec, packed: bool = False):
+        """``t`` (layer axis dropped from ``spec`` by the caller) gathered
+        whole over every dim cut over pod or data."""
+        for dim, entry in enumerate(spec):
+            axes = entry_axes(entry)
+            if axes and "model" not in axes:
+                t = (gather_packed(t, dim, self.group(entry)) if packed
+                     else self.gather(t, dim, entry))
+        return t
+
+    def compute(self, tree, spec):
+        """A layer's (or a top-level leaf's) compute form from its local
+        storage: dims cut over data gathered, projections cut over model
+        wrapped as ``ShardedLinear``s."""
+        from repro_torch.core.qlinear import ShardedLinear, SparqleLinear
+        if isinstance(tree, dict):
+            return {k: self.compute(v, spec[k]) for k, v in tree.items()}
+        if tree is None:
+            return None
+        if not isinstance(tree, SparqleLinear):
+            return self._data_whole(tree, spec)
+        w = tree.w
+        q = self._data_whole(w.q, spec.w.q, packed=tree.packed)
+        sl = dataclasses.replace(
+            tree, w=QuantizedTensor(
+                q, self._data_whole(w.scale, spec.w.scale),
+                self._data_whole(w.zero, spec.w.zero), w.bits),
+            col_mask=self._data_whole(tree.col_mask, spec.col_mask))
+        cut = {i for i, e in enumerate(spec.w.q)
+               if "model" in entry_axes(e)}
+        nd = q.ndim
+        if not cut or cut == {0} and nd == 3:   # whole, or its experts cut
+            return sl
+        return ShardedLinear(
+            **{f.name: getattr(sl, f.name)
+               for f in dataclasses.fields(SparqleLinear)},
+            cut="row" if cut == {nd - 2} else "col",
+            rank=self.index("model"), ways=self.model_ways,
+            group=self.group("model"))
+
+    def local(self, tree, spec):
+        """This rank's slice of every leaf of a whole tree (a served tree
+        or a cache) placed by ``spec`` (a tree of entries of the same
+        structure): each cut dim's contiguous slice at the rank's index
+        along its axes."""
+        from repro_torch.core.qlinear import SparqleLinear
+        if isinstance(tree, dict):
+            return {k: self.local(v, spec[k]) for k, v in tree.items()}
+        if tree is None:
+            return None
+        if isinstance(tree, SparqleLinear):
+            w = tree.w
+            return dataclasses.replace(
+                tree, w=QuantizedTensor(
+                    self.local(w.q, spec.w.q),
+                    self.local(w.scale, spec.w.scale),
+                    self.local(w.zero, spec.w.zero), w.bits),
+                col_mask=self.local(tree.col_mask, spec.col_mask))
+        for dim, entry in enumerate(spec):
+            if self.ways(entry) > 1:
+                tree = slice_for_rank(tree, dim, self.index(entry),
+                                      self.ways(entry))
+        return tree.contiguous()
+
+    def layer_spec(self, spec):
+        """A layer-stacked subtree's spec entries without the layer dim."""
+        from repro_torch.core.qlinear import SparqleLinear
+        if isinstance(spec, dict):
+            return {k: self.layer_spec(v) for k, v in spec.items()}
+        if isinstance(spec, SparqleLinear):
+            drop = self.layer_spec
+            return dataclasses.replace(
+                spec, w=QuantizedTensor(drop(spec.w.q), drop(spec.w.scale),
+                                        drop(spec.w.zero), spec.w.bits),
+                col_mask=drop(spec.col_mask), l=None, h=None)
+        return None if spec is None else tuple(spec[1:])

@@ -11,8 +11,9 @@ PyTorch version (``ref.py``) and a launch counter.
     dual-pass kernel's one-plane instance)
   * kv_attention   — paged packed-KV4 flash-decode attention, the
     multi-token verify window of speculative decoding, the mixed
-    KV4/KV2 tier decode of the precision ladder, and the decode over the
-    contiguous cache of the fixed-batch path
+    KV4/KV2 tier decode of the precision ladder, the decode over the
+    contiguous cache of the fixed-batch path, and its partial form over a
+    slice of that cache (the fixed-batch path on a mesh)
 
 ``ops`` holds the standalone linears over them (``sparqle_linear``,
 ``dense_quant_linear``).

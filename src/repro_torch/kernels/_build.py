@@ -16,6 +16,19 @@ entry points (the full and the draft matmul, the decode and the verify
 attention): each is a :class:`Kernel` of its own name and count, and
 they share the source's one library.
 
+Each public entry of a wrapper module is also a ``torch.library``
+custom op (:func:`kernel_op`, namespace ``repro_torch``) behind the
+wrapper's CUDA branch. A CUDA tensor outside any dispatch mode calls
+the entry's implementation directly (it allocates the outputs and
+launches: no dispatch on the serving path); any other tensor that takes
+the branch goes through the op: a meta tensor, whose fake
+implementation gives the outputs' shapes and dtypes alone, so that a
+trace on meta tensors (``launch/dryrun.py``) records the kernel as one
+op of its own and touches no pointer, and any tensor under a dispatch
+mode (``launch/trace_analysis.py``'s tally, ``make_fx``). The op's CPU
+kernel is the plain version; the wrappers run the plain versions for
+CPU tensors themselves.
+
 ``launches`` counts kernel launches executed. A CUDA graph replay runs
 no Python, so the step runner (``launch/graphs.py``) captures inside
 :func:`recording_launches`, which records the capture's launches apart,
@@ -26,6 +39,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,6 +49,7 @@ from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -133,6 +148,40 @@ class Kernel:
 
 
 KERNELS: Dict[str, Kernel] = {}
+OP_NAMESPACE = "repro_torch"
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its kernel's branch for ``t``: a CUDA
+    tensor, or a meta one (a trace that names no data, the dry-run's
+    where the build of torch has no CUDA: the custom op's fake
+    implementation answers it)."""
+    return t.is_cuda or t.is_meta
+
+
+def kernel_op(name: str, fake, cpu):
+    """Decorator: the annotated function (the CUDA implementation: it
+    launches the kernel) becomes the custom op ``repro_torch::<name>`` (no
+    argument mutated), with ``fake`` (the same parameters) as its fake
+    implementation and ``cpu`` (the plain version, in the op's calling
+    convention) as its CPU kernel. Returns the entry: the implementation
+    itself for a CUDA tensor outside any dispatch mode, the op otherwise
+    (module docstring)."""
+    def wrap(impl):
+        op = torch.library.custom_op(f"{OP_NAMESPACE}::{name}", impl,
+                                     mutates_args=(), device_types="cuda")
+        op.register_fake(fake)
+        op.register_kernel("cpu", cpu)
+
+        @functools.wraps(impl)
+        def entry(*args):
+            if args[0].is_cuda and _get_current_dispatch_mode() is None:
+                return impl(*args)
+            return op(*args)
+
+        entry.op = op
+        return entry
+    return wrap
 
 
 def register(kernel: Kernel) -> Kernel:

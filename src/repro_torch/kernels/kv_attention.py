@@ -42,6 +42,17 @@ the window spans (``csrc/kv_attention.cu``); its calls and the hd-256
 instance (paligemma-3b) count apart (``kv_attention_contiguous_window``,
 ``kv_attention_contiguous_hd256``).
 
+``kv4_decode_attention_partial`` (row 7p) is the contiguous decode over
+a SLICE of the cache whose first token is global position ``start``
+(the ``--legacy`` decode on a mesh whose cache is cut along its
+positions): it returns the attention over the slice's live keys in f32
+and their log-sum-exp, -inf for a query with none, and the slices merge
+by ``kernels.ref.merge_partials`` (``models/model.py`` all-reduces
+the max and the weighted sums). On the card it is the contiguous
+kernel's instance with the slice's first position and an lse output
+(``kv4_decode_partial_launch``), counted apart; its plain version is
+``kv4_decode_attention_partial_ref``.
+
 On the card the kernels take a head dim in ``HEAD_DIMS`` (one template
 instance each; 256 keeps its cp.async rings in dynamic shared memory), pages of any size (16, the engine's default, has its own
 compile-time instance; the kernel walks a page in tiles of 16 token
@@ -55,12 +66,14 @@ tensor goes to the plain version
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (kv4_decode_attention_ref,
+from repro_torch.kernels.ref import (kv4_decode_attention_partial_ref,
+                                     kv4_decode_attention_ref,
                                      kv4_paged_decode_attention_ref,
                                      kv4_paged_verify_attention_ref,
                                      kv_tiered_paged_decode_attention_ref)
@@ -89,6 +102,11 @@ CONTIGUOUS_WINDOW_KERNEL = _build.register(_build.Kernel(
 CONTIGUOUS_HD256_KERNEL = _build.register(_build.Kernel(
     "kv_attention.cu", "kv4_decode_launch", _CONTIGUOUS_ARGS,
     name="kv_attention_contiguous_hd256"))
+# row 7p: the contiguous kernel on a slice of the cache, its own entry
+PARTIAL_KERNEL = _build.register(_build.Kernel(
+    "kv_attention.cu", "kv4_decode_partial_launch",
+    [_build.P, _build.I] + [_build.P] * 7 + [_build.I] * 9 + [_build.P],
+    name="kv_attention_partial"))
 
 # The kernel's compile-time shape (``csrc/kv_attention.cu``): the head
 # dims it is instantiated for, token rows a tile (the page size of its
@@ -190,6 +208,157 @@ def _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
         raise ValueError(f"packed head dim {hdp} != hd/2 for hd={hd}")
 
 
+def _like_q(q: torch.Tensor, *args) -> torch.Tensor:
+    return torch.empty_like(q)
+
+
+def _paged_launch(kernel, q, pages, block_tables, pos, *dims) -> torch.Tensor:
+    """One launch of a paged entry: q, its page tensors in the entry's
+    order, the table, pos, then ``dims``; the output like q."""
+    hd, ps, n_s = q.shape[-1], pages[0].shape[1], block_tables.shape[1]
+    _check_card_shape(hd, (pages[0], pages[2]))
+    out = torch.empty_like(q)
+    if q.numel() and n_s:
+        kernel.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
+                      *(t.data_ptr() for t in pages),
+                      block_tables.data_ptr(), pos.data_ptr(),
+                      out.data_ptr(), *dims, hd, ps, n_s)
+    return out
+
+
+@_build.kernel_op("kv4_paged_decode_attention", _like_q,
+                  kv4_paged_decode_attention_ref)
+def DECODE_OP(q: torch.Tensor, k_pages: torch.Tensor,
+              k_scale_pages: torch.Tensor, v_pages: torch.Tensor,
+              v_scale_pages: torch.Tensor, block_tables: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+    b, kvh, g, _ = q.shape
+    return _paged_launch(KERNEL, q, (k_pages, k_scale_pages, v_pages,
+                                     v_scale_pages), block_tables, pos,
+                         b, kvh, g)
+
+
+@_build.kernel_op("kv4_paged_verify_attention", _like_q,
+                  kv4_paged_verify_attention_ref)
+def VERIFY_OP(q: torch.Tensor, k_pages: torch.Tensor,
+              k_scale_pages: torch.Tensor, v_pages: torch.Tensor,
+              v_scale_pages: torch.Tensor, block_tables: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+    b, t, kvh, g, _ = q.shape
+    return _paged_launch(VERIFY_KERNEL, q, (k_pages, k_scale_pages, v_pages,
+                                            v_scale_pages), block_tables,
+                         pos, b, t, kvh, g)
+
+
+def _tiered_fake(q: torch.Tensor, k_pages: torch.Tensor,
+                 k_scale_pages: torch.Tensor, v_pages: torch.Tensor,
+                 v_scale_pages: torch.Tensor, k2_pages: torch.Tensor,
+                 k2_scale_pages: torch.Tensor, v2_pages: torch.Tensor,
+                 v2_scale_pages: torch.Tensor, block_tables: torch.Tensor,
+                 tier_tables: torch.Tensor, pos: torch.Tensor
+                 ) -> torch.Tensor:
+    return torch.empty_like(q)
+
+
+@_build.kernel_op("kv_tiered_paged_decode_attention", _tiered_fake,
+                  kv_tiered_paged_decode_attention_ref)
+def TIERED_OP(q: torch.Tensor, k_pages: torch.Tensor,
+              k_scale_pages: torch.Tensor, v_pages: torch.Tensor,
+              v_scale_pages: torch.Tensor, k2_pages: torch.Tensor,
+              k2_scale_pages: torch.Tensor, v2_pages: torch.Tensor,
+              v2_scale_pages: torch.Tensor, block_tables: torch.Tensor,
+              tier_tables: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    b, kvh, g, hd = q.shape
+    ps, n_s = k_pages.shape[1], block_tables.shape[1]
+    _check_card_shape(hd, (k_pages, v_pages, k2_pages, v2_pages))
+    out = torch.empty_like(q)
+    if b and kvh and n_s:
+        TIERED_KERNEL.launch(
+            q.data_ptr(), int(q.dtype == torch.bfloat16),
+            *(t.data_ptr() for t in (k_pages, k_scale_pages, v_pages,
+                                     v_scale_pages, k2_pages,
+                                     k2_scale_pages, v2_pages,
+                                     v2_scale_pages, block_tables,
+                                     tier_tables, pos)),
+            out.data_ptr(), b, kvh, g, hd, ps, n_s)
+    return out
+
+
+def _contiguous_fake(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                     v_q: torch.Tensor, v_s: torch.Tensor, pos: torch.Tensor,
+                     bs: int, round_kv: bool, window: int) -> torch.Tensor:
+    return torch.empty_like(q)
+
+
+def _contiguous_plain(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                      v_q: torch.Tensor, v_s: torch.Tensor,
+                      pos: torch.Tensor, bs: int, round_kv: bool,
+                      window: int) -> torch.Tensor:
+    return kv4_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos,
+                                    round_kv=round_kv, window=window)
+
+
+@_build.kernel_op("kv4_decode_attention", _contiguous_fake,
+                  _contiguous_plain)
+def CONTIGUOUS_OP(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                  v_q: torch.Tensor, v_s: torch.Tensor, pos: torch.Tensor,
+                  bs: int, round_kv: bool, window: int) -> torch.Tensor:
+    b, kvh, g, hd = q.shape
+    n_s = k_q.shape[1] // bs
+    _check_card_shape(hd, (k_q, v_q))
+    out = torch.empty_like(q)
+    kernel = (CONTIGUOUS_WINDOW_KERNEL if window else
+              CONTIGUOUS_HD256_KERNEL if hd == 256 else CONTIGUOUS_KERNEL)
+    if b and kvh and n_s:
+        kernel.launch(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
+            k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), b, kvh, g, hd, bs, n_s, int(round_kv),
+            int(window))
+    return out
+
+
+def _partial_outputs(q: torch.Tensor) -> List[torch.Tensor]:
+    return [torch.empty(q.shape, dtype=torch.float32, device=q.device),
+            torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)]
+
+
+def _partial_fake(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                  v_q: torch.Tensor, v_s: torch.Tensor, pos: torch.Tensor,
+                  start: int, round_kv: bool, window: int
+                  ) -> List[torch.Tensor]:
+    return _partial_outputs(q)
+
+
+def _partial_plain(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                   v_q: torch.Tensor, v_s: torch.Tensor, pos: torch.Tensor,
+                   start: int, round_kv: bool, window: int
+                   ) -> List[torch.Tensor]:
+    return list(kv4_decode_attention_partial_ref(
+        q, k_q, k_s, v_q, v_s, pos, start=start, round_kv=round_kv,
+        window=window))
+
+
+@_build.kernel_op("kv4_decode_attention_partial", _partial_fake,
+                  _partial_plain)
+def PARTIAL_OP(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+               v_q: torch.Tensor, v_s: torch.Tensor, pos: torch.Tensor,
+               start: int, round_kv: bool, window: int
+               ) -> List[torch.Tensor]:
+    b, kvh, g, hd = q.shape
+    s = k_q.shape[1]
+    bs = math.gcd(s, CONTIGUOUS_BLOCK)
+    _check_card_shape(hd, (k_q, v_q))
+    out, lse = _partial_outputs(q)
+    if b and kvh and s:
+        PARTIAL_KERNEL.launch(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
+            k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, kvh, g, hd, bs, s // bs,
+            int(start), int(round_kv), int(window))
+    return [out, lse]
+
+
 def kv4_paged_decode_attention(
     q: torch.Tensor,              # (B, KVH, G, hd) f32 / bf16
     k_pages: torch.Tensor,        # (P, ps, KVH, hd/2) int8
@@ -200,7 +369,7 @@ def kv4_paged_decode_attention(
     pos: torch.Tensor,            # (B,) int32
 ) -> torch.Tensor:
     """(B, KVH, G, hd) attention output in q's dtype."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return kv4_paged_decode_attention_ref(
             q, k_pages, k_scale_pages, v_pages, v_scale_pages,
             block_tables, pos)
@@ -208,17 +377,8 @@ def kv4_paged_decode_attention(
         raise ValueError(f"q must be (B, KVH, G, hd), got {tuple(q.shape)}")
     _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
            pos)
-    b, kvh, g, hd = q.shape
-    ps, n_s = k_pages.shape[1], block_tables.shape[1]
-    _check_card_shape(hd, (k_pages, v_pages))
-    out = torch.empty_like(q)
-    if b and kvh and n_s:
-        KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
-                      k_pages.data_ptr(), k_scale_pages.data_ptr(),
-                      v_pages.data_ptr(), v_scale_pages.data_ptr(),
-                      block_tables.data_ptr(), pos.data_ptr(),
-                      out.data_ptr(), b, kvh, g, hd, ps, n_s)
-    return out
+    return DECODE_OP(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                     block_tables, pos)
 
 
 def kv4_paged_verify_attention(
@@ -233,7 +393,7 @@ def kv4_paged_verify_attention(
     """(B, T, KVH, G, hd) attention output in q's dtype; window token t
     attends to cache positions <= pos + t (the caller has written the
     window's K/V into the pages first)."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return kv4_paged_verify_attention_ref(
             q, k_pages, k_scale_pages, v_pages, v_scale_pages,
             block_tables, pos)
@@ -242,17 +402,8 @@ def kv4_paged_verify_attention(
                          f"{tuple(q.shape)}")
     _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
            pos)
-    b, t, kvh, g, hd = q.shape
-    ps, n_s = k_pages.shape[1], block_tables.shape[1]
-    _check_card_shape(hd, (k_pages, v_pages))
-    out = torch.empty_like(q)
-    if b and t and kvh and n_s:
-        VERIFY_KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
-                             k_pages.data_ptr(), k_scale_pages.data_ptr(),
-                             v_pages.data_ptr(), v_scale_pages.data_ptr(),
-                             block_tables.data_ptr(), pos.data_ptr(),
-                             out.data_ptr(), b, t, kvh, g, hd, ps, n_s)
-    return out
+    return VERIFY_OP(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+                     block_tables, pos)
 
 
 def kv_tiered_paged_decode_attention(
@@ -274,22 +425,14 @@ def kv_tiered_paged_decode_attention(
     args = (q, k_pages, k_scale_pages, v_pages, v_scale_pages, k2_pages,
             k2_scale_pages, v2_pages, v2_scale_pages, block_tables,
             tier_tables, pos)
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return kv_tiered_paged_decode_attention_ref(*args)
     if q.ndim != 4:
         raise ValueError(f"q must be (B, KVH, G, hd), got {tuple(q.shape)}")
     _check(q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
            pos, kv2=(k2_pages, k2_scale_pages, v2_pages, v2_scale_pages,
                      tier_tables))
-    b, kvh, g, hd = q.shape
-    ps, n_s = k_pages.shape[1], block_tables.shape[1]
-    _check_card_shape(hd, (k_pages, v_pages, k2_pages, v2_pages))
-    out = torch.empty_like(q)
-    if b and kvh and n_s:
-        TIERED_KERNEL.launch(q.data_ptr(), int(q.dtype == torch.bfloat16),
-                             *(t.data_ptr() for t in args[1:]),
-                             out.data_ptr(), b, kvh, g, hd, ps, n_s)
-    return out
+    return TIERED_OP(*args)
 
 
 def kv4_decode_attention(
@@ -312,7 +455,7 @@ def kv4_decode_attention(
     reads them in f32, the Pallas kernel's contract, and is bit-exact
     with the paged kernel. A window reads only the blocks it spans;
     one that does not bind (window >= pos + 1) gives window 0's bits."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return kv4_decode_attention_ref(q, k_q, k_s, v_q, v_s, pos,
                                         round_kv=round_kv, window=window)
     if q.ndim != 4 or k_q.ndim != 4:
@@ -339,15 +482,63 @@ def kv4_decode_attention(
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    _check_card_shape(hd, (k_q, v_q))
-    n_s = s // bs
-    out = torch.empty_like(q)
-    kernel = (CONTIGUOUS_WINDOW_KERNEL if window else
-              CONTIGUOUS_HD256_KERNEL if hd == 256 else CONTIGUOUS_KERNEL)
-    if b and kvh and n_s:
-        kernel.launch(
-            q.data_ptr(), int(q.dtype == torch.bfloat16), k_q.data_ptr(),
-            k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, kvh, g, hd, bs, n_s, int(round_kv),
-            int(window))
-    return out
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes hd in {HEAD_DIMS}, "
+                         f"got hd={hd}")
+    return CONTIGUOUS_OP(q, k_q, k_s, v_q, v_s, pos, bs, round_kv, window)
+
+
+def kv4_decode_attention_partial(
+    q: torch.Tensor,        # (B, KVH, G, hd) f32 / bf16
+    k_q: torch.Tensor,      # (B, S, KVH, hd/2) int8: positions start..
+    k_s: torch.Tensor,      # (B, S, KVH) f32
+    v_q: torch.Tensor,      # (B, S, KVH, hd/2) int8
+    v_s: torch.Tensor,      # (B, S, KVH) f32
+    pos: torch.Tensor,      # (B,) int32, global
+    *,
+    start: int = 0,
+    round_kv: bool = False,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row 7p: decode attention over a slice of the contiguous cache
+    whose first token is global position ``start`` (the rank's slice of
+    a cache cut along its positions), ``pos`` and ``window`` in global
+    positions. Returns (the attention over the slice's live keys, f32
+    (B, KVH, G, hd); the log-sum-exp of their scaled scores, f32 (B, KVH,
+    G)); a query with no live key in the slice gets 0 and -inf. The
+    slices' results merge by ``kernels.ref.merge_partials`` (the mesh
+    decode: one MAX and one SUM all-reduce). The contiguous kernel's
+    instances, in blocks of the largest divisor of S it shares with
+    ``CONTIGUOUS_BLOCK``."""
+    if not _build.on_card(q):
+        return kv4_decode_attention_partial_ref(
+            q, k_q, k_s, v_q, v_s, pos, start=start, round_kv=round_kv,
+            window=window)
+    if q.ndim != 4 or k_q.ndim != 4:
+        raise ValueError(f"q must be (B, KVH, G, hd) and k_q (B, S, KVH, "
+                         f"hd/2), got {tuple(q.shape)}, {tuple(k_q.shape)}")
+    b, kvh, g, hd = q.shape
+    s = k_q.shape[1]
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
+    for name, t, shape, dt in (
+            ("k_q", k_q, (b, s, kvh, hd // 2), torch.int8),
+            ("v_q", v_q, (b, s, kvh, hd // 2), torch.int8),
+            ("k_s", k_s, (b, s, kvh), torch.float32),
+            ("v_s", v_s, (b, s, kvh), torch.float32),
+            ("pos", pos, (b,), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != q.device:
+            raise ValueError(f"{name}: expected {dt} {shape} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes hd in {HEAD_DIMS}, "
+                         f"got hd={hd}")
+    out, lse = PARTIAL_OP(q, k_q, k_s, v_q, v_s, pos, int(start),
+                          bool(round_kv), int(window))
+    return out, lse

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import plain_for, quant_matmul_ref
-from repro_torch.kernels.sparqle_matmul import _BDRAFT, _DRAFT, _operands
+from repro_torch.kernels.sparqle_matmul import (_BDRAFT, _DRAFT, _launch_args,
+                                                _operands, _result)
 
 KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "quant_matmul_launch", _DRAFT,
@@ -36,6 +37,30 @@ KERNEL = _build.register(_build.Kernel(
 BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "quant_matmul_batched_launch", _BDRAFT,
     name="quant_matmul_batched"))
+
+
+def _fake(q: torch.Tensor, w_packed: torch.Tensor, act_scale: torch.Tensor,
+          w_scale: torch.Tensor, acc_out: bool) -> torch.Tensor:
+    return _result(q, w_packed, q.shape[-2], acc_out)
+
+
+def _plain(q: torch.Tensor, w_packed: torch.Tensor, act_scale: torch.Tensor,
+           w_scale: torch.Tensor, acc_out: bool) -> torch.Tensor:
+    return plain_for(quant_matmul_ref, w_packed.ndim == 3)(
+        q, w_packed, act_scale, w_scale, acc_out=acc_out)
+
+
+@_build.kernel_op("quant_matmul", _fake, _plain)
+def QUANT_MATMUL_OP(q: torch.Tensor, w_packed: torch.Tensor,
+                    act_scale: torch.Tensor, w_scale: torch.Tensor,
+                    acc_out: bool) -> torch.Tensor:
+    """The dense entry: operands checked by the wrapper."""
+    res, tail = _launch_args(q, w_packed, act_scale, w_scale, q.shape[-2],
+                             acc_out)
+    if tail is not None:
+        (KERNEL if w_packed.ndim == 2 else BATCHED_KERNEL).launch(
+            q.data_ptr(), w_packed.data_ptr(), *tail)
+    return res
 
 
 def quant_matmul(
@@ -50,16 +75,13 @@ def quant_matmul(
     with a leading expert axis on every operand (q (E, M, K), w_packed
     (E, K/2, N), ...) the batched instance's one launch computes all E.
     Raises for a CUDA tensor with K > ``MAX_K``."""
-    if not q.is_cuda:
+    if not _build.on_card(q):
         return plain_for(quant_matmul_ref, w_packed.ndim == 3)(
             q, w_packed, act_scale, w_scale, acc_out=acc_out)
     m, k = q.shape[-2:]
     if k != 2 * w_packed.shape[-2]:
         raise ValueError(f"K mismatch: activation {tuple(q.shape)}, packed "
                          f"weight {tuple(w_packed.shape)}")
-    res, tail = _operands(q, None, None, w_packed, act_scale, w_scale,
-                          (m, k), acc_out=acc_out, msb_skip=True, plane="q")
-    if tail is not None:
-        (KERNEL if w_packed.ndim == 2 else BATCHED_KERNEL).launch(
-            q.data_ptr(), w_packed.data_ptr(), *tail)
-    return res
+    _operands(q, None, None, w_packed, act_scale, w_scale, (m, k),
+              msb_skip=True, plane="q")
+    return QUANT_MATMUL_OP(q, w_packed, act_scale, w_scale, acc_out)

@@ -276,6 +276,56 @@ def kv4_decode_attention_ref(
     return decode_attention_f32(q, k, v, pos, window)
 
 
+def kv4_decode_attention_partial_ref(
+    q: torch.Tensor,        # (B, KVH, G, hd)
+    k_q: torch.Tensor,      # (B, S, KVH, hd/2) int8: positions start..
+    k_s: torch.Tensor,      # (B, S, KVH) f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    pos: torch.Tensor,      # (B,) int32, global
+    start: int = 0,
+    round_kv: bool = False,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode attention over a slice of the contiguous cache whose first
+    token is global position ``start``: keys start + j <= pos and, with a
+    ``window``, pos - (start + j) < window. Returns the attention over
+    those keys in f32 (B, KVH, G, hd) and the log-sum-exp of their scaled
+    scores (B, KVH, G) f32; a query with no key in the slice gets 0 and
+    -inf (:func:`merge_partials` then drops it)."""
+    k = unpack_kv4(k_q).float() * k_s[..., None]
+    v = unpack_kv4(v_q).float() * v_s[..., None]
+    if round_kv and q.dtype == torch.bfloat16:
+        k, v = k.to(q.dtype).float(), v.to(q.dtype).float()
+    hd = q.shape[-1]
+    s = torch.einsum("bhgd,bjhd->bhgj", q.float(), k) * hd ** -0.5
+    j = start + torch.arange(k.shape[1], device=q.device)[None, :]
+    p_ = pos.long()[:, None]
+    allow = (j <= p_)
+    if window:
+        allow = allow & ((p_ - j) < window)
+    allow = allow[:, None, None, :]
+    s = torch.where(allow, s, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    live = torch.isfinite(lse)
+    p = torch.where(allow, torch.exp(s - torch.where(
+        live, lse, 0.0)[..., None]), 0.0)
+    out = torch.einsum("bhgj,bjhd->bhgd", p, v)
+    return out, lse
+
+
+def merge_partials(outs, lses) -> torch.Tensor:
+    """The attention over every slice from each slice's (out, lse) of
+    :func:`kv4_decode_attention_partial_ref` (in f32): the max of the
+    lse, then the sum of exp(lse - max) * out over that of exp(lse -
+    max), the merge the mesh decode all-reduces."""
+    lse = torch.stack(lses)
+    mx = lse.amax(dim=0)
+    w = torch.exp(lse - mx)
+    num = sum(wi[..., None] * o for wi, o in zip(w, outs))
+    return num / w.sum(dim=0)[..., None]
+
+
 def _gather_pages(pages, scales, tables, unpack) -> torch.Tensor:
     """The pages ``tables`` (B, Pmax) names, dequantized in f32:
     (B, Pmax * ps, KVH, hd)."""

@@ -49,7 +49,7 @@ plain version ``kernels.ref.sparqle_encode_ref`` /
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -210,6 +210,89 @@ def _launch(kernel, batched_kernel, x, *args) -> None:
         kernel.launch(*head, *args)
 
 
+def _entry_op(name: str, kernel, batched_kernel, form: str, fused: bool,
+              plain):
+    """The custom op of one encoder entry (``_build.kernel_op``): x,
+    scale (None for a fused entry), mask, l, h, with_pbm -> its outputs
+    in the order the C entry takes their pointers (``form``: 'encode',
+    'quantize' or 'packed'), the fused entries' scale last. An encode
+    without the PBM returns an empty plane in its place."""
+
+    def outputs(x, with_pbm):
+        lead, (m, k) = tuple(x.shape[:-2]), tuple(x.shape[-2:])
+
+        def new(shape, dt):
+            return torch.empty(lead + shape, dtype=dt, device=x.device)
+
+        pop = new((_cdiv(m, TILE_M), _cdiv(k, TILE_K)), torch.int32)
+        if form == "quantize":
+            outs = [new((m, k), torch.int8)]
+        elif form == "packed":
+            kp = pad_k(k)
+            outs = [new((m, kp // 2), torch.int8),
+                    new((m, kp // 2), torch.int8),
+                    new((m, kp // PBM_WORD_BITS), torch.int32), pop]
+        else:
+            outs = [new((m, k), torch.int8), new((m, k), torch.int8),
+                    new((m, k), torch.bool) if with_pbm else
+                    torch.empty(0, dtype=torch.bool, device=x.device), pop]
+        if fused:
+            outs.append(new((m, 1), torch.float32))
+        return outs
+
+    def fake(x: torch.Tensor, scale: Optional[torch.Tensor],
+             col_mask: Optional[torch.Tensor], l: int, h: int,
+             with_pbm: bool) -> List[torch.Tensor]:
+        return outputs(x, with_pbm)
+
+    def cpu(x: torch.Tensor, scale: Optional[torch.Tensor],
+            col_mask: Optional[torch.Tensor], l: int, h: int,
+            with_pbm: bool) -> List[torch.Tensor]:
+        args = (x, col_mask, l, h) if fused else (x, scale, col_mask, l, h)
+        outs = plain_for(plain, x.ndim == 3)(*args)
+        outs = [outs] if isinstance(outs, torch.Tensor) else list(outs)
+        if form == "encode" and not with_pbm:
+            outs[2] = torch.empty(0, dtype=torch.bool, device=x.device)
+        return outs
+
+    @_build.kernel_op(name, fake, cpu)
+    def op(x: torch.Tensor, scale: Optional[torch.Tensor],
+           col_mask: Optional[torch.Tensor], l: int, h: int,
+           with_pbm: bool) -> List[torch.Tensor]:
+        outs = outputs(x, with_pbm)
+        planes = outs[:-1] if fused else outs
+        m, k = x.shape[-2:]
+        extra = (m, k, pad_k(k)) if form == "packed" else (m, k)
+        _launch(kernel, batched_kernel, x,
+                (outs[-1] if fused else scale).data_ptr(),
+                None if col_mask is None else col_mask.data_ptr(), l, h,
+                *(t.data_ptr() if t.numel() else None for t in planes),
+                *extra)
+        return outs
+
+    return op
+
+
+ENCODE_OP = _entry_op("sparqle_encode", KERNEL, BATCHED_KERNEL, "encode",
+                      False, sparqle_encode_ref)
+QUANTIZE_OP = _entry_op("sparqle_quantize", QUANTIZE_KERNEL,
+                        QUANTIZE_BATCHED_KERNEL, "quantize", False,
+                        sparqle_quantize_ref)
+PACKED_OP = _entry_op("sparqle_encode_packed", PACKED_KERNEL,
+                      PACKED_BATCHED_KERNEL, "packed", False,
+                      sparqle_encode_packed_ref)
+FUSED_OP = _entry_op("sparqle_encode_fused", FUSED_KERNEL,
+                     FUSED_BATCHED_KERNEL, "encode", True,
+                     sparqle_encode_fused_ref)
+QUANTIZE_FUSED_OP = _entry_op("sparqle_quantize_fused",
+                              QUANTIZE_FUSED_KERNEL,
+                              QUANTIZE_FUSED_BATCHED_KERNEL, "quantize",
+                              True, sparqle_quantize_fused_ref)
+PACKED_FUSED_OP = _entry_op("sparqle_encode_packed_fused",
+                            PACKED_FUSED_KERNEL, PACKED_FUSED_BATCHED_KERNEL,
+                            "packed", True, sparqle_encode_packed_fused_ref)
+
+
 def sparqle_encode(
     x: torch.Tensor,                # (M, K) or (E, M, K) f32 / bf16
     scale: torch.Tensor,            # (M, 1) or (E, M, 1) f32
@@ -223,23 +306,14 @@ def sparqle_encode(
     """Returns (lsb4 int8, msb4 int8, pbm bool, tile_pop int32) with
     tile_pop (ceil(M/TILE_M), ceil(K/TILE_K)), each with x's leading
     expert axis if it has one; pbm is None unless ``with_pbm``."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         lsb, msb, pbm, pop = plain_for(sparqle_encode_ref, x.ndim == 3)(
             x, scale, col_mask, l, h)
         return lsb, msb, pbm if with_pbm else None, pop
-    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     scale, col_mask = _check(x, scale, col_mask)
-    lsb = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
-    msb = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
-    pbm = (torch.empty(lead + (m, k), dtype=torch.bool, device=x.device)
-           if with_pbm else None)
-    pop = torch.empty(lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
-                      dtype=torch.int32, device=x.device)
-    _launch(KERNEL, BATCHED_KERNEL, x, scale.data_ptr(),
-            None if col_mask is None else col_mask.data_ptr(), int(l),
-            int(h), lsb.data_ptr(), msb.data_ptr(),
-            pbm.data_ptr() if with_pbm else None, pop.data_ptr(), m, k)
-    return lsb, msb, pbm, pop
+    lsb, msb, pbm, pop = ENCODE_OP(x, scale, col_mask, int(l), int(h),
+                                   with_pbm)
+    return lsb, msb, pbm if with_pbm else None, pop
 
 
 def sparqle_quantize(
@@ -250,16 +324,11 @@ def sparqle_quantize(
     h: int = 0,
 ) -> torch.Tensor:
     """The clipped int8 activation q (M, K) (or (E, M, K))."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return plain_for(sparqle_quantize_ref, x.ndim == 3)(
             x, scale, col_mask, l, h)
-    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     scale, col_mask = _check(x, scale, col_mask)
-    q = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
-    _launch(QUANTIZE_KERNEL, QUANTIZE_BATCHED_KERNEL, x, scale.data_ptr(),
-            None if col_mask is None else col_mask.data_ptr(), int(l),
-            int(h), q.data_ptr(), m, k)
-    return q
+    return QUANTIZE_OP(x, scale, col_mask, int(l), int(h), False)[0]
 
 
 def sparqle_encode_packed(
@@ -273,23 +342,11 @@ def sparqle_encode_packed(
     PBM words (M, Kp/32) int32, tile_pop (ceil(M/TILE_M),
     ceil(K/TILE_K)) int32) with Kp = ``pad_k(K)``, each with x's leading
     expert axis if it has one."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return plain_for(sparqle_encode_packed_ref, x.ndim == 3)(
             x, scale, col_mask, l, h)
-    lead, (m, k) = x.shape[:-2], x.shape[-2:]
-    kp = pad_k(k)
     scale, col_mask = _check(x, scale, col_mask)
-    lsb = torch.empty(lead + (m, kp // 2), dtype=torch.int8, device=x.device)
-    msb = torch.empty(lead + (m, kp // 2), dtype=torch.int8, device=x.device)
-    pbm = torch.empty(lead + (m, kp // PBM_WORD_BITS), dtype=torch.int32,
-                      device=x.device)
-    pop = torch.empty(lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
-                      dtype=torch.int32, device=x.device)
-    _launch(PACKED_KERNEL, PACKED_BATCHED_KERNEL, x, scale.data_ptr(),
-            None if col_mask is None else col_mask.data_ptr(), int(l),
-            int(h), lsb.data_ptr(), msb.data_ptr(), pbm.data_ptr(),
-            pop.data_ptr(), m, k, kp)
-    return lsb, msb, pbm, pop
+    return tuple(PACKED_OP(x, scale, col_mask, int(l), int(h), False))
 
 
 def sparqle_encode_fused(
@@ -304,24 +361,14 @@ def sparqle_encode_fused(
     """:func:`sparqle_encode` with the per-token scale computed in the
     same launch: returns (lsb4, msb4, pbm or None, tile_pop, scale (M, 1)
     f32 = ``activation_scale(x).float()``)."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         lsb, msb, pbm, pop, scale = plain_for(sparqle_encode_fused_ref,
                                               x.ndim == 3)(x, col_mask, l, h)
         return lsb, msb, pbm if with_pbm else None, pop, scale
-    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     col_mask = _check_fused(x, col_mask)
-    scale = torch.empty(lead + (m, 1), dtype=torch.float32, device=x.device)
-    lsb = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
-    msb = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
-    pbm = (torch.empty(lead + (m, k), dtype=torch.bool, device=x.device)
-           if with_pbm else None)
-    pop = torch.empty(lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
-                      dtype=torch.int32, device=x.device)
-    _launch(FUSED_KERNEL, FUSED_BATCHED_KERNEL, x, scale.data_ptr(),
-            None if col_mask is None else col_mask.data_ptr(), int(l),
-            int(h), lsb.data_ptr(), msb.data_ptr(),
-            pbm.data_ptr() if with_pbm else None, pop.data_ptr(), m, k)
-    return lsb, msb, pbm, pop, scale
+    lsb, msb, pbm, pop, scale = FUSED_OP(x, None, col_mask, int(l), int(h),
+                                         with_pbm)
+    return lsb, msb, pbm if with_pbm else None, pop, scale
 
 
 def sparqle_quantize_fused(
@@ -332,18 +379,12 @@ def sparqle_quantize_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`sparqle_quantize` with the scale computed in the same
     launch: returns (q int8 (M, K), scale (M, 1) f32)."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return plain_for(sparqle_quantize_fused_ref, x.ndim == 3)(
             x, col_mask, l, h)
-    lead, (m, k) = x.shape[:-2], x.shape[-2:]
     col_mask = _check_fused(x, col_mask)
-    scale = torch.empty(lead + (m, 1), dtype=torch.float32, device=x.device)
-    q = torch.empty(lead + (m, k), dtype=torch.int8, device=x.device)
-    _launch(QUANTIZE_FUSED_KERNEL, QUANTIZE_FUSED_BATCHED_KERNEL, x,
-            scale.data_ptr(),
-            None if col_mask is None else col_mask.data_ptr(), int(l),
-            int(h), q.data_ptr(), m, k)
-    return q, scale
+    return tuple(QUANTIZE_FUSED_OP(x, None, col_mask, int(l), int(h),
+                                   False))
 
 
 def sparqle_encode_packed_fused(
@@ -356,22 +397,8 @@ def sparqle_encode_packed_fused(
     """:func:`sparqle_encode_packed` with the scale computed in the same
     launch: returns (lsb4 packed, msb4 packed, PBM words, tile_pop,
     scale (M, 1) f32)."""
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return plain_for(sparqle_encode_packed_fused_ref,
                          x.ndim == 3)(x, col_mask, l, h)
-    lead, (m, k) = x.shape[:-2], x.shape[-2:]
-    kp = pad_k(k)
     col_mask = _check_fused(x, col_mask)
-    scale = torch.empty(lead + (m, 1), dtype=torch.float32, device=x.device)
-    lsb = torch.empty(lead + (m, kp // 2), dtype=torch.int8, device=x.device)
-    msb = torch.empty(lead + (m, kp // 2), dtype=torch.int8, device=x.device)
-    pbm = torch.empty(lead + (m, kp // PBM_WORD_BITS), dtype=torch.int32,
-                      device=x.device)
-    pop = torch.empty(lead + (_cdiv(m, TILE_M), _cdiv(k, TILE_K)),
-                      dtype=torch.int32, device=x.device)
-    _launch(PACKED_FUSED_KERNEL, PACKED_FUSED_BATCHED_KERNEL, x,
-            scale.data_ptr(),
-            None if col_mask is None else col_mask.data_ptr(), int(l),
-            int(h), lsb.data_ptr(), msb.data_ptr(), pbm.data_ptr(),
-            pop.data_ptr(), m, k, kp)
-    return lsb, msb, pbm, pop, scale
+    return tuple(PACKED_FUSED_OP(x, None, col_mask, int(l), int(h), False))

@@ -206,6 +206,81 @@ def _counters(dev: torch.device) -> torch.Tensor:
     return buf
 
 
+def _result(lsb4, w_packed, m, acc_out: bool) -> torch.Tensor:
+    """The (lead..., M, N) output: int32 ``acc`` or the f32 drain."""
+    return torch.empty(tuple(w_packed.shape[:-2]) + (m, w_packed.shape[-1]),
+                       dtype=torch.int32 if acc_out else torch.float32,
+                       device=lsb4.device)
+
+
+def _matmul_fake(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
+                 tile_pop: Optional[torch.Tensor], w_packed: torch.Tensor,
+                 act_scale: torch.Tensor, w_scale: torch.Tensor,
+                 acc_out: bool, msb_skip: bool) -> torch.Tensor:
+    return _result(lsb4, w_packed, lsb4.shape[-2], acc_out)
+
+
+def _plain_op(ref):
+    """A matmul entry's plain version in the op's calling convention."""
+    def cpu(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
+            tile_pop: Optional[torch.Tensor], w_packed: torch.Tensor,
+            act_scale: torch.Tensor, w_scale: torch.Tensor, acc_out: bool,
+            msb_skip: bool) -> torch.Tensor:
+        return plain_for(ref, w_packed.ndim == 3)(
+            lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
+            acc_out=acc_out, msb_skip=msb_skip)
+    return cpu
+
+
+@_build.kernel_op("sparqle_matmul", _matmul_fake,
+                  _plain_op(sparqle_matmul_ref))
+def MATMUL_OP(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
+              tile_pop: Optional[torch.Tensor], w_packed: torch.Tensor,
+              act_scale: torch.Tensor, w_scale: torch.Tensor,
+              acc_out: bool, msb_skip: bool) -> torch.Tensor:
+    """The unpacked entry (its draft with ``msb_skip``): operands checked
+    by the wrapper."""
+    m = lsb4.shape[-2]
+    res, tail = _launch_args(lsb4, w_packed, act_scale, w_scale, m,
+                             acc_out)
+    if tail is not None:
+        one = w_packed.ndim == 2
+        if msb_skip:
+            (DRAFT_KERNEL if one else DRAFT_BATCHED_KERNEL).launch(
+                lsb4.data_ptr(), w_packed.data_ptr(), *tail)
+        else:
+            (KERNEL if one else BATCHED_KERNEL).launch(
+                lsb4.data_ptr(), msb4.data_ptr(), tile_pop.data_ptr(),
+                w_packed.data_ptr(), *tail)
+    return res
+
+
+@_build.kernel_op("sparqle_matmul_packed", _matmul_fake,
+                  _plain_op(sparqle_matmul_packed_ref))
+def PACKED_OP(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
+              tile_pop: Optional[torch.Tensor], w_packed: torch.Tensor,
+              act_scale: torch.Tensor, w_scale: torch.Tensor,
+              acc_out: bool, msb_skip: bool) -> torch.Tensor:
+    """The wire-layout entry (its draft with ``msb_skip``)."""
+    m = lsb4.shape[-2]
+    ldp = pad_k(2 * w_packed.shape[-2]) // 2
+    res, tail = _launch_args(lsb4, w_packed, act_scale, w_scale, m,
+                             acc_out)
+    if tail is not None:
+        # the entry takes ldp between K (E when batched) and the K tiles
+        # a split
+        tail = tail[:-1] + (ldp, tail[-1])
+        one = w_packed.ndim == 2
+        if msb_skip:
+            (PACKED_DRAFT_KERNEL if one else PACKED_DRAFT_BATCHED_KERNEL
+             ).launch(lsb4.data_ptr(), w_packed.data_ptr(), *tail)
+        else:
+            (PACKED_KERNEL if one else PACKED_BATCHED_KERNEL).launch(
+                lsb4.data_ptr(), msb4.data_ptr(), tile_pop.data_ptr(),
+                w_packed.data_ptr(), *tail)
+    return res
+
+
 def sparqle_matmul(
     lsb4: torch.Tensor,                 # (M, K) int8 in [0, 15]
     msb4: Optional[torch.Tensor],       # (M, K) int8 in [-8, 7]
@@ -220,7 +295,7 @@ def sparqle_matmul(
     """(M, N) f32 ``acc * act_scale * w_scale``, or the int32 ``acc``.
     With ``msb_skip`` acc is the LSB pass alone and ``msb4``/``tile_pop``
     may be None (they are not read)."""
-    if not lsb4.is_cuda:
+    if not _build.on_card(lsb4):
         return plain_for(sparqle_matmul_ref, w_packed.ndim == 3)(
             lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
             acc_out=acc_out, msb_skip=msb_skip)
@@ -229,18 +304,11 @@ def sparqle_matmul(
     if k != 2 * k2:
         raise ValueError(f"K mismatch: planes {tuple(lsb4.shape)}, packed "
                          f"weight {tuple(w_packed.shape)}")
-    res, tail = _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
-                          (m, k), acc_out=acc_out, msb_skip=msb_skip)
-    if tail is not None:
-        one = w_packed.ndim == 2
-        if msb_skip:
-            (DRAFT_KERNEL if one else DRAFT_BATCHED_KERNEL).launch(
-                lsb4.data_ptr(), w_packed.data_ptr(), *tail)
-        else:
-            (KERNEL if one else BATCHED_KERNEL).launch(
-                lsb4.data_ptr(), msb4.data_ptr(), tile_pop.data_ptr(),
-                w_packed.data_ptr(), *tail)
-    return res
+    _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale, (m, k),
+              msb_skip=msb_skip)
+    return MATMUL_OP(lsb4, None if msb_skip else msb4,
+                     None if msb_skip else tile_pop, w_packed, act_scale,
+                     w_scale, acc_out, msb_skip)
 
 
 def sparqle_matmul_packed(
@@ -257,47 +325,31 @@ def sparqle_matmul_packed(
     """:func:`sparqle_matmul` on wire-layout planes (two nibbles per byte,
     K padded to a multiple of 32; K is the weight's). With ``msb_skip``
     the LSB4-only draft: ``msb4_packed``/``tile_pop`` may be None."""
-    if not lsb4_packed.is_cuda:
+    if not _build.on_card(lsb4_packed):
         return plain_for(sparqle_matmul_packed_ref,
                          w_packed.ndim == 3)(
             lsb4_packed, msb4_packed, tile_pop, w_packed, act_scale,
             w_scale, acc_out=acc_out, msb_skip=msb_skip)
     m = lsb4_packed.shape[-2]
-    k2, n = w_packed.shape[-2:]
-    ldp = pad_k(2 * k2) // 2
-    res, tail = _operands(lsb4_packed, msb4_packed, tile_pop, w_packed,
-                          act_scale, w_scale, (m, ldp), acc_out=acc_out,
-                          msb_skip=msb_skip)
-    if tail is not None:
-        # the entry takes ldp between K (E when batched) and the K tiles
-        # a split
-        tail = tail[:-1] + (ldp, tail[-1])
-        one = w_packed.ndim == 2
-        if msb_skip:
-            (PACKED_DRAFT_KERNEL if one else PACKED_DRAFT_BATCHED_KERNEL
-             ).launch(lsb4_packed.data_ptr(), w_packed.data_ptr(), *tail)
-        else:
-            (PACKED_KERNEL if one else PACKED_BATCHED_KERNEL).launch(
-                lsb4_packed.data_ptr(), msb4_packed.data_ptr(),
-                tile_pop.data_ptr(), w_packed.data_ptr(), *tail)
-    return res
+    ldp = pad_k(2 * w_packed.shape[-2]) // 2
+    _operands(lsb4_packed, msb4_packed, tile_pop, w_packed, act_scale,
+              w_scale, (m, ldp), msb_skip=msb_skip)
+    return PACKED_OP(lsb4_packed, None if msb_skip else msb4_packed,
+                     None if msb_skip else tile_pop, w_packed, act_scale,
+                     w_scale, acc_out, msb_skip)
 
 
 def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
-              plane_shape, *, acc_out: bool, msb_skip: bool,
-              plane: str = "lsb4"):
+              plane_shape, *, msb_skip: bool, plane: str = "lsb4") -> None:
     """Raise unless the operands are what the kernels take (planes of
     ``plane_shape``; ``plane`` names the first in errors: the dense
     wrapper passes its q there). A weight (E, K/2, N) makes it the
-    expert-batched form: every operand then carries the leading E axis.
-    Returns the result tensor and the entry's arguments after the weight
-    pointer (None when there is nothing to launch): (..., M, N, K,
-    [E,] K tiles a split)."""
+    expert-batched form: every operand then carries the leading E
+    axis."""
     if w_packed.ndim not in (2, 3):
         raise ValueError(f"w_packed must be (K/2, N) or (E, K/2, N), got "
                          f"{tuple(w_packed.shape)}")
     lead = tuple(w_packed.shape[:-2])
-    e = lead[0] if lead else 1
     m = plane_shape[0]
     k2, n = w_packed.shape[-2:]
     k = 2 * k2
@@ -322,9 +374,19 @@ def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    res = torch.empty(lead + (m, n),
-                      dtype=torch.int32 if acc_out else torch.float32,
-                      device=dev)
+
+
+def _launch_args(lsb4, w_packed, act_scale, w_scale, m: int,
+                 acc_out: bool):
+    """The result tensor and the entry's arguments after the weight
+    pointer (None when there is nothing to launch): (..., M, N, K,
+    [E,] K tiles a split)."""
+    lead = tuple(w_packed.shape[:-2])
+    e = lead[0] if lead else 1
+    k2, n = w_packed.shape[-2:]
+    k = 2 * k2
+    dev = lsb4.device
+    res = _result(lsb4, w_packed, m, acc_out)
     counters = _counters(dev)
     if not (m and n and k and e):
         return res, None

@@ -19,24 +19,32 @@ captured in a CUDA graph, so the engine runs its steps eagerly there and
 says so (``Engine.step_mode``). :func:`pick_backend` never switches
 backend on its own: asking for more ranks than cards without naming
 gloo raises.
+
+The production meshes (:func:`production_mesh`: 16x16, 2x16x16) are
+planned in one process as one rank of a fake world (:func:`fake_world`,
+the ``fake`` backend), whose groups :func:`serve_groups` builds over
+every set of (pod, data, model) axes, ranks laid out row-major.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import queue as queue_mod
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.distributed.sharding import MeshCoords
-from repro_torch.distributed.tp import TPContext
+from repro_torch.distributed.tp import MESH_AXES, TPContext
 
 AXES = ("data", "model")
 # a collective that waits longer than this fails the world
@@ -214,3 +222,79 @@ def spawn_world(fn: Callable, world: int, *args, backend: str = "gloo",
                     p.join()
             results.close()
     return [got[r] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# the production meshes, their groups, and a fake world of one rank
+# ---------------------------------------------------------------------------
+
+def production_mesh(multi_pod: bool = False) -> Dict[str, int]:
+    """The reference's production layouts: 16 x 16 (256 cards) or 2 x 16
+    x 16 (512, two pods)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def mesh_coords(layout: Dict[str, int], rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s coordinates, the ranks laid out row-major over
+    (pod, data, model)."""
+    out = {}
+    for a in reversed([a for a in MESH_AXES if a in layout]):
+        rank, out[a] = divmod(rank, layout[a])
+    return out
+
+
+def serve_groups(layout: Dict[str, int], mine_only: bool = False
+                 ) -> Dict[Tuple[str, ...], Any]:
+    """This rank's process group over every non-empty set of the mesh's
+    axes (the ranks that differ from it only there). Every rank creates
+    every group in one order, as a real backend asks; ``mine_only``
+    creates only this rank's (a fake world, whose groups need no other
+    rank)."""
+    axes = [a for a in MESH_AXES if a in layout]
+    world = math.prod(layout.values())
+    me = dist.get_rank()
+    coords = [mesh_coords(layout, r) for r in range(world)]
+    mine = {}
+    for n in range(1, len(axes) + 1):
+        for combo in itertools.combinations(axes, n):
+            rest = [a for a in axes if a not in combo]
+            parts: Dict[Tuple[int, ...], List[int]] = {}
+            for r, c in enumerate(coords):
+                parts.setdefault(tuple(c[a] for a in rest), []).append(r)
+            for key in sorted(parts):
+                ranks = parts[key]
+                if mine_only and me not in ranks:
+                    continue
+                g = dist.new_group(ranks)
+                if me in ranks:
+                    mine[combo] = g
+    return mine
+
+
+@dataclasses.dataclass(frozen=True)
+class World:
+    """A rank's view of a mesh world: the layout, its coordinates, its
+    groups (``serve_groups``)."""
+    layout: Dict[str, int]
+    coords: Dict[str, int]
+    groups: Dict[Tuple[str, ...], Any]
+
+
+@contextlib.contextmanager
+def fake_world(layout: Dict[str, int], rank: int = 0) -> Iterator[World]:
+    """Rank ``rank`` of a world of ``layout``'s size in this one process,
+    on the ``fake`` process-group backend (``FakeStore``): every
+    collective returns at once and moves nothing, on real or fake
+    tensors. Starts the world, builds this rank's groups, and tears the
+    world down after."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = math.prod(layout.values())
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield World(dict(layout), mesh_coords(layout, rank),
+                    serve_groups(layout, mine_only=True))
+    finally:
+        dist.destroy_process_group()

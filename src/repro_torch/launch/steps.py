@@ -31,6 +31,13 @@ whole (an SSD mixer's B/C columns), so replicated leaves stay bit-equal
 across ranks. The loss and metrics are all-reduced over the world, equal
 on every rank.
 
+``make_serve_prefill``/``make_serve_decode`` take ``mesh=`` (a
+``distributed.tp.ServeMesh``, :func:`serve_mesh`): the fixed-batch steps
+as one rank of a (pod, data, model) mesh runs them (``models/model.py``);
+:func:`serve_param_schema`, :func:`train_state_schema` and
+:func:`batch_specs` give the dry-run (``launch/dryrun.py``) its trees'
+and inputs' placements.
+
 The decode step takes a (B, Pmax) tier table too when the KV2 precision
 ladder is armed. All keep the JAX steps' static shapes — a (1, C) prefill
 chunk whose start and valid count are (1,) device tensors, a (B,) decode
@@ -68,7 +75,7 @@ from repro_torch.checkpoint import store
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (REPLICATED, Placement,
                                               TrainShards, train_placements)
-from repro_torch.distributed.tp import (TPContext, copy_to,
+from repro_torch.distributed.tp import (TPContext, copy_to, heads_divide,
                                         shard_model_config, slice_for_rank,
                                         tp_scope)
 from repro_torch.launch.mesh import MeshLayout, mesh_layout
@@ -285,20 +292,29 @@ _SSD_HEAD_KEYS = frozenset({"a_log", "d_skip", "dt_bias", "gn"})
 
 class TrainMesh:
     """A rank's mesh-training view: its :class:`MeshLayout`, the per-shard
-    config, and the :class:`TrainShards` of the param tree (the moments
+    config (the whole config where ``gather_heads`` lets the model ways
+    leave the heads undivided: every model rank then attends every head,
+    ``distributed/tp.py`` ``gather_heads``), and the :class:`TrainShards`
+    of the param tree (the moments
     share the params' placements, the step is replicated). Also what the
     restartable loop needs of a mesh (``distributed/fault.py``): the
     whole state gathered onto rank 0, a whole state cut to this rank,
     agreement on a flag, a barrier."""
 
-    def __init__(self, cfg: ModelConfig, mesh):
+    def __init__(self, cfg: ModelConfig, mesh, gather_heads: bool = False,
+                 rules=None):
         lay = mesh if isinstance(mesh, MeshLayout) else mesh_layout(mesh)
-        M.check_train_mesh(cfg, lay.model_ways)
+        M.check_train_mesh(cfg, lay.model_ways, gather_heads)
         self.cfg, self.layout = cfg, lay
-        self.lcfg = shard_model_config(cfg, lay.model_ways)
+        # heads the model ways do not divide: every model rank attends
+        # every head (``distributed/tp.py`` ``gather_heads``)
+        self.lcfg = (shard_model_config(cfg, lay.model_ways,
+                                        heads_only=gather_heads)
+                     if heads_divide(cfg, lay.model_ways) else cfg)
         self.schema = build_schema(cfg)
         self.shards = TrainShards(
-            train_placements(self.schema, lay.data_ways, lay.model_ways),
+            train_placements(self.schema, lay.data_ways, lay.model_ways,
+                             rules=rules),
             lay.coords, lay.data_group, lay.model_group)
 
     @property
@@ -493,26 +509,120 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_serve_prefill(cfg: ModelConfig, max_len: int):
+def serve_param_schema(cfg: ModelConfig, mode: str = "sparqle"):
+    """The served tree's schema: every projection a SparqleLinear of
+    ParamSpecs (``models/qschema.py``)."""
+    from repro_torch.models.qschema import build_quantized_schema
+    return build_quantized_schema(build_schema(cfg), w_bits=cfg.w_bits,
+                                  mode=mode)
+
+
+def _opt_schema(schema):
+    """ParamSpec tree of an AdamW moment mirroring the param schema
+    (bf16, as the reference's)."""
+    from repro_torch.models.schema import ParamSpec
+    if isinstance(schema, dict):
+        return {k: _opt_schema(v) for k, v in schema.items()}
+    return ParamSpec(schema.shape, schema.axes, torch.bfloat16, init="zeros")
+
+
+def train_state_schema(cfg: ModelConfig) -> TrainState:
+    """ParamSpec tree of the whole train state (f32 params, the step,
+    bf16 moments): the reference's."""
+    from repro_torch.models.schema import ParamSpec
+    pschema = build_schema(cfg)
+    return TrainState(params=pschema, opt=OptState(
+        step=ParamSpec((), (), torch.int32, init="zeros"),
+        mu=_opt_schema(pschema), nu=_opt_schema(pschema)))
+
+
+def batch_specs(batch: Dict[str, torch.Tensor], mesh_shape: Dict[str, int],
+                rules=None) -> Dict[str, Tuple]:
+    """The ``spec_for`` entries of every input: its dim 0 over the batch
+    axes, the rest whole (the reference's ``batch_shardings``)."""
+    from repro_torch.distributed.sharding import spec_for
+    return {k: spec_for(("batch",) + (None,) * (v.ndim - 1), v.shape,
+                        mesh_shape, rules) for k, v in batch.items()}
+
+
+def serve_mesh(cfg: ModelConfig, mesh_shape: Dict[str, int],
+               coords: Dict[str, int], groups: Dict[Tuple[str, ...], Any],
+               *, global_batch: int, max_len: int, kind: str = "decode",
+               profile: str = "baseline", rules=None):
+    """The ``ServeMesh`` of a ``--legacy`` step of ``kind`` ('prefill' or
+    'decode') on a mesh of ``mesh_shape``: the served tree's and the
+    caches' placements under the profile's rules (``distributed/
+    sharding.py`` ``profile_rules``; or under ``rules``, a whole table),
+    the batch's entry."""
+    from repro_torch.distributed.sharding import (merged_rules,
+                                                  profile_rules, spec_for)
+    from repro_torch.distributed.tp import ServeMesh
+    from repro_torch.models.qschema import tree_specs
+    from repro_torch.models.registry import cache_schema
+    if rules is None:
+        rules = merged_rules(profile_rules(profile, cfg, kind, mesh_shape,
+                                           global_batch))
+    cspecs: Dict[str, Tuple] = {}
+
+    def flat(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flat(v)
+            else:
+                cspecs[k] = tuple(v[1:])     # the layer dim dropped
+
+    flat(tree_specs(cache_schema(cfg, global_batch, max_len), mesh_shape,
+                    rules))
+    batch = spec_for(("batch",), (global_batch,), mesh_shape, rules)
+    return ServeMesh(
+        mesh_shape=dict(mesh_shape), coords=dict(coords), groups=groups,
+        specs=tree_specs(serve_param_schema(cfg), mesh_shape, rules),
+        cache_specs=cspecs, batch_entry=batch[0] if batch else None,
+        global_batch=global_batch, rules=rules)
+
+
+def serve_context(sm, local_rows: int = 0) -> TPContext:
+    """The step context of a ``ServeMesh`` step: the model group, and the
+    batch's group where the batch is cut (``local_rows`` rows a rank: a
+    decode's norms run at their global rows, ``models/model.py``
+    ``_norm``; 0 for a prefill, whose rows norm alone)."""
+    cut = sm.batch_ways > 1
+    return TPContext(
+        ways=sm.model_ways, group=sm.group("model"),
+        batch_group=sm.group(sm.batch_entry) if cut else None,
+        batch_ways=sm.batch_ways, batch_rank=sm.index(sm.batch_entry),
+        local_rows=local_rows if cut else 0, serve_mesh=sm)
+
+
+def make_serve_prefill(cfg: ModelConfig, max_len: int, *, mesh=None):
     """(params, batch {"tokens": (B, S)}, and for a VLM "patches"
-    (B, n_prefix, D) in front of them) -> (greedy next token (B,) int32,
-    contiguous caches of ``max_len`` positions)."""
+    (B, n_prefix, D) in front of them; an encoder's "frames" (B, S, D))
+    -> (greedy next token (B,) int32, contiguous caches of ``max_len``
+    positions). With ``mesh`` (a ``ServeMesh``, :func:`serve_mesh`) the
+    step runs this rank's part: ``params`` the rank's tree as placed, the
+    batch its rows (all of them where the batch is whole over data), the
+    tokens and caches its own."""
 
     @torch.no_grad()
     def serve_prefill(params, batch):
-        logits, cache = M.prefill(cfg, params, batch, max_len=max_len)
+        ctx = None if mesh is None else serve_context(mesh)
+        with tp_scope(ctx):
+            logits, cache = M.prefill(cfg, params, batch, max_len=max_len)
         return _greedy(logits), cache
 
     return serve_prefill
 
 
-def make_serve_decode(cfg: ModelConfig):
+def make_serve_decode(cfg: ModelConfig, *, mesh=None):
     """(params, cache, token (B,), pos (B,)) -> (greedy next token (B,)
-    int32, cache updated in place)."""
+    int32, cache updated in place). With ``mesh`` as
+    :func:`make_serve_prefill`'s: the rank's rows and cache slices."""
 
     @torch.no_grad()
     def serve_decode(params, cache, token, pos):
-        logits, cache = M.decode_step(cfg, params, cache, token, pos)
+        ctx = None if mesh is None else serve_context(mesh, token.shape[0])
+        with tp_scope(ctx):
+            logits, cache = M.decode_step(cfg, params, cache, token, pos)
         return _greedy(logits), cache
 
     return serve_decode

@@ -8,8 +8,9 @@ sequence, causal or bidirectional,
 plain jnp in JAX)."""
 from __future__ import annotations
 
+import contextvars
 import math
-from typing import Dict, List, NamedTuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import torch
 
@@ -19,6 +20,20 @@ from repro_torch.core.sparqle import subprecision_sparsity
 from repro_torch.kernels.ref import decode_attention_f32
 
 NEG_INF = -2.0e38
+
+# The scan of a block loop in the current context: None, or n -> the
+# iterations to run of a loop of n whose iterations run one program on
+# the same shapes (set by a tracer that counts what they run n times)
+LOOP_SCAN: contextvars.ContextVar[
+    Optional[Callable[[int], Iterable[int]]]] = contextvars.ContextVar(
+        "loop_scan", default=None)
+
+
+def blocks(n: int) -> Iterable[int]:
+    """``range(n)`` over the blocks of a block loop, or the context's scan
+    of it (:data:`LOOP_SCAN`)."""
+    scan = LOOP_SCAN.get()
+    return range(n) if scan is None else scan(n)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -158,14 +173,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = hd ** -0.5
     qg = q.reshape(b, sq, kvh, g, hd).float()
     kf, vf = k.float(), v.float()
-    outs = []
-    for iq in range(sq // bq):
+    res = torch.empty((b, sq, kvh, g, hdv), dtype=q.dtype, device=q.device)
+    for iq in blocks(sq // bq):
         qb = qg[:, iq * bq:(iq + 1) * bq]
         qpos = iq * bq + torch.arange(bq, device=q.device)
         m = torch.full((b, kvh, g, bq), NEG_INF, device=q.device)
         den = torch.zeros((b, kvh, g, bq), device=q.device)
         acc = torch.zeros((b, kvh, g, bq, hdv), device=q.device)
-        for jk in range(skv // bkv):
+        for jk in blocks(skv // bkv):
             kb = kf[:, jk * bkv:(jk + 1) * bkv]
             vb = vf[:, jk * bkv:(jk + 1) * bkv]
             kpos = jk * bkv + torch.arange(bkv, device=q.device)
@@ -180,8 +195,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                        p, vb)
             m = m_new
         out = acc / torch.clamp_min(den, 1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
-    return torch.cat(outs, dim=1).reshape(b, sq, h, hdv)
+        res[:, iq * bq:(iq + 1) * bq] = out.permute(0, 3, 1, 2, 4).to(
+            q.dtype)
+    return res.reshape(b, sq, h, hdv)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

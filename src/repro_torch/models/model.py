@@ -45,6 +45,11 @@ the f32 sum order of a row reduction follows the number of rows, so the
 norms then give the single-device step's bits. Outside a TP context
 nothing of this runs.
 
+The ``--legacy`` steps on a mesh (``TPContext.serve_mesh``, section
+"the --legacy steps on a (pod, data, model) mesh" below) hold every leaf
+as its placement says, gather a layer over data before it runs and cut
+the contiguous caches along their positions; the encoder prefills too.
+
 A mesh train step (``TPContext.train``, ``launch/steps.py``) runs the
 same functions on a rank's float shards under autograd: column-parallel
 inputs through copy-to-model, row-parallel outputs through
@@ -64,24 +69,26 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.qlinear import (SparqleLinear, linear, msb_skip_scope,
-                                      tree_index)
+from repro_torch.core.qlinear import (ShardedLinear, SparqleLinear, linear,
+                                      msb_skip_scope, tree_index)
 from repro_torch.core.quantize import quantize_activations, quantize_weights
 from repro_torch.core.sparqle import subprecision_sparsity
 from repro_torch.distributed.tp import (all_gather, gather_from_model,
-                                        model_input, tp_ctx,
+                                        gather_heads, model_input, tp_ctx,
                                         validate_tp_config)
 from repro_torch.kernels.kv_attention import (
-    CONTIGUOUS_BLOCK, kv4_decode_attention, kv4_paged_decode_attention,
+    CONTIGUOUS_BLOCK, kv4_decode_attention, kv4_decode_attention_partial,
+    kv4_paged_decode_attention,
     kv4_paged_verify_attention, kv_tiered_paged_decode_attention)
 from repro_torch.kernels.ref import unpack_kv4
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import (NEG_INF, AttnSpec,
-                                       act_wire_telemetry, embed,
+                                       act_wire_telemetry, blocks, embed,
                                        flash_attention, gelu_tanh, layer_norm,
                                        rms_norm, rope, silu, softmax,
                                        stack_sublayer_telemetry)
@@ -119,6 +126,18 @@ def _gather_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return all_gather(t, ctx.batch_group, dim)
 
 
+def _global_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of x (rows, ...), a product whose CPU GEMM's sum order
+    follows the row count: a data-sharded mesh step runs it on every
+    rank's rows (gathered in slot order) and keeps its own, so its bits
+    are the one-device step's; ``fn(x)`` otherwise."""
+    ctx = tp_ctx()
+    if ctx is None or ctx.serve_mesh is None or ctx.batch_group is None:
+        return fn(x)
+    n = x.shape[0]
+    return fn(_gather_rows(x))[ctx.batch_rank * n:(ctx.batch_rank + 1) * n]
+
+
 def _kv_quant(cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., hd) -> (nibbles packed two per byte along hd, f32 scale)."""
@@ -146,6 +165,8 @@ def _attn_qkv(cfg: ModelConfig, p: Params, h: torch.Tensor, positions,
     q = linear(h, p["wq"], p.get("bq"))
     k = linear(h, p["wk"], p.get("bk"))
     v = linear(h, p["wv"], p.get("bv"))
+    if q.shape[-1] != H * hd:   # a train step that gathers the heads
+        q, k, v = gather_heads(q), gather_heads(k), gather_heads(v)
     q = q.reshape(*q.shape[:-1], H, hd)
     k = k.reshape(*k.shape[:-1], KVH, hd)
     v = v.reshape(*v.shape[:-1], KVH, hd)
@@ -196,10 +217,15 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     t_local = flat.shape[0]
     flat = _gather_rows(flat)
     mp = p["moe"]
+    sm, kw = _serve_mesh(), {}
+    if sm is not None and mp["w_gate"].w.q.shape[0] != cfg.n_experts:
+        # a mesh step's experts cut over model: the rank's run, summed
+        kw = dict(expert_lo=sm.index("model") * mp["w_gate"].w.q.shape[0],
+                  sum_group=sm.group("model"), down_tp=None)
     y = moe_lib.moe_ffn(flat, mp["w_router"], mp["w_gate"], mp["w_up"],
                         mp["w_down"], top_k=cfg.top_k,
                         capacity_factor=cfg.capacity_factor,
-                        router_type=cfg.router_type)
+                        router_type=cfg.router_type, **kw)
     if cfg.n_shared_experts:
         y = y + moe_lib.shared_expert_ffn(flat, mp["w_shared_gate"],
                                           mp["w_shared_up"],
@@ -235,15 +261,19 @@ def _moe_ffn_train(cfg: ModelConfig, mp: Params, flat: torch.Tensor,
     return y, aux
 
 
-def check_train_mesh(cfg: ModelConfig, model_ways: int) -> None:
+def check_train_mesh(cfg: ModelConfig, model_ways: int,
+                     gather_heads: bool = False) -> None:
     """Raise unless a train step can shard ``cfg`` ``model_ways`` ways on
     the model axis: the TP divisibility checks (``validate_tp_config``:
     the attention and MLA heads, the KV heads, the FFN widths, an untied
     vocab, an SSD mixer's heads and B/C groups). GQA, MLA and SSD mixers
     all shard by head; the data axis alone trains every arch the
-    one-device step trains."""
+    one-device step trains. ``gather_heads``: GQA heads the model ways do
+    not divide are gathered whole instead (every model rank attends every
+    head; the dry-run's production meshes), so they are not checked."""
     if model_ways > 1:
-        validate_tp_config(cfg, model_ways)
+        validate_tp_config(cfg, model_ways, heads=not gather_heads
+                           or cfg.use_mla)
 
 
 def _add_ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
@@ -260,12 +290,17 @@ def _add_ffn(cfg: ModelConfig, ld: LayerDef, p: Params,
 def head_logits(cfg: ModelConfig, params: Params,
                 x: torch.Tensor) -> torch.Tensor:
     """Final norm and head. The tied head's table is replicated (token
-    lookup needs all of it); an untied head is column-parallel under TP
-    and its vocab shards are all-gathered in model-rank order."""
+    lookup needs all of it) but on a mesh step, whose table is cut by
+    vocab over model; an untied head is column-parallel under TP. Vocab
+    shards are all-gathered in model-rank order."""
     x = _norm(cfg, params["final_norm"], x)
-    if cfg.tie_embeddings:
-        return linear(x, params["embed"]["table"].T)
-    logits = linear(model_input(x), params["lm_head"])
+    if cfg.tie_embeddings:   # whole, or cut by vocab on a mesh step
+        logits = linear(x, params["embed"]["table"].T)
+    else:
+        w = params["lm_head"]
+        whole = (w.w.q if isinstance(w, SparqleLinear) else w).shape[-1] \
+            == cfg.vocab           # a head the model ways do not cut
+        logits = linear(x if whole else model_input(x), w)
     ctx = tp_ctx()
     if ctx is not None and ctx.ways > 1 and logits.shape[-1] != cfg.vocab:
         logits = (gather_from_model(logits) if ctx.train else
@@ -275,7 +310,7 @@ def head_logits(cfg: ModelConfig, params: Params,
 
 def _embed(cfg: ModelConfig, params: Params,
            tokens: torch.Tensor) -> torch.Tensor:
-    x = embed(tokens, params["embed"]["table"]).to(cfg.cdtype)
+    x = _lookup(cfg, params, tokens).to(cfg.cdtype)
     if cfg.family == "vlm" or cfg.name.startswith("gemma"):  # gemma scaling
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
     return x
@@ -333,18 +368,55 @@ def check_contiguous_support(cfg: ModelConfig) -> None:
         _check_kv4(cfg, "contiguous MLA cache", mla=True)
 
 
+def check_prefill_support(cfg: ModelConfig) -> None:
+    """Raise unless ``prefill`` takes ``cfg``: what the contiguous path
+    serves, and an encoder (frames in, bidirectional attention, packed
+    KV4 caches written; ``serve`` still refuses it, as the reference's
+    does)."""
+    if cfg.family != "encoder":
+        check_contiguous_support(cfg)
+        return
+    if {ld.mixer for st in build_stages(cfg) for ld in st.period} != {"attn"}:
+        raise NotImplementedError("encoder prefill: attention layers only")
+    _check_kv4(cfg, "contiguous KV cache")
+
+
+def init_cache_mesh(cfg: ModelConfig, sm, max_len: int, device) -> Cache:
+    """The zeroed caches one rank of a mesh step holds: each leaf of
+    ``models/registry.py`` ``cache_schema`` at the global batch cut as
+    its ``spec_for`` placement says."""
+    from repro_torch.models.qschema import tree_local_shapes
+    from repro_torch.models.registry import cache_schema
+    schema = cache_schema(cfg, sm.global_batch, max_len)
+    shapes = tree_local_shapes(schema, sm.mesh_shape, sm.rules)
+
+    def zeros(spec, shape):
+        if isinstance(spec, dict):
+            return {k: zeros(v, shape[k]) for k, v in spec.items()}
+        return torch.zeros(shape, dtype=spec.dtype, device=device)
+
+    return zeros(schema, shapes)
+
+
 def _layers(cfg: ModelConfig, params: Params, pool: Optional[Cache]):
     """Yield (LayerDef, layer params, layer pool) in depth order; the
     layer pool (a paged pool's or a contiguous cache's, None without
     one) holds views into the stacked tensors."""
+    sm = _serve_mesh()
     for si, stage in enumerate(build_stages(cfg)):
         sp = params["stages"][f"s{si}"]
         sc = None if pool is None else pool["stages"][f"s{si}"]
         per = [_unbind_layers(sp[f"p{pi}"], stage.repeat)
                for pi in range(len(stage.period))]
+        specs = (None if sm is None else
+                 [sm.layer_spec(sm.specs["stages"][f"s{si}"][f"p{pi}"])
+                  for pi in range(len(stage.period))])
         for rep in range(stage.repeat):
             for pi, ld in enumerate(stage.period):
-                yield (ld, per[pi][rep],
+                p = per[pi][rep]
+                if sm is not None:    # a mesh step: this layer gathered
+                    p = sm.compute(p, specs[pi])
+                yield (ld, p,
                        None if sc is None else
                        {k: v[rep] for k, v in sc[f"p{pi}"].items()})
 
@@ -817,8 +889,8 @@ def _mla_flash(qn, qr, ckv, kr, w_uk, w_uv, *, causal: bool,
         raise ValueError(f"blocks ({bq}, {bkv}) do not divide {s}")
     dev = qn.device
     wk, wv = w_uk.float(), w_uv.float()
-    outs = []
-    for iq in range(s // bq):
+    res = torch.empty((b, s, h, wv.shape[-1]), dtype=qn.dtype, device=dev)
+    for iq in blocks(s // bq):
         rows = slice(iq * bq, (iq + 1) * bq)
         q_eff = torch.einsum("bihd,rhd->bihr", qn[:, rows].float(), wk)
         qrb = qr[:, rows].float()
@@ -826,7 +898,7 @@ def _mla_flash(qn, qr, ckv, kr, w_uk, w_uv, *, causal: bool,
         m = torch.full((b, h, bq), NEG_INF, device=dev)
         den = torch.zeros((b, h, bq), device=dev)
         acc = torch.zeros((b, h, bq, ckv.shape[-1]), device=dev)
-        for jk in range(s // bkv):
+        for jk in blocks(s // bkv):
             cols = slice(jk * bkv, (jk + 1) * bkv)
             cb, krb = ckv[:, cols].float(), kr[:, cols].float()
             sc = torch.einsum("bihr,bjr->bhij", q_eff, cb)
@@ -843,8 +915,8 @@ def _mla_flash(qn, qr, ckv, kr, w_uk, w_uv, *, causal: bool,
                                                        cb)
             m = m_new
         ctx = acc / torch.clamp_min(den, 1e-30)[..., None]
-        outs.append(torch.einsum("bhir,rhd->bihd", ctx, wv).to(qn.dtype))
-    return torch.cat(outs, 1)[:, :s_orig]
+        res[:, rows] = torch.einsum("bhir,rhd->bihd", ctx, wv).to(qn.dtype)
+    return res[:, :s_orig]
 
 
 def mla_full(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
@@ -893,7 +965,8 @@ def mla_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     cache["kr"][bidx, at] = kr_new
     ckv = _kv_dequant(cfg, cache["ckv_q"], cache["ckv_s"], x.dtype).float()
     w_uk, w_uv = _mla_absorbed_weights(cfg, p)
-    q_eff = torch.einsum("bhd,rhd->bhr", qn.float(), w_uk.float())
+    q_eff = _global_rows(lambda t: torch.einsum("bhd,rhd->bhr", t,
+                                                w_uk.float()), qn.float())
     sc = torch.einsum("bhr,bjr->bhj", q_eff, ckv)
     sc = sc + torch.einsum("bhd,bjd->bhj", qr.float(), cache["kr"].float())
     sc = sc * (dn + dr) ** -0.5
@@ -901,7 +974,8 @@ def mla_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
              <= pos[:, None])
     pr = softmax(torch.where(allow[:, None, :], sc, NEG_INF))
     ctx = torch.einsum("bhj,bjr->bhr", pr, ckv)
-    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv.float())
+    o = _global_rows(lambda t: torch.einsum("bhr,rhd->bhd", t,
+                                            w_uv.float()), ctx)
     return linear(o.reshape(b, H * dv).to(x.dtype), p["wo"]), cache
 
 
@@ -1010,16 +1084,433 @@ def ssd_decode(cfg: ModelConfig, ld: LayerDef, p: Params, x: torch.Tensor,
     return linear(y, p["w_out"]), cache
 
 
+# ---------------------------------------------------------------------------
+# the --legacy steps on a (pod, data, model) mesh (``distributed/tp.py``
+# ``ServeMesh``): the cache cut along its positions (``kv_seq``) over the
+# model axis, and over data too where the batch is whole there; the
+# mixers run the rank's heads where the heads divide the model ways, the
+# projections as their placement cuts them (``core/qlinear.py``
+# ``ShardedLinear``). Decode attention over a cache cut along its
+# positions is a partial attention over the rank's slice (row 7p) and a
+# merge: one f32 MAX all-reduce of the log-sum-exp and one f32 SUM
+# all-reduce of the rescaled outputs with their weights, the partitioned
+# softmax GSPMD lowers. Prefill writes each rank's own positions.
+# ---------------------------------------------------------------------------
+
+
+def _serve_mesh():
+    ctx = tp_ctx()
+    return None if ctx is None else ctx.serve_mesh
+
+
+def _whole_cols(y: torch.Tensor, w) -> torch.Tensor:
+    """A column-cut projection's output whole over model (the ranks'
+    columns in model-rank order); ``y`` itself for a whole projection."""
+    if isinstance(w, ShardedLinear) and w.cut == "col":
+        return all_gather(y, w.group, y.ndim - 1)
+    return y
+
+
+class _KvSlice:
+    """The rank's slice of a cache cut along its positions: ``n``
+    positions from global position ``start``, merged over ``group`` of
+    ``ways`` ranks."""
+
+    def __init__(self, sm, entry, n_local: int):
+        self.n, self.ways = n_local, sm.ways(entry)
+        self.start = sm.index(entry) * n_local
+        self.group = sm.group(entry) if self.ways > 1 else None
+
+    def write(self, t: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
+        """Write ``new`` (B, ...) at global ``pos`` (B,) into the slice
+        ``t`` (B, n, ...) where this rank holds it (a select: the rows
+        that lie elsewhere keep their value)."""
+        b = t.shape[0]
+        at = pos.long() - self.start
+        own = (at >= 0) & (at < self.n)
+        idx = at.clamp(0, self.n - 1)
+        bidx = torch.arange(b, device=t.device)
+        keep = own.reshape((b,) + (1,) * (new.ndim - 1))
+        t[bidx, idx] = torch.where(keep, new.to(t.dtype), t[bidx, idx])
+
+    def write_prefix(self, t: torch.Tensor, new: torch.Tensor) -> None:
+        """Write positions [0, S) of ``new`` (B, S, ...) that this rank
+        holds into ``t``."""
+        lo, hi = self.start, min(self.start + self.n, new.shape[1])
+        if hi > lo:
+            t[:, :hi - lo] = new[:, lo:hi]
+
+    def merge(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """The attention over every slice from this rank's f32 ``out``
+        (..., d) and ``lse`` (...): one MAX and one SUM all-reduce."""
+        if self.group is None:
+            return out
+        mx = lse.clone()
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=self.group)
+        w = torch.exp(lse - mx)
+        both = torch.cat([out * w[..., None], w[..., None]], -1)
+        dist.all_reduce(both, op=dist.ReduceOp.SUM, group=self.group)
+        return both[..., :-1] / both[..., -1:]
+
+
+def _spec_entry(spec, dim: int):
+    """A dim's entry of a (trailing-None-trimmed) spec."""
+    return spec[dim] if dim < len(spec) else None
+
+
+def _kv_slice(cache: Cache, key: str):
+    """The layer cache's position slice (its leaf ``key``'s dim 1,
+    ``kv_seq``)."""
+    sm = _serve_mesh()
+    return _KvSlice(sm, _spec_entry(sm.cache_specs[key], 1),
+                    cache[key].shape[1])
+
+
+def _rank_heads(cfg: ModelConfig) -> Optional[Tuple[int, int]]:
+    """(first head, heads) this rank computes at prefill: its 1/model of
+    the query heads when they divide, else None (every head)."""
+    sm = _serve_mesh()
+    m = sm.model_ways
+    if m == 1 or cfg.n_heads % m:
+        return None
+    n = cfg.n_heads // m
+    return sm.index("model") * n, n
+
+
+def attn_full_mesh(cfg: ModelConfig, ld: LayerDef, p: Params,
+                   x: torch.Tensor, positions: torch.Tensor,
+                   prefix_len: int, cache: Optional[Cache]):
+    """:func:`attn_full` on a mesh: q, k, v whole over model, attention
+    over the rank's heads (every head where they do not divide), the
+    rank's positions of K/V written into its cache slice."""
+    b, s, _ = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    theta = ld.rope_theta or cfg.rope_theta
+    h = _norm(cfg, p["ln"], x)
+    q = _whole_cols(linear(h, p["wq"], p.get("bq")), p["wq"])
+    k = _whole_cols(linear(h, p["wk"], p.get("bk")), p["wk"])
+    v = _whole_cols(linear(h, p["wv"], p.get("bv")), p["wv"])
+    q, k, v = (q.reshape(b, s, H, hd), k.reshape(b, s, KVH, hd),
+               v.reshape(b, s, KVH, hd))
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+    q, k = rope(q, positions, theta), rope(k, positions, theta)
+    spec = AttnSpec(causal=cfg.causal, window=ld.window,
+                    prefix_len=prefix_len)
+    heads = _rank_heads(cfg)
+    if heads is None:
+        o = flash_attention(q, k, v, spec).reshape(b, s, H * hd)
+    else:
+        lo, n = heads
+        g = H // KVH
+        if n % g == 0:      # whole GQA groups: their KV heads
+            kr = k[:, :, lo // g:(lo + n) // g]
+            vr = v[:, :, lo // g:(lo + n) // g]
+        else:               # part of a group: its KV head a query head
+            idx = torch.arange(lo, lo + n, device=x.device) // g
+            kr, vr = k[:, :, idx], v[:, :, idx]
+        o = flash_attention(q[:, :, lo:lo + n], kr, vr, spec).reshape(
+            b, s, n * hd)
+    if cache is not None:
+        sl = _kv_slice(cache, "k_q")
+        for key, t in (("k", k), ("v", v)):
+            tq, ts = _kv_quant(cfg, t)
+            sl.write_prefix(cache[key + "_q"], tq)
+            sl.write_prefix(cache[key + "_s"], ts)
+    return linear(o, p["wo"], p.get("bo"), tp="row"), cache
+
+
+def attn_decode_mesh(cfg: ModelConfig, ld: LayerDef, p: Params,
+                     x: torch.Tensor, cache: Cache, pos: torch.Tensor):
+    """:func:`attn_decode` on a mesh: q, k, v whole over model, the new
+    K/V written where its position lies, the partial attention (row 7p)
+    over the rank's positions for every head, merged."""
+    b, _ = x.shape
+    kvh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    theta = ld.rope_theta or cfg.rope_theta
+    h = _norm(cfg, p["ln"], x)
+    q = _whole_cols(linear(h, p["wq"], p.get("bq")), p["wq"])
+    k = _whole_cols(linear(h, p["wk"], p.get("bk")), p["wk"])
+    v = _whole_cols(linear(h, p["wv"], p.get("bv")), p["wv"])
+    q, k, v = (q.reshape(b, cfg.n_heads, hd), k.reshape(b, kvh, hd),
+               v.reshape(b, kvh, hd))
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+    q, k = rope(q, pos, theta), rope(k, pos, theta)
+    sl = _kv_slice(cache, "k_q")
+    for key, t in (("k", k), ("v", v)):
+        tq, ts = _kv_quant(cfg, t)
+        sl.write(cache[key + "_q"], tq, pos)
+        sl.write(cache[key + "_s"], ts, pos)
+    out, lse = kv4_decode_attention_partial(
+        q.reshape(b, kvh, g, hd).contiguous(), cache["k_q"], cache["k_s"],
+        cache["v_q"], cache["v_s"], pos, start=sl.start, round_kv=True,
+        window=ld.window)
+    o = sl.merge(out, lse).to(x.dtype).reshape(b, cfg.n_heads * hd)
+    return linear(o, p["wo"], p.get("bo"), tp="row"), cache
+
+
+def _mla_heads(cfg: ModelConfig, p: Params) -> ModelConfig:
+    """The config of the rank's MLA heads: ``wq_b`` and ``wkv_b`` cut by
+    head over model, ``wo`` by the same heads' rows."""
+    sm = _serve_mesh()
+    m = sm.model_ways
+    if m == 1:
+        return cfg
+    if cfg.n_heads % m or not (
+            isinstance(p["wq_b"], ShardedLinear) and p["wq_b"].cut == "col"
+            and isinstance(p["wkv_b"], ShardedLinear)
+            and p["wkv_b"].cut == "col"):
+        raise NotImplementedError(
+            f"MLA on a model axis of {m} needs its {cfg.n_heads} heads cut "
+            f"whole over it")
+    return cfg.replace(n_heads=cfg.n_heads // m)
+
+
+def mla_full_mesh(cfg: ModelConfig, ld: LayerDef, p: Params,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  prefix_len: int, cache: Optional[Cache]):
+    """:func:`mla_full` on a mesh: the rank's heads over the whole
+    compressed KV (computed whole on every rank), its positions written
+    into its cache slice."""
+    b, s, _ = x.shape
+    hc = _mla_heads(cfg, p)
+    h = _norm(cfg, p["ln"], x)
+    qn, qr = _mla_q(hc, p, h, positions)
+    ckv, kr = _mla_ckv(cfg, p, h, positions)
+    w_uk, w_uv = _mla_absorbed_weights(hc, p)
+    o = _mla_flash(qn, qr, ckv, kr, w_uk, w_uv, causal=cfg.causal)
+    if cache is not None:
+        sl = _kv_slice(cache, "ckv_q")
+        cq, cs = _kv_quant(cfg, ckv)
+        sl.write_prefix(cache["ckv_q"], cq)
+        sl.write_prefix(cache["ckv_s"], cs)
+        sl.write_prefix(cache["kr"], kr.to(cache["kr"].dtype))
+    return linear(o.reshape(b, s, hc.n_heads * cfg.v_head_dim), p["wo"],
+                  tp="row"), cache
+
+
+def mla_decode_mesh(cfg: ModelConfig, ld: LayerDef, p: Params,
+                    x: torch.Tensor, cache: Cache, pos: torch.Tensor):
+    """:func:`mla_decode` on a mesh: the rank's heads' absorbed queries
+    gathered whole over model, every head attends the rank's positions
+    (masked by global position), the context merged, then the rank's
+    heads through W_uv and the row-cut ``wo``."""
+    b, _ = x.shape
+    hc = _mla_heads(cfg, p)
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    h = _norm(cfg, p["ln"], x)
+    qn, qr = _mla_q(hc, p, h, pos)
+    ckv_new, kr_new = _mla_ckv(cfg, p, h, pos)
+    sl = _kv_slice(cache, "ckv_q")
+    cq, cs = _kv_quant(cfg, ckv_new)
+    sl.write(cache["ckv_q"], cq, pos)
+    sl.write(cache["ckv_s"], cs, pos)
+    sl.write(cache["kr"], kr_new, pos)
+    w_uk, w_uv = _mla_absorbed_weights(hc, p)
+    q_eff = torch.einsum("bhd,rhd->bhr", qn.float(), w_uk.float())
+    q_eff, qr = q_eff.contiguous(), qr.float().contiguous()
+    if hc is not cfg:
+        grp = p["wq_b"].group
+        q_eff, qr = all_gather(q_eff, grp, 1), all_gather(qr, grp, 1)
+    ckv = _kv_dequant(cfg, cache["ckv_q"], cache["ckv_s"], x.dtype).float()
+    sc = torch.einsum("bhr,bjr->bhj", q_eff, ckv)
+    sc = sc + torch.einsum("bhd,bjd->bhj", qr, cache["kr"].float())
+    sc = sc * (dn + dr) ** -0.5
+    j = sl.start + torch.arange(ckv.shape[1], device=x.device)
+    allow = (j[None, :] <= pos.long()[:, None])[:, None, :]
+    sc = torch.where(allow, sc, float("-inf"))
+    lse = torch.logsumexp(sc, dim=-1)
+    pr = torch.where(allow, torch.exp(
+        sc - torch.where(torch.isfinite(lse), lse, 0.0)[..., None]), 0.0)
+    ctx = sl.merge(torch.einsum("bhj,bjr->bhr", pr, ckv), lse)
+    if hc is not cfg:
+        lo = p["wq_b"].rank * hc.n_heads
+        ctx = ctx[:, lo:lo + hc.n_heads]
+    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv.float())
+    return linear(o.reshape(b, hc.n_heads * cfg.v_head_dim).to(x.dtype),
+                  p["wo"], tp="row"), cache
+
+
+def _ssd_mesh_in(cfg: ModelConfig, p: Params, h: torch.Tensor, hcache):
+    """The SSD input projection whole over model: (z, xbc, dt, the rank's
+    heads (first, count) as its state cache holds them)."""
+    din, g, n, p_ = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
+                     cfg.ssm_head_dim)
+    zxbcdt = _whole_cols(linear(h, p["w_in"]), p["w_in"])
+    bc = 2 * din + 2 * g * n
+    hg = hcache.shape[-3]             # the rank's heads a group
+    nh = din // p_
+    lo = _serve_mesh().index("model") * hg if hg != nh // g else 0
+    return zxbcdt[..., :din], zxbcdt[..., din:bc], zxbcdt[..., bc:], lo, hg
+
+
+def _ssd_heads(cfg: ModelConfig, p: Params, conv_out, z, dt, lo: int,
+               hg: int):
+    """The rank's heads [lo, lo + hg) of a group (G = 1 or heads whole):
+    their x, the whole B and C, their dt, A, D, gate and norm gain."""
+    din, g, n, p_ = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
+                     cfg.ssm_head_dim)
+    lead = conv_out.shape[:-1]
+    nh_g = din // p_ // g
+    if hg != nh_g and g != 1:
+        raise NotImplementedError("SSD heads cut over model with groups "
+                                  "> 1")
+    xs = conv_out[..., :din].reshape(*lead, g, nh_g, p_)[..., lo:lo + hg, :]
+    b_in = conv_out[..., din:din + g * n].reshape(*lead, g, n)
+    c_in = conv_out[..., din + g * n:].reshape(*lead, g, n)
+    dt = ssd_lib.softplus(dt + p["dt_bias"]).reshape(
+        *lead, g, nh_g)[..., lo:lo + hg]
+    ch = slice(lo * p_, (lo + hg) * p_)
+    return (xs, b_in, c_in, dt, p["a_log"][..., lo:lo + hg],
+            p["d_skip"][..., lo:lo + hg], z[..., ch], p["gn"][ch])
+
+
+def _gated_norm_mesh(cfg: ModelConfig, y, z, gamma, whole: bool):
+    """Mamba-2's gated norm on the rank's channels, the mean of squares
+    over d_inner summed over model when the heads are cut."""
+    if whole:
+        return ssd_lib.gated_rms_norm(y, z, gamma, cfg.rms_eps)
+    yz = y.float() * silu(z.float())
+    ss = (yz * yz).sum(-1, keepdim=True)
+    sm = _serve_mesh()
+    dist.all_reduce(ss, op=dist.ReduceOp.SUM, group=sm.group("model"))
+    var = ss / cfg.d_inner
+    return ((yz * torch.rsqrt(var + cfg.rms_eps))
+            * (1.0 + gamma.float())).to(y.dtype)
+
+
+def _conv_whole(cache: Cache) -> torch.Tensor:
+    sm = _serve_mesh()
+    return sm.gather(cache["conv"], 2, _spec_entry(sm.cache_specs["conv"],
+                                                   2))
+
+
+def _conv_own(cache: Cache, whole: torch.Tensor) -> torch.Tensor:
+    """The rank's channels of a whole conv tail, as its cache holds
+    them."""
+    n = cache["conv"].shape[-1]
+    if n == whole.shape[-1]:
+        return whole
+    sm = _serve_mesh()
+    lo = sm.index(_spec_entry(sm.cache_specs["conv"], 2)) * n
+    return whole[..., lo:lo + n]
+
+
+def ssd_full_mesh(cfg: ModelConfig, ld: LayerDef, p: Params,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  prefix_len: int, cache: Optional[Cache]):
+    """:func:`ssd_full` on a mesh: the joint projection whole over model,
+    the conv over every channel, the scan over the rank's heads (its
+    state's), the gated norm over d_inner, the row-cut output."""
+    b, s, _ = x.shape
+    h = _norm(cfg, p["ln"], x)
+    z, xbc, dt, lo, hg = _ssd_mesh_in(cfg, p, h, cache["h"])
+    conv_out = silu(ssd_lib.causal_conv1d(xbc, p["conv_w"], p["conv_b"]))
+    xs, b_in, c_in, dt, a_log, d_skip, z, gn = _ssd_heads(
+        cfg, p, conv_out, z, dt, lo, hg)
+    y, h_fin = ssd_lib.ssd_chunked(xs, dt, a_log, b_in, c_in, d_skip,
+                                   cfg.ssm_chunk)
+    whole = hg * cfg.ssm_groups * cfg.ssm_head_dim == cfg.d_inner
+    y = _gated_norm_mesh(cfg, y.reshape(b, s, -1), z, gn, whole)
+    cache["h"].copy_(h_fin)
+    cache["conv"].copy_(_conv_own(cache,
+                                  xbc[:, s - (cfg.conv_width - 1):s]))
+    return linear(y, p["w_out"], tp="row"), cache
+
+
+def ssd_decode_mesh(cfg: ModelConfig, ld: LayerDef, p: Params,
+                    x: torch.Tensor, cache: Cache, pos: torch.Tensor):
+    """:func:`ssd_decode` on a mesh: the conv tail gathered whole over
+    model, the step over every channel, the rank's heads' state update."""
+    b, _ = x.shape
+    h = _norm(cfg, p["ln"], x)
+    z, xbc, dt, lo, hg = _ssd_mesh_in(cfg, p, h, cache["h"])
+    conv_new, conv_out = ssd_lib.conv1d_step(_conv_whole(cache), xbc,
+                                             p["conv_w"], p["conv_b"])
+    conv_out = silu(conv_out)
+    xs, b_in, c_in, dt, a_log, d_skip, z, gn = _ssd_heads(
+        cfg, p, conv_out, z, dt, lo, hg)
+    y, h_new = ssd_lib.ssd_decode_step(cache["h"], xs, dt, a_log, b_in,
+                                       c_in, d_skip)
+    cache["h"].copy_(h_new)
+    cache["conv"].copy_(_conv_own(cache, conv_new))
+    whole = hg * cfg.ssm_groups * cfg.ssm_head_dim == cfg.d_inner
+    y = _gated_norm_mesh(cfg, y.reshape(b, -1), z, gn, whole)
+    return linear(y, p["w_out"], tp="row"), cache
+
+
+def _mesh_top(cfg: ModelConfig, params: Params) -> Params:
+    """``params`` with its top-level leaves (the embedding table, the
+    final norm, an untied head) in compute form for a mesh step."""
+    sm = _serve_mesh()
+    if sm is None:
+        return params
+    top = {k: sm.compute(params[k], sm.specs[k])
+           for k in ("embed", "final_norm", "lm_head") if k in params}
+    return {**params, **top}
+
+
+def _mesh_head(cfg: ModelConfig, params: Params,
+               x: torch.Tensor) -> torch.Tensor:
+    """The head's logits (B, V) of the last hidden rows x (B, D). A mesh
+    step whose batch is cut over data gathers the rows first and keeps
+    its own rows of the logits: the head's float product then runs at
+    the one-device step's row count (a CPU GEMM's sum order follows it),
+    as the sharded engine's decode does."""
+    return _global_rows(
+        lambda t: head_logits(cfg, params, t[:, None, :])[:, 0], x)
+
+
+def _lookup(cfg: ModelConfig, params: Params,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings. A mesh step whose table is cut by vocab over
+    model looks each token up on the rank that holds it and sums the
+    ranks' rows (one of them nonzero) over model: exact."""
+    table = params["embed"]["table"]
+    sm = _serve_mesh()
+    v_loc = table.shape[0]
+    if sm is None or v_loc == cfg.vocab:
+        return embed(tokens, table)
+    ids = tokens.long() - sm.index("model") * v_loc
+    own = (ids >= 0) & (ids < v_loc)
+    e = (embed(ids.clamp(0, v_loc - 1), table).float()
+         * own[..., None])
+    dist.all_reduce(e, op=dist.ReduceOp.SUM, group=sm.group("model"))
+    return e.to(table.dtype)
+
+
+def _mesh_mixers(sm, ld: LayerDef, cache) -> bool:
+    """Whether a mesh step runs the layer's mesh mixer: where the model
+    axis is cut or its cache is cut along its positions (else the
+    one-device mixer on the rank's rows gives the one-device bits)."""
+    if sm is None:
+        return False
+    if sm.model_ways > 1:
+        return True
+    if ld.mixer == "ssd" or cache is None:
+        return False
+    key = "k_q" if ld.mixer == "attn" else "ckv_q"
+    return sm.ways(_spec_entry(sm.cache_specs[key], 1)) > 1
+
+
 _MIXER_FULL = {"attn": attn_full, "mla": mla_full, "ssd": ssd_full}
 _MIXER_DEC = {"attn": attn_decode, "mla": mla_decode, "ssd": ssd_decode}
+_MESH_FULL = {"attn": attn_full_mesh, "mla": mla_full_mesh,
+              "ssd": ssd_full_mesh}
+_MESH_DEC = {"attn": attn_decode_mesh, "mla": mla_decode_mesh,
+             "ssd": ssd_decode_mesh}
 
 
 def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,
                       prefix_len, cache, with_aux: bool = False):
     """One layer over the whole sequence. Returns (x, cache, the MoE
     layer's load-balance loss with ``with_aux``, else None)."""
-    y, cache = _MIXER_FULL[ld.mixer](cfg, ld, p, x, positions, prefix_len,
-                                     cache)
+    mixers = (_MESH_FULL if _mesh_mixers(_serve_mesh(), ld, cache)
+              else _MIXER_FULL)
+    y, cache = mixers[ld.mixer](cfg, ld, p, x, positions, prefix_len, cache)
     x = x + y
     if ld.ffn == "moe":
         y, aux = moe_ffn(cfg, p, x, with_aux=with_aux)
@@ -1028,7 +1519,9 @@ def _apply_layer_full(cfg, ld: LayerDef, p: Params, x, positions,
 
 
 def _apply_layer_decode(cfg, ld: LayerDef, p: Params, x, cache, pos):
-    y, cache = _MIXER_DEC[ld.mixer](cfg, ld, p, x, cache, pos)
+    mixers = (_MESH_DEC if _mesh_mixers(_serve_mesh(), ld, cache)
+              else _MIXER_DEC)
+    y, cache = mixers[ld.mixer](cfg, ld, p, x, cache, pos)
     x = x + y
     return _add_ffn(cfg, ld, p, x[:, None, :])[:, 0], cache
 
@@ -1050,7 +1543,7 @@ def embed_inputs(cfg: ModelConfig, params: Params,
         return x, torch.arange(x.shape[1], device=x.device), 0
     dt = cfg.cdtype
     patches = batch["patches"].to(dt)
-    tok = embed(batch["tokens"], params["embed"]["table"]).to(dt)
+    tok = _lookup(cfg, params, batch["tokens"]).to(dt)
     x = torch.cat([patches, tok], dim=1) * torch.tensor(cfg.d_model ** 0.5,
                                                          dtype=dt)
     return x, torch.arange(x.shape[1], device=x.device), patches.shape[1]
@@ -1098,14 +1591,21 @@ def prefill(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor], *, max_len: int
             ) -> Tuple[torch.Tensor, Cache]:
     """Prefill: logits of the LAST position (B, V) and the caches of
-    Smax = ``max_len`` positions."""
-    check_contiguous_support(cfg)
+    Smax = ``max_len`` positions. An encoder takes its frames and attends
+    bidirectionally (its caches are written as a decoder's). Under a
+    mesh step's context (``ServeMesh``) ``params`` is the rank's tree as
+    its placement holds it, the batch the rank's rows, and the caches
+    come back as the rank's slices."""
+    check_prefill_support(cfg)
+    params = _mesh_top(cfg, params)
     x, positions, prefix_len = embed_inputs(cfg, params, batch)
-    cache = init_cache(cfg, x.shape[0], max_len, x.device)
+    sm = _serve_mesh()
+    cache = (init_cache(cfg, x.shape[0], max_len, x.device) if sm is None
+             else init_cache_mesh(cfg, sm, max_len, x.device))
     for ld, p, lcache in _layers(cfg, params, cache):
         x, _, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len,
                                     lcache)
-    return head_logits(cfg, params, x[:, -1:, :])[:, 0], cache
+    return _mesh_head(cfg, params, x[:, -1, :]), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
@@ -1116,10 +1616,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     no decode step."""
     if cfg.family == "encoder":
         raise ValueError("encoder-only model has no decode step")
+    params = _mesh_top(cfg, params)
     x = _embed(cfg, params, token)
     for ld, p, lcache in _layers(cfg, params, cache):
         x, _ = _apply_layer_decode(cfg, ld, p, x, lcache, pos)
-    return head_logits(cfg, params, x[:, None, :])[:, 0], cache
+    return _mesh_head(cfg, params, x), cache
 
 
 def mtp_logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor,

@@ -59,7 +59,11 @@ def load_balance_loss(x: torch.Tensor, w_router: torch.Tensor,
     probs = softmax(x.float() @ w_router.float())
     e = probs.shape[-1]
     topi = torch.topk(probs, top_k, dim=-1)[1]
-    counts = torch.bincount(topi.reshape(-1), minlength=e).float()
+    idx = topi.reshape(-1)         # counted into e bins (a static shape)
+    counts = torch.zeros(e, dtype=torch.float32, device=x.device
+                         ).index_add_(0, idx, torch.ones(
+                             idx.shape, dtype=torch.float32,
+                             device=x.device))
     if count_group is not None:
         dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=count_group)
     frac_tokens = counts / counts.sum().clamp_min(1.0)
@@ -76,7 +80,8 @@ def capacity(tokens: int, top_k: int, n_experts: int,
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
             *, top_k: int, capacity_factor: float = 1.0,
             router_type: str = "softmax",
-            down_tp: Optional[str] = "row") -> torch.Tensor:
+            down_tp: Optional[str] = "row", expert_lo: int = 0,
+            sum_group=None) -> torch.Tensor:
     """Routed experts on x (T, D): each token's top-k assignments sorted
     by expert (a stable sort, so an expert takes its tokens in token
     order), ranked within their expert, kept below capacity (the rest go
@@ -84,9 +89,14 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
     buffer's SwiGLU and combined per token in f32, then cast to x's
     dtype. ``down_tp``: the down projection's TP mark (serving shards the
     experts on their hidden dim; a train step's replicated experts pass
-    None)."""
+    None). Expert weights holding fewer experts than the router routes
+    to are a serving mesh rank's [``expert_lo``, ``expert_lo`` + E_local)
+    on the expert axis: the routing and capacity stay the whole
+    program's, only the rank's experts' slots are filled and run, and
+    the per-token f32 partial sums are summed over ``sum_group``."""
     t, d = x.shape
     e = w_router.shape[-1]
+    e_loc = (w_gate.w.q if hasattr(w_gate, "w") else w_gate).shape[0]
     cap = capacity(t, top_k, e, capacity_factor)
     topv, topi = router(x, w_router, router_type, top_k)
 
@@ -99,12 +109,15 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
     first = torch.searchsorted(se, se, side="left")
     rank = torch.arange(t * top_k, device=x.device) - first
     keep = rank < cap
+    if e_loc != e:     # a mesh rank's experts: the others' slots dropped
+        keep = keep & (se >= expert_lo) & (se < expert_lo + e_loc)
+        se = se - expert_lo
     slot = torch.where(keep, se * cap + rank,
-                       torch.full_like(se, e * cap))  # dropped -> overflow
+                       torch.full_like(se, e_loc * cap))  # -> overflow
 
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e_loc * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[slot] = x[st]      # kept slots are distinct; the overflow row
-    expert_in = buf[:-1].reshape(e, cap, d)            # is dropped
+    expert_in = buf[:-1].reshape(e_loc, cap, d)        # is dropped
     h = silu(expert_linear(expert_in, w_gate))
     h = h * expert_linear(expert_in, w_up)
     # row-parallel under TP (experts shard on their hidden dim): one int32
@@ -115,10 +128,15 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
     # times the f32 weights promotes to f32, as in JAX; the top-k sum in
     # order, then the cast back
     inv_order = torch.argsort(order)
-    gathered = expert_out.reshape(e * cap, d)[slot.clamp_max(e * cap - 1)]
+    gathered = expert_out.reshape(e_loc * cap, d)[
+        slot.clamp_max(e_loc * cap - 1)]
     gathered = gathered * (sw * keep)[:, None]
     per_assignment = gathered[inv_order].reshape(t, top_k, d)
-    return per_assignment.sum(dim=1).to(x.dtype)
+    y = per_assignment.sum(dim=1)
+    if sum_group is not None:
+        y = y.float()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=sum_group)
+    return y.to(x.dtype)
 
 
 def moe_ffn_local_ep(x_l: torch.Tensor, w_router: torch.Tensor, w_gate,

@@ -4,8 +4,10 @@
 and the pure SSD stack (mamba2)."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import List
+from typing import Dict, Iterator, List, Optional
 
 from repro_torch.configs.base import ModelConfig
 
@@ -28,7 +30,34 @@ class Stage:
         return len(self.period) * self.repeat
 
 
+# Stage index -> the repeat built in place of the config's, in the
+# context of :func:`stage_repeats`
+_REPEATS: contextvars.ContextVar[Optional[Dict[int, int]]] = \
+    contextvars.ContextVar("stage_repeats", default=None)
+
+
+@contextlib.contextmanager
+def stage_repeats(repeats: Dict[int, int]) -> Iterator[None]:
+    """Build stage ``i`` with ``repeats[i]`` repeats of its period (the
+    others as the config says) inside: schema, caches and model loop
+    alike, so that one stage's layer program can be traced at a depth of
+    one or two."""
+    token = _REPEATS.set(dict(repeats))
+    try:
+        yield
+    finally:
+        _REPEATS.reset(token)
+
+
 def build_stages(cfg: ModelConfig) -> List[Stage]:
+    stages, repeats = _stages(cfg), _REPEATS.get()
+    if repeats is None:
+        return stages
+    return [Stage(st.period, repeats.get(i, st.repeat))
+            for i, st in enumerate(stages)]
+
+
+def _stages(cfg: ModelConfig) -> List[Stage]:
     if cfg.family == "moe":
         return _moe_stages(cfg)
     if cfg.family == "hybrid":

@@ -1,6 +1,7 @@
 """Rank functions of the tensor-parallel CPU tests (``test_torch_tp.py``,
 ``test_torch_sharded_engine.py``, ``test_torch_mesh_train.py``,
-``test_torch_mesh_train_mla_ssd.py``): each
+``test_torch_mesh_train_mla_ssd.py``, ``test_torch_legacy_mesh.py``):
+each
 runs in every process of a gloo world that
 ``repro_torch.launch.mesh.spawn_world`` spawns, and imports only the
 port, so the ranks start without JAX. The tests compute the
@@ -393,3 +394,79 @@ def mesh_train_world(rank: int, jobs):
         else:
             out[job["id"]] = {"replicated": got.get("replicated")}
     return out
+
+
+def legacy_mesh_world(rank: int, jobs):
+    """The ``--legacy`` steps on a (data, model) mesh as big as the world:
+    each job a dict with "id", "mesh" (data, model), "cfg", the whole
+    served tree "params" (CPU tensors), the whole "batch" (numpy), "gen"
+    and "max_len". The rank takes its part of the tree and of the batch
+    (``ServeMesh.local``), prefills and decodes "gen" greedy steps under
+    the serve contexts, and returns {id: (first row, [greedy tokens a
+    step], [logits a step])} for its rows, as numpy."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import mesh_coords, serve_groups
+    from repro_torch.models import model as M
+    world = dist.get_world_size()
+    groups, out = {}, {}
+    for job in jobs:
+        d, m = job["mesh"]
+        if d * m != world:
+            continue
+        layout = {"data": d, "model": m}
+        if (d, m) not in groups:          # every rank, in one order
+            groups[(d, m)] = serve_groups(layout)
+        cfg, gb = job["cfg"], next(iter(job["batch"].values())).shape[0]
+        sms = [S.serve_mesh(cfg, layout, mesh_coords(layout, rank),
+                            groups[(d, m)], global_batch=gb,
+                            max_len=job["max_len"], kind=k)
+               for k in ("prefill", "decode")]
+        params = sms[0].local(job["params"], sms[0].specs)
+        batch = {k: sms[0].local(torch.from_numpy(v), spec) for (k, v), spec
+                 in zip(job["batch"].items(), S.batch_specs(
+                     {k: torch.from_numpy(v) for k, v in
+                      job["batch"].items()}, layout).values())}
+        rows = next(iter(batch.values())).shape[0]
+        first = sms[0].index(sms[0].batch_entry) * rows if rows != gb else 0
+        t0 = sum(v.shape[1] for k, v in batch.items()
+                 if k in ("tokens", "patches", "frames"))
+        toks, logits = [], []
+        with torch.no_grad():
+            with tp_scope(S.serve_context(sms[0])):
+                lg, cache = M.prefill(cfg, params, batch,
+                                      max_len=job["max_len"])
+            for i in range(job["gen"] + 1):
+                tok = torch.argmax(lg, -1).to(torch.int32)
+                toks.append(tok.numpy())
+                logits.append(lg.float().numpy())
+                if i == job["gen"] or cfg.family == "encoder":
+                    break
+                pos = torch.full_like(tok, t0 + i)
+                with tp_scope(S.serve_context(sms[1], rows)):
+                    lg, cache = M.decode_step(cfg, params, cache, tok, pos)
+        out[job["id"]] = (first, toks, logits)
+    return out
+
+
+def gather_heads_world(rank: int, job):
+    """One sharded train step (``TrainMesh(gather_heads=True)``: heads the
+    model ways do not divide attended whole on every model rank) of a
+    world-sized (data, model) mesh, from the whole "state" on the whole
+    "batch"; returns the loss and the grads gathered onto rank 0
+    (numpy; None elsewhere)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import steps as S
+    mesh = make_mesh(*job["mesh"])
+    lay = mesh_layout(mesh)
+    c = lay.coords
+    tm = S.TrainMesh(job["cfg"], mesh, gather_heads=True)
+    params = tm.shards.local(job["state"].params)
+    batch = shard_batch(job["batch"], "cpu", data_rank=c.data_rank,
+                        data_ways=c.data_ways,
+                        microbatch=job["knobs"].microbatch)
+    loss, _, grads = S.make_sharded_grads(job["cfg"], job["knobs"], tm)(
+        params, batch)
+    whole = tm.gather(grads)
+    return float(loss), None if whole is None else [
+        to_numpy(g) for g in store.flatten(whole)]

@@ -49,7 +49,11 @@ on the CPU: the same greedy streams. Training: granite-8b's and
 hubert-xlarge's smoke configs train two steps on the card, twice from
 one seed in a child process under ``torch.use_deterministic_algorithms``
 (cuBLAS's workspace set before CUDA starts): every loss finite, no
-blow-up, the two runs' states bit-equal.
+blow-up, the two runs' states bit-equal. Row 7p (the partial decode
+over a slice of the cache): each slice within 1e-4 of its plain version
+(out and log-sum-exp; a slice wholly past pos -inf and 0), the slices
+merged within 1e-4 of one row-7 call, at hd 16, 128 and 256, with and
+without a window.
 """
 import math
 import sys
@@ -810,3 +814,39 @@ def test_smoke_train_on_card_finite_and_deterministic(cuda, arch):
         assert all(map(math.isfinite, losses)), r
         assert losses[1] < losses[0] + 1.0, r
     assert r["bit_equal"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,kvh,g", [(128, 8, 4), (256, 1, 8), (16, 2, 2)])
+@pytest.mark.parametrize("window", [0, 100])
+def test_partial_attention_slices_merge_to_row_7(cuda, hd, kvh, g, window):
+    """Row 7p on the card: each slice of 1, 2 and 16 against its plain
+    version (out and lse within 1e-4, the slices wholly past pos -inf and
+    0), the slices merged against one row-7 call within 1e-4 (f32 q)."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + window)
+    b, s = 8, 512
+    cache = contiguous_cache(cuda, gen, b, s, kvh, hd)
+    pos = torch.tensor([511, 0, 5, 200, 300, 301, 400, 100],
+                       dtype=torch.int32, device=cuda)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=cuda)
+    whole = kv_attention.kv4_decode_attention(q, *cache, pos, window=window)
+    for n in (1, 2, 16):
+        n_loc = s // n
+        outs, lses = [], []
+        for r in range(n):
+            part = tuple(t[:, r * n_loc:(r + 1) * n_loc].contiguous()
+                         for t in cache)
+            o, lse = kv_attention.kv4_decode_attention_partial(
+                q, *part, pos, start=r * n_loc, window=window)
+            wo, wl = ref.kv4_decode_attention_partial_ref(
+                q, *part, pos, start=r * n_loc, window=window)
+            assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+            assert (o[torch.isinf(lse)] == 0).all()
+            live = torch.isfinite(wl)
+            assert (o - wo).abs().max().item() <= 1e-4
+            if live.any():
+                assert (lse - wl)[live].abs().max().item() <= 1e-4
+            outs.append(o)
+            lses.append(lse)
+        assert (ref.merge_partials(outs, lses) - whole).abs().max().item() \
+            <= 1e-4
