@@ -49,8 +49,13 @@ to chiprun_out/):
      streams equal to phase 4's, per-kernel launch counts equal, TTFT,
      TPOT and tokens/s of both; then every step kind captured at full
      depth (``graph_cases``: the prefill chunk at valid = 32 and < 32,
-     decode, draft, verify, KV2 decode, the fixed-batch decode) replayed
-     against its eager calls, logits, telemetry and pages bit-equal;
+     decode, draft, verify, KV2 decode, the fixed-batch prefill into
+     used caches and decode, the KV2 page re-codecs at other pages each
+     call) replayed against its eager calls, logits, telemetry, pages and
+     caches bit-equal; and three ``--legacy`` serves of the prompts
+     through one ``LegacySteps`` (the prefill's warm-up, capture and
+     replay: their times, the capture's added reserved bytes; streams and
+     launch counts equal);
   5. serve the same weights and prompts through the SpeculativeEngine
      (gamma = SPEC_GAMMA: LSB4-only drafts + one verify window per
      cycle), counters zeroed just before and read just after; every
@@ -75,8 +80,9 @@ to chiprun_out/):
      contiguous attention kernel runs once a layer a decode step and the
      paged one never; how many streams equal phase 4's is reported (a
      128-token prompt is prefilled in chunks by the engine, so they may
-     differ); then granite width, 2 layers, f32: legacy streams equal to
-     the engine's with the prefill unchunked;
+     differ), and they must equal phase 4b's three legacy serves'; then
+     granite width, 2 layers, f32: legacy streams equal to the engine's
+     with the prefill unchunked;
  10. profile a shorter run of phase 4's, phase 5's and phase 7's
      engine shapes on an engine whose graphs a first run captured
      (device busy share under graphs, device time by kernel, bf16
@@ -90,8 +96,9 @@ to chiprun_out/):
      and on the CPU (plain versions), logits within LOGIT_TOL and the
      greedy token streams identical;
  12. the rest of the zoo the engine serves, each at full width and depth
-     with phase 4's serve under CUDA graphs: yi-6b, starcoder2-3b and
-     deepseek-moe-16b (and for it gamma = SPEC_GAMMA, dense with logits
+     (deepseek-moe-16b at ZOO_LAYERS' 14 of 28) with phase 4's serve
+     under CUDA graphs: yi-6b, starcoder2-3b and deepseek-moe-16b (and
+     for it gamma = SPEC_GAMMA, dense with logits
      bit-equal to SPARQLe, packed base and gamma: streams equal to its
      base serve's, every routed projection one batched encoder and one
      batched matmul launch), TTFT, TPOT, tokens/s and launch counts; each
@@ -144,7 +151,10 @@ to chiprun_out/):
      windowed contiguous attention once a local layer and step, the
      global layers' instance, seven matmuls a layer and forward, no paged
      attention), the decode step replayed against its eager calls at full
-     depth (bit-equal), each arch's 2-layer f32 card vs CPU cross-check
+     depth (bit-equal), the prefill too (``prefill_replay``: token and
+     caches bit-equal, launch counts equal, its times; gemma3-27b at 12
+     of its 62 layers, PREFILL_REPLAY_LAYERS), each arch's
+     2-layer f32 card vs CPU cross-check
      of the fixed-batch path (LEGACY_XC; logits within LOGIT_TOL, greedy
      streams identical), ``serve.main --legacy --smoke`` of both and
      their exit without ``--legacy``;
@@ -158,7 +168,8 @@ to chiprun_out/):
      encoder and dual-pass matmul for each plain projection, the batched
      pair at E = 256 for each routed one, no attention kernel), the
      decode step's logits and caches replayed against its eager calls at
-     full depth (bit-equal), the MTP logits once; the 2-layer f32 card vs
+     full depth (bit-equal), the prefill too (``prefill_replay``), the
+     MTP logits once; the 2-layer f32 card vs
      CPU cross-check (V3_XC: 16 experts) of the fixed-batch path, the
      card fed the CPU's greedy tokens, and of the MTP logits (within the
      arch's LOGIT_TOL_ARCH; greedy tokens equal at every step but at
@@ -179,7 +190,8 @@ to chiprun_out/):
      overflows to NaN at the serve's chunk of 128), the decode step's
      byte floor and the replay's share of it, the decode step's logits
      and SSD states replayed against its eager calls at full depth
-     (bit-equal); each arch's 2-layer f32 card vs CPU cross-check
+     (bit-equal), the prefill too (``prefill_replay``); each arch's
+     2-layer f32 card vs CPU cross-check
      (LEGACY_XC; logits within LOGIT_TOL, greedy streams identical);
      ``serve.main --legacy --smoke`` of both and their exit without
      ``--legacy``, naming the ssd mixer;
@@ -214,7 +226,7 @@ to chiprun_out/):
      1x2 world of ranks sharing the card over gloo, deepseek-v3-671b at
      full width cut to its layer 0 (absorbed MLA, the dense FFN of
      18,432) with its MTP block and 129,280-word untied head (20a), then
-     mamba2-2.7b at full width, MLA_SSD_TRAIN's 16 of 64 layers (20b),
+     mamba2-2.7b at full width, MLA_SSD_TRAIN's 8 of 64 layers (20b),
      each one step of two microbatches of 4 on one 8 x 128 batch; then
      both at 1x1 on the same trees and batches in a child process of
      its own (deepseek-v3's 1x1 state alone is ~44 GB, so never beside
@@ -2200,7 +2212,9 @@ def serve_granite(dev, cfg, params, prompts, spec_gamma: int = 0,
     if pool.kv2_armed:
         r["ladder"] = dict(
             ladder, page_bytes=dict(pool._page_bytes),
-            demote_s=lat.sum(phase="demote") - ladder["spars_s"])
+            demote_s=lat.sum(phase="demote") - ladder["spars_s"],
+            graphs=[pool.recodecs.demote_step.graphs,
+                    pool.recodecs.promote_step.graphs])
     if r["finished"] != SERVE["batch"] or any(
             len(s) != SERVE["gen"] for s in r["streams"]):
         raise AssertionError(f"unfinished requests: {r['streams']}")
@@ -2238,6 +2252,80 @@ def graphs_vs_eager(dev, cfg, params, prompts):
                            engines["graphs"]._decode_fn)] != [1, 1]:
         raise AssertionError("the graph engine did not capture one graph "
                              "a step")
+    return runs
+
+
+RECODEC_CALLS = 20
+
+
+def recodec_times(dev, cfg):
+    """Host ms a page of each KV2 re-codec through ``PageRecodecs`` (the
+    engine's path: ids filled, copied in, one replay) on a pool of phase
+    6's size at full depth: its capture (the second call), then
+    RECODEC_CALLS pages replayed and as many eagerly
+    (``disable_graphs()``), the card synced after each run of pages."""
+    import contextlib
+    from repro_torch.launch.graphs import disable_graphs
+    from repro_torch.serving import tiering
+    from repro_torch.serving.kv_pool import PoolConfig, init_pool_state
+    n_pages = 1 + 8 * math.ceil((SERVE["prompt_len"] + SERVE["gen"]) / 16)
+    state = init_pool_state(cfg, PoolConfig(n_pages=n_pages, page_size=16,
+                                            kv2_pages=n_pages), dev)
+    codecs = tiering.PageRecodecs(dev)
+    out = {}
+    for op in ("demote", "promote"):
+        run = getattr(codecs, op)
+        ms = {}
+        for path in ("capture", "replay", "eager"):
+            calls = 1 if path == "capture" else RECODEC_CALLS
+            with (disable_graphs() if path == "eager"
+                  else contextlib.nullcontext()):
+                if path == "capture":
+                    run(state, 1, 2)               # the warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(calls):
+                    run(state, 1 + i, 2 + i)
+                torch.cuda.synchronize()
+            ms[path] = (time.perf_counter() - t0) / calls * 1e3
+        out[op] = ms
+    del state, codecs
+    return out
+
+
+def legacy_prefill_serves(dev, cfg, params, prompts):
+    """Phase 4b's ``--legacy`` serves: the prompts three times through one
+    ``LegacySteps``, whose prefill warms up eagerly (the caches allocated
+    there), is captured, then replays; launch counters zeroed just before
+    each serve and read just after, and the card's reserved bytes each
+    serve added (the capture's: the prefill graph's memory pool). Raises
+    unless the prefill ran warm-up, capture, replay into one graph and
+    the three serves' streams and launch counts are equal. Returns the
+    three runs."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import LegacySteps, legacy_serve
+    steps = LegacySteps(cfg, len(prompts), len(prompts[0]) + SERVE["gen"],
+                        dev)
+    runs = []
+    for _ in range(3):
+        reserved = torch.cuda.memory_reserved(dev)
+        kernels.reset_launch_counts()
+        r = legacy_serve(cfg, params, prompts, SERVE["gen"], dev,
+                         steps=steps)
+        r["launches"] = kernels.launch_counts()
+        r["reserved_gb"] = (torch.cuda.memory_reserved(dev) - reserved) / 1e9
+        runs.append(r)
+    calls = [r["prefill_call"] for r in runs]
+    if calls != ["warm-up", "capture", "replay"] or \
+            (steps.prefill.graphs, steps.decode.graphs) != (1, 1) or \
+            any(r["streams"] != runs[0]["streams"] or
+                r["launches"] != runs[0]["launches"] for r in runs):
+        raise AssertionError(f"--legacy serves through one LegacySteps: "
+                             f"prefill {calls}, graphs "
+                             f"{steps.prefill.graphs}/{steps.decode.graphs}")
+    del steps
+    gc.collect()
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -2350,17 +2438,21 @@ def window_vs_decode(dev, cfg, params, seed: int):
 
 def graph_cases(cfg, params, dev, seed: int, *, b: int = 8, ps: int = 16,
                 n_s: int = 10, chunk: int = 32, gamma: int = SPEC_GAMMA):
-    """Every step kind that the engines and the fixed-batch decode run as
-    CUDA graphs, one at a time: (name, step closure, persistent state,
-    the inputs of four calls — a compiled step's warm-up, its capture and
-    two replays). The state is a used random pool of b slots x n_s pages
-    of ps tokens (with a KV2 slab for the tiered step) or contiguous
-    caches of n_s * ps positions. From call to call the positions, block
-    tables and tokens move, a slot is left inactive (zero table row,
-    position 0), and the prefill chunk runs valid = chunk and valid <
-    chunk at other starts."""
+    """Every step kind that the engines, the fixed-batch path and the KV2
+    ladder run as CUDA graphs, one at a time: (name, step closure, its
+    persistent arguments — the params, if it takes them, then the state
+    it writes — and the inputs of four calls: a compiled step's warm-up,
+    its capture and two replays). The state is a used random pool of b
+    slots x n_s pages of ps tokens (with a KV2 slab for the tiered step
+    and the re-codecs) or contiguous caches of n_s * ps positions. From
+    call to call the positions, block tables and tokens move, a slot is
+    left inactive (zero table row, position 0), the prefill chunk runs
+    valid = chunk and valid < chunk at other starts, the fixed-batch
+    prefill new prompts into the used caches, and the re-codecs other
+    pages."""
     from repro_torch.launch import steps as S
     from repro_torch.models.model import init_cache
+    from repro_torch.serving import tiering
     from repro_torch.serving.kv_pool import PoolConfig, init_pool_state
     g = torch.Generator(device=dev).manual_seed(seed + 17)
     span, n_pages = n_s * ps, 1 + b * n_s
@@ -2423,6 +2515,16 @@ def graph_cases(cfg, params, dev, seed: int, *, b: int = 8, ps: int = 16,
     cache = fill_random(init_cache(cfg, b, span, dev), g)
     yield ("legacy_decode", S.make_serve_decode(cfg), (params, cache),
            [batch(i, span)[:2] for i in range(4)])
+    # a used cache of span positions, prompts of span - 2 ps tokens
+    cache = fill_random(init_cache(cfg, b, span, dev), g)
+    yield ("legacy_prefill", S.make_serve_prefill_into(cfg), (params, cache),
+           [(tokens(b, span - 2 * ps),) for _ in range(4)])
+    # one page id pair a call: a used KV4 page into a KV2 page, and back
+    state = pool(kv2_pages=n_pages)
+    pages = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+    ids = [(pages[2 * i].int(), pages[2 * i + 1].int()) for i in range(4)]
+    yield ("kv2_demote", tiering.demote_page, (state,), ids)
+    yield ("kv2_promote", tiering.promote_page, (state,), ids)
 
 
 def replay_vs_eager(dev, case, graph_type=None) -> bool:
@@ -2432,13 +2534,13 @@ def replay_vs_eager(dev, case, graph_type=None) -> bool:
     and the state after it are bit-equal and the step captured one
     graph."""
     from repro_torch.launch.graphs import CompiledStep
-    _, fn, (params, state), calls = case
+    _, fn, (*fixed, state), calls = case
     step = CompiledStep(fn, dev, graph_type=graph_type)
     twin = clone_tree(state)
     same = True
     for args in calls:
-        got = step(params, state, *args)
-        want = fn(params, twin, *args)
+        got = step(*fixed, state, *args)
+        want = fn(*fixed, twin, *args)
         same &= trees_equal(got, want) and trees_equal(state, twin)
     return same and step.graphs == 1
 
@@ -2692,6 +2794,10 @@ def cross_check(dev, seed: int, arch: str = "granite-8b"):
 # ---------------------------------------------------------------------------
 
 ZOO = ("yi-6b", "starcoder2-3b", "deepseek-moe-16b")
+# phase 12's depth cuts: deepseek-moe-16b serves its first 14 of 28
+# layers (1 dense, 13 MoE) since the smoke took ~1,160 s twice (its seven
+# serves at 28 layers took 64-67 s)
+ZOO_LAYERS = {"deepseek-moe-16b": 14}
 # a token budget that takes a 32-token chunk of all 8 prompts and 8
 # speculative decode slots (2 gamma + 1 tokens each) in one step, so both
 # engines cut the same chunks
@@ -2712,8 +2818,9 @@ def summary(r):
 
 
 def serve_zoo_arch(dev, arch, seed):
-    """``arch`` at full width and depth, weights drawn from ``seed`` on
-    the card, phase 4's serve (8 x 128 x 16, CUDA graphs). For
+    """``arch`` at full width and depth (ZOO_LAYERS' cut where it has
+    one), weights drawn from ``seed`` on the card, phase 4's serve (8 x
+    128 x 16, CUDA graphs). For
     deepseek-moe-16b also gamma = SPEC_GAMMA, dense and the packed wire
     format (base and gamma): dense and packed streams equal to the base
     serve's, packed gamma's to gamma's, dense logits bit-equal to
@@ -2740,6 +2847,7 @@ def serve_zoo_arch(dev, arch, seed):
     from repro_torch.launch.serve import build_served_params, make_prompts
     from repro_torch.models.stages import build_stages
     cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=ZOO_LAYERS.get(arch, cfg.n_layers))
     t0 = time.perf_counter()
     params = build_served_params(cfg, seed, dev)
     torch.cuda.synchronize()
@@ -3137,12 +3245,13 @@ def serve_surface(dev, cfg, params, prompts, base, spec):
 # passed 1,000 s).
 TP_MESHES = ((1, 2), (2, 2))
 MOE_TP_LAYERS = 2
-# granite-8b's depth in the sharded serves: its first 4 of 36 layers,
+# granite-8b's depth in the sharded serves: its first 2 of 36 layers,
 # each serve held against the single-device serve of the same cut tree
 # (at 36 the eager gloo serves took 176-316 s and the smoke passed 800 s;
-# 12 until phase 22 came in and the smoke passed 1,000 s, then 8 until
-# it passed 1,000 s again); the sharded decode step stays at full depth
-TP_GRANITE_LAYERS = 4
+# 12 until phase 22 came in and the smoke passed 1,000 s, then 8 and 4,
+# each until it passed 1,000 s again); the sharded decode step stays at
+# full depth
+TP_GRANITE_LAYERS = 2
 # a rank waiting this long in a collective fails the phase
 TP_TIMEOUT_S = 600
 
@@ -3423,6 +3532,18 @@ def tp_summary_single(d):
             f"{r['steps']} steps (graphs)")
 
 
+def first_periods(cfg, params, n_layers):
+    """``cfg`` and its served tree cut to their first ``n_layers`` (whole
+    periods of the first stage), or both as they are where ``n_layers``
+    is None."""
+    from repro_torch.models.stages import build_stages
+    if n_layers is None:
+        return cfg, params
+    periods = n_layers // len(build_stages(cfg)[0].period)
+    return cfg.replace(n_layers=n_layers), dict(params, stages={
+        "s0": first_layers(params["stages"]["s0"], periods)})
+
+
 def first_layers(tree, n: int):
     """A layer-stacked param subtree cut to its first ``n`` layers."""
     from repro_torch.core.qlinear import SparqleLinear, stack_linears
@@ -3621,6 +3742,10 @@ LEGACY_XC = {"gemma3-27b": (dict(global_every=2, sliding_window=64), 128),
 LEGACY_XC_GEN = 4
 # projections a layer: wq, wk, wv, wo and the GeGLU's w_gate, w_up, w_down
 GEMMA_LINEARS = 7
+# the prefill replay's depth where the full one costs the smoke too much:
+# gemma3-27b's first 2 of its 10 periods of 6 (10 local and 2 global
+# layers; its 2 x 2,048-token prefill takes ~2.4 s a call at 62 layers)
+PREFILL_REPLAY_LAYERS = {"gemma3-27b": 12}
 
 
 def build_on_card(dev, cfg, seed):
@@ -3685,6 +3810,70 @@ def legacy_replay(dev, cfg, params, b, span, seed) -> bool:
                                  (params, cache), calls))
 
 
+def prefill_replay(dev, cfg, params, inputs, max_len, seed):
+    """The fixed-batch prefill of ``cfg`` (full depth, or the cut of
+    PREFILL_REPLAY_LAYERS) through a compiled step (warm-up, capture,
+    replay) and eagerly on a copy of the same random cache (phase 4b's
+    ``legacy_prefill`` case at a family's serve shape):
+    the serve's ``inputs`` (tokens, a VLM's patches), then two other
+    random prompt sets behind the same patches. Returns ``equal``, True
+    when the token and every cache tensor are bit-equal after each call,
+    ``launches_equal``, when each compiled call's launch counts are its
+    eager call's, and the calls' times (ms, the card synced around each:
+    ``compiled_ms`` warm-up, capture, replay; ``eager_ms``)."""
+    from repro_torch import kernels
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.graphs import CompiledStep
+    from repro_torch.models import model as M
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens, rest = inputs[0], tuple(inputs[1:])
+    cache = fill_random(M.init_cache(cfg, tokens.shape[0], max_len, dev), g)
+    twin = clone_tree(cache)
+    fn = S.make_serve_prefill_into(cfg)
+    step = CompiledStep(fn, dev)
+    calls = [(tokens,) + rest] + [
+        (torch.randint(0, cfg.vocab, tokens.shape, generator=g, device=dev,
+                       dtype=torch.int32),) + rest for _ in range(2)]
+    out = {"layers": cfg.n_layers, "equal": True, "launches_equal": True,
+           "compiled_ms": [], "eager_ms": []}
+    for args in calls:
+        counts = []
+        for run, key, state in ((step, "compiled_ms", cache),
+                                (fn, "eager_ms", twin)):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok = run(params, state, *args)
+            torch.cuda.synchronize()
+            out[key].append((time.perf_counter() - t0) * 1e3)
+            counts.append(kernels.launch_counts())
+            if run is step:
+                got = tok
+        out["equal"] &= trees_equal(got, tok) and trees_equal(cache, twin)
+        out["launches_equal"] &= counts[0] == counts[1]
+    out["equal"] &= step.graphs == 1
+    del step, cache, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_prefill_replay(arch, r) -> None:
+    """Raise unless :func:`prefill_replay`'s result ``r`` holds."""
+    if not (r["equal"] and r["launches_equal"]):
+        raise AssertionError(f"{arch}: the graph-replayed prefill differs "
+                             f"from its eager calls: {r}")
+
+
+def prefill_replay_note(r) -> str:
+    """A phase's log of :func:`prefill_replay`'s result ``r``."""
+    return (f"prefill replayed vs eager at {r['layers']}L, token and caches "
+            f"bit-equal: {r['equal']}, launch counts equal: "
+            f"{r['launches_equal']}, ms warm-up/capture/replay "
+            + "/".join(f"{t:.1f}" for t in r["compiled_ms"])
+            + " against eager " + "/".join(f"{t:.1f}" for t in r["eager_ms"]))
+
+
 def serve_gemma(dev, arch, seed):
     """``arch`` at full width and depth, served weights drawn from
     ``seed`` on the card: GEMMA_SERVES' fixed-batch serve through
@@ -3694,7 +3883,9 @@ def serve_gemma(dev, arch, seed):
     hd-256 instance (paligemma) once a global layer and step, no paged
     attention, seven matmuls a layer and forward. Then the decode step
     replayed against its eager calls at full depth (``legacy_replay``
-    over a cache of the serve's length). Returns the summary."""
+    over a cache of the serve's length), and the prefill too
+    (``prefill_replay``; gemma3-27b at PREFILL_REPLAY_LAYERS' cut).
+    Returns the summary."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_prompts, vlm_patches
     from repro_torch.models.stages import build_stages
@@ -3729,6 +3920,15 @@ def serve_gemma(dev, arch, seed):
     if not out["replay_vs_eager"]:
         raise AssertionError(f"{arch}: the graph-replayed decode step "
                              f"differs from its eager calls")
+    inputs = (torch.tensor(prompts, dtype=torch.int32, device=dev),)
+    rcfg, rparams = first_periods(cfg, params,
+                                  PREFILL_REPLAY_LAYERS.get(arch))
+    out["prefill_replay"] = prefill_replay(
+        dev, rcfg, rparams, inputs + ((patches,) if patches is not None
+                                      else ()),
+        cfg.n_prefix + n + gen, seed + 37)
+    del rparams
+    check_prefill_replay(arch, out["prefill_replay"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3894,6 +4094,10 @@ def serve_deepseek_v3(dev, seed):
     if not out["replay_vs_eager"]:
         raise AssertionError("deepseek-v3: the graph-replayed decode step "
                              "differs from its eager calls")
+    out["prefill_replay"] = prefill_replay(
+        dev, cfg, params, (torch.tensor(prompts, dtype=torch.int32,
+                                        device=dev),), n + gen, seed + 37)
+    check_prefill_replay("deepseek-v3", out["prefill_replay"])
     # the MTP head once on the card (the reference runs it in training)
     batch = {"tokens": torch.tensor(prompts[:2], dtype=torch.int32,
                                     device=dev)}
@@ -4092,6 +4296,9 @@ def serve_ssd(dev, arch, seed, peaks):
     if not out["replay_vs_eager"]:
         raise AssertionError(f"{arch}: the graph-replayed decode step "
                              f"differs from its eager calls")
+    out["prefill_replay"] = prefill_replay(
+        dev, cfg, params, (batch["tokens"],), n + gen, seed + 37)
+    check_prefill_replay(arch, out["prefill_replay"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4560,10 +4767,11 @@ def mesh_train(dev, cfg, seed):
 # both), ~14 B a param (f32 master and grad, bf16 moments and compute
 # copy): ~58 GB over the two ranks, ~44 GB at 1x1; one of its MoE layers
 # alone (11.3 B params) fits no card's train state, so its MoE on the
-# expert axis is checked on the CPU only. mamba2-2.7b: 16 of 64 layers
-# (40.2 M params a layer; ~0.9 B over the ranks with the tied embedding)
+# expert axis is checked on the CPU only. mamba2-2.7b: 8 of 64 layers
+# (40.2 M params a layer; ~0.6 B over the ranks with the tied embedding;
+# 16 until the smoke passed 1,150 s)
 MLA_SSD_TRAIN = {"deepseek-v3-671b": dict(n_layers=1, first_dense=1),
-                 "mamba2-2.7b": dict(n_layers=16)}
+                 "mamba2-2.7b": dict(n_layers=8)}
 MLA_SSD_MESH = (1, 2)
 # each trained tree's --legacy serve on rank 0: prompts of MLA_SSD_SERVE
 MLA_SSD_SERVE = dict(batch=4, tokens=32, gen=4)
@@ -5289,6 +5497,9 @@ def main() -> int:
         gve["replay_vs_eager"] = {
             case[0]: replay_vs_eager(dev, case)
             for case in graph_cases(cfg, params, dev, args.seed)}
+        gve["legacy"] = leg = legacy_prefill_serves(dev, cfg, params, prompts)
+        gve["recodec_ms"] = rc = recodec_times(dev, cfg)
+        leg_decode_ms = [r["decode_step_s"] * 1e3 for r in leg]
         serves = gve["eager"] + gve["graphs"]
         same_gve = [r["streams"] == eng["streams"] for r in serves]
         same_counts = [r["launches"] == gve["eager"][0]["launches"]
@@ -5309,7 +5520,19 @@ def main() -> int:
             f"equal: {sum(same_counts)}/{len(same_counts)} (phase 4 "
             f"included); each step kind replayed vs eager at "
             f"{cfg.n_layers}L, bits equal: {gve['replay_vs_eager']}; "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"--legacy prefill through one LegacySteps, 3 serves: eager "
+            f"{leg[0]['prefill_s'] * 1e3:.2f} ms (the caches' allocation "
+            f"included), capture and first replay "
+            f"{leg[1]['prefill_s'] * 1e3:.2f} ms (the serve added "
+            f"{leg[1]['reserved_gb']:.3f} GB reserved), replay "
+            f"{leg[2]['prefill_replay_s'] * 1e3:.2f} ms; decode "
+            f"{'/'.join(f'{r_ms:.2f}' for r_ms in leg_decode_ms)} "
+            f"ms/step; streams and launches equal in the 3; "
+            f"KV2 re-codec a page, ms (capture, replay, eager; "
+            f"{RECODEC_CALLS} pages): "
+            + "; ".join(f"{op} " + "/".join(f"{v:.3f}" for v in ms.values())
+                        for op, ms in rc.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
         if not (all(same_gve) and all(same_counts)
                 and all(gve["replay_vs_eager"].values())):
             raise AssertionError("the compiled steps differ from eager ones")
@@ -5371,6 +5594,7 @@ def main() -> int:
             f"in-band share of the pages demoted "
             f"{sum(spars) / max(len(spars), 1):.4f} (min "
             f"{min(spars, default=0):.4f}, max {max(spars, default=0):.4f}), "
+            f"re-codec graphs (demote, promote) {lad['graphs']}, "
             f"streams equal to phase 4: {sum(same_kv2)}/{len(same_kv2)}, "
             f"TPOT mean {kv2['tpot_mean_s'] * 1e3:.2f} ms (idle "
             f"{idle['tpot_mean_s'] * 1e3:.2f}, base "
@@ -5396,6 +5620,13 @@ def main() -> int:
         if not agg2["pool_demotions"] or agg2["kv_bytes_reclaimed"] != \
                 agg2["pool_demotions"] * per_page:
             raise AssertionError(f"KV2 sweep: {agg2}")
+        # a re-codec runs eagerly once, then is captured and replayed
+        want = [int(agg2[f"pool_{k}"] >= 2) for k in ("demotions",
+                                                      "promotions")]
+        if lad["graphs"] != want or idle["ladder"]["graphs"] != [0, 0]:
+            raise AssertionError(f"KV2 re-codec graphs {lad['graphs']} "
+                                 f"(idle {idle['ladder']['graphs']}), want "
+                                 f"{want}")
         # phase 7: the dense W4A8 baseline on the same int4 weights
         dense = with_fields(params, mode="dense")
         dn = serve_granite(dev, cfg, dense, prompts)
@@ -5468,6 +5699,8 @@ def main() -> int:
         steps = lg["decode_steps"]
         same_lg = [a == b for a, b in zip(lg["streams"], eng["streams"])]
         lg["vs_engine_2l"] = legacy_vs_engine(dev, args.seed)
+        lg["same_as_4b"] = all(r["streams"] == lg["streams"]
+                               for r in gve["legacy"])
         log(f"[9] granite-8b {cfg.n_layers}L --legacy {SERVE['batch']} x "
             f"{SERVE['prompt_len']} x {SERVE['gen']}: prefill "
             f"{lg['prefill_s'] * 1e3:.1f} ms, decode "
@@ -5477,7 +5710,9 @@ def main() -> int:
             f"(engine TPOT {eng['tpot_mean_s'] * 1e3:.2f} ms), streams "
             f"equal to phase 4: {sum(same_lg)}/{len(same_lg)} (not "
             f"required: the engine prefills in chunks of 32), launches "
-            f"{lg['launches']}, peak {lg['peak_mem_gb']:.1f} GB; granite "
+            f"{lg['launches']}, peak {lg['peak_mem_gb']:.1f} GB, streams "
+            f"equal to phase 4b's three (prefill warm-up, capture, replay): "
+            f"{lg['same_as_4b']}; granite "
             f"width 2L f32 legacy vs engine (prefill unchunked): "
             f"{lg['vs_engine_2l']}")
         check_path(lg, ("sparqle_encode_fused", "sparqle_matmul",
@@ -5492,6 +5727,9 @@ def main() -> int:
         if not lg["vs_engine_2l"]["equal"]:
             raise AssertionError("legacy streams differ from the engine's "
                                  "with the prefill unchunked")
+        if not lg["same_as_4b"]:
+            raise AssertionError("phase 4b's --legacy serves (prefill "
+                                 "replayed) differ from phase 9's")
         # phase 14 runs here, before the profilers of phase 10 (a profiled
         # process stays slower on the host): the serve's surface on phase
         # 4's tree and prompts, and the core's calibration on the card
@@ -5664,6 +5902,7 @@ def main() -> int:
                 f"(build peak {r['build_peak_gb']:.1f} GB), serve peak "
                 f"{r['peak_mem_gb']:.1f} GB; decode step replayed vs eager "
                 f"at {r['layers']}L, bits equal: {r['replay_vs_eager']}; "
+                f"{prefill_replay_note(r['prefill_replay'])}; "
                 f"2L f32 {xg['config']} cuda vs cpu: max |dlogit| "
                 f"{xg['max_abs_logit_err']:.3g} of max |logit| "
                 f"{xg['max_abs_logit']:.3g} ({xg['rel_err']:.3g} rel, tol "
@@ -5697,7 +5936,8 @@ def main() -> int:
             f"{v3['peak_mem_gb']:.1f} GB, launches "
             f"{ {k: v for k, v in v3['launches'].items() if v} }; decode "
             f"step replayed vs eager at {v3['layers']}L, logits and caches "
-            f"bit-equal: {v3['replay_vs_eager']}; MTP logits "
+            f"bit-equal: {v3['replay_vs_eager']}; "
+            f"{prefill_replay_note(v3['prefill_replay'])}; MTP logits "
             f"{v3['mtp_shape']} finite in {v3['mtp_s'] * 1e3:.1f} ms")
         t0 = time.perf_counter()
         xv = deepseek_cross_check(dev, args.seed)
@@ -5744,7 +5984,9 @@ def main() -> int:
                 f"{ {k: v for k, v in r['launches'].items() if v} } "
                 f"({r['per_forward']} a forward); decode step replayed vs "
                 f"eager at {r['layers']}L, logits and states bit-equal: "
-                f"{r['replay_vs_eager']}; 2L f32 {xs['config']} cuda vs cpu: "
+                f"{r['replay_vs_eager']}; "
+                f"{prefill_replay_note(r['prefill_replay'])}; 2L f32 "
+                f"{xs['config']} cuda vs cpu: "
                 f"max |dlogit| {xs['max_abs_logit_err']:.3g} of max |logit| "
                 f"{xs['max_abs_logit']:.3g} ({xs['rel_err']:.3g} rel, tol "
                 f"{LOGIT_TOL_ARCH.get(arch, LOGIT_TOL)}), greedy tokens "

@@ -5,7 +5,10 @@ Traces the *real* step closures of ``launch/steps.py`` — the engine's
 prefill chunk, decode, LSB4-only draft (``msb_skip``) and verify window,
 transformer and MoE — on tiny configs with ``make_fx`` on the CPU, where
 every kernel wrapper runs its plain version, single-device and on 1x2
-and 2x2 meshes (gloo worlds of two and four CPU processes). Then it
+and 2x2 meshes (gloo worlds of two and four CPU processes); on one
+device also the KV2 decode, the fixed-batch prefill (into caches made
+outside it) and decode, and the KV2 page re-codecs of
+``serving/tiering.py``: every step that runs as a CUDA graph. Then it
 walks each graph's nodes and asserts the representation contracts:
 
 * **TXP001** — every collective matches the committed allowlist (key
@@ -104,7 +107,8 @@ class HostRead:
 class TracedStep:
     name: str          # e.g. "decode/transformer/1x2"
     kind: str          # prefill | decode | draft | verify | kv2_decode
-                       # | legacy_decode
+                       # | legacy_decode | legacy_prefill | kv2_demote
+                       # | kv2_promote
     family: str        # transformer | moe
     mesh: Optional[Tuple[int, int]]
     n_layers: int
@@ -381,6 +385,11 @@ def _tensors(tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
+# the KV2 ladder's page re-codecs (``serving/tiering.py``): steps on the
+# pool state alone, no params
+RECODECS = ("kv2_demote", "kv2_promote")
+
+
 def _step_inputs(kind: str, b: int, p: int, c: int, t: int, d: int):
     z = lambda *s: torch.zeros(s, dtype=torch.int32)  # noqa: E731
     if kind == "prefill":
@@ -392,6 +401,11 @@ def _step_inputs(kind: str, b: int, p: int, c: int, t: int, d: int):
         return z(b), z(b), z(b, p), z(b, p)
     if kind == "legacy_decode":
         return z(b), z(b)
+    if kind == "legacy_prefill":
+        return (z(b, c),)
+    if kind in RECODECS:                # a used page into a free one
+        return torch.tensor(1, dtype=torch.int32), \
+            torch.tensor(2, dtype=torch.int32)
     return z(b), z(b), z(b, p)
 
 
@@ -399,13 +413,15 @@ def trace_steps(mesh=None, families=None) -> List[TracedStep]:
     """Trace every serving step kind of the tiny families (``families``
     of :func:`tiny_configs`, all by default) on one device, or on this
     rank of ``mesh`` (a ("data", "model") DeviceMesh; every rank of the
-    world must call this). One device adds the two kinds that run
-    unsharded only: the KV2 ladder's decode and the fixed-batch
-    (``--legacy``) decode over contiguous caches."""
+    world must call this). One device adds the kinds that run unsharded
+    only: the KV2 ladder's decode and its two page re-codecs, and the
+    fixed-batch (``--legacy``) prefill and decode over contiguous
+    caches."""
     from repro_torch.distributed.tp import shard_params
     from repro_torch.launch import steps as S
     from repro_torch.launch.serve import build_served_params
     from repro_torch.models.model import init_cache
+    from repro_torch.serving import tiering
     from repro_torch.serving.kv_pool import PoolConfig, init_pool_state
 
     B, P, C, T = 2, 4, 8, 3
@@ -436,14 +452,20 @@ def trace_steps(mesh=None, families=None) -> List[TracedStep]:
         states = dict.fromkeys(("prefill", "decode", "draft", "verify"), pool)
         if mesh is None:
             steps += (("kv2_decode", S.make_engine_decode(cfg, kv2=True)),
-                      ("legacy_decode", S.make_serve_decode(cfg)))
+                      ("legacy_decode", S.make_serve_decode(cfg)),
+                      ("legacy_prefill", S.make_serve_prefill_into(cfg)),
+                      ("kv2_demote", tiering.demote_page),
+                      ("kv2_promote", tiering.promote_page))
             states["kv2_decode"] = init_pool_state(
                 cfg, dataclasses.replace(pc, kv2_pages=4), "cpu")
-            states["legacy_decode"] = init_cache(cfg, B, P * pc.page_size,
-                                                 "cpu")
+            for kind in RECODECS:
+                states[kind] = states["kv2_decode"]
+            for kind in ("legacy_decode", "legacy_prefill"):
+                states[kind] = init_cache(cfg, B, P * pc.page_size, "cpu")
         for kind, fn in steps:
-            args = (params, states[kind]) + _step_inputs(kind, B // d, P, C,
-                                                         T, d)
+            fixed = (states[kind],) if kind in RECODECS else (params,
+                                                              states[kind])
+            args = fixed + _step_inputs(kind, B // d, P, C, T, d)
             out.append(trace(fn, args, name=f"{kind}/{family}/{tag}",
                              kind=kind, family=family, n_layers=cfg.n_layers,
                              mesh=shape, groups=groups))

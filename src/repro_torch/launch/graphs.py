@@ -1,6 +1,8 @@
 """Compiled serving steps: the counterpart of the JAX package's ``jax.jit``
 of its serving steps (``repro.serving.engine``, ``repro.serving.
-spec_decode`` and the ``--legacy`` decode of ``repro.launch.serve``).
+spec_decode``, the ``--legacy`` prefill and decode of
+``repro.launch.serve`` and the KV2 page re-codecs of
+``repro.serving.tiering``).
 
 :class:`CompiledStep` wraps one closure of ``launch/steps.py``. On a CUDA
 device it captures each call shape once into a ``torch.cuda.CUDAGraph``

@@ -39,9 +39,10 @@ matmul kernels), no sub-precision split.
 ``--legacy`` serves the fixed-batch path instead: one whole-prompt
 prefill into a contiguous packed-KV4 cache a layer, then lockstep greedy
 decode steps through the contiguous KV4 decode kernel. On a CUDA device
-the decode step runs as a CUDA graph (``launch/graphs.py``), as do the
-engine's steps; the prefill, which runs once a serve and allocates the
-caches, runs eagerly.
+the prefill (over caches allocated outside it) and the decode step run
+as CUDA graphs (``launch/graphs.py``), as do the engine's steps: a
+single serve warms the prefill up eagerly, and a process that serves one
+shape again with the same ``LegacySteps`` replays it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --legacy
@@ -141,7 +142,8 @@ from repro_torch.launch.graphs import CompiledStep
 from repro_torch.launch.mesh import (make_mesh, mesh_layout, pick_backend,
                                      spawn_world)
 from repro_torch.models.model import (check_contiguous_support,
-                                      check_paged_support, forward_hidden)
+                                      check_paged_support, forward_hidden,
+                                      init_cache)
 from repro_torch.models.schema import abstract_params, init_quantized_params
 from repro_torch.models.schema_builder import build_schema
 from repro_torch.obs.slo import parse_slo_list
@@ -384,40 +386,74 @@ def vlm_patches(cfg: ModelConfig, seed: int, batch: int,
                        device=device).to(cfg.cdtype)
 
 
+class LegacySteps:
+    """The fixed-batch path's compiled prefill and decode
+    (``launch/graphs.py``) and the contiguous caches they run on, for one
+    (cfg, batch, max_len) on one device. Handed back to
+    :func:`legacy_serve`, a later serve of that shape reuses the caches,
+    so its prefill replays the graph a second serve captured, as its
+    decode does: a process that serves one shape again pays one graph
+    launch a prefill."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int, device):
+        self.shape = (cfg, batch, max_len, torch.device(device))
+        self.prefill = CompiledStep(S.make_serve_prefill_into(cfg), device)
+        self.decode = CompiledStep(S.make_serve_decode(cfg), device)
+        self.cache = None
+
+
 def legacy_serve(cfg: ModelConfig, params, prompts: List[List[int]],
-                 gen: int, device, patches: Optional[torch.Tensor] = None
-                 ) -> Dict[str, object]:
+                 gen: int, device, patches: Optional[torch.Tensor] = None,
+                 steps: Optional[LegacySteps] = None) -> Dict[str, object]:
     """The fixed-batch path: one prefill of the whole (equal-length)
     prompts, behind a VLM's ``patches`` (B, n_prefix, D), into contiguous
     caches of prefix + prompt + ``gen`` positions, then ``gen - 1``
-    lockstep greedy decode steps. Returns the streams, the prefill time,
+    lockstep greedy decode steps, each step through a compiled step of
+    ``steps`` (a new :class:`LegacySteps` if none is given). Returns the
+    streams; ``prefill_s``, the caches' allocation (where ``steps`` has
+    none yet) plus the prefill; ``prefill_call``, how the prefill ran
+    (``eager``, ``warm-up``, ``capture`` or ``replay``: a first serve
+    warms up, a second captures, later ones replay) and
+    ``prefill_replay_s``, its time where it replayed (else None);
     ``decode_warmup_s`` (the steps before the decode's graph replays: its
     eager warm-up and its capture, or the first step where nothing is
-    captured; none if no step would be left after them) and
-    ``decode_step_s``, the mean of the ``decode_timed_steps`` after it."""
+    captured; none if no step would be left after them, or if an earlier
+    serve of ``steps`` captured) and ``decode_step_s``, the mean of the
+    ``decode_timed_steps`` after it."""
     batch = _batch(prompts, device, patches)
     b, plen = batch["tokens"].shape
     if patches is not None:
         plen += patches.shape[1]
-    prefill = S.make_serve_prefill(cfg, plen + gen)
-    decode = CompiledStep(S.make_serve_decode(cfg), device)
+    shape = (cfg, b, plen + gen, torch.device(device))
+    steps = steps or LegacySteps(*shape)
+    if steps.shape != shape:
+        raise ValueError(f"these legacy steps serve {steps.shape[1:]} "
+                         f"(batch, max_len, device), not {shape[1:]}")
+    prefill, decode = steps.prefill, steps.decode
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    graphs = prefill.graphs
     t0 = time.perf_counter()
-    tok, cache = prefill(params, batch)
+    if steps.cache is None:
+        steps.cache = init_cache(cfg, b, plen + gen, device)
+    cache = steps.cache
+    tok = prefill(params, cache, *batch.values())
     sync()
     t_prefill = time.perf_counter() - t0
+    call = ("eager" if not prefill.captures else
+            "capture" if prefill.graphs > graphs else
+            "replay" if graphs else "warm-up")
     out = [tok]
-    steps = gen - 1
+    n = gen - 1
     # the steps before the graph replays (eager warm-up, capture) are
     # timed apart, unless that would leave no step to time
-    warm = 2 if decode.captures else 1
-    warm = warm if warm < steps else 0
+    warm = 0 if decode.graphs else 2 if decode.captures else 1
+    warm = warm if warm < n else 0
     t0 = t1 = time.perf_counter()
-    for i in range(steps):
+    for i in range(n):
         if i == warm:
             sync()
             t1 = time.perf_counter()
@@ -427,9 +463,11 @@ def legacy_serve(cfg: ModelConfig, params, prompts: List[List[int]],
     sync()
     t2 = time.perf_counter()
     return {"streams": torch.stack(out, 1).tolist(), "prefill_s": t_prefill,
-            "decode_step_s": (t2 - t1) / max(1, steps - warm),
-            "decode_warmup_s": t1 - t0, "decode_steps": steps,
-            "decode_timed_steps": steps - warm}
+            "prefill_call": call,
+            "prefill_replay_s": t_prefill if call == "replay" else None,
+            "decode_step_s": (t2 - t1) / max(1, n - warm),
+            "decode_warmup_s": t1 - t0, "decode_steps": n,
+            "decode_timed_steps": n - warm}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:

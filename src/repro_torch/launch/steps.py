@@ -5,7 +5,8 @@ microbatched gradient accumulation, optional int8 gradient compression,
 AdamW), the engine's prefill, decode (full or LSB4-only draft) and
 speculative verify window, and the fixed-batch path's whole-prompt
 prefill and decode over contiguous caches
-(``make_serve_prefill``/``make_serve_decode``).
+(``make_serve_prefill``/``make_serve_decode``; the prefill also over
+caches made outside it, ``make_serve_prefill_into``).
 
 The train step runs eagerly, on the float tree: no hand-written kernel
 lies on it (the reference trains through XLA's ``dot_general``, flash
@@ -43,8 +44,9 @@ ladder is armed. All keep the JAX steps' static shapes — a (1, C) prefill
 chunk whose start and valid count are (1,) device tensors, a (B,) decode
 batch and a (B, T) verify window over a (B, Pmax) block table, inactive
 slots on the null page — and read no device value on the host, so the
-engines and the fixed-batch decode run them as CUDA graphs
-(``launch/graphs.py``), one capture per shape. All update the pool in
+engines and the fixed-batch prefill (into caches made outside it) and
+decode run them as CUDA graphs (``launch/graphs.py``), one capture per
+shape. All update the pool in
 place and return it (the JAX steps return a new one).
 
 With a ``mesh`` (a ("data", "model") ``DeviceMesh``, ``launch/mesh.py``)
@@ -601,7 +603,11 @@ def make_serve_prefill(cfg: ModelConfig, max_len: int, *, mesh=None):
     positions). With ``mesh`` (a ``ServeMesh``, :func:`serve_mesh`) the
     step runs this rank's part: ``params`` the rank's tree as placed, the
     batch its rows (all of them where the batch is whole over data), the
-    tokens and caches its own."""
+    tokens and caches its own. The mesh steps run eagerly (a
+    ``CompiledStep`` of them takes ``capture=False``): their gloo
+    collectives are host work, which a CUDA graph cannot hold. One
+    device's serve compiles :func:`make_serve_prefill_into` instead, over
+    caches made outside the step."""
 
     @torch.no_grad()
     def serve_prefill(params, batch):
@@ -611,6 +617,31 @@ def make_serve_prefill(cfg: ModelConfig, max_len: int, *, mesh=None):
         return _greedy(logits), cache
 
     return serve_prefill
+
+
+def make_serve_prefill_into(cfg: ModelConfig):
+    """(params, cache, tokens (B, S) or an encoder's frames (B, S, D)[, a
+    VLM's patches (B, n_prefix, D)]) -> greedy next token (B,) int32:
+    :func:`make_serve_prefill`'s step over caches made outside it
+    (``models/model.py`` ``init_cache``), written in place. The inputs
+    are tensor arguments, not a batch dict: a compiled step holds a
+    dict's addresses as persistent state (``launch/graphs.py``), so the
+    ``--legacy`` serve replays one graph of this step over its caches."""
+
+    if cfg.family == "vlm":
+        @torch.no_grad()
+        def serve_prefill_into_vlm(params, cache, tokens, patches):
+            return _greedy(M.prefill_into(
+                cfg, params, cache, {"tokens": tokens, "patches": patches}))
+
+        return serve_prefill_into_vlm
+    key = "frames" if cfg.family == "encoder" else "tokens"
+
+    @torch.no_grad()
+    def serve_prefill_into(params, cache, inputs):
+        return _greedy(M.prefill_into(cfg, params, cache, {key: inputs}))
+
+    return serve_prefill_into
 
 
 def make_serve_decode(cfg: ModelConfig, *, mesh=None):

@@ -1587,25 +1587,44 @@ def forward(cfg: ModelConfig, params: Params,
     return (logits, aux) if with_aux else logits
 
 
+def prefill_into(cfg: ModelConfig, params: Params, cache: Cache,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Prefill into caches made outside it (by :func:`init_cache`, or by
+    :func:`init_cache_mesh` under a mesh step's context): returns the
+    logits of the LAST position (B, V) and writes positions [0, S) of
+    every cache leaf a decode step reads in place (GQA ``k_q/k_s/v_q/
+    v_s``, MLA ``ckv_q/ckv_s/kr``), and overwrites an SSD layer's state
+    ``h`` and conv tail. Positions past S keep what they held, which no
+    decode step at a position below them reads, so a used cache serves
+    the next batch with a fresh one's bits. Allocating nothing that
+    outlives the call, it runs as one CUDA graph over the same caches
+    (``launch/steps.py`` ``make_serve_prefill_into``)."""
+    check_prefill_support(cfg)
+    params = _mesh_top(cfg, params)
+    x, positions, prefix_len = embed_inputs(cfg, params, batch)
+    for ld, p, lcache in _layers(cfg, params, cache):
+        x, _, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len,
+                                    lcache)
+    return _mesh_head(cfg, params, x[:, -1, :])
+
+
 def prefill(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor], *, max_len: int
             ) -> Tuple[torch.Tensor, Cache]:
     """Prefill: logits of the LAST position (B, V) and the caches of
-    Smax = ``max_len`` positions. An encoder takes its frames and attends
+    Smax = ``max_len`` positions (:func:`init_cache` then
+    :func:`prefill_into`). An encoder takes its frames and attends
     bidirectionally (its caches are written as a decoder's). Under a
     mesh step's context (``ServeMesh``) ``params`` is the rank's tree as
     its placement holds it, the batch the rank's rows, and the caches
     come back as the rank's slices."""
     check_prefill_support(cfg)
-    params = _mesh_top(cfg, params)
-    x, positions, prefix_len = embed_inputs(cfg, params, batch)
+    rows = batch["frames" if cfg.family == "encoder" else "tokens"]
     sm = _serve_mesh()
-    cache = (init_cache(cfg, x.shape[0], max_len, x.device) if sm is None
-             else init_cache_mesh(cfg, sm, max_len, x.device))
-    for ld, p, lcache in _layers(cfg, params, cache):
-        x, _, _ = _apply_layer_full(cfg, ld, p, x, positions, prefix_len,
-                                    lcache)
-    return _mesh_head(cfg, params, x[:, -1, :]), cache
+    cache = (init_cache(cfg, rows.shape[0], max_len, rows.device)
+             if sm is None else init_cache_mesh(cfg, sm, max_len,
+                                                rows.device))
+    return prefill_into(cfg, params, cache, batch), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,

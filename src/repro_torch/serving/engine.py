@@ -11,7 +11,9 @@ CUDA graph, captured at its second call and replayed after
 host-side numpy, as in the JAX engine. ``PoolConfig(kv2_pages > 0)``
 arms the KV2 precision ladder: the decode step reads each page through
 its tier id (the mixed-tier kernel), the page about to be written is
-promoted first, and cold pages are demoted after each step.
+promoted first, and cold pages are demoted after each step; both
+re-codecs run as CUDA graphs too, on the engine's graph memory pool
+(``serving/tiering.py`` ``PageRecodecs``).
 
     eng = Engine(cfg, qparams)                 # device="cuda" by default
     h = eng.submit([1, 2, 3], SamplingParams(max_new_tokens=8))
@@ -117,9 +119,19 @@ class Engine:
                                   lay.model_ways)
             n_shards, shard = lay.data_ways, lay.coords
         self.params = tree_to(params, self.device)
+        # gloo collectives are host work, which a CUDA graph cannot hold
+        self._gloo = self.layout is not None and self.layout.backend == "gloo"
+        cuda = self.device.type == "cuda"
+        self.step_mode = ("eager" if not cuda else
+                          "eager (gloo collectives)" if self._gloo
+                          else "graphs")
+        # one graph memory pool for every step of this engine, the KV2
+        # re-codecs' included
+        self._mempool = (torch.cuda.graph_pool_handle()
+                         if cuda and not self._gloo else None)
         self.pool = PagedKVPool(cfg, pool_config, obs=self.obs,
                                 device=self.device, n_shards=n_shards,
-                                shard=shard)
+                                shard=shard, mempool=self._mempool)
         # the KV2 precision ladder: the decode step gains a tier table,
         # and demotion/promotion run host-side around it
         self._kv2 = self.pool.kv2_armed
@@ -128,15 +140,6 @@ class Engine:
         self._chunk = scfg.prefill_chunk
         self._n_slots = scfg.max_decode_batch
         self._n_page_steps = scfg.max_pages_per_seq
-        # gloo collectives are host work, which a CUDA graph cannot hold
-        self._gloo = self.layout is not None and self.layout.backend == "gloo"
-        cuda = self.device.type == "cuda"
-        self.step_mode = ("eager" if not cuda else
-                          "eager (gloo collectives)" if self._gloo
-                          else "graphs")
-        # one graph memory pool for every step of this engine
-        self._mempool = (torch.cuda.graph_pool_handle()
-                         if cuda and not self._gloo else None)
         self._prefill_fn = self._compiled(
             S.make_engine_prefill_chunk(cfg, mesh=self.mesh))
         self._decode_fn = self._compiled(

@@ -14,6 +14,9 @@ pages: nibbles clamped to the int2 band and packed four per byte, with
 their own null page 0. Cold pages of decode-set owners demote to it
 (``demote_cold``; ``demote_for_pressure`` is the scheduler's rung before
 a preemption), and a page about to be written promotes back (``touch``).
+Both re-codecs run on the device as compiled steps
+(``serving/tiering.py`` ``PageRecodecs``), one graph each for every
+page; the bookkeeping around them stays here, on the host.
 
 Mesh sharding (tensor-parallel serving, ``distributed/``): over the
 model axis every rank holds the same page structure (only the KV-head
@@ -40,8 +43,7 @@ from repro_torch.distributed.sharding import MeshCoords, local_shape
 from repro_torch.models.model import check_paged_support
 from repro_torch.models.schema import ParamSpec, Schema
 from repro_torch.models.stages import build_stages
-from repro_torch.serving.tiering import (KV2_HIGH, KV2_LOW, demote_page,
-                                         promote_page)
+from repro_torch.serving.tiering import KV2_HIGH, KV2_LOW, PageRecodecs
 
 NULL_PAGE = 0
 
@@ -121,7 +123,7 @@ class PagedKVPool:
 
     def __init__(self, cfg: ModelConfig, pool_cfg: PoolConfig, obs=None,
                  device="cpu", n_shards: int = 1,
-                 shard: Optional[MeshCoords] = None):
+                 shard: Optional[MeshCoords] = None, mempool=None):
         if n_shards < 1:
             raise ValueError(n_shards)
         if pool_cfg.n_pages % n_shards:
@@ -156,6 +158,10 @@ class PagedKVPool:
         # do not change).
         self.clock = 0
         self._free_kv2 = collections.deque(range(1, pool_cfg.kv2_pages))
+        # the re-codecs, compiled steps on the engine's graph memory pool
+        # (``mempool``) where it shares one
+        self.recodecs = (PageRecodecs(device, mempool)
+                         if pool_cfg.kv2_pages else None)
         self._tier: Dict[object, List[int]] = {}
         self._stamp: Dict[object, List[int]] = {}
         self._spars: Dict[object, List[Optional[float]]] = {}
@@ -385,7 +391,7 @@ class PagedKVPool:
             return False
         src = self._owned[owner][idx]
         dst = self._free_kv2.popleft()
-        demote_page(self.state, src, dst)
+        self.recodecs.demote(self.state, src, dst)
         self._free.append(src)
         self._owned[owner][idx] = dst
         self._tier[owner][idx] = 1
@@ -408,7 +414,7 @@ class PagedKVPool:
             return False
         src = self._owned[owner][idx]
         dst = self._free.popleft()
-        promote_page(self.state, src, dst)
+        self.recodecs.promote(self.state, src, dst)
         self._free_kv2.append(src)
         self._owned[owner][idx] = dst
         self._tier[owner][idx] = 0

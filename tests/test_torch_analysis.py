@@ -297,7 +297,7 @@ def test_step_structure(tree_steps):
     none MSB-fed; no collective on one device."""
     by = {st.name: st for st in tree_steps}
     kinds = ("prefill", "decode", "draft", "verify", "kv2_decode",
-             "legacy_decode")
+             "legacy_decode", "legacy_prefill", "kv2_demote", "kv2_promote")
     assert sorted(by) == sorted(f"{k}/{fam}/single" for k in kinds
                                 for fam in ("transformer", "moe"))
     # transformer: 2 layers x (q, k, v, o, gate, up, down) + the head
@@ -311,6 +311,43 @@ def test_step_structure(tree_steps):
     assert not any(st.collectives for st in tree_steps)
 
 
+def test_txp005_host_read_in_the_legacy_prefill(monkeypatch):
+    """The fixed-batch prefill step, traced as ``trace_steps`` traces it,
+    with its embedding made to read the prompt's largest token on the
+    host: TXP005 names that read in the ``legacy_prefill`` kind; the
+    clean step has only the allowlisted clip-constant reads, and the
+    re-codecs none."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.serve import build_served_params
+    from repro_torch.models import model as M
+    cfg = SC.tiny_configs()["transformer"]
+    params = build_served_params(cfg, 0, "cpu", tile_k=16)
+    embed = M.embed_inputs
+
+    def checked_embed(cfg, params, batch):
+        if batch["tokens"].max().item() >= cfg.vocab:
+            raise ValueError("token outside the vocabulary")
+        return embed(cfg, params, batch)
+
+    def findings():
+        step = SC.trace(S.make_serve_prefill_into(cfg),
+                        (params, M.init_cache(cfg, 2, 16, "cpu"),
+                         torch.zeros((2, 8), dtype=torch.int32)),
+                        name="legacy_prefill/transformer/single",
+                        kind="legacy_prefill", family="transformer",
+                        n_layers=cfg.n_layers)
+        out = []
+        SC.check_host_sync(step, out)
+        return apply_allowlist(out, Allowlist.load())[0]
+
+    assert findings() == []
+    monkeypatch.setattr(M, "embed_inputs", checked_embed)
+    keys = [f.key for f in findings()]
+    assert len(keys) == 1 and keys[0].startswith("legacy_prefill:item:")
+    assert keys[0].endswith("::test_txp005_host_read_in_the_legacy_prefill."
+                            "<locals>.checked_embed")
+
+
 def test_reachability_roots():
     """The step closures are roots; ``TrainMesh.any`` (a train-loop
     method), ``layers._exactly`` (run at import) and
@@ -321,6 +358,9 @@ def test_reachability_roots():
     steps = "repro_torch.launch.steps"
     assert (steps, "make_engine_decode.engine_decode") in reach
     assert (steps, "make_serve_decode.serve_decode") in reach
+    assert (steps, "make_serve_prefill_into.serve_prefill_into") in reach
+    for fn in ("demote_page", "promote_page"):    # CompiledStep targets
+        assert ("repro_torch.serving.tiering", fn) in reach
     assert ("repro_torch.kernels.ref", "sparqle_matmul_ref") in reach
     for mod, q in ((steps, "TrainMesh.any"),
                    ("repro_torch.models.layers", "_exactly"),

@@ -5,17 +5,21 @@ A CUDA graph cannot be captured here, so the capture has a stand-in,
 replays it. The trace has a capture's constraints — it bakes every Python
 value into the graph and refuses to read a traced tensor on the host
 (``.item()``) — and it replays in-place writes to the pool. So each
-step of the engines and of the fixed-batch decode, traced at one input
+step of the engines, of the fixed-batch path (prefill into used caches,
+decode) and of the KV2 ladder (the page re-codecs), traced at one input
 and run at two later ones (``chip_smoke.graph_cases``: moved positions
 and block tables, an inactive slot, prefill chunks with valid = C and
-valid < C at other starts), must give the eager step's bits: logits,
-telemetry and every pool or cache byte. Also here: the tensor-start/
-valid prefill chunk against JAX's ``prefill_chunk_paged`` (logits within
-1e-4, telemetry and pool nibbles exact, pool scales within 1e-6
-relative, as ``test_torch_model.py`` holds the steps); the launch
-counters under capture and replay (a stub kernel); the runner's cache
-key, its raise when persistent state moves, its clones; the engines and
-the fixed-batch loop through the traced runner give the eager streams.
+valid < C at other starts, new prompts, other page ids), must give the
+eager step's bits: logits, telemetry and every pool or cache byte.
+Also here: the tensor-start/valid prefill chunk against JAX's
+``prefill_chunk_paged`` (logits within 1e-4, telemetry and pool nibbles
+exact, pool scales within 1e-6 relative, as ``test_torch_model.py``
+holds the steps); the launch counters under capture and replay (a stub
+kernel); the runner's cache key, its raise when persistent state
+moves, its clones; the engines and the fixed-batch loop through the
+traced runner give the eager streams,
+and three serves through one ``LegacySteps`` warm the prefill up,
+capture it and replay it; a capture that fails raises.
 
 The ``cuda`` cases run the real capture on the card (replay = eager bits
 for each step kind; a graph serve = an eager serve, streams and launch
@@ -55,7 +59,7 @@ TCFG = ModelConfig(name="tiny-serve", family="transformer", n_layers=2,
 # graph_cases at this size: 3 slots x 6 pages of 4 tokens, chunks of 8
 SIZES = dict(b=3, ps=4, n_s=6, chunk=8, gamma=2)
 KINDS = ("prefill_chunk", "decode", "draft", "verify", "kv2_decode",
-         "legacy_decode")
+         "legacy_decode", "legacy_prefill", "kv2_demote", "kv2_promote")
 CPU = torch.device("cpu")
 
 
@@ -319,6 +323,43 @@ def test_runner_returns_clones(params, monkeypatch):
     assert all(torch.equal(o, k) for o, k in zip(outs, kept))
 
 
+def test_legacy_serves_replay_one_prefill_graph(params, monkeypatch):
+    """Three serves of one shape through one ``LegacySteps`` and the
+    traced runner: the prefill warms up, is captured, then replays (its
+    replayed time reported), one graph each for the prefill and the
+    decode, every serve's streams the eager serve's of its prompts."""
+    prompts = [make_prompts(TCFG, seed, 3, 10) for seed in (0, 1, 0)]
+    with disable_graphs():
+        want = [legacy_serve(TCFG, params, p, 6, CPU)["streams"]
+                for p in prompts]
+    monkeypatch.setattr(serve_mod, "CompiledStep", traced)
+    steps = serve_mod.LegacySteps(TCFG, 3, 16, CPU)
+    runs = [legacy_serve(TCFG, params, p, 6, CPU, steps=steps)
+            for p in prompts]
+    assert [r["streams"] for r in runs] == want
+    assert [r["prefill_call"] for r in runs] == ["warm-up", "capture",
+                                                 "replay"]
+    assert [r["prefill_replay_s"] is None for r in runs] == [True, True,
+                                                             False]
+    assert steps.prefill.graphs == steps.decode.graphs == 1
+    assert [r["decode_timed_steps"] for r in runs] == [3, 5, 5]
+
+
+def test_capture_failure_raises(params):
+    """A step that reads a device value on the host runs its eager
+    warm-up, then its capture raises: no call falls back to eager."""
+    def host_read(state, x):
+        return x * float(x.sum())
+
+    step = traced(host_read, CPU)
+    step({}, torch.ones(3))
+    with pytest.raises(RuntimeError):
+        step({}, torch.ones(3))
+    assert step.graphs == 0
+    with pytest.raises(RuntimeError):
+        step({}, torch.ones(3))
+
+
 @pytest.mark.parametrize("graphs,gen,warm", [(True, 6, 2), (False, 6, 1),
                                              (True, 3, 0)])
 def test_legacy_decode_time_is_the_steps_after_warmup(params, monkeypatch,
@@ -412,6 +453,27 @@ def test_cuda_graph_replays_eager_bits(cuda, smoke, kind):
 
 
 @pytest.mark.cuda
+def test_cuda_legacy_serves_replay_the_prefill(cuda, smoke):
+    """Three ``--legacy`` serves through one ``LegacySteps`` on the card:
+    the prefill warms up, is captured, then replays; every serve's
+    streams and launch counts are an eager serve's."""
+    from repro_torch import kernels
+    cfg, p = smoke
+    prompts = make_prompts(cfg, 5, 4, 21)
+    kernels.reset_launch_counts()
+    with disable_graphs():
+        want = legacy_serve(cfg, p, prompts, 7, cuda)["streams"]
+    counts = kernels.launch_counts()
+    steps = serve_mod.LegacySteps(cfg, 4, 28, cuda)
+    for call in ("warm-up", "capture", "replay"):
+        kernels.reset_launch_counts()
+        r = legacy_serve(cfg, p, prompts, 7, cuda, steps=steps)
+        assert (r["prefill_call"], r["streams"]) == (call, want)
+        assert kernels.launch_counts() == counts
+    assert steps.prefill.graphs == steps.decode.graphs == 1
+
+
+@pytest.mark.cuda
 def test_cuda_graph_serve_equals_eager_serve(cuda, smoke):
     """The engine and the speculative engine on the card: graph serves
     give the eager serves' streams and per-kernel launch counts."""
@@ -435,3 +497,17 @@ def test_cuda_graph_serve_equals_eager_serve(cuda, smoke):
                 assert [s.graphs for s in steps] == [1] * len(steps)
             runs.append((r["streams"], kernels.launch_counts()))
         assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_capture_failure_raises(cuda):
+    """A host read inside a step: the capture raises on the card, no
+    fallback to eager (last in the file: a failed capture is the one
+    card case that could leave the context unusable)."""
+    def host_read(state, x):
+        return x * float(x.sum())
+
+    step = CompiledStep(host_read, cuda)
+    step({}, torch.ones(3, device=cuda))
+    with pytest.raises(RuntimeError):
+        step({}, torch.ones(3, device=cuda))

@@ -164,6 +164,31 @@ def test_demote_promote_match_jax(in_band):
         assert (back == nib).all() == in_band
 
 
+@pytest.mark.parametrize("in_band", [True, False])
+def test_device_page_ids_match_host_ints_and_jax(in_band):
+    """The re-codecs at page ids given as 0-d int32 tensors (what their
+    compiled steps take), at host ints, and JAX's jitted ones at traced
+    int32 scalars, on the same pool bytes: every leaf byte-equal after
+    each of a demotion, a promotion and a second demotion; the pool's
+    ``PageRecodecs`` (ids through its id buffer) give the same bytes."""
+    state = _random_pool(np.random.default_rng(10 + in_band),
+                         in_band=in_band)
+    jstate = jax.tree_util.tree_map(jnp.asarray, state)
+    ints, ids, codecs = (convert_tree(state) for _ in range(3))
+    recodecs = tiering.PageRecodecs("cpu")
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    for op, src, dst in (("demote", 6, 2), ("promote", 2, 1),
+                         ("demote", 1, 4)):
+        jstate = getattr(jtiering, f"{op}_page")(jstate, jnp.int32(src),
+                                                 jnp.int32(dst))
+        fn = getattr(tiering, f"{op}_page")
+        assert fn(ints, src, dst) is ints
+        assert fn(ids, i32(src), i32(dst)) is ids
+        assert getattr(recodecs, op)(codecs, src, dst) is codecs
+        for tree in (ints, ids, codecs):
+            _assert_trees_equal(tree, jstate)
+
+
 # ---------------------------------------------------------------------------
 # pool ladder bookkeeping
 # ---------------------------------------------------------------------------

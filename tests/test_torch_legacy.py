@@ -240,13 +240,25 @@ def _legacy_greedy(prefill, decode, params, prompt, gen, wrap):
     return out
 
 
+def prefill_into(cfg, max_len):
+    """``make_serve_prefill_into`` over caches from ``init_cache``, in
+    ``make_serve_prefill``'s form: (params, batch) -> (token, caches)."""
+    step = TS.make_serve_prefill_into(cfg)
+
+    def prefill(params, batch):
+        cache = TM.init_cache(cfg, batch["tokens"].shape[0], max_len)
+        return step(params, cache, *batch.values()), cache
+    return prefill
+
+
 PROMPTS = [(12, 6), (20, 5), (5, 6), (30, 4)]
 
 
 def test_legacy_streams_match_jax_and_engine(qparams, tparams):
     """Per prompt: the port's fixed-batch greedy stream = JAX's (its
     ``make_serve_*`` steps) = the port's paged engine with the prefill
-    unchunked (``tests/test_serving.py``'s contract)."""
+    unchunked (``tests/test_serving.py``'s contract); the port's stream
+    through the prefill into caches made outside it too."""
     rng = np.random.default_rng(7)
     prompts = [(rng.integers(0, CFG.vocab, n).tolist(), g)
                for n, g in PROMPTS]
@@ -267,6 +279,9 @@ def test_legacy_streams_match_jax_and_engine(qparams, tparams):
                                  _t)
         assert tstream == jstream
         assert tstream == list(h.out_tokens)
+        assert _legacy_greedy(prefill_into(TCFG, len(p) + g),
+                              TS.make_serve_decode(TCFG), tparams, p, g,
+                              _t) == jstream
 
 
 def test_legacy_serve_batch_and_flags(tparams, capsys):

@@ -270,6 +270,17 @@ def _legacy_greedy(prefill, decode, params, prompt, gen, wrap):
     return out
 
 
+def prefill_into(cfg, max_len):
+    """``make_serve_prefill_into`` over caches from ``init_cache``, in
+    ``make_serve_prefill``'s form: (params, batch) -> (token, caches)."""
+    step = TS.make_serve_prefill_into(cfg)
+
+    def prefill(params, batch):
+        cache = TM.init_cache(cfg, batch["tokens"].shape[0], max_len)
+        return step(params, cache, *batch.values()), cache
+    return prefill
+
+
 # An f32 ulp of XLA's exp/tanh against torch's can move one int8
 # activation rounding by a step inside a layer; at the smoke widths that
 # moves a logit by up to ~4e-3 (tiny-moe-serve's 20-token --legacy
@@ -329,7 +340,8 @@ def test_legacy_streams_match_jax(served):
     """The fixed-batch path (``--legacy``) against JAX's jitted
     ``prefill``/``decode_step``; the greedy helper of
     ``tests/test_torch_legacy.py`` runs the port's serve steps, whose
-    streams must be the ones compared."""
+    streams must be the ones compared, with the prefill allocating its
+    caches and into caches made outside it."""
     jc, tc = served["jc"], served["tc"]
     for p in served["reqs"]:
         j = jax_legacy(jc, served["qp"], p, 5)
@@ -337,4 +349,7 @@ def test_legacy_streams_match_jax(served):
         assert_greedy_agrees(j, t)
         assert _legacy_greedy(
             TS.make_serve_prefill(tc, len(p) + 5), TS.make_serve_decode(tc),
+            served["tp"], p, 5, torch.from_numpy) == t[0]
+        assert _legacy_greedy(
+            prefill_into(tc, len(p) + 5), TS.make_serve_decode(tc),
             served["tp"], p, 5, torch.from_numpy) == t[0]
