@@ -37,7 +37,16 @@ to chiprun_out/):
      population pattern; untimed, deepseek-v3-671b's shapes (V3_KN,
      V3_ENCODE_K at V3_M; the batched entries at E = 256, V3_BATCHED) and
      the SSD family's (SSD_KN, SSD_ENCODE_K at SSD_M; jamba's batched
-     entries at E = 16, SSD_BATCHED);
+     entries at E = 16, SSD_BATCHED); the batched entries with each
+     expert's live rows (``rows``; ``check_expert_rows``): the five
+     matmul entries over ROWS_SWEEP and the six encoders over
+     ROWS_ENCODE, and both at V3_BATCHED and SSD_BATCHED (C = 128: a
+     count that cuts or empties an expert's second 64-row block), every
+     ROWS_PATTERNS, garbage past the count, bit-exact with their plain
+     versions, the arrival counters 0 after every launch; timed at the serve's routing (ROWS_LIVE: 35 of 64 experts
+     live, and 57 of 256 at deepseek-v3's routed shapes) with the rows
+     and with rows=None, beside the live and the all-experts bound: the
+     batched rows' times and bounds in the kernels line are these;
   4. serve granite-8b at full width and depth through the port's Engine
      (8 requests x 128 prompt tokens x 16 new, 8 decode slots), with the
      launch counters zeroed just before and read just after; from here
@@ -101,7 +110,9 @@ to chiprun_out/):
      for it gamma = SPEC_GAMMA, dense with logits
      bit-equal to SPARQLe, packed base and gamma: streams equal to its
      base serve's, every routed projection one batched encoder and one
-     batched matmul launch), TTFT, TPOT, tokens/s and launch counts; each
+     batched matmul launch; the base serve again with rows=None, the A
+     of the live rows' A/B: streams and launches equal), TTFT, TPOT,
+     tokens/s and launch counts; each
      arch's 2-layer f32 cross-check as phase 11's; ``serve --ckpt`` of a
      checkpoint the port's ``save`` wrote, streams equal to serving the
      tree directly;
@@ -167,6 +178,8 @@ to chiprun_out/):
      graphs): prefill time, decode step time, launch counts (the fused
      encoder and dual-pass matmul for each plain projection, the batched
      pair at E = 256 for each routed one, no attention kernel), the
+     decode replay with the live rows against rows=None (serves A B B A:
+     streams and launches equal, ``legacy_rows_ab``), the
      decode step's logits and caches replayed against its eager calls at
      full depth (bit-equal), the prefill too (``prefill_replay``), the
      MTP logits once; the 2-layer f32 card vs
@@ -188,7 +201,9 @@ to chiprun_out/):
      once an attention layer and step, no other kernel), the prefill's
      logits and SSD states finite (the reference's chunked scan
      overflows to NaN at the serve's chunk of 128), the decode step's
-     byte floor and the replay's share of it, the decode step's logits
+     byte floor and the replay's share of it, jamba's decode replay with
+     the live rows against rows=None (``legacy_rows_ab``), the decode
+     step's logits
      and SSD states replayed against its eager calls at full depth
      (bit-equal), the prefill too (``prefill_replay``); each arch's
      2-layer f32 card vs CPU cross-check
@@ -255,7 +270,9 @@ to chiprun_out/):
      ``python -m repro_torch.launch.dryrun --list`` (32 cells, 8 skips)
      and DRYRUN_CELLS planned on the host in child processes started
      before phase 16 (no card visible: meta tensors, rank 0 of a fake
-     16x16 world, 22a); each of those cells as rank 0 of a fake world on
+     16x16 world, 22a; the prefill_32k and train_4k cells at
+     DRYRUN_CARD_LAYERS' cut, planned and run alike); each of those
+     cells as rank 0 of a fake world on
      the card, one call of its whole step on random data with the
      collectives elided: ``max_memory_allocated`` within max(PEAK_REL,
      PEAK_ABS_B) of the plan's peak, each kernel's launches = its op's
@@ -577,8 +594,9 @@ def matmul_case(dev, gen, m, k, n, pattern, extreme=False):
 def _dense(fn):
     """The dense wrapper ``fn`` in the dual-pass call form: (q, unused,
     unused, w_packed, act_scale, w_scale)."""
-    def call(q, _msb, _pop, wp, asc, wsc, acc_out=False, msb_skip=True):
-        return fn(q, wp, asc, wsc, acc_out=acc_out)
+    def call(q, _msb, _pop, wp, asc, wsc, acc_out=False, msb_skip=True,
+             **kw):
+        return fn(q, wp, asc, wsc, acc_out=acc_out, **kw)
     return call
 
 
@@ -1977,6 +1995,432 @@ def check_batched_encoder(dev, gen, peaks):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the live rows of a routed projection (``rows``)
+# ---------------------------------------------------------------------------
+
+# The batched entries with each expert's live row count (``rows``, (E,)
+# int32 on the card): the rows at and past it are taken as zero whatever
+# the operands hold. Swept bit-exact at E = 64 (C 1, 3 and 17; deepseek-
+# moe-16b's routed gate/up and down) and at E = 8, C = 3, 2048 -> 1408,
+# whose 176 output tiles split K in two (the arrival counters' path);
+# every rows pattern of tests/test_torch_expert_rows.py.
+ROWS_PATTERNS = ("empty", "full", "partial", "random")
+ROWS_SWEEP = ((64, 1, 2048, 1408), (64, 3, 1408, 2048), (64, 17, 2048, 1408),
+              (8, 3, 2048, 1408))
+ROWS_ENCODE = ((64, 1, 2048), (64, 17, 1408), (8, 3, 2048))
+# Experts a decode step fills at B = 8 (capacity 1): E (1 - (1 - k/E)^8),
+# rounded: deepseek-moe-16b (top-6 of 64) 35, deepseek-v3-671b (top-8 of
+# 256) 57. The timed rows: 3e-6e and 1e-2e at E = 64, C = 1, 35 live
+# (2048 -> 1408; the encoders at K = 2048), and 3e at deepseek-v3's
+# routed shapes with 57 of 256 live; each with the live rows and with
+# rows=None (the kernel streams every expert) on the same operands, live
+# weight copies past the 50 MB L2.
+ROWS_LIVE = {64: 35, 256: 57}
+ROWS_V3_KN = ((7168, 2048), (2048, 7168))
+
+
+def rows_pattern(dev, gen, e, c, pattern):
+    """(E,) int32 live rows on the card: none, all C, a count cutting an
+    m16/n8 row tile for every expert, or random in [0, C] with expert 0
+    empty."""
+    if pattern == "empty":
+        r = torch.zeros(e, dtype=torch.int32, device=dev)
+    elif pattern == "full":
+        r = torch.full((e,), c, dtype=torch.int32, device=dev)
+    elif pattern == "partial":
+        r = torch.tensor([max(1, c - 1 - i % 3) if c > 1 else 1
+                          for i in range(e)], dtype=torch.int32, device=dev)
+    else:
+        r = torch.randint(0, c + 1, (e,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        r[0] = 0
+    return r
+
+
+def live_experts(dev, gen, e, c, n_live):
+    """(E,) int32: ``n_live`` experts chosen at random with all C rows
+    live, the others empty (the dispatch at decode, capacity C)."""
+    r = torch.zeros(e, dtype=torch.int32, device=dev)
+    r[torch.randperm(e, generator=gen, device=dev)[:n_live]] = c
+    return r
+
+
+def past_rows(t, rows):
+    """(E, C, 1) bool: the rows at and past each expert's count."""
+    return (torch.arange(t.shape[1], device=t.device)[None, :]
+            >= rows.long()[:, None])[..., None]
+
+
+def with_garbage(t, rows, gen):
+    """``t`` with the rows past the count overwritten: random bytes for an
+    int8 plane, NaN and huge values for x."""
+    if t.dtype == torch.int8:
+        junk = torch.randint(-128, 128, t.shape, generator=gen,
+                             device=t.device, dtype=torch.int8)
+    else:
+        junk = torch.randn(t.shape, generator=gen, device=t.device) * 1e30
+        junk.view(-1)[::3] = float("nan")
+        junk = junk.to(t.dtype)
+    return torch.where(past_rows(t, rows), junk, t)
+
+
+def counters_clear(dev, where):
+    """Raise unless every arrival counter of the device reads 0."""
+    from repro_torch.kernels import sparqle_matmul as SM
+    buf = SM._COUNTERS.get(dev)
+    if buf is not None and int(torch.count_nonzero(buf).item()):
+        raise AssertionError(f"arrival counters not 0 after a launch "
+                             f"{where}: {buf.nonzero().flatten().tolist()}")
+
+
+def check_rows_matmul_case(c, rows, where):
+    """The five batched matmul entries with ``rows`` on operands that hold
+    garbage past the count, f32 and int32 outputs: each torch.equal to
+    its plain version (``ref.batched`` zeroes those rows, then runs the
+    2-D plain version), packed = unpacked and dense = dual pass, every
+    arrival counter 0 after each launch; with every row live, equal to
+    the same call with rows=None."""
+    from repro_torch.kernels import ref
+    dev = c["wp"].device
+    full = bool((rows == c["lsb"].shape[1]).all())
+    got = {}
+    for name, (fn, plain, planes, skip, _) in matmul_instances().items():
+        args = (c[planes[0]], c[planes[1]], c["pop"], c["wp"], c["asc"],
+                c["wsc"])
+        for acc_out in (False, True):
+            kw = dict(acc_out=acc_out, msb_skip=skip)
+            out = fn(*args, rows=rows, **kw)
+            counters_clear(dev, f"{name}_batched {where}")
+            want = ref.batched(plain, rows, acts=2)(*args, **kw)
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name}_batched with rows differs from "
+                                     f"its plain version {where} "
+                                     f"acc_out={acc_out}")
+            if full and not torch.equal(out, fn(*args, **kw)):
+                raise AssertionError(f"{name}_batched: rows all C differs "
+                                     f"from rows=None {where}")
+            got[name, acc_out] = out
+    for acc_out in (False, True):
+        for a, b in (("sparqle_matmul", "sparqle_matmul_packed"),
+                     ("sparqle_matmul_draft", "sparqle_matmul_packed_draft"),
+                     ("sparqle_matmul", "quant_matmul")):
+            if not torch.equal(got[a, acc_out], got[b, acc_out]):
+                raise AssertionError(f"{b}_batched differs from {a}_batched "
+                                     f"with rows {where} acc_out={acc_out}")
+
+
+def rows_encoders():
+    """The six batched encoder entries in one call form (x, scale, mask,
+    rows) -> outputs (no PBM plane), each beside its 2-D plain version
+    (x, scale, mask) and whether it forms the scale itself."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparqle_encode as E
+
+    def nopbm(outs):
+        return [t for i, t in enumerate(outs) if i != 2]
+    return {
+        "sparqle_encode_fused_batched": (
+            lambda x, s, m, r: nopbm(E.sparqle_encode_fused(
+                x, m, -8, 23, with_pbm=False, rows=r)),
+            lambda x, s, m: ref.sparqle_encode_fused_ref(x, m, -8, 23),
+            nopbm, True),
+        "sparqle_quantize_fused_batched": (
+            lambda x, s, m, r: list(E.sparqle_quantize_fused(x, m, -8, 23,
+                                                             rows=r)),
+            lambda x, s, m: ref.sparqle_quantize_fused_ref(x, m, -8, 23),
+            list, True),
+        "sparqle_encode_packed_fused_batched": (
+            lambda x, s, m, r: list(E.sparqle_encode_packed_fused(
+                x, m, -8, 23, rows=r)),
+            lambda x, s, m: ref.sparqle_encode_packed_fused_ref(x, m, -8, 23),
+            list, True),
+        "sparqle_encode_batched": (
+            lambda x, s, m, r: nopbm(E.sparqle_encode(
+                x, s, m, -8, 23, with_pbm=False, rows=r)),
+            lambda x, s, m: ref.sparqle_encode_ref(x, s, m, -8, 23),
+            nopbm, False),
+        "sparqle_quantize_batched": (
+            lambda x, s, m, r: [E.sparqle_quantize(x, s, m, -8, 23,
+                                                   rows=r)],
+            lambda x, s, m: ref.sparqle_quantize_ref(x, s, m, -8, 23),
+            lambda o: [o], False),
+        "sparqle_encode_packed_batched": (
+            lambda x, s, m, r: list(E.sparqle_encode_packed(x, s, m, -8, 23,
+                                                            rows=r)),
+            lambda x, s, m: ref.sparqle_encode_packed_ref(x, s, m, -8, 23),
+            list, False)}
+
+
+def check_rows_encoder_case(x, mask, rows, gen, where):
+    """The six batched encoders with ``rows`` on an x that holds NaN and
+    huge values past the count (the scale-taking ones with the fused
+    twin's scale): outputs torch.equal to their plain versions; with
+    every row live, equal to rows=None."""
+    from repro_torch.kernels import ref
+    dirty = with_garbage(x, rows, gen)
+    scale = rows_encoders()["sparqle_encode_fused_batched"][0](
+        dirty, None, mask, rows)[-1]
+    full = bool((rows == x.shape[1]).all())
+    for name, (fn, plain, pick, fused) in rows_encoders().items():
+        got = fn(dirty, scale, mask, rows)
+        args = (dirty, mask) if fused else (dirty, scale, mask)
+        want = pick(ref.batched(
+            (lambda x_, m_: plain(x_, None, m_)) if fused else plain,
+            rows)(*args))
+        if len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} with rows differs from its plain "
+                                 f"version {where}")
+        if full and not all(torch.equal(a, b) for a, b in
+                            zip(got, fn(dirty, scale, mask, None))):
+            raise AssertionError(f"{name}: rows all C differs from "
+                                 f"rows=None {where}")
+
+
+def check_rows_matmul_patterns(dev, gen, case, where):
+    """check_rows_matmul_case on ``case`` (batched_case) for every rows
+    pattern, garbage written past the count; returns the input sets."""
+    e, c = case["q"].shape[:2]
+    for pattern in ROWS_PATTERNS:
+        rows = rows_pattern(dev, gen, e, c, pattern)
+        dirty = dict(case)
+        for key in ("q", "lsb", "msb", "lp", "mp"):
+            dirty[key] = with_garbage(case[key], rows, gen)
+        check_rows_matmul_case(dirty, rows, f"{where} rows={pattern}")
+    return len(ROWS_PATTERNS)
+
+
+def check_rows_encoder_patterns(dev, gen, x, mask, where):
+    """check_rows_encoder_case on x (E, C, K) for every rows pattern;
+    returns the input sets."""
+    e, c = x.shape[:2]
+    for pattern in ROWS_PATTERNS:
+        check_rows_encoder_case(x, mask, rows_pattern(dev, gen, e, c,
+                                                      pattern), gen,
+                                f"{where} rows={pattern}")
+    return len(ROWS_PATTERNS)
+
+
+def live_matmul_work(rows, c, k, n, plane_row, passes):
+    """(bytes, ops) of a batched matmul call with live rows ``rows`` (a
+    list): each expert's live rows read (planes, a pass each; ``passes``
+    a list, an expert's), the weight of each expert with a live row,
+    every expert's scales and its whole C x N f32 output written (a
+    skipped row is written as the drain of 0). The all-experts count is
+    this with every row live."""
+    nbytes = ops = 0.0
+    for r, p in zip(rows, passes):
+        nbytes += (r * plane_row * p + (k * n // 2 if r else 0)
+                   + c * 4 + n * 4 + c * n * 4)
+        ops += 2.0 * r * k * n * p
+    return nbytes, ops
+
+
+def live_encoder_bytes(rows, c, k, xb, planes_a_row, pops):
+    """The batched encoder's traffic with live rows ``rows``: x and the
+    mask of each expert's live rows read, every row's scale, planes and
+    the populations written."""
+    e = len(rows)
+    return (sum(r * k * xb + (k if r else 0) for r in rows) + e * c * 4
+            + e * c * planes_a_row + pops)
+
+
+def _bound(peaks, nbytes, ops=0.0):
+    ms = max(nbytes / peaks[0], ops / peaks[1]) * 1e3
+    return ms, "bytes" if nbytes / peaks[0] >= ops / peaks[1] else \
+        "operations"
+
+
+def time_rows_matmul(dev, gen, peaks, e, c, k, n, n_live, names,
+                     plain: bool = True):
+    """The batched matmul entries ``names`` at E experts, C rows, K -> N,
+    ``n_live`` experts live (the others empty, their rows zero): device
+    time with the live rows and with rows=None on the same operands
+    (every expert streamed; the outputs torch.equal, the populations
+    those of the zeroed planes), and with every row live, rows all C
+    against rows=None (medians of three alternated timings); live weight
+    copies past L2. Each beside the live and the all-experts bound, and
+    (``plain``) the plain version's time with the live rows."""
+    from repro_torch.kernels import ref
+    case = batched_case(dev, gen, e, c, k, n, "alternating")
+    rows = live_experts(dev, gen, e, c, n_live)
+    for key in ("q", "lsb", "msb", "lp", "mp"):
+        case[key] = case[key].masked_fill(past_rows(case[key], rows), 0)
+    # the populations of the zeroed planes, as the encoder writes them
+    # (an empty expert's all 0: rows=None fetches no MSB tile of it)
+    case["pop"] = torch.stack([ref.tile_population_padded(
+        m != 0, ref.TILE_M, ref.TILE_K) for m in case["msb"]]).contiguous()
+    # an expert's MSB pass: the share of its population tiles that are live
+    density = ((case["pop"] > 0).flatten(1).float().mean(1)).tolist()
+    rl = rows.tolist()
+    live_w = sum(1 for r in rl if r) * k * n // 2
+    copies = max(1, math.ceil(150e6 / live_w))
+    wps = [case["wp"]] + [case["wp"].clone() for _ in range(copies - 1)]
+    full = torch.full_like(rows, c)
+    inst = matmul_instances()
+    out = {}
+    for name in names:
+        fn, plain_fn, planes, skip, _ = inst[name]
+        a0, a1 = case[planes[0]], case[planes[1]]
+        args = [(a0, a1, case["pop"], w, case["asc"], case["wsc"])
+                for w in wps]
+
+        def call(*a, _fn=fn, _skip=skip, _rows=None):
+            return _fn(*a, msb_skip=_skip, rows=_rows)
+
+        # the rows past the count hold 0: the live rows, all C and
+        # rows=None give the same bits
+        got = call(*args[0], _rows=rows)
+        for other in (call(*args[0]), call(*args[0], _rows=full)):
+            if not torch.equal(got, other):
+                raise AssertionError(f"{name}_batched at E={e} C={c} "
+                                     f"{k}->{n}: the live rows differ from "
+                                     f"rows=None on zeroed rows")
+        del got, other
+        plane_row = a0[0].numel() / c
+        passes = [1] * e if skip else [1 + d for d in density]
+        lb, lops = live_matmul_work(rl, c, k, n, plane_row, passes)
+        ab, aops = live_matmul_work([c] * e, c, k, n, plane_row, passes)
+        live_ms, live_by = _bound(peaks, lb, lops)
+        all_ms, all_by = _bound(peaks, ab, aops)
+        t_rows = time_ms(functools.partial(call, _rows=rows), args, 50)
+        t_none = time_ms(call, args, 50)
+        # every row live: rows all C against rows=None, alternated three
+        # times each, the medians
+        fulls, nones = [], []
+        for _ in range(3):
+            fulls.append(time_ms(functools.partial(call, _rows=full), args,
+                                 50))
+            nones.append(time_ms(call, args, 50))
+        t_full, t_none2 = sorted(fulls)[1], sorted(nones)[1]
+        p_ms = time_ms(lambda *a, _p=plain_fn, _s=skip: ref.batched(
+            _p, rows, acts=2)(*a, msb_skip=_s), args[:1], 2) if plain \
+            else None
+        out[name] = {"E": e, "C": c, "K": k, "N": n, "live": n_live,
+                     "plain_ms": p_ms,
+                     "copies": copies, "ms": t_rows, "none_ms": t_none,
+                     "full_rows_ms": t_full, "full_none_ms": t_none2,
+                     "bound_ms": live_ms, "bound_by": live_by,
+                     "all_bound_ms": all_ms, "all_bound_by": all_by}
+    del case, wps
+    return out
+
+
+def time_rows_encoders(dev, gen, peaks, e, c, k, n_live):
+    """The three fused batched encoders at E, C, K (bf16 x), ``n_live``
+    experts live: time with the live rows and with rows=None, beside the
+    live and the all-experts byte bounds."""
+    from repro_torch.core.packing import pad_k
+    from repro_torch.kernels.ref import TILE_K, TILE_M
+    x = (torch.randn((e, c, k), generator=gen, device=dev) * 2).to(
+        torch.bfloat16)
+    mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
+    rows = live_experts(dev, gen, e, c, n_live)
+    x = x.masked_fill(past_rows(x, rows), 0)
+    rl = rows.tolist()
+    pops = e * -(-c // TILE_M) * -(-k // TILE_K) * 4
+    planes = {"sparqle_encode_fused_batched": (2 * k, pops),
+              "sparqle_quantize_fused_batched": (k, 0),
+              "sparqle_encode_packed_fused_batched": (
+                  pad_k(k) + pad_k(k) // 8, pops)}
+    from repro_torch.kernels import ref
+    out = {}
+    for name, (fn, plain, _, _) in list(rows_encoders().items())[:3]:
+        t_rows = time_ms(lambda x_, m_: fn(x_, None, m_, rows), [(x, mask)],
+                         100)
+        p_ms = time_ms(lambda x_, m_: ref.batched(
+            lambda a, b: plain(a, None, b), rows)(x_, m_), [(x, mask)], 2)
+        t_none = time_ms(lambda x_, m_: fn(x_, None, m_, None), [(x, mask)],
+                         100)
+        row_b, pop_b = planes[name]
+        live_b = live_encoder_bytes(rl, c, k, 2, row_b, pop_b)
+        all_b = live_encoder_bytes([c] * e, c, k, 2, row_b, pop_b)
+        out[name] = {"E": e, "C": c, "K": k, "live": n_live, "ms": t_rows,
+                     "none_ms": t_none, "plain_ms": p_ms,
+                     "bound_ms": live_b / peaks[0] * 1e3,
+                     "bound_by": "bytes",
+                     "all_bound_ms": all_b / peaks[0] * 1e3}
+    return out
+
+
+def check_expert_rows(dev, gen, peaks):
+    """Phase 3's ``rows`` checks: every batched matmul entry over
+    ROWS_SWEEP and every batched encoder (fused and scale-taking) over
+    ROWS_ENCODE, each rows pattern, bit-exact with its plain version, the
+    arrival counters 0 after every launch, one launch a call; then the
+    timed rows (ROWS_LIVE). Returns {"cases", "s", "matmul", "encoder",
+    "v3"}."""
+    from repro_torch.kernels.sparqle_matmul import launch_plan
+    t0 = time.perf_counter()
+    cases, split = 0, False
+    for e, c, k, n in ROWS_SWEEP:
+        split |= launch_plan(c, n, k, e).splits > 1
+        cases += check_rows_matmul_patterns(
+            dev, gen, batched_case(dev, gen, e, c, k, n, "alternating"),
+            f"at E={e} C={c} K={k} N={n}")
+    if not split:
+        raise AssertionError("the rows sweep must split K once")
+    for e, c, k in ROWS_ENCODE:
+        x = (torch.randn((e, c, k), generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
+        cases += check_rows_encoder_patterns(dev, gen, x, mask,
+                                             f"at E={e} C={c} K={k}")
+    rows = rows_pattern(dev, gen, 8, 3, "random")
+    c8 = batched_case(dev, gen, 8, 3, 2048, 1408, "live")
+    for name, (fn, _, planes, skip, _) in matmul_instances().items():
+        check_one_launch(name + "_batched", lambda: fn(
+            c8[planes[0]], c8[planes[1]], c8["pop"], c8["wp"], c8["asc"],
+            c8["wsc"], msb_skip=skip, rows=rows))
+    x8 = torch.randn((8, 3, 2048), generator=gen, device=dev)
+    for name, (fn, _, _, _) in rows_encoders().items():
+        check_one_launch(name, lambda: fn(x8, torch.ones(
+            (8, 3, 1), device=dev), None, rows))
+    sweep_s = time.perf_counter() - t0
+    names = list(matmul_instances())
+    mm = time_rows_matmul(dev, gen, peaks, 64, 1, 2048, 1408, ROWS_LIVE[64],
+                          names)
+    enc = time_rows_encoders(dev, gen, peaks, 64, 1, 2048, ROWS_LIVE[64])
+    v3 = [time_rows_matmul(dev, gen, peaks, 256, 1, k, n, ROWS_LIVE[256],
+                           ["sparqle_matmul"], plain=False)["sparqle_matmul"]
+          for k, n in ROWS_V3_KN]
+    torch.cuda.empty_cache()
+    return {"cases": cases, "s": sweep_s, "matmul": mm, "encoder": enc,
+            "v3": v3}
+
+
+def apply_rows_timing(row, d) -> None:
+    """A batched kernel row's time, plain time and bound become those of
+    the serve's routing at decode (``d``: live experts, ``rows``); the
+    all-experts, rows=None figures it had move into its text and
+    detail."""
+    row["shape"] = (f"{rows_note(d)} (the serve's routing at decode: the "
+                    f"row's time, plain time and bound); every expert live, "
+                    f"rows=None: {row['ms'] * 1e3:.2f} us, bound "
+                    f"{row['bound_ms'] * 1e3:.2f} us, plain "
+                    f"{row['plain_ms'] * 1e3:.1f} us at " + row["shape"])
+    row["detail"] = list(row.get("detail", [])) + [dict(d, rows="live")]
+    row.update(ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
+               bound_by=d["bound_by"])
+
+
+def rows_note(d) -> str:
+    """One timed rows entry: the time with the live rows against
+    rows=None, and the live and all-experts bounds."""
+    return (f"E={d['E']} C={d['C']} "
+            + (f"{d['K']}->{d['N']}" if "N" in d else f"K={d['K']}")
+            + f", {d['live']} of {d['E']} live: {d['ms'] * 1e3:.2f} us "
+              f"(rows=None {d['none_ms'] * 1e3:.2f}), live bound "
+              f"{d['bound_ms'] * 1e3:.2f} us ({d['bound_by']}, "
+              f"{d['bound_ms'] / d['ms'] * 100:.0f}%), all-experts bound "
+              f"{d['all_bound_ms'] * 1e3:.2f} us"
+            + (f"; every row live: rows all C {d['full_rows_ms'] * 1e3:.2f} "
+               f"us vs rows=None {d['full_none_ms'] * 1e3:.2f} us "
+               f"({(d['full_rows_ms'] / d['full_none_ms'] - 1) * 100:+.1f}%)"
+               if "full_rows_ms" in d else ""))
+
+
 # deepseek-v3-671b's projection shapes, swept untimed in phase 3 (the
 # plain projections at M = 8 decode, 17 ragged and 1,024 the --legacy
 # prefill; each (K, N) as (in, out)): wq_a, wkv_a (N = 576), wq_b, wo,
@@ -2005,11 +2449,13 @@ def check_arch_shapes(dev, gen, ms, kns, encode_ks, batched):
     x POP_PATTERNS, the fused encoders (check_fused_case) over ms x
     encode_ks x bf16, f32, and the five batched matmul entries and three
     batched encoders at ``batched`` (its E, C and (K, N)), each bit-exact
-    with its plain version. Returns the counts of input sets."""
+    with its plain version; there also the five batched matmul entries and
+    six batched encoders with every ROWS_PATTERNS count, garbage past it.
+    Returns the counts of input sets."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparqle_encode as E
     n = {"matmul": 0, "encoder": 0, "batched_matmul": 0,
-         "batched_encoder": 0}
+         "batched_encoder": 0, "rows_matmul": 0, "rows_encoder": 0}
     for k, nn in kns:
         for m in ms:
             for pattern in POP_PATTERNS:
@@ -2033,10 +2479,14 @@ def check_arch_shapes(dev, gen, ms, kns, encode_ks, batched):
          ref.batched(ref.sparqle_encode_packed_fused_ref)))
     for c in batched["c"]:
         for k, nn in batched["kn"]:
-            check_batched_matmul_case(
-                batched_case(dev, gen, e, c, k, nn, "alternating"),
-                f"at E={e} C={c} K={k} N={nn}")
+            case = batched_case(dev, gen, e, c, k, nn, "alternating")
+            check_batched_matmul_case(case, f"at E={e} C={c} K={k} N={nn}")
             n["batched_matmul"] += 1
+            # the live rows at this shape: with C > 64 (jamba's prefill) a
+            # count cuts an expert's second row block or leaves it dead
+            n["rows_matmul"] += check_rows_matmul_patterns(
+                dev, gen, case, f"at E={e} C={c} K={k} N={nn}")
+            del case
             x = (torch.randn((e, c, k), generator=gen, device=dev)
                  * 2).to(torch.bfloat16)
             mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
@@ -2048,6 +2498,8 @@ def check_arch_shapes(dev, gen, ms, kns, encode_ks, batched):
                     raise AssertionError(f"a batched encoder differs from its "
                                          f"plain version at E={e} C={c} K={k}")
             n["batched_encoder"] += 1
+            n["rows_encoder"] += check_rows_encoder_patterns(
+                dev, gen, x, mask, f"at E={e} C={c} K={k}")
     return n
 
 
@@ -2826,7 +3278,9 @@ def serve_zoo_arch(dev, arch, seed):
     serve's, packed gamma's to gamma's, dense logits bit-equal to
     SPARQLe's, one verify window bit-equal to its decode steps at full
     depth, every routed projection one batched encoder and one batched
-    matmul launch (3 a MoE layer and forward). The gamma serve's streams
+    matmul launch (3 a MoE layer and forward); the base serve once more
+    with rows=None (:func:`rows_off`, the A side of the live rows' A/B:
+    streams and launches equal to the base serve's). The gamma serve's streams
     against the base serve's are reported, not required. An expert keeps
     at most ``capacity`` assignments of the tokens routed together (1 at
     decode), so which tokens a step batches decides which are dropped;
@@ -2860,6 +3314,9 @@ def serve_zoo_arch(dev, arch, seed):
     need = ("sparqle_encode_fused", "sparqle_matmul", "kv_attention")
     if moe_layers:
         need += ("sparqle_encode_fused_batched", "sparqle_matmul_batched")
+        # A of the live rows' A/B: the base serve with rows=None
+        with rows_off():
+            runs["base_rows_none"] = serve_granite(dev, cfg, params, prompts)
         runs["spec"] = serve_granite(dev, cfg, params, prompts,
                                      spec_gamma=SPEC_GAMMA)
         dense = with_fields(params, mode="dense")
@@ -2885,6 +3342,9 @@ def serve_zoo_arch(dev, arch, seed):
                                                             seed)
     check_path(base, need, UNFUSED + tuple(
         b for b in BATCHED if b not in need))
+    if moe_layers and runs["base_rows_none"]["launches"] != base["launches"]:
+        raise AssertionError(f"{arch}: launches with rows=None differ from "
+                             f"the base serve's")
     paths = {"spec": ("sparqle_matmul_draft_batched",),
              "dense": ("sparqle_quantize_fused_batched",
                        "quant_matmul_batched"),
@@ -3783,6 +4243,52 @@ def counted_legacy_serve(dev, cfg, params, prompts, gen, patches=None):
     return r
 
 
+@contextlib.contextmanager
+def rows_off():
+    """The A side of the live rows' A/B: inside, ``models/moe.py``'s
+    dispatch hands rows=None to the routed projections (every expert's
+    weight streamed, as before the count), by substituting the module's
+    ``expert_rows`` in this process; restored on exit."""
+    from repro_torch.models import moe
+    keep = moe.expert_rows
+    moe.expert_rows = lambda *a: None
+    try:
+        yield
+    finally:
+        moe.expert_rows = keep
+
+
+def legacy_rows_ab(dev, cfg, params, prompts, gen, base):
+    """The ``--legacy`` serve's decode replay with the live rows (B) and
+    with rows=None (A, :func:`rows_off`), in the order A B B A, each serve
+    with compiled steps of its own (captured anew): its streams and
+    per-kernel launch counts equal to ``base`` (the phase's serve, with
+    the rows). Returns the ms a replayed step of each serve and the ratio
+    of the means, B over A."""
+    out = {"none_ms": [], "rows_ms": []}
+    for side in ("none", "rows", "rows", "none"):
+        with rows_off() if side == "none" else contextlib.nullcontext():
+            r = counted_legacy_serve(dev, cfg, params, prompts, gen)
+        if r["streams"] != base["streams"] or \
+                r["launches"] != base["launches"]:
+            raise AssertionError(f"{cfg.name} --legacy with rows={side}: "
+                                 f"streams or launches differ from the "
+                                 f"phase's serve")
+        out[side + "_ms"].append(r["decode_step_s"] * 1e3)
+        del r
+    out["ratio"] = (sum(out["rows_ms"]) / len(out["rows_ms"])) / (
+        sum(out["none_ms"]) / len(out["none_ms"]))
+    return out
+
+
+def rows_ab_note(ab) -> str:
+    return (f"decode replay with the live rows "
+            f"{', '.join(f'{x:.2f}' for x in ab['rows_ms'])} ms against "
+            f"rows=None {', '.join(f'{x:.2f}' for x in ab['none_ms'])} ms "
+            f"(serves A B B A, streams and launches equal): "
+            f"{ab['ratio']:.3f} of rows=None")
+
+
 def legacy_replay(dev, cfg, params, b, span, seed) -> bool:
     """The fixed-batch decode step at full depth through a compiled step
     (warm-up, capture, replays) and eagerly (phase 4b's ``legacy_decode``
@@ -4088,6 +4594,7 @@ def serve_deepseek_v3(dev, seed):
     if any(counts[k] != v for k, v in want.items()) or extra:
         raise AssertionError(f"deepseek-v3 legacy launches {counts}: want "
                              f"{want} and no other")
+    out["rows_ab"] = legacy_rows_ab(dev, cfg, params, prompts, gen, r)
     # the decode step's logits and caches: graph replays vs eager calls
     out["replay_vs_eager"] = legacy_replay(dev, cfg, params, b, n + gen,
                                            seed + 29)
@@ -4274,6 +4781,8 @@ def serve_ssd(dev, arch, seed, peaks):
     if any(counts[k] != v for k, v in want.items()) or extra:
         raise AssertionError(f"{arch} legacy launches {counts}: want {want} "
                              f"and no other")
+    if routed:
+        out["rows_ab"] = legacy_rows_ab(dev, cfg, params, prompts, gen, r)
     batch = {"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)}
     with torch.no_grad():
         logits, cache = M.prefill(cfg, params, batch, max_len=n + gen)
@@ -5054,6 +5563,12 @@ DRYRUN_LIST_HEAD = ("starcoder2-3b train_4k", "starcoder2-3b prefill_32k",
 # (22b), on 16x16 under the baseline profile
 DRYRUN_CELLS = (("granite-8b", "decode_32k"), ("gemma3-27b", "long_500k"),
                 ("granite-8b", "prefill_32k"), ("starcoder2-3b", "train_4k"))
+# the cells planned (22a) and run on the card (22b) at a cut of their
+# layers, the same cut in both: at full depth the prefill's eager flash
+# loop (2,048 blocks a layer) took 51.4-59.4 s and the train step 36.9 s
+# on the card, most of phase 22 (PERF.md)
+DRYRUN_CARD_LAYERS = {("granite-8b", "prefill_32k"): 4,
+                      ("starcoder2-3b", "train_4k"): 4}
 DRYRUN_TIMEOUT_S = 600
 # rank 0's measured peak within max(PEAK_REL, PEAK_ABS_B) of the plan's
 PEAK_REL = 0.05
@@ -5111,10 +5626,25 @@ def start_dryrun():
     procs = []
     for arch, shape in DRYRUN_CELLS:
         log_file = open(OUT / f"dryrun_{arch}__{shape}.txt", "w")
+        layers = DRYRUN_CARD_LAYERS.get((arch, shape))
+        if layers is None:
+            argv = cmd + ["--arch", arch, "--shape", shape, "--mesh",
+                          "singlepod", "--out", str(OUT / "dryrun")]
+        else:       # the cell's config cut to ``layers``, planned alike
+            path = OUT / "dryrun" / "singlepod" / f"{arch}__{shape}.json"
+            argv = [sys.executable, "-c", (
+                "import json, os; "
+                "from repro_torch.configs import get_config; "
+                "from repro_torch.launch.dryrun import lower_cell; "
+                f"p = {str(path)!r}; "
+                "os.makedirs(os.path.dirname(p), exist_ok=True); "
+                f"cfg = get_config({arch!r}).replace(n_layers={layers}); "
+                f"rec = lower_cell({arch!r}, {shape!r}, 'singlepod', "
+                "cfg=cfg); "
+                "json.dump(rec, open(p, 'w'), indent=1)")]
         procs.append((arch, shape, log_file, subprocess.Popen(
-            cmd + ["--arch", arch, "--shape", shape, "--mesh", "singlepod",
-                   "--out", str(OUT / "dryrun")],
-            cwd=ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT)))
+            argv, cwd=ROOT, env=env, stdout=log_file,
+            stderr=subprocess.STDOUT)))
     return {"procs": procs, "t0": time.perf_counter(), "cells": len(cells),
             "skips": len(skips)}
 
@@ -5145,7 +5675,8 @@ def finish_dryrun(state) -> dict:
 
 
 def dryrun_on_card(dev, seed: int, plans) -> dict:
-    """22b: each planned cell as rank 0 of a fake 16x16 world on the card,
+    """22b: each planned cell (at its DRYRUN_CARD_LAYERS cut, as planned)
+    as rank 0 of a fake 16x16 world on the card,
     one call of its whole step on real tensors of random contents,
     collectives elided, timed (wall, synchronised): the peak of
     ``torch.cuda.max_memory_allocated`` against the plan's within
@@ -5161,9 +5692,14 @@ def dryrun_on_card(dev, seed: int, plans) -> dict:
         _reset_peak(dev)
         base = torch.cuda.memory_allocated(dev)
         kernels.reset_launch_counts()
+        layers = DRYRUN_CARD_LAYERS.get((arch, shape))
+        cfg = None
+        if layers is not None:
+            from repro_torch.configs import get_config
+            cfg = get_config(arch).replace(n_layers=layers)
         rec = lower_cell(arch, shape, "singlepod", fake=False,
                          device=str(dev), fill_seed=seed, timed=1,
-                         tally_run=False)
+                         tally_run=False, cfg=cfg)
         peak = torch.cuda.max_memory_allocated(dev) - base
         counts = kernels.launch_counts()
         tol = max(PEAK_REL * plan["peak_b"], PEAK_ABS_B)
@@ -5367,6 +5903,24 @@ def main() -> int:
             check_partial_attention(dev, gen, peaks),
             *check_batched_encoder(dev, gen, peaks),
             *check_batched_matmul(dev, gen, peaks)]
+    er = check_expert_rows(dev, gen, peaks)
+    for r in rows:
+        d = er["encoder"].get(r["name"]) or er["matmul"].get(
+            r["name"][:-len("_batched")])
+        if r["name"].endswith("_batched") and d:
+            apply_rows_timing(r, d)
+    log(f"[3] expert rows (``rows``): {er['cases']} input sets bit-exact "
+        f"with the plain versions (the five batched matmul entries at (E, "
+        f"C, K, N) in {ROWS_SWEEP}, the six batched encoders at (E, C, K) "
+        f"in {ROWS_ENCODE}, rows {ROWS_PATTERNS}, garbage past the count; "
+        f"packed = unpacked, dense = dual pass; arrival counters 0 after "
+        f"every launch; one launch a call) in {er['s']:.1f} s; timed: "
+        + "; ".join(f"{name}_batched {rows_note(d)}"
+                    for name, d in er["matmul"].items())
+        + "; " + "; ".join(f"{name} {rows_note(d)}"
+                           for name, d in er["encoder"].items())
+        + "; deepseek-v3's routed shapes: " + "; ".join(
+            f"sparqle_matmul_batched {rows_note(d)}" for d in er["v3"]))
     attn_zoo = check_attention_zoo(dev, gen, peaks)
     log("[3] kv4_paged_decode_attention at the zoo's head shapes (B=8, "
         "hd=128, ps=16, Pmax=16, f32 q): " + "; ".join(
@@ -5406,7 +5960,11 @@ def main() -> int:
             f"the five batched matmul entries and three batched encoders at "
             f"E={batched['e']}, C in {batched['c']}, (K, N) in "
             f"{batched['kn']} ({sw['batched_matmul']} and "
-            f"{sw['batched_encoder']} input sets); "
+            f"{sw['batched_encoder']} input sets), and there with the live "
+            f"rows {ROWS_PATTERNS}, garbage past the count, the five "
+            f"batched matmul entries and six batched encoders "
+            f"({sw['rows_matmul']} and {sw['rows_encoder']} input sets; "
+            f"packed = unpacked, dense = dual pass, arrival counters 0); "
             f"{time.perf_counter() - t0:.1f} s")
     for r in rows:
         log(f"[3] {r['name']}: ok (err {r['max_abs_err']:.3g}), "
@@ -5419,7 +5977,8 @@ def main() -> int:
                 f"{f['quant_matmul'] * 1e3:.1f} us, dual pass "
                 f"{f['sparqle_matmul'] * 1e3:.1f} us, draft "
                 f"{f['sparqle_matmul_draft'] * 1e3:.1f} us")
-    detail = {"card": card, "kernels": rows, "attention_zoo": attn_zoo}
+    detail = {"card": card, "kernels": rows, "attention_zoo": attn_zoo,
+              "expert_rows": er}
     # the launch counter of each kernel row, and the phase that reads it
     # rows 1, 3 and 7: the launches of phase 21b's calibrate-and-serve
     # example, 6: of 21a's quickstart (the last paths the smoke drives);
@@ -5934,7 +6493,8 @@ def main() -> int:
             f"{v3['decode_steps']} steps; warm-up and capture "
             f"{v3['decode_warmup_s'] * 1e3:.1f} ms), serve peak "
             f"{v3['peak_mem_gb']:.1f} GB, launches "
-            f"{ {k: v for k, v in v3['launches'].items() if v} }; decode "
+            f"{ {k: v for k, v in v3['launches'].items() if v} }; "
+            f"{rows_ab_note(v3['rows_ab'])}; decode "
             f"step replayed vs eager at {v3['layers']}L, logits and caches "
             f"bit-equal: {v3['replay_vs_eager']}; "
             f"{prefill_replay_note(v3['prefill_replay'])}; MTP logits "
@@ -5982,7 +6542,10 @@ def main() -> int:
                 f"{r['floor_share']:.3f} of the floor; serve peak "
                 f"{r['peak_mem_gb']:.1f} GB, launches "
                 f"{ {k: v for k, v in r['launches'].items() if v} } "
-                f"({r['per_forward']} a forward); decode step replayed vs "
+                f"({r['per_forward']} a forward); "
+                + (f"{rows_ab_note(r['rows_ab'])}; " if "rows_ab" in r
+                   else "")
+                + f"decode step replayed vs "
                 f"eager at {r['layers']}L, logits and states bit-equal: "
                 f"{r['replay_vs_eager']}; "
                 f"{prefill_replay_note(r['prefill_replay'])}; 2L f32 "

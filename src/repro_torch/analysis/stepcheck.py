@@ -161,12 +161,14 @@ def _calls(graph) -> List[Any]:
 
 def _from(node, pred: Callable, depth: int = 0) -> bool:
     """Whether ``pred`` holds for ``node`` or for a node it was moved or
-    retyped from (layout ops and conversions, followed back)."""
+    retyped from (layout ops and conversions, followed back; a ``where``
+    to its kept values, the rows a routed projection's live count keeps:
+    ``kernels/ref.py`` ``live_rows``)."""
     if pred(node):
         return True
-    if depth > 16 or _op(node) not in _LAYOUT:
+    if depth > 16 or _op(node) not in _LAYOUT | {"where"}:
         return False
-    src = node.args[0] if node.args else None
+    src = node.args[1 if _op(node) == "where" else 0] if node.args else None
     if isinstance(src, (list, tuple)):
         return any(_from(s, pred, depth + 1) for s in src if hasattr(s, "op"))
     return hasattr(src, "op") and _from(src, pred, depth + 1)

@@ -233,21 +233,27 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     return y
 
 
-def expert_linear(x: torch.Tensor, w, *,
-                  tp: Optional[str] = None) -> torch.Tensor:
+def expert_linear(x: torch.Tensor, w, *, tp: Optional[str] = None,
+                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched expert projection: x (E, C, K) @ w (E, K, N). A
     routed-expert :class:`SparqleLinear` (a served tree) runs the batched
     kernels; a float weight (a trained tree) takes :func:`linear`'s float
-    branch, one batched product with the weight cast to x's dtype.
+    branch, one batched product with the weight cast to x's dtype, and
+    ignores ``rows``. ``rows`` ((E,) int32 on x's device, or None: every
+    row live): expert e's rows at and past ``rows[e]`` are taken as zero
+    by both launches, whose blocks past it read no activation and no
+    weight; the result is the one without ``rows`` wherever those rows
+    are zero.
     ``tp="row"`` as in :func:`linear`."""
     if not isinstance(w, SparqleLinear):
         return linear(x, w, tp=tp)
-    return _quantized_apply(x, w, batched=True, tp=tp)
+    return _quantized_apply(x, w, batched=True, tp=tp, rows=rows)
 
 
 def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
                      batched: bool = False,
-                     tp: Optional[str] = None) -> torch.Tensor:
+                     tp: Optional[str] = None,
+                     rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """encode with the per-token scale formed in the same launch
     (quantize, clip, split; packed in the wire format when
     ``sl.wire_format`` says so) -> dual pass (LSB pass alone under
@@ -255,8 +261,9 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
     returned, or in dense mode quantize + clip -> single pass ->
     rescale, through the kernel wrappers. ``batched``: x (E, C, K)
     against (E, K/2, N) expert weights, each expert's rows clipped by
-    its own mask row and drained by its own scales. A row-parallel site
-    under a TP context takes :func:`_row_apply` instead."""
+    its own mask row and drained by its own scales, ``rows`` (batched
+    only) passed to both launches. A row-parallel site under a TP context
+    takes :func:`_row_apply` instead."""
     if sl.mode not in ("sparqle", "dense"):
         raise ValueError(f"mode={sl.mode!r}: expected 'sparqle' or 'dense'")
     if sl.wire_format not in WIRE_FORMATS:
@@ -284,45 +291,52 @@ def _quantized_apply(x: torch.Tensor, sl: SparqleLinear,
         elif x2.shape[-1] != k_loc:
             raise ValueError(f"row-cut projection of K {k_loc} a rank: "
                              f"input of {x2.shape[-1]}")
-        out = _row_apply(x2, sl, clip_args, w_scale, sl.group)
+        out = _row_apply(x2, sl, clip_args, w_scale, sl.group, rows)
     elif ctx is not None:
-        out = _row_apply(x2, sl, clip_args, w_scale, ctx.group)
+        out = _row_apply(x2, sl, clip_args, w_scale, ctx.group, rows)
     elif sl.mode == "dense":
-        q, scale = sparqle_quantize_fused(x2, *clip_args)
-        out = quant_matmul(q, sl.w.q, scale, w_scale)
+        q, scale = sparqle_quantize_fused(x2, *clip_args, rows=rows)
+        out = quant_matmul(q, sl.w.q, scale, w_scale, rows=rows)
     elif sl.wire_format == "packed":
-        lsb, msb, _, pop, scale = sparqle_encode_packed_fused(x2, *clip_args)
+        lsb, msb, _, pop, scale = sparqle_encode_packed_fused(
+            x2, *clip_args, rows=rows)
         out = sparqle_matmul_packed(lsb, msb, pop, sl.w.q, scale, w_scale,
-                                    msb_skip=_MSB_SKIP)
+                                    msb_skip=_MSB_SKIP, rows=rows)
     else:
-        lsb, msb, _, pop, scale = sparqle_encode_fused(x2, *clip_args,
-                                                       with_pbm=False)
+        lsb, msb, _, pop, scale = sparqle_encode_fused(
+            x2, *clip_args, with_pbm=False, rows=rows)
         out = sparqle_matmul(lsb, msb, pop, sl.w.q, scale, w_scale,
-                             msb_skip=_MSB_SKIP)
+                             msb_skip=_MSB_SKIP, rows=rows)
     return out.reshape(*orig[:-1], n).to(x.dtype)
 
 
 def _row_apply(x2: torch.Tensor, sl: SparqleLinear, clip_args,
-               w_scale: torch.Tensor, group) -> torch.Tensor:
+               w_scale: torch.Tensor, group,
+               rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The row-parallel chain on this rank's K slice: one MAX all-reduce
     of the row amax (in f32, which holds x's dtype exactly), the global
     scale, the scale-taking encoder, the matmul's int32 accumulator, one
-    SUM all-reduce of it, the f32 drain in the kernel epilogue's order."""
+    SUM all-reduce of it, the f32 drain in the kernel epilogue's order.
+    ``rows``: a routed projection's live rows an expert, passed to both
+    launches."""
     amax = x2.abs().amax(dim=-1, keepdim=True).float()
     dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = scale_from_amax(amax.to(x2.dtype)).float()
     if sl.mode == "dense":
-        q = sparqle_quantize(x2, scale, *clip_args)
-        acc = quant_matmul(q, sl.w.q, scale, w_scale, acc_out=True)
+        q = sparqle_quantize(x2, scale, *clip_args, rows=rows)
+        acc = quant_matmul(q, sl.w.q, scale, w_scale, acc_out=True,
+                           rows=rows)
     elif sl.wire_format == "packed":
-        lsb, msb, _, pop = sparqle_encode_packed(x2, scale, *clip_args)
+        lsb, msb, _, pop = sparqle_encode_packed(x2, scale, *clip_args,
+                                                 rows=rows)
         acc = sparqle_matmul_packed(lsb, msb, pop, sl.w.q, scale, w_scale,
-                                    acc_out=True, msb_skip=_MSB_SKIP)
+                                    acc_out=True, msb_skip=_MSB_SKIP,
+                                    rows=rows)
     else:
         lsb, msb, _, pop = sparqle_encode(x2, scale, *clip_args,
-                                          with_pbm=False)
+                                          with_pbm=False, rows=rows)
         acc = sparqle_matmul(lsb, msb, pop, sl.w.q, scale, w_scale,
-                             acc_out=True, msb_skip=_MSB_SKIP)
+                             acc_out=True, msb_skip=_MSB_SKIP, rows=rows)
     dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
     return acc.float() * scale * w_scale
 

@@ -179,16 +179,25 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
 // own mask row col_mask[e] (an (E, K) mask) and writes its own scale
 // rows, planes and (ceil(M / TILE_M), n_kt) populations, so no TILE_M
 // tile straddles two experts. With E = 1 every offset is 0.
+// `expert_rows` ((E,) int32, or null: all M): expert e's rows at and past
+// expert_rows[e] read as 0 whatever x holds, so they encode as a zero
+// row does (scale token_scale(0), planes and PBM 0, no population); a
+// block whose row group lies wholly past it reads neither x nor the
+// mask, writes those outputs and returns before the amax pass.
 template <int MODE, bool XBF16, bool SCALE_IN>
 __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
     const void* __restrict__ x, float* __restrict__ scale,
     const uint8_t* __restrict__ col_mask, int clip_l, int clip_h,
     void* __restrict__ lsb, void* __restrict__ msb, void* __restrict__ pbm,
-    int32_t* __restrict__ pop, int M, int K, int KP) {
+    int32_t* __restrict__ pop, int M, int K, int KP,
+    const int32_t* __restrict__ expert_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float amax_w[FUSED_THREADS / 32], scale_s[TILE_M];
   const int x_bf16 = XBF16;
   const int n_kt = (K + TILE_K - 1) / TILE_K;
+  // rows of x read (the rest read as 0)
+  const int ML = expert_rows == nullptr
+                     ? M : min(max(expert_rows[blockIdx.z], 0), M);
   {   // this expert's slabs
     const long e = blockIdx.z, rows = e * M;
     x = reinterpret_cast<const char*>(x) + rows * K * (XBF16 ? 2 : 4);
@@ -217,6 +226,40 @@ __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
   const int lane = threadIdx.x & 31;
   // a warp covers rows 2w, 2w + 1 of its sub-tile: past M it idles
   const bool warp_rows = mt * TILE_M + (tid / 32) * 2 < M;
+  if (mt * TILE_M >= ML) {
+    // no live row in the group: a zero row's outputs (scale
+    // token_scale(0), planes, PBM and populations 0), no x or mask read
+    const int m_lo = mt * TILE_M, m_n = min(TILE_M, M - m_lo);
+    if (!SCALE_IN && blockIdx.x == 0 && threadIdx.x < m_n)
+      scale[m_lo + threadIdx.x] = token_scale(0.0f, x_bf16);
+    const int c_lo = t0 * TILE_K;
+    if (MODE == MODE_PACKED) {   // plane bytes and PBM words of the tiles
+      const int c_hi = min(t1 * TILE_K, KP);
+      const int nb = (c_hi - c_lo) / 2, nw = (c_hi - c_lo) / 32;
+      for (int i = threadIdx.x; i < m_n * nb; i += FUSED_THREADS) {
+        const long at = (long)(m_lo + i / nb) * (KP / 2) + c_lo / 2 + i % nb;
+        reinterpret_cast<int8_t*>(lsb)[at] = 0;
+        reinterpret_cast<int8_t*>(msb)[at] = 0;
+      }
+      for (int i = threadIdx.x; i < m_n * nw; i += FUSED_THREADS)
+        reinterpret_cast<uint32_t*>(pbm)[(long)(m_lo + i / nw) * (KP / 32) +
+                                         c_lo / 32 + i % nw] = 0u;
+    } else {
+      const int nc = min(t1 * TILE_K, K) - c_lo;
+      for (int i = threadIdx.x; i < m_n * nc; i += FUSED_THREADS) {
+        const long at = (long)(m_lo + i / nc) * K + c_lo + i % nc;
+        reinterpret_cast<int8_t*>(lsb)[at] = 0;
+        if (MODE == MODE_ENCODE) {
+          reinterpret_cast<int8_t*>(msb)[at] = 0;
+          if (pbm != nullptr) reinterpret_cast<uint8_t*>(pbm)[at] = 0;
+        }
+      }
+    }
+    if (MODE != MODE_QUANTIZE)
+      for (int tt = t0 + threadIdx.x; tt < t1; tt += FUSED_THREADS)
+        pop[(long)mt * n_kt + tt] = 0;
+    return;
+  }
   for (int i = threadIdx.x; i < fp.tiles; i += FUSED_THREADS) count[i] = 0;
 
   // 1. this block's slice of x (and of the mask) into shared memory
@@ -226,7 +269,7 @@ __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
     const int k0 = tt * TILE_K + c0, lc = (tt - t0) * TILE_K + c0;
     if (vec) {
       if (k0 >= K) continue;                         // K % 8 == 0: whole
-      if (m < M) {
+      if (m < ML) {
         const char* src = reinterpret_cast<const char*>(x) +
                           ((long)m * K + k0) * esz;
         unsigned char* dst = xs + ((long)r * W + lc) * esz;
@@ -237,7 +280,7 @@ __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
         cp_async(mask_s + lc, col_mask + k0, 8);
     } else {
       for (int i = 0; i < PER_THREAD && k0 + i < K; ++i) {
-        if (m < M) {
+        if (m < ML) {
           const long g = (long)m * K + k0 + i, at = (long)r * W + lc + i;
           if (x_bf16)
             reinterpret_cast<__nv_bfloat16*>(xs)[at] =
@@ -256,7 +299,7 @@ __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
     const int rr = threadIdx.x >> 6, j = threadIdx.x & 63;
     const int mrow = mt * TILE_M + rr;
     float am = 0.0f;
-    if (mrow < M) {
+    if (mrow < ML) {
       if (vec) {
 #pragma unroll 4
         for (int k = j * PER_THREAD; k < K; k += 64 * PER_THREAD) {
@@ -319,7 +362,7 @@ __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
     int q[PER_THREAD];
 #pragma unroll
     for (int i = 0; i < PER_THREAD; ++i) {
-      const bool ok = m < M && k0 + i < K;
+      const bool ok = m < ML && k0 + i < K;
       q[i] = quantize_clip(xval(lc + i, ok), s, x_bf16,
                            ok && col_mask != nullptr && mask_s[lc + i],
                            clip_l, clip_h);
@@ -405,7 +448,8 @@ __global__ void __launch_bounds__(FUSED_THREADS) sparqle_encode_kernel(
 template <int MODE, bool XBF16, bool SCALE_IN>
 static int launch_as(const void* x, void* scale, const void* col_mask,
                      int clip_l, int clip_h, void* lsb, void* msb, void* pbm,
-                     void* pop, int M, int K, int KP, int E, void* stream) {
+                     void* pop, int M, int K, int KP, int E, void* stream,
+                     const void* rows) {
   const FusedPlan fp = fused_plan((K + TILE_K - 1) / TILE_K, SCALE_IN);
   const size_t smem = fused_smem(fp.tiles, XBF16);
   if (smem > 48 * 1024) {
@@ -418,7 +462,7 @@ static int launch_as(const void* x, void* scale, const void* col_mask,
   sparqle_encode_kernel<MODE, XBF16, SCALE_IN>
       <<<grid, FUSED_THREADS, smem, (cudaStream_t)stream>>>(
           x, (float*)scale, (const uint8_t*)col_mask, clip_l, clip_h, lsb,
-          msb, pbm, (int32_t*)pop, M, K, KP);
+          msb, pbm, (int32_t*)pop, M, K, KP, (const int32_t*)rows);
   return (int)cudaGetLastError();
 }
 
@@ -426,14 +470,16 @@ template <int MODE, bool SCALE_IN>
 static int launch(const void* x, int x_bf16, const void* scale,
                   const void* col_mask, int clip_l, int clip_h, void* lsb,
                   void* msb, void* pbm, void* pop, int M, int K, int KP,
-                  void* stream, int E = 1) {
+                  void* stream, int E = 1, const void* rows = nullptr) {
   void* s = const_cast<void*>(scale);
   return x_bf16 ? launch_as<MODE, true, SCALE_IN>(x, s, col_mask, clip_l,
                                                   clip_h, lsb, msb, pbm, pop,
-                                                  M, K, KP, E, stream)
+                                                  M, K, KP, E, stream,
+                                                  rows)
                 : launch_as<MODE, false, SCALE_IN>(x, s, col_mask, clip_l,
                                                    clip_h, lsb, msb, pbm,
-                                                   pop, M, K, KP, E, stream);
+                                                   pop, M, K, KP, E, stream,
+                                                   rows);
 }
 
 // scale (M, 1) f32 in; lsb/msb int8 (M, K), pbm uint8 (M, K) or null,
@@ -498,58 +544,61 @@ extern "C" int sparqle_encode_packed_fused_launch(
 // (E, M, K), scale (E, M, 1), col_mask (E, K) or null, every output with
 // a leading E axis; one launch encodes all E experts (grid z). The
 // row-parallel routed projection under tensor parallelism calls them
-// with its all-reduced scale.
+// with its all-reduced scale. rows: (E,) int32 live rows an expert (the
+// rest encode as zero rows), or null for all M.
 extern "C" int sparqle_encode_batched_launch(
     const void* x, int x_bf16, const void* scale, const void* col_mask,
     int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
-    int M, int K, int E, void* stream) {
+    int M, int K, int E, const void* rows, void* stream) {
   return launch<MODE_ENCODE, true>(x, x_bf16, scale, col_mask, clip_l,
                                    clip_h, lsb, msb, pbm, pop, M, K, K,
-                                   stream, E);
+                                   stream, E, rows);
 }
 
 extern "C" int sparqle_quantize_batched_launch(
     const void* x, int x_bf16, const void* scale, const void* col_mask,
-    int clip_l, int clip_h, void* q, int M, int K, int E, void* stream) {
+    int clip_l, int clip_h, void* q, int M, int K, int E, const void* rows,
+    void* stream) {
   return launch<MODE_QUANTIZE, true>(x, x_bf16, scale, col_mask, clip_l,
                                      clip_h, q, nullptr, nullptr, nullptr,
-                                     M, K, K, stream, E);
+                                     M, K, K, stream, E, rows);
 }
 
 extern "C" int sparqle_encode_packed_batched_launch(
     const void* x, int x_bf16, const void* scale, const void* col_mask,
     int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
-    int M, int K, int KP, int E, void* stream) {
+    int M, int K, int KP, int E, const void* rows, void* stream) {
   return launch<MODE_PACKED, true>(x, x_bf16, scale, col_mask, clip_l,
                                    clip_h, lsb, msb, pbm, pop, M, K, KP,
-                                   stream, E);
+                                   stream, E, rows);
 }
 
 // The expert-batched forms of the three fused entries: x (E, M, K),
-// col_mask (E, K) or null, every output with a leading E axis; one
-// launch encodes all E experts (grid z).
+// col_mask (E, K) or null, every output with a leading E axis, rows as
+// above; one launch encodes all E experts (grid z).
 extern "C" int sparqle_encode_fused_batched_launch(
     const void* x, int x_bf16, void* scale, const void* col_mask,
     int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
-    int M, int K, int E, void* stream) {
+    int M, int K, int E, const void* rows, void* stream) {
   return launch<MODE_ENCODE, false>(x, x_bf16, scale, col_mask, clip_l,
                                     clip_h, lsb, msb, pbm, pop, M, K, K,
-                                    stream, E);
+                                    stream, E, rows);
 }
 
 extern "C" int sparqle_quantize_fused_batched_launch(
     const void* x, int x_bf16, void* scale, const void* col_mask,
-    int clip_l, int clip_h, void* q, int M, int K, int E, void* stream) {
+    int clip_l, int clip_h, void* q, int M, int K, int E, const void* rows,
+    void* stream) {
   return launch<MODE_QUANTIZE, false>(x, x_bf16, scale, col_mask, clip_l,
                                       clip_h, q, nullptr, nullptr, nullptr,
-                                      M, K, K, stream, E);
+                                      M, K, K, stream, E, rows);
 }
 
 extern "C" int sparqle_encode_packed_fused_batched_launch(
     const void* x, int x_bf16, void* scale, const void* col_mask,
     int clip_l, int clip_h, void* lsb, void* msb, void* pbm, void* pop,
-    int M, int K, int KP, int E, void* stream) {
+    int M, int K, int KP, int E, const void* rows, void* stream) {
   return launch<MODE_PACKED, false>(x, x_bf16, scale, col_mask, clip_l,
                                     clip_h, lsb, msb, pbm, pop, M, K, KP,
-                                    stream, E);
+                                    stream, E, rows);
 }

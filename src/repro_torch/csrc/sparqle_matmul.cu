@@ -46,12 +46,27 @@
 //    the block's population row (read ahead into shared memory) is > 0;
 //  * a block covers up to MT = 4 m16 tiles (64 rows), each gated by its
 //    own population, so a 32-row chunk reads the weight once and the
-//    1,024-row `--legacy` prefill 16 times;
+//    1,024-row `--legacy` prefill 16 times; an expert-batched call of at
+//    most 16 rows an expert runs the instance of one m16 tile a block
+//    (`launch`), whose fewer registers fit 6 blocks an SM;
 //  * one launch a call: with one K split the epilogue drains directly;
 //    with several each split writes its int32 partial to its own slice
 //    of a workspace, and the last block to arrive at an output tile (an
 //    acq_rel arrival counter) sums the slices, drains or writes the int32
-//    sum, and resets the counter to 0.
+//    sum, and resets the counter to 0. A tile with no live row (below)
+//    touches no counter: split 0 alone writes it, the other splits
+//    return, so every counter is 0 again after every launch;
+//  * the expert-batched entries take `rows` ((E,) int32 on the device, or
+//    null: every row live): expert e's rows at and past rows[e] are taken
+//    as zero, whatever the planes hold. A block whose row block starts at
+//    or past rows[e] reads no population and issues no TMA: it writes the
+//    drain of a zero accumulator, (f32(0) * act_scale) * w_scale or int32
+//    0, and returns, so an expert the dispatch left empty streams none of
+//    its weight. A live block stages and multiplies only its live m16 and
+//    n8 tiles; the rows past rows[e] inside the last live n8 tile are
+//    independent output rows of the mma (activation rows are its N), so
+//    their accumulators are zeroed before the epilogue instead of masking
+//    every fragment of the loop.
 // From M = 64 rows up (the 1,024-token prefill) the int8 operations bound
 // it; mma.sync runs that regime too (wgmma is a later step).
 //
@@ -98,9 +113,8 @@ namespace {
 
 constexpr int TILE_M = 16;    // rows of one mma == TILE_M of the PBM population
 constexpr int TILE_K = 128;   // K per tile == TILE_K of the PBM population
-constexpr int MT = 4;         // m16 population tiles per block
-constexpr int BLOCK_M = MT * TILE_M;
-constexpr int NT = BLOCK_M / 8;   // n8 mma tiles of activation rows
+constexpr int MT = 4;         // m16 population tiles per block (MTB: 1 for
+                              // a batched call of <= 16 rows an expert)
 constexpr int BLOCK_N = 64;   // output columns per block: 2 warp columns x 32
 constexpr int THREADS = 128;  // 2 column groups x 2 K halves
 constexpr int STAGES = 4;
@@ -310,7 +324,7 @@ __device__ __forceinline__ void drain2(
 // the expert's K/2 rows reads the next expert's rows: their activation
 // columns are past K, zero in every plane, so no product changes. With
 // E = 1 every offset is 0.
-template <bool MSB_SKIP, bool PACKED>
+template <bool MSB_SKIP, bool PACKED, int MTB>
 __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     const int8_t* __restrict__ lsb, const int8_t* __restrict__ msb,
     const int32_t* __restrict__ tile_pop, const int8_t* __restrict__ wp,
@@ -319,20 +333,23 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     int32_t* __restrict__ ws, int32_t* __restrict__ counters, int M, int N,
     int K, int ldp, int per, const __grid_constant__ CUtensorMap wmap,
     const __grid_constant__ CUtensorMap lmap,
-    const __grid_constant__ CUtensorMap mmap, int tma_w, int tma_a) {
+    const __grid_constant__ CUtensorMap mmap, int tma_w, int tma_a,
+    const int32_t* __restrict__ expert_rows) {
+  constexpr int BM = MTB * TILE_M;                    // rows a block
+  constexpr int NTB = BM / 8;                         // n8 row tiles
   constexpr int ROWB = PACKED ? TILE_K / 2 : TILE_K;  // plane bytes a tile row
   constexpr int PLANES = MSB_SKIP ? 1 : 2;
   extern __shared__ __align__(16) int8_t smem[];
   __shared__ int s_last;
   __shared__ __align__(8) uint64_t bar[STAGES];    // TMA arrivals a stage
-  __shared__ float as_s[BLOCK_M], ws_s[BLOCK_N];     // the drain's scales
+  __shared__ float as_s[BM], ws_s[BLOCK_N];     // the drain's scales
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cg = warp & 1, kh = warp >> 1;        // column group, K half
   const int g = lane >> 2, t = lane & 3;
-  const int rbe = cdiv(M, BLOCK_M);                // row blocks an expert
+  const int rbe = cdiv(M, BM);                // row blocks an expert
   const int e = blockIdx.y / rbe;
-  const int n0 = blockIdx.x * BLOCK_N, m0 = (blockIdx.y % rbe) * BLOCK_M;
+  const int n0 = blockIdx.x * BLOCK_N, m0 = (blockIdx.y % rbe) * BM;
   const int n_kt = cdiv(K, TILE_K);
   const int K2 = K / 2;
   const int lda = PACKED ? ldp : K;            // plane row stride, bytes
@@ -348,13 +365,28 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     if (acc_out != nullptr) acc_out += rows_e * N;
     if (ws != nullptr) ws += (long)e * gridDim.z * M * N;
   }
+  const int rows = min(BM, M - m0);          // valid rows of the block
+  // expert e's live rows (all M without `expert_rows`)
+  const int live_m =
+      expert_rows == nullptr ? M : min(max(expert_rows[e], 0), M);
+  if (m0 >= live_m) {   // no live row: split 0 drains zero accumulators
+    if (blockIdx.z != 0) return;
+    const int zero[4] = {0, 0, 0, 0};
+    for (int q = tid; q < rows * (BLOCK_N / 4); q += THREADS) {
+      const int m = m0 + q / (BLOCK_N / 4), c = n0 + (q % (BLOCK_N / 4)) * 4;
+      if (c < N)
+        drain4(out, acc_out, act_scale[m], w_scale + c, m, c, N, zero);
+    }
+    return;
+  }
   const int w_row0 = e * K2, a_row0 = e * M;   // TMA row offsets
   const int kt_lo = blockIdx.z * per;
   const int nk = min(n_kt, kt_lo + per) - kt_lo;
-  const int rows = min(BLOCK_M, M - m0);          // valid rows of the block
-  const int nmt = cdiv(rows, TILE_M);             // live m16 row tiles
-  const int nnt = cdiv(rows, 8);                  // live n8 row tiles
-  const int arows = min(BLOCK_M, nmt_all(M));    // staged rows a plane
+  const int live = min(rows, live_m - m0);        // live rows of the block
+  const int nmt = cdiv(live, TILE_M);             // live m16 row tiles
+  const int nnt = cdiv(live, 8);                  // live n8 row tiles
+  const int nnt_out = cdiv(rows, 8);              // n8 row tiles drained
+  const int arows = min(BM, nmt_all(M));    // staged rows a plane
   const int a_bytes = arows * ROWB;
   // stages start 1 KB-aligned: the TMA swizzle follows address bits
   const int stage = cdiv(W_STAGE + PLANES * a_bytes, 1024) * 1024;
@@ -374,7 +406,7 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
   auto live_mask = [&](int i) {
     uint32_t live = 0;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MTB; ++mt)
       if (!MSB_SKIP && mt < nmt &&
           tile_pop[(m0 / TILE_M + mt) * n_kt + kt_lo + i] > 0)
         live |= 1u << mt;
@@ -397,7 +429,7 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
       if (tma_w)
         tma_2d(w_s, &wmap, n0, w_row0 + kt * (TILE_K / 2), &bar[st]);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MTB; ++mt)
         if (tma_a && mt < nmt)
           tma_2d(w_s + W_STAGE + mt * TILE_M * ROWB, &lmap, kt * ROWB,
                  a_row0 + m0 + mt * TILE_M, &bar[st]);
@@ -405,7 +437,7 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     }
     if (part == 1) mbar_expect(&bar[st], msb_bytes);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MTB; ++mt)
       if (!MSB_SKIP && tma_a && ((live >> mt) & 1))
         tma_2d(w_s + W_STAGE + a_bytes + mt * TILE_M * ROWB, &mmap,
                kt * ROWB, a_row0 + m0 + mt * TILE_M, &bar[st]);
@@ -427,7 +459,7 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
     for (int p = p_lo; p < p_hi; ++p) {
       const int8_t* src = p ? msb : lsb;
       int8_t* a_s = ring + st * stage + W_STAGE + p * a_bytes;
-      for (int q = tid; q < rows * CH; q += THREADS) {
+      for (int q = tid; q < live * CH; q += THREADS) {
         const int r = q / CH, c = (q % CH) * 16;
         if (p && !((live_s[i] >> (r / TILE_M)) & 1)) continue;
         const int k = kt * ROWB + c;
@@ -458,9 +490,9 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
       if (!tma_w) load_w(p, p);
       if (!tma_a) load_a(p, p, 0, 1);
     }
-  for (int i = tid; i < BLOCK_M + BLOCK_N; i += THREADS) {
+  for (int i = tid; i < BM + BLOCK_N; i += THREADS) {
     if (i < rows) as_s[i] = act_scale[m0 + i];
-    const int c = i - BLOCK_M;
+    const int c = i - BM;
     if (c >= 0 && n0 + c < N) ws_s[c] = w_scale[n0 + c];
   }
   if (!MSB_SKIP)
@@ -469,7 +501,7 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
   for (int st = 0; st < STAGES && !tma_a; ++st)
     for (int p = 0; p < PLANES; ++p) {
       int8_t* a = ring + st * stage + W_STAGE + p * a_bytes;
-      for (int i = rows * ROWB + 4 * tid; i < nmt * TILE_M * ROWB;
+      for (int i = live * ROWB + 4 * tid; i < nmt * TILE_M * ROWB;
            i += 4 * THREADS)
         *reinterpret_cast<uint32_t*>(a + i) = 0u;
     }
@@ -482,11 +514,11 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
 
   // acc[u][nt]: weight rows (columns) of m16 tile u x activation rows of
   // n8 tile nt, as 16 x the sum (the weight operand is 16 * w)
-  int acc[2][NT][4];
+  int acc[2][NTB][4];
 #pragma unroll
   for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NTB; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[u][nt][e] = 0;
 
@@ -538,7 +570,7 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
         wa[u][3] = col[2 * u + 1] & 0xF0F0F0F0u;
       }
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int nt = 0; nt < NTB; ++nt) {
         if (nt >= nnt) break;
         uint32_t b[2];
         act_frag<PACKED, false>(a_l, 8 * nt + g, s, t, b);
@@ -563,10 +595,10 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NTB; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (nt < nnt) red[((u * NT + nt) * 4 + e) * 64 + tid - 64] =
+          if (nt < nnt) red[((u * NTB + nt) * 4 + e) * 64 + tid - 64] =
               acc[u][nt][e];
   }
   __syncthreads();
@@ -574,12 +606,25 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NTB; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (nt < nnt)
             acc[u][nt][e] = (acc[u][nt][e] +
-                             red[((u * NT + nt) * 4 + e) * 64 + tid]) >> 4;
+                             red[((u * NTB + nt) * 4 + e) * 64 + tid]) >> 4;
+    // rows at and past the live count are zero rows: their products
+    // (of whatever the stage held there) are dropped
+    if (live < rows) {
+#pragma unroll
+      for (int nt = 0; nt < NTB; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (8 * nt + 2 * t + e < live) continue;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) acc[u][nt][e] = acc[u][nt][2 + e] = 0;
+        }
+      }
+    }
   }
 
   // lane (g, t) of half 0 holds, for m16 tile u and n8 tile nt, rows
@@ -591,12 +636,12 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
 #pragma unroll
       for (int u = 0; u < 2; ++u)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
+        for (int nt = 0; nt < NTB; ++nt)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int m = m0 + 8 * nt + 2 * t + e;
             const int c = n0 + cg * 32 + 16 * u + 2 * g;
-            if (nt >= nnt || m >= M) continue;
+            if (nt >= nnt_out || m >= M) continue;
             store2(slice + (long)m * N + c, acc[u][nt][e], acc[u][nt][2 + e],
                    c, N);
           }
@@ -643,11 +688,11 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
 #pragma unroll
   for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NTB; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int m = m0 + 8 * nt + 2 * t + e;
-        if (nt >= nnt || m >= M) continue;
+        if (nt >= nnt_out || m >= M) continue;
         const int c = cg * 32 + 16 * u + 2 * g;
         drain2(out, acc_out, as_s[m - m0], ws_s + c, m, n0 + c, N,
                acc[u][nt][e], acc[u][nt][2 + e]);
@@ -655,12 +700,13 @@ __global__ void __launch_bounds__(THREADS) sparqle_matmul_kernel(
 }
 
 // Dynamic shared memory of one block: the populations, then STAGES x
-// (packed weight tile + the activation plane tiles of up to 64 rows),
-// each stage 1 KB-aligned.
-template <bool MSB_SKIP, bool PACKED>
+// (packed weight tile + the activation plane tiles of up to MTB x 16
+// rows), each stage 1 KB-aligned.
+template <bool MSB_SKIP, bool PACKED, int MTB>
 size_t smem_bytes(int M, int per) {
   const int rowb = PACKED ? TILE_K / 2 : TILE_K;
-  const int arows = nmt_all(M) < BLOCK_M ? nmt_all(M) : BLOCK_M;
+  const int bm = MTB * TILE_M;
+  const int arows = nmt_all(M) < bm ? nmt_all(M) : bm;
   const int stage = cdiv(W_STAGE + (MSB_SKIP ? 1 : 2) * arows * rowb, 1024);
   return (size_t)(MSB_SKIP ? 0 : per) + 1024 +
          (size_t)STAGES * stage * 1024;
@@ -700,13 +746,14 @@ bool tma_map(CUtensorMap* map, const void* base, long rows, long cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool MSB_SKIP, bool PACKED>
-int launch(const void* lsb, const void* msb, const void* tile_pop,
-           const void* wp, const void* act_scale, const void* w_scale,
-           void* out, void* acc_out, void* ws, void* counters, int M, int N,
-           int K, int ldp, int per, cudaStream_t s, int E = 1) {
+template <bool MSB_SKIP, bool PACKED, int MTB>
+int launch_mt(const void* lsb, const void* msb, const void* tile_pop,
+              const void* wp, const void* act_scale, const void* w_scale,
+              void* out, void* acc_out, void* ws, void* counters, int M,
+              int N, int K, int ldp, int per, cudaStream_t s, int E,
+              const void* expert_rows) {
   static bool attr_set = false;   // above 48 KB needs the opt-in, once
-  auto kernel = sparqle_matmul_kernel<MSB_SKIP, PACKED>;
+  auto kernel = sparqle_matmul_kernel<MSB_SKIP, PACKED, MTB>;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
@@ -725,14 +772,37 @@ int launch(const void* lsb, const void* msb, const void* tile_pop,
       tma_map(&lmap, lsb, (long)E * M, lda, lda, rowb, TILE_M, asw) &&
       (MSB_SKIP ||
        tma_map(&mmap, msb, (long)E * M, lda, lda, rowb, TILE_M, asw));
-  const dim3 grid(cdiv(N, BLOCK_N), E * cdiv(M, BLOCK_M),
+  const dim3 grid(cdiv(N, BLOCK_N), E * cdiv(M, MTB * TILE_M),
                   cdiv(cdiv(K, TILE_K), per));
-  kernel<<<grid, THREADS, smem_bytes<MSB_SKIP, PACKED>(M, per), s>>>(
+  kernel<<<grid, THREADS, smem_bytes<MSB_SKIP, PACKED, MTB>(M, per), s>>>(
       (const int8_t*)lsb, (const int8_t*)msb, (const int32_t*)tile_pop,
       (const int8_t*)wp, (const float*)act_scale, (const float*)w_scale,
       (float*)out, (int32_t*)acc_out, (int32_t*)ws, (int32_t*)counters, M,
-      N, K, ldp, per, wmap, lmap, mmap, tma_w, tma_a);
+      N, K, ldp, per, wmap, lmap, mmap, tma_w, tma_a,
+      (const int32_t*)expert_rows);
   return (int)cudaGetLastError();
+}
+
+// The body's instance for a call: MT m16 tiles a block, or, for an
+// expert-batched call of at most 16 rows an expert (a routed projection
+// at decode), one: the same grid (one row block an expert either way),
+// a quarter of the accumulators, so its lower register count lets 6
+// blocks share an SM where the MT instance's 109-120 registers a thread
+// hold 4 (the waves of resident blocks set the time there:
+// tools/rows_probe.py).
+template <bool MSB_SKIP, bool PACKED>
+int launch(const void* lsb, const void* msb, const void* tile_pop,
+           const void* wp, const void* act_scale, const void* w_scale,
+           void* out, void* acc_out, void* ws, void* counters, int M, int N,
+           int K, int ldp, int per, cudaStream_t s, int E = 1,
+           const void* expert_rows = nullptr, bool batched = false) {
+  if (batched && M <= TILE_M)
+    return launch_mt<MSB_SKIP, PACKED, 1>(
+        lsb, msb, tile_pop, wp, act_scale, w_scale, out, acc_out, ws,
+        counters, M, N, K, ldp, per, s, E, expert_rows);
+  return launch_mt<MSB_SKIP, PACKED, MT>(
+      lsb, msb, tile_pop, wp, act_scale, w_scale, out, acc_out, ws,
+      counters, M, N, K, ldp, per, s, E, expert_rows);
 }
 
 }  // namespace
@@ -797,49 +867,54 @@ extern "C" int sparqle_matmul_packed_draft_launch(
 // (E, K/2, N), act_scale (E, M, 1), w_scale (E, 1, N), the result (E, M,
 // N); ws holds (E, splits, M, N) with more than one split, and counters
 // one int a (expert, row block, column block) tile. One launch for all E.
+// rows: (E,) int32 live rows an expert (rows at and past rows[e] taken
+// as zero, their outputs the drain of 0), or null for all M.
 extern "C" int sparqle_matmul_batched_launch(
     const void* lsb, const void* msb, const void* tile_pop, const void* wp,
     const void* act_scale, const void* w_scale, void* out, void* acc_out,
     void* ws, void* counters, int M, int N, int K, int E, int per,
-    void* stream) {
+    const void* rows, void* stream) {
   return launch<false, false>(lsb, msb, tile_pop, wp, act_scale, w_scale,
                               out, acc_out, ws, counters, M, N, K, K, per,
-                              (cudaStream_t)stream, E);
+                              (cudaStream_t)stream, E, rows, true);
 }
 
 extern "C" int sparqle_matmul_draft_batched_launch(
     const void* lsb, const void* wp, const void* act_scale,
     const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
-    int M, int N, int K, int E, int per, void* stream) {
+    int M, int N, int K, int E, int per, const void* rows,
+    void* stream) {
   return launch<true, false>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
                              out, acc_out, ws, counters, M, N, K, K, per,
-                             (cudaStream_t)stream, E);
+                             (cudaStream_t)stream, E, rows, true);
 }
 
 extern "C" int quant_matmul_batched_launch(
     const void* q, const void* wp, const void* act_scale,
     const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
-    int M, int N, int K, int E, int per, void* stream) {
+    int M, int N, int K, int E, int per, const void* rows,
+    void* stream) {
   return launch<true, false>(q, nullptr, nullptr, wp, act_scale, w_scale,
                              out, acc_out, ws, counters, M, N, K, K, per,
-                             (cudaStream_t)stream, E);
+                             (cudaStream_t)stream, E, rows, true);
 }
 
 extern "C" int sparqle_matmul_packed_batched_launch(
     const void* lsb, const void* msb, const void* tile_pop, const void* wp,
     const void* act_scale, const void* w_scale, void* out, void* acc_out,
     void* ws, void* counters, int M, int N, int K, int E, int ldp, int per,
-    void* stream) {
+    const void* rows, void* stream) {
   return launch<false, true>(lsb, msb, tile_pop, wp, act_scale, w_scale,
                              out, acc_out, ws, counters, M, N, K, ldp, per,
-                             (cudaStream_t)stream, E);
+                             (cudaStream_t)stream, E, rows, true);
 }
 
 extern "C" int sparqle_matmul_packed_draft_batched_launch(
     const void* lsb, const void* wp, const void* act_scale,
     const void* w_scale, void* out, void* acc_out, void* ws, void* counters,
-    int M, int N, int K, int E, int ldp, int per, void* stream) {
+    int M, int N, int K, int E, int ldp, int per, const void* rows,
+    void* stream) {
   return launch<true, true>(lsb, nullptr, nullptr, wp, act_scale, w_scale,
                             out, acc_out, ws, counters, M, N, K, ldp, per,
-                            (cudaStream_t)stream, E);
+                            (cudaStream_t)stream, E, rows, true);
 }

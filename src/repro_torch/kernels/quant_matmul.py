@@ -24,12 +24,15 @@ plain version ``kernels.ref.quant_matmul_ref``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import plain_for, quant_matmul_ref
-from repro_torch.kernels.sparqle_matmul import (_BDRAFT, _DRAFT, _launch_args,
-                                                _operands, _result)
+from repro_torch.kernels.sparqle_matmul import (_BDRAFT, _DRAFT, _check_rows,
+                                                _launch_args, _operands,
+                                                _result)
 
 KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "quant_matmul_launch", _DRAFT,
@@ -40,23 +43,26 @@ BATCHED_KERNEL = _build.register(_build.Kernel(
 
 
 def _fake(q: torch.Tensor, w_packed: torch.Tensor, act_scale: torch.Tensor,
-          w_scale: torch.Tensor, acc_out: bool) -> torch.Tensor:
+          w_scale: torch.Tensor, acc_out: bool,
+          rows: Optional[torch.Tensor]) -> torch.Tensor:
     return _result(q, w_packed, q.shape[-2], acc_out)
 
 
 def _plain(q: torch.Tensor, w_packed: torch.Tensor, act_scale: torch.Tensor,
-           w_scale: torch.Tensor, acc_out: bool) -> torch.Tensor:
-    return plain_for(quant_matmul_ref, w_packed.ndim == 3)(
+           w_scale: torch.Tensor, acc_out: bool,
+           rows: Optional[torch.Tensor]) -> torch.Tensor:
+    return plain_for(quant_matmul_ref, w_packed.ndim == 3, rows)(
         q, w_packed, act_scale, w_scale, acc_out=acc_out)
 
 
 @_build.kernel_op("quant_matmul", _fake, _plain)
 def QUANT_MATMUL_OP(q: torch.Tensor, w_packed: torch.Tensor,
                     act_scale: torch.Tensor, w_scale: torch.Tensor,
-                    acc_out: bool) -> torch.Tensor:
+                    acc_out: bool,
+                    rows: Optional[torch.Tensor]) -> torch.Tensor:
     """The dense entry: operands checked by the wrapper."""
     res, tail = _launch_args(q, w_packed, act_scale, w_scale, q.shape[-2],
-                             acc_out)
+                             acc_out, rows)
     if tail is not None:
         (KERNEL if w_packed.ndim == 2 else BATCHED_KERNEL).launch(
             q.data_ptr(), w_packed.data_ptr(), *tail)
@@ -70,13 +76,16 @@ def quant_matmul(
     w_scale: torch.Tensor,              # (1, N) f32
     *,
     acc_out: bool = False,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> torch.Tensor:
     """(M, N) f32 ``acc * act_scale * w_scale``, or the int32 ``acc``;
     with a leading expert axis on every operand (q (E, M, K), w_packed
-    (E, K/2, N), ...) the batched instance's one launch computes all E.
-    Raises for a CUDA tensor with K > ``MAX_K``."""
+    (E, K/2, N), ...) the batched instance's one launch computes all E,
+    expert e's rows at and past ``rows[e]`` taken as zero (as
+    ``sparqle_matmul``'s). Raises for a CUDA tensor with K > ``MAX_K``."""
+    _check_rows(rows, w_packed, q)
     if not _build.on_card(q):
-        return plain_for(quant_matmul_ref, w_packed.ndim == 3)(
+        return plain_for(quant_matmul_ref, w_packed.ndim == 3, rows)(
             q, w_packed, act_scale, w_scale, acc_out=acc_out)
     m, k = q.shape[-2:]
     if k != 2 * w_packed.shape[-2]:
@@ -84,4 +93,4 @@ def quant_matmul(
                          f"weight {tuple(w_packed.shape)}")
     _operands(q, None, None, w_packed, act_scale, w_scale, (m, k),
               msb_skip=True, plane="q")
-    return QUANT_MATMUL_OP(q, w_packed, act_scale, w_scale, acc_out)
+    return QUANT_MATMUL_OP(q, w_packed, act_scale, w_scale, acc_out, rows)

@@ -205,13 +205,48 @@ def quant_matmul_ref(
     return acc.float() * act_scale.float() * w_scale.float()
 
 
-def batched(fn):
+def check_rows(rows: Optional[torch.Tensor], e: Optional[int],
+               device: torch.device) -> None:
+    """Raise unless ``rows`` is None, or the contiguous (E,) int32 live-row
+    count of an expert-batched call of ``e`` experts on ``device`` (``e``
+    None: a 2-D call, which takes every row)."""
+    if rows is None:
+        return
+    if e is None:
+        raise ValueError("rows is for the expert-batched entries: the 2-D "
+                         "entries take every row")
+    if tuple(rows.shape) != (e,) or rows.dtype != torch.int32 \
+            or rows.device != device or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous int32 ({e},) on {device}, "
+                         f"got {rows.dtype} {tuple(rows.shape)} on "
+                         f"{rows.device}")
+
+
+def live_rows(a: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``a`` (E, M, ...) with expert e's rows at and past ``rows[e]``
+    zeroed, whatever they hold (NaN included); ``rows`` (E,) on a's
+    device."""
+    m = a.shape[1]
+    live = torch.arange(m, device=a.device)[None, :] < rows.long()[:, None]
+    live = live.reshape(live.shape + (1,) * (a.ndim - 2))
+    return torch.where(live, a, torch.zeros((), dtype=a.dtype,
+                                            device=a.device))
+
+
+def batched(fn, rows: Optional[torch.Tensor] = None, acts: int = 1):
     """The expert-batched form of a 2-D plain version: ``fn`` on each
     expert's operands (every tensor argument carries a leading E axis;
     None and Python values are shared), each output stacked along a new
     leading E axis. The batched kernel entries' contract: one expert's
-    slice of their result is the 2-D entry's result on its slices."""
+    slice of their result is the 2-D entry's result on its slices.
+    ``rows`` ((E,) int32, or None: every row live): expert e's rows at
+    and past ``rows[e]`` of the first ``acts`` positional operands (the
+    activation rows: x, the planes or q) are taken as zero first."""
     def run(*args, **kw):
+        if rows is not None:
+            args = tuple(live_rows(a, rows)
+                         if i < acts and isinstance(a, torch.Tensor) else a
+                         for i, a in enumerate(args))
         e = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
         outs = [fn(*[a[i] if isinstance(a, torch.Tensor) else a
                      for a in args], **kw) for i in range(e)]
@@ -223,10 +258,12 @@ def batched(fn):
     return run
 
 
-def plain_for(fn, expert_batched: bool):
+def plain_for(fn, expert_batched: bool,
+              rows: Optional[torch.Tensor] = None, acts: int = 1):
     """The plain version a wrapper runs on the CPU: ``fn``, or its
-    expert-batched form for operands with a leading expert axis."""
-    return batched(fn) if expert_batched else fn
+    expert-batched form (with ``rows``, :func:`batched`) for operands
+    with a leading expert axis."""
+    return batched(fn, rows, acts) if expert_batched else fn
 
 
 def unpack_kv4(p: torch.Tensor) -> torch.Tensor:

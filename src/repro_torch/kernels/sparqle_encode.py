@@ -40,7 +40,12 @@ launch of its batched instance (``*_batched``, grid z = E) encodes every
 expert's slab, the outputs carry the E axis, and the
 populations are per (expert, TILE_M rows, TILE_K columns), so a tile
 never straddles two experts. Their plain versions are the 2-D ones run
-expert by expert (``ref.batched``).
+expert by expert (``ref.batched``). A batched call may pass ``rows``, an
+(E,) int32 tensor on x's device: expert e's rows at and past
+``rows[e]`` read as zero whatever x holds, so they encode as a zero row
+(scale ``activation_scale`` of a zero row, planes, PBM and populations
+0), and the kernel's row groups past the count read no x at all.
+``rows=None`` takes every row as live; the 2-D entries refuse it.
 
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version ``kernels.ref.sparqle_encode_ref`` /
@@ -55,8 +60,8 @@ import torch
 
 from repro_torch.core.packing import PBM_WORD_BITS, pad_k
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv, plain_for,
-                                     sparqle_encode_fused_ref,
+from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv, check_rows,
+                                     plain_for, sparqle_encode_fused_ref,
                                      sparqle_encode_packed_fused_ref,
                                      sparqle_encode_packed_ref,
                                      sparqle_encode_ref,
@@ -93,34 +98,36 @@ PACKED_FUSED_KERNEL = _build.register(_build.Kernel(
      _build.P], name="sparqle_encode_packed_fused"))
 
 # The expert-batched forms of the entries that take a scale: x (E, M, K),
-# scale (E, M, 1), an (E, K) mask, one launch (grid z = E); the
+# scale (E, M, 1), an (E, K) mask, the live rows an expert (a pointer or
+# null) after E, one launch (grid z = E); the
 # row-parallel routed projection under tensor parallelism calls them.
 BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_encode_batched_launch",
-    KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    KERNEL.argtypes[:-1] + [_build.I, _build.P, _build.P],
     name="sparqle_encode_batched"))
 QUANTIZE_BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_quantize_batched_launch",
-    QUANTIZE_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    QUANTIZE_KERNEL.argtypes[:-1] + [_build.I, _build.P, _build.P],
     name="sparqle_quantize_batched"))
 PACKED_BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_encode_packed_batched_launch",
-    PACKED_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    PACKED_KERNEL.argtypes[:-1] + [_build.I, _build.P, _build.P],
     name="sparqle_encode_packed_batched"))
 
 # The fused entries' expert-batched forms: x (E, M, K), an (E, K) mask,
-# every output with a leading E axis, one launch (grid z = E).
+# the live rows as above, every output with a leading E axis, one launch
+# (grid z = E).
 FUSED_BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_encode_fused_batched_launch",
-    FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P, _build.P],
     name="sparqle_encode_fused_batched"))
 QUANTIZE_FUSED_BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_quantize_fused_batched_launch",
-    QUANTIZE_FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    QUANTIZE_FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P, _build.P],
     name="sparqle_quantize_fused_batched"))
 PACKED_FUSED_BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_encode_packed_fused_batched_launch",
-    PACKED_FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P],
+    PACKED_FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P, _build.P],
     name="sparqle_encode_packed_fused_batched"))
 
 # Blocks a row group may have, the most tiles a block of the entries that
@@ -198,14 +205,22 @@ def _check(x, scale, col_mask):
     return scale, col_mask.contiguous()
 
 
-def _launch(kernel, batched_kernel, x, *args) -> None:
+def _check_rows(x: torch.Tensor, rows: Optional[torch.Tensor]) -> None:
+    """``ref.check_rows`` for an x whose leading axis (E, M, K) makes it
+    batched."""
+    check_rows(rows, x.shape[0] if x.ndim == 3 else None, x.device)
+
+
+def _launch(kernel, batched_kernel, x, rows, *args) -> None:
     """One launch of a fused entry on x (M, K), or of its batched form on
-    x (E, M, K) with E appended; nothing to launch for an empty x."""
+    x (E, M, K) with E and the rows pointer appended; nothing to launch
+    for an empty x."""
     if x.numel() == 0:
         return
     head = (x.data_ptr(), int(x.dtype == torch.bfloat16))
     if x.ndim == 3:
-        batched_kernel.launch(*head, *args, x.shape[0])
+        batched_kernel.launch(*head, *args, x.shape[0],
+                              None if rows is None else rows.data_ptr())
     else:
         kernel.launch(*head, *args)
 
@@ -213,7 +228,7 @@ def _launch(kernel, batched_kernel, x, *args) -> None:
 def _entry_op(name: str, kernel, batched_kernel, form: str, fused: bool,
               plain):
     """The custom op of one encoder entry (``_build.kernel_op``): x,
-    scale (None for a fused entry), mask, l, h, with_pbm -> its outputs
+    scale (None for a fused entry), mask, l, h, with_pbm, rows -> its outputs
     in the order the C entry takes their pointers (``form``: 'encode',
     'quantize' or 'packed'), the fused entries' scale last. An encode
     without the PBM returns an empty plane in its place."""
@@ -242,14 +257,16 @@ def _entry_op(name: str, kernel, batched_kernel, form: str, fused: bool,
 
     def fake(x: torch.Tensor, scale: Optional[torch.Tensor],
              col_mask: Optional[torch.Tensor], l: int, h: int,
-             with_pbm: bool) -> List[torch.Tensor]:
+             with_pbm: bool,
+             rows: Optional[torch.Tensor]) -> List[torch.Tensor]:
         return outputs(x, with_pbm)
 
     def cpu(x: torch.Tensor, scale: Optional[torch.Tensor],
             col_mask: Optional[torch.Tensor], l: int, h: int,
-            with_pbm: bool) -> List[torch.Tensor]:
+            with_pbm: bool,
+            rows: Optional[torch.Tensor]) -> List[torch.Tensor]:
         args = (x, col_mask, l, h) if fused else (x, scale, col_mask, l, h)
-        outs = plain_for(plain, x.ndim == 3)(*args)
+        outs = plain_for(plain, x.ndim == 3, rows)(*args)
         outs = [outs] if isinstance(outs, torch.Tensor) else list(outs)
         if form == "encode" and not with_pbm:
             outs[2] = torch.empty(0, dtype=torch.bool, device=x.device)
@@ -258,12 +275,13 @@ def _entry_op(name: str, kernel, batched_kernel, form: str, fused: bool,
     @_build.kernel_op(name, fake, cpu)
     def op(x: torch.Tensor, scale: Optional[torch.Tensor],
            col_mask: Optional[torch.Tensor], l: int, h: int,
-           with_pbm: bool) -> List[torch.Tensor]:
+           with_pbm: bool,
+           rows: Optional[torch.Tensor]) -> List[torch.Tensor]:
         outs = outputs(x, with_pbm)
         planes = outs[:-1] if fused else outs
         m, k = x.shape[-2:]
         extra = (m, k, pad_k(k)) if form == "packed" else (m, k)
-        _launch(kernel, batched_kernel, x,
+        _launch(kernel, batched_kernel, x, rows,
                 (outs[-1] if fused else scale).data_ptr(),
                 None if col_mask is None else col_mask.data_ptr(), l, h,
                 *(t.data_ptr() if t.numel() else None for t in planes),
@@ -301,18 +319,22 @@ def sparqle_encode(
     h: int = 0,
     *,
     with_pbm: bool = True,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
            torch.Tensor]:
     """Returns (lsb4 int8, msb4 int8, pbm bool, tile_pop int32) with
     tile_pop (ceil(M/TILE_M), ceil(K/TILE_K)), each with x's leading
-    expert axis if it has one; pbm is None unless ``with_pbm``."""
+    expert axis if it has one; pbm is None unless ``with_pbm``.
+    ``rows``: the live rows of each expert of a batched x (module
+    docstring)."""
+    _check_rows(x, rows)
     if not _build.on_card(x):
-        lsb, msb, pbm, pop = plain_for(sparqle_encode_ref, x.ndim == 3)(
-            x, scale, col_mask, l, h)
+        lsb, msb, pbm, pop = plain_for(sparqle_encode_ref, x.ndim == 3,
+                                       rows)(x, scale, col_mask, l, h)
         return lsb, msb, pbm if with_pbm else None, pop
     scale, col_mask = _check(x, scale, col_mask)
     lsb, msb, pbm, pop = ENCODE_OP(x, scale, col_mask, int(l), int(h),
-                                   with_pbm)
+                                   with_pbm, rows)
     return lsb, msb, pbm if with_pbm else None, pop
 
 
@@ -322,13 +344,16 @@ def sparqle_quantize(
     col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
+    *,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> torch.Tensor:
     """The clipped int8 activation q (M, K) (or (E, M, K))."""
+    _check_rows(x, rows)
     if not _build.on_card(x):
-        return plain_for(sparqle_quantize_ref, x.ndim == 3)(
+        return plain_for(sparqle_quantize_ref, x.ndim == 3, rows)(
             x, scale, col_mask, l, h)
     scale, col_mask = _check(x, scale, col_mask)
-    return QUANTIZE_OP(x, scale, col_mask, int(l), int(h), False)[0]
+    return QUANTIZE_OP(x, scale, col_mask, int(l), int(h), False, rows)[0]
 
 
 def sparqle_encode_packed(
@@ -337,16 +362,19 @@ def sparqle_encode_packed(
     col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
+    *,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (lsb4 packed (M, Kp/2) int8, msb4 packed (M, Kp/2) int8,
     PBM words (M, Kp/32) int32, tile_pop (ceil(M/TILE_M),
     ceil(K/TILE_K)) int32) with Kp = ``pad_k(K)``, each with x's leading
     expert axis if it has one."""
+    _check_rows(x, rows)
     if not _build.on_card(x):
-        return plain_for(sparqle_encode_packed_ref, x.ndim == 3)(
+        return plain_for(sparqle_encode_packed_ref, x.ndim == 3, rows)(
             x, scale, col_mask, l, h)
     scale, col_mask = _check(x, scale, col_mask)
-    return tuple(PACKED_OP(x, scale, col_mask, int(l), int(h), False))
+    return tuple(PACKED_OP(x, scale, col_mask, int(l), int(h), False, rows))
 
 
 def sparqle_encode_fused(
@@ -356,18 +384,20 @@ def sparqle_encode_fused(
     h: int = 0,
     *,
     with_pbm: bool = True,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
            torch.Tensor, torch.Tensor]:
     """:func:`sparqle_encode` with the per-token scale computed in the
     same launch: returns (lsb4, msb4, pbm or None, tile_pop, scale (M, 1)
     f32 = ``activation_scale(x).float()``)."""
+    _check_rows(x, rows)
     if not _build.on_card(x):
-        lsb, msb, pbm, pop, scale = plain_for(sparqle_encode_fused_ref,
-                                              x.ndim == 3)(x, col_mask, l, h)
+        lsb, msb, pbm, pop, scale = plain_for(
+            sparqle_encode_fused_ref, x.ndim == 3, rows)(x, col_mask, l, h)
         return lsb, msb, pbm if with_pbm else None, pop, scale
     col_mask = _check_fused(x, col_mask)
     lsb, msb, pbm, pop, scale = FUSED_OP(x, None, col_mask, int(l), int(h),
-                                         with_pbm)
+                                         with_pbm, rows)
     return lsb, msb, pbm if with_pbm else None, pop, scale
 
 
@@ -376,15 +406,18 @@ def sparqle_quantize_fused(
     col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
+    *,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`sparqle_quantize` with the scale computed in the same
     launch: returns (q int8 (M, K), scale (M, 1) f32)."""
+    _check_rows(x, rows)
     if not _build.on_card(x):
-        return plain_for(sparqle_quantize_fused_ref, x.ndim == 3)(
+        return plain_for(sparqle_quantize_fused_ref, x.ndim == 3, rows)(
             x, col_mask, l, h)
     col_mask = _check_fused(x, col_mask)
     return tuple(QUANTIZE_FUSED_OP(x, None, col_mask, int(l), int(h),
-                                   False))
+                                   False, rows))
 
 
 def sparqle_encode_packed_fused(
@@ -392,13 +425,17 @@ def sparqle_encode_packed_fused(
     col_mask: Optional[torch.Tensor] = None,   # (K,) or (E, K) bool
     l: int = 0,
     h: int = 0,
+    *,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor]:
     """:func:`sparqle_encode_packed` with the scale computed in the same
     launch: returns (lsb4 packed, msb4 packed, PBM words, tile_pop,
     scale (M, 1) f32)."""
+    _check_rows(x, rows)
     if not _build.on_card(x):
         return plain_for(sparqle_encode_packed_fused_ref,
-                         x.ndim == 3)(x, col_mask, l, h)
+                         x.ndim == 3, rows)(x, col_mask, l, h)
     col_mask = _check_fused(x, col_mask)
-    return tuple(PACKED_FUSED_OP(x, None, col_mask, int(l), int(h), False))
+    return tuple(PACKED_FUSED_OP(x, None, col_mask, int(l), int(h), False,
+                                 rows))

@@ -41,7 +41,12 @@ ceil(K/TILE_K)), the packed weight (E, K/2, N), scales (E, M, 1) and (E,
 expert (the expert index joins the grid's rows; each expert reads its own
 rows, weight and scales), so a routed projection is one launch, not E.
 Their plain versions run the 2-D ones expert by expert
-(``ref.batched``).
+(``ref.batched``). A batched call may pass ``rows``, an (E,) int32
+tensor on the operands' device: expert e's rows at and past ``rows[e]``
+are taken as zero, whatever the planes hold, and come out as the drain
+of a zero accumulator; the kernel's blocks that hold no live row stream
+no weight (an expert the MoE dispatch left empty costs no weight bytes).
+``rows=None`` takes every row as live. The 2-D entries refuse ``rows``.
 
 A CUDA tensor goes to the kernel (or raises); a CPU tensor goes to the
 plain version ``kernels.ref.sparqle_matmul_ref`` /
@@ -55,8 +60,8 @@ import torch
 
 from repro_torch.core.packing import pad_k
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv, plain_for,
-                                     sparqle_matmul_packed_ref,
+from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv, check_rows,
+                                     plain_for, sparqle_matmul_packed_ref,
                                      sparqle_matmul_ref)
 
 _ENTRY = [_build.P] * 10 + [_build.I] * 4 + [_build.P]
@@ -72,11 +77,12 @@ PACKED_KERNEL = _build.register(_build.Kernel(
 PACKED_DRAFT_KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "sparqle_matmul_packed_draft_launch",
     _DRAFT[:-1] + [_build.I, _build.P], name="sparqle_matmul_packed_draft"))
-# The expert-batched instances: the same entries with E after K, one
+# The expert-batched instances: the same entries with E after K and the
+# live rows an expert (a pointer or null) after the K tiles a split, one
 # launch for every expert (the grid's rows count E x an expert's row
 # blocks).
-_BENTRY = [_build.P] * 10 + [_build.I] * 5 + [_build.P]
-_BDRAFT = [_build.P] * 8 + [_build.I] * 5 + [_build.P]
+_BENTRY = [_build.P] * 10 + [_build.I] * 5 + [_build.P] * 2
+_BDRAFT = [_build.P] * 8 + [_build.I] * 5 + [_build.P] * 2
 BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "sparqle_matmul_batched_launch", _BENTRY,
     name="sparqle_matmul_batched"))
@@ -85,15 +91,17 @@ DRAFT_BATCHED_KERNEL = _build.register(_build.Kernel(
     name="sparqle_matmul_draft_batched"))
 PACKED_BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "sparqle_matmul_packed_batched_launch",
-    _BENTRY[:-1] + [_build.I, _build.P], name="sparqle_matmul_packed_batched"))
+    _BENTRY[:-2] + [_build.I] + _BENTRY[-2:],
+    name="sparqle_matmul_packed_batched"))
 PACKED_DRAFT_BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_matmul.cu", "sparqle_matmul_packed_draft_batched_launch",
-    _BDRAFT[:-1] + [_build.I, _build.P],
+    _BDRAFT[:-2] + [_build.I] + _BDRAFT[-2:],
     name="sparqle_matmul_packed_draft_batched"))
 
 # csrc/sparqle_matmul.cu's tiling
 MT = 4                  # m16 tiles a block: the weight is read once per 64 rows
-BLOCK_M = MT * TILE_M
+BLOCK_M = MT * TILE_M   # (a batched call of <= 16 rows an expert runs the
+                        # kernel's one-m16-tile instance: the same grid)
 BLOCK_N = 64            # output columns a block (2 warps x 32)
 TARGET_BLOCKS = 264     # two blocks per SM on the H100's 132 SMs
 # The kernel sums 16 x the product in int32 (its weight operand is 16 w):
@@ -216,7 +224,8 @@ def _result(lsb4, w_packed, m, acc_out: bool) -> torch.Tensor:
 def _matmul_fake(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
                  tile_pop: Optional[torch.Tensor], w_packed: torch.Tensor,
                  act_scale: torch.Tensor, w_scale: torch.Tensor,
-                 acc_out: bool, msb_skip: bool) -> torch.Tensor:
+                 acc_out: bool, msb_skip: bool,
+                 rows: Optional[torch.Tensor]) -> torch.Tensor:
     return _result(lsb4, w_packed, lsb4.shape[-2], acc_out)
 
 
@@ -225,8 +234,8 @@ def _plain_op(ref):
     def cpu(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
             tile_pop: Optional[torch.Tensor], w_packed: torch.Tensor,
             act_scale: torch.Tensor, w_scale: torch.Tensor, acc_out: bool,
-            msb_skip: bool) -> torch.Tensor:
-        return plain_for(ref, w_packed.ndim == 3)(
+            msb_skip: bool, rows: Optional[torch.Tensor]) -> torch.Tensor:
+        return plain_for(ref, w_packed.ndim == 3, rows, acts=2)(
             lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
             acc_out=acc_out, msb_skip=msb_skip)
     return cpu
@@ -237,12 +246,13 @@ def _plain_op(ref):
 def MATMUL_OP(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
               tile_pop: Optional[torch.Tensor], w_packed: torch.Tensor,
               act_scale: torch.Tensor, w_scale: torch.Tensor,
-              acc_out: bool, msb_skip: bool) -> torch.Tensor:
+              acc_out: bool, msb_skip: bool,
+              rows: Optional[torch.Tensor]) -> torch.Tensor:
     """The unpacked entry (its draft with ``msb_skip``): operands checked
     by the wrapper."""
     m = lsb4.shape[-2]
     res, tail = _launch_args(lsb4, w_packed, act_scale, w_scale, m,
-                             acc_out)
+                             acc_out, rows)
     if tail is not None:
         one = w_packed.ndim == 2
         if msb_skip:
@@ -260,16 +270,14 @@ def MATMUL_OP(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
 def PACKED_OP(lsb4: torch.Tensor, msb4: Optional[torch.Tensor],
               tile_pop: Optional[torch.Tensor], w_packed: torch.Tensor,
               act_scale: torch.Tensor, w_scale: torch.Tensor,
-              acc_out: bool, msb_skip: bool) -> torch.Tensor:
+              acc_out: bool, msb_skip: bool,
+              rows: Optional[torch.Tensor]) -> torch.Tensor:
     """The wire-layout entry (its draft with ``msb_skip``)."""
     m = lsb4.shape[-2]
     ldp = pad_k(2 * w_packed.shape[-2]) // 2
     res, tail = _launch_args(lsb4, w_packed, act_scale, w_scale, m,
-                             acc_out)
+                             acc_out, rows, ldp=ldp)
     if tail is not None:
-        # the entry takes ldp between K (E when batched) and the K tiles
-        # a split
-        tail = tail[:-1] + (ldp, tail[-1])
         one = w_packed.ndim == 2
         if msb_skip:
             (PACKED_DRAFT_KERNEL if one else PACKED_DRAFT_BATCHED_KERNEL
@@ -291,12 +299,16 @@ def sparqle_matmul(
     *,
     acc_out: bool = False,
     msb_skip: bool = False,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> torch.Tensor:
     """(M, N) f32 ``acc * act_scale * w_scale``, or the int32 ``acc``.
     With ``msb_skip`` acc is the LSB pass alone and ``msb4``/``tile_pop``
-    may be None (they are not read)."""
+    may be None (they are not read). ``rows``: the live rows of each
+    expert of a batched call (module docstring)."""
+    _check_rows(rows, w_packed, lsb4)
     if not _build.on_card(lsb4):
-        return plain_for(sparqle_matmul_ref, w_packed.ndim == 3)(
+        return plain_for(sparqle_matmul_ref, w_packed.ndim == 3, rows,
+                         acts=2)(
             lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
             acc_out=acc_out, msb_skip=msb_skip)
     m, k = lsb4.shape[-2:]
@@ -308,7 +320,7 @@ def sparqle_matmul(
               msb_skip=msb_skip)
     return MATMUL_OP(lsb4, None if msb_skip else msb4,
                      None if msb_skip else tile_pop, w_packed, act_scale,
-                     w_scale, acc_out, msb_skip)
+                     w_scale, acc_out, msb_skip, rows)
 
 
 def sparqle_matmul_packed(
@@ -321,13 +333,15 @@ def sparqle_matmul_packed(
     *,
     acc_out: bool = False,
     msb_skip: bool = False,
+    rows: Optional[torch.Tensor] = None,   # (E,) int32, batched only
 ) -> torch.Tensor:
     """:func:`sparqle_matmul` on wire-layout planes (two nibbles per byte,
     K padded to a multiple of 32; K is the weight's). With ``msb_skip``
     the LSB4-only draft: ``msb4_packed``/``tile_pop`` may be None."""
+    _check_rows(rows, w_packed, lsb4_packed)
     if not _build.on_card(lsb4_packed):
         return plain_for(sparqle_matmul_packed_ref,
-                         w_packed.ndim == 3)(
+                         w_packed.ndim == 3, rows, acts=2)(
             lsb4_packed, msb4_packed, tile_pop, w_packed, act_scale,
             w_scale, acc_out=acc_out, msb_skip=msb_skip)
     m = lsb4_packed.shape[-2]
@@ -336,7 +350,7 @@ def sparqle_matmul_packed(
               w_scale, (m, ldp), msb_skip=msb_skip)
     return PACKED_OP(lsb4_packed, None if msb_skip else msb4_packed,
                      None if msb_skip else tile_pop, w_packed, act_scale,
-                     w_scale, acc_out, msb_skip)
+                     w_scale, acc_out, msb_skip, rows)
 
 
 def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
@@ -376,11 +390,21 @@ def _operands(lsb4, msb4, tile_pop, w_packed, act_scale, w_scale,
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_rows(rows: Optional[torch.Tensor], w_packed: torch.Tensor,
+                plane: torch.Tensor) -> None:
+    """``ref.check_rows`` for a call whose weight (E, K/2, N) makes it
+    batched."""
+    check_rows(rows, w_packed.shape[0] if w_packed.ndim == 3 else None,
+               plane.device)
+
+
 def _launch_args(lsb4, w_packed, act_scale, w_scale, m: int,
-                 acc_out: bool):
+                 acc_out: bool, rows: Optional[torch.Tensor] = None,
+                 ldp: Optional[int] = None):
     """The result tensor and the entry's arguments after the weight
     pointer (None when there is nothing to launch): (..., M, N, K,
-    [E,] K tiles a split)."""
+    [E,] [ldp,] K tiles a split[, rows]); a batched entry takes the rows
+    pointer (null for all rows), a packed one its plane stride ``ldp``."""
     lead = tuple(w_packed.shape[:-2])
     e = lead[0] if lead else 1
     k2, n = w_packed.shape[-2:]
@@ -396,8 +420,11 @@ def _launch_args(lsb4, w_packed, act_scale, w_scale, m: int,
                            f"the device has {counters.numel()}")
     ws = (torch.empty(plan.workspace(m, n), dtype=torch.int32, device=dev)
           if plan.splits > 1 else None)
-    return res, (act_scale.data_ptr(), w_scale.data_ptr(),
-                 None if acc_out else res.data_ptr(),
-                 res.data_ptr() if acc_out else None,
-                 None if ws is None else ws.data_ptr(), counters.data_ptr(),
-                 m, n, k, *lead, plan.per)
+    tail = (act_scale.data_ptr(), w_scale.data_ptr(),
+            None if acc_out else res.data_ptr(),
+            res.data_ptr() if acc_out else None,
+            None if ws is None else ws.data_ptr(), counters.data_ptr(),
+            m, n, k, *lead, *(() if ldp is None else (ldp,)), plan.per)
+    if lead:
+        tail += (None if rows is None else rows.data_ptr(),)
+    return res, tail

@@ -15,6 +15,9 @@ capture as CUDA graphs. The routed expert projections go through
 :func:`repro_torch.core.qlinear.expert_linear`: for a served tree on the
 card one batched encoder launch and one batched matmul launch each, for
 all E experts; for a float (training) tree one batched product.
+:func:`moe_ffn` hands them each expert's filled rows
+(:func:`expert_rows`), so an expert the dispatch left empty streams no
+weight.
 """
 from __future__ import annotations
 
@@ -77,6 +80,21 @@ def capacity(tokens: int, top_k: int, n_experts: int,
     return max(1, int(tokens * top_k * capacity_factor) // n_experts)
 
 
+def expert_rows(slot: torch.Tensor, keep: torch.Tensor, e_loc: int,
+                cap: int) -> torch.Tensor:
+    """(E_loc,) int32: the filled slots of each expert's capacity rows,
+    min(its kept assignments, capacity). Kept assignments take slots
+    [0, count) of their expert (their rank), so the rows at and past it
+    are the zeros the dispatch buffer starts as: the batched kernels skip
+    them (``expert_linear``'s ``rows``). One scatter of ``keep`` into the
+    slots (the overflow slot dropped) and a sum over C: device ops on
+    static shapes, no host read."""
+    filled = torch.zeros(e_loc * cap + 1, dtype=torch.int32,
+                         device=slot.device)
+    filled[slot] = keep.to(torch.int32)
+    return filled[:-1].reshape(e_loc, cap).sum(dim=1, dtype=torch.int32)
+
+
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
             *, top_k: int, capacity_factor: float = 1.0,
             router_type: str = "softmax",
@@ -118,11 +136,12 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate, w_up, w_down,
     buf = torch.zeros((e_loc * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[slot] = x[st]      # kept slots are distinct; the overflow row
     expert_in = buf[:-1].reshape(e_loc, cap, d)        # is dropped
-    h = silu(expert_linear(expert_in, w_gate))
-    h = h * expert_linear(expert_in, w_up)
+    rows = expert_rows(slot, keep, e_loc, cap)
+    h = silu(expert_linear(expert_in, w_gate, rows=rows))
+    h = h * expert_linear(expert_in, w_up, rows=rows)
     # row-parallel under TP (experts shard on their hidden dim): one int32
     # all-reduce keeps the combine the single-device one
-    expert_out = expert_linear(h, w_down, tp=down_tp)
+    expert_out = expert_linear(h, w_down, tp=down_tp, rows=rows)
 
     # combine through the inverse permutation (gathers only): x's dtype
     # times the f32 weights promotes to f32, as in JAX; the top-k sum in

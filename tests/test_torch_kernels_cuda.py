@@ -73,16 +73,18 @@ from repro_torch.kernels.ref import TILE_K, TILE_M
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (BATCHED_KN, GEMMA3_ATTN,  # noqa: E402
                         HD256_POS, MATMUL_KN, MATMUL_M, PALIGEMMA_ATTN,
-                        POP_PATTERNS, SSD_BATCHED, SSD_ENCODE_K, SSD_KN,
+                        POP_PATTERNS, ROWS_PATTERNS, SSD_BATCHED,
+                        SSD_ENCODE_K, SSD_KN,
                         SSD_M, V3_BATCHED, V3_KN, WINDOW_POS,
                         WINDOWS, batched_case,
                         batched_instances, check_attention_shapes,
                         check_attention_zoo, check_batched_matmul_case,
+                        check_rows_encoder_case, check_rows_matmul_case,
                         check_fused_case, check_matmul_case,
                         check_one_launch, check_round_kv, check_window_case,
                         contiguous_cache, demoted_pool, encoder_input,
                         long_context, matmul_case, paged_tiling,
-                        smoke_config_on_card)
+                        rows_pattern, smoke_config_on_card, with_garbage)
 
 
 @pytest.fixture
@@ -532,6 +534,31 @@ def test_batched_encoders_match_plain(cuda, dtype, e, c, k):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         check_one_launch(fn.__name__ + "_batched",
                          lambda: fn(x, mask, -8, 23))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,k,n", [(64, 1, 2048, 1408), (8, 17, 1408, 2048),
+                                     (8, 3, 2048, 1408), (3, 33, 200, 70),
+                                     (4, 128, 1024, 448), (5, 80, 200, 70)])
+def test_batched_rows_match_plain(cuda, e, c, k, n):
+    """The live rows (``rows``): the five batched matmul entries and the
+    six batched encoders on operands with garbage past each expert's
+    count, every rows pattern, bit-exact with the plain versions (which
+    zero those rows first), the arrival counters 0 after every launch
+    (E = 8, C = 3, 2048 -> 1408 splits K; C = 128 and 80: a count that
+    cuts or empties an expert's second 64-row block)."""
+    g = torch.Generator(device=cuda).manual_seed(e * c + k)
+    case = batched_case(cuda, g, e, c, k, n, "alternating")
+    x = (torch.randn((e, c, k), generator=g, device=cuda) * 3).to(
+        torch.bfloat16)
+    mask = torch.rand((e, k), generator=g, device=cuda) < 0.5
+    for pattern in ROWS_PATTERNS:
+        rows = rows_pattern(cuda, g, e, c, pattern)
+        dirty = dict(case)
+        for key in ("q", "lsb", "msb", "lp", "mp"):
+            dirty[key] = with_garbage(case[key], rows, g)
+        check_rows_matmul_case(dirty, rows, f"E={e} C={c} {pattern}")
+        check_rows_encoder_case(x, mask, rows, g, f"E={e} C={c} {pattern}")
 
 
 @pytest.mark.cuda

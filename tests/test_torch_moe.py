@@ -281,7 +281,8 @@ def test_batched_encoder_is_one_launch(record, fn, name):
        torch.zeros((e, k), dtype=torch.bool), -8, 23)
     assert [n for n, _ in record] == [name]
     args = record[0][1]
-    assert args[-1] == e and c in args and k in args
+    # E, then the live-rows pointer (null: every row live)
+    assert args[-2] == e and args[-1] is None and c in args and k in args
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -314,8 +315,9 @@ def test_batched_matmul_is_one_launch(record, entry, e, c, k, n):
     assert [x for x, _ in record] == [names[entry]]
     args = record[0][1]
     plan = SM.launch_plan(c, n, k, e)
-    assert args[-1] == plan.per
-    assert tuple(args[-6 if entry.startswith("packed") else -5:][:4]) == \
+    # the K tiles a split, then the live-rows pointer (null: every row)
+    assert args[-2] == plan.per and args[-1] is None
+    assert tuple(args[-7 if entry.startswith("packed") else -6:][:4]) == \
         (c, n, k, e)
     assert res.shape == (e, c, n)
     assert (plan.splits == 1) == (plan.tiles >= SM.TARGET_BLOCKS)
