@@ -395,9 +395,16 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 # The fused encoder family (rows 1, 1q, 2): M and K of the check; 1024
-# is the --legacy prefill, 200 a ragged width.
+# is the --legacy prefill, 200 a ragged width, 21,504 (gemma3-27b's d_ff)
+# walks its K in passes at M >= 16, 4,100 (not a multiple of 8) takes
+# the element-by-element path.
 ENCODE_M = (1, 4, 8, 24, 32, 1024)
-ENCODE_K = (4096, 14336, 200)
+ENCODE_K = (4096, 14336, 200, 21504, 4100)
+# Row 1's timed shapes: decode (8, the row's own, first; 1), the prefill
+# chunk (32) and the --legacy prefill (1,024) at granite-8b's d_model
+# and d_ff.
+ENCODE_TIMED = ((8, 4096), (1, 4096), (32, 4096), (1024, 4096), (8, 14336),
+                (1, 14336), (32, 14336), (1024, 14336))
 
 
 def encoder_input(dev, gen, m, k, dt):
@@ -481,35 +488,152 @@ def check_fused_family(dev, gen):
     return cases
 
 
-def time_encoder(dev, gen, peaks, fused, unfused, plain, out_bytes):
-    """One fused encoder entry timed as the serving linear calls it (M=8,
-    K=4096, bf16, masked columns), beside the entry that takes a scale
-    (the same body without the amax pass) alone and after the scale
-    chain the fused entry replaces (activation_scale + cast + encoder);
-    bound by bytes: x read once, scale and ``out_bytes(m, k)`` written."""
+def launch_floor(dev) -> float:
+    """The least time a launch takes in ``time_ms``: a one-element
+    ``add_`` (ms), the yardstick of a latency-bound kernel."""
+    t = torch.zeros(1, device=dev)
+    return time_ms(lambda a: a.add_(1), [(t,)], 200)
+
+
+def time_encoder(dev, gen, peaks, fused, unfused, plain, out_bytes,
+                 shapes=((8, 4096),)):
+    """One fused encoder entry timed as the serving linear calls it (bf16,
+    masked columns) at each (M, K) of ``shapes`` (the first the row's:
+    M=8, K=4096), beside, at that one, the entry that takes a scale (the
+    same body without the amax) alone and after the scale chain the
+    fused entry replaces (activation_scale + cast + encoder); bound by
+    bytes: x read once, scale and ``out_bytes(m, k)`` written."""
     from repro_torch.core.quantize import activation_scale
-    m, k = 8, 4096
+    d = []
+    for m, k in shapes:
+        x, mask = encoder_input(dev, gen, m, k, torch.bfloat16)
+        nbytes = encoder_bytes(m, k, xb=2, mask=k, planes=out_bytes(m, k))
+        d.append({"M": m, "K": k, "ms": time_ms(fused, [(x, mask, -8, 23)],
+                                                200),
+                  "bound_ms": nbytes / peaks[0] * 1e3})
+    m, k = shapes[0]
     x, mask = encoder_input(dev, gen, m, k, torch.bfloat16)
     args = [(x, mask, -8, 23)]
 
     def chain(x, mask, lo, hi):
         return unfused(x, activation_scale(x).float(), mask, lo, hi)
 
-    kms = time_ms(fused, args, 200)
     cms = time_ms(chain, args, 200)
     sms = time_ms(unfused, [(x, activation_scale(x).float(), mask, -8, 23)],
                   200)
     pms = time_ms(plain, args, 50)
-    nbytes = encoder_bytes(m, k, xb=2, mask=k, planes=out_bytes(m, k))
-    return {"max_abs_err": 0.0, "ms": kms, "plain_ms": pms,
-            "bound_ms": nbytes / peaks[0] * 1e3, "bound_by": "bytes",
+    return {"max_abs_err": 0.0, "ms": d[0]["ms"], "plain_ms": pms,
+            "bound_ms": d[0]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "chain_ms": cms,
-            "detail": [{"key": "scale_in", "ms": sms}]}
+            "detail": [{"key": "scale_in", "ms": sms}] + d[1:]}
+
+
+def plan_note(p) -> str:
+    """A plan (``kernels.sparqle_encode.FusedPlan``) in a few words."""
+    return (f"{p.blocks} block(s) of {p.rows} rows x {p.warps} warp(s) a "
+            f"row, {p.tiles} tiles a block, {p.chunks} chunk(s) of 8 a lane"
+            + (f" x {p.passes} passes" if p.passes > 1 else ""))
+
+
+# The two ways to split a wide row (both at M = 8, K = 14,336 in check_
+# encoder): (a) the plan's cluster over K, x in registers, and its
+# portable form of 8 blocks; (b) one block a row group walking K in
+# passes, all but the last kept in shared memory.
+def split_designs(m, k):
+    from repro_torch.kernels import sparqle_encode as E
+    n_kt = -(-k // E.TILE_K)
+
+    def plan(s):
+        tiles = -(-n_kt // s)
+        p = E.fused_plan(m, k)
+        lane = -(-tiles * E.TILE_CHUNKS // (32 * p.warps))
+        passes = -(-lane // E.LANE_CHUNKS[True])
+        return E.FusedPlan(p.rows, -(-n_kt // tiles), tiles, p.warps,
+                           -(-lane // passes), passes)
+
+    return {"a_cluster16": E.fused_plan(m, k), "a_cluster8": plan(8),
+            "b_one_block_passes": plan(1)}
+
+
+def time_split_designs(dev, gen):
+    """check_encoder's split-K designs at M = 8, K = 14,336, bf16: each
+    launched through the fused entry's C function with its plan, its
+    outputs bit-equal to the entry's (the plan's), timed alike."""
+    from repro_torch.kernels import sparqle_encode as E
+    m, k = 8, 14336
+    x, mask = encoder_input(dev, gen, m, k, torch.bfloat16)
+    want = E.sparqle_encode_fused(x, mask, -8, 23, with_pbm=False)
+    out = {}
+    for name, plan in split_designs(m, k).items():
+        lsb = torch.empty((m, k), dtype=torch.int8, device=dev)
+        msb = torch.empty_like(lsb)
+        pop = torch.empty((1, k // 128), dtype=torch.int32, device=dev)
+        scale = torch.empty((m, 1), device=dev)
+
+        def call(_p=plan, _o=(lsb, msb, pop, scale)):
+            E.FUSED_KERNEL.launch(
+                x.data_ptr(), 1, _o[3].data_ptr(), mask.data_ptr(), -8, 23,
+                _o[0].data_ptr(), _o[1].data_ptr(), None, _o[2].data_ptr(),
+                m, k, *_p.args())
+
+        call()
+        got = (lsb, msb, None, pop, scale)
+        if not all(a is b or torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"split design {name} differs from the "
+                                 f"fused entry")
+        out[name] = {"ms": time_ms(call, [()], 200), "plan": plan_note(plan)}
+    return out
+
+
+def encoder_ab_times(dev) -> dict:
+    """The encoder's timed shapes through the public entries alone, so
+    that this smoke can time another checkout's package
+    (``tools/ab_encoder.py``): the launch floor, row 1 at ENCODE_TIMED,
+    rows 1q and 2 and the scale-taking encoder at M = 8, K = 4096, the
+    three batched encoders at E = 64, C = 1, K = 2048 (35 live; every
+    expert live, rows=None) and at E = 256, K = 7168 (57 live). Returns
+    {shape: ms}."""
+    from repro_torch.core.quantize import activation_scale
+    from repro_torch.kernels import sparqle_encode as E
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"floor": launch_floor(dev)}
+
+    def encode(*a, **kw):
+        return E.sparqle_encode_fused(*a, with_pbm=False, **kw)
+
+    for m, k in ENCODE_TIMED:
+        x, mask = encoder_input(dev, gen, m, k, torch.bfloat16)
+        out[f"1 M={m} K={k}"] = time_ms(encode, [(x, mask, -8, 23)], 200)
+    x, mask = encoder_input(dev, gen, 8, 4096, torch.bfloat16)
+    out["1q M=8 K=4096"] = time_ms(E.sparqle_quantize_fused,
+                                   [(x, mask, -8, 23)], 200)
+    out["2 M=8 K=4096"] = time_ms(E.sparqle_encode_packed_fused,
+                                  [(x, mask, -8, 23)], 200)
+    out["1 scale given M=8 K=4096"] = time_ms(
+        lambda *a: E.sparqle_encode(*a, with_pbm=False),
+        [(x, activation_scale(x).float(), mask, -8, 23)], 200)
+    batched = {"1e": encode, "1qe": E.sparqle_quantize_fused,
+               "2e": E.sparqle_encode_packed_fused}
+    for e, k in ((64, 2048), (256, ROWS_V3_KN[0][0])):
+        x = (torch.randn((e, 1, k), generator=gen, device=dev) * 2).to(
+            torch.bfloat16)
+        mask = torch.rand((e, k), generator=gen, device=dev) < 0.5
+        rows = live_experts(dev, gen, e, 1, ROWS_LIVE[e])
+        live = x.masked_fill(past_rows(x, rows), 0)
+        for name, fn in batched.items():
+            out[f"{name} E={e} K={k} {ROWS_LIVE[e]} live"] = time_ms(
+                lambda a, b, _fn=fn: _fn(a, b, -8, 23, rows=rows),
+                [(live, mask)], 100)
+            if e == 64:
+                out[f"{name} E={e} K={k} all live"] = time_ms(
+                    lambda a, b, _fn=fn: _fn(a, b, -8, 23), [(x, mask)], 100)
+    return out
 
 
 def check_encoder(dev, gen, peaks):
     """Row 1: the fused encoder (scale + encode in one launch), checked
-    with the two other fused entries by check_fused_family."""
+    with the two other fused entries by check_fused_family, timed at
+    ENCODE_TIMED, and the split-K designs at M = 8, K = 14,336."""
     from repro_torch.kernels import sparqle_encode as E
     from repro_torch.kernels.ref import (TILE_K, TILE_M,
                                          sparqle_encode_fused_ref)
@@ -526,20 +650,28 @@ def check_encoder(dev, gen, peaks):
     t0 = time.perf_counter()
     n = check_fused_family(dev, gen)
     r = time_encoder(dev, gen, peaks, fused, unfused, sparqle_encode_fused_ref,
-                     out_bytes)
-    plan = E.fused_plan(4096)
+                     out_bytes, ENCODE_TIMED)
+    split = time_split_designs(dev, gen)
+    r["detail"] += [{"key": f"split_{name}", "ms": d["ms"]}
+                    for name, d in split.items()]
+    timed = "; ".join(f"M={d['M']} K={d['K']} {d['ms'] * 1e3:.2f} us "
+                      f"(bound {d['bound_ms'] * 1e3:.2f})"
+                      for d in r["detail"] if "M" in d)
     return {"name": "sparqle_encode_fused", "route": "cuda",
             "source": "src/repro_torch/csrc/sparqle_encode.cu",
             "replaces": "src/repro/kernels/sparqle_encode.py:69", **r,
             "shape": f"M=8 K=4096 bf16 no PBM plane, scale included "
-                     f"({plan.blocks} blocks x {plan.tiles} tiles a row group; "
-                     f"unfused encoder after abs/amax/div/clamp_min/cast "
+                     f"({plan_note(E.fused_plan(8, 4096))}; unfused encoder "
+                     f"after abs/amax/div/clamp_min/cast "
                      f"{r['chain_ms'] * 1e3:.1f} us, alone "
-                     f"{r['detail'][0]['ms'] * 1e3:.1f} us); fused family "
-                     f"checked "
-                     f"on {n} input sets (M in {ENCODE_M} x K in {ENCODE_K} "
-                     f"x bf16,f32, zero and tiny rows) in "
-                     f"{time.perf_counter() - t0:.1f} s"}
+                     f"{r['detail'][0]['ms'] * 1e3:.1f} us); also {timed}; "
+                     f"M=8 K=14336 split over K: "
+                     + "; ".join(f"{name} ({d['plan']}) "
+                                 f"{d['ms'] * 1e3:.2f} us"
+                                 for name, d in split.items())
+                     + f"; fused family checked on {n} input sets (M in "
+                     f"{ENCODE_M} x K in {ENCODE_K} x bf16,f32, zero and "
+                     f"tiny rows) in {time.perf_counter() - t0:.1f} s"}
 
 
 # The W4A8 matmul family (rows 3, 4, 5a, 5b and the dense row 6: one CUDA
@@ -972,12 +1104,69 @@ def check_verify_attention(dev, gen, peaks):
                         "bound_by": lby, "decode_calls_ms": lloop}]}
 
 
+# The encoder's division (``csrc/sparqle_encode.cu`` ``Divisor``: a
+# reciprocal and two fma corrections in place of __fdiv_rn) against the
+# card's IEEE division in the plain version: every bf16 value of x at
+# DIV_SCALES random scales (half of them bf16, as the fused scale is for
+# bf16 x) and at the edges (the fused clamp 1e-8, 2^+-100 and past, f32
+# tiny, negative, inf), and f32 x at the quotient's rounding points k +
+# 1/2 for |k| <= 130 and three ulps either side.
+DIV_SCALES = 256
+
+
+def check_division(dev, gen) -> int:
+    """Returns the elements compared."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparqle_encode as E
+    sc = torch.exp2(torch.rand(DIV_SCALES, generator=gen, device=dev) * 80
+                    - 40)
+    sc[:DIV_SCALES // 2] = sc[:DIV_SCALES // 2].to(torch.bfloat16).float()
+    edge = torch.tensor([1e-8, 2.0 ** -100, 2.0 ** -101, 2.0 ** 100,
+                         2.0 ** 101, 1.17549435e-38, 1e-39, 1.0, -0.5,
+                         -3e-3, 3e38, float("inf")], device=dev)
+    edge = torch.cat([edge, edge.to(torch.bfloat16).float()])
+    scale = torch.cat([sc, edge]).unsqueeze(1).contiguous()
+    n = 0
+
+    def compare(x, what):
+        mask = torch.rand((x.shape[1],), generator=gen, device=dev) < 0.5
+        for args in ((None, 0, 0), (mask, -8, 23)):
+            got = E.sparqle_quantize(x, scale, *args)
+            want = ref.sparqle_quantize_ref(x, scale, *args)
+            # a NaN quotient: the kernel's fmaxf clamps it to -128
+            s = torch.where(scale.abs() < 1.17549435e-38, 1.0, scale)
+            want[torch.isnan(x.float() / s)] = -128
+            if not torch.equal(got, want):
+                bad = [(x[i, j].item(), scale[i, 0].item(), got[i, j].item(),
+                        want[i, j].item())
+                       for i, j in (got != want).nonzero()[:4].tolist()]
+                raise AssertionError(f"encoder division differs from IEEE "
+                                     f"division ({what}): (x, scale, got, "
+                                     f"want) {bad}")
+        return x.numel() * 2
+
+    allb = torch.arange(-32768, 32768, dtype=torch.int32,
+                        device=dev).to(torch.int16).view(torch.bfloat16)
+    n += compare(allb.expand(scale.shape[0], -1).contiguous(), "bf16 x")
+    k = torch.arange(-130, 131, device=dev, dtype=torch.float32) + 0.5
+    x = (k * scale).float()
+    steps = [x]
+    for direction in (float("inf"), float("-inf")):
+        y = x
+        for _ in range(3):
+            y = torch.nextafter(y, torch.full_like(y, direction))
+            steps.append(y)
+    n += compare(torch.cat(steps, 1).contiguous(), "f32 x at k + 1/2")
+    return n
+
+
 def check_quantize(dev, gen, peaks):
     """Row 1q: the fused quantize-only entry (the dense linear's
     activation and its scale in one launch; checked by
     check_fused_family), timed as the dense linear calls it."""
     from repro_torch.kernels import sparqle_encode as E
     from repro_torch.kernels.ref import sparqle_quantize_fused_ref
+    n_div = check_division(dev, gen)
     r = time_encoder(dev, gen, peaks, E.sparqle_quantize_fused,
                      E.sparqle_quantize, sparqle_quantize_fused_ref,
                      lambda m, k: m * k)
@@ -987,7 +1176,10 @@ def check_quantize(dev, gen, peaks):
             "shape": f"M=8 K=4096 bf16, scale included (the _quantize "
                      f"step of row 1 alone; unfused after the scale chain "
                      f"{r['chain_ms'] * 1e3:.1f} us, alone "
-                     f"{r['detail'][0]['ms'] * 1e3:.1f} us)"}
+                     f"{r['detail'][0]['ms'] * 1e3:.1f} us); the division "
+                     f"bit-equal to IEEE division on {n_div} elements "
+                     f"(every bf16 x at {DIV_SCALES + 24} scales, f32 x at "
+                     f"the quotient's rounding points)"}
 
 
 def check_dense_matmul(dev, gen, peaks):
@@ -2350,7 +2542,7 @@ def check_expert_rows(dev, gen, peaks):
     ROWS_ENCODE, each rows pattern, bit-exact with its plain version, the
     arrival counters 0 after every launch, one launch a call; then the
     timed rows (ROWS_LIVE). Returns {"cases", "s", "matmul", "encoder",
-    "v3"}."""
+    "v3", "v3_encoder"}."""
     from repro_torch.kernels.sparqle_matmul import launch_plan
     t0 = time.perf_counter()
     cases, split = 0, False
@@ -2385,9 +2577,11 @@ def check_expert_rows(dev, gen, peaks):
     v3 = [time_rows_matmul(dev, gen, peaks, 256, 1, k, n, ROWS_LIVE[256],
                            ["sparqle_matmul"], plain=False)["sparqle_matmul"]
           for k, n in ROWS_V3_KN]
+    v3_enc = time_rows_encoders(dev, gen, peaks, 256, 1, ROWS_V3_KN[0][0],
+                                ROWS_LIVE[256])
     torch.cuda.empty_cache()
     return {"cases": cases, "s": sweep_s, "matmul": mm, "encoder": enc,
-            "v3": v3}
+            "v3": v3, "v3_encoder": v3_enc}
 
 
 def apply_rows_timing(row, d) -> None:
@@ -5889,6 +6083,7 @@ def main() -> int:
         f"== {k.name}\n{k.build_log}" for k in kernels.KERNELS.values()))
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    floor = launch_floor(dev)
     rows = [check_encoder(dev, gen, peaks), check_matmul(dev, gen, peaks),
             check_attention(dev, gen, peaks),
             check_draft_matmul(dev, gen, peaks),
@@ -5920,7 +6115,9 @@ def main() -> int:
         + "; " + "; ".join(f"{name} {rows_note(d)}"
                            for name, d in er["encoder"].items())
         + "; deepseek-v3's routed shapes: " + "; ".join(
-            f"sparqle_matmul_batched {rows_note(d)}" for d in er["v3"]))
+            f"sparqle_matmul_batched {rows_note(d)}" for d in er["v3"])
+        + "; " + "; ".join(f"{name} {rows_note(d)}"
+                           for name, d in er["v3_encoder"].items()))
     attn_zoo = check_attention_zoo(dev, gen, peaks)
     log("[3] kv4_paged_decode_attention at the zoo's head shapes (B=8, "
         "hd=128, ps=16, Pmax=16, f32 q): " + "; ".join(
@@ -5977,8 +6174,18 @@ def main() -> int:
                 f"{f['quant_matmul'] * 1e3:.1f} us, dual pass "
                 f"{f['sparqle_matmul'] * 1e3:.1f} us, draft "
                 f"{f['sparqle_matmul_draft'] * 1e3:.1f} us")
+    enc = [r for r in rows if "sparqle_encode" in r["source"]]
+    log(f"[3] launch floor (a one-element add_ timed as the kernels are): "
+        f"{floor * 1e3:.2f} us; the encoder rows over it: " + "; ".join(
+            f"{r['name']} {r['ms'] * 1e3:.2f} us ({r['ms'] / floor:.2f}x)"
+            for r in enc) + "; row 1's other shapes: " + "; ".join(
+            f"M={d['M']} K={d['K']} {d['ms'] / floor:.2f}x"
+            for d in enc[0]["detail"] if "M" in d)
+        + "; deepseek-v3's routed encoders: " + "; ".join(
+            f"{name} {d['ms'] / floor:.2f}x"
+            for name, d in er["v3_encoder"].items()))
     detail = {"card": card, "kernels": rows, "attention_zoo": attn_zoo,
-              "expert_rows": er}
+              "expert_rows": er, "launch_floor_ms": floor}
     # the launch counter of each kernel row, and the phase that reads it
     # rows 1, 3 and 7: the launches of phase 21b's calibrate-and-serve
     # example, 6: of 21a's quickstart (the last paths the smoke drives);

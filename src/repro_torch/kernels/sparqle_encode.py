@@ -27,12 +27,17 @@ The ``*_fused`` entries (:func:`sparqle_encode_fused`,
 what the serving linear calls: one launch computes the per-token scale
 ``activation_scale(x).float()`` itself, returns it beside the planes,
 and encodes with it, where the linear used to run abs, amax, div,
-clamp_min and a cast first. Up to ``MAX_BLOCKS`` blocks share a group
-of TILE_M rows (:func:`fused_plan`), each holding its consecutive K
-tiles in shared memory; every block reads its rows over all of K for the
-amax, forms the scale, then encodes its tiles. The entries that take a
-``scale`` run the same body without the amax pass, for a caller with a
-scale of its own (an all-reduced amax under tensor parallelism).
+clamp_min and a cast first. The launch follows :func:`fused_plan`, a
+function of the shapes alone: a block holds the live rows of a group of
+TILE_M rows (R = min(M, 16) rounded up to a power of two, or C experts'
+rows) with W warps a row, and K is split over S blocks that fill the
+card, a thread-block cluster when the kernel forms the scale. x is read
+once into registers (in passes through shared memory where a block's
+share of a row is wider than its lanes hold), each row's amax is
+reduced within the block and pushed across the cluster, then every lane
+encodes what it holds. The entries that take a ``scale`` run the same
+body without the amax, for a caller with a scale of its own (an
+all-reduced amax under tensor parallelism).
 
 Every entry also takes a leading expert axis, x (E, M, K) with an (E,
 K) mask (and an (E, M, 1) scale for the entries that take one): one
@@ -54,6 +59,7 @@ plain version ``kernels.ref.sparqle_encode_ref`` /
 """
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -68,38 +74,36 @@ from repro_torch.kernels.ref import (TILE_K, TILE_M, _cdiv, check_rows,
                                      sparqle_quantize_fused_ref,
                                      sparqle_quantize_ref)
 
+# x, x_bf16, scale, mask, l, h, the outputs' pointers, M, K (packed: KP),
+# then the plan's five ints (:meth:`FusedPlan.args`) and the stream.
+_HEAD = [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I]
+_PLAN = [_build.I] * 5
+_ENCODE_ARGS = _HEAD + [_build.P] * 4 + [_build.I] * 2 + _PLAN + [_build.P]
+_QUANTIZE_ARGS = _HEAD + [_build.P] + [_build.I] * 2 + _PLAN + [_build.P]
+_PACKED_ARGS = _HEAD + [_build.P] * 4 + [_build.I] * 3 + _PLAN + [_build.P]
+
 KERNEL = _build.register(_build.Kernel(
-    "sparqle_encode.cu", "sparqle_encode_launch",
-    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
-     _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.P]))
+    "sparqle_encode.cu", "sparqle_encode_launch", _ENCODE_ARGS))
 QUANTIZE_KERNEL = _build.register(_build.Kernel(
-    "sparqle_encode.cu", "sparqle_quantize_launch",
-    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I, _build.P,
-     _build.I, _build.I, _build.P], name="sparqle_quantize"))
+    "sparqle_encode.cu", "sparqle_quantize_launch", _QUANTIZE_ARGS,
+    name="sparqle_quantize"))
 PACKED_KERNEL = _build.register(_build.Kernel(
-    "sparqle_encode.cu", "sparqle_encode_packed_launch",
-    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
-     _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I,
-     _build.P], name="sparqle_encode_packed"))
+    "sparqle_encode.cu", "sparqle_encode_packed_launch", _PACKED_ARGS,
+    name="sparqle_encode_packed"))
 
 FUSED_KERNEL = _build.register(_build.Kernel(
-    "sparqle_encode.cu", "sparqle_encode_fused_launch",
-    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
-     _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.P],
+    "sparqle_encode.cu", "sparqle_encode_fused_launch", _ENCODE_ARGS,
     name="sparqle_encode_fused"))
 QUANTIZE_FUSED_KERNEL = _build.register(_build.Kernel(
-    "sparqle_encode.cu", "sparqle_quantize_fused_launch",
-    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I, _build.P,
-     _build.I, _build.I, _build.P], name="sparqle_quantize_fused"))
+    "sparqle_encode.cu", "sparqle_quantize_fused_launch", _QUANTIZE_ARGS,
+    name="sparqle_quantize_fused"))
 PACKED_FUSED_KERNEL = _build.register(_build.Kernel(
-    "sparqle_encode.cu", "sparqle_encode_packed_fused_launch",
-    [_build.P, _build.I, _build.P, _build.P, _build.I, _build.I,
-     _build.P, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I,
-     _build.P], name="sparqle_encode_packed_fused"))
+    "sparqle_encode.cu", "sparqle_encode_packed_fused_launch", _PACKED_ARGS,
+    name="sparqle_encode_packed_fused"))
 
 # The expert-batched forms of the entries that take a scale: x (E, M, K),
-# scale (E, M, 1), an (E, K) mask, the live rows an expert (a pointer or
-# null) after E, one launch (grid z = E); the
+# scale (E, M, 1), an (E, K) mask, E and the live rows an expert (a
+# pointer or null) after the plan, one launch (grid z = E); the
 # row-parallel routed projection under tensor parallelism calls them.
 BATCHED_KERNEL = _build.register(_build.Kernel(
     "sparqle_encode.cu", "sparqle_encode_batched_launch",
@@ -130,50 +134,99 @@ PACKED_FUSED_BATCHED_KERNEL = _build.register(_build.Kernel(
     PACKED_FUSED_KERNEL.argtypes[:-1] + [_build.I, _build.P, _build.P],
     name="sparqle_encode_packed_fused_batched"))
 
-# Blocks a row group may have, the most tiles a block of the entries that
-# take a scale holds, and the opt-in dynamic shared memory a block may
-# use on the H100 (227 KB less room for the kernel's static shared
-# memory).
-MAX_BLOCKS, SCALE_IN_TILES = 8, 4
-MAX_SMEM = 227 * 1024 - 1024
+# A block's threads at most (two blocks an SM: 64 registers a thread),
+# the blocks of a cluster at most (16: non-portable, so two blocks an SM
+# take 8 SMs of a GPC), the chunks of 8 columns a lane holds in registers
+# a pass (64 B of x: bf16, f32), the blocks a call aims for (half the
+# H100's 132 SMs: one block an expert at E = 64), the widest row of x
+# the fused entries take (57,344 bf16 or 28,672 f32 columns), and the
+# dynamic shared memory a block may use (227 KB less the kernel's static
+# shared memory).
+MAX_THREADS, MAX_CLUSTER = 512, 16
+CHUNK, TILE_CHUNKS = 8, TILE_K // 8
+LANE_CHUNKS = {True: 4, False: 2}
+TARGET_BLOCKS = 64
+FUSED_ROW_BYTES = 112 * 1024
+MAX_SMEM = 227 * 1024 - 2048
 
 
 class FusedPlan(NamedTuple):
-    """The fused encoder's launch for a width K: ``blocks`` blocks a
-    TILE_M-row group, ``tiles`` consecutive TILE_K tiles a block,
-    ``smem(x_bf16)`` bytes of dynamic shared memory a block."""
+    """The encoder's launch (module docstring): ``rows`` (R) rows a
+    block, ``blocks`` (S) blocks a row group over K, ``tiles`` TILE_K
+    tiles a block, ``warps`` (W) warps a row, ``chunks`` (J) chunks of 8
+    columns a lane a pass, ``passes`` (P) passes; chunk ((p J + j) W +
+    w) 32 + lane of a block's slice is lane ``lane`` of warp ``w``'s
+    slot j in pass p."""
+    rows: int
     blocks: int
     tiles: int
+    warps: int
+    chunks: int
+    passes: int
+
+    @property
+    def threads(self) -> int:
+        return self.rows * self.warps * 32
 
     def smem(self, x_bf16: bool) -> int:
-        """Population counts, the mask's slice and the x slice, each
-        padded to 16 bytes (the kernel's ``fused_smem``)."""
-        def align16(n):
-            return -(-n // 16) * 16
-        return (align16(self.tiles * 4) + align16(self.tiles * TILE_K)
-                + TILE_M * self.tiles * TILE_K * (2 if x_bf16 else 4))
+        """The passes before the last, a chunk a thread each (the
+        kernel's ``plan_smem``)."""
+        return ((self.passes - 1) * self.chunks * self.threads
+                * (16 if x_bf16 else 32))
+
+    def args(self) -> Tuple[int, int, int, int, int]:
+        """The five ints the C entries take (their ``Plan``)."""
+        return (self.rows, self.tiles, self.warps, self.chunks,
+                self.passes)
 
 
-def fused_plan(k: int, scale_in: bool = False) -> FusedPlan:
-    """The kernel's ``fused_plan``: a pure function of K (and of whether
-    the scale is an input, which caps a block at SCALE_IN_TILES)."""
-    n_kt = _cdiv(k, TILE_K)
-    tiles = _cdiv(n_kt, MAX_BLOCKS)
-    if scale_in:
-        tiles = min(tiles, SCALE_IN_TILES)
-    return FusedPlan(_cdiv(n_kt, tiles), tiles)
+def _pow2(n: int) -> int:
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan(m: int, k: int, e: int = 1, *, scale_in: bool = False,
+               bf16: bool = True) -> FusedPlan:
+    """The encoder's launch for x (E, M, K): a function of the shapes,
+    of whether the scale is an input and of x's dtype, never of the live
+    rows (a CUDA graph freezes it). S fills the card (TARGET_BLOCKS over
+    the row groups), at least two tiles a block (a warp's 32 chunks), at
+    least what the block's lanes hold in registers; with the scale formed
+    here at most MAX_CLUSTER (one cluster a row group), the rest walked
+    in passes. W the fewest warps (a power of two) that give a lane at
+    most its chunks, at most MAX_THREADS a block."""
+    rows = min(TILE_M, _pow2(m))
+    n_mt, n_kt = _cdiv(max(m, 1), TILE_M), _cdiv(k, TILE_K)
+    jmax = LANE_CHUNKS[bf16]
+    wmax = MAX_THREADS // 32 // rows
+    held = wmax * 32 * jmax // TILE_CHUNKS      # tiles in registers
+    s = max(_cdiv(n_kt, held),
+            min(_cdiv(TARGET_BLOCKS, n_mt * e), _cdiv(n_kt, 2)))
+    if not scale_in:
+        s = min(s, MAX_CLUSTER)
+    tiles = _cdiv(n_kt, s)
+    chunks = tiles * TILE_CHUNKS
+    warps = min(wmax, _pow2(_cdiv(chunks, 32)))
+    lane = _cdiv(chunks, 32 * warps)
+    passes = _cdiv(lane, jmax)
+    return FusedPlan(rows, _cdiv(n_kt, tiles), tiles, warps,
+                     _cdiv(lane, passes), passes)
+
+
+def fused_k_fits(k: int, x_bf16: bool) -> bool:
+    """Whether the fused entries take rows of K columns."""
+    return k * (2 if x_bf16 else 4) <= FUSED_ROW_BYTES
 
 
 def _check_fused(x, col_mask):
-    """The unfused checks on x and the mask, and the shared-memory limit
-    of the fused launch; returns the contiguous mask (or None). x may
-    carry a leading expert axis (E, M, K), the mask then (E, K)."""
+    """The unfused checks on x and the mask, and the fused entries'
+    widest row; returns the contiguous mask (or None). x may carry a
+    leading expert axis (E, M, K), the mask then (E, K)."""
     k = x.shape[-1]
     _, col_mask = _check(x, None, col_mask)
-    need = fused_plan(k).smem(x.dtype == torch.bfloat16)
-    if need > MAX_SMEM:
-        raise ValueError(f"K={k} needs {need} B of shared memory a block "
-                         f"(limit {MAX_SMEM})")
+    if not fused_k_fits(k, x.dtype == torch.bfloat16):
+        raise ValueError(f"K={k}: a row of {x.dtype} x is wider than the "
+                         f"fused encoder's {FUSED_ROW_BYTES} B")
     return col_mask
 
 
@@ -211,18 +264,21 @@ def _check_rows(x: torch.Tensor, rows: Optional[torch.Tensor]) -> None:
     check_rows(rows, x.shape[0] if x.ndim == 3 else None, x.device)
 
 
-def _launch(kernel, batched_kernel, x, rows, *args) -> None:
-    """One launch of a fused entry on x (M, K), or of its batched form on
-    x (E, M, K) with E and the rows pointer appended; nothing to launch
-    for an empty x."""
+def _launch(kernel, batched_kernel, x, rows, scale_in, *args) -> None:
+    """One launch of an entry on x (M, K), or of its batched form on x
+    (E, M, K) with E and the rows pointer appended, at the shapes' plan;
+    nothing to launch for an empty x."""
     if x.numel() == 0:
         return
-    head = (x.data_ptr(), int(x.dtype == torch.bfloat16))
+    bf16 = x.dtype == torch.bfloat16
+    (m, k), e = x.shape[-2:], x.shape[0] if x.ndim == 3 else 1
+    plan = fused_plan(m, k, e, scale_in=scale_in, bf16=bf16).args()
+    head = (x.data_ptr(), int(bf16))
     if x.ndim == 3:
-        batched_kernel.launch(*head, *args, x.shape[0],
+        batched_kernel.launch(*head, *args, *plan, e,
                               None if rows is None else rows.data_ptr())
     else:
-        kernel.launch(*head, *args)
+        kernel.launch(*head, *args, *plan)
 
 
 def _entry_op(name: str, kernel, batched_kernel, form: str, fused: bool,
@@ -281,7 +337,7 @@ def _entry_op(name: str, kernel, batched_kernel, form: str, fused: bool,
         planes = outs[:-1] if fused else outs
         m, k = x.shape[-2:]
         extra = (m, k, pad_k(k)) if form == "packed" else (m, k)
-        _launch(kernel, batched_kernel, x, rows,
+        _launch(kernel, batched_kernel, x, rows, not fused,
                 (outs[-1] if fused else scale).data_ptr(),
                 None if col_mask is None else col_mask.data_ptr(), l, h,
                 *(t.data_ptr() if t.numel() else None for t in planes),

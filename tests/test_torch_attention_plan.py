@@ -11,8 +11,10 @@ table width alone (so decode, verify, tiered and
 contiguous calls split alike), a split-and-merge that stays within 1e-5
 of the plain attention and gives a verify window the bits of T decode
 calls, a chunk past ``pos`` that changes no bit whether merged or
-skipped; every K tile encoded by one of a row group's blocks, whose
-slice fits in shared memory; and the fused scale's formula (the kernel's
+skipped; every (row, 8-column chunk) of a row group encoded by one lane
+of one block, each K tile counted by one block, a block's registers,
+threads, shared memory and cluster within the card's, the plan a
+function of the shapes alone; and the fused scale's formula (the kernel's
 ``token_scale``) bit-equal to ``activation_scale(x).float()`` and to
 JAX's ``quantize_activations`` scale, zero and tiny rows included.
 """
@@ -326,50 +328,185 @@ def test_window_span_plan_covers_every_live_block(n_s, ps, window):
 
 
 # ---------------------------------------------------------------------------
-# the fused encoder's plan
+# the encoder's plan
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k,blocks,tiles", [(200, 2, 1), (4096, 8, 4),
-                                            (14336, 8, 14), (21504, 8, 21),
-                                            (4100, 7, 5), (128, 1, 1)])
-def test_fused_plan_covers_every_tile_once(k, blocks, tiles):
-    plan = E.fused_plan(k)
-    assert (plan.blocks, plan.tiles) == (blocks, tiles)
+PLAN_M = [1, 4, 8, 16, 17, 32, 1024]
+PLAN_K = [128, 200, 2048, 4096, 4100, 14336, 21504]
+# (scale_in, x_bf16): the fused entries in both dtypes, the scale-taking
+# ones
+PLAN_KINDS = [(False, True), (False, False), (True, True)]
+
+
+def plan_owners(plan, m, k):
+    """Every (row, chunk of 8 columns) of row group 0 that the kernel's
+    lanes encode, as the kernel maps them: block b of the group, row r,
+    warp w, lane l, pass p, slot j encode chunk ((p J + j) W + w) 32 + l
+    of the block's tiles, if it lies inside them and inside the plane.
+    Returns {(row, chunk): [owners]}."""
     n_kt = -(-k // TILE_K)
-    owners = [kt // plan.tiles for kt in range(n_kt)]
-    assert sorted(set(owners)) == list(range(plan.blocks))  # none empty
-    assert plan.blocks <= E.MAX_BLOCKS
+    n_ch = -(-k // E.CHUNK)
+    owners = {}
+    slots = np.arange(plan.passes * plan.chunks * plan.warps * 32)
+    for b in range(plan.blocks):
+        t0, t1 = b * plan.tiles, min((b + 1) * plan.tiles, n_kt)
+        local = slots[(slots < (t1 - t0) * E.TILE_CHUNKS)
+                      & (t0 * E.TILE_CHUNKS + slots < n_ch)]
+        # slot = ((p J + j) W + w) 32 + lane
+        lane, w = local % 32, (local // 32) % plan.warps
+        pj = local // (32 * plan.warps)
+        for r in range(min(m, TILE_M)):
+            for c, ww, ll, q in zip(t0 * E.TILE_CHUNKS + local, w, lane,
+                                    pj):
+                owners.setdefault((r, int(c)), []).append(
+                    (b, int(ww), int(ll), int(q)))
+    return owners
 
 
-@pytest.mark.parametrize("k", [200, 4096, 14336, 21504])
+@pytest.mark.parametrize("scale_in,bf16", PLAN_KINDS)
+@pytest.mark.parametrize("k", PLAN_K)
+@pytest.mark.parametrize("m", PLAN_M)
+def test_fused_plan_covers_every_tile_once(m, k, scale_in, bf16):
+    """Every (row, chunk) of a row group is encoded by exactly one lane
+    of one block, each TILE_K tile by one block (whose count is then
+    stored once), and the block's rows hold the group's rows."""
+    plan = E.fused_plan(m, k, scale_in=scale_in, bf16=bf16)
+    n_kt = -(-k // TILE_K)
+    assert (plan.blocks - 1) * plan.tiles < n_kt <= plan.blocks * plan.tiles
+    assert plan.rows >= min(m, TILE_M) and plan.rows & (plan.rows - 1) == 0
+    assert plan.rows <= TILE_M and (m >= TILE_M or plan.rows < 2 * m)
+    owners = plan_owners(plan, m, k)
+    n_ch = -(-k // E.CHUNK)
+    assert set(owners) == {(r, c) for r in range(min(m, TILE_M))
+                           for c in range(n_ch)}
+    assert all(len(o) == 1 for o in owners.values())
+    tile_blocks = {}
+    for (r, c), [(b, _, _, _)] in owners.items():
+        tile_blocks.setdefault(c // E.TILE_CHUNKS, set()).add(b)
+    assert all(len(bs) == 1 for bs in tile_blocks.values())
+    # a tile is half a warp's chunks in one (pass, slot): its count is
+    # summed by shuffles inside the half warp
+    for (r, c), [(b, w, lane, q)] in owners.items():
+        base = c - b * plan.tiles * E.TILE_CHUNKS - lane
+        assert base % 32 == 0 and (base + (lane & 16)) // 16 == \
+            (c - b * plan.tiles * E.TILE_CHUNKS) // 16
+
+
+@pytest.mark.parametrize("k", PLAN_K)
+@pytest.mark.parametrize("m", PLAN_M)
 @pytest.mark.parametrize("bf16", [True, False])
-def test_fused_plan_fits_shared_memory(k, bf16):
-    plan = E.fused_plan(k)
-    need = plan.smem(bf16)
-    # the population counts, then TILE_M rows of the block's tiles
-    assert need >= TILE_M * plan.tiles * TILE_K * (2 if bf16 else 4)
-    assert need <= E.MAX_SMEM
-    if (k, bf16) == (14336, True):
-        assert need < 58 * 1024          # 57 KB of bf16 x a block
+def test_fused_plan_fits_shared_memory(m, k, bf16):
+    """A block's threads, a lane's registers (64 B of x a pass) and its
+    shared memory fit; the cluster of a row group is at most 16 blocks;
+    a block holds the fewest warps that give a lane its chunks."""
+    plan = E.fused_plan(m, k, bf16=bf16)
+    jmax = E.LANE_CHUNKS[bf16]
+    assert plan.threads <= E.MAX_THREADS and plan.threads % 32 == 0
+    assert 1 <= plan.chunks <= jmax
+    assert plan.passes * plan.chunks * plan.warps * 32 >= \
+        plan.tiles * E.TILE_CHUNKS
+    assert plan.blocks <= E.MAX_CLUSTER
+    assert plan.smem(bf16) <= E.MAX_SMEM
+    if plan.passes == 1:   # x in registers
+        assert plan.smem(bf16) == 0
+    if (m, k) in ((8, 4096), (1, 4096), (8, 14336)):
+        # decode: a cluster of 16 blocks over K, no warp past M
+        assert (plan.blocks, plan.rows, plan.passes) == (16, m, 1)
 
 
 def test_fused_plan_limit_is_above_the_zoo():
-    # the widest projection input of the zoo (gemma3-27b d_ff) fits in f32
-    assert E.fused_plan(21504).smem(False) <= E.MAX_SMEM
-    assert E.fused_plan(65536).smem(True) > E.MAX_SMEM
+    """The fused entries take a row of at most 112 KB: the widest
+    projection input of the zoo (gemma3-27b d_ff) in f32, every width
+    they took before (55,296 bf16, 27,648 f32) and up to 57,344 bf16 /
+    28,672 f32; 65,536 bf16 is refused before any launch."""
+    assert E.fused_k_fits(21504, False)
+    for k, bf16 in ((55296, True), (27648, False), (57344, True),
+                    (28672, False)):
+        assert E.fused_k_fits(k, bf16)
+        for m in PLAN_M:
+            assert E.fused_plan(m, k, bf16=bf16).smem(bf16) <= E.MAX_SMEM
+    assert not E.fused_k_fits(65536, True)
+    assert not E.fused_k_fits(28680, False)
+    x = torch.empty((8, 65536), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="K=65536"):
+        E.sparqle_encode_fused(x)
 
 
 @pytest.mark.parametrize("k", [200, 4096, 14336, 65536, 1 << 20])
 def test_scale_in_plan_takes_any_width(k):
-    """The entries that take a scale run the same body without the amax
-    pass: a block holds at most SCALE_IN_TILES tiles, so any K fits the
+    """The entries that take a scale need no amax, so K is split over as
+    many blocks as it needs, no cluster: any K in one pass, in the
     default 48 KB of shared memory, every tile counted by one block."""
-    plan = E.fused_plan(k, scale_in=True)
-    n_kt = -(-k // TILE_K)
-    assert plan.tiles == min(-(-n_kt // E.MAX_BLOCKS), E.SCALE_IN_TILES)
-    owners = [kt // plan.tiles for kt in range(n_kt)]
-    assert sorted(set(owners)) == list(range(plan.blocks))
-    assert plan.smem(False) <= 48 * 1024
+    for m in (1, 8, 1024):
+        plan = E.fused_plan(m, k, scale_in=True)
+        n_kt = -(-k // TILE_K)
+        assert plan.passes == 1 and plan.smem(True) <= 48 * 1024
+        assert (plan.blocks - 1) * plan.tiles < n_kt
+        assert plan.blocks * plan.tiles >= n_kt
+        assert plan.chunks * plan.warps * 32 >= plan.tiles * E.TILE_CHUNKS
+
+
+@pytest.mark.parametrize("m,k,e,blocks", [
+    (8, 4096, 1, 16), (1, 4096, 1, 16), (32, 4096, 1, 32),
+    (1024, 4096, 1, 256), (1, 2048, 64, 64), (1, 7168, 256, 256),
+    (3, 2048, 64, 64)])
+def test_fused_plan_fills_the_card(m, k, e, blocks):
+    """Decode splits K over a cluster of 16 blocks; a routed projection at
+    small C is one block an expert (64 at E = 64, 256 at E = 256: one
+    wave of two blocks an SM); the --legacy prefill keeps ~2 blocks an
+    SM."""
+    plan = E.fused_plan(m, k, e)
+    assert plan.blocks * -(-m // TILE_M) * e == blocks
+    if e > 1 and m < TILE_M:
+        assert plan.blocks == 1 and plan.rows == _pow2(m)
+
+
+def _pow2(n):
+    return 1 << (n - 1).bit_length()
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that a wrapper's
+    kernel branch runs here and its launch can be recorded."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("entry", ["sparqle_encode", "sparqle_quantize",
+                                   "sparqle_encode_packed"])
+def test_plan_reads_only_shapes(monkeypatch, entry, fused):
+    """The launch of a batched call is the same whatever the live rows
+    hold (a CUDA graph freezes grid and block): only the rows pointer
+    differs, and the plan's five ints are those of the shapes."""
+    calls = []
+    for k in E.__dict__.values():
+        if isinstance(k, E._build.Kernel):
+            monkeypatch.setattr(k, "launch", lambda *a, k=k: calls.append(
+                (k.name, a)))
+    e, c, kk = 64, 3, 2048
+    x = torch.Tensor._make_subclass(_OnCard, torch.zeros(
+        (e, c, kk), dtype=torch.bfloat16))
+    mask = torch.zeros((e, kk), dtype=torch.bool)
+    scale = torch.ones((e, c, 1))
+    fn = getattr(E, entry + ("_fused" if fused else ""))
+    for n in (0, 1, 3):
+        rows = torch.full((e,), n, dtype=torch.int32)
+        if fused:
+            fn(x, mask, -8, 23, rows=rows)
+        else:
+            fn(x, scale, mask, -8, 23, rows=rows)
+    assert len(calls) == 3 and len({name for name, _ in calls}) == 1
+    assert calls[0][0] == entry + ("_fused" if fused else "") + "_batched"
+    heads = {a[:-1] for _, a in calls}
+    # the pointers of the outputs differ call to call: compare the ints
+    ints = {tuple(v for v in h if isinstance(v, int) and v < 1 << 20)
+            for h in heads}
+    assert len(ints) == 1
+    plan = E.fused_plan(c, kk, e, scale_in=not fused).args()
+    assert calls[0][1][-7:-2] == plan and calls[0][1][-2] == e
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@
 Each checkout's own ``chip_smoke.py`` phase-3 checks build, check and
 time its kernels (CUDA-graph replay timed with CUDA events) in a fresh
 process, on the same inputs (each check gets a generator seeded 0).
-A row's timed shapes (its ``detail`` entries with M, K, N, or with a
+A row's timed shapes (its ``detail`` entries with M, K (and N), or with a
 ``key`` such as the attention rows' long context) are compared too,
 where both checkouts time them. The
 processes run in the order A B B A, ``--rounds`` times, so that a drift
@@ -37,8 +37,10 @@ for name in sys.argv[1].split(","):
         key = f"{name}:{r['name']}" if isinstance(rows, list) else name
         out[key] = r["ms"]
         for d in r.get("detail", []):   # every timed shape of the row
-            if "M" in d:
-                out[f"{key}@M={d['M']},K={d['K']},N={d['N']}"] = d["ms"]
+            if "M" in d:   # the encoder's shapes have no N
+                out[f"{key}@" + ",".join(
+                    f"{a}={d[a]}" for a in ("M", "K", "N") if a in d)] = \
+                    d["ms"]
             elif "key" in d:
                 out[f"{key}@{d['key']}"] = d["ms"]
 print(json.dumps(out))

@@ -15,8 +15,8 @@ the CPU's 2nd-3rd and 1st-2nd logit gaps.
 
 ``profile``: the arch at full width and depth (``chip_smoke.SSD_SERVE``'s
 batch and lengths), its decode step captured as a CUDA graph after a
-prefill, then ``--steps`` replays under ``torch.profiler``: device time a
-step by kernel, grouped (the hand-written kernels by name, cuBLAS, and
+prefill, then ``--steps`` replays timed by CUDA events and ``--steps``
+under ``torch.profiler``: device time a step by kernel, grouped (the hand-written kernels by name, cuBLAS, and
 PyTorch's elementwise, reduce, copy and other kernels), written in full
 to ``chiprun_out/legacy_probe_<arch>.txt``.
 Needs a CUDA card.
@@ -142,6 +142,13 @@ def profile(dev, arch: str, steps: int) -> None:
     for _ in range(3):          # eager warm-up, capture, one replay
         tok, cache = decode(params, cache, tok, pos)
     torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(steps):
+        tok, cache = decode(params, cache, tok, pos)
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / steps
     with prof_ctx(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -159,7 +166,8 @@ def profile(dev, arch: str, steps: int) -> None:
         groups[group] = (t + us, c + count)
     (C.OUT / f"legacy_probe_{arch}.txt").write_text(ka.table(
         sort_by="self_cuda_time_total", row_limit=60))
-    print(f"{arch} decode replay, {steps} steps under torch.profiler: "
+    print(f"{arch} decode replay: {replay_ms:.3f} ms a step, {steps} "
+          f"steps timed by CUDA events; under torch.profiler: "
           f"device time {total / steps / 1e3:.3f} ms a step, "
           f"{sum(c for _, _, c in rows) / steps:.0f} kernels a step; "
           + "; ".join(f"{g} {t / steps / 1e3:.3f} ms ({c / steps:.0f} "
